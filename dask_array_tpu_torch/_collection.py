@@ -1,0 +1,268 @@
+"""The user-facing ``Array`` collection.
+
+Port of ``dask_array_tpu/_collection.py``: a thin immutable wrapper around
+one ``ArrayExpr`` with numpy-style operators (torch functions underneath),
+basic ``__getitem__``, ``.T``, ``compute``, ``optimize`` and ``pprint``.
+"""
+
+from __future__ import annotations
+
+from numbers import Number
+
+import numpy as np
+import torch
+
+from dask_array_tpu_torch._expr import ArrayExpr
+
+
+def new_collection(expr: ArrayExpr) -> "Array":
+    """Wrap an expression as a user-facing :class:`Array`."""
+    return Array(expr)
+
+
+def _binop(fn, reflexive=False):
+    def method(self, other):
+        from dask_array_tpu_torch._blockwise import elemwise
+
+        if isinstance(other, (list, tuple, np.ndarray)):
+            from dask_array_tpu_torch.ops._from_array import asarray
+
+            other = asarray(other)
+        elif not isinstance(other, (Array, Number, np.generic)):
+            return NotImplemented
+        return elemwise(fn, other, self) if reflexive else elemwise(fn, self, other)
+
+    return method
+
+
+def _unop(fn):
+    def method(self):
+        from dask_array_tpu_torch._blockwise import elemwise
+
+        return elemwise(fn, self)
+
+    return method
+
+
+class Array:
+    __slots__ = ("_expr", "__weakref__")
+
+    def __init__(self, expr: ArrayExpr):
+        if not isinstance(expr, ArrayExpr):
+            raise TypeError(f"Array() takes an ArrayExpr, got {type(expr)}")
+        object.__setattr__(self, "_expr", expr)
+
+    # -- expression / metadata ------------------------------------------------
+
+    @property
+    def expr(self) -> ArrayExpr:
+        return self._expr
+
+    @property
+    def name(self) -> str:
+        return self._expr._collection_name()
+
+    @property
+    def _meta(self):
+        return self._expr._meta
+
+    @property
+    def dtype(self):
+        return self._expr.dtype
+
+    @property
+    def shape(self):
+        return self._expr.shape
+
+    @property
+    def chunks(self):
+        return self._expr.chunks
+
+    @property
+    def chunksize(self):
+        return self._expr.chunksize
+
+    @property
+    def ndim(self):
+        return self._expr.ndim
+
+    @property
+    def size(self):
+        return self._expr.size
+
+    @property
+    def nbytes(self):
+        return self._expr.nbytes
+
+    @property
+    def itemsize(self):
+        return self.dtype.itemsize
+
+    @property
+    def numblocks(self):
+        return self._expr.numblocks
+
+    @property
+    def npartitions(self):
+        return self._expr.npartitions
+
+    @property
+    def T(self):
+        from dask_array_tpu_torch.ops.manipulation import transpose
+
+        return transpose(self)
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return int(self.shape[0])
+
+    def __bool__(self):
+        if self.size != 1:
+            raise ValueError("The truth value of an array with more than one element is ambiguous.")
+        return bool(self.compute())
+
+    def __int__(self):
+        return int(self.compute())
+
+    def __float__(self):
+        return float(self.compute())
+
+    def __repr__(self):
+        return (
+            f"dask_array_tpu_torch.Array<{self.name[:20]}..., shape={self.shape}, "
+            f"dtype={self.dtype}, chunksize={self.chunksize}, chunks={len(self.chunks)}d>"
+        )
+
+    def pprint(self):
+        self._expr.pprint()
+
+    # -- compute --------------------------------------------------------------
+
+    def optimize(self, fuse: bool = True) -> "Array":
+        from dask_array_tpu_torch._materialize import optimize_expr
+
+        return new_collection(optimize_expr(self._expr, fuse=fuse))
+
+    def simplify(self) -> "Array":
+        return new_collection(self._expr.simplify())
+
+    def compute(self):
+        """Optimize, execute on ``config["device"]`` and return numpy."""
+        from dask_array_tpu_torch._materialize import compute_to_numpy
+
+        out = compute_to_numpy(self._expr)
+        if out.ndim == 0:
+            return out[()]
+        return out
+
+    def compute_device(self) -> torch.Tensor:
+        """Compute and keep the result on the device (a dense tensor)."""
+        from dask_array_tpu_torch._materialize import compute_expr
+
+        return compute_expr(self._expr)
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.asarray(self.compute())
+        if dtype is not None and out.dtype != dtype:
+            out = out.astype(dtype)
+        return out
+
+    # -- numpy protocol interop ---------------------------------------------------
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        from dask_array_tpu_torch.ops.ufuncs import wrap_numpy_ufunc
+
+        if method != "__call__" or kwargs.get("out") is not None:
+            return NotImplemented
+        f = wrap_numpy_ufunc(ufunc)
+        if f is None:
+            return NotImplemented
+        return f(*inputs, **kwargs)
+
+    # -- indexing ---------------------------------------------------------------
+
+    def __getitem__(self, index):
+        from dask_array_tpu_torch.ops._getitem import getitem_router
+
+        return getitem_router(self, index)
+
+    # -- operators ---------------------------------------------------------------
+
+    __add__ = _binop(torch.add)
+    __radd__ = _binop(torch.add, reflexive=True)
+    __sub__ = _binop(torch.sub)
+    __rsub__ = _binop(torch.sub, reflexive=True)
+    __mul__ = _binop(torch.mul)
+    __rmul__ = _binop(torch.mul, reflexive=True)
+    __truediv__ = _binop(torch.true_divide)
+    __rtruediv__ = _binop(torch.true_divide, reflexive=True)
+    __floordiv__ = _binop(torch.floor_divide)
+    __rfloordiv__ = _binop(torch.floor_divide, reflexive=True)
+    __mod__ = _binop(torch.remainder)
+    __rmod__ = _binop(torch.remainder, reflexive=True)
+    __pow__ = _binop(torch.pow)
+    __rpow__ = _binop(torch.pow, reflexive=True)
+    __lt__ = _binop(torch.lt)
+    __le__ = _binop(torch.le)
+    __gt__ = _binop(torch.gt)
+    __ge__ = _binop(torch.ge)
+    __eq__ = _binop(torch.eq)
+    __ne__ = _binop(torch.ne)
+    __and__ = _binop(torch.bitwise_and)
+    __rand__ = _binop(torch.bitwise_and, reflexive=True)
+    __or__ = _binop(torch.bitwise_or)
+    __ror__ = _binop(torch.bitwise_or, reflexive=True)
+    __xor__ = _binop(torch.bitwise_xor)
+    __rxor__ = _binop(torch.bitwise_xor, reflexive=True)
+    __lshift__ = _binop(torch.bitwise_left_shift)
+    __rlshift__ = _binop(torch.bitwise_left_shift, reflexive=True)
+    __rshift__ = _binop(torch.bitwise_right_shift)
+    __rrshift__ = _binop(torch.bitwise_right_shift, reflexive=True)
+    __neg__ = _unop(torch.neg)
+    __abs__ = _unop(torch.abs)
+    __invert__ = _unop(torch.bitwise_not)
+
+    def __pos__(self):
+        return self
+
+    def __hash__(self):
+        return hash(self.name)
+
+    def __divmod__(self, other):
+        return (self // other, self % other)
+
+    # -- methods (delegate to op modules) -------------------------------------------
+
+    def astype(self, dtype):
+        from dask_array_tpu_torch.ops._casting import astype_expr
+
+        return new_collection(astype_expr(self._expr, dtype))
+
+    def rechunk(self, chunks="auto", threshold=None, block_size_limit=None, balance=False):
+        from dask_array_tpu_torch._rechunk import rechunk
+
+        return rechunk(self, chunks, threshold=threshold, block_size_limit=block_size_limit, balance=balance)
+
+    def transpose(self, *axes):
+        from dask_array_tpu_torch.ops.manipulation import transpose
+
+        if not axes:
+            axes = None
+        elif len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = axes[0]
+        return transpose(self, axes)
+
+    def copy(self):
+        return new_collection(self._expr)
+
+    def map_blocks(self, func, *args, **kwargs):
+        from dask_array_tpu_torch.ops._map_blocks import map_blocks
+
+        return map_blocks(func, self, *args, **kwargs)
+
+    def map_overlap(self, func, depth, boundary=None, trim=True, **kwargs):
+        from dask_array_tpu_torch.ops._overlap import map_overlap
+
+        return map_overlap(func, self, depth=depth, boundary=boundary, trim=trim, **kwargs)
+

@@ -1,0 +1,154 @@
+"""The executor: one walk of the lowered tree over torch tensors.
+
+Port of ``dask_array_tpu/_executor.py``.  Where the reference traces the
+lowered tree into one jitted XLA program, this executor walks it once,
+eagerly, with PyTorch ops on the configured device (``config["device"]``):
+leaf buffers move there first, every physical node's ``_build`` runs on
+tensors, and the root's dense tensor comes back.
+
+A ``BlockView`` lets a node produce its value in whichever form is natural —
+a dict of per-block tensors, or a single dense tensor — and converts lazily:
+dense -> block is slicing (a view); blocks -> dense is ``torch.cat``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dask_array_tpu_torch import config
+from dask_array_tpu_torch._chunks import cached_cumsum
+from dask_array_tpu_torch._expr import ArrayExpr
+
+
+def block_slices(chunks, index):
+    """Slices of block ``index`` inside the dense array with these chunks."""
+    out = []
+    for ax, i in enumerate(index):
+        bounds = cached_cumsum(chunks[ax], initial_zero=True)
+        out.append(slice(int(bounds[i]), int(bounds[i + 1])))
+    return tuple(out)
+
+
+def iter_block_indices(numblocks):
+    return np.ndindex(*numblocks)
+
+
+class BlockView:
+    """Lazy dual representation (blocks dict <-> dense) of one node's value."""
+
+    __slots__ = ("chunks", "_blocks", "_dense")
+
+    def __init__(self, chunks, blocks=None, dense=None):
+        if blocks is None and dense is None:
+            raise ValueError("BlockView needs blocks or a dense tensor")
+        self.chunks = chunks
+        self._blocks = blocks
+        self._dense = dense
+
+    @property
+    def numblocks(self):
+        return tuple(len(c) for c in self.chunks)
+
+    def block(self, index):
+        if self._blocks is not None:
+            return self._blocks[tuple(index)]
+        return self._dense[block_slices(self.chunks, index)]
+
+    def blocks_dict(self):
+        if self._blocks is None:
+            self._blocks = {
+                tuple(idx): self.block(idx) for idx in iter_block_indices(self.numblocks)
+            }
+        return self._blocks
+
+    def dense(self):
+        if self._dense is None:
+            self._dense = _assemble(self._blocks, self.numblocks)
+        return self._dense
+
+
+def _assemble(blocks: dict, numblocks):
+    """Concatenate a full grid of blocks into one dense tensor."""
+    if not numblocks:
+        return blocks[()]
+
+    def rec(axis, prefix):
+        if axis == len(numblocks):
+            return blocks[prefix]
+        parts = [rec(axis + 1, prefix + (i,)) for i in range(numblocks[axis])]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat(parts, dim=axis)
+
+    return rec(0, ())
+
+
+class BuildContext:
+    """Carries the memo cache, leaf bindings and device through one walk."""
+
+    def __init__(self, leaf_values: dict, device: torch.device):
+        self.cache: dict[str, BlockView] = {}
+        self.leaf_values = leaf_values  # key -> tensor on ``device``
+        self.device = device
+
+    def build(self, expr: ArrayExpr) -> BlockView:
+        view = self.cache.get(expr._name)
+        if view is None:
+            view = expr._build(self)
+            if not isinstance(view, BlockView):
+                raise TypeError(f"{type(expr).__name__}._build returned {type(view).__name__}")
+            self.cache[expr._name] = view
+        return view
+
+    def leaf(self, key):
+        return self.leaf_values[key]
+
+
+def collect_leaves(root: ArrayExpr):
+    """(key, host buffer) pairs in structural order (deterministic DFS over
+    operand positions)."""
+    pairs = []
+    seen_nodes = set()
+    seen_keys = set()
+    stack = [root]
+    while stack:
+        node = stack.pop()
+        if node._name in seen_nodes:
+            continue
+        seen_nodes.add(node._name)
+        for key, buf in node._leaf_buffers():
+            if key not in seen_keys:
+                seen_keys.add(key)
+                pairs.append((key, buf))
+        # push children reversed so they pop in operand order
+        stack.extend(reversed(node.dependencies()))
+    return pairs
+
+
+def current_device() -> torch.device:
+    """The device named by ``config["device"]``.
+
+    Raises when it names a CUDA device and no card is present: the port
+    never moves work to the CPU because it found no GPU."""
+    device = torch.device(config.get("device", "cpu"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"config 'device' is {str(device)!r} but torch finds no CUDA device"
+        )
+    return device
+
+
+def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy one host leaf buffer onto ``device``."""
+    # torch.from_numpy needs a writable, positively-strided buffer
+    arr = np.require(buf, requirements=("C", "W"))
+    return torch.from_numpy(arr).to(device)
+
+
+def execute(root: ArrayExpr) -> torch.Tensor:
+    """Execute a lowered expression tree; returns its dense tensor on
+    ``config["device"]``."""
+    device = current_device()
+    leaves = {key: to_device(buf, device) for key, buf in collect_leaves(root)}
+    return BuildContext(leaves, device).build(root).dense()

@@ -1,0 +1,116 @@
+"""Process-global configuration with context-manager overrides.
+
+The PyTorch port keeps the reference package's configuration mechanism
+(``dask_array_tpu/config.py``) with only the keys the ported slice reads,
+plus ``"device"``: the ``torch.device`` every ``compute()`` runs on.  The
+device is explicit.  Its default is ``"cpu"``, as in torch itself; asking
+for ``"cuda"`` on a machine without a card raises at execution time.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any
+
+_global: dict[str, Any] = {
+    # -- optimizer / planner (same meaning as in the reference package) --
+    "array.rechunk.threshold": 32,
+    "array.unify-chunks-policy": "auto",  # "auto" | "coarse" | "refine"
+    "array.unify-chunks-limit": "512 MiB",
+    "array.chunk-size": "128 MiB",
+    "array.optimize-graph": True,
+    # -- execution --
+    # the torch.device every compute() runs on ("cpu", "cuda", "cuda:1", ...)
+    "device": "cpu",
+    # 2-D map_overlap through the hand-written band-stencil kernel
+    # (kernels/stencil.py): "auto" routes every eligible map_overlap to a
+    # BandStencil node; "off" keeps the Overlap -> map_blocks -> trim form
+    "stencil-kernel": "auto",
+}
+
+# reference keys that keep their name and meaning in the port
+_SHARED_KEYS = (
+    "array.rechunk.threshold",
+    "array.unify-chunks-policy",
+    "array.unify-chunks-limit",
+    "array.chunk-size",
+    "array.optimize-graph",
+)
+
+# bumped on every mutation: optimization caches key on this so a config
+# change (unify policy, stencil routing, ...) invalidates cached plans
+_epoch = 0
+
+
+def epoch() -> int:
+    return _epoch
+
+
+def _bump() -> None:
+    global _epoch
+    _epoch += 1
+
+
+def get(key: str, default: Any = None) -> Any:
+    return _global.get(key, default)
+
+
+def set_global(values: dict[str, Any]) -> None:
+    _global.update(values)
+    _bump()
+
+
+_MISSING = object()
+
+
+class set(contextlib.AbstractContextManager):
+    """``with config.set({"device": "cuda"}): ...``
+
+    Applies the values to the global layer immediately (imperative use); when
+    used as a context manager, the previous values are restored on exit.
+    """
+
+    def __init__(self, values: dict[str, Any] | None = None, **kwargs):
+        vals = dict(values or {})
+        # dask-style keyword form: array__rechunk__threshold=4 means
+        # "array.rechunk.threshold"; remaining single underscores map to
+        # hyphens ONLY when that spelling is the registered key
+        for k, v in kwargs.items():
+            key = k.replace("__", ".")
+            hyphened = key.replace("_", "-")
+            if key not in _global and hyphened in _global:
+                key = hyphened
+            vals[key] = v
+        self._saved = {k: _global.get(k, _MISSING) for k in vals}
+        _global.update(vals)
+        _bump()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for k, old in self._saved.items():
+            if old is _MISSING:
+                _global.pop(k, None)
+            else:
+                _global[k] = old
+        _bump()
+        return False
+
+
+def from_reference(values: dict[str, Any]) -> dict[str, Any]:
+    """Map a ``dask_array_tpu`` config dict onto this package's keys.
+
+    Keys with a meaning here (the optimizer and chunk-policy keys) carry
+    over unchanged; ``tpu.stencil-kernel`` becomes ``"stencil-kernel"``
+    ("off" stays off, every engaging setting becomes "auto").  The
+    TPU-only keys (PRNG, QR/SVD methods, matmul and Gram precision, jit,
+    donation, mesh and lane selection) have no counterpart and are dropped.
+    """
+    out: dict[str, Any] = {}
+    for key, value in values.items():
+        if key in _SHARED_KEYS:
+            out[key] = value
+        elif key == "tpu.stencil-kernel":
+            out["stencil-kernel"] = "off" if value in ("off", False, None) else "auto"
+    return out

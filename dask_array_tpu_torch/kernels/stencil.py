@@ -1,0 +1,385 @@
+"""Band-stencil kernel for 2-D ``map_overlap``: tap capture, the gate, the
+CUDA wrapper and its plain PyTorch version.
+
+Counterpart of ``dask_array_tpu/kernels/stencil.py`` (the Pallas band
+kernel).  The Pallas kernel inlines any jnp ``func`` into its body; a
+compiled CUDA kernel cannot run an arbitrary torch function, so this one
+computes the class of funcs the main path uses: a linear stencil of
+shifted windows, ``sum_k w_k * roll(b, (dy_k, dx_k))``.  ``capture_taps``
+reads that table off ``func`` with ``torch.fx``; a func it cannot read
+keeps the ``Overlap -> map_blocks -> trim`` route.
+
+``band_stencil_call`` is what ``BandStencil._build`` calls: for a tensor
+on the CPU it runs ``band_stencil_plain`` (pad, func, trim in torch); for a
+CUDA tensor it launches the kernel (``csrc/band_stencil.cu``) or raises.
+The kernel is compiled with ``nvcc`` at the first CUDA call into
+``build/kernels/`` beside the package, keyed by the source's hash.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import operator
+import os
+import shutil
+import subprocess
+import tempfile
+from numbers import Integral, Number
+from pathlib import Path
+
+import numpy as np
+import torch
+
+MAX_DEPTH = 8
+MAX_TAPS = (2 * MAX_DEPTH + 1) ** 2
+_BOUNDARY_CODES = {"reflect": 0, "nearest": 1, "periodic": 2}
+_CONSTANT_CODE = 3
+_DTYPE_CODES = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "band_stencil.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# kernel launches since the last reset; only band_stencil_cuda adds to it
+LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# boundary padding (shared by Overlap._build and the plain version)
+# ---------------------------------------------------------------------------
+
+
+def _source_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
+    """For each position of an axis padded by (lo, hi), the index of the
+    element it copies — numpy's pad semantics, also past the axis length."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "periodic":  # numpy "wrap"
+        return torch.remainder(i, n)
+    if mode == "nearest":  # numpy "edge"
+        return i.clamp(0, n - 1)
+    # dask "reflect" is numpy "symmetric" (the edge element repeats):
+    # the padded axis is periodic with period 2n over [x, x reversed]
+    m = torch.remainder(i, 2 * n)
+    return torch.where(m < n, m, 2 * n - 1 - m)
+
+
+def pad_axis(t: torch.Tensor, axis: int, lo: int, hi: int, mode) -> torch.Tensor:
+    """Pad ``t`` along ``axis`` by ``lo``/``hi`` elements.
+
+    ``mode`` is "reflect" (numpy ``symmetric``: -1 -> 0, -2 -> 1),
+    "nearest" (numpy ``edge``), "periodic" (numpy ``wrap``) or a scalar fill
+    value (numpy ``constant``).  torch's own ``F.pad(mode="reflect")`` is
+    numpy's ``reflect``, which skips the edge element, so it is not used.
+    """
+    if not (lo or hi):
+        return t
+    if isinstance(mode, str):
+        if mode not in _BOUNDARY_CODES:
+            raise ValueError(f"unknown boundary mode {mode!r}")
+        idx = _source_index(t.shape[axis], lo, hi, mode, t.device)
+        return torch.index_select(t, axis, idx)
+    parts = []
+    for width in (lo, None, hi):
+        if width is None:
+            parts.append(t)
+        elif width:
+            shape = list(t.shape)
+            shape[axis] = width
+            parts.append(torch.full(shape, mode, dtype=t.dtype, device=t.device))
+    return torch.cat(parts, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# tap capture
+# ---------------------------------------------------------------------------
+
+_LINEAR_OPS = {
+    operator.add: "add",
+    operator.sub: "sub",
+    operator.mul: "mul",
+    operator.truediv: "div",
+    operator.neg: "neg",
+}
+
+
+def _is_scalar(v) -> bool:
+    return isinstance(v, Number) and not isinstance(v, (bool, complex))
+
+
+def _as_ints(v):
+    if isinstance(v, Integral) and not isinstance(v, bool):
+        return (int(v),)
+    if isinstance(v, (tuple, list)) and all(
+        isinstance(e, Integral) and not isinstance(e, bool) for e in v
+    ):
+        return tuple(int(e) for e in v)
+    return None
+
+
+def _roll(lin, shifts, dims, depth):
+    """``torch.roll(b, shifts, dims)[i] == b[i - shift]``: a tap at offset
+    ``dy`` moves to ``dy - shift``."""
+    shifts, dims = _as_ints(shifts), _as_ints(dims)
+    if not isinstance(lin, dict) or shifts is None or dims is None or len(shifts) != len(dims):
+        return None
+    for s, d in zip(shifts, dims):
+        if d not in (0, 1, -1, -2):
+            return None
+        axis = d % 2
+        if abs(s) > depth[axis]:
+            return None
+        lin = {
+            ((dy - s, dx) if axis == 0 else (dy, dx - s)): w
+            for (dy, dx), w in lin.items()
+        }
+    return lin
+
+
+def _combine(op, args):
+    """One +, -, unary -, or scalar * and / on linear forms; None declines
+    (a product of two stencils, an added constant, anything else)."""
+    if op == "neg":
+        (a,) = args
+        return {k: -w for k, w in a.items()} if isinstance(a, dict) else None
+    a, b = args
+    if op in ("add", "sub"):
+        if not (isinstance(a, dict) and isinstance(b, dict)):
+            return None
+        sign = 1.0 if op == "add" else -1.0
+        out = dict(a)
+        for k, w in b.items():
+            out[k] = out.get(k, 0.0) + sign * w
+        return out
+    if op == "mul":
+        if isinstance(a, dict) and _is_scalar(b):
+            return {k: w * float(b) for k, w in a.items()}
+        if isinstance(b, dict) and _is_scalar(a):
+            return {k: w * float(a) for k, w in b.items()}
+        return None
+    if op == "div" and isinstance(a, dict) and _is_scalar(b) and b != 0:
+        return {k: w / float(b) for k, w in a.items()}
+    return None
+
+
+def capture_taps(func, depth):
+    """The stencil ``func`` computes, as a tuple of ``(dy, dx, w)`` taps
+    (``out[i, j] = sum w * b[i + dy, j + dx]``), or None.
+
+    ``func`` is traced with ``torch.fx.symbolic_trace``.  Accepted: one
+    input; ``torch.roll`` (or ``Tensor.roll``) with int shifts and dims,
+    each ``|shift|`` at most that axis's depth; ``+``, ``-`` and unary
+    ``-`` of stencils; ``*`` and ``/`` by a Python scalar.  Every tap must
+    land within ``depth``, so the kernel's boundary fill and the plain
+    version's padded roll read the same elements.
+    """
+    import torch.fx
+
+    try:
+        gm = torch.fx.symbolic_trace(func)
+    except (torch.fx.proxy.TraceError, TypeError, ValueError, AttributeError,
+            NotImplementedError, RuntimeError):
+        # any func torch.fx cannot trace is not a capturable stencil
+        return None
+    env = {}
+    result = None
+    n_inputs = 0
+    for node in gm.graph.nodes:
+        args = torch.fx.node.map_arg(node.args, lambda n: env[n])
+        kwargs = torch.fx.node.map_arg(node.kwargs, lambda n: env[n])
+        if node.op == "placeholder":
+            n_inputs += 1
+            env[node] = {(0, 0): 1.0}
+        elif node.op == "output":
+            result = args[0]
+        elif (node.op == "call_function" and node.target is torch.roll) or (
+            node.op == "call_method" and node.target == "roll"
+        ):
+            full = dict(zip(("input", "shifts", "dims"), args), **kwargs)
+            if set(full) - {"input", "shifts", "dims"}:
+                return None
+            env[node] = _roll(full.get("input"), full.get("shifts"), full.get("dims"), depth)
+        elif node.op == "call_function" and node.target in _LINEAR_OPS and not kwargs:
+            env[node] = _combine(_LINEAR_OPS[node.target], args)
+        else:
+            return None
+        if node.op != "output" and env[node] is None:
+            return None
+    if n_inputs != 1 or not isinstance(result, dict):
+        return None
+    taps = tuple((dy, dx, float(w)) for (dy, dx), w in result.items() if w != 0.0)
+    if any(abs(dy) > depth[0] or abs(dx) > depth[1] for dy, dx, _ in taps):
+        return None
+    return taps or ((0, 0, 0.0),)
+
+
+# ---------------------------------------------------------------------------
+# the gate
+# ---------------------------------------------------------------------------
+
+
+def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
+    """The taps of an eligible map_overlap, or None.
+
+    Eligible: config ``stencil-kernel`` not "off"; one 2-D float array with
+    ``trim=True`` and no extra func kwargs; symmetric depth at most 8 per
+    axis; each boundary with depth one of reflect, nearest, periodic or a
+    scalar constant; and ``capture_taps`` reads a stencil off ``func``.
+    Decided when the graph is built, whatever the device.
+    """
+    from dask_array_tpu_torch import config
+
+    if config.get("stencil-kernel", "auto") in ("off", False, None):
+        return None
+    if not trim or len(arrays) != 1 or kwargs:
+        return None
+    a = arrays[0]
+    if a.ndim != 2 or np.dtype(a.dtype) not in (np.float16, np.float32, np.float64):
+        return None
+    if any(not isinstance(s, Integral) or s <= 0 for s in a.shape):
+        return None
+    dep = []
+    for ax in range(2):
+        lo, hi = depths[0].get(ax, (0, 0))
+        if lo != hi or lo > MAX_DEPTH:
+            return None
+        dep.append(lo)
+    for ax in range(2):
+        b = bounds[0].get(ax)
+        if dep[ax] and b not in _BOUNDARY_CODES and not _is_scalar(b):
+            return None
+    return capture_taps(func, tuple(dep))
+
+
+# ---------------------------------------------------------------------------
+# plain version and the kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def band_stencil_plain(x: torch.Tensor, func, depth, boundary) -> torch.Tensor:
+    """``trim(func(pad(x)))`` in torch: the kernel's reference."""
+    d0, d1 = depth
+    p = pad_axis(x, 0, d0, d0, boundary[0])
+    p = pad_axis(p, 1, d1, d1, boundary[1])
+    out = func(p)
+    return out[d0 : d0 + x.shape[0], d1 : d1 + x.shape[1]]
+
+
+def band_stencil_call(x: torch.Tensor, func, depth, boundary, taps) -> torch.Tensor:
+    """The stencil of one 2-D tensor: the plain version for a CPU tensor,
+    the CUDA kernel for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return band_stencil_plain(x, func, depth, boundary)
+    return band_stencil_cuda(x, taps, depth, boundary)
+
+
+def _boundary_arg(mode, depth, dtype):
+    """(code, fill) for one axis; the fill rounded to the tensor's dtype,
+    as the plain version's constant pad rounds it."""
+    if isinstance(mode, str):
+        if mode in _BOUNDARY_CODES:
+            return _BOUNDARY_CODES[mode], 0.0
+        if mode == "none" and depth == 0:
+            return _BOUNDARY_CODES["nearest"], 0.0  # no tap reaches past the edge
+        raise ValueError(f"band_stencil_cuda does not take boundary {mode!r}")
+    if not _is_scalar(mode):
+        raise ValueError(f"band_stencil_cuda does not take boundary {mode!r}")
+    return _CONSTANT_CODE, float(torch.tensor(mode, dtype=dtype).item())
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_on_device(taps, device: str):
+    offs = torch.tensor([v for dy, dx, _ in taps for v in (dy, dx)], dtype=torch.int32, device=device)
+    weights = torch.tensor([w for _, _, w in taps], dtype=torch.float64, device=device)
+    return offs, weights
+
+
+def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
+    """Launch the band-stencil kernel on a 2-D CUDA tensor.
+
+    Raises on anything the kernel does not take: a non-CUDA or
+    non-contiguous tensor, a dtype other than float16/32/64, a depth above
+    8, a tap outside the depth, or an unknown boundary.
+    """
+    global LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"band_stencil_cuda needs a CUDA tensor, got one on {x.device}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("band_stencil_cuda needs a contiguous 2-D tensor")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"band_stencil_cuda does not take {x.dtype}")
+    d0, d1 = (int(d) for d in depth)
+    if not (0 <= d0 <= MAX_DEPTH and 0 <= d1 <= MAX_DEPTH):
+        raise ValueError(f"band_stencil_cuda takes depths 0..{MAX_DEPTH}, got {depth}")
+    taps = tuple((int(dy), int(dx), float(w)) for dy, dx, w in taps)
+    if not 1 <= len(taps) <= MAX_TAPS or any(abs(dy) > d0 or abs(dx) > d1 for dy, dx, _ in taps):
+        raise ValueError(f"band_stencil_cuda: taps {taps} do not fit depth {depth}")
+    M, N = x.shape
+    if M == 0 or N == 0:
+        raise ValueError("band_stencil_cuda needs a non-empty tensor")
+    bd0, fill0 = _boundary_arg(boundary[0], d0, x.dtype)
+    bd1, fill1 = _boundary_arg(boundary[1], d1, x.dtype)
+    lib = _library()
+    offs, weights = _taps_on_device(taps, str(x.device))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.band_stencil_launch(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), M, N, d0, d1,
+            bd0, bd1, fill0, fill1, offs.data_ptr(), weights.data_ptr(), len(taps), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"band_stencil kernel launch failed: {lib.band_stencil_error_string(err).decode()}"
+        )
+    LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the band-stencil kernel builds at its first CUDA call")
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile ``csrc/band_stencil.cu`` for sm_90a if the build for this
+    source hash is missing; returns (library path, compiler output)."""
+    src = SOURCE.read_bytes()
+    lib_path = BUILD_DIR / f"libband_stencil-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, str(SOURCE),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    return lib_path, proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    lib.band_stencil_launch.argtypes = [i, p, p, ll, ll, i, i, i, i, d, d, p, p, i, p]
+    lib.band_stencil_launch.restype = i
+    lib.band_stencil_error_string.argtypes = [i]
+    lib.band_stencil_error_string.restype = ctypes.c_char_p
+    return lib

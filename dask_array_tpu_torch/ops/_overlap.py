@@ -1,0 +1,508 @@
+"""Overlap / map_overlap: ghost-cell (halo) machinery for stencils.
+
+Port of ``dask_array_tpu/ops/_overlap.py``: ``Overlap``, ``TrimInternal``,
+``BandStencil``, ``overlap``, ``trim_internal`` and ``map_overlap``.  A
+block-with-halo is a slice of the boundary-extended dense tensor, so on
+one device the halo exchange is a view.  Boundary extension goes through
+``kernels.stencil.pad_axis`` (numpy pad semantics, dask's "reflect" being
+numpy's "symmetric").  ``ShardStencil``'s mesh body, sliding windows and
+``push`` wait for later slices of the port.
+"""
+
+from __future__ import annotations
+
+import functools
+from numbers import Integral
+
+import numpy as np
+
+from dask_array_tpu_torch._chunks import cached_cumsum, torch_dtype
+from dask_array_tpu_torch._executor import BlockView, iter_block_indices
+from dask_array_tpu_torch._expr import ArrayExpr
+from dask_array_tpu_torch.kernels.stencil import band_stencil_call, pad_axis
+
+
+def coerce_depth(ndim, depth):
+    """depth -> {axis: (lo, hi)}"""
+    if isinstance(depth, Integral):
+        depth = (int(depth),) * ndim
+    if isinstance(depth, (list, tuple)):
+        depth = dict(enumerate(depth))
+    out = {}
+    for ax in range(ndim):
+        d = depth.get(ax, 0)
+        if isinstance(d, Integral):
+            out[ax] = (int(d), int(d))
+        else:
+            out[ax] = (int(d[0]), int(d[1]))
+    return out
+
+
+def coerce_boundary(ndim, boundary):
+    """boundary -> {axis: mode} with mode in {'reflect','periodic','nearest',
+    'none'} or a constant fill value."""
+    if boundary is None:
+        boundary = "none"
+    if not isinstance(boundary, dict):
+        if isinstance(boundary, (list, tuple)):
+            boundary = dict(enumerate(boundary))
+        else:
+            boundary = {ax: boundary for ax in range(ndim)}
+    return {ax: boundary.get(ax, "none") for ax in range(ndim)}
+
+
+def _halo_sides(i, n, lo, hi, bd, mlo, mhi):
+    """(lo, hi) halo widths block ``i`` of ``n`` carries along one axis."""
+    take_lo = lo if (i > 0 or bd != "none" or mlo) else 0
+    take_hi = hi if (i < n - 1 or bd != "none" or mhi) else 0
+    return take_lo, take_hi
+
+
+class Overlap(ArrayExpr):
+    """Each block grows by its halo (ghost cells from neighbors/boundary).
+
+    ``margin`` (per-axis ``(mlo, mhi)``) marks extra source rows at the
+    array's ends that serve as halo only: they belong to no block's body
+    and suppress boundary handling at their edge.  A block-aligned slice of
+    an overlap pipeline pushes down by converting the cut's neighbor rows
+    into margins; ``body_chunks`` then carries the body grid.
+    """
+
+    _parameters = ("array", "depth", "boundary", "margin", "body_chunks")
+    _defaults = {"margin": None, "body_chunks": None}
+
+    @functools.cached_property
+    def _margins(self):
+        m = self.operand("margin")
+        if m is None:
+            return tuple((0, 0) for _ in self.depth)
+        return tuple(tuple(x) for x in m)
+
+    @functools.cached_property
+    def _body_grid(self):
+        b = self.operand("body_chunks")
+        if b is None:
+            return self.array.chunks
+        return tuple(tuple(x) for x in b)
+
+    @functools.cached_property
+    def chunks(self):
+        out = []
+        for ax, c in enumerate(self._body_grid):
+            lo, hi = self.depth[ax]
+            mlo, mhi = self._margins[ax]
+            n = len(c)
+            out.append(tuple(
+                size + sum(_halo_sides(i, n, lo, hi, self.boundary[ax], mlo, mhi))
+                for i, size in enumerate(c)
+            ))
+        return tuple(out)
+
+    @property
+    def _meta(self):
+        return self.array._meta
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense()
+        # boundary-extend the dense tensor per axis (sides with a margin
+        # already carry their halo rows in the data: no pad there)
+        offsets = []
+        for ax in range(dense.ndim):
+            lo, hi = self.depth[ax]
+            bd = self.boundary[ax]
+            mlo, mhi = self._margins[ax]
+            plo = lo if (bd != "none" and not mlo) else 0
+            phi = hi if (bd != "none" and not mhi) else 0
+            dense = pad_axis(dense, ax, plo, phi, bd)
+            offsets.append(mlo + plo)
+
+        grid = self._body_grid
+        bounds = [cached_cumsum(c, initial_zero=True) for c in grid]
+        n_ax = tuple(len(c) for c in grid)
+        blocks = {}
+        for idx in iter_block_indices(n_ax):
+            sl = []
+            for ax, i in enumerate(idx):
+                lo, hi = self.depth[ax]
+                mlo, mhi = self._margins[ax]
+                take_lo, take_hi = _halo_sides(i, n_ax[ax], lo, hi, self.boundary[ax], mlo, mhi)
+                start = bounds[ax][i] + offsets[ax]
+                stop = bounds[ax][i + 1] + offsets[ax]
+                sl.append(slice(start - take_lo, stop + take_hi))
+            blocks[tuple(idx)] = dense[tuple(sl)]
+        return BlockView(self.chunks, blocks=blocks)
+
+    def _accept_slice(self, index):
+        """Push a basic slice below the halo machinery.
+
+        Non-halo axes commute; a halo axis accepts whole-OUTPUT-block
+        slices: the cut's neighbor rows join the pushed slice as margins."""
+        from dask_array_tpu_torch._slicing import Slice, is_basic_index, sliced_blockdim
+
+        if not is_basic_index(index):
+            return None
+        body = self._body_grid
+        out_chunks = self.chunks
+        inner, outer, new_margin, new_body = [], [], [], []
+        changed = False
+        for ax, ind in enumerate(index):
+            lo, hi = self.depth[ax]
+            bd = self.boundary[ax]
+            mlo, mhi = self._margins[ax]
+            c = body[ax]
+            n = len(c)
+
+            def keep(ind=ind, c=c, mlo=mlo, mhi=mhi):
+                # this axis stays outside (applied after the overlap)
+                inner.append(slice(None))
+                outer.append(ind)
+                new_margin.append((mlo, mhi))
+                new_body.append(c)
+
+            if ind == slice(None) or isinstance(ind, Integral):
+                keep()
+                continue
+            if not (lo or hi):
+                nc, _ = sliced_blockdim(c, ind)
+                inner.append(ind)
+                outer.append(slice(None))
+                new_margin.append((0, 0))
+                new_body.append(tuple(nc))
+                changed = True
+                continue
+            start, stop, step = ind.indices(int(sum(out_chunks[ax])))
+            if step != 1 or stop <= start:
+                keep()
+                continue
+            ob = np.cumsum((0,) + tuple(int(x) for x in out_chunks[ax]))
+            i0 = int(np.searchsorted(ob, start))
+            i1 = int(np.searchsorted(ob, stop))
+            if ob[i0] != start or ob[i1] != stop or i1 <= i0:
+                keep()  # not whole output blocks
+                continue
+            if i0 == 0 and i1 == n:
+                keep(slice(None))
+                continue
+            if bd == "periodic" and (i0 == 0 or i1 == n):
+                # a true-edge panel's wrap halo comes from the OTHER end of
+                # the array: a contiguous leaf region cannot supply it
+                keep()
+                continue
+            bb = np.cumsum((0,) + tuple(int(x) for x in c))
+            a_in = 0 if i0 == 0 else mlo + int(bb[i0]) - lo
+            b_in = mlo + int(bb[n]) + mhi if i1 == n else mlo + int(bb[i1]) + hi
+            inner.append(slice(int(a_in), int(b_in), 1))
+            outer.append(slice(None))
+            new_margin.append((lo if i0 > 0 else mlo, hi if i1 < n else mhi))
+            new_body.append(tuple(c[i0:i1]))
+            changed = True
+        if not changed:
+            return None
+        pushed = Overlap(
+            Slice(self.array, tuple(inner)),
+            self.depth,
+            self.boundary,
+            tuple(new_margin),
+            tuple(new_body),
+        )
+        if all(o == slice(None) for o in outer):
+            return pushed
+        return Slice(pushed, tuple(outer))
+
+
+class TrimInternal(ArrayExpr):
+    """Shave halos back off every block.
+
+    ``margin`` (per-axis ``(mlo, mhi)``) marks edge blocks that carry halos
+    despite being first/last — the trace a block-aligned slice leaves when
+    it cuts an overlap pipeline mid-array."""
+
+    _parameters = ("array", "depth", "boundary", "margin")
+    _defaults = {"margin": None}
+
+    @functools.cached_property
+    def _margins(self):
+        m = self.operand("margin")
+        if m is None:
+            return tuple((0, 0) for _ in self.depth)
+        return tuple(tuple(x) for x in m)
+
+    @functools.cached_property
+    def chunks(self):
+        out = []
+        for ax, c in enumerate(self.array.chunks):
+            lo, hi = self.depth[ax]
+            mlo, mhi = self._margins[ax]
+            n = len(c)
+            out.append(tuple(
+                size - sum(_halo_sides(i, n, lo, hi, self.boundary[ax], mlo, mhi))
+                for i, size in enumerate(c)
+            ))
+        return tuple(out)
+
+    @property
+    def _meta(self):
+        return self.array._meta
+
+    def _build(self, ctx):
+        view = ctx.build(self.array)
+        n_ax = view.numblocks
+        blocks = {}
+        for idx in iter_block_indices(n_ax):
+            b = view.block(idx)
+            sl = []
+            for ax, i in enumerate(idx):
+                lo, hi = self.depth[ax]
+                mlo, mhi = self._margins[ax]
+                cut_lo, cut_hi = _halo_sides(i, n_ax[ax], lo, hi, self.boundary[ax], mlo, mhi)
+                sl.append(slice(cut_lo, b.shape[ax] - cut_hi))
+            blocks[tuple(idx)] = b[tuple(sl)]
+        return BlockView(self.chunks, blocks=blocks)
+
+    def _accept_slice(self, index):
+        """Non-halo axes commute; a halo axis accepts whole-OUTPUT-block
+        slices, converting them to whole overlapped blocks of the child
+        with margins marking the halos the new edge blocks carry."""
+        from dask_array_tpu_torch._slicing import Slice, is_basic_index
+
+        if not is_basic_index(index):
+            return None
+        out_chunks = self.chunks
+        ov_chunks = self.array.chunks
+        inner, outer, new_margin = [], [], []
+        changed = False
+        for ax, ind in enumerate(index):
+            lo, hi = self.depth[ax]
+            bd = self.boundary[ax]
+            mlo, mhi = self._margins[ax]
+            n = len(out_chunks[ax])
+
+            def keep(ind=ind, mlo=mlo, mhi=mhi):
+                inner.append(slice(None))
+                outer.append(ind)
+                new_margin.append((mlo, mhi))
+
+            if ind == slice(None) or isinstance(ind, Integral):
+                keep()
+                continue
+            if not (lo or hi):
+                inner.append(ind)
+                outer.append(slice(None))
+                new_margin.append((0, 0))
+                changed = True
+                continue
+            start, stop, step = ind.indices(int(sum(out_chunks[ax])))
+            if step != 1 or stop <= start:
+                keep()
+                continue
+            ob = np.cumsum((0,) + tuple(int(x) for x in out_chunks[ax]))
+            i0 = int(np.searchsorted(ob, start))
+            i1 = int(np.searchsorted(ob, stop))
+            if ob[i0] != start or ob[i1] != stop or i1 <= i0:
+                keep()  # not whole output blocks
+                continue
+            if i0 == 0 and i1 == n:
+                keep(slice(None))
+                continue
+            if bd == "periodic" and (i0 == 0 or i1 == n):
+                keep()  # wrap halo needs the array's other end (see Overlap)
+                continue
+            ovb = np.cumsum((0,) + tuple(int(x) for x in ov_chunks[ax]))
+            inner.append(slice(int(ovb[i0]), int(ovb[i1]), 1))
+            outer.append(slice(None))
+            new_margin.append((lo if i0 > 0 else mlo, hi if i1 < n else mhi))
+            changed = True
+        if not changed:
+            return None
+        pushed = TrimInternal(
+            Slice(self.array, tuple(inner)),
+            self.depth,
+            self.boundary,
+            tuple(new_margin),
+        )
+        if all(o == slice(None) for o in outer):
+            return pushed
+        return Slice(pushed, tuple(outer))
+
+
+class BandStencil(ArrayExpr):
+    """2-D ``map_overlap`` as one band-stencil call over the dense tensor.
+
+    ``taps`` is the stencil ``kernels.stencil.capture_taps`` read off
+    ``func``; the CUDA kernel computes it, and on a CPU tensor the plain
+    version runs ``func`` itself (``kernels.stencil.band_stencil_call``).
+    Same locality contract as the reference's node: ``func`` is local
+    within ``depth`` and size-preserving.
+    """
+
+    _parameters = ("array", "func", "depth", "boundary", "_dtype", "taps")
+
+    @functools.cached_property
+    def chunks(self):
+        return self.array.chunks
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0,) * self.array.ndim, dtype=self._dtype)
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense().contiguous()
+        dep = tuple(lo for lo, _hi in self.depth)
+        out = band_stencil_call(dense, self.func, dep, tuple(self.boundary), self.taps)
+        return BlockView(self.chunks, dense=out.to(torch_dtype(self._dtype)))
+
+
+def _normalize(x, depth, boundary):
+    depth_map = coerce_depth(x.ndim, depth)
+    bd_map = coerce_boundary(x.ndim, boundary)
+    dep = tuple(depth_map[ax] for ax in range(x.ndim))
+    bd = tuple(bd_map[ax] for ax in range(x.ndim))
+    return dep, bd
+
+
+def overlap(x, depth, boundary=None, *, allow_rechunk=True):
+    """Add ghost cells to every block."""
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    x = asarray(x)
+    dep, bd = _normalize(x, depth, boundary)
+    # every chunk must be at least as large as the halo it donates
+    for ax, (lo, hi) in enumerate(dep):
+        need = max(lo, hi)
+        if not need or len(x.chunks[ax]) == 1 or min(x.chunks[ax]) >= need:
+            continue
+        if not allow_rechunk:
+            raise ValueError(
+                f"overlap depth {need} exceeds the smallest chunk "
+                f"({min(x.chunks[ax])}) along axis {ax}; rechunk first"
+            )
+        # merge neighboring chunks until each is >= the halo depth
+        merged = []
+        acc = 0
+        for c in x.chunks[ax]:
+            acc += c
+            if acc >= need:
+                merged.append(acc)
+                acc = 0
+        if acc:
+            if merged:
+                merged[-1] += acc
+            else:
+                merged.append(acc)
+        target = list(x.chunks)
+        target[ax] = tuple(merged)
+        x = x.rechunk(tuple(target))
+    return new_collection(Overlap(x.expr, dep, bd))
+
+
+def trim_internal(x, axes, boundary=None):
+    """Trim ``axes[ax]`` elements off every internal block boundary of ``x``
+    (the inverse of :func:`overlap`)."""
+    from dask_array_tpu_torch._collection import new_collection
+
+    dep, bd = _normalize(x, axes, boundary)
+    return new_collection(TrimInternal(x.expr, dep, bd))
+
+
+def _align(arrays):
+    """Rechunk several arrays (right-aligned) onto the common refinement of
+    their chunks per axis (the reference's ``unify_chunks``)."""
+    from dask_array_tpu_torch._chunks import common_blockdim
+
+    ndim = max(a.ndim for a in arrays)
+    inds = [tuple(range(ndim - a.ndim, ndim)) for a in arrays]
+    by_label: dict = {}
+    for a, ind in zip(arrays, inds):
+        for pos, label in enumerate(ind):
+            prev = by_label.get(label)
+            c = a.chunks[pos]
+            by_label[label] = c if prev is None or prev == c else common_blockdim([prev, c])
+    return [a.rechunk(tuple(by_label[label] for label in ind)) for a, ind in zip(arrays, inds)]
+
+
+def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=True,
+                allow_rechunk=True, **kwargs):
+    """Apply ``func`` to blocks (of one or more arrays) with ghost cells.
+
+    The pipeline is align -> overlap each array -> map_blocks -> trim.  An
+    eligible 2-D single-array stencil (``kernels.stencil.use_band_stencil``)
+    becomes one ``BandStencil`` node instead.  ``depth``/``boundary`` may be
+    lists with one entry per array; trimming uses the highest-rank array's
+    depth.
+    """
+    from dask_array_tpu_torch._collection import Array, new_collection
+    from dask_array_tpu_torch._expr import compute_meta
+    from dask_array_tpu_torch.kernels.stencil import use_band_stencil
+    from dask_array_tpu_torch.ops._map_blocks import map_blocks
+
+    if isinstance(func, Array) and args and callable(args[0]):
+        # legacy map_overlap(x, func, ...) signature
+        func, args = args[0], (func,) + args[1:]
+    if not callable(func):
+        raise TypeError(f"First argument must be callable function, not {type(func).__name__}")
+    if not args or not all(isinstance(a, Array) for a in args):
+        raise TypeError(
+            f"All variadic arguments must be arrays, not {[type(a).__name__ for a in args]}"
+        )
+    arrays = list(args)
+
+    def coerce(xs, arg, fn):
+        if not isinstance(arg, list):
+            arg = [arg] * len(xs)
+        if len(arg) != len(xs):
+            raise ValueError(
+                f"got {len(arg)} entries for {len(xs)} array arguments; a "
+                "list-form depth/boundary needs one entry per array"
+            )
+        return [fn(x.ndim, a) for x, a in zip(xs, arg)]
+
+    depths = coerce(arrays, 0 if depth is None else depth, coerce_depth)
+    bounds = coerce(arrays, boundary, coerce_boundary)
+
+    if align_arrays and len(arrays) > 1:
+        arrays = _align(arrays)
+
+    # depth 0 everywhere: plain map_blocks
+    if all(lo == 0 and hi == 0 for d in depths for (lo, hi) in d.values()):
+        return map_blocks(func, *arrays, **kwargs)
+
+    for i, (a, d, b) in enumerate(zip(arrays, depths, bounds)):
+        for ax in range(a.ndim):
+            lo, hi = d[ax]
+            if lo != hi and b[ax] != "none":
+                raise NotImplementedError(
+                    "Asymmetric overlap is currently only implemented "
+                    "for boundary='none', however boundary for dimension "
+                    f"{ax} in array argument {i} is {b[ax]}"
+                )
+
+    dtype = kwargs.pop("dtype", None)
+    fkw = {k: v for k, v in kwargs.items() if k not in ("name", "token")}
+    taps = use_band_stencil(arrays, depths, bounds, trim, func, fkw)
+    if taps is not None:
+        a = arrays[0]
+        if dtype is None:
+            meta = compute_meta(func, a.ndim, a.expr)
+            dtype = meta.dtype if meta is not None else a.dtype
+        return new_collection(BandStencil(
+            a.expr,
+            func,
+            tuple(depths[0][ax] for ax in range(2)),
+            tuple(bounds[0][ax] for ax in range(2)),
+            np.dtype(dtype),
+            taps,
+        ))
+
+    if dtype is not None:
+        kwargs["dtype"] = dtype
+    overlapped = [
+        overlap(a, d, b, allow_rechunk=allow_rechunk)
+        for a, d, b in zip(arrays, depths, bounds)
+    ]
+    mapped = map_blocks(func, *overlapped, **kwargs)
+    if trim:
+        # trim by the highest-rank array's halo (ties -> first)
+        i = sorted(enumerate(arrays), key=lambda v: (v[1].ndim, -v[0]))[-1][0]
+        return trim_internal(mapped, depths[i], bounds[i])
+    return mapped
