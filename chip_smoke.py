@@ -1,28 +1,48 @@
 """GPU smoke run of dask_array_tpu_torch, the PyTorch/CUDA port.
 
-Drives the port's main path on one CUDA card through its public entry
-points and checks every kernel on that path against its plain PyTorch
+Drives the port's main paths on one CUDA card through their public entry
+points and checks every kernel on those paths against its plain PyTorch
 version.  Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
 Phases (each prints one line of its own numbers; any failure raises):
-  1. setup: config "device" = "cuda", build the band-stencil kernel from
-     dask_array_tpu_torch/csrc, print the card's name and power limit;
-  2. the kernel against its plain version on the card: every boundary and
-     every mixed pair, depths (1,1) (2,1) (1,0) (8,8), float16/32/64, a
-     ragged shape;
+  1. setup: config "device" = "cuda"; build the band-stencil and the
+     multi-statistic kernels from dask_array_tpu_torch/csrc (one nvcc each,
+     started together); print the card's name and power limit;
+  2. the band-stencil kernel against its plain version on the card: every
+     boundary and every mixed pair, depths (1,1) (2,1) (1,0) (8,8),
+     float16/32/64, a ragged shape;
   3. the README example (slice pushdown + fusion) on the card;
   4. stencil2d (BASELINE config 4): 4096x4096 float32, chunks 1024,
      depth 1, reflect, in the roll form (BandStencil) and the slices form
      (Overlap), both against a float64 numpy reference;
   5. stencil2d at 16384x16384 float32, chunks 4096, through compute(),
      against the plain version on the card;
-  6. timing: the kernel and the plain version at both sizes (CUDA events,
-     median of 30 after warm-up, in the order plain, kernel, kernel, plain;
-     the faster median of each is reported), a device copy of the same
-     bytes for reference, and the whole compute().
+  6. timing of the stencil: the kernel and the plain version at both sizes
+     (CUDA events, median of 30 after warm-up, in the order plain, kernel,
+     kernel, plain; the faster median of each is reported), a device copy
+     of the same bytes, torch's conv2d of the padded array with the 3x3
+     Laplace taps (the nearest single library call, padding outside the
+     timed window), and the whole compute();
+  7. the multi-statistic kernel against its plain version on the card:
+     (10000, 10000), (1000, 1003), (1, 7), (4097, 33) float32;
+  8. reduction_tree (BASELINE config 2): 10000x10000 float32, chunks 1000,
+     split_every 4, the three arrays computed together through compute(),
+     against numpy in float64, and the kernel's three results on the same
+     device tensor against the reductions computed one at a time;
+  9. normalize_contract: a (32768, 4096) float32 in (4096, 4096) chunks,
+     b (2048, 4096) in chunks of 1024, through compute(), against numpy in
+     float64 on 256 rows (column mean and std from the whole of a);
+ 10. blocked_matmul (BASELINE config 3): 8192x8192 float32, chunks 1024
+     against 512, against torch.matmul in float64 on the card;
+ 11. timing of phases 7-10: the multi-statistic kernel, its plain version,
+     torch's trio x.sum(0), x.sum(1) / N, x.std(correction=0) and a device
+     copy of the same bytes at 10000^2; compute() and compute_device() of
+     phases 8-10; the TFLOP/s of phase 10's contraction.
 
+Each main path runs with its kernel's launch count set to 0 just before it
+and read just after; a kernel of a path launched no time fails the run.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when torch finds no CUDA device.
@@ -35,6 +55,9 @@ import statistics
 import subprocess
 import sys
 import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def check(cond, msg):
@@ -65,6 +88,17 @@ def cuda_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
+def paired_ms(plain, kernel, reps=30):
+    """Plain, kernel, kernel, plain: drift in clocks hits both alike.
+    Returns (kernel_ms, plain_ms, kernel runs, plain runs), the faster
+    median of each."""
+    p1 = cuda_ms(plain, reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
+    return min(k1, k2), min(p1, p2), [k1, k2], [p1, p2]
+
+
 def host_ms(fn, reps):
     """Median host milliseconds of ``fn`` (which ends in a synchronize)."""
     times = []
@@ -73,6 +107,14 @@ def host_ms(fn, reps):
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def stencil_for(d0, d1):
@@ -100,6 +142,29 @@ def numpy_laplace(x):
     return p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * p[1:-1, 1:-1]
 
 
+def stats_errors(got, want, x):
+    """Max abs errors of (colsum, rowmean, std) and a check against the
+    stated tolerances: colsum/rowmean rtol 1e-5 with atol 4 * sqrt(terms) *
+    max|x| * 2^-23 (rowmean's divided by N), std rtol 1e-4."""
+    import torch
+
+    M, N = x.shape
+    amax = float(x.abs().max())
+    atols = (4 * M**0.5 * amax * 2.0**-23, 4 * N**0.5 * amax * 2.0**-23 / N, 0.0)
+    rtols = (1e-5, 1e-5, 1e-4)
+    errs = []
+    for g, w, rt, at in zip(got, want, rtols, atols):
+        g = torch.as_tensor(g).to(device=x.device, dtype=torch.float64)
+        w = torch.as_tensor(w).to(device=x.device, dtype=torch.float64)
+        torch.testing.assert_close(g, w, rtol=rt, atol=at)
+        errs.append(float((g - w).abs().max()))
+    return errs
+
+
+STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (rowmean /N); "
+                   "std rtol 1e-4")
+
+
 def main() -> int:
     import torch
 
@@ -109,29 +174,39 @@ def main() -> int:
 
     import numpy as np
 
+    import dask_array_tpu_torch as da
     from dask_array_tpu_torch import config
-    from dask_array_tpu_torch.kernels import stencil
-    from dask_array_tpu_torch.models.pipelines import laplace_roll, readme_example, stencil2d
+    from dask_array_tpu_torch._materialize import compute_exprs
+    from dask_array_tpu_torch.kernels import _build, mstat, stencil
+    from dask_array_tpu_torch.models.pipelines import (
+        blocked_matmul,
+        laplace_roll,
+        normalize_contract,
+        readme_example,
+        reduction_tree,
+        stencil2d,
+    )
     from dask_array_tpu_torch.ops._overlap import BandStencil
 
     # -- phase 1: setup ------------------------------------------------------
     config.set_global({"device": "cuda"})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    lib_path, ptxas = stencil.build_library()
-    build_s = time.perf_counter() - t0
+    t_start = time.perf_counter()
+    built = _build.build_all(["band_stencil", "mstat"])
+    build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    print(ptxas.strip(), flush=True)
-    phase(1, "setup", build_s=build_s, library=lib_path.name, torch=torch.__version__,
-          cuda=torch.version.cuda, device=kind)
+    for _, ptxas in built.values():
+        print(ptxas.strip(), flush=True)
+    phase(1, "setup", build_s=build_s, libraries=[p.name for p, _ in built.values()],
+          torch=torch.__version__, cuda=torch.version.cuda, device=kind)
     print(smi, flush=True)
 
-    # -- phase 2: the kernel against its plain version ------------------------
+    # -- phase 2: the band-stencil kernel against its plain version ----------
     modes = ["reflect", "nearest", "periodic", 0.0, 2.5]
     cases = [((1000, 1003), (1, 1), (b0, b1), torch.float32) for b0 in modes for b1 in modes]
     for depth in [(2, 1), (1, 0), (8, 8)]:
@@ -173,7 +248,7 @@ def main() -> int:
                                         "float64": "rtol 1e-12, atol sum|w|*max|x|*1e-12",
                                         "float16": "vs float32 plain: rtol 1e-3, atol sum|w|*max|x|*2^-11"})
 
-    # -- phases 3-5: the main path, counting kernel launches ------------------
+    # -- phases 3-5: the stencil main path, counting kernel launches ----------
     stencil.LAUNCHES = 0
 
     y = readme_example()
@@ -223,53 +298,192 @@ def main() -> int:
     del res16, got16, want16, x16d
     phase(5, "stencil2d-16384", max_abs_err=err16, atol=atol16)
 
-    launches = stencil.LAUNCHES
-    check(launches > 0, "the main path launched the band-stencil kernel no time")
+    stencil_launches = stencil.LAUNCHES
+    check(stencil_launches > 0, "the stencil path launched the band-stencil kernel no time")
 
-    # -- phase 6: timing -------------------------------------------------------
+    # -- phase 6: stencil timing ---------------------------------------------
     bnd = ("reflect", "reflect")
     taps = stencil.capture_taps(laplace_roll, (1, 1))
-    timings = {}
+    lap_w = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], device="cuda")[None, None]
+    st_timings = {}
     for n, x_np, arr, reps in ((4096, x4, roll4, 5), (16384, x16, roll16, 3)):
         xd = torch.from_numpy(x_np).cuda()
         nbytes = 2 * n * n * xd.element_size()
-        # plain, kernel, kernel, plain: drift in clocks hits both alike
-        p_ms = cuda_ms(lambda: stencil.band_stencil_plain(xd, laplace_roll, (1, 1), bnd))
-        k_ms = cuda_ms(lambda: stencil.band_stencil_cuda(xd, taps, (1, 1), bnd))
-        k2_ms = cuda_ms(lambda: stencil.band_stencil_cuda(xd, taps, (1, 1), bnd))
-        p2_ms = cuda_ms(lambda: stencil.band_stencil_plain(xd, laplace_roll, (1, 1), bnd))
-        kernel_ms, plain_ms = min(k_ms, k2_ms), min(p_ms, p2_ms)
+        kernel_ms, plain_ms, k_runs, p_runs = paired_ms(
+            lambda: stencil.band_stencil_plain(xd, laplace_roll, (1, 1), bnd),
+            lambda: stencil.band_stencil_cuda(xd, taps, (1, 1), bnd),
+        )
         # the same bytes read and written by a plain device copy: the
         # card's copy-stream reference for a memory-bound kernel
         copy_ms = cuda_ms(lambda: xd.clone())
+        # the nearest single library call: a 3x3 convolution of the padded
+        # array (padding outside the timed window; cuDNN TF32 off)
+        padded = stencil.pad_axis(stencil.pad_axis(xd, 0, 1, 1, "reflect"), 1, 1, 1, "reflect")[None, None]
+        conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(padded, lap_w))
+        conv_err = float((torch.nn.functional.conv2d(padded, lap_w)[0, 0]
+                          - stencil.band_stencil_cuda(xd, taps, (1, 1), bnd)).abs().max())
+        del padded
         dev_ms = host_ms(lambda: (arr.compute_device(), torch.cuda.synchronize()), reps)
         compute_ms = host_ms(arr.compute, reps)
         err = float((stencil.band_stencil_cuda(xd, taps, (1, 1), bnd)
                      - stencil.band_stencil_plain(xd, laplace_roll, (1, 1), bnd)).abs().max())
-        timings[n] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
-                          kernel_runs_ms=[k_ms, k2_ms], plain_runs_ms=[p_ms, p2_ms],
-                          kernel_GBps=nbytes / kernel_ms / 1e6, plain_GBps=nbytes / plain_ms / 1e6,
-                          copy_ms=copy_ms, copy_GBps=nbytes / copy_ms / 1e6,
-                          compute_device_ms=dev_ms, compute_device_GBps=nbytes / dev_ms / 1e6,
-                          compute_ms=compute_ms, compute_GBps=nbytes / compute_ms / 1e6,
-                          max_abs_err=err)
-        phase(6, f"timing-{n}", card=smi, **timings[n])
+        bound_ms, bound_by = bound(nbytes, 2 * len(taps) * n * n)
+        st_timings[n] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
+                             kernel_GBps=nbytes / kernel_ms / 1e6, plain_GBps=nbytes / plain_ms / 1e6,
+                             bound_ms=bound_ms, bound_by=bound_by, kernel_of_bound=bound_ms / kernel_ms,
+                             copy_ms=copy_ms, copy_GBps=nbytes / copy_ms / 1e6,
+                             conv2d_ms=conv_ms, conv2d_vs_kernel_max_abs=conv_err,
+                             compute_device_ms=dev_ms, compute_device_GBps=nbytes / dev_ms / 1e6,
+                             compute_ms=compute_ms, compute_GBps=nbytes / compute_ms / 1e6,
+                             max_abs_err=err)
+        phase(6, f"timing-stencil-{n}", card=smi, **st_timings[n])
         del xd
     slices_ms = host_ms(slices4.compute, 5)
-    phase(6, "timing-4096-slices-form", card=smi, compute_ms=slices_ms,
+    phase(6, "timing-stencil-4096-slices-form", card=smi, compute_ms=slices_ms,
           compute_GBps=2 * 4096 * 4096 * 4 / slices_ms / 1e6)
+    del x16, roll16, x4, roll4, slices4, ref4, r4, s4
 
+    # -- phase 7: the multi-statistic kernel against its plain version -------
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ms_errs = {}
+    for shape in [(10000, 10000), (1000, 1003), (1, 7), (4097, 33)]:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        got = mstat.multi_stat_cuda(x)
+        want = mstat.multi_stat_plain(x)
+        torch.cuda.synchronize()
+        check([tuple(g.shape) for g in got] == [(shape[1],), (shape[0],), ()], f"{shape}: shapes")
+        ms_errs[str(shape)] = stats_errors(got, want, x)
+        # a shift moves s and ss to the power sums of x - shift
+        packed = mstat.multi_stat_packed_cuda(x, x[0, 0])
+        d = (x - x[0, 0]).double()
+        torch.testing.assert_close(packed[-2].double(), d.sum(), rtol=1e-4, atol=2.0**-20 * float(d.abs().sum()))
+        torch.testing.assert_close(packed[-1].double(), (d * d).sum(), rtol=1e-4, atol=0.0)
+        again = mstat.multi_stat_cuda(x)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)), f"{shape}: two runs differ")
+        del x, d
+    phase(7, "mstat-kernel-vs-plain", max_abs_err=ms_errs, tolerance=STATS_TOLERANCE,
+          outputs="colsum, rowmean, std")
+    mstat_err = max(ms_errs[str((10000, 10000))])
+
+    # -- phase 8: reduction_tree, the reductions path --------------------------
+    x_np = np.random.default_rng(8).standard_normal((10000, 10000), dtype=np.float32)
+    tree = reduction_tree(x_np, chunk=1000, split_every=4)
+    mstat.LAUNCHES = 0
+    s_out, m_out, sd_out = da.compute(*tree)
+    mstat_launches = mstat.LAUNCHES
+    check(mstat_launches > 0, "reduction_tree launched the multi-statistic kernel no time")
+    check(s_out.shape == (10000,) and m_out.shape == (10000,) and np.ndim(sd_out) == 0, "tree: shapes")
+    check(all(np.asarray(v).dtype == np.float32 for v in (s_out, m_out, sd_out)), "tree: dtypes")
+    check(all(bool(np.isfinite(v).all()) for v in (s_out, m_out, sd_out)), "tree: non-finite")
+    xd = torch.from_numpy(x_np).cuda()
+    ref64 = [x_np.sum(0, dtype=np.float64), x_np.mean(1, dtype=np.float64), x_np.std(dtype=np.float64)]
+    tree_err = stats_errors((s_out, m_out, sd_out), ref64, xd)
+    # the kernel on the same device tensor against the reductions one at a
+    # time (sum and mean as torch reduces, std through its two power sums)
+    apart = [a.compute_device() for a in tree]
+    kernel_vs_reductions = stats_errors(mstat.multi_stat_cuda(xd), apart, xd)
+    phase(8, "reduction_tree", shape=[10000, 10000], chunks=1000, split_every=4, launches=mstat_launches,
+          max_abs_err_vs_f64=tree_err, kernel_vs_reductions_max_abs=kernel_vs_reductions,
+          tolerance=STATS_TOLERANCE)
+
+    # -- phase 9: normalize_contract ---------------------------------------------
+    rng9 = np.random.default_rng(9)
+    a_np = (rng9.standard_normal((32768, 4096), dtype=np.float32) * 2 + 1)
+    b_np = rng9.standard_normal((2048, 4096), dtype=np.float32)
+    nc = normalize_contract(da.from_array(a_np, chunks=(4096, 4096)), da.from_array(b_np, chunks=1024))
+    stencil.LAUNCHES = mstat.LAUNCHES = 0
+    nc_out = nc.compute()
+    nc_launches = {"band_stencil": stencil.LAUNCHES, "multi_stat": mstat.LAUNCHES}
+    check(nc_out.shape == (32768,) and nc_out.dtype == np.float32, "normalize_contract: shape/dtype")
+    check(bool(np.isfinite(nc_out).all()), "normalize_contract: non-finite")
+    mu = a_np.mean(axis=0, dtype=np.float64)
+    sd = a_np.std(axis=0, dtype=np.float64)
+    yy = ((a_np[:256].astype(np.float64) - mu) / (sd + 1e-6)) @ b_np.astype(np.float64).T
+    want_nc = (yy * yy).sum(1)
+    np.testing.assert_allclose(nc_out[:256], want_nc, rtol=1e-4)
+    phase(9, "normalize_contract", a=[32768, 4096], b=[2048, 4096], a_chunks=[4096, 4096], b_chunks=1024,
+          launches=nc_launches, max_rel_err_256_rows=float(np.abs(nc_out[:256] / want_nc - 1).max()),
+          tolerance="rtol 1e-4 against float64 numpy")
+
+    # -- phase 10: blocked_matmul ----------------------------------------------------
+    rng10 = np.random.default_rng(10)
+    ma = rng10.standard_normal((8192, 8192), dtype=np.float32)
+    mb = rng10.standard_normal((8192, 8192), dtype=np.float32)
+    bm = blocked_matmul(ma, mb, chunk=1024)
+    check(bm.chunks == ((1024,) * 8, (512,) * 16), f"blocked_matmul chunks {bm.chunks}")
+    bm_dev = bm.compute_device()
+    check(bm_dev.dtype == torch.float32 and tuple(bm_dev.shape) == (8192, 8192), "blocked_matmul: shape/dtype")
+    mad, mbd = torch.from_numpy(ma).cuda(), torch.from_numpy(mb).cuda()
+    want_bm = mad.double() @ mbd.double()
+    scale_bm = float((mad.abs() @ mbd.abs()).max())
+    torch.testing.assert_close(bm_dev.double(), want_bm, rtol=1e-5, atol=2.0**-20 * scale_bm)
+    bm_err = float((bm_dev.double() - want_bm).abs().max())
+    del want_bm, bm_dev
+    phase(10, "blocked_matmul", size=8192, chunks=[1024, 512], max_abs_err_vs_f64=bm_err,
+          tolerance=f"rtol 1e-5, atol 2^-20*max(|a|@|b|) = {2.0**-20 * scale_bm}")
+
+    # -- phase 11: timing of phases 7-10 ------------------------------------------
+    M, N = xd.shape
+    ms_ms, ms_plain_ms, ms_k_runs, ms_p_runs = paired_ms(
+        lambda: mstat.multi_stat_plain(xd), lambda: mstat.multi_stat_cuda(xd))
+    trio_ms = cuda_ms(lambda: (xd.sum(0), xd.sum(1) / N, xd.std(correction=0)))
+    ms_copy_ms = cuda_ms(lambda: xd.clone())
+    ms_bytes = (M * N + N + M + 3) * 4
+    ms_bound_ms, ms_bound_by = bound(ms_bytes, 6 * M * N)
+    phase(11, "timing-mstat-10000", card=smi, kernel_ms=ms_ms, plain_ms=ms_plain_ms,
+          kernel_runs_ms=ms_k_runs, plain_runs_ms=ms_p_runs, torch_trio_ms=trio_ms,
+          copy_ms=ms_copy_ms, copy_GBps=2 * M * N * 4 / ms_copy_ms / 1e6,
+          kernel_GBps=ms_bytes / ms_ms / 1e6, bound_ms=ms_bound_ms, bound_by=ms_bound_by,
+          kernel_of_bound=ms_bound_ms / ms_ms)
+
+    tree_exprs = [a.expr for a in tree]
+    tree_dev_ms = host_ms(lambda: (compute_exprs(tree_exprs), torch.cuda.synchronize()), 3)
+    tree_ms = host_ms(lambda: da.compute(*tree), 3)
+    nc_dev_ms = host_ms(lambda: (nc.compute_device(), torch.cuda.synchronize()), 3)
+    nc_ms = host_ms(nc.compute, 3)
+    bm_dev_ms = host_ms(lambda: (bm.compute_device(), torch.cuda.synchronize()), 3)
+    bm_ms = host_ms(bm.compute, 3)
+    flops = 2 * 8192**3
+    mm_ms = cuda_ms(lambda: torch.einsum("ij,jk->ik", mad, mbd), reps=10)
+    phase(11, "timing-paths", card=smi,
+          reduction_tree_compute_ms=tree_ms, reduction_tree_compute_device_ms=tree_dev_ms,
+          normalize_contract_compute_ms=nc_ms, normalize_contract_compute_device_ms=nc_dev_ms,
+          blocked_matmul_compute_ms=bm_ms, blocked_matmul_compute_device_ms=bm_dev_ms,
+          matmul_einsum_ms=mm_ms, matmul_TFLOPs=flops / mm_ms / 1e9,
+          blocked_matmul_compute_device_TFLOPs=flops / bm_dev_ms / 1e9)
+
+    print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "band_stencil",
-        "route": "cuda",
-        "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
-        "replaces": "dask_array_tpu/kernels/stencil.py:83",
-        "launches": launches,
-        "max_abs_err": timings[4096]["max_abs_err"],
-        "ms": timings[4096]["kernel_ms"],
-        "plain_ms": timings[4096]["plain_ms"],
-    }]}), flush=True)
+    st = st_timings[4096]
+    print(json.dumps({"kernels": [
+        {
+            "name": "band_stencil",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
+            "replaces": "dask_array_tpu/kernels/stencil.py:83",
+            "launches": stencil_launches,
+            "max_abs_err": st["max_abs_err"],
+            "ms": st["kernel_ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"],
+            "library_ms": st["conv2d_ms"],
+        },
+        {
+            "name": "multi_stat",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/mstat.cu",
+            "replaces": "bench/probe_reduction.py:72",
+            "launches": mstat_launches,
+            "max_abs_err": mstat_err,
+            "ms": ms_ms,
+            "plain_ms": ms_plain_ms,
+            "bound_ms": ms_bound_ms,
+            "bound_by": ms_bound_by,
+            "library_ms": trio_ms,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -3,18 +3,24 @@
 NumPy-compatible lazy chunked arrays over a content-addressed expression
 tree (``simplify -> lower -> fuse`` with slice/rechunk/transpose pushdown
 and blockwise fusion), executed by one walk of the optimized tree over
-torch tensors on ``config["device"]``.  2-D ``map_overlap`` stencils run
-through a hand-written CUDA band-stencil kernel on a GPU.
+torch tensors on ``config["device"]`` (the card, unless the caller asks
+for ``"cpu"``).  2-D ``map_overlap`` stencils run through a hand-written
+CUDA band-stencil kernel on a GPU; ``kernels/mstat.py`` holds the
+hand-written multi-statistic reduction kernel.
 
-This is the first slice of the port: creation, ``from_array``, elementwise
-ops and ufuncs, basic slicing, transpose, rechunk, ``map_blocks`` and
-``map_overlap``.  Reductions, contractions and the rest wait (ROADMAP.md).
+The ported slices: creation, ``from_array``, elementwise ops and ufuncs,
+basic slicing, transpose, rechunk, ``map_blocks``, ``map_overlap`` and
+``blockwise`` (with contractions); the typed, moment, arg and cumulative
+reductions, the generic ``reduction()`` tree, and ``einsum``/``tensordot``/
+``dot``/``matmul``.  Quantiles, ``vdot``/``outer``, reshaping and the rest
+wait (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._blockwise import elemwise
+from dask_array_tpu_torch import linalg, reductions
+from dask_array_tpu_torch._blockwise import blockwise, elemwise
 from dask_array_tpu_torch._chunks import PerformanceWarning, normalize_chunks
 from dask_array_tpu_torch._collection import Array, new_collection
 from dask_array_tpu_torch._rechunk import rechunk
@@ -22,29 +28,61 @@ from dask_array_tpu_torch.ops._from_array import asarray, from_array
 from dask_array_tpu_torch.ops._map_blocks import map_blocks
 from dask_array_tpu_torch.ops._overlap import map_overlap, overlap, trim_internal
 from dask_array_tpu_torch.ops.creation import arange, empty, full, ones, zeros
+from dask_array_tpu_torch.ops.linalg import dot, einsum, matmul, tensordot
 from dask_array_tpu_torch.ops.manipulation import transpose
+from dask_array_tpu_torch.ops.reductions import *  # noqa: F403 (sum, mean, ...)
+from dask_array_tpu_torch.ops.reductions import __all__ as _reduction_names
 from dask_array_tpu_torch.ops.ufuncs import *  # noqa: F403 (the ufunc table)
 from dask_array_tpu_torch.ops.ufuncs import __all__ as _ufunc_names
+
+
+
+def compute(*collections, **kwargs):
+    """Compute one or more arrays together (returns a tuple of numpy).
+
+    The arrays are optimized together and run in one executor walk, so
+    shared work builds once, every leaf moves to the device once, and
+    reductions of one operand that the multi-statistic kernel computes go
+    through it in one read.  Other arguments pass through unchanged;
+    keyword arguments are accepted for dask compatibility and ignored.
+    """
+    from dask_array_tpu_torch._materialize import compute_exprs, to_numpy
+
+    arrays = [(i, c) for i, c in enumerate(collections) if isinstance(c, Array)]
+    out = list(collections)
+    denses = compute_exprs([c.expr for _, c in arrays]) if arrays else []
+    for (i, c), dense in zip(arrays, denses):
+        arr = to_numpy(dense, c.expr)
+        out[i] = arr[()] if arr.ndim == 0 else arr
+    return tuple(out)
+
 
 __all__ = [
     "Array",
     "PerformanceWarning",
     "arange",
     "asarray",
+    "blockwise",
+    "compute",
     "config",
+    "dot",
+    "einsum",
     "elemwise",
     "empty",
     "from_array",
     "full",
     "map_blocks",
     "map_overlap",
+    "matmul",
     "new_collection",
     "normalize_chunks",
     "ones",
     "overlap",
     "rechunk",
+    "tensordot",
     "transpose",
     "trim_internal",
     "zeros",
+    *_reduction_names,
     *_ufunc_names,
 ]

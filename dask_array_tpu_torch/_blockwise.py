@@ -118,9 +118,11 @@ class Blockwise(ArrayExpr):
     operands = [func, out_ind, token, dtype, adjust_chunks, new_axes,
                 concatenate, kwargs, arg0, ind0, arg1, ind1, ...]
 
-    ``out_ind``/``indN`` are tuples of hashable index labels.  Every
-    argument label is an output label here: contractions (labels summed
-    away) come with the port of reductions and ``blockwise``.
+    ``out_ind``/``indN`` are tuples of hashable index labels.  A label
+    that appears in an argument but not in ``out_ind`` is contracted: with
+    ``concatenate=True`` the function receives that argument's blocks along
+    it concatenated into one tensor; otherwise it receives them as nested
+    lists (outermost list = first contracted position), as dask does.
     """
 
     _parameters = (
@@ -322,12 +324,30 @@ class Blockwise(ArrayExpr):
 
     # -- execution ---------------------------------------------------------------
 
-    @staticmethod
-    def _arg_block(arr_view, ind, coord_of):
+    def _arg_block(self, arr_view, ind, coord_of):
         """One argument's block for the output block at ``coord_of``
-        (broadcast axes, with one block, always give block 0)."""
+        (broadcast axes, with one block, always give block 0); contracted
+        labels gather every block along their axis."""
         nb = arr_view.numblocks
-        return arr_view.block(tuple(0 if nb[pos] == 1 else coord_of[label] for pos, label in enumerate(ind)))
+        coords = [
+            (0 if nb[pos] == 1 else coord_of[label],) if label in coord_of else tuple(range(nb[pos]))
+            for pos, label in enumerate(ind)
+        ]
+        contracted = [pos for pos, label in enumerate(ind) if label not in coord_of]
+        if not contracted:
+            return arr_view.block(tuple(c[0] for c in coords))
+
+        def rec(pos, prefix):
+            if pos == len(coords):
+                return arr_view.block(prefix)
+            parts = [rec(pos + 1, prefix + (c,)) for c in coords[pos]]
+            if pos not in contracted:
+                return parts[0]
+            if not self.concatenate:
+                return parts
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=pos)
+
+        return rec(0, ())
 
     def _build(self, ctx):
         views = {arr._name: ctx.build(arr) for arr, _ in self.array_args}
@@ -623,3 +643,52 @@ def elemwise(op, *args, dtype=None, **kwargs):
         expr = astype_expr(expr, np.dtype(dtype))
     return new_collection(expr)
 
+
+def blockwise(
+    func,
+    out_ind,
+    *args,
+    name=None,
+    token=None,
+    dtype=None,
+    adjust_chunks=None,
+    new_axes=None,
+    align_arrays=True,
+    concatenate=None,
+    meta=None,
+    **kwargs,
+):
+    """General blockwise operation (dask.array.blockwise-compatible).
+
+    ``args`` alternate arrays (or other values, with index ``None``) and
+    their index labels.  ``func`` is a torch function that sees one block
+    of each argument per output block; labels missing from ``out_ind`` are
+    contracted (see :class:`Blockwise`).  ``concatenate=None`` (the
+    default, as in dask) passes contracted blocks as nested lists.
+    """
+    from dask_array_tpu_torch._collection import Array, new_collection
+
+    out_ind = tuple(out_ind)
+    pairs = []
+    it = iter(args)
+    for a in it:
+        ind = next(it)
+        if isinstance(a, Array):
+            a = a.expr
+        pairs.extend([a, tuple(ind) if ind is not None else None])
+    if meta is not None and dtype is None:
+        dtype = getattr(meta, "dtype", None)
+    adjust = _normalize_kwargs(adjust_chunks) if isinstance(adjust_chunks, dict) else adjust_chunks
+    naxes = _normalize_kwargs(new_axes) if isinstance(new_axes, dict) else new_axes
+    expr = Blockwise(
+        func,
+        out_ind,
+        token or name,
+        np.dtype(dtype) if dtype is not None else None,
+        adjust,
+        naxes,
+        bool(concatenate),
+        _normalize_kwargs(kwargs),
+        *pairs,
+    )
+    return new_collection(expr)

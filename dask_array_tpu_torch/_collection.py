@@ -1,8 +1,10 @@
 """The user-facing ``Array`` collection.
 
-Port of ``dask_array_tpu/_collection.py``: a thin immutable wrapper around
-one ``ArrayExpr`` with numpy-style operators (torch functions underneath),
-basic ``__getitem__``, ``.T``, ``compute``, ``optimize`` and ``pprint``.
+Port of ``dask_array_tpu/_collection.py``: a thin wrapper around one
+``ArrayExpr`` with numpy-style operators (torch functions underneath),
+basic ``__getitem__``, ``.T``, the reductions and contractions as methods
+(``sum`` ... ``moment``, ``dot``, ``@``), ``compute``, ``optimize`` and
+``pprint``.  ``out=`` replaces the target's expression in place.
 """
 
 from __future__ import annotations
@@ -13,11 +15,40 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch._expr import ArrayExpr
+from dask_array_tpu_torch.ops.ufuncs import floor_divide_, remainder_
 
 
 def new_collection(expr: ArrayExpr) -> "Array":
     """Wrap an expression as a user-facing :class:`Array`."""
     return Array(expr)
+
+
+def handle_out(out, result: "Array") -> "Array":
+    """numpy-style ``out=`` for lazy results: ``out`` must be an ``Array``;
+    its expression is replaced in place with the (dtype-cast) result's."""
+    if isinstance(out, tuple):
+        if len(out) == 1:
+            out = out[0]
+        elif len(out) > 1:
+            raise NotImplementedError("The out parameter is not fully supported")
+        else:
+            out = None
+    if out is None:
+        return result
+    if not isinstance(out, Array):
+        raise NotImplementedError(
+            f"The out parameter is not fully supported. Received type "
+            f"{type(out).__name__}, expected dask Array"
+        )
+    if out.shape != result.shape:
+        raise ValueError(
+            "Mismatched shapes between result and out parameter. "
+            f"out={out.shape}, result={result.shape}"
+        )
+    if out.dtype != result.dtype:
+        result = result.astype(out.dtype)
+    out._replace_expr(result.expr)
+    return out
 
 
 def _binop(fn, reflexive=False):
@@ -50,6 +81,9 @@ class Array:
     def __init__(self, expr: ArrayExpr):
         if not isinstance(expr, ArrayExpr):
             raise TypeError(f"Array() takes an ArrayExpr, got {type(expr)}")
+        object.__setattr__(self, "_expr", expr)
+
+    def _replace_expr(self, expr: ArrayExpr):
         object.__setattr__(self, "_expr", expr)
 
     # -- expression / metadata ------------------------------------------------
@@ -175,6 +209,10 @@ class Array:
 
         if method != "__call__" or kwargs.get("out") is not None:
             return NotImplemented
+        if ufunc is np.matmul:
+            from dask_array_tpu_torch.ops.linalg import matmul
+
+            return matmul(*inputs)
         f = wrap_numpy_ufunc(ufunc)
         if f is None:
             return NotImplemented
@@ -197,10 +235,10 @@ class Array:
     __rmul__ = _binop(torch.mul, reflexive=True)
     __truediv__ = _binop(torch.true_divide)
     __rtruediv__ = _binop(torch.true_divide, reflexive=True)
-    __floordiv__ = _binop(torch.floor_divide)
-    __rfloordiv__ = _binop(torch.floor_divide, reflexive=True)
-    __mod__ = _binop(torch.remainder)
-    __rmod__ = _binop(torch.remainder, reflexive=True)
+    __floordiv__ = _binop(floor_divide_)
+    __rfloordiv__ = _binop(floor_divide_, reflexive=True)
+    __mod__ = _binop(remainder_)
+    __rmod__ = _binop(remainder_, reflexive=True)
     __pow__ = _binop(torch.pow)
     __rpow__ = _binop(torch.pow, reflexive=True)
     __lt__ = _binop(torch.lt)
@@ -222,6 +260,16 @@ class Array:
     __neg__ = _unop(torch.neg)
     __abs__ = _unop(torch.abs)
     __invert__ = _unop(torch.bitwise_not)
+
+    def __matmul__(self, other):
+        from dask_array_tpu_torch.ops.linalg import matmul
+
+        return matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from dask_array_tpu_torch.ops.linalg import matmul
+
+        return matmul(other, self)
 
     def __pos__(self):
         return self
@@ -266,3 +314,84 @@ class Array:
 
         return map_overlap(func, self, depth=depth, boundary=boundary, trim=trim, **kwargs)
 
+    def dot(self, other):
+        from dask_array_tpu_torch.ops.linalg import dot
+
+        return dot(self, other)
+
+    def trace(self, offset=0, axis1=0, axis2=1, dtype=None):
+        from dask_array_tpu_torch.ops.reductions import trace
+
+        return trace(self, offset=offset, axis1=axis1, axis2=axis2, dtype=dtype)
+
+    # -- reductions -------------------------------------------------------------------
+
+    def sum(self, axis=None, dtype=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import sum as _sum
+
+        return _sum(self, axis=axis, dtype=dtype, keepdims=keepdims, split_every=split_every, out=out)
+
+    def prod(self, axis=None, dtype=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import prod as _prod
+
+        return _prod(self, axis=axis, dtype=dtype, keepdims=keepdims, split_every=split_every, out=out)
+
+    def mean(self, axis=None, dtype=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import mean as _mean
+
+        return _mean(self, axis=axis, dtype=dtype, keepdims=keepdims, split_every=split_every, out=out)
+
+    def std(self, axis=None, dtype=None, keepdims=False, ddof=0, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import std as _std
+
+        return _std(self, axis=axis, dtype=dtype, keepdims=keepdims, ddof=ddof, split_every=split_every, out=out)
+
+    def var(self, axis=None, dtype=None, keepdims=False, ddof=0, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import var as _var
+
+        return _var(self, axis=axis, dtype=dtype, keepdims=keepdims, ddof=ddof, split_every=split_every, out=out)
+
+    def min(self, axis=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import min as _min
+
+        return _min(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def max(self, axis=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import max as _max
+
+        return _max(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def any(self, axis=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import any as _any
+
+        return _any(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def all(self, axis=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import all as _all
+
+        return _all(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def argmin(self, axis=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import argmin as _argmin
+
+        return _argmin(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def argmax(self, axis=None, keepdims=False, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import argmax as _argmax
+
+        return _argmax(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def cumsum(self, axis=None, dtype=None, method="sequential", out=None):
+        from dask_array_tpu_torch.ops.reductions import cumsum as _cumsum
+
+        return _cumsum(self, axis=axis, dtype=dtype, method=method, out=out)
+
+    def cumprod(self, axis=None, dtype=None, method="sequential", out=None):
+        from dask_array_tpu_torch.ops.reductions import cumprod as _cumprod
+
+        return _cumprod(self, axis=axis, dtype=dtype, method=method, out=out)
+
+    def moment(self, order, axis=None, dtype=None, keepdims=False, ddof=0, split_every=None, out=None):
+        from dask_array_tpu_torch.ops.reductions import moment as _moment
+
+        return _moment(self, order, axis=axis, dtype=dtype, keepdims=keepdims, ddof=ddof, split_every=split_every, out=out)

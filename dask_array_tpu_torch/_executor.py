@@ -131,7 +131,7 @@ def current_device() -> torch.device:
 
     Raises when it names a CUDA device and no card is present: the port
     never moves work to the CPU because it found no GPU."""
-    device = torch.device(config.get("device", "cpu"))
+    device = torch.device(config.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"config 'device' is {str(device)!r} but torch finds no CUDA device"
@@ -149,6 +149,17 @@ def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
 def execute(root: ArrayExpr) -> torch.Tensor:
     """Execute a lowered expression tree; returns its dense tensor on
     ``config["device"]``."""
+    return execute_many([root])[0]
+
+
+def execute_many(roots) -> list:
+    """Execute several lowered trees in one walk: shared nodes build once
+    and every leaf moves to the device once."""
     device = current_device()
-    leaves = {key: to_device(buf, device) for key, buf in collect_leaves(root)}
-    return BuildContext(leaves, device).build(root).dense()
+    leaves = {}
+    for root in roots:
+        for key, buf in collect_leaves(root):
+            if key not in leaves:
+                leaves[key] = to_device(buf, device)
+    ctx = BuildContext(leaves, device)
+    return [ctx.build(root).dense() for root in roots]

@@ -615,6 +615,9 @@ def _numpy_equivalent(func):
     gives float32, not float64); metadata follows numpy, and execution
     casts explicitly (see ``Elemwise._build``).
     """
+    declared = getattr(func, "numpy_ufunc", None)
+    if isinstance(declared, np.ufunc):
+        return declared  # a port function standing in for a numpy ufunc
     mod = getattr(func, "__module__", "") or ""
     name = getattr(func, "__name__", None)
     if name and mod.startswith("torch"):

@@ -2,9 +2,10 @@
 
 The PyTorch port keeps the reference package's configuration mechanism
 (``dask_array_tpu/config.py``) with only the keys the ported slice reads,
-plus ``"device"``: the ``torch.device`` every ``compute()`` runs on.  The
-device is explicit.  Its default is ``"cpu"``, as in torch itself; asking
-for ``"cuda"`` on a machine without a card raises at execution time.
+plus ``"device"``: the ``torch.device`` every ``compute()`` runs on.  Its
+default is ``"cuda"``: the port runs on the card unless the caller asks for
+the CPU with ``config.set({"device": "cpu"})``.  Without a card, a
+``compute()`` under ``"cuda"`` raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ _global: dict[str, Any] = {
     "array.optimize-graph": True,
     # -- execution --
     # the torch.device every compute() runs on ("cpu", "cuda", "cuda:1", ...)
-    "device": "cpu",
+    "device": "cuda",
+    # float32 contractions (ops/linalg.py): "highest" keeps full-f32
+    # products whatever torch's global setting; "high"/"default" allow TF32
+    "matmul-precision": "highest",
     # 2-D map_overlap through the hand-written band-stencil kernel
     # (kernels/stencil.py): "auto" routes every eligible map_overlap to a
     # BandStencil node; "off" keeps the Overlap -> map_blocks -> trim form
@@ -103,14 +107,17 @@ def from_reference(values: dict[str, Any]) -> dict[str, Any]:
 
     Keys with a meaning here (the optimizer and chunk-policy keys) carry
     over unchanged; ``tpu.stencil-kernel`` becomes ``"stencil-kernel"``
-    ("off" stays off, every engaging setting becomes "auto").  The
-    TPU-only keys (PRNG, QR/SVD methods, matmul and Gram precision, jit,
-    donation, mesh and lane selection) have no counterpart and are dropped.
+    ("off" stays off, every engaging setting becomes "auto") and
+    ``tpu.matmul-precision`` becomes ``"matmul-precision"``.  The TPU-only
+    keys (PRNG, QR/SVD methods, Gram precision, jit, donation, mesh and
+    lane selection) have no counterpart and are dropped.
     """
     out: dict[str, Any] = {}
     for key, value in values.items():
         if key in _SHARED_KEYS:
             out[key] = value
+        elif key == "tpu.matmul-precision":
+            out["matmul-precision"] = value
         elif key == "tpu.stencil-kernel":
             out["stencil-kernel"] = "off" if value in ("off", False, None) else "auto"
     return out

@@ -12,34 +12,27 @@ keeps the ``Overlap -> map_blocks -> trim`` route.
 ``band_stencil_call`` is what ``BandStencil._build`` calls: for a tensor
 on the CPU it runs ``band_stencil_plain`` (pad, func, trim in torch); for a
 CUDA tensor it launches the kernel (``csrc/band_stencil.cu``) or raises.
-The kernel is compiled with ``nvcc`` at the first CUDA call into
-``build/kernels/`` beside the package, keyed by the source's hash.
+The kernel is compiled with ``nvcc`` at the first CUDA call
+(``kernels/_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import operator
-import os
-import shutil
-import subprocess
-import tempfile
 from numbers import Integral, Number
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from dask_array_tpu_torch.kernels._build import load_library
 
 MAX_DEPTH = 8
 MAX_TAPS = (2 * MAX_DEPTH + 1) ** 2
 _BOUNDARY_CODES = {"reflect": 0, "nearest": 1, "periodic": 2}
 _CONSTANT_CODE = 3
 _DTYPE_CODES = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
-
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "band_stencil.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # kernel launches since the last reset; only band_stencil_cuda adds to it
 LAUNCHES = 0
@@ -337,46 +330,13 @@ def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# build and load
+# load
 # ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the band-stencil kernel builds at its first CUDA call")
-
-
-def build_library() -> tuple[Path, str]:
-    """Compile ``csrc/band_stencil.cu`` for sm_90a if the build for this
-    source hash is missing; returns (library path, compiler output)."""
-    src = SOURCE.read_bytes()
-    lib_path = BUILD_DIR / f"libband_stencil-{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
-    return lib_path, proc.stderr
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
+    lib = load_library("band_stencil")
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     lib.band_stencil_launch.argtypes = [i, p, p, ll, ll, i, i, i, i, d, d, p, p, i, p]
     lib.band_stencil_launch.restype = i

@@ -1,9 +1,12 @@
 """Workload pipelines of the ported slice.
 
 Port of ``dask_array_tpu/models/pipelines.py``: the README example (slice
-pushdown + fusion) and the 2-D ``map_overlap`` Laplace stencil (BASELINE
-config 4).  Inputs are numpy arrays made by the caller from a seed, since
-the reference's ``da.random`` streams cannot be reproduced in torch.
+pushdown + fusion), the flagship ``normalize_contract`` step, the
+``split_every`` tree reductions (BASELINE config 2), the blocked matmul
+with misaligned chunks (BASELINE config 3) and the 2-D ``map_overlap``
+Laplace stencil (BASELINE config 4).  Inputs are numpy arrays made by the
+caller from a seed, since the reference's ``da.random`` streams cannot be
+reproduced in torch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,39 @@ def readme_example(n=1000, chunk=100):
 
     x = da.ones((n, n), chunks=(chunk, chunk))
     return (x + x.T)[:chunk, :chunk]
+
+
+def normalize_contract(a, b):
+    """Feature-normalize then contract: the flagship forward step."""
+    centered = a - a.mean(axis=0)
+    scaled = centered / (a.std(axis=0) + 1e-6)
+    y = scaled @ b.T
+    return (y * y).sum(axis=1)
+
+
+def reduction_tree(x_np, chunk=1000, split_every=4):
+    """sum/mean/std cascade with explicit split_every (BASELINE config 2):
+    ``x.sum(axis=0)``, ``x.mean(axis=1)`` and ``x.std()`` of ``x_np``.
+
+    Computed together (``dask_array_tpu_torch.compute(*reduction_tree(x))``)
+    the three go through the multi-statistic kernel in one read."""
+    import dask_array_tpu_torch as da
+
+    x = da.from_array(np.asarray(x_np), chunks=chunk)
+    s = x.sum(axis=0, split_every=split_every)
+    m = x.mean(axis=1, split_every=split_every)
+    sd = x.std(split_every=split_every)
+    return s, m, sd
+
+
+def blocked_matmul(a_np, b_np, chunk=1024):
+    """``a @ b`` with misaligned operand chunks (BASELINE config 3): ``b``
+    is chunked at ``chunk // 2``, which exercises chunk unification."""
+    import dask_array_tpu_torch as da
+
+    a = da.from_array(np.asarray(a_np), chunks=chunk)
+    b = da.from_array(np.asarray(b_np), chunks=chunk // 2)
+    return a @ b
 
 
 def laplace_roll(b):

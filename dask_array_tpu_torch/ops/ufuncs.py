@@ -35,6 +35,35 @@ class ufunc:
         return getattr(np, self.__name__)(*args, **kwargs)
 
 
+def _zero_safe(torch_fn, np_ufunc):
+    """``torch_fn`` with numpy's integer division by zero: 0 where the
+    divisor is 0.  torch raises on the CPU for it and is undefined on CUDA,
+    so the quotient is taken with zero divisors replaced by 1, then 0 is
+    selected there.  Float operands pass straight through (inf/nan as in
+    numpy)."""
+
+    def fn(a, b):
+        dtype = torch.result_type(a, b)
+        if not isinstance(a, torch.Tensor):  # torch.fmod takes no scalar first
+            a = torch.tensor(a, dtype=dtype, device=b.device)
+        if dtype.is_floating_point or dtype.is_complex:
+            return torch_fn(a, b)
+        if isinstance(b, torch.Tensor):
+            zero = b == 0
+            return torch.where(zero, 0, torch_fn(a, torch.where(zero, 1, b)))
+        if b == 0:
+            return torch.zeros_like(torch_fn(a, 1))
+        return torch_fn(a, b)
+
+    fn.__name__ = fn.__qualname__ = np_ufunc.__name__
+    fn.numpy_ufunc = np_ufunc
+    return fn
+
+
+floor_divide_ = _zero_safe(torch.floor_divide, np.floor_divide)
+remainder_ = _zero_safe(torch.remainder, np.remainder)
+fmod_ = _zero_safe(torch.fmod, np.fmod)
+
 # numpy name -> torch function (the Elemwise kernel)
 _TABLE = {
     # unary math
@@ -83,10 +112,10 @@ _TABLE = {
     "multiply": torch.mul,
     "divide": torch.true_divide,
     "true_divide": torch.true_divide,
-    "floor_divide": torch.floor_divide,
-    "mod": torch.remainder,
-    "remainder": torch.remainder,
-    "fmod": torch.fmod,
+    "floor_divide": floor_divide_,
+    "mod": remainder_,
+    "remainder": remainder_,
+    "fmod": fmod_,
     "power": torch.pow,
     "arctan2": torch.atan2,
     "hypot": torch.hypot,

@@ -23,6 +23,13 @@ from dask_array_tpu_torch.ops._overlap import BandStencil
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with tconfig.set({"device": "cpu"}):
+        yield
+
 MODES = ["reflect", "nearest", "periodic", 0.0, 2.5]
 _NP_MODE = {"reflect": "symmetric", "nearest": "edge", "periodic": "wrap"}
 

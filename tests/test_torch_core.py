@@ -21,6 +21,13 @@ from dask_array_tpu_torch.utils._tokenize import tokenize
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with tconfig.set({"device": "cpu"}):
+        yield
+
+
 @pytest.fixture
 def x64():
     return np.random.default_rng(7).standard_normal((8, 8))
@@ -337,3 +344,49 @@ def _walk(node):
     yield node
     for child in node[2]:
         yield from _walk(child)
+
+
+# ---------------------------------------------------------------------------
+# integer division by zero: numpy's values (0 where the divisor is 0)
+# ---------------------------------------------------------------------------
+
+INT_DIV = [
+    ("floor_divide", lambda a, b: a // b),
+    ("remainder", lambda a, b: a % b),
+    ("mod", lambda a, b: a % b),
+    ("fmod", np.fmod),
+]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("name, op", INT_DIV, ids=[n for n, _ in INT_DIV])
+def test_integer_division_by_zero_gives_numpy_values(dtype, name, op):
+    a = np.array([1, 2, 3, -7, 0, 9], dtype=dtype)
+    b = np.array([0, 1, 0, 2, 0, -4], dtype=dtype)
+    x, y = tda.from_array(a, chunks=4), tda.from_array(b, chunks=4)
+    with np.errstate(all="ignore"):
+        want_arr = getattr(np, name)(a, b)
+        want_scalar = getattr(np, name)(a, np.array(0, dtype))
+        want_left = getattr(np, name)(np.array(7, dtype), b)
+    # numpy: 0 wherever the divisor is 0, for array and scalar divisors
+    assert want_arr.tolist() == [0, op(2, 1), 0, int(want_arr[3]), 0, int(want_arr[5])]
+    assert (want_scalar == 0).all()
+    got = getattr(tda, name)(x, y).compute()
+    assert got.dtype == want_arr.dtype
+    np.testing.assert_array_equal(got, want_arr)
+    np.testing.assert_array_equal(getattr(tda, name)(x, 0).compute(), want_scalar)
+    np.testing.assert_array_equal(getattr(tda, name)(7, y).compute(), want_left)
+    if name != "fmod":
+        np.testing.assert_array_equal(op(x, y).compute(), want_arr)
+        np.testing.assert_array_equal(op(x, 0).compute(), want_scalar)
+        np.testing.assert_array_equal(op(7, y).compute(), want_left)
+
+
+def test_float_division_by_zero_is_untouched():
+    a = np.array([1.0, -2.0, 0.0, 3.5])
+    b = np.array([0.0, 0.0, 0.0, 2.0])
+    x, y = tda.from_array(a, chunks=2), tda.from_array(b, chunks=2)
+    with np.errstate(all="ignore"):
+        np.testing.assert_array_equal((x // y).compute(), a // b)
+        np.testing.assert_array_equal((x % y).compute(), a % b)
+        np.testing.assert_array_equal(tda.fmod(x, y).compute(), np.fmod(a, b))

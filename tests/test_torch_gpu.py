@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the band-stencil kernel against its plain
-version, its input checks, and the main path through ``compute()``.
+"""The port on a CUDA card: the band-stencil and multi-statistic kernels
+against their plain versions, their input checks, and the main paths
+through ``compute()`` (stencil2d, reduction_tree, normalize_contract).
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -8,7 +9,9 @@ without JAX runs it with the repo's conftest left out:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerance: float32 rtol 1e-5 with atol scaled by sum|w| * max|x|, float64
-1e-12 (kernel and plain version sum the taps in different orders).
+1e-12 (kernel and plain version sum the taps in different orders).  The
+multi-statistic kernel: colsum/rowmean rtol 1e-5 with atol 4 * sqrt(terms)
+* max|x| * 2^-23, std rtol 1e-4.
 """
 
 import numpy as np
@@ -91,3 +94,110 @@ def test_stencil2d_through_compute_launches_the_kernel(cuda):
         np.testing.assert_allclose(out.cpu().numpy(), want, rtol=1e-5, atol=1e-4)
         slices = stencil2d(x, chunk=128, form="slices").compute()
         np.testing.assert_allclose(slices, want, rtol=1e-5, atol=1e-4)
+
+
+def assert_stats(got, want, x):
+    M, N = x.shape
+    amax = float(x.abs().max())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=4 * M**0.5 * amax * 2.0**-23)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=4 * N**0.5 * amax * 2.0**-23 / N)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000, 1003), (1, 7), (4097, 33), (64, 5000)])
+def test_mstat_kernel_matches_plain(cuda, shape):
+    from dask_array_tpu_torch.kernels import mstat
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=gen, device=cuda) + 2.0
+    before = mstat.LAUNCHES
+    got = mstat.multi_stat_cuda(x)
+    assert mstat.LAUNCHES == before + 1
+    want = mstat.multi_stat_plain(x)
+    torch.cuda.synchronize()
+    assert_stats(got, want, x)
+    # the same bits twice: no atomics, a fixed order of additions
+    again = mstat.multi_stat_cuda(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # with a shift, s and ss are the power sums of x - shift (against float64)
+    shift = x[0, 0]
+    packed = mstat.multi_stat_packed_cuda(x, shift)
+    d = (x - shift).double()
+    torch.testing.assert_close(packed[-2].double(), d.sum(), rtol=1e-4, atol=2.0**-20 * float(d.abs().sum()))
+    torch.testing.assert_close(packed[-1].double(), (d * d).sum(), rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_mstat_kernel_refuses_what_it_does_not_take(cuda):
+    from dask_array_tpu_torch.kernels import mstat
+
+    x = torch.zeros((16, 16), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mstat.multi_stat_cuda(x.T[:, :8])
+    with pytest.raises(TypeError):
+        mstat.multi_stat_cuda(x.double())
+    with pytest.raises(ValueError, match="non-empty"):
+        mstat.multi_stat_cuda(x[:0])
+    with pytest.raises(ValueError, match="2-D"):
+        mstat.multi_stat_cuda(x[0])
+    with pytest.raises(ValueError, match="shift"):
+        mstat.multi_stat_packed_cuda(x, x[0])
+
+
+@pytest.mark.gpu
+def test_reduction_tree_on_the_card_goes_through_the_kernel(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import mstat
+    from dask_array_tpu_torch.models.pipelines import reduction_tree
+
+    x = (np.random.default_rng(2).standard_normal((900, 700)) + 5).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        before = mstat.LAUNCHES
+        s, m, sd = da.compute(*reduction_tree(x, chunk=100, split_every=4))
+        assert mstat.LAUNCHES == before + 1
+    x64 = x.astype(np.float64)
+    np.testing.assert_allclose(s, x64.sum(0), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(m, x64.mean(1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sd, x64.std(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_normalize_contract_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.models.pipelines import normalize_contract
+
+    rng = np.random.default_rng(3)
+    a = (rng.standard_normal((512, 256)) * 2 + 1).astype(np.float32)
+    b = rng.standard_normal((96, 256)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        out = normalize_contract(da.from_array(a, chunks=128), da.from_array(b, chunks=64))
+        dev = out.compute_device()
+        assert dev.device.type == "cuda"
+        got = dev.cpu().numpy()
+    a64 = a.astype(np.float64)
+    y = ((a64 - a64.mean(0)) / (a64.std(0) + 1e-6)) @ b.astype(np.float64).T
+    np.testing.assert_allclose(got, (y * y).sum(1), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_integer_and_float_contractions_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    rng = np.random.default_rng(4)
+    i = rng.integers(-2**20, 2**20, size=(96, 80)).astype(np.int64)
+    j = rng.integers(-2**20, 2**20, size=(80, 64)).astype(np.int64)
+    f = rng.standard_normal((96, 80)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        # cuBLAS has no integer GEMM: the exact route, bit for bit numpy's
+        got = (da.from_array(i, chunks=32) @ da.from_array(j, chunks=16)).compute()
+        np.testing.assert_array_equal(got, i @ j)
+        b = (da.from_array(i, chunks=32) > 0) @ (da.from_array(j, chunks=16) > 0)
+        np.testing.assert_array_equal(b.compute(), (i > 0) @ (j > 0))
+        # float32 under the default "highest": full-f32 products, no TF32
+        ff = (da.from_array(f, chunks=32) @ da.from_array(f.T.copy(), chunks=32)).compute()
+    want = f.astype(np.float64) @ f.T.astype(np.float64)
+    np.testing.assert_allclose(ff, want, rtol=1e-5, atol=1e-4)

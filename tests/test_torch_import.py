@@ -10,7 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from dask_array_tpu_torch import config as tconfig
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with tconfig.set({"device": "cpu"}):
+        yield
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "dask_array_tpu_torch"
 
@@ -38,7 +47,38 @@ def test_sources_import_no_jax():
     assert offenders == []
 
 
+def _fresh_python(code):
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=120
+    )
+
+
 def test_device_defaults_to_cpu():
+    """The package's default device is the card ("cuda"); only these tests'
+    fixture asks for the CPU."""
+    out = _fresh_python("import dask_array_tpu_torch as da; print(da.config.get('device'))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "cuda"
+
+
+def test_default_device_without_card_raises():
+    # under the default device, a machine with no card refuses to compute
+    # instead of running on the CPU
+    code = (
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "import dask_array_tpu_torch as da\n"
+        "try:\n"
+        "    da.ones((4, 4), chunks=2).compute()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', 'no CUDA device' in str(e))\n"
+    )
+    out = _fresh_python(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "raised True"
+
+
+def test_cpu_device_is_asked_for():
     import dask_array_tpu_torch as da
 
     assert da.config.get("device") == "cpu"
@@ -54,3 +94,18 @@ def test_cuda_device_without_card_raises(monkeypatch):
     with da.config.set({"device": "cuda"}):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             x.compute()
+
+
+def test_public_names_are_the_references():
+    import json
+
+    import dask_array_tpu_torch as da
+
+    reference = set(json.loads((PKG.parent / "tests" / "reference_namespace.json").read_text()))
+    port_only = {"config", "new_collection", "trim_internal", "wrap_numpy_ufunc"}
+    assert set(da.__all__) - port_only <= reference
+    for name in ("sum", "mean", "std", "var", "argmax", "cumsum", "reduction", "arg_reduction",
+                 "cumreduction", "moment", "trace", "einsum", "tensordot", "dot", "matmul",
+                 "blockwise", "compute"):
+        assert name in da.__all__ and name in reference
+    assert da.linalg.matmul is da.matmul and da.reductions.sum is da.sum

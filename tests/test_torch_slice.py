@@ -17,10 +17,18 @@ import dask_array_tpu as jda
 from dask_array_tpu import config as jconfig
 from dask_array_tpu.models.pipelines import readme_example as jax_readme
 from dask_array_tpu.ops._overlap import BandStencil as JaxBandStencil
+from dask_array_tpu_torch import config as tconfig
 from dask_array_tpu_torch.models.pipelines import readme_example, stencil2d
 from dask_array_tpu_torch.ops._overlap import BandStencil
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    """The port runs on the card by default; these tests ask for the CPU."""
+    with tconfig.set({"device": "cpu"}):
+        yield
 
 
 def numpy_laplace(x):
