@@ -8,8 +8,9 @@ version.  Run from the root of a checkout, with no arguments:
 
 Phases (each prints one line of its own numbers; any failure raises):
   1. setup: config "device" = "cuda"; build the band-stencil and the
-     multi-statistic kernels from dask_array_tpu_torch/csrc (one nvcc each,
-     started together); print the card's name and power limit;
+     multi-statistic and transpose kernels from dask_array_tpu_torch/csrc
+     (one nvcc each, started together); print the card's name and power
+     limit;
   2. the band-stencil kernel against its plain version on the card: every
      boundary and every mixed pair, depths (1,1) (2,1) (1,0) (8,8),
      float16/32/64, a ragged shape;
@@ -39,10 +40,27 @@ Phases (each prints one line of its own numbers; any failure raises):
  11. timing of phases 7-10: the multi-statistic kernel, its plain version,
      torch's trio x.sum(0), x.sum(1) / N, x.std(correction=0) and a device
      copy of the same bytes at 10000^2; compute() and compute_device() of
-     phases 8-10; the TFLOP/s of phase 10's contraction.
+     phases 8-10; the TFLOP/s of phase 10's contraction;
+ 12. the transpose kernel against its plain version on the card, byte for
+     byte through an integer view (NaN payloads and -0.0 count): (8192,
+     8192), (16384, 16384), (32768, 4096), (1000, 1003), (1, 7), (4097, 33),
+     a batched (3, 513, 257), a row-sliced and a column-sliced view, each in
+     bool, int8, float16, float32, float64, int64, complex64, complex128;
+ 13. rechunk_relayout (BASELINE metric 2): 8192x8192 float32, chunks 1024,
+     through compute(), byte for byte against x.T; then the persist form,
+     whose compute_device() must be a contiguous tensor on the card;
+ 14. the slice's other ops at 4096x4096 float32 against numpy: reshape/ravel,
+     concatenate/stack/block, roll and the flips, squeeze/expand_dims/
+     broadcast_to, vdot/outer and cumsum(axis=None);
+ 15. timing of phases 12-13: the transpose kernel, its plain version,
+     x.mT.contiguous() (the nearest library call) and a device copy at
+     8192^2 and 16384^2 float32, with GB/s and the bound; the relayout's
+     compute() and compute_device() in both forms.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
+The README example and normalize_contract (b.T) launch the transpose too;
+their launch counts say so.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when torch finds no CUDA device.
@@ -161,6 +179,28 @@ def stats_errors(got, want, x):
     return errs
 
 
+def random_bytes(shape, dtype, seed):
+    """Random bits of ``dtype`` on the card (NaN payloads, -0.0 and
+    infinities included), made through an integer view of the bytes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    size = torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(0, 256, (*shape[:-1], shape[-1] * size), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    return raw % 2 == 1 if dtype == torch.bool else raw.view(dtype)
+
+
+def check_transpose(tk, x, what):
+    """The transpose kernel against its plain version, byte for byte."""
+    import torch
+
+    got = tk.transpose_last2_cuda(x)
+    want = tk.transpose_last2_plain(x)
+    check(got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous(), f"{what}: shape/dtype")
+    check(bool(torch.equal(got.view(torch.uint8), want.view(torch.uint8))), f"{what}: bytes differ")
+
+
 STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (rowmean /N); "
                    "std rtol 1e-4")
 
@@ -178,11 +218,13 @@ def main() -> int:
     from dask_array_tpu_torch import config
     from dask_array_tpu_torch._materialize import compute_exprs
     from dask_array_tpu_torch.kernels import _build, mstat, stencil
+    from dask_array_tpu_torch.kernels import transpose as tk
     from dask_array_tpu_torch.models.pipelines import (
         blocked_matmul,
         laplace_roll,
         normalize_contract,
         readme_example,
+        rechunk_relayout,
         reduction_tree,
         stencil2d,
     )
@@ -193,7 +235,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    built = _build.build_all(["band_stencil", "mstat"])
+    built = _build.build_all(["band_stencil", "mstat", "transpose"])
     build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -251,6 +293,7 @@ def main() -> int:
     # -- phases 3-5: the stencil main path, counting kernel launches ----------
     stencil.LAUNCHES = 0
 
+    tk.LAUNCHES = 0
     y = readme_example()
     plan = y.optimize().expr.tree_repr()
     check(plan.startswith("FusedBlockwise[3]"), f"README plan not fused:\n{plan}")
@@ -259,7 +302,11 @@ def main() -> int:
     check(dev.is_cuda, f"README result on {dev.device}")
     yv = y.compute()
     check(yv.shape == (100, 100) and bool(np.all(yv == 2.0)), "README values are not 2.0")
-    phase(3, "readme", shape=list(yv.shape), value=float(yv[0, 0]), plan_nodes=plan.count("\n"))
+    # x.T of the sliced leaf goes through the transpose kernel, once a run
+    readme_launches = {"transpose": tk.LAUNCHES}
+    check(tk.LAUNCHES == 2, f"README example launched the transpose {tk.LAUNCHES} times in two runs")
+    phase(3, "readme", shape=list(yv.shape), value=float(yv[0, 0]), plan_nodes=plan.count("\n"),
+          launches=readme_launches)
 
     rng = np.random.default_rng(0)
     x4 = rng.standard_normal((4096, 4096), dtype=np.float32)
@@ -392,9 +439,10 @@ def main() -> int:
     a_np = (rng9.standard_normal((32768, 4096), dtype=np.float32) * 2 + 1)
     b_np = rng9.standard_normal((2048, 4096), dtype=np.float32)
     nc = normalize_contract(da.from_array(a_np, chunks=(4096, 4096)), da.from_array(b_np, chunks=1024))
-    stencil.LAUNCHES = mstat.LAUNCHES = 0
+    stencil.LAUNCHES = mstat.LAUNCHES = tk.LAUNCHES = 0
     nc_out = nc.compute()
-    nc_launches = {"band_stencil": stencil.LAUNCHES, "multi_stat": mstat.LAUNCHES}
+    nc_launches = {"band_stencil": stencil.LAUNCHES, "multi_stat": mstat.LAUNCHES, "transpose": tk.LAUNCHES}
+    check(tk.LAUNCHES >= 1, "normalize_contract's b.T did not go through the transpose kernel")
     check(nc_out.shape == (32768,) and nc_out.dtype == np.float32, "normalize_contract: shape/dtype")
     check(bool(np.isfinite(nc_out).all()), "normalize_contract: non-finite")
     mu = a_np.mean(axis=0, dtype=np.float64)
@@ -453,6 +501,127 @@ def main() -> int:
           matmul_einsum_ms=mm_ms, matmul_TFLOPs=flops / mm_ms / 1e9,
           blocked_matmul_compute_device_TFLOPs=flops / bm_dev_ms / 1e9)
 
+    del xd, mad, mbd, ma, mb, a_np, b_np, x_np
+    torch.cuda.empty_cache()
+
+    # -- phase 12: the transpose kernel against its plain version -------------
+    dtypes = [torch.bool, torch.int8, torch.float16, torch.float32, torch.float64, torch.int64,
+              torch.complex64, torch.complex128]
+    shapes = [(8192, 8192), (16384, 16384), (32768, 4096), (1000, 1003), (1, 7), (4097, 33), (3, 513, 257)]
+    checked = 0
+    for seed, dt in enumerate(dtypes):
+        for shape in shapes:
+            x = random_bytes(shape, dt, seed)
+            check_transpose(tk, x, f"{tuple(shape)} {dt}")
+            checked += 1
+            del x
+        base = random_bytes((3000, 2048), dt, seed + 100)
+        for name, view in (("row-sliced", base[500:2500]), ("column-sliced", base[:, 300:1700])):
+            check_transpose(tk, view, f"{name} view {dt}")
+            checked += 1
+        del base
+        torch.cuda.empty_cache()
+    phase(12, "transpose-kernel-vs-plain", cases=checked, shapes=[list(sh) for sh in shapes],
+          views=["x[500:2500] of (3000, 2048)", "x[:, 300:1700] of (3000, 2048)"],
+          dtypes=[str(d).replace("torch.", "") for d in dtypes], tolerance="equal bytes")
+
+    # -- phase 13: rechunk_relayout, the transpose main path -------------------
+    x_np = np.random.default_rng(13).standard_normal((8192, 8192), dtype=np.float32)
+    want_bits = x_np.view(np.uint32).T
+    rel = rechunk_relayout(x_np, chunk=1024)
+    check(rel.chunks == ((1024,) * 8, (8192,)), f"rechunk_relayout chunks {rel.chunks}")
+    tk.LAUNCHES = 0
+    rel_out = rel.compute()
+    transpose_launches = tk.LAUNCHES
+    check(transpose_launches >= 1, "rechunk_relayout launched the transpose kernel no time")
+    check(rel_out.shape == (8192, 8192) and rel_out.dtype == np.float32, "relayout: shape/dtype")
+    check(bool(np.array_equal(rel_out.view(np.uint32), want_bits)), "relayout: bytes differ from x.T")
+    relp = rechunk_relayout(x_np, chunk=1024, persist=True)
+    tk.LAUNCHES = 0
+    relp_dev = relp.compute_device()
+    persist_launches = tk.LAUNCHES
+    check(persist_launches >= 1, "the persist form launched the transpose kernel no time")
+    check(relp_dev.is_cuda and relp_dev.is_contiguous(), "persist form: not a contiguous tensor on the card")
+    check(bool(np.array_equal(relp_dev.cpu().numpy().view(np.uint32), want_bits)),
+          "persist form: bytes differ from x.T")
+    del rel_out, relp_dev, want_bits
+    phase(13, "rechunk_relayout", shape=[8192, 8192], chunks=1024, launches=transpose_launches,
+          persist_launches=persist_launches, tolerance="equal bytes")
+
+    # -- phase 14: the slice's other ops against numpy --------------------------
+    x4_np = np.random.default_rng(14).standard_normal((4096, 4096), dtype=np.float32)
+    d4 = da.from_array(x4_np, chunks=1024)
+    q = 2048
+    exact = {
+        "reshape": (d4.reshape(2048, 8192), x4_np.reshape(2048, 8192)),
+        "reshape_of_T": (d4.T.reshape(-1, 2048), x4_np.T.reshape(-1, 2048)),
+        "ravel": (d4.ravel(), x4_np.ravel()),
+        "concatenate": (da.concatenate([d4, d4[:1000]], axis=0), np.concatenate([x4_np, x4_np[:1000]])),
+        "stack": (da.stack([d4, -d4], axis=1), np.stack([x4_np, -x4_np], axis=1)),
+        "block": (da.block([[d4[q:, q:], d4[q:, :q]], [d4[:q, q:], d4[:q, :q]]]),
+                  np.block([[x4_np[q:, q:], x4_np[q:, :q]], [x4_np[:q, q:], x4_np[:q, :q]]])),
+        "roll": (da.roll(d4, (100, -37), axis=(0, 1)), np.roll(x4_np, (100, -37), axis=(0, 1))),
+        "flip": (da.flip(d4), np.flip(x4_np)),
+        "flipud": (da.flipud(d4), np.flipud(x4_np)),
+        "fliplr": (da.fliplr(d4), np.fliplr(x4_np)),
+        "rot90": (da.rot90(d4), np.rot90(x4_np)),
+        "squeeze": (da.squeeze(da.expand_dims(d4, 0)), x4_np),
+        "expand_dims": (da.expand_dims(d4, 1), np.expand_dims(x4_np, 1)),
+        "broadcast_to": (da.broadcast_to(d4[:1], (4096, 4096)), np.broadcast_to(x4_np[:1], (4096, 4096))),
+    }
+    tk.LAUNCHES = 0
+    for name, (arr, want) in exact.items():
+        got = arr.compute()
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype")
+        check(bool(np.array_equal(got, want)), f"{name}: values differ from numpy")
+    ops_launches = {"transpose": tk.LAUNCHES}
+    x4_64 = x4_np.astype(np.float64)
+    vd = float(da.vdot(d4, d4).compute())
+    vd_want = float(np.vdot(x4_64, x4_64))
+    check(abs(vd - vd_want) <= 1e-5 * vd_want, f"vdot {vd} against {vd_want}")
+    outer = da.outer(d4[0], d4[:, 1]).compute()
+    outer_want = np.outer(x4_np[0], x4_np[:, 1])  # float32 products, one rounding each
+    np.testing.assert_allclose(outer, outer_want, rtol=2.0**-22, atol=0)
+    cs = da.cumsum(d4).compute()
+    cs_want = np.cumsum(x4_64.ravel())
+    cs_atol = 2.0**-20 * float(np.abs(x4_64).sum())
+    check(cs.shape == (4096 * 4096,) and cs.dtype == np.float32, "cumsum: shape/dtype")
+    np.testing.assert_allclose(cs, cs_want, rtol=0, atol=cs_atol)
+    phase(14, "shape-ops-4096", exact=sorted(exact), launches=ops_launches,
+          vdot_rel_err=abs(vd - vd_want) / vd_want, outer_max_abs_err=float(np.abs(outer - outer_want).max()),
+          cumsum_max_abs_err=float(np.abs(cs - cs_want).max()), cumsum_atol=cs_atol,
+          tolerance={"layout ops": "equal", "vdot": "rtol 1e-5 vs float64",
+                     "outer": "rtol 2^-22 vs float32 numpy", "cumsum(axis=None)": "atol 2^-20*sum|x| vs float64"})
+    del exact, outer, outer_want, cs, cs_want, x4_64
+
+    # -- phase 15: transpose timing ----------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    tr_timings = {}
+    for n in (8192, 16384):
+        xt = torch.randn((n, n), generator=gen, device="cuda")
+        nbytes = 2 * n * n * xt.element_size()
+        kernel_ms, plain_ms, k_runs, p_runs = paired_ms(
+            lambda: tk.transpose_last2_plain(xt), lambda: tk.transpose_last2_cuda(xt))
+        lib_ms = cuda_ms(lambda: xt.mT.contiguous())
+        copy_ms = cuda_ms(lambda: xt.clone())
+        err = float((tk.transpose_last2_cuda(xt) - tk.transpose_last2_plain(xt)).abs().max())
+        bound_ms, bound_by = bound(nbytes, 0)
+        tr_timings[n] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
+                             kernel_GBps=nbytes / kernel_ms / 1e6, plain_GBps=nbytes / plain_ms / 1e6,
+                             mT_contiguous_ms=lib_ms, mT_contiguous_GBps=nbytes / lib_ms / 1e6,
+                             copy_ms=copy_ms, copy_GBps=nbytes / copy_ms / 1e6,
+                             bound_ms=bound_ms, bound_by=bound_by, kernel_of_bound=bound_ms / kernel_ms,
+                             max_abs_err=err)
+        phase(15, f"timing-transpose-{n}", card=smi, **tr_timings[n])
+        del xt
+    nbytes = 2 * 8192 * 8192 * 4
+    rel_ms = host_ms(rel.compute, 3)
+    rel_dev_ms = host_ms(lambda: (rel.compute_device(), torch.cuda.synchronize()), 3)
+    relp_dev_ms = host_ms(lambda: (relp.compute_device(), torch.cuda.synchronize()), 10)
+    phase(15, "timing-rechunk_relayout-8192", card=smi, compute_ms=rel_ms, compute_GBps=nbytes / rel_ms / 1e6,
+          compute_device_ms=rel_dev_ms, persist_compute_device_ms=relp_dev_ms,
+          persist_compute_device_GBps=nbytes / relp_dev_ms / 1e6)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -482,6 +651,19 @@ def main() -> int:
             "bound_ms": ms_bound_ms,
             "bound_by": ms_bound_by,
             "library_ms": trio_ms,
+        },
+        {
+            "name": "transpose",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/transpose.cu",
+            "replaces": "bench/probe_pallas_min.py:42",
+            "launches": transpose_launches,
+            "max_abs_err": tr_timings[8192]["max_abs_err"],
+            "ms": tr_timings[8192]["kernel_ms"],
+            "plain_ms": tr_timings[8192]["plain_ms"],
+            "bound_ms": tr_timings[8192]["bound_ms"],
+            "bound_by": tr_timings[8192]["bound_by"],
+            "library_ms": tr_timings[8192]["mT_contiguous_ms"],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

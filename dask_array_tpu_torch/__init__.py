@@ -4,16 +4,19 @@ NumPy-compatible lazy chunked arrays over a content-addressed expression
 tree (``simplify -> lower -> fuse`` with slice/rechunk/transpose pushdown
 and blockwise fusion), executed by one walk of the optimized tree over
 torch tensors on ``config["device"]`` (the card, unless the caller asks
-for ``"cpu"``).  2-D ``map_overlap`` stencils run through a hand-written
-CUDA band-stencil kernel on a GPU; ``kernels/mstat.py`` holds the
-hand-written multi-statistic reduction kernel.
+for ``"cpu"``).  Three hand-written CUDA kernels serve it on a GPU: the
+band stencil of 2-D ``map_overlap`` (``kernels/stencil.py``), the
+multi-statistic reduction (``kernels/mstat.py``) and the tiled transpose
+of the last two axes (``kernels/transpose.py``).
 
 The ported slices: creation, ``from_array``, elementwise ops and ufuncs,
-basic slicing, transpose, rechunk, ``map_blocks``, ``map_overlap`` and
-``blockwise`` (with contractions); the typed, moment, arg and cumulative
-reductions, the generic ``reduction()`` tree, and ``einsum``/``tensordot``/
-``dot``/``matmul``.  Quantiles, ``vdot``/``outer``, reshaping and the rest
-wait (ROADMAP.md).
+basic slicing, rechunk, ``map_blocks``, ``map_overlap`` and ``blockwise``
+(with contractions); the typed, moment, arg and cumulative reductions, the
+generic ``reduction()`` tree, and ``einsum``/``tensordot``/``dot``/
+``matmul``/``vdot``/``outer``; the shape and layout ops (transpose,
+reshape/ravel, concatenate/stack/block, squeeze/expand_dims/broadcast_to,
+flips/roll, ``.blocks``, ``persist``, ``freeze_chunks``).  Quantiles and
+the rest wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,8 +31,26 @@ from dask_array_tpu_torch.ops._from_array import asarray, from_array
 from dask_array_tpu_torch.ops._map_blocks import map_blocks
 from dask_array_tpu_torch.ops._overlap import map_overlap, overlap, trim_internal
 from dask_array_tpu_torch.ops.creation import arange, empty, full, ones, zeros
-from dask_array_tpu_torch.ops.linalg import dot, einsum, matmul, tensordot
-from dask_array_tpu_torch.ops.manipulation import transpose
+from dask_array_tpu_torch.ops._reshape import ravel, reshape, reshape_blockwise
+from dask_array_tpu_torch.ops.linalg import dot, einsum, matmul, outer, tensordot, vdot
+from dask_array_tpu_torch.ops.manipulation import (
+    atleast_1d,
+    atleast_2d,
+    atleast_3d,
+    broadcast_to,
+    expand_dims,
+    flip,
+    fliplr,
+    flipud,
+    moveaxis,
+    roll,
+    rollaxis,
+    rot90,
+    squeeze,
+    swapaxes,
+    transpose,
+)
+from dask_array_tpu_torch.ops.stacking import block, concatenate, dstack, hstack, stack, vstack
 from dask_array_tpu_torch.ops.reductions import *  # noqa: F403 (sum, mean, ...)
 from dask_array_tpu_torch.ops.reductions import __all__ as _reduction_names
 from dask_array_tpu_torch.ops.ufuncs import *  # noqa: F403 (the ufunc table)
@@ -62,26 +83,51 @@ __all__ = [
     "PerformanceWarning",
     "arange",
     "asarray",
+    "atleast_1d",
+    "atleast_2d",
+    "atleast_3d",
+    "block",
     "blockwise",
+    "broadcast_to",
     "compute",
+    "concatenate",
     "config",
     "dot",
+    "dstack",
     "einsum",
     "elemwise",
     "empty",
+    "expand_dims",
+    "flip",
+    "fliplr",
+    "flipud",
     "from_array",
     "full",
+    "hstack",
     "map_blocks",
     "map_overlap",
     "matmul",
+    "moveaxis",
     "new_collection",
     "normalize_chunks",
     "ones",
+    "outer",
     "overlap",
+    "ravel",
     "rechunk",
+    "reshape",
+    "reshape_blockwise",
+    "roll",
+    "rollaxis",
+    "rot90",
+    "squeeze",
+    "stack",
+    "swapaxes",
     "tensordot",
     "transpose",
     "trim_internal",
+    "vdot",
+    "vstack",
     "zeros",
     *_reduction_names,
     *_ufunc_names,

@@ -4,16 +4,20 @@ Port of ``dask_array_tpu/_collection.py``: a thin wrapper around one
 ``ArrayExpr`` with numpy-style operators (torch functions underneath),
 basic ``__getitem__``, ``.T``, the reductions and contractions as methods
 (``sum`` ... ``moment``, ``dot``, ``@``), ``compute``, ``optimize`` and
-``pprint``.  ``out=`` replaces the target's expression in place.
+``pprint``, ``persist`` (a ``Persisted`` leaf holding the device tensor
+under the collection's name) and ``freeze_chunks``.  ``out=`` replaces the
+target's expression in place.
 """
 
 from __future__ import annotations
 
+import functools
 from numbers import Number
 
 import numpy as np
 import torch
 
+from dask_array_tpu_torch._chunks import has_unknown_chunks, numpy_dtype
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.ops.ufuncs import floor_divide_, remainder_
 
@@ -49,6 +53,47 @@ def handle_out(out, result: "Array") -> "Array":
         result = result.astype(out.dtype)
     out._replace_expr(result.expr)
     return out
+
+
+class Persisted(ArrayExpr):
+    """A computed device tensor pinned to the original collection's name.
+
+    The name is the token too, so tokenizing a plan that holds this leaf
+    never hashes the tensor's contents."""
+
+    _parameters = ("buffer", "chunks_", "pinned_name")
+
+    _fusable_leaf = True
+
+    @property
+    def _name(self):  # type: ignore[override]
+        return self.pinned_name
+
+    @property
+    def deterministic_token(self):  # type: ignore[override]
+        return self.pinned_name
+
+    @property
+    def _lower_cache_key(self):
+        # the original expression shares the name: keep their lowered
+        # forms apart, or lowering one would return the other
+        return f"persist-{self.pinned_name}"
+
+    @property
+    def chunks(self):
+        return self.chunks_
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0,) * len(self.chunks_), dtype=numpy_dtype(self.buffer.dtype))
+
+    def _leaf_buffers(self):
+        yield (f"persist-{self.pinned_name}", self.buffer)
+
+    def _build(self, ctx):
+        from dask_array_tpu_torch._executor import BlockView
+
+        return BlockView(self.chunks_, dense=ctx.leaf(f"persist-{self.pinned_name}"))
 
 
 def _binop(fn, reflexive=False):
@@ -141,6 +186,12 @@ class Array:
         return self._expr.npartitions
 
     @property
+    def blocks(self):
+        from dask_array_tpu_torch.ops._blocks import BlockAccessor
+
+        return BlockAccessor(self)
+
+    @property
     def T(self):
         from dask_array_tpu_torch.ops.manipulation import transpose
 
@@ -195,6 +246,33 @@ class Array:
         from dask_array_tpu_torch._materialize import compute_expr
 
         return compute_expr(self._expr)
+
+    def persist(self, **kwargs) -> "Array":
+        """Compute and hold the result on the device as a ``Persisted``
+        leaf under this collection's name."""
+        from dask_array_tpu_torch._materialize import compute_expr
+
+        buf = compute_expr(self._expr)
+        if buf.device.type == "cpu" or not buf.is_contiguous():
+            # a compact snapshot: a CPU result may share memory with the
+            # numpy source, a view would keep its whole base alive
+            buf = buf.clone(memory_format=torch.contiguous_format)
+        chunks = self.chunks
+        if has_unknown_chunks(chunks):
+            # real shapes are now known: one chunk per formerly-unknown axis
+            chunks = tuple(
+                c if not any(np.isnan(x) for x in c) else (s,) for c, s in zip(chunks, buf.shape)
+            )
+        return new_collection(Persisted(buf, chunks, self.name))
+
+    def freeze_chunks(self) -> "Array":
+        """Pin the current chunking as load-bearing: the optimizer may
+        rewrite the subtree, but this collection's layout survives."""
+        from dask_array_tpu_torch.ops._map_blocks import ChunksFreeze, freeze
+
+        if type(self._expr) is ChunksFreeze:
+            return self
+        return new_collection(freeze(self._expr))
 
     def __array__(self, dtype=None, copy=None):
         out = np.asarray(self.compute())
@@ -300,6 +378,33 @@ class Array:
         elif len(axes) == 1 and isinstance(axes[0], (tuple, list)):
             axes = axes[0]
         return transpose(self, axes)
+
+    def reshape(self, *shape, merge_chunks=True, limit=None, order="C"):
+        from dask_array_tpu_torch.ops._reshape import reshape
+
+        if order not in (None, "C"):
+            raise NotImplementedError(f"reshape(order={order!r}) is not supported")
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = shape[0]
+        return reshape(self, shape, merge_chunks=merge_chunks, limit=limit)
+
+    def ravel(self):
+        from dask_array_tpu_torch.ops._reshape import ravel
+
+        return ravel(self)
+
+    def flatten(self):
+        return self.ravel()
+
+    def squeeze(self, axis=None):
+        from dask_array_tpu_torch.ops.manipulation import squeeze
+
+        return squeeze(self, axis)
+
+    def swapaxes(self, axis1, axis2):
+        from dask_array_tpu_torch.ops.manipulation import swapaxes
+
+        return swapaxes(self, axis1, axis2)
 
     def copy(self):
         return new_collection(self._expr)

@@ -106,7 +106,7 @@ class BuildContext:
 
 
 def collect_leaves(root: ArrayExpr):
-    """(key, host buffer) pairs in structural order (deterministic DFS over
+    """(key, buffer) pairs in structural order (deterministic DFS over
     operand positions)."""
     pairs = []
     seen_nodes = set()
@@ -139,8 +139,11 @@ def current_device() -> torch.device:
     return device
 
 
-def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Copy one host leaf buffer onto ``device``."""
+def to_device(buf, device: torch.device) -> torch.Tensor:
+    """One leaf buffer on ``device``: a host numpy buffer is copied there;
+    a tensor (a persisted leaf) already there is used as it is."""
+    if isinstance(buf, torch.Tensor):
+        return buf.to(device)
     # torch.from_numpy needs a writable, positively-strided buffer
     arr = np.require(buf, requirements=("C", "W"))
     return torch.from_numpy(arr).to(device)

@@ -605,6 +605,7 @@ _TORCH_TO_NUMPY_NAME = {
     "round": "rint",
     "bitwise_left_shift": "left_shift",
     "bitwise_right_shift": "right_shift",
+    "conj_physical": "conjugate",
 }
 
 

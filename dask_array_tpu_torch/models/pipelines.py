@@ -3,8 +3,9 @@
 Port of ``dask_array_tpu/models/pipelines.py``: the README example (slice
 pushdown + fusion), the flagship ``normalize_contract`` step, the
 ``split_every`` tree reductions (BASELINE config 2), the blocked matmul
-with misaligned chunks (BASELINE config 3) and the 2-D ``map_overlap``
-Laplace stencil (BASELINE config 4).  Inputs are numpy arrays made by the
+with misaligned chunks (BASELINE config 3), the 2-D ``map_overlap``
+Laplace stencil (BASELINE config 4) and the rows-to-columns relayout of a
+transposed array (BASELINE metric 2).  Inputs are numpy arrays made by the
 caller from a seed, since the reference's ``da.random`` streams cannot be
 reproduced in torch.
 """
@@ -98,3 +99,24 @@ def stencil2d(x_np, chunk=1024, form="auto"):
         laplace_slices, x, depth=1, boundary="reflect", trim=False, dtype=dtype,
         chunks=x.chunks,
     )
+
+
+def rechunk_relayout(x_np, chunk=1024, persist=False):
+    """Rows->cols block relayout of a transposed array (BASELINE metric 2).
+
+    ``x_np`` (n0, n1) is read in row panels of ``chunk`` rows; the result
+    is its transpose in row panels of ``chunk`` rows, (chunk, n0) each.  On
+    one device this is one physical transpose of the whole array (read and
+    write every byte once), which the tiled transpose kernel performs on a
+    GPU.  ``persist=True`` holds the input on the device first, so
+    ``compute_device()`` of the result measures only the relayout.  The
+    freeze keeps the rechunk from being pushed below the transpose, where
+    it would merge with the input's chunking and leave no relayout.
+    """
+    import dask_array_tpu_torch as da
+
+    x_np = np.asarray(x_np)
+    x = da.from_array(x_np, chunks=(chunk, x_np.shape[1]))
+    if persist:
+        x = x.persist()
+    return x.T.freeze_chunks().rechunk((chunk, x_np.shape[0]))

@@ -1,7 +1,6 @@
 """Contractions: einsum / tensordot / dot / matmul.
 
-Port of ``dask_array_tpu/ops/linalg.py`` (``vdot`` and ``outer`` wait for
-``ravel``).  The whole contraction is ONE dense ``torch.einsum`` over the
+Port of ``dask_array_tpu/ops/linalg.py``.  The whole contraction is ONE dense ``torch.einsum`` over the
 block-assembled operands, as the reference leaves it to one XLA
 ``dot_general``; float products go to cuBLAS on the card.  Chunk metadata
 is still computed dask-style so downstream per-block consumers see the
@@ -313,6 +312,21 @@ def dot(a, b, out=None):
     return tensordot(a, b, axes=((a.ndim - 1,), (b.ndim - 2,)))
 
 
+def vdot(a, b):
+    from dask_array_tpu_torch.ops._from_array import asarray
+    from dask_array_tpu_torch.ops.ufuncs import conj
+
+    a, b = asarray(a), asarray(b)
+    return dot(conj(a).ravel(), b.ravel())
+
+
+def outer(a, b):
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    a, b = asarray(a), asarray(b)
+    return einsum("i,j->ij", a.ravel(), b.ravel())
+
+
 def matmul(a, b):
     from dask_array_tpu_torch.ops._from_array import asarray
 
@@ -330,4 +344,4 @@ def matmul(a, b):
     return einsum("...ij,...jk->...ik", a, b)
 
 
-__all__ = ["dot", "einsum", "matmul", "parse_einsum", "tensordot"]
+__all__ = ["dot", "einsum", "matmul", "outer", "parse_einsum", "tensordot", "vdot"]

@@ -736,9 +736,9 @@ def _cum(a, kind, axis=None, dtype=None, method="sequential", out=None):
     expr = a.expr if isinstance(a, Array) else a
     if axis is None:
         if expr.ndim > 1:
-            raise NotImplementedError(
-                f"{kind} with axis=None flattens the array: ravel is not ported yet"
-            )
+            from dask_array_tpu_torch.ops._reshape import ravel
+
+            expr = ravel(new_collection(expr)).expr
         axis = 0
     axis = validate_axis(axis, expr.ndim)
     if dtype is not None:
@@ -788,8 +788,7 @@ def cumreduction(func, binop, ident, x, axis=None, dtype=None, out=None, method=
         )
     x = _coerce(x)
     if axis is None:
-        if x.ndim != 1:
-            raise NotImplementedError("cumreduction with axis=None needs ravel, which is not ported yet")
+        x = x.ravel() if x.ndim != 1 else x
         axis = 0
     axis = validate_axis(axis, x.ndim)
     from dask_array_tpu_torch._collection import new_collection

@@ -106,6 +106,8 @@ _TABLE = {
     "isinf": torch.isinf,
     "isnan": torch.isnan,
     "logical_not": torch.logical_not,
+    "conj": torch.conj_physical,  # not torch.conj: a lazy conj bit is not data
+    "conjugate": torch.conj_physical,
     # binary
     "add": torch.add,
     "subtract": torch.sub,

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the band-stencil and multi-statistic kernels
-against their plain versions, their input checks, and the main paths
-through ``compute()`` (stencil2d, reduction_tree, normalize_contract).
+"""The port on a CUDA card: the band-stencil, multi-statistic and
+transpose kernels against their plain versions, their input checks, and
+the main paths through ``compute()`` (stencil2d, reduction_tree,
+normalize_contract, rechunk_relayout).
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -11,7 +12,8 @@ without JAX runs it with the repo's conftest left out:
 Tolerance: float32 rtol 1e-5 with atol scaled by sum|w| * max|x|, float64
 1e-12 (kernel and plain version sum the taps in different orders).  The
 multi-statistic kernel: colsum/rowmean rtol 1e-5 with atol 4 * sqrt(terms)
-* max|x| * 2^-23, std rtol 1e-4.
+* max|x| * 2^-23, std rtol 1e-4.  The transpose kernel moves bytes: its
+result must equal the plain version's byte for byte.
 """
 
 import numpy as np
@@ -201,3 +203,80 @@ def test_integer_and_float_contractions_on_the_card(cuda):
         ff = (da.from_array(f, chunks=32) @ da.from_array(f.T.copy(), chunks=32)).compute()
     want = f.astype(np.float64) @ f.T.astype(np.float64)
     np.testing.assert_allclose(ff, want, rtol=1e-5, atol=1e-4)
+
+
+TRANSPOSE_DTYPES = [torch.bool, torch.int8, torch.float16, torch.float32, torch.float64, torch.int64,
+                    torch.complex64, torch.complex128]
+
+
+def random_bytes(shape, dtype, device, seed):
+    """Random bits of ``dtype`` (NaN payloads and -0.0 included), made
+    through an integer view of the bytes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    size = torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(0, 256, (*shape[:-1], shape[-1] * size), generator=gen, device=device,
+                        dtype=torch.uint8)
+    if dtype == torch.bool:
+        return raw % 2 == 1
+    return raw.view(dtype)
+
+
+def same_bytes(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TRANSPOSE_DTYPES, ids=str)
+def test_transpose_kernel_matches_plain_byte_for_byte(cuda, dtype):
+    from dask_array_tpu_torch.kernels import transpose as tk
+
+    for i, shape in enumerate([(1000, 1003), (1, 7), (4097, 33), (3, 513, 257), (2, 2, 31, 65)]):
+        x = random_bytes(shape, dtype, cuda, seed=i)
+        before = tk.LAUNCHES
+        got = tk.transpose_last2_cuda(x)
+        assert tk.LAUNCHES == before + 1
+        assert got.is_contiguous() and got.device.type == "cuda"
+        assert same_bytes(got, tk.transpose_last2_plain(x))
+    # strided sources: row- and column-slice views are read in place, a
+    # transposed or strided-last-axis view is made contiguous first
+    x = random_bytes((900, 700), dtype, cuda, seed=9)
+    for view in (x[100:400], x[:, 37:500], x[5:300, 134:], x.mT, x[:, ::3], x[None, 10:20]):
+        assert same_bytes(tk.transpose_last2_cuda(view), tk.transpose_last2_plain(view))
+
+
+@pytest.mark.gpu
+def test_transpose_kernel_refuses_what_it_does_not_take(cuda):
+    from dask_array_tpu_torch.kernels import transpose as tk
+
+    before = tk.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.transpose_last2_cuda(torch.zeros((4, 4)))
+    with pytest.raises(ValueError, match="2 dimensions"):
+        tk.transpose_last2_cuda(torch.zeros(4, device=cuda))
+    assert tk.LAUNCHES == before
+    # an empty input launches nothing and gives the swapped empty shape
+    assert tuple(tk.transpose_last2_cuda(torch.zeros((0, 5), device=cuda)).shape) == (5, 0)
+    # a lazy conjugate view is resolved before the bytes move
+    z = torch.randn((33, 17), dtype=torch.complex64, device=cuda)
+    assert torch.equal(tk.transpose_last2_cuda(z.conj()), z.conj().mT.resolve_conj())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("persist", [False, True])
+def test_rechunk_relayout_on_the_card_launches_the_kernel(cuda, persist):
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.models.pipelines import rechunk_relayout
+
+    x = np.random.default_rng(5).standard_normal((1024, 768)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        y = rechunk_relayout(x, chunk=128, persist=persist)
+        assert y.chunks == ((128,) * 6, (1024,))
+        before = tk.LAUNCHES
+        dev = y.compute_device()
+        assert tk.LAUNCHES == before + 1
+        assert dev.device.type == "cuda" and dev.is_contiguous()
+        np.testing.assert_array_equal(dev.cpu().numpy(), x.T)
+        np.testing.assert_array_equal(y.compute(), x.T)

@@ -29,6 +29,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import dask_array_tpu_torch\n"
         "from dask_array_tpu_torch.models import pipelines\n"
+        "from dask_array_tpu_torch.kernels import _build, mstat, stencil, transpose\n"
+        "from dask_array_tpu_torch.ops import _blocks, _reshape, manipulation, stacking\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dask_array_tpu' or m.startswith('dask_array_tpu.'))\n"
         "assert not bad, bad\n"
@@ -109,3 +111,23 @@ def test_public_names_are_the_references():
                  "blockwise", "compute"):
         assert name in da.__all__ and name in reference
     assert da.linalg.matmul is da.matmul and da.reductions.sum is da.sum
+
+
+def test_shape_and_layout_names_are_exported():
+    import json
+
+    import dask_array_tpu_torch as da
+
+    reference = set(json.loads((PKG.parent / "tests" / "reference_namespace.json").read_text()))
+    names = ("atleast_1d atleast_2d atleast_3d broadcast_to expand_dims flip fliplr flipud moveaxis roll "
+             "rollaxis rot90 squeeze swapaxes transpose block concatenate dstack hstack stack vstack "
+             "ravel reshape reshape_blockwise vdot outer conj conjugate").split()
+    for name in names:
+        assert name in da.__all__ and name in reference and callable(getattr(da, name)), name
+    assert da.linalg.vdot is da.vdot and da.linalg.outer is da.outer
+
+
+def test_chip_smoke_imports_no_jax():
+    source = (PKG.parent / "chip_smoke.py").read_text()
+    pattern = re.compile(r"^\s*(import jax|from jax|import dask_array_tpu\b|from dask_array_tpu[ .])", re.M)
+    assert not pattern.search(source)

@@ -339,11 +339,22 @@ def test_cumulative(kind, dtype, axis, method):
     close(out, np.asarray(ref.compute()).astype(want.dtype), **t)
 
 
-def test_cumsum_of_1d_axis_none_and_ravel_waits():
-    v = np.arange(10, dtype="i4")
-    np.testing.assert_array_equal(tda.cumsum(tda.from_array(v, chunks=3)).compute(), np.cumsum(v))
-    with pytest.raises(NotImplementedError, match="ravel"):
-        tda.cumsum(tda.from_array(data("float64"), chunks=CHUNKS))
+@pytest.mark.parametrize("shape", [(10,), (6, 7), (3, 4, 5)], ids=str)
+@pytest.mark.parametrize("kind", ["cumsum", "cumprod"])
+def test_cumulative_axis_none_flattens(kind, shape):
+    """axis=None scans the array in C order (through ravel on n-d arrays)."""
+    x = np.random.default_rng(len(shape)).uniform(0.5, 1.5, size=shape)
+    v = np.arange(int(np.prod(shape)), dtype="i4").reshape(shape) % 7
+    for a, exact in ((x, False), (v, True)):
+        got = getattr(tda, kind)(tda.from_array(a, chunks=3))
+        ref = getattr(jda, kind)(jda.from_array(a, chunks=3))
+        want = getattr(np, kind)(a)
+        assert got.shape == want.shape and got.dtype == want.dtype and got.chunks == ref.chunks
+        if exact:
+            np.testing.assert_array_equal(got.compute(), want)
+        else:
+            np.testing.assert_allclose(got.compute(), want, rtol=1e-12)
+            np.testing.assert_allclose(got.compute(), np.asarray(ref.compute()), rtol=1e-12)
 
 
 def _cummax(b, axis):
