@@ -7,10 +7,10 @@ version.  Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (each prints one line of its own numbers; any failure raises):
-  1. setup: config "device" = "cuda"; build the band-stencil and the
-     multi-statistic and transpose kernels from dask_array_tpu_torch/csrc
-     (one nvcc each, started together); print the card's name and power
-     limit;
+  1. setup: config "device" = "cuda"; build the band-stencil, the
+     multi-statistic, the transpose and the halo kernels from
+     dask_array_tpu_torch/csrc (one nvcc each, started together); print the
+     card's name and power limit;
   2. the band-stencil kernel against its plain version on the card: every
      boundary and every mixed pair, depths (1,1) (2,1) (1,0) (8,8),
      float16/32/64, a ragged shape;
@@ -55,7 +55,35 @@ Phases (each prints one line of its own numbers; any failure raises):
  15. timing of phases 12-13: the transpose kernel, its plain version,
      x.mT.contiguous() (the nearest library call) and a device copy at
      8192^2 and 16384^2 float32, with GB/s and the bound; the relayout's
-     compute() and compute_device() in both forms.
+     compute() and compute_device() in both forms;
+ 16. the halo kernel against its plain version on the card, byte for byte
+     through an integer view: (16384, 16384) depth 1 in each of the five
+     modes and (4096, 4096) depth 8 in float32; then in bool, int8,
+     float16, float32, float64, int64, complex64 and complex128: (1000,
+     1003) with widths ((3, 0), (0, 5)), a 1-D (1 << 24,), a 3-D (64, 513,
+     257) with widths (1, 2, 3), widths of 7 on a length-3 axis in wrap,
+     symmetric and reflect, mixed modes with constant corners and per-side
+     fills, a row-sliced and a column-sliced view;
+ 17. stencil2d's slices form (the general halo path: Overlap -> map_blocks)
+     at 16384x16384 (chunks 4096) and 4096x4096 (chunks 1024) float32
+     against numpy, each compute() launching the halo kernel once and the
+     band stencil never;
+ 18. a func the band kernel cannot read, tanh of the roll Laplace, through
+     map_overlap at 4096x4096 (chunks 1024, trim=True) against numpy, one
+     halo launch and no band-stencil launch;
+ 19. da.pad at 4096x4096 float32 against np.pad in constant, edge, reflect,
+     symmetric and wrap (equal) and in linear_ramp and mean;
+ 20. on (1 << 24,) float32 with NaNs: sliding_window_view(x, 64).sum(-1)
+     (fused), move_mean and move_std with window 64 and push with n=3,
+     against numpy;
+ 21. timing at 16384^2 float32 depth 1: the halo kernel in dask's
+     "reflect" (numpy symmetric; the main path's) and its plain version
+     interleaved, the kernel in reflect/edge/wrap/constant beside
+     F.pad's reflect/replicate/circular/constant (the same functions), F.pad
+     replicate as the library call of the main path's function (at depth 1
+     dask's "reflect" equals numpy's edge), a device copy of the same bytes
+     and the bound; compute() and
+     compute_device() of phases 17-18.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -191,6 +219,16 @@ def random_bytes(shape, dtype, seed):
     return raw % 2 == 1 if dtype == torch.bool else raw.view(dtype)
 
 
+def check_halo(halo, x, widths, modes, what):
+    """The halo kernel against its plain version, byte for byte."""
+    import torch
+
+    got = halo.halo_pad_cuda(x, widths, modes)
+    want = halo.halo_pad_plain(x, widths, modes)
+    check(got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous(), f"{what}: shape/dtype")
+    check(bool(torch.equal(got.view(torch.uint8), want.contiguous().view(torch.uint8))), f"{what}: bytes differ")
+
+
 def check_transpose(tk, x, what):
     """The transpose kernel against its plain version, byte for byte."""
     import torch
@@ -217,7 +255,7 @@ def main() -> int:
     import dask_array_tpu_torch as da
     from dask_array_tpu_torch import config
     from dask_array_tpu_torch._materialize import compute_exprs
-    from dask_array_tpu_torch.kernels import _build, mstat, stencil
+    from dask_array_tpu_torch.kernels import _build, halo, mstat, stencil
     from dask_array_tpu_torch.kernels import transpose as tk
     from dask_array_tpu_torch.models.pipelines import (
         blocked_matmul,
@@ -229,13 +267,14 @@ def main() -> int:
         stencil2d,
     )
     from dask_array_tpu_torch.ops._overlap import BandStencil
+    from dask_array_tpu_torch.ops._sliding import move_mean, move_std
 
     # -- phase 1: setup ------------------------------------------------------
     config.set_global({"device": "cuda"})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    built = _build.build_all(["band_stencil", "mstat", "transpose"])
+    built = _build.build_all(["band_stencil", "mstat", "transpose", "halo"])
     build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -622,6 +661,189 @@ def main() -> int:
           compute_device_ms=rel_dev_ms, persist_compute_device_ms=relp_dev_ms,
           persist_compute_device_GBps=nbytes / relp_dev_ms / 1e6)
 
+    del rel, relp
+    torch.cuda.empty_cache()
+
+    # -- phase 16: the halo kernel against its plain version --------------------
+    big = [((16384, 16384), ((1, 1), (1, 1)), (m, m)) for m in ("symmetric", "reflect", "edge", "wrap", 0.0)]
+    big.append(((4096, 4096), ((8, 8), (8, 8)), ("symmetric", "symmetric")))
+    small = [
+        ((1000, 1003), ((3, 0), (0, 5)), ("symmetric", "wrap")),
+        ((1 << 24,), ((5, 3),), ("reflect",)),
+        ((64, 513, 257), ((1, 1), (2, 2), (3, 3)), ("edge", "symmetric", "wrap")),
+        ((3, 40), ((7, 7), (0, 0)), ("wrap", "edge")),
+        ((3, 40), ((7, 7), (1, 1)), ("symmetric", "edge")),
+        ((40, 3), ((2, 2), (7, 7)), ("edge", "reflect")),
+        ((300, 200), ((2, 3), (4, 1)), ((1.5, -2.0), "edge")),
+        ((300, 200), ((2, 3), (4, 1)), ("wrap", (7.0, 3.0))),
+        ((300, 200), ((2, 3), (4, 1)), ((1.0, -1.0), (7.0, 3.0))),
+    ]
+    halo_cases = 0
+    for i, (shape, widths, modes) in enumerate(big):
+        x = random_bytes(shape, torch.float32, 1600 + i)
+        check_halo(halo, x, widths, modes, f"{shape} {modes}")
+        halo_cases += 1
+        del x
+    for seed, dt in enumerate(dtypes):
+        for i, (shape, widths, modes) in enumerate(small):
+            x = random_bytes(shape, dt, 1700 + 10 * seed + i)
+            check_halo(halo, x, widths, modes, f"{shape} {modes} {dt}")
+            halo_cases += 1
+            del x
+        base = random_bytes((3000, 2048), dt, 1800 + seed)
+        for name, view in (("row-sliced", base[500:2500]), ("column-sliced", base[:, 300:1700])):
+            check_halo(halo, view, ((2, 1), (3, 3)), ("symmetric", (1.0, 2.0)), f"{name} view {dt}")
+            halo_cases += 1
+        del base
+        torch.cuda.empty_cache()
+    phase(16, "halo-kernel-vs-plain", cases=halo_cases,
+          float32_cases=[[list(sh), list(w), list(m)] for sh, w, m in big],
+          every_dtype_cases=[[list(sh), list(w), list(m)] for sh, w, m in small],
+          views=["x[500:2500] of (3000, 2048)", "x[:, 300:1700] of (3000, 2048)"],
+          dtypes=[str(d).replace("torch.", "") for d in dtypes], tolerance="equal bytes")
+
+    # -- phase 17: stencil2d's slices form, the general halo path ----------------
+    gen_paths = {}
+    halo_launches = None
+    for n, chunk, seed in ((16384, 4096, 17), (4096, 1024, 18)):
+        x_np = np.random.default_rng(seed).standard_normal((n, n), dtype=np.float32)
+        arr = stencil2d(x_np, chunk=chunk, form="slices")
+        check(not isinstance(arr.expr, BandStencil), "slices form routed to BandStencil")
+        halo.LAUNCHES = stencil.LAUNCHES = 0
+        res = arr.compute()
+        launches = {"halo": halo.LAUNCHES, "band_stencil": stencil.LAUNCHES}
+        check(launches == {"halo": 1, "band_stencil": 0}, f"slices form at {n}: launches {launches}")
+        if n == 16384:
+            halo_launches = halo.LAUNCHES
+        check(res.shape == (n, n) and res.dtype == np.float32, f"slices {n}: shape/dtype")
+        check(bool(np.isfinite(res).all()), f"slices {n}: non-finite values")
+        ref = numpy_laplace(x_np)
+        atol = 8 * float(np.abs(x_np).max()) * 2.0**-21
+        np.testing.assert_allclose(res, ref, rtol=1e-5, atol=atol)
+        gen_paths[f"slices_{n}"] = (arr, x_np, dict(launches=launches, max_abs_err=float(np.abs(res - ref).max()),
+                                                    atol=atol))
+        del res, ref
+        phase(17, f"stencil2d-slices-{n}", chunks=chunk, **gen_paths[f"slices_{n}"][2])
+
+    # -- phase 18: a func the band kernel cannot read ------------------------------
+    x4_np = gen_paths["slices_4096"][1]
+    nonlin = da.map_overlap(lambda b: torch.tanh(laplace_roll(b)), da.from_array(x4_np, chunks=1024),
+                            depth=1, boundary="reflect")
+    check(not isinstance(nonlin.expr, BandStencil), "tanh(laplace) routed to BandStencil")
+    halo.LAUNCHES = stencil.LAUNCHES = 0
+    res = nonlin.compute()
+    nl_launches = {"halo": halo.LAUNCHES, "band_stencil": stencil.LAUNCHES}
+    check(nl_launches == {"halo": 1, "band_stencil": 0}, f"tanh(laplace): launches {nl_launches}")
+    ref = np.tanh(numpy_laplace(x4_np))
+    np.testing.assert_allclose(res, ref, rtol=1e-5, atol=1e-6)
+    phase(18, "map_overlap-tanh-laplace-4096", chunks=1024, launches=nl_launches,
+          max_abs_err=float(np.abs(res - ref).max()), tolerance="rtol 1e-5, atol 1e-6 vs float64 numpy")
+    del res, ref
+
+    # -- phase 19: da.pad against np.pad -------------------------------------------
+    d4 = da.from_array(x4_np, chunks=1024)
+    pw = ((3, 5), (7, 2))
+    halo.LAUNCHES = 0
+    for mode in ("constant", "edge", "reflect", "symmetric", "wrap"):
+        got = da.pad(d4, pw, mode=mode).compute()
+        check(bool(np.array_equal(got, np.pad(x4_np, pw, mode=mode))), f"pad {mode}: values differ from np.pad")
+    pad_launches = halo.LAUNCHES
+    check(pad_launches == 5, f"pad launched the halo kernel {pad_launches} times in five modes")
+    pad_errs = {}
+    for mode, kw in (("linear_ramp", {"end_values": 2.0}), ("mean", {"stat_length": 16})):
+        got = da.pad(d4, pw, mode=mode, **kw).compute()
+        want = np.pad(x4_np, pw, mode=mode, **kw)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        pad_errs[mode] = float(np.abs(got - want).max())
+    phase(19, "pad-4096", pad_width=[list(p) for p in pw], halo_launches=pad_launches, max_abs_err=pad_errs,
+          tolerance={"index-map and constant modes": "equal", "linear_ramp, mean": "rtol 1e-5, atol 1e-6"})
+    del got, want, d4
+
+    # -- phase 20: sliding windows, move_* and push ----------------------------------
+    rng20 = np.random.default_rng(20)
+    v = rng20.standard_normal(1 << 24).astype(np.float32)
+    v[rng20.random(1 << 24) < 0.002] = np.nan
+    dv = da.from_array(v, chunks=1 << 22)
+    w = 64
+    win_sum = da.sliding_window_view(dv, w).sum(-1)
+    check("SlidingWindowReduce" in win_sum.expr.simplify().tree_repr(), "window sum did not fuse")
+    got = win_sum.compute()
+    v64 = v.astype(np.float64)
+    c = np.concatenate([[0.0], np.cumsum(np.nan_to_num(v64))])
+    nan_c = np.concatenate([[0], np.cumsum(np.isnan(v))])
+    want = np.where(nan_c[w:] - nan_c[:-w] > 0, np.nan, c[w:] - c[:-w])
+    atol20 = w * float(np.nanmax(np.abs(v))) * 2.0**-22
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol20, equal_nan=True)
+    errs20 = {"window_sum": float(np.nanmax(np.abs(got - want)))}
+    mm = move_mean(dv, w, min_count=1).compute()
+    ms = move_std(dv, w, min_count=2).compute()
+    # references on every 4099th window (numpy in float64 over the trailing
+    # windows, bottleneck's semantics)
+    idx = np.arange(0, 1 << 24, 4099)
+    wins = [v64[max(0, i - w + 1):i + 1] for i in idx]
+    cnt = np.array([np.count_nonzero(~np.isnan(x)) for x in wins])
+    with np.errstate(all="ignore"):
+        want_m = np.array([np.nanmean(x) if k >= 1 else np.nan for x, k in zip(wins, cnt)])
+        want_s = np.array([np.nanstd(x) if k >= 2 else np.nan for x, k in zip(wins, cnt)])
+    np.testing.assert_allclose(mm[idx], want_m, rtol=1e-5, atol=atol20 / w, equal_nan=True)
+    np.testing.assert_allclose(ms[idx], want_s, rtol=1e-4, equal_nan=True)
+    errs20["move_mean"] = float(np.nanmax(np.abs(mm[idx] - want_m)))
+    errs20["move_std"] = float(np.nanmax(np.abs(ms[idx] - want_s)))
+    pushed = da.push(dv, 3).compute()
+    last = np.maximum.accumulate(np.where(np.isnan(v), -1, np.arange(1 << 24)))
+    pos = np.arange(1 << 24)
+    want_p = np.where((last < 0) | (pos - last > 3), np.nan, v[np.maximum(last, 0)])
+    check(bool(np.array_equal(pushed, want_p, equal_nan=True)), "push differs from numpy")
+    phase(20, "sliding-move-push", size=1 << 24, window=w, nan_fraction=float(np.isnan(v).mean()),
+          max_abs_err=errs20, tolerance={"window sum": f"rtol 1e-5, atol w*max|x|*2^-22 = {atol20}",
+                                         "move_mean": "rtol 1e-5, atol max|x|*2^-22", "move_std": "rtol 1e-4",
+                                         "push": "equal"})
+    del v, v64, dv, got, want, mm, ms, pushed, c, nan_c, last, pos, want_p
+
+    # -- phase 21: halo timing and the general halo path's compute() ----------------
+    xh = torch.from_numpy(gen_paths["slices_16384"][1]).cuda()
+    n = xh.shape[0]
+    d1 = ((1, 1), (1, 1))
+    sym = ("symmetric", "symmetric")
+    halo_bytes = (n * n + (n + 2) * (n + 2)) * xh.element_size()
+    kernel_ms, plain_ms, k_runs, p_runs = paired_ms(lambda: halo.halo_pad_plain(xh, d1, sym),
+                                                    lambda: halo.halo_pad_cuda(xh, d1, sym))
+    x4d = xh[None, None]
+    F = torch.nn.functional
+    beside = {}
+    for mode, fmode, fkw in (("reflect", "reflect", {}), ("edge", "replicate", {}), ("wrap", "circular", {}),
+                             (0.0, "constant", {"value": 0.0})):
+        k_ms = cuda_ms(lambda: halo.halo_pad_cuda(xh, d1, (mode, mode)))
+        f_ms = cuda_ms(lambda: F.pad(x4d, (1, 1, 1, 1), mode=fmode, **fkw))
+        same = bool(torch.equal(halo.halo_pad_cuda(xh, d1, (mode, mode)), F.pad(x4d, (1, 1, 1, 1), mode=fmode, **fkw)[0, 0]))
+        check(same, f"F.pad {fmode} is not the kernel's {mode}")
+        beside[str(mode)] = {"kernel_ms": k_ms, f"F_pad_{fmode}_ms": f_ms}
+    # at depth 1, dask's "reflect" (numpy symmetric) repeats the edge element,
+    # which is numpy's edge: F.pad's replicate computes the main path's function
+    check(bool(torch.equal(halo.halo_pad_cuda(xh, d1, sym), F.pad(x4d, (1, 1, 1, 1), mode="replicate")[0, 0])),
+          "F.pad replicate is not dask's reflect at depth 1")
+    library_ms = cuda_ms(lambda: F.pad(x4d, (1, 1, 1, 1), mode="replicate"))
+    copy_ms = cuda_ms(lambda: xh.clone())
+    halo_err = float((halo.halo_pad_cuda(xh, d1, sym) - halo.halo_pad_plain(xh, d1, sym)).abs().max())
+    halo_bound_ms, halo_bound_by = bound(halo_bytes, 0)
+    phase(21, "timing-halo-16384", card=smi, kernel_ms=kernel_ms, plain_ms=plain_ms, kernel_runs_ms=k_runs,
+          plain_runs_ms=p_runs, kernel_GBps=halo_bytes / kernel_ms / 1e6, plain_GBps=halo_bytes / plain_ms / 1e6,
+          bound_ms=halo_bound_ms, bound_by=halo_bound_by, kernel_of_bound=halo_bound_ms / kernel_ms,
+          copy_ms=copy_ms, copy_GBps=2 * n * n * 4 / copy_ms / 1e6, beside_F_pad=beside, max_abs_err=halo_err,
+          library_ms=library_ms,
+          library_note="F.pad replicate, equal to dask's reflect at depth 1; F.pad reflect is numpy's reflect")
+    del xh, x4d
+    torch.cuda.empty_cache()
+    path_ms = {}
+    for key, reps in (("slices_16384", 3), ("slices_4096", 5)):
+        arr = gen_paths[key][0]
+        path_ms[f"{key}_compute_ms"] = host_ms(arr.compute, reps)
+        path_ms[f"{key}_compute_device_ms"] = host_ms(lambda: (arr.compute_device(), torch.cuda.synchronize()), reps)
+    path_ms["tanh_laplace_4096_compute_ms"] = host_ms(nonlin.compute, 5)
+    path_ms["tanh_laplace_4096_compute_device_ms"] = host_ms(
+        lambda: (nonlin.compute_device(), torch.cuda.synchronize()), 5)
+    phase(21, "timing-general-halo-paths", card=smi, **path_ms)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -664,6 +886,19 @@ def main() -> int:
             "bound_ms": tr_timings[8192]["bound_ms"],
             "bound_by": tr_timings[8192]["bound_by"],
             "library_ms": tr_timings[8192]["mT_contiguous_ms"],
+        },
+        {
+            "name": "halo",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/halo.cu",
+            "replaces": "bench/probe_band_bisect.py:32-122, bench/probe_band_bisect2.py:68",
+            "launches": halo_launches,
+            "max_abs_err": halo_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": halo_bound_ms,
+            "bound_by": halo_bound_by,
+            "library_ms": library_ms,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@ NumPy-compatible lazy chunked arrays over a content-addressed expression
 tree (``simplify -> lower -> fuse`` with slice/rechunk/transpose pushdown
 and blockwise fusion), executed by one walk of the optimized tree over
 torch tensors on ``config["device"]`` (the card, unless the caller asks
-for ``"cpu"``).  Three hand-written CUDA kernels serve it on a GPU: the
-band stencil of 2-D ``map_overlap`` (``kernels/stencil.py``), the
-multi-statistic reduction (``kernels/mstat.py``) and the tiled transpose
-of the last two axes (``kernels/transpose.py``).
+for ``"cpu"``).  Four hand-written CUDA kernels serve it on a GPU: the
+band stencil of 2-D ``map_overlap`` (``kernels/stencil.py``), the halo
+assembly of every other ``overlap``/``map_overlap`` and of ``pad``
+(``kernels/halo.py``), the multi-statistic reduction (``kernels/mstat.py``)
+and the tiled transpose of the last two axes (``kernels/transpose.py``).
 
 The ported slices: creation, ``from_array``, elementwise ops and ufuncs,
 basic slicing, rechunk, ``map_blocks``, ``map_overlap`` and ``blockwise``
@@ -15,8 +16,12 @@ basic slicing, rechunk, ``map_blocks``, ``map_overlap`` and ``blockwise``
 generic ``reduction()`` tree, and ``einsum``/``tensordot``/``dot``/
 ``matmul``/``vdot``/``outer``; the shape and layout ops (transpose,
 reshape/ravel, concatenate/stack/block, squeeze/expand_dims/broadcast_to,
-flips/roll, ``.blocks``, ``persist``, ``freeze_chunks``).  Quantiles and
-the rest wait (ROADMAP.md).
+flips/roll, ``.blocks``, ``persist``, ``freeze_chunks``); the general halo
+path (``overlap``/``map_overlap``/``trim_overlap``, ``pad``,
+``sliding_window_view``, the ``move_*`` reductions in ``ops._sliding``,
+``push``) and the rest of creation (``*_like``, ``linspace``, ``eye``,
+``diag``/``diagonal``, ``tri``, ``tile``, ``repeat``, ``meshgrid``,
+``indices``, ``fromfunction``).  Quantiles and the rest wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,8 +34,36 @@ from dask_array_tpu_torch._collection import Array, new_collection
 from dask_array_tpu_torch._rechunk import rechunk
 from dask_array_tpu_torch.ops._from_array import asarray, from_array
 from dask_array_tpu_torch.ops._map_blocks import map_blocks
-from dask_array_tpu_torch.ops._overlap import map_overlap, overlap, trim_internal
-from dask_array_tpu_torch.ops.creation import arange, empty, full, ones, zeros
+from dask_array_tpu_torch.ops._overlap import (
+    map_overlap,
+    overlap,
+    push,
+    sliding_window_view,
+    trim_internal,
+    trim_overlap,
+)
+from dask_array_tpu_torch.ops.creation import (
+    arange,
+    diag,
+    diagonal,
+    empty,
+    empty_like,
+    eye,
+    fromfunction,
+    full,
+    full_like,
+    indices,
+    linspace,
+    meshgrid,
+    ones,
+    ones_like,
+    pad,
+    repeat,
+    tile,
+    tri,
+    zeros,
+    zeros_like,
+)
 from dask_array_tpu_torch.ops._reshape import ravel, reshape, reshape_blockwise
 from dask_array_tpu_torch.ops.linalg import dot, einsum, matmul, outer, tensordot, vdot
 from dask_array_tpu_torch.ops.manipulation import (
@@ -92,43 +125,61 @@ __all__ = [
     "compute",
     "concatenate",
     "config",
+    "diag",
+    "diagonal",
     "dot",
     "dstack",
     "einsum",
     "elemwise",
     "empty",
+    "empty_like",
     "expand_dims",
+    "eye",
     "flip",
     "fliplr",
     "flipud",
     "from_array",
+    "fromfunction",
     "full",
+    "full_like",
     "hstack",
+    "indices",
+    "linspace",
     "map_blocks",
     "map_overlap",
     "matmul",
+    "meshgrid",
     "moveaxis",
     "new_collection",
     "normalize_chunks",
     "ones",
+    "ones_like",
     "outer",
     "overlap",
+    "pad",
+    "push",
     "ravel",
     "rechunk",
+    "repeat",
     "reshape",
     "reshape_blockwise",
     "roll",
     "rollaxis",
     "rot90",
+    "sliding_window_view",
     "squeeze",
     "stack",
     "swapaxes",
     "tensordot",
+    "tile",
     "transpose",
+    "tri",
     "trim_internal",
+    "trim_overlap",
     "vdot",
     "vstack",
     "zeros",
+    "zeros_like",
     *_reduction_names,
     *_ufunc_names,
 ]

@@ -34,7 +34,7 @@ namespace {
 constexpr int kTile = 32;                 // tile edge = blockDim.x
 constexpr int kRowsY = 8;                 // blockDim.y
 constexpr int kPerThread = kTile / kRowsY;
-constexpr long long kMaxBlocks = 132LL * 64;  // blocks loop beyond this
+constexpr long long kBlocksPerSm = 64;  // the grid holds this many blocks per SM; they loop beyond
 
 template <int kBytes>
 struct Element;
@@ -86,14 +86,25 @@ transpose_tiles(const T* __restrict__ x, T* __restrict__ out, long long M, long 
   }
 }
 
+// The grid cap: kBlocksPerSm blocks for each SM of the current device.
+int max_blocks(long long* out) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = kBlocksPerSm * sms;
+  return static_cast<int>(e);
+}
+
 template <int kBytes>
 int launch(const void* x, void* out, long long B, long long M, long long N, long long stride_b,
            long long stride_m, cudaStream_t s) {
   using T = typename Element<kBytes>::type;
+  long long cap = 0;
+  if (const int err = max_blocks(&cap)) return err;
   const long long tiles_m = (M + kTile - 1) / kTile;
   const long long tiles_n = (N + kTile - 1) / kTile;
   const long long tiles = B * tiles_m * tiles_n;
-  const long long blocks = tiles < kMaxBlocks ? tiles : kMaxBlocks;
+  const long long blocks = tiles < cap ? tiles : cap;
   transpose_tiles<T><<<static_cast<unsigned>(blocks), dim3(kTile, kRowsY), 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(out), M, N, stride_b, stride_m, tiles_m, tiles_n,
       tiles);

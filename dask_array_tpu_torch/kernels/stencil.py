@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch.kernels._build import load_library
+from dask_array_tpu_torch.kernels.halo import numpy_mode, pad_axis_plain
 
 MAX_DEPTH = 8
 MAX_TAPS = (2 * MAX_DEPTH + 1) ** 2
@@ -39,22 +40,8 @@ LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
-# boundary padding (shared by Overlap._build and the plain version)
+# boundary padding of the plain version, in dask's boundary names
 # ---------------------------------------------------------------------------
-
-
-def _source_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
-    """For each position of an axis padded by (lo, hi), the index of the
-    element it copies — numpy's pad semantics, also past the axis length."""
-    i = torch.arange(-lo, n + hi, device=device)
-    if mode == "periodic":  # numpy "wrap"
-        return torch.remainder(i, n)
-    if mode == "nearest":  # numpy "edge"
-        return i.clamp(0, n - 1)
-    # dask "reflect" is numpy "symmetric" (the edge element repeats):
-    # the padded axis is periodic with period 2n over [x, x reversed]
-    m = torch.remainder(i, 2 * n)
-    return torch.where(m < n, m, 2 * n - 1 - m)
 
 
 def pad_axis(t: torch.Tensor, axis: int, lo: int, hi: int, mode) -> torch.Tensor:
@@ -64,23 +51,11 @@ def pad_axis(t: torch.Tensor, axis: int, lo: int, hi: int, mode) -> torch.Tensor
     "nearest" (numpy ``edge``), "periodic" (numpy ``wrap``) or a scalar fill
     value (numpy ``constant``).  torch's own ``F.pad(mode="reflect")`` is
     numpy's ``reflect``, which skips the edge element, so it is not used.
+    With no width the mode is not read: an axis of depth 0 may say "none".
     """
     if not (lo or hi):
         return t
-    if isinstance(mode, str):
-        if mode not in _BOUNDARY_CODES:
-            raise ValueError(f"unknown boundary mode {mode!r}")
-        idx = _source_index(t.shape[axis], lo, hi, mode, t.device)
-        return torch.index_select(t, axis, idx)
-    parts = []
-    for width in (lo, None, hi):
-        if width is None:
-            parts.append(t)
-        elif width:
-            shape = list(t.shape)
-            shape[axis] = width
-            parts.append(torch.full(shape, mode, dtype=t.dtype, device=t.device))
-    return torch.cat(parts, dim=axis)
+    return pad_axis_plain(t, axis, lo, hi, numpy_mode(mode))
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,30 @@
-"""Overlap / map_overlap: ghost-cell (halo) machinery for stencils.
+"""Overlap / map_overlap: ghost-cell (halo) machinery for stencils, sliding
+window views and forward fill.
 
 Port of ``dask_array_tpu/ops/_overlap.py``: ``Overlap``, ``TrimInternal``,
-``BandStencil``, ``overlap``, ``trim_internal`` and ``map_overlap``.  A
-block-with-halo is a slice of the boundary-extended dense tensor, so on
-one device the halo exchange is a view.  Boundary extension goes through
-``kernels.stencil.pad_axis`` (numpy pad semantics, dask's "reflect" being
-numpy's "symmetric").  ``ShardStencil``'s mesh body, sliding windows and
-``push`` wait for later slices of the port.
+``BandStencil``, ``overlap``, ``trim_internal``/``trim_overlap``,
+``map_overlap``, ``SlidingWindowView``/``sliding_window_view`` and
+``Push``/``push``.  ``Overlap`` boundary-extends the dense tensor over all
+axes in one ``kernels.halo.halo_pad`` (the halo kernel on the card; numpy
+pad semantics, dask's "reflect" being numpy's "symmetric") and takes each
+block with its halo as a view of it.  ``ShardStencil``'s mesh body waits
+for a later slice of the port.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from numbers import Integral
 
 import numpy as np
+import torch
 
-from dask_array_tpu_torch._chunks import cached_cumsum, torch_dtype
+from dask_array_tpu_torch._chunks import cached_cumsum, is_float_dtype, torch_dtype, validate_axis
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
-from dask_array_tpu_torch.kernels.stencil import band_stencil_call, pad_axis
+from dask_array_tpu_torch.kernels.halo import halo_pad, numpy_mode
+from dask_array_tpu_torch.kernels.stencil import band_stencil_call
 
 
 def coerce_depth(ndim, depth):
@@ -104,17 +109,20 @@ class Overlap(ArrayExpr):
 
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
-        # boundary-extend the dense tensor per axis (sides with a margin
-        # already carry their halo rows in the data: no pad there)
-        offsets = []
+        # boundary-extend every axis in one halo_pad (one kernel launch on
+        # the card); sides with a margin already carry their halo rows in the
+        # data and get no pad, and with no pad at all the input comes back
+        widths, modes, offsets = [], [], []
         for ax in range(dense.ndim):
             lo, hi = self.depth[ax]
             bd = self.boundary[ax]
             mlo, mhi = self._margins[ax]
             plo = lo if (bd != "none" and not mlo) else 0
             phi = hi if (bd != "none" and not mhi) else 0
-            dense = pad_axis(dense, ax, plo, phi, bd)
+            widths.append((plo, phi))
+            modes.append(numpy_mode(bd) if (plo or phi) else bd)  # not read without a width
             offsets.append(mlo + plo)
+        dense = halo_pad(dense, widths, modes)
 
         grid = self._body_grid
         bounds = [cached_cumsum(c, initial_zero=True) for c in grid]
@@ -421,6 +429,11 @@ def _align(arrays):
     return [a.rechunk(tuple(by_label[label] for label in ind)) for a, ind in zip(arrays, inds)]
 
 
+def trim_overlap(x, depth, boundary=None):
+    """Alias of :func:`trim_internal` taking a map_overlap-style ``depth``."""
+    return trim_internal(x, depth, boundary=boundary)
+
+
 def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=True,
                 allow_rechunk=True, **kwargs):
     """Apply ``func`` to blocks (of one or more arrays) with ghost cells.
@@ -506,3 +519,239 @@ def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=
         i = sorted(enumerate(arrays), key=lambda v: (v[1].ndim, -v[0]))[-1][0]
         return trim_internal(mapped, depths[i], bounds[i])
     return mapped
+
+
+# ---------------------------------------------------------------------------
+# sliding windows
+# ---------------------------------------------------------------------------
+
+
+class SlidingWindowView(ArrayExpr):
+    """numpy.lib.stride_tricks.sliding_window_view semantics.
+
+    Window axes are appended as trailing single-chunk dims; the windowed
+    source axes lose (window-1) from their final chunk.  The view is
+    ``Tensor.unfold`` per windowed axis, a strided view of the source that
+    copies nothing (the JAX package gathers the windows with ``jnp.take``);
+    ``unfold`` appends each window axis last, in the order of ``axes``.
+    """
+
+    _parameters = ("array", "window_shape", "axes")
+
+    @functools.cached_property
+    def chunks(self):
+        out = [list(c) for c in self.array.chunks]
+        for w, ax in zip(self.window_shape, self.axes):
+            out[ax] = trim_tail(out[ax], w - 1)
+        return tuple(tuple(c) for c in out) + tuple((w,) for w in self.window_shape)
+
+    @property
+    def _meta(self):
+        return np.empty((0,) * (self.array.ndim + len(self.axes)), dtype=self.array.dtype)
+
+    def _simplify_up(self, parent, dependents):
+        # reduce(sliding_window_view(x)) over the window dim fuses into one
+        # windowed reduction, and a scalar elementwise op sinks below the view
+        from dask_array_tpu_torch._blockwise import Elemwise
+        from dask_array_tpu_torch.ops._sliding import FUSABLE_WINDOW_REDUCERS, SlidingWindowReduce
+        from dask_array_tpu_torch.ops.reductions import Reduction
+
+        if (
+            type(parent) is Reduction
+            and parent.kind in FUSABLE_WINDOW_REDUCERS
+            and len(self.window_shape) == 1
+            and parent.axes == (self.array.ndim,)  # exactly the window dim
+            and not (
+                self.array.dtype.kind == "c"
+                and parent.kind in ("min", "max", "nanmin", "nanmax", "any", "all")
+            )
+        ):
+            if any(d._name != parent._name for d in dependents.get(self._name, ())):
+                return None
+            swr = SlidingWindowReduce(self.array, parent.kind, self.window_shape[0], self.axes[0], parent.dtype)
+            if parent.keepdims:
+                from dask_array_tpu_torch.ops.manipulation import ExpandDims
+
+                return ExpandDims(swr, (self.array.ndim,))
+            return swr
+        if type(parent) is Elemwise:
+            # elemwise commutes with the window view, and running it before
+            # windowing is less work (n vs n*w elements); sinking the view
+            # also lets var/std/nanvar/nanstd (elemwise chains over the view
+            # ending in window-axis sums) fuse.  Only scalar (0-d) co-operands
+            # are safe: anything with dims would broadcast against the window.
+            new_args = []
+            hit = False
+            for a in parent.args:
+                if isinstance(a, ArrayExpr):
+                    if a._name == self._name:
+                        new_args.append(self.array)
+                        hit = True
+                    elif a.ndim == 0:
+                        new_args.append(a)
+                    else:
+                        return super()._simplify_up(parent, dependents)
+                else:
+                    if isinstance(a, np.ndarray) and a.ndim > 0:
+                        return super()._simplify_up(parent, dependents)
+                    new_args.append(a)
+            if hit:
+                inner = Elemwise(*parent.operands[:2], *new_args)
+                return SlidingWindowView(inner, self.window_shape, self.axes)
+        return super()._simplify_up(parent, dependents)
+
+    def _accept_slice(self, index):
+        """Push basic slicing through the window view.
+
+        Two shapes: an all-int index addresses one source element
+        (``view[i.., k..] == x[.., i+k, ..]``: the moment shift
+        ``view[(0,)*nd]``), and lead-axis slicing with the window dims
+        untouched maps to a slice of the source extended by ``window-1`` on
+        windowed axes.
+        """
+        from dask_array_tpu_torch._slicing import Slice, is_basic_index
+
+        if not is_basic_index(index):
+            return None
+        nd_in = self.array.ndim
+        if len(index) != nd_in + len(self.axes):
+            return None
+        lead, trail = index[:nd_in], index[nd_in:]
+        if all(isinstance(i, Integral) for i in index):
+            xi = [int(i) for i in lead]
+            for j, ax in enumerate(self.axes):
+                xi[ax] += int(trail[j])
+            return Slice(self.array, tuple(xi))
+        if any(t != slice(None) for t in trail):
+            return None
+        windowed = set(self.axes)
+        xi = []
+        changed = False
+        drop_before = {}
+        dropped = 0
+        for ax in range(nd_in):
+            drop_before[ax] = dropped
+            ind = lead[ax]
+            if ax in windowed:
+                if isinstance(ind, Integral):
+                    return None  # window-collapse: only the all-int rule
+                w = self.window_shape[self.axes.index(ax)]
+                dim = self.array.shape[ax]
+                if isinstance(dim, float) and math.isnan(dim):
+                    return None
+                start, stop, step = ind.indices(int(dim) - w + 1)
+                if step != 1 or stop <= start:
+                    return None
+                xi.append(slice(start, stop - 1 + w, 1))
+                if (start, stop) != (0, int(dim) - w + 1):
+                    changed = True
+            else:
+                xi.append(ind)
+                if isinstance(ind, Integral):
+                    dropped += 1
+                    changed = True
+                elif ind != slice(None):
+                    changed = True
+        if not changed:
+            return None
+        new_axes = tuple(ax - drop_before[ax] for ax in self.axes)
+        return SlidingWindowView(Slice(self.array, tuple(xi)), self.window_shape, new_axes)
+
+    def _build(self, ctx):
+        out = ctx.build(self.array).dense()
+        for w, ax in zip(self.window_shape, self.axes):
+            out = out.unfold(ax, w, 1)
+        return BlockView(self.chunks, dense=out)
+
+
+def trim_tail(chunks, n):
+    """``chunks`` of one axis with ``n`` elements cut from the end (empty
+    chunks dropped, ``[0]`` when nothing is left)."""
+    out = list(chunks)
+    i = len(out) - 1
+    while n > 0 and i >= 0:
+        cut = min(n, out[i])
+        out[i] -= cut
+        n -= cut
+        i -= 1
+    return [c for c in out if c > 0] or [0]
+
+
+def sliding_window_view(x, window_shape, axis=None, **kwargs):
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    x = asarray(x)
+    if isinstance(window_shape, Integral):
+        window_shape = (int(window_shape),)
+    window_shape = tuple(int(w) for w in window_shape)
+    if axis is None:
+        if len(window_shape) != x.ndim:
+            raise ValueError("window_shape must match ndim when axis is None")
+        axes = tuple(range(x.ndim))
+    elif isinstance(axis, Integral):
+        axes = (validate_axis(axis, x.ndim),)
+    else:
+        axes = tuple(validate_axis(a, x.ndim) for a in axis)
+    if len(axes) != len(window_shape):
+        raise ValueError("window_shape and axis must have the same length")
+    for w, ax in zip(window_shape, axes):
+        if w > x.shape[ax]:
+            raise ValueError("window shape cannot be larger than input array shape")
+        if w < 1:
+            raise ValueError("`window_shape` must contain positive values")
+    return new_collection(SlidingWindowView(x.expr, window_shape, axes))
+
+
+# ---------------------------------------------------------------------------
+# push (forward-fill)
+# ---------------------------------------------------------------------------
+
+
+class Push(ArrayExpr):
+    """bottleneck.push semantics: forward-fill NaNs along an axis, at most
+    ``n`` positions (None = unlimited).
+
+    One ``torch.cummax`` over ``where(valid, position, -1)`` gives each
+    position the index of the last valid value at or before it; a gather
+    reads that value (the JAX package runs an associative scan).  NaN where
+    no valid value came before, or where it lies more than ``n`` back.
+    """
+
+    _parameters = ("array", "n", "axis")
+
+    @property
+    def chunks(self):
+        return self.array.chunks
+
+    @functools.cached_property
+    def _meta(self):
+        dt = self.array.dtype
+        if not is_float_dtype(dt):
+            dt = np.dtype("f8")
+        return np.empty((0,) * self.array.ndim, dtype=dt)
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense().to(torch_dtype(self.dtype))
+        axis = self.axis
+        shape = [1] * dense.ndim
+        shape[axis] = dense.shape[axis]
+        pos = torch.arange(dense.shape[axis], device=dense.device).reshape(shape)
+        last = torch.where(torch.isnan(dense), -1, pos).cummax(dim=axis).values
+        out = torch.gather(dense, axis, last.clamp(min=0))
+        stale = last < 0
+        if self.n is not None:
+            stale = stale | (pos - last > self.n)
+        out = torch.where(stale, torch.nan, out)
+        return BlockView(self.chunks, dense=out)
+
+
+def push(array, n=None, axis=-1):
+    """Forward-fill NaNs along ``axis`` (bottleneck-style ``push``); ``n``
+    bounds how far a value propagates (default: unlimited)."""
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    array = asarray(array)
+    axis = validate_axis(axis, array.ndim)
+    return new_collection(Push(array.expr, int(n) if n is not None else None, axis))

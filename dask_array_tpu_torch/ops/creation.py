@@ -1,9 +1,15 @@
-"""Array creation: constant sources and ranges.
+"""Array creation: constant sources, ranges, identity and diagonal
+matrices, padding, tiling and index grids.
 
-Port of the constant and range part of ``dask_array_tpu/ops/creation.py``
-(``BroadcastTrick`` constant leaves with slice/rechunk absorption,
-``Arange``).  Constants and ranges are generated on the execution device
-(``torch.full``/``torch.arange``), so creation never touches the host.
+Port of ``dask_array_tpu/ops/creation.py``: ``BroadcastTrick`` constant
+leaves with slice/rechunk absorption, the ``*_like`` functions, ``Arange``
+and ``Linspace``, ``Eye``, ``diag``/``diagonal``, ``Tri``, ``Pad``,
+``tile``, ``Repeat``, ``meshgrid``, ``indices`` and ``fromfunction``.
+Constants, ranges and matrices are generated on the execution device, so
+creation never touches the host.  ``pad``'s index-map and constant modes go
+through ``kernels.halo.halo_pad`` (the halo kernel on the card); its other
+modes are torch ops that follow numpy's ``pad`` step by step, and a
+callable mode runs ``np.pad`` on the host.
 """
 
 from __future__ import annotations
@@ -15,10 +21,11 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import normalize_chunks, torch_dtype
+from dask_array_tpu_torch._chunks import cached_cumsum, normalize_chunks, torch_dtype, validate_axis
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import sliced_blockdim
+from dask_array_tpu_torch.kernels.halo import halo_pad
 
 
 class BroadcastTrick(ArrayExpr):
@@ -170,3 +177,573 @@ def arange(start=0, stop=None, step=1, *, chunks="auto", dtype=None):
         stop = start + num * step
     chunks = normalize_chunks(chunks, (num,), dtype=dtype)
     return new_collection(Arange(start, stop, step, chunks, dtype))
+
+
+def _like(maker, a, dtype=None, chunks=None, shape=None, **kw):
+    from dask_array_tpu_torch._collection import Array
+
+    if shape is None:
+        shape = a.shape
+    elif isinstance(shape, Integral):
+        shape = (int(shape),)
+    if dtype is None:
+        dtype = a.dtype
+    if chunks is None:
+        chunks = a.chunks if isinstance(a, Array) and tuple(shape) == tuple(a.shape) else "auto"
+    return maker(shape, dtype=dtype, chunks=chunks, **kw)
+
+
+def _check_like_order(order):
+    # device tensors are laid out in C order; "F" would lie about strides
+    if order not in (None, "C", "K", "A"):
+        raise NotImplementedError(f"order={order!r} is not supported (C layout only)")
+
+
+def ones_like(a, dtype=None, order="C", chunks=None, name=None, shape=None):
+    _check_like_order(order)
+    return _like(ones, a, dtype, chunks, shape, name=name)
+
+
+def zeros_like(a, dtype=None, order="C", chunks=None, name=None, shape=None):
+    _check_like_order(order)
+    return _like(zeros, a, dtype, chunks, shape, name=name)
+
+
+def empty_like(a, dtype=None, order="C", chunks=None, name=None, shape=None):
+    _check_like_order(order)
+    return _like(empty, a, dtype, chunks, shape, name=name)
+
+
+def full_like(a, fill_value, dtype=None, order="C", chunks=None, name=None, shape=None):
+    _check_like_order(order)
+    if dtype is None and hasattr(a, "dtype"):
+        dtype = a.dtype
+    return _like(full, a, dtype, chunks, shape, fill_value=fill_value, name=name)
+
+
+class Linspace(ArrayExpr):
+    _parameters = ("start", "stop", "num", "endpoint", "chunks_", "_dtype")
+
+    _fusable_leaf = True
+
+    @property
+    def chunks(self):
+        return self.chunks_
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0,), dtype=self._dtype)
+
+    @property
+    def _step(self):
+        div = (self.num - 1) if self.endpoint else self.num
+        return (self.stop - self.start) / max(1, div)
+
+    def _build(self, ctx):
+        idx = torch.arange(self.num, dtype=torch.float64, device=ctx.device)
+        dense = (self.start + idx * self._step).to(torch_dtype(self._dtype))
+        return BlockView(self.chunks_, dense=dense)
+
+    def _accept_rechunk(self, target_chunks):
+        return Linspace(self.start, self.stop, self.num, self.endpoint, tuple(target_chunks), self._dtype)
+
+    def _accept_slice(self, index):
+        """A sliced linspace is an arithmetic progression: an ``Arange`` with
+        the composed start and step (the same ``start + idx * step``, so the
+        values match exactly).  The length comes from the sliced chunk grid,
+        never from the float stop."""
+        (ind,) = index
+        if isinstance(ind, Integral):
+            return None
+        start, stop, step = ind.indices(self.num)
+        st = self._step
+        new_start = self.start + start * st
+        new_step = st * step
+        count = len(range(start, stop, step))
+        nc, _ = sliced_blockdim(self.chunks_[0], ind)
+        return Arange(new_start, new_start + count * new_step, new_step, (tuple(nc),), self._dtype)
+
+
+def linspace(start, stop, num=50, endpoint=True, retstep=False, chunks="auto", dtype=None):
+    from dask_array_tpu_torch._collection import new_collection
+
+    num = int(num)
+    dtype = np.dtype(np.linspace(0, 1, 1).dtype if dtype is None else dtype)
+    chunks = normalize_chunks(chunks, (num,), dtype=dtype)
+    expr = Linspace(float(start), float(stop), num, bool(endpoint), chunks, dtype)
+    arr = new_collection(expr)
+    if retstep:
+        return arr, expr._step
+    return arr
+
+
+class Eye(ArrayExpr):
+    _parameters = ("N", "M", "k", "chunks_", "_dtype")
+
+    _fusable_leaf = True
+
+    @property
+    def chunks(self):
+        return self.chunks_
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0, 0), dtype=self._dtype)
+
+    def _build(self, ctx):
+        rows = torch.arange(self.N, device=ctx.device)[:, None]
+        cols = torch.arange(self.M, device=ctx.device)[None, :]
+        dense = (cols - rows == self.k).to(torch_dtype(self._dtype))
+        return BlockView(self.chunks_, dense=dense)
+
+    def _accept_rechunk(self, target_chunks):
+        return Eye(self.N, self.M, self.k, tuple(target_chunks), self._dtype)
+
+
+def eye(N, chunks="auto", M=None, k=0, dtype=float):
+    from dask_array_tpu_torch._collection import new_collection
+
+    if M is None:
+        M = N
+    dtype = np.dtype(dtype)
+    ch = normalize_chunks(chunks, (int(N), int(M)), dtype=dtype)
+    return new_collection(Eye(int(N), int(M), int(k), ch, dtype))
+
+
+class Diag1D(ArrayExpr):
+    """diag(v) for 1-d v: the k-offset diagonal matrix."""
+
+    _parameters = ("array", "k")
+
+    @functools.cached_property
+    def chunks(self):
+        c = self.array.chunks[0]
+        if self.k == 0:
+            return (c, c)
+        n = self.array.shape[0] + abs(self.k)
+        return ((n,), (n,))
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0, 0), dtype=self.array.dtype)
+
+    def _build(self, ctx):
+        v = ctx.build(self.array).dense()
+        return BlockView(self.chunks, dense=torch.diag(v, self.k))
+
+
+class Diagonal(ArrayExpr):
+    _parameters = ("array", "offset", "axis1", "axis2")
+
+    @functools.cached_property
+    def chunks(self):
+        arr = self.array
+        a1, a2 = self.axis1, self.axis2
+        n1, n2 = arr.shape[a1], arr.shape[a2]
+        k = self.offset
+        length = max(0, min(n1 + min(0, k), n2 - max(0, k)))
+        # diagonal chunk boundaries: the union of the row and column
+        # boundaries projected onto the diagonal
+        b1 = set(cached_cumsum(arr.chunks[a1], initial_zero=True))
+        b2 = {b - k for b in cached_cumsum(arr.chunks[a2], initial_zero=True)}
+        start = max(0, -k)
+        cuts = sorted({min(max(b - start, 0), length) for b in (b1 | b2)})
+        out = tuple(b - a for a, b in zip(cuts[:-1], cuts[1:]) if b > a) or (0,)
+        other = tuple(c for ax, c in enumerate(arr.chunks) if ax not in (a1, a2))
+        return other + (out,)
+
+    @property
+    def _meta(self):
+        return np.empty((0,) * (self.array.ndim - 1), dtype=self.array.dtype)
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense()
+        out = torch.diagonal(dense, offset=self.offset, dim1=self.axis1, dim2=self.axis2)
+        return BlockView(self.chunks, dense=out)
+
+
+def diag(v, k=0):
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    v = asarray(v)
+    if v.ndim == 1:
+        return new_collection(Diag1D(v.expr, int(k)))
+    if v.ndim == 2:
+        return diagonal(v, offset=k)
+    raise ValueError("Array must be 1d or 2d only")
+
+
+def diagonal(a, offset=0, axis1=0, axis2=1):
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    a = asarray(a)
+    if a.ndim < 2:
+        raise ValueError("diag requires an array of at least two dimensions")
+    axis1 = validate_axis(axis1, a.ndim)
+    axis2 = validate_axis(axis2, a.ndim)
+    if axis1 == axis2:
+        raise ValueError("axis1 and axis2 cannot be the same")
+    return new_collection(Diagonal(a.expr, int(offset), axis1, axis2))
+
+
+class Tri(ArrayExpr):
+    _parameters = ("N", "M", "k", "chunks_", "_dtype")
+
+    @property
+    def chunks(self):
+        return self.chunks_
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0, 0), dtype=self._dtype)
+
+    def _build(self, ctx):
+        rows = torch.arange(self.N, device=ctx.device)[:, None]
+        cols = torch.arange(self.M, device=ctx.device)[None, :]
+        dense = (cols - rows <= self.k).to(torch_dtype(self._dtype))
+        return BlockView(self.chunks_, dense=dense)
+
+
+def tri(N, M=None, k=0, dtype=float, chunks="auto"):
+    from dask_array_tpu_torch._collection import new_collection
+
+    if M is None:
+        M = N
+    dtype = np.dtype(dtype)
+    ch = normalize_chunks(chunks, (int(N), int(M)), dtype=dtype)
+    return new_collection(Tri(int(N), int(M), int(k), ch, dtype))
+
+
+# ---------------------------------------------------------------------------
+# pad
+# ---------------------------------------------------------------------------
+
+
+def _as_pairs(x, ndim):
+    """numpy's ``_as_pairs``: ``x`` broadcast to one (before, after) pair
+    per axis (a scalar, one pair for every axis, or one entry per axis)."""
+    if x is None:
+        return ((None, None),) * ndim
+    x = np.array(x)
+    if x.ndim < 3:
+        if x.size == 1:
+            x = x.ravel()
+            return ((x[0], x[0]),) * ndim
+        if x.size == 2 and x.shape != (2, 1):
+            x = x.ravel()
+            return ((x[0], x[1]),) * ndim
+    return np.broadcast_to(x, (ndim, 2)).tolist()
+
+
+def _at(axis, ind, ndim):
+    return (slice(None),) * axis + (ind,) + (slice(None),) * (ndim - axis - 1)
+
+
+def _round_if_needed(t, dtype):
+    return torch.round(t) if not (dtype.is_floating_point or dtype.is_complex) else t
+
+
+def _pad_by_steps(x, widths, mode, kw):
+    """numpy's ``pad`` for the modes that are no index map ("linear_ramp",
+    "maximum", "mean", "median", "minimum", "empty", and "reflect" /
+    "symmetric" with ``reflect_type="odd"``), step by step as numpy does:
+    an empty padded tensor with ``x`` in its centre, then one axis at a time
+    on the region that axes before it have already padded."""
+    nd = x.ndim
+    shape = [n + lo + hi for n, (lo, hi) in zip(x.shape, widths)]
+    padded = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    centre = tuple(slice(lo, lo + n) for n, (lo, _hi) in zip(x.shape, widths))
+    padded[centre] = x
+    if mode == "empty":
+        return padded  # contents unspecified: zeros here
+    for axis, (lo, hi) in enumerate(widths):
+        if not (lo or hi):
+            continue
+        roi = padded[(slice(None),) * (axis + 1) + centre[axis + 1:]]
+        n = x.shape[axis]
+        if mode in ("reflect", "symmetric"):
+            _reflect_odd(roi, axis, lo, hi, n, mode == "symmetric")
+        elif mode == "linear_ramp":
+            end_lo, end_hi = _as_pairs(kw.get("end_values", 0), nd)[axis]
+            for width, end, edge_at, sl in ((lo, end_lo, lo, slice(0, lo)),
+                                            (hi, end_hi, lo + n - 1, slice(lo + n, lo + n + hi))):
+                if not width:
+                    continue
+                end = end.item() if isinstance(end, np.generic) else end
+                edge = roi[_at(axis, slice(edge_at, edge_at + 1), nd)].to(torch.complex128 if x.is_complex() else torch.float64)
+                step_shape = [1] * nd
+                step_shape[axis] = width
+                i = torch.arange(width, dtype=edge.dtype, device=x.device).reshape(step_shape)
+                ramp = end + i * ((edge - end) / width)
+                if sl.start:  # the hi side's ramp runs from the edge outwards
+                    ramp = ramp.flip(axis)
+                if not (x.is_floating_point() or x.is_complex()):
+                    ramp = torch.floor(ramp)
+                roi[_at(axis, sl, nd)] = ramp.to(x.dtype)
+        else:
+            length_lo, length_hi = _as_pairs(kw.get("stat_length"), nd)[axis]
+            stats = []
+            for length, first in ((length_lo, True), (length_hi, False)):
+                length = n if length is None or length > n else int(round(length))
+                if length == 0 and mode in ("maximum", "minimum"):
+                    raise ValueError("stat_length of 0 yields no value for padding")
+                part = roi[_at(axis, slice(lo, lo + length) if first else slice(lo + n - length, lo + n), nd)]
+                stats.append(_stat(part, mode, axis))
+            roi[_at(axis, slice(0, lo), nd)] = stats[0]
+            roi[_at(axis, slice(lo + n, lo + n + hi), nd)] = stats[1]
+    return padded
+
+
+def _stat(part, mode, axis):
+    """numpy's statistic of ``part`` over ``axis`` (kept), rounded back to
+    an integer dtype where numpy rounds."""
+    if mode == "maximum":
+        return part.amax(axis, keepdim=True)
+    if mode == "minimum":
+        return part.amin(axis, keepdim=True)
+    exact = part.is_floating_point() or part.is_complex()
+    work = part if exact else part.to(torch.float64)
+    if mode == "mean":
+        out = work.mean(axis, keepdim=True)
+    else:  # median: the mean of the two middle values, as numpy's
+        s = work.sort(axis).values
+        k = s.shape[axis]
+        out = (s.narrow(axis, (k - 1) // 2, 1) + s.narrow(axis, k // 2, 1)) / 2
+    return _round_if_needed(out, part.dtype).to(part.dtype)
+
+
+def _reflect_odd(roi, axis, lo, hi, n, include_edge):
+    """numpy's ``_set_reflect_both`` loop with ``reflect_type="odd"`` on a
+    torch view: each pass reflects what is already there about the current
+    edge, ``2 * edge - reflected``, until the pad is filled."""
+    nd = roi.ndim
+    if n == 1:  # numpy extends a singleton axis by its edge
+        roi[_at(axis, slice(0, lo), nd)] = roi[_at(axis, slice(lo, lo + 1), nd)]
+        roi[_at(axis, slice(lo + n, lo + n + hi), nd)] = roi[_at(axis, slice(lo, lo + 1), nd)]
+        return
+    total = roi.shape[axis]
+    while lo > 0 or hi > 0:
+        old = total - hi - lo
+        if include_edge:
+            old = old // n * n
+            offset = 1
+        else:
+            old = (old - 1) // (n - 1) * (n - 1) + 1 - 1
+            offset = 0
+        if lo > 0:
+            length = min(old, lo)
+            stop = lo - offset
+            chunk = roi[_at(axis, slice(stop + 1, stop + length + 1), nd)].flip(axis)
+            chunk = 2 * roi[_at(axis, slice(lo, lo + 1), nd)] - chunk
+            roi[_at(axis, slice(lo - length, lo), nd)] = chunk
+            lo -= length
+        if hi > 0:
+            length = min(old, hi)
+            start = total - hi + offset - 2  # numpy's negative start, as a position
+            chunk = roi[_at(axis, slice(start - length + 1, start + 1), nd)].flip(axis)
+            edge = roi[_at(axis, slice(total - hi - 1, total - hi), nd)]
+            roi[_at(axis, slice(total - hi, total - hi + length), nd)] = 2 * edge - chunk
+            hi -= length
+
+
+_INDEX_MODES = ("edge", "wrap", "reflect", "symmetric")
+
+
+class Pad(ArrayExpr):
+    _parameters = ("array", "pad_width", "mode", "kwargs")
+    _defaults = {"kwargs": ()}
+
+    @functools.cached_property
+    def chunks(self):
+        # pad bands follow the adjacent edge chunk's size instead of gluing
+        # into one band chunk: padding must not degrade the axis chunk profile
+        def band(width, edge, lo_side):
+            if edge <= 0:
+                return [width]
+            k, rem = divmod(width, edge)
+            pieces = [edge] * k
+            if rem:
+                pieces = [rem] + pieces if lo_side else pieces + [rem]
+            return pieces
+
+        out = []
+        for ax, c in enumerate(self.array.chunks):
+            lo, hi = self.pad_width[ax]
+            axis = list(c)
+            if lo:
+                axis = band(lo, c[0] if c else 0, True) + axis
+            if hi:
+                axis = axis + band(hi, c[-1] if c else 0, False)
+            out.append(tuple(axis) or (0,))
+        return tuple(out)
+
+    @property
+    def _meta(self):
+        return self.array._meta
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense()
+        kw = dict(self.kwargs or ())
+        widths = self.pad_width
+        mode = self.mode
+        if callable(mode):
+            # a function mode is arbitrary host code
+            out = torch.from_numpy(np.pad(dense.cpu().numpy(), widths, mode, **kw)).to(dense.device)
+        elif mode == "constant":
+            fills = [tuple(p) for p in _as_pairs(kw.get("constant_values", 0), dense.ndim)]
+            out = halo_pad(dense, widths, fills)
+        elif mode in _INDEX_MODES and kw.get("reflect_type", "even") == "even":
+            out = halo_pad(dense, widths, [mode] * dense.ndim)
+        else:
+            out = _pad_by_steps(dense, widths, mode, kw)
+        return BlockView(self.chunks, dense=out.to(torch_dtype(self.dtype)))
+
+
+_PAD_KWARGS = {
+    "constant": {"constant_values"}, "edge": set(), "wrap": set(), "empty": set(),
+    "linear_ramp": {"end_values"}, "maximum": {"stat_length"}, "mean": {"stat_length"},
+    "median": {"stat_length"}, "minimum": {"stat_length"},
+    "reflect": {"reflect_type"}, "symmetric": {"reflect_type"},
+}
+
+
+def pad(array, pad_width, mode="constant", **kwargs):
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    array = asarray(array)
+    # normalize pad_width to ((lo, hi), ...) per axis
+    pw = np.asarray(pad_width)
+    if pw.ndim == 0:
+        norm = tuple((int(pw), int(pw)) for _ in range(array.ndim))
+    elif pw.ndim == 1 and pw.shape == (2,):
+        norm = tuple((int(pw[0]), int(pw[1])) for _ in range(array.ndim))
+    elif pw.ndim == 1:
+        norm = tuple((int(x), int(x)) for x in pw)
+    else:
+        norm = tuple((int(lo), int(hi)) for lo, hi in pw)
+    if len(norm) != array.ndim:
+        raise ValueError("pad_width does not match array ndim")
+    if any(lo < 0 or hi < 0 for lo, hi in norm):
+        raise ValueError("index can't contain negative values")
+    if not callable(mode):
+        if mode not in _PAD_KWARGS:
+            raise ValueError(f"mode '{mode}' is not supported")
+        unsupported = set(kwargs) - _PAD_KWARGS[mode]
+        if unsupported:
+            raise ValueError(f"unsupported keyword arguments for mode '{mode}': {unsupported}")
+    if all(lo == 0 and hi == 0 for lo, hi in norm):
+        # a 0-width pad is the identity: the input collection itself
+        return array
+    kw = tuple(sorted((k, tuple(v) if isinstance(v, list) else v) for k, v in kwargs.items()))
+    return new_collection(Pad(array.expr, norm, mode, kw))
+
+
+# ---------------------------------------------------------------------------
+# tile / repeat / meshgrid / indices / fromfunction
+# ---------------------------------------------------------------------------
+
+
+def tile(A, reps):
+    from dask_array_tpu_torch.ops._from_array import asarray
+    from dask_array_tpu_torch.ops.manipulation import expand_dims
+    from dask_array_tpu_torch.ops.stacking import concatenate
+
+    A = asarray(A)
+    if isinstance(reps, Integral):
+        reps = (reps,)
+    reps = tuple(int(r) for r in reps)
+    if any(r < 0 for r in reps):
+        raise ValueError("negative dimensions are not allowed")
+    while A.ndim < len(reps):  # prepend length-1 axes
+        A = expand_dims(A, 0)
+    reps = (1,) * (A.ndim - len(reps)) + reps
+    out = A
+    for ax, r in enumerate(reps):
+        if r == 0:
+            out = out[_at(ax, slice(0, 0), out.ndim)]
+        elif r > 1:
+            out = concatenate([out] * r, axis=ax)
+    return out
+
+
+class Repeat(ArrayExpr):
+    _parameters = ("array", "repeats", "axis")
+
+    @functools.cached_property
+    def chunks(self):
+        out = list(self.array.chunks)
+        out[self.axis] = tuple(c * self.repeats for c in out[self.axis])
+        return tuple(out)
+
+    @property
+    def _meta(self):
+        return self.array._meta
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense()
+        return BlockView(self.chunks, dense=torch.repeat_interleave(dense, self.repeats, dim=self.axis))
+
+
+def repeat(a, repeats, axis=None):
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._from_array import asarray
+
+    a = asarray(a)
+    if axis is None:
+        a = a.ravel() if a.ndim != 1 else a
+        axis = 0
+    axis = validate_axis(axis, a.ndim)
+    if not isinstance(repeats, Integral):
+        raise NotImplementedError("repeat with one count per element needs take, which the port lacks")
+    return new_collection(Repeat(a.expr, int(repeats), axis))
+
+
+def meshgrid(*xi, sparse=False, indexing="xy", **kwargs):
+    from dask_array_tpu_torch.ops._from_array import asarray
+    from dask_array_tpu_torch.ops.manipulation import broadcast_to
+
+    xi = [asarray(x) for x in xi]
+    if indexing not in ("ij", "xy"):
+        raise ValueError("indexing must be 'ij' or 'xy'")
+    ndim = len(xi)
+    order = list(range(ndim))
+    if indexing == "xy" and ndim > 1:
+        order[0], order[1] = order[1], order[0]
+    shapes = [xi[i].shape[0] if xi[i].ndim else 1 for i in range(ndim)]
+    full_shape = tuple(shapes[order[d]] for d in range(ndim))
+    out = []
+    for i, x in enumerate(xi):
+        pos = order.index(i)
+        xr = x.reshape(tuple(x.shape[0] if d == pos else 1 for d in range(ndim)))
+        out.append(xr if sparse else broadcast_to(xr, full_shape))
+    return out
+
+
+def indices(dimensions, dtype=int, chunks="auto"):
+    from dask_array_tpu_torch.ops._from_array import from_array
+    from dask_array_tpu_torch.ops.manipulation import broadcast_to
+    from dask_array_tpu_torch.ops.stacking import stack
+
+    dimensions = tuple(int(d) for d in dimensions)
+    grids = []
+    for i, d in enumerate(dimensions):
+        if isinstance(chunks, (tuple, list)) and len(chunks) == len(dimensions):
+            axis_chunks = chunks[i]  # per-axis spec: this axis's entry
+        else:
+            axis_chunks = chunks
+        r = arange(d, dtype=dtype, chunks=axis_chunks)
+        shape_i = tuple(d if j == i else 1 for j in range(len(dimensions)))
+        grids.append(broadcast_to(r.reshape(shape_i), dimensions))
+    if not grids:
+        return from_array(np.empty((0,), dtype=dtype))
+    return stack(grids, axis=0)
+
+
+def fromfunction(func, shape=None, chunks="auto", dtype=float, **kwargs):
+    from dask_array_tpu_torch._blockwise import elemwise
+
+    idx = indices(shape, dtype=dtype, chunks=chunks)
+    return elemwise(lambda *ix: func(*ix, **kwargs), *[idx[i] for i in range(len(shape))])

@@ -387,8 +387,16 @@ def _nan_shift(a):
 
     ``_var_shift``'s first element may itself be NaN, so this pays one
     extra reduction pass for a global nanmean.  nanmean is NaN only when
-    every element is, and then the variance is all-NaN regardless.
+    every element is, and then the variance is all-NaN regardless.  For a
+    sliding window view the nanmean runs over the view's source: the same
+    values, n instead of n*w elements, and a 0-d operand that keeps the
+    window-reduction fusion intact.
     """
+    from dask_array_tpu_torch._collection import new_collection
+    from dask_array_tpu_torch.ops._overlap import SlidingWindowView
+
+    if isinstance(a.expr, SlidingWindowView):
+        a = new_collection(a.expr.array)
     shape = a.shape
     if builtins.any((not isinstance(s, (int, np.integer))) or s <= 0 for s in shape):
         return None

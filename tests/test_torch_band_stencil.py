@@ -125,6 +125,37 @@ def test_band_stencil_depth_zero_axis(rng):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+def test_band_stencil_depth_zero_axis_boundary_none(rng):
+    # boundary={0: ...} leaves axis 1 at "none"; with depth 0 there it pads nothing
+    def tvert(b):
+        return torch.roll(b, 1, 0) + torch.roll(b, -1, 0) - 2 * b
+
+    def jvert(b):
+        import jax.numpy as jnp
+
+        return jnp.roll(b, 1, 0) + jnp.roll(b, -1, 0) - 2 * b
+
+    x = rng.standard_normal((64, 96)).astype(np.float32)
+    got = tda.map_overlap(tvert, tda.from_array(x, chunks=(16, 48)), depth={0: 1}, boundary={0: "periodic"},
+                          dtype="float32")
+    assert isinstance(got.expr, BandStencil)
+    want = jda.map_overlap(jvert, jda.from_array(x, chunks=(16, 48)), depth={0: 1}, boundary={0: "periodic"},
+                           dtype="float32").compute()
+    np.testing.assert_allclose(got.compute(), want, atol=1e-5)
+    taps = ((-1, 0, 1.0), (1, 0, 1.0), (0, 0, -2.0))
+    np.testing.assert_allclose(got.compute(), np_stencil(x, taps, (1, 0), ("periodic", 0.0)), atol=1e-5)
+    plain = stencil.band_stencil_plain(torch.from_numpy(x), tvert, (1, 0), ("periodic", "none"))
+    np.testing.assert_allclose(plain.numpy(), want, atol=1e-5)
+
+
+def test_pad_axis_boundary_names():
+    t = torch.arange(6.0).reshape(2, 3)
+    assert stencil.pad_axis(t, 1, 0, 0, "none") is t
+    for bad in ("none", "symmetric", "bogus"):
+        with pytest.raises(ValueError, match="unknown boundary mode"):
+            stencil.pad_axis(t, 1, 1, 0, bad)
+
+
 def test_band_stencil_depth_eight(rng):
     def tfar(b):
         return torch.roll(b, 8, 0) - torch.roll(b, -8, 1) * 0.5 + torch.roll(torch.roll(b, -3, 0), 5, 1) / 4

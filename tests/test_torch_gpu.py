@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the band-stencil, multi-statistic and
-transpose kernels against their plain versions, their input checks, and
-the main paths through ``compute()`` (stencil2d, reduction_tree,
+"""The port on a CUDA card: the band-stencil, multi-statistic, transpose
+and halo kernels against their plain versions, their input checks, and
+the main paths through ``compute()`` (stencil2d in both forms, a
+non-linear map_overlap, pad, sliding windows and push, reduction_tree,
 normalize_contract, rechunk_relayout).
 
 Every test here needs a card and carries the ``gpu`` marker; without one
@@ -12,8 +13,8 @@ without JAX runs it with the repo's conftest left out:
 Tolerance: float32 rtol 1e-5 with atol scaled by sum|w| * max|x|, float64
 1e-12 (kernel and plain version sum the taps in different orders).  The
 multi-statistic kernel: colsum/rowmean rtol 1e-5 with atol 4 * sqrt(terms)
-* max|x| * 2^-23, std rtol 1e-4.  The transpose kernel moves bytes: its
-result must equal the plain version's byte for byte.
+* max|x| * 2^-23, std rtol 1e-4.  The transpose and halo kernels move
+bytes: their results must equal the plain versions' byte for byte.
 """
 
 import numpy as np
@@ -280,3 +281,153 @@ def test_rechunk_relayout_on_the_card_launches_the_kernel(cuda, persist):
         assert dev.device.type == "cuda" and dev.is_contiguous()
         np.testing.assert_array_equal(dev.cpu().numpy(), x.T)
         np.testing.assert_array_equal(y.compute(), x.T)
+
+
+# (shape, widths, modes): every mode, widths past the axis, constant corners
+# against index-map axes, per-side fills, unpadded axes that merge
+HALO_CASES = [
+    ((1000, 1003), ((1, 1), (1, 1)), ("symmetric", "symmetric")),
+    ((1000, 1003), ((3, 0), (0, 5)), ("reflect", "wrap")),
+    ((257, 300), ((8, 8), (8, 8)), ("edge", (1.5, -2.0))),
+    ((3, 5), ((7, 7), (7, 6)), ("wrap", "symmetric")),
+    ((3, 5), ((7, 2), (9, 7)), ("reflect", "reflect")),
+    ((40, 50), ((2, 3), (4, 1)), (2.5, "edge")),
+    ((40, 50), ((2, 3), (4, 1)), ((1.0, -1.0), (7.0, 3.0))),
+    ((5000,), ((17, 3),), ("symmetric",)),
+    ((1, 7), ((2, 2), (3, 0)), ("reflect", "edge")),
+    ((6, 33, 17), ((1, 2), (0, 0), (3, 1)), ("wrap", "edge", 0.0)),
+    ((2, 3, 4, 5, 6), ((0, 0), (0, 0), (1, 1), (0, 0), (2, 0)), ("edge", "edge", (4.0, 5.0), "edge", "wrap")),
+    ((0, 9), ((2, 1), (1, 1)), (3.0, "edge")),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TRANSPOSE_DTYPES, ids=str)
+def test_halo_kernel_matches_plain_byte_for_byte(cuda, dtype):
+    from dask_array_tpu_torch.kernels import halo
+
+    for i, (shape, widths, modes) in enumerate(HALO_CASES):
+        x = random_bytes(shape, dtype, cuda, seed=i)
+        before = halo.LAUNCHES
+        got = halo.halo_pad_cuda(x, widths, modes)
+        assert halo.LAUNCHES == before + 1
+        assert got.is_contiguous() and got.device.type == "cuda"
+        assert same_bytes(got, halo.halo_pad_plain(x, widths, modes)), (shape, widths, modes)
+    # sliced views are read in place through their strides
+    x = random_bytes((900, 700), dtype, cuda, seed=99)
+    for view in (x[100:400], x[:, 37:500], x[5:300, 134:], x.mT, x[:, ::3]):
+        for modes in (("symmetric", "wrap"), (1.0, "reflect")):
+            widths = ((2, 1), (3, 3))
+            assert same_bytes(halo.halo_pad_cuda(view, widths, modes), halo.halo_pad_plain(view, widths, modes))
+
+
+@pytest.mark.gpu
+def test_halo_kernel_fill_is_converted_as_the_plain_version(cuda):
+    from dask_array_tpu_torch.kernels import halo
+
+    x = torch.arange(12, device=cuda).reshape(3, 4)
+    for fill in (0.5, -1.5, 7):
+        got = halo.halo_pad_cuda(x, ((1, 1), (2, 0)), (fill, "edge"))
+        assert torch.equal(got, halo.halo_pad_plain(x, ((1, 1), (2, 0)), (fill, "edge")))
+    z = torch.zeros((4, 4), dtype=torch.bool, device=cuda)
+    assert bool(halo.halo_pad_cuda(z, ((1, 0), (0, 0)), (2, "edge"))[0].all())
+
+
+@pytest.mark.gpu
+def test_halo_kernel_refuses_what_it_does_not_take(cuda):
+    from dask_array_tpu_torch.kernels import halo
+
+    before = halo.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        halo.halo_pad_cuda(torch.zeros((4, 4)), ((1, 1), (1, 1)), ("edge", "edge"))
+    with pytest.raises(ValueError, match="empty axis"):
+        halo.halo_pad_cuda(torch.zeros((0, 4), device=cuda), ((1, 1), (0, 0)), ("edge", "edge"))
+    with pytest.raises(ValueError, match="unknown mode"):
+        halo.halo_pad_cuda(torch.zeros((4, 4), device=cuda), ((1, 1), (0, 0)), ("nearest", "edge"))
+    nine = torch.zeros((2,) * 9, device=cuda)
+    with pytest.raises(ValueError, match="at most 8"):
+        halo.halo_pad_cuda(nine, ((1, 0),) * 9, ("edge",) * 9)
+    assert halo.LAUNCHES == before
+    # a 9-d tensor with one unpadded pair merges to 8 axes and goes through
+    got = halo.halo_pad_cuda(nine, ((1, 0),) * 7 + ((0, 0),) * 2, ("edge",) * 9)
+    assert torch.equal(got, halo.halo_pad_plain(nine, ((1, 0),) * 7 + ((0, 0),) * 2, ("edge",) * 9))
+    # a lazy conjugate view is resolved before the bytes move
+    zc = torch.randn((33, 17), dtype=torch.complex64, device=cuda).conj()
+    assert torch.equal(halo.halo_pad_cuda(zc, ((1, 1), (1, 1)), ("wrap", "wrap")),
+                       halo.halo_pad_plain(zc.resolve_conj(), ((1, 1), (1, 1)), ("wrap", "wrap")))
+
+
+def _np_laplace(x):
+    p = np.pad(x.astype(np.float64), 1, mode="symmetric")
+    return p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * p[1:-1, 1:-1]
+
+
+@pytest.mark.gpu
+def test_general_halo_path_on_the_card_launches_the_halo_kernel(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo, stencil
+    from dask_array_tpu_torch.models.pipelines import laplace_roll, stencil2d
+
+    x = np.random.default_rng(6).standard_normal((512, 384)).astype(np.float32)
+    want = _np_laplace(x)
+    with config.set({"device": "cuda"}):
+        for arr, expect in (
+            (stencil2d(x, chunk=128, form="slices"), want),
+            (da.map_overlap(lambda b: torch.tanh(laplace_roll(b)), da.from_array(x, chunks=128),
+                            depth=1, boundary="reflect"), np.tanh(want)),
+        ):
+            h0, s0 = halo.LAUNCHES, stencil.LAUNCHES
+            got = arr.compute()
+            assert (halo.LAUNCHES - h0, stencil.LAUNCHES - s0) == (1, 0)
+            np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-4)
+        # boundary "none" pads nothing and launches nothing
+        h0 = halo.LAUNCHES
+        got = da.map_overlap(lambda b: b * 2, da.from_array(x, chunks=128), depth=1, boundary="none").compute()
+        assert halo.LAUNCHES == h0
+        np.testing.assert_array_equal(got, x * 2)
+
+
+@pytest.mark.gpu
+def test_pad_sliding_and_push_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo
+    from dask_array_tpu_torch.ops._sliding import move_mean, move_std
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((300, 257)).astype(np.float32)
+    v = rng.standard_normal(5000)
+    v[rng.random(5000) < 0.2] = np.nan
+    swv = np.lib.stride_tricks.sliding_window_view
+    with config.set({"device": "cuda"}):
+        d = da.from_array(x, chunks=100)
+        for mode in ("constant", "edge", "reflect", "symmetric", "wrap"):
+            h0 = halo.LAUNCHES
+            got = da.pad(d, ((3, 5), (7, 2)), mode=mode).compute()
+            assert halo.LAUNCHES == h0 + 1
+            np.testing.assert_array_equal(got, np.pad(x, ((3, 5), (7, 2)), mode=mode))
+        for mode, kw in (("linear_ramp", {"end_values": 2}), ("mean", {})):
+            got = da.pad(d, ((3, 5), (7, 2)), mode=mode, **kw).compute()
+            np.testing.assert_allclose(got, np.pad(x, ((3, 5), (7, 2)), mode=mode, **kw), rtol=1e-5, atol=1e-6)
+        dv = da.from_array(v, chunks=1000)
+        np.testing.assert_allclose(da.sliding_window_view(dv, 64).sum(-1).compute(), swv(v, 64).sum(-1),
+                                   rtol=1e-10, equal_nan=True)
+        m = move_mean(dv, 64, min_count=1).compute()
+        s = move_std(dv, 64, min_count=2).compute()
+        np.testing.assert_array_equal(da.push(dv, 3).compute(), _np_push(v, 3))
+    for i in (100, 2500, 4999):
+        w = v[i - 63:i + 1]
+        np.testing.assert_allclose(m[i], np.nanmean(w), rtol=1e-10)
+        np.testing.assert_allclose(s[i], np.nanstd(w), rtol=1e-8)
+
+
+def _np_push(v, n):
+    out = v.copy()
+    last = -1
+    for i in range(len(v)):
+        if not np.isnan(v[i]):
+            last = i
+        elif last >= 0 and i - last <= n:
+            out[i] = v[last]
+    return out

@@ -29,8 +29,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import dask_array_tpu_torch\n"
         "from dask_array_tpu_torch.models import pipelines\n"
-        "from dask_array_tpu_torch.kernels import _build, mstat, stencil, transpose\n"
-        "from dask_array_tpu_torch.ops import _blocks, _reshape, manipulation, stacking\n"
+        "from dask_array_tpu_torch.kernels import _build, halo, mstat, stencil, transpose\n"
+        "from dask_array_tpu_torch.ops import _blocks, _overlap, _reshape, _sliding, creation, manipulation, stacking\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dask_array_tpu' or m.startswith('dask_array_tpu.'))\n"
         "assert not bad, bad\n"
@@ -125,6 +125,22 @@ def test_shape_and_layout_names_are_exported():
     for name in names:
         assert name in da.__all__ and name in reference and callable(getattr(da, name)), name
     assert da.linalg.vdot is da.vdot and da.linalg.outer is da.outer
+
+
+def test_halo_path_and_creation_names_are_exported():
+    import json
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.ops import _sliding
+
+    reference = set(json.loads((PKG.parent / "tests" / "reference_namespace.json").read_text()))
+    names = ("pad tile repeat sliding_window_view push trim_overlap ones_like zeros_like empty_like full_like "
+             "linspace eye diag diagonal tri meshgrid indices fromfunction").split()
+    for name in names:
+        assert name in da.__all__ and name in reference and callable(getattr(da, name)), name
+    # the move_* reductions stay in ops._sliding, as in the JAX package
+    for name in ("move_sum", "move_mean", "move_max", "move_min", "move_var", "move_std"):
+        assert callable(getattr(_sliding, name)) and name not in da.__all__
 
 
 def test_chip_smoke_imports_no_jax():
