@@ -8,7 +8,7 @@ version.  Run from the root of a checkout, with no arguments:
 
 Phases (each prints one line of its own numbers; any failure raises):
   1. setup: config "device" = "cuda"; build the band-stencil, the
-     multi-statistic, the transpose and the halo kernels from
+     multi-statistic, the transpose, the halo and the scale kernels from
      dask_array_tpu_torch/csrc (one nvcc each, started together); print the
      card's name and power limit;
   2. the band-stencil kernel against its plain version on the card: every
@@ -83,7 +83,28 @@ Phases (each prints one line of its own numbers; any failure raises):
      replicate as the library call of the main path's function (at depth 1
      dask's "reflect" equals numpy's edge), a device copy of the same bytes
      and the bound; compute() and
-     compute_device() of phases 17-18.
+     compute_device() of phases 17-18;
+ 22. the scale kernel against its plain version on the card, equal bytes
+     (a NaN matching any NaN) in float16, bfloat16, float32 and float64, in
+     the scalar, row and column forms: the probe's 256x256 * 2.0, (128,
+     128) (svd_flip's vh * signs.T), (1000, 1003), (4097, 33), a 1x128
+     row, (1e6, 128) by a row, a strided u[:, :128] view of (100000, 256),
+     a 1-D (1 << 24,) and its unaligned x[1:], and the narrow (1e7, 1) and
+     (1e7, 3);
+ 23. tall_skinny_svd (BASELINE config 5): 1e6x128 float32 in row chunks of
+     100 000 through compute(u, s, vh): s against float64 numpy, the
+     reconstruction, the orthogonality and the sign rule; three scale
+     launches and one factorization.  Then, against numpy: qr (TSQR) of
+     100000x128, lu and solve of 4096^2 float64 in 1024^2 blocks (the
+     blocked path), cholesky and inv of 4096^2 float64, lstsq of
+     100000x128 and norm(ord=2);
+ 24. timing: the scale kernel, its plain version, torch.mul and the bound
+     at 1e6x128 float32 by a row, and beside torch.mul at (1 << 24,) * 2.0,
+     (1e7, 1) * s and (1e7, 3) * s, each call as a caller pays it and its
+     device time alone (the card spinning first); compute() and compute_device() of
+     tall_skinny_svd, and compute_device() with the input persisted on the
+     card (the device walk alone); torch.linalg.svd of the whole 1e6x128
+     as a reference.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -126,6 +147,28 @@ def cuda_ms(fn, reps=30, warmup=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps=30, warmup=3):
+    """Median device milliseconds of ``fn``: the card spins for about a
+    millisecond before each start event, so the host's launch time (which
+    ``cuda_ms`` counts when the card would otherwise wait) stays outside."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -229,6 +272,17 @@ def check_halo(halo, x, widths, modes, what):
     check(bool(torch.equal(got.view(torch.uint8), want.contiguous().view(torch.uint8))), f"{what}: bytes differ")
 
 
+def same_values(a, b):
+    """Equal bytes, a NaN matching any NaN (the scale kernel and torch may
+    canonicalise a NaN differently)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(((a.view(bits) == b.view(bits)) | (a.isnan() & b.isnan())).all())
+
+
 def check_transpose(tk, x, what):
     """The transpose kernel against its plain version, byte for byte."""
     import torch
@@ -256,6 +310,7 @@ def main() -> int:
     from dask_array_tpu_torch import config
     from dask_array_tpu_torch._materialize import compute_exprs
     from dask_array_tpu_torch.kernels import _build, halo, mstat, stencil
+    from dask_array_tpu_torch.kernels import scale as sk
     from dask_array_tpu_torch.kernels import transpose as tk
     from dask_array_tpu_torch.models.pipelines import (
         blocked_matmul,
@@ -265,7 +320,9 @@ def main() -> int:
         rechunk_relayout,
         reduction_tree,
         stencil2d,
+        tall_skinny_svd,
     )
+    from dask_array_tpu_torch.ops import linalg_decomp
     from dask_array_tpu_torch.ops._overlap import BandStencil
     from dask_array_tpu_torch.ops._sliding import move_mean, move_std
 
@@ -274,7 +331,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    built = _build.build_all(["band_stencil", "mstat", "transpose", "halo"])
+    built = _build.build_all(["band_stencil", "mstat", "transpose", "halo", "scale"])
     build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -844,6 +901,201 @@ def main() -> int:
         lambda: (nonlin.compute_device(), torch.cuda.synchronize()), 5)
     phase(21, "timing-general-halo-paths", card=smi, **path_ms)
 
+    del gen_paths, nonlin
+    torch.cuda.empty_cache()
+
+    # -- phase 22: the scale kernel against its plain version ------------------------
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    scale_dtypes = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
+    scale_cases = 0
+    for dt in scale_dtypes:
+        shapes22 = [(256, 256), (128, 128), (1000, 1003), (4097, 33), (1, 128)]
+        if dt == torch.float32:
+            shapes22.append((1_000_000, 128))
+        for shape in shapes22:
+            x = (torch.randn(shape, generator=gen, device="cuda") * 100).to(dt)
+            x.view(-1)[::997] = float("nan")
+            x.view(-1)[1::1009] = float("inf")
+            rows, cols = shape
+            for form, s in (("scalar", 2.0), ("scalar", torch.randn((), generator=gen, device="cuda").to(dt)),
+                            ("row", torch.randn((1, cols), generator=gen, device="cuda").to(dt)),
+                            ("column", torch.randn((rows, 1), generator=gen, device="cuda").to(dt))):
+                check(same_values(sk.scale_cuda(x, s), sk.scale_plain(x, s)), f"scale {form} {shape} {dt}")
+                scale_cases += 1
+            del x
+        base = torch.randn((100_000, 256), generator=gen, device="cuda").to(dt)
+        view = base[:, :128]
+        for s in (0.5, torch.randn((1, 128), generator=gen, device="cuda").to(dt),
+                  torch.randn((100_000, 1), generator=gen, device="cuda").to(dt)):
+            check(same_values(sk.scale_cuda(view, s), sk.scale_plain(view, s)), f"scale u[:, :128] view {dt}")
+            scale_cases += 1
+        del base, view
+        # a 1-D array, its unaligned tail view, and narrow last axes
+        flat = (torch.randn((1 << 24,), generator=gen, device="cuda") * 100).to(dt)
+        for x, s in ((flat, 2.0), (flat, torch.randn((1 << 24,), generator=gen, device="cuda").to(dt)[:1]),
+                     (flat[1:], 0.5)):
+            check(same_values(sk.scale_cuda(x, s), sk.scale_plain(x, s)), f"scale 1-D {tuple(x.shape)} {dt}")
+            scale_cases += 1
+        del flat
+        for cols in (1, 3):
+            x = (torch.randn((10_000_000, cols), generator=gen, device="cuda") * 100).to(dt)
+            for s in (2.0, torch.randn((1, cols), generator=gen, device="cuda").to(dt),
+                      torch.randn((10_000_000, 1), generator=gen, device="cuda").to(dt)):
+                check(same_values(sk.scale_cuda(x, s), sk.scale_plain(x, s)), f"scale (1e7, {cols}) {dt}")
+                scale_cases += 1
+            del x
+    torch.cuda.synchronize()
+    phase(22, "scale-kernel-vs-plain", cases=scale_cases, dtypes=[str(d).replace("torch.", "") for d in scale_dtypes],
+          forms=["scalar", "row", "column"],
+          shapes=[[256, 256], [128, 128], [1000, 1003], [4097, 33], [1, 128], [1000000, 128], [1 << 24],
+                  [10_000_000, 1], [10_000_000, 3]],
+          views=["x[:, :128] of (100000, 256)", "x[1:] of (1 << 24,)"], tolerance="equal bytes, a NaN matching any NaN")
+
+    # -- phase 23: tall_skinny_svd and the other decompositions ------------------------
+    m23, n23 = 1_000_000, 128
+    x23 = np.random.default_rng(23).standard_normal((m23, n23), dtype=np.float32)
+    ts = tall_skinny_svd(x23, chunk_rows=100_000)
+    sk.LAUNCHES = 0
+    factorizations = linalg_decomp.FACTORIZATIONS
+    u23, s23, vh23 = da.compute(*ts)
+    scale_launches = sk.LAUNCHES
+    ts_factorizations = linalg_decomp.FACTORIZATIONS - factorizations
+    check(scale_launches == 3, f"tall_skinny_svd launched the scale kernel {scale_launches} times, not 3")
+    check(ts_factorizations == 1, f"tall_skinny_svd factored {ts_factorizations} times in one compute")
+    check(u23.shape == (m23, n23) and s23.shape == (n23,) and vh23.shape == (n23, n23), "svd: shapes")
+    check(all(a.dtype == np.float32 for a in (u23, s23, vh23)), "svd: dtypes")
+    check(all(bool(np.isfinite(a).all()) for a in (u23, s23, vh23)), "svd: non-finite values")
+    s64 = np.linalg.svd(x23.astype(np.float64), compute_uv=False)
+    s_err = float(np.abs(s23 - s64).max() / s64.max())
+    xd = torch.from_numpy(x23).cuda().double()
+    ud = torch.from_numpy(u23).cuda().double()
+    recon = float(torch.linalg.matrix_norm((ud * torch.from_numpy(s23).cuda().double())
+                                           @ torch.from_numpy(vh23).cuda().double() - xd)
+                  / torch.linalg.matrix_norm(xd))
+    orth = float((ud.mT @ ud - torch.eye(n23, device="cuda", dtype=torch.float64)).abs().max())
+    del ud
+    svd_tol = 1e-4
+    check(s_err < svd_tol, f"svd: s relative error {s_err}")
+    check(recon < svd_tol, f"svd: reconstruction {recon}")
+    check(orth < svd_tol, f"svd: orthogonality {orth}")
+    check(bool((vh23.astype(np.float64).sum(axis=1) >= 0).all()), "svd: a row of vh sums below 0")
+    phase(23, "tall_skinny_svd", shape=[m23, n23], chunk_rows=100_000, scale_launches=scale_launches,
+          factorizations=ts_factorizations, s_max_rel_err=s_err, reconstruction_rel=recon, orthogonality_max=orth,
+          tolerance=f"each < {svd_tol} (float32; s against float64 numpy, relative to s_max)")
+
+    # qr (TSQR), lstsq and norm(ord=2) on 100000x128 float32
+    xm = x23[:100_000]
+    dm = da.from_array(xm, chunks=(10_000, n23))
+    q, r = da.compute(*da.linalg.qr(dm))
+    qd, rd = torch.from_numpy(q).cuda().double(), torch.from_numpy(r).cuda().double()
+    xmd = xd[:100_000]
+    qr_recon = float(torch.linalg.matrix_norm(qd @ rd - xmd) / torch.linalg.matrix_norm(xmd))
+    qr_orth = float((qd.mT @ qd - torch.eye(n23, device="cuda", dtype=torch.float64)).abs().max())
+    check(qr_recon < svd_tol and qr_orth < svd_tol and bool((np.tril(r, -1) == 0).all()),
+          f"qr: reconstruction {qr_recon}, orthogonality {qr_orth}")
+    del qd, rd, xd, xmd
+    bm_np = np.random.default_rng(231).standard_normal(100_000).astype(np.float32)
+    lx, lres, lrank, lsv = da.compute(*da.linalg.lstsq(dm, da.from_array(bm_np, chunks=10_000)))
+    nx, nres, nrank, nsv = np.linalg.lstsq(xm, bm_np, rcond=None)
+    check(int(lrank) == int(nrank) == n23, f"lstsq rank {lrank} against {nrank}")
+    np.testing.assert_allclose(lx, nx, rtol=1e-5, atol=1e-5 * float(np.abs(nx).max()))
+    np.testing.assert_allclose(lres, nres, rtol=1e-5)
+    np.testing.assert_allclose(lsv, nsv, rtol=1e-5)
+    nrm = float(da.linalg.norm(dm, ord=2).compute())
+    nrm_want = float(nsv.max())
+    check(abs(nrm - nrm_want) <= 1e-4 * nrm_want, f"norm(ord=2) {nrm} against {nrm_want}")
+    # lu, solve, cholesky and inv of 4096^2 float64 in 1024^2 blocks
+    rng23 = np.random.default_rng(232)
+    a_np = rng23.standard_normal((4096, 4096))
+    b_np = rng23.standard_normal(4096)
+    da_ = da.from_array(a_np, chunks=1024)
+    p_, l_, u_ = da.compute(*da.linalg.lu(da_))
+    ad = torch.from_numpy(a_np).cuda()
+    pd, ld_, udd = (torch.from_numpy(v).cuda() for v in (p_, l_, u_))
+    lu_recon = float(torch.linalg.matrix_norm(pd @ ld_ @ udd - ad) / torch.linalg.matrix_norm(ad))
+    blocks_ok = all(
+        bool(((p_[i:i + 1024, j:j + 1024] != 0).sum() == (1024 if i == j else 0)))
+        for i in range(0, 4096, 1024) for j in range(0, 4096, 1024)
+    ) and bool(np.isin(p_, (0.0, 1.0)).all()) and bool((p_.sum(0) == 1).all() and (p_.sum(1) == 1).all())
+    check(blocks_ok, "lu: P is not a block-diagonal permutation")
+    check(lu_recon < 1e-10, f"lu: reconstruction {lu_recon}")
+    del pd, ld_, udd
+    xs = da.linalg.solve(da_, da.from_array(b_np, chunks=1024)).compute()
+    solve_res = float(np.linalg.norm(a_np @ xs - b_np) / (np.linalg.norm(a_np) * np.linalg.norm(xs)))
+    check(solve_res < 1e-12, f"solve: residual {solve_res}")
+    spd_np = (ad @ ad.mT / 4096 + torch.eye(4096, device="cuda", dtype=torch.float64)).cpu().numpy()
+    dspd = da.from_array(spd_np, chunks=1024)
+    ch = da.linalg.cholesky(dspd, lower=True).compute()
+    chd, sd_ = torch.from_numpy(ch).cuda(), torch.from_numpy(spd_np).cuda()
+    chol_recon = float(torch.linalg.matrix_norm(chd @ chd.mT - sd_) / torch.linalg.matrix_norm(sd_))
+    check(chol_recon < 1e-12 and bool((np.triu(ch, 1) == 0).all()), f"cholesky: reconstruction {chol_recon}")
+    iv = torch.from_numpy(da.linalg.inv(dspd).compute()).cuda()
+    inv_err = float((sd_ @ iv - torch.eye(4096, device="cuda", dtype=torch.float64)).abs().max())
+    check(inv_err < 1e-10, f"inv: |A inv(A) - I| {inv_err}")
+    del chd, sd_, iv, ad
+    phase(23, "decompositions", qr_shape=[100_000, n23], qr_reconstruction_rel=qr_recon, qr_orthogonality_max=qr_orth,
+          lstsq_rank=int(lrank), lstsq_x_max_abs_err=float(np.abs(lx - nx).max()),
+          norm2_rel_err=abs(nrm - nrm_want) / nrm_want, lu_shape=[4096, 4096], lu_blocks=1024,
+          lu_reconstruction_rel=lu_recon, solve_rel_residual=solve_res, cholesky_reconstruction_rel=chol_recon,
+          inv_max_err=inv_err,
+          tolerance={"qr (float32)": f"< {svd_tol}", "lstsq (float32 in, float64 inside)": "rtol 1e-5 vs numpy",
+                     "norm(ord=2)": "rtol 1e-4", "lu": "1e-10, P block-diagonal", "solve": "|Ax-b|/(|A|_F |x|) < 1e-12",
+                     "cholesky": "1e-12", "inv": "1e-10"})
+    del a_np, spd_np, p_, l_, u_, ch, xm, dm, q, r
+    torch.cuda.empty_cache()
+
+    # -- phase 24: timing of the scale kernel and the decompositions ---------------
+    xs_d = torch.from_numpy(x23).cuda()
+    row = torch.randn((1, n23), generator=gen, device="cuda")
+    kernel_ms24, plain_ms24, k_runs24, p_runs24 = paired_ms(lambda: sk.scale_plain(xs_d, row),
+                                                            lambda: sk.scale_cuda(xs_d, row))
+    mul_ms = cuda_ms(lambda: torch.mul(xs_d, row))
+    kernel_dev24, mul_dev24 = device_ms(lambda: sk.scale_cuda(xs_d, row)), device_ms(lambda: torch.mul(xs_d, row))
+    scale_err = float((sk.scale_cuda(xs_d, row) - sk.scale_plain(xs_d, row)).abs().max())
+    scale_bytes = (2 * m23 * n23 + n23) * 4
+    scale_bound_ms, scale_bound_by = bound(scale_bytes, m23 * n23)
+    phase(24, "timing-scale-1e6x128", card=smi, kernel_ms=kernel_ms24, plain_ms=plain_ms24, kernel_runs_ms=k_runs24,
+          plain_runs_ms=p_runs24, torch_mul_ms=mul_ms, kernel_GBps=scale_bytes / kernel_ms24 / 1e6,
+          torch_mul_GBps=scale_bytes / mul_ms / 1e6, bound_ms=scale_bound_ms, bound_by=scale_bound_by,
+          kernel_of_bound=scale_bound_ms / kernel_ms24, max_abs_err=scale_err, kernel_device_ms=kernel_dev24,
+          torch_mul_device_ms=mul_dev24)
+    del row
+    # the shapes where a flat walk matters: a 1-D array and narrow last axes
+    beside_mul = {}
+    for label, shape, s in (("1d_16777216_by_2.0", (1 << 24,), 2.0),
+                            ("10000000x1_by_scalar", (10_000_000, 1), 0.5),
+                            ("10000000x3_by_scalar", (10_000_000, 3), 0.5),
+                            ("10000000x3_by_row", (10_000_000, 3), torch.randn((1, 3), generator=gen, device="cuda"))):
+        xn = torch.randn(shape, generator=gen, device="cuda")
+        k_ms, p_ms, _, _ = paired_ms(lambda: sk.scale_plain(xn, s), lambda: sk.scale_cuda(xn, s))
+        m_ms = cuda_ms(lambda: torch.mul(xn, s))
+        # the device alone, the host's launch time hidden behind a spin
+        k_dev, m_dev = device_ms(lambda: sk.scale_cuda(xn, s)), device_ms(lambda: torch.mul(xn, s))
+        nb = 2 * xn.numel() * 4
+        beside_mul[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "torch_mul_ms": m_ms,
+                             "kernel_device_ms": k_dev, "torch_mul_device_ms": m_dev,
+                             "bound_ms": bound(nb, xn.numel())[0], "kernel_over_torch_mul": k_ms / m_ms,
+                             "kernel_over_torch_mul_device": k_dev / m_dev}
+        del xn
+    phase(24, "timing-scale-beside-torch-mul", card=smi, **beside_mul)
+    svd_ms = {}
+    arrays = tall_skinny_svd(x23, chunk_rows=100_000)
+    exprs = [a.expr for a in arrays]
+    compute_exprs(exprs)  # warm
+    svd_ms["compute_device_ms"] = host_ms(lambda: (compute_exprs(exprs), torch.cuda.synchronize()), 3)
+    svd_ms["compute_ms"] = host_ms(lambda: da.compute(*arrays), 3)
+    # the device walk alone: the input persisted on the card first
+    xp = da.from_array(x23, chunks=(100_000, n23)).persist()
+    exprs = [a.expr for a in da.linalg.svd(xp)]
+    compute_exprs(exprs)  # warm
+    svd_ms["persist_compute_device_ms"] = host_ms(lambda: (compute_exprs(exprs), torch.cuda.synchronize()), 5)
+    del xp
+    lib_svd_ms = cuda_ms(lambda: torch.linalg.svd(xs_d, full_matrices=False), reps=2, warmup=1)
+    phase(24, "timing-tall_skinny_svd-1e6x128", card=smi, **svd_ms, torch_linalg_svd_ms=lib_svd_ms,
+          note="torch.linalg.svd of the whole array is a reference only")
+    del xs_d, x23, u23
+    torch.cuda.empty_cache()
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -899,6 +1151,19 @@ def main() -> int:
             "bound_ms": halo_bound_ms,
             "bound_by": halo_bound_by,
             "library_ms": library_ms,
+        },
+        {
+            "name": "scale",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/scale.cu",
+            "replaces": "bench/probe_pallas_min.py:26",
+            "launches": scale_launches,
+            "max_abs_err": scale_err,
+            "ms": kernel_ms24,
+            "plain_ms": plain_ms24,
+            "bound_ms": scale_bound_ms,
+            "bound_by": scale_bound_by,
+            "library_ms": mul_ms,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

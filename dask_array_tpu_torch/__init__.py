@@ -7,8 +7,10 @@ torch tensors on ``config["device"]`` (the card, unless the caller asks
 for ``"cpu"``).  Four hand-written CUDA kernels serve it on a GPU: the
 band stencil of 2-D ``map_overlap`` (``kernels/stencil.py``), the halo
 assembly of every other ``overlap``/``map_overlap`` and of ``pad``
-(``kernels/halo.py``), the multi-statistic reduction (``kernels/mstat.py``)
-and the tiled transpose of the last two axes (``kernels/transpose.py``).
+(``kernels/halo.py``), the multi-statistic reduction (``kernels/mstat.py``),
+the tiled transpose of the last two axes (``kernels/transpose.py``) and the
+broadcast scale of a real float multiply by a scalar, a row or a column
+(``kernels/scale.py``).
 
 The ported slices: creation, ``from_array``, elementwise ops and ufuncs,
 basic slicing, rechunk, ``map_blocks``, ``map_overlap`` and ``blockwise``
@@ -21,7 +23,12 @@ path (``overlap``/``map_overlap``/``trim_overlap``, ``pad``,
 ``sliding_window_view``, the ``move_*`` reductions in ``ops._sliding``,
 ``push``) and the rest of creation (``*_like``, ``linspace``, ``eye``,
 ``diag``/``diagonal``, ``tri``, ``tile``, ``repeat``, ``meshgrid``,
-``indices``, ``fromfunction``).  Quantiles and the rest wait (ROADMAP.md).
+``indices``, ``fromfunction``); the decompositions (``qr``/``tsqr``/``sfqr``,
+``svd`` and ``linalg.svd_flip``, ``lu``, ``cholesky``, ``solve``,
+``solve_triangular``, ``inv``, ``lstsq``, ``norm``), which are
+``linalg``'s names, as in dask, and attributes here as in the JAX package,
+but not in ``__all__``.  ``svd_compressed``, quantiles and the rest wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -66,6 +73,19 @@ from dask_array_tpu_torch.ops.creation import (
 )
 from dask_array_tpu_torch.ops._reshape import ravel, reshape, reshape_blockwise
 from dask_array_tpu_torch.ops.linalg import dot, einsum, matmul, outer, tensordot, vdot
+from dask_array_tpu_torch.ops.linalg_decomp import (
+    cholesky,
+    inv,
+    lstsq,
+    lu,
+    norm,
+    qr,
+    sfqr,
+    solve,
+    solve_triangular,
+    svd,
+    tsqr,
+)
 from dask_array_tpu_torch.ops.manipulation import (
     atleast_1d,
     atleast_2d,

@@ -96,12 +96,48 @@ def _check_broadcastable(exprs):
             )
 
 
-def _host_scalar(a):
-    """numpy scalars and 0-d arrays enter torch ops as Python scalars (their
-    numpy dtype has already shaped the loop dtypes)."""
+def _host_scalar(a, loop_dtype=None):
+    """A scalar operand for a torch op.
+
+    numpy scalars and 0-d arrays become Python scalars (their numpy dtype
+    has already shaped the loop dtypes).  A scalar whose loop dtype is a
+    float16 becomes a 0-d CPU tensor of that dtype: numpy (NEP 50)
+    rounds the scalar to the loop dtype first, while torch reads a Python
+    scalar (or a wrapped number) in the second position of a binary op
+    unrounded, in its float32 compute type, so float16 ``x * 0.1`` would
+    multiply by 0.1 and ``0.1 * x`` by float16(0.1).  A 0-d tensor of the
+    loop dtype gives numpy's value in either position, on any device.
+    """
     if isinstance(a, (np.generic, np.ndarray)) and np.ndim(a) == 0:
-        return a.item()
+        a = a.item()
+    if loop_dtype is not None and isinstance(a, (bool, int, float)) and np.dtype(loop_dtype) == np.float16:
+        return torch.tensor(a, dtype=torch_dtype(loop_dtype))
     return a
+
+
+def _scale_operands(func, args, out_dtype, kwargs):
+    """``(x, s)`` when ``func(*args)`` is a multiply the scale kernel
+    computes (``kernels/scale.py``): a real float result, one tensor
+    operand of the result's dtype and shape, and the other a number or a
+    tensor that is a scalar, a row or a column of it.  None otherwise;
+    ``scale`` rounds a number to x's dtype.
+    """
+    from dask_array_tpu_torch.kernels.scale import scale_form
+
+    if func is not torch.mul or kwargs or len(args) != 2 or np.dtype(out_dtype).kind != "f":
+        return None
+    if not all(isinstance(a, (torch.Tensor, bool, int, float)) for a in args):
+        return None
+    if any(isinstance(a, torch.Tensor) and a.dtype != torch_dtype(out_dtype) for a in args):
+        return None
+    shape = torch.broadcast_shapes(*(np.shape(a) for a in args))
+    full = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor) and a.shape == shape]
+    if len(full) != 1:
+        return None
+    x, s = args[full[0]], args[1 - full[0]]
+    if scale_form(x.shape, np.shape(s)) is None:
+        return None
+    return x, s
 
 
 def _cast(t, dtype):
@@ -478,9 +514,16 @@ class Elemwise(Blockwise):
         args = [ctx.build(a).dense() if isinstance(a, ArrayExpr) else a for a in self.args]
         dts = loop_dtypes(self.func, args)
         if dts is not None:
-            args = [_cast(a, dt) for a, dt in zip(args, dts)]
-        args = [_host_scalar(a) for a in args]
-        dense = self.func(*args, **self._kwargs_dict)
+            args = [_host_scalar(_cast(a, dt), dt) for a, dt in zip(args, dts)]
+        else:
+            args = [_host_scalar(a) for a in args]
+        scaled = _scale_operands(self.func, args, self.dtype, self.kwargs)
+        if scaled is not None:
+            from dask_array_tpu_torch.kernels.scale import scale
+
+            dense = scale(*scaled)
+        else:
+            dense = self.func(*args, **self._kwargs_dict)
         return BlockView(self.chunks, dense=_cast(dense, self.dtype))
 
     # slice pushdown: x[idx] == op(a, b)[idx] == op(a[idx'], b[idx'])

@@ -91,6 +91,7 @@ class BuildContext:
         self.cache: dict[str, BlockView] = {}
         self.leaf_values = leaf_values  # key -> tensor on ``device``
         self.device = device
+        self.shared_values: dict = {}
 
     def build(self, expr: ArrayExpr) -> BlockView:
         view = self.cache.get(expr._name)
@@ -103,6 +104,13 @@ class BuildContext:
 
     def leaf(self, key):
         return self.leaf_values[key]
+
+    def shared(self, key, make):
+        """``make()``, once per walk under ``key``: nodes that are outputs of
+        one computation (the q and r of one QR, say) share it this way."""
+        if key not in self.shared_values:
+            self.shared_values[key] = make()
+        return self.shared_values[key]
 
 
 def collect_leaves(root: ArrayExpr):

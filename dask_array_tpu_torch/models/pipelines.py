@@ -4,8 +4,9 @@ Port of ``dask_array_tpu/models/pipelines.py``: the README example (slice
 pushdown + fusion), the flagship ``normalize_contract`` step, the
 ``split_every`` tree reductions (BASELINE config 2), the blocked matmul
 with misaligned chunks (BASELINE config 3), the 2-D ``map_overlap``
-Laplace stencil (BASELINE config 4) and the rows-to-columns relayout of a
-transposed array (BASELINE metric 2).  Inputs are numpy arrays made by the
+Laplace stencil (BASELINE config 4), the tall-skinny SVD (BASELINE config
+5) and the rows-to-columns relayout of a transposed array (BASELINE
+metric 2).  Inputs are numpy arrays made by the
 caller from a seed, since the reference's ``da.random`` streams cannot be
 reproduced in torch.
 """
@@ -120,3 +121,16 @@ def rechunk_relayout(x_np, chunk=1024, persist=False):
     if persist:
         x = x.persist()
     return x.T.freeze_chunks().rechunk((chunk, x_np.shape[0]))
+
+
+def tall_skinny_svd(x_np, chunk_rows=100_000):
+    """TSQR-based SVD of a tall-skinny matrix (BASELINE config 5: 1e6 x 128
+    float32 in row chunks of 100 000): ``(u, s, vh)`` of ``x_np``.
+
+    Computed together (``dask_array_tpu_torch.compute(u, s, vh)``) the three
+    share one CholeskyQR3 factorization; ``svd_flip``'s multiplies go
+    through the scale kernel."""
+    import dask_array_tpu_torch as da
+
+    x_np = np.asarray(x_np)
+    return da.linalg.svd(da.from_array(x_np, chunks=(chunk_rows, x_np.shape[1])))

@@ -390,3 +390,64 @@ def test_float_division_by_zero_is_untouched():
         np.testing.assert_array_equal((x // y).compute(), a // b)
         np.testing.assert_array_equal((x % y).compute(), a % b)
         np.testing.assert_array_equal(tda.fmod(x, y).compute(), np.fmod(a, b))
+
+
+# ---------------------------------------------------------------------------
+# scalars enter torch in the loop dtype (numpy's NEP 50 rounding)
+# ---------------------------------------------------------------------------
+
+SCALARS = [0.1, 3.3, 1 / 3, 7.77]
+SCALAR_OPS = {
+    "x*s": lambda x, s: x * s,
+    "s*x": lambda x, s: s * x,
+    "x/s": lambda x, s: x / s,
+    "s/x": lambda x, s: s / x,
+    "x+s": lambda x, s: x + s,
+    "x-s": lambda x, s: x - s,
+}
+# the torch call the port makes for each (torch's own ``s / t`` is a
+# reciprocal times s, not a division)
+TORCH_OPS = {
+    "x*s": lambda t, s: torch.mul(t, s),
+    "s*x": lambda t, s: torch.mul(s, t),
+    "x/s": lambda t, s: torch.true_divide(t, s),
+    "s/x": lambda t, s: torch.true_divide(torch.tensor(s, dtype=t.dtype), t),
+    "x+s": lambda t, s: torch.add(t, s),
+    "x-s": lambda t, s: torch.sub(t, s),
+}
+
+
+@pytest.mark.parametrize("s", SCALARS, ids=str)
+@pytest.mark.parametrize("op", list(SCALAR_OPS))
+def test_float16_scalar_ops_equal_numpy_byte_for_byte(op, s):
+    # numpy rounds s to float16 first; torch, handed a Python float as the
+    # second operand, multiplied by the unrounded value
+    x = np.random.default_rng(0).standard_normal((64, 64)).astype(np.float16)
+    fn = SCALAR_OPS[op]
+    got = fn(tda.from_array(x, chunks=32), s).compute()
+    want = fn(x, s)
+    assert got.dtype == want.dtype == np.float16
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+
+
+@pytest.mark.parametrize("s", SCALARS, ids=str)
+@pytest.mark.parametrize("op", list(SCALAR_OPS))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_float32_float64_scalar_ops_unchanged(op, s, dtype):
+    # a Python scalar still enters torch as it did: the same bytes as the
+    # torch op on the tensor with the Python scalar, and as numpy's
+    x = np.random.default_rng(1).standard_normal((64, 64)).astype(dtype)
+    fn = SCALAR_OPS[op]
+    got = fn(tda.from_array(x, chunks=32), s).compute()
+    direct = TORCH_OPS[op](torch.from_numpy(x), s).numpy()
+    bits = f"u{x.dtype.itemsize}"
+    np.testing.assert_array_equal(got.view(bits), direct.view(bits))
+    np.testing.assert_array_equal(got.view(bits), fn(x, s).view(bits))
+
+
+def test_float16_scalar_comparison_and_numpy_scalar():
+    x = np.linspace(0.09, 0.11, 101, dtype=np.float16)
+    d = tda.from_array(x, chunks=50)
+    np.testing.assert_array_equal((d > 0.1).compute(), x > 0.1)
+    np.testing.assert_array_equal((d * np.float64(0.1)).compute().view(np.uint16),
+                                  (x * np.float64(0.1)).view(np.uint16))

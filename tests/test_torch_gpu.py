@@ -1,8 +1,8 @@
-"""The port on a CUDA card: the band-stencil, multi-statistic, transpose
-and halo kernels against their plain versions, their input checks, and
-the main paths through ``compute()`` (stencil2d in both forms, a
+"""The port on a CUDA card: the band-stencil, multi-statistic, transpose,
+halo and scale kernels against their plain versions, their input checks,
+and the main paths through ``compute()`` (stencil2d in both forms, a
 non-linear map_overlap, pad, sliding windows and push, reduction_tree,
-normalize_contract, rechunk_relayout).
+normalize_contract, rechunk_relayout, tall_skinny_svd).
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -14,7 +14,10 @@ Tolerance: float32 rtol 1e-5 with atol scaled by sum|w| * max|x|, float64
 1e-12 (kernel and plain version sum the taps in different orders).  The
 multi-statistic kernel: colsum/rowmean rtol 1e-5 with atol 4 * sqrt(terms)
 * max|x| * 2^-23, std rtol 1e-4.  The transpose and halo kernels move
-bytes: their results must equal the plain versions' byte for byte.
+bytes: their results must equal the plain versions' byte for byte.  The
+scale kernel rounds one product as torch does: equal bytes, a NaN matching
+any NaN.  tall_skinny_svd: singular values rtol 1e-4 against float64
+numpy, reconstruction and orthogonality 20 * eps * n.
 """
 
 import numpy as np
@@ -431,3 +434,83 @@ def _np_push(v, n):
         elif last >= 0 and i - last <= n:
             out[i] = v[last]
     return out
+
+
+SCALE_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
+
+
+def same_values(a, b):
+    """Equal bytes, a NaN matching any NaN (the kernel and torch may
+    canonicalise a NaN differently)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(((a.view(bits) == b.view(bits)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SCALE_DTYPES, ids=str)
+def test_scale_kernel_matches_plain_byte_for_byte(cuda, dtype):
+    from dask_array_tpu_torch.kernels import scale as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape in [(256, 256), (1000, 1003), (1, 7), (4097, 33), (3, 5, 130)]:
+        x = (torch.randn(shape, generator=gen, device=cuda) * 100).to(dtype)
+        x.view(-1)[::97] = float("nan")
+        for s in (2.0, 0.1, -0.0, 3, torch.randn((), device=cuda).to(dtype), torch.randn(shape[-1], device=cuda).to(dtype),
+                  torch.randn((1, shape[-1]), device=cuda).to(dtype)):
+            before = sk.LAUNCHES
+            got = sk.scale_cuda(x, s)
+            assert sk.LAUNCHES == before + 1 and got.is_contiguous()
+            assert same_values(got, sk.scale_plain(x, s))
+        if len(shape) == 2:
+            col = torch.randn((shape[0], 1), generator=gen, device=cuda).to(dtype)
+            assert same_values(sk.scale_cuda(x, col), sk.scale_plain(x, col))
+    # a column-sliced view is read in place, a strided one is made contiguous
+    x = torch.randn((900, 700), generator=gen, device=cuda).to(dtype)
+    row = torch.randn((1, 300), device=cuda).to(dtype)
+    for view in (x[:, 100:400], x[50:, 200:500], x[:, ::2][:, :300]):
+        assert same_values(sk.scale_cuda(view, row), sk.scale_plain(view, row))
+    # 1-D, an unaligned 1-D view (no 16-byte vectors) and narrow last axes
+    flat = torch.randn((100_003,), generator=gen, device=cuda).to(dtype)
+    for view, s in ((flat, 2.0), (flat[1:], 0.5), (flat[3:], torch.randn((100_000,), device=cuda).to(dtype))):
+        assert same_values(sk.scale_cuda(view, s), sk.scale_plain(view, s))
+    for cols in (1, 3, 5):
+        x = torch.randn((10_007, cols), generator=gen, device=cuda).to(dtype)
+        for s in (0.3, torch.randn((1, cols), device=cuda).to(dtype), torch.randn((10_007, 1), device=cuda).to(dtype)):
+            assert same_values(sk.scale_cuda(x, s), sk.scale_plain(x, s))
+
+
+@pytest.mark.gpu
+def test_scale_kernel_refuses_what_it_does_not_take(cuda):
+    from dask_array_tpu_torch.kernels import scale as sk
+
+    before = sk.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sk.scale_cuda(torch.zeros((4, 4)), 2.0)
+    with pytest.raises(TypeError, match="float16, bfloat16"):
+        sk.scale_cuda(torch.zeros((4, 4), dtype=torch.int32, device=cuda), 2)
+    with pytest.raises(ValueError, match="scalar, row or column"):
+        sk.scale_cuda(torch.zeros((4, 4), device=cuda), torch.ones((4, 4), device=cuda))
+    assert tuple(sk.scale_cuda(torch.zeros((0, 5), device=cuda), 2.0).shape) == (0, 5)
+    assert sk.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_tall_skinny_svd_on_the_card(cuda):
+    from dask_array_tpu_torch import compute, config
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.models.pipelines import tall_skinny_svd
+    from dask_array_tpu_torch.ops import linalg_decomp as ld
+
+    x = np.random.default_rng(6).standard_normal((20000, 32)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        arrays = tall_skinny_svd(x, chunk_rows=2500)
+        sk.LAUNCHES = 0
+        before = ld.FACTORIZATIONS
+        u, s, vh = compute(*arrays)
+        assert sk.LAUNCHES == 3 and ld.FACTORIZATIONS - before == 1
+    np.testing.assert_allclose(s, np.linalg.svd(x.astype(np.float64), compute_uv=False), rtol=1e-4)
+    assert np.linalg.norm((u * s) @ vh - x) / np.linalg.norm(x) < 20 * 2.0**-23 * 32
+    assert np.abs(u.T @ u - np.eye(32)).max() < 20 * 2.0**-23 * 32
+    assert (vh.sum(axis=1) >= 0).all()

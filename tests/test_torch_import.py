@@ -29,8 +29,10 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import dask_array_tpu_torch\n"
         "from dask_array_tpu_torch.models import pipelines\n"
-        "from dask_array_tpu_torch.kernels import _build, halo, mstat, stencil, transpose\n"
+        "from dask_array_tpu_torch.kernels import _build, halo, mstat, scale, stencil, transpose\n"
         "from dask_array_tpu_torch.ops import _blocks, _overlap, _reshape, _sliding, creation, manipulation, stacking\n"
+        "from dask_array_tpu_torch.ops import linalg_decomp\n"
+        "from dask_array_tpu_torch import linalg, _materialize\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dask_array_tpu' or m.startswith('dask_array_tpu.'))\n"
         "assert not bad, bad\n"
@@ -147,3 +149,15 @@ def test_chip_smoke_imports_no_jax():
     source = (PKG.parent / "chip_smoke.py").read_text()
     pattern = re.compile(r"^\s*(import jax|from jax|import dask_array_tpu\b|from dask_array_tpu[ .])", re.M)
     assert not pattern.search(source)
+
+
+def test_decomposition_names_are_exported():
+    import dask_array_tpu_torch as da
+
+    names = "cholesky inv lstsq lu norm qr sfqr solve solve_triangular svd tsqr".split()
+    for name in names:
+        assert getattr(da, name) is getattr(da.linalg, name), name
+    # linalg's names, as in dask; the top-level list stays the reference's
+    assert not set(names) & set(da.__all__)
+    assert callable(da.linalg.svd_flip)
+    assert not hasattr(da.linalg, "svd_compressed")
