@@ -13,7 +13,12 @@ Phases (each prints one line of its own numbers; any failure raises):
      card's name and power limit;
   2. the band-stencil kernel against its plain version on the card: every
      boundary and every mixed pair, depths (1,1) (2,1) (1,0) (8,8),
-     float16/32/64, a ragged shape;
+     float16/32/64, a ragged shape; then the redesign's paths: 16-byte rows
+     (1024^2) in each dtype at depths (1,1) (2,2) (1,0) (0,1) (2,1) (8,8)
+     (the register window and the tap list, each with 16-byte and scalar
+     rows), 4096^2 (interior and edge blocks), contiguous
+     tensors at storage offset 1 (scalar rows), and an inf input to the
+     5-point stencil (the window skips its empty corners: no NaN);
   3. the README example (slice pushdown + fusion) on the card;
   4. stencil2d (BASELINE config 4): 4096x4096 float32, chunks 1024,
      depth 1, reflect, in the roll form (BandStencil) and the slices form
@@ -25,7 +30,9 @@ Phases (each prints one line of its own numbers; any failure raises):
      kernel, plain; the faster median of each is reported), a device copy
      of the same bytes, torch's conv2d of the padded array with the 3x3
      Laplace taps (the nearest single library call, padding outside the
-     timed window), and the whole compute();
+     timed window), and the whole compute(); the kernel, conv2d and the copy
+     also on the device alone (device_ms), and the kernel's host share of a
+     call (per call less on the device, in µs);
   7. the multi-statistic kernel against its plain version on the card:
      (10000, 10000), (1000, 1003), (1, 7), (4097, 33) float32;
   8. reduction_tree (BASELINE config 2): 10000x10000 float32, chunks 1000,
@@ -63,7 +70,11 @@ Phases (each prints one line of its own numbers; any failure raises):
      1003) with widths ((3, 0), (0, 5)), a 1-D (1 << 24,), a 3-D (64, 513,
      257) with widths (1, 2, 3), widths of 7 on a length-3 axis in wrap,
      symmetric and reflect, mixed modes with constant corners and per-side
-     fills, a row-sliced and a column-sliced view;
+     fills, a row-sliced and a column-sliced view; then the row kernel
+     against the strided kernel on the same values, lo 0-4 in every mode
+     and dtype: a contiguous input and a view one element into its rows
+     (the row kernel) and a column-major copy (the strided kernel), the
+     path each takes checked through kernels.halo.kernel_for;
  17. stencil2d's slices form (the general halo path: Overlap -> map_blocks)
      at 16384x16384 (chunks 4096) and 4096x4096 (chunks 1024) float32
      against numpy, each compute() launching the halo kernel once and the
@@ -82,8 +93,9 @@ Phases (each prints one line of its own numbers; any failure raises):
      F.pad's reflect/replicate/circular/constant (the same functions), F.pad
      replicate as the library call of the main path's function (at depth 1
      dask's "reflect" equals numpy's edge), a device copy of the same bytes
-     and the bound; compute() and
-     compute_device() of phases 17-18;
+     and the bound, each also on the device alone (device_ms); the kernel's
+     host share of a call at 4096^2; compute() and compute_device() of
+     phases 17-18;
  22. the scale kernel against its plain version on the card, equal bytes
      (a NaN matching any NaN) in float16, bfloat16, float32 and float64, in
      the scalar, row and column forms: the probe's 256x256 * 2.0, (128,
@@ -354,13 +366,32 @@ def main() -> int:
         for depth in [(1, 1), (2, 1), (8, 8)]:
             for bnd in [("reflect", "reflect"), ("periodic", 2.5), (0.0, "nearest")]:
                 cases.append(((1000, 1003), depth, bnd, dt))
+    # the redesign's paths: 16-byte rows (N * itemsize a multiple of 16) in
+    # each dtype and both kernels (the register window at depth (1,1), the
+    # tap list at every other depth), interior and edge blocks of the
+    # main path's 4096^2, and scalar rows from a tensor at storage offset 1
+    for dt in (torch.float16, torch.float32, torch.float64):
+        for depth in [(1, 1), (2, 2), (1, 0), (0, 1), (2, 1), (8, 8)]:
+            for bnd in [("reflect", "periodic"), (2.5, "nearest")]:
+                cases.append(((1024, 1024), depth, bnd, dt))
+    cases += [((1000, 1003), depth, ("reflect", 2.5), torch.float32) for depth in [(2, 2), (0, 1)]]
+    cases += [((4096, 4096), (1, 1), ("reflect", "reflect"), torch.float32),
+              ((1000, 1003), (1, 1), ("periodic", 0.0), "offset1"),
+              ((1000, 1024), (2, 1), ("nearest", "reflect"), "offset1")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
+    variants = set()
     for shape, depth, bnd, dt in cases:
         func = stencil_for(*depth)
         taps = stencil.capture_taps(func, depth)
         check(taps is not None, f"capture_taps declined the depth-{depth} test stencil")
-        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
+        if dt == "offset1":  # a contiguous tensor one element into its storage: the scalar path
+            dt = torch.float32
+            x = torch.randn(shape[0] * shape[1] + 1, generator=gen, device="cuda")[1:].view(shape)
+            check(x.storage_offset() == 1 and not stencil.vector_ok(x, torch.empty_like(x)), "offset 1: not scalar")
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dt)
+        variants.add((stencil.kernel_variant(depth), stencil.vector_ok(x, torch.empty_like(x))))
         got = stencil.band_stencil_cuda(x, taps, depth, bnd)
         torch.cuda.synchronize()
         scale = sum(abs(w) for _, _, w in taps) * float(x.abs().max())
@@ -381,7 +412,22 @@ def main() -> int:
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
         key = str(dt).replace("torch.", "")
         worst[key] = max(worst.get(key, 0.0), err)
-    phase(2, "kernel-vs-plain", cases=len(cases), shape=[1000, 1003],
+    check(variants == {(v, vec) for v in range(2) for vec in (False, True)}, f"kernel paths run: {sorted(variants)}")
+    # an inf in the input: the window kernel skips the 5-point stencil's
+    # empty corners (0 * inf would be NaN), as the plain version never reads them
+    lap_taps = stencil.capture_taps(laplace_roll, (1, 1))
+    xi = torch.randn((1024, 1024), generator=gen, device="cuda")
+    xi[100, 200] = float("inf")
+    xi[300, 500] = -float("inf")
+    got = stencil.band_stencil_cuda(xi, lap_taps, (1, 1), ("reflect", "reflect"))
+    want = stencil.band_stencil_plain(xi, laplace_roll, (1, 1), ("reflect", "reflect"))
+    torch.cuda.synchronize()
+    check(not bool(want.isnan().any()) and not bool(got.isnan().any()), "inf input: a NaN appeared")
+    check(int(got.isinf().sum()) == int(want.isinf().sum()) == 10, "inf input: the infs differ")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=8 * float(xi[xi.isfinite()].abs().max()) * 2.0**-21)
+    phase(2, "kernel-vs-plain", cases=len(cases) + 1, shapes=[[1000, 1003], [1024, 1024], [4096, 4096],
+                                                          [1000, 1024]],
+          paths=sorted(variants), storage_offset_1=["(1000, 1003)", "(1000, 1024)"], inf_case="5-point, 1024^2",
           max_abs_err=worst, tolerance={"float32": "rtol 1e-5, atol sum|w|*max|x|*2^-21",
                                         "float64": "rtol 1e-12, atol sum|w|*max|x|*1e-12",
                                         "float16": "vs float32 plain: rtol 1e-3, atol sum|w|*max|x|*2^-11"})
@@ -465,6 +511,11 @@ def main() -> int:
         conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(padded, lap_w))
         conv_err = float((torch.nn.functional.conv2d(padded, lap_w)[0, 0]
                           - stencil.band_stencil_cuda(xd, taps, (1, 1), bnd)).abs().max())
+        # the device alone (the host's launch hidden behind a spin), for the
+        # kernel, the library call and the copy
+        kernel_dev = device_ms(lambda: stencil.band_stencil_cuda(xd, taps, (1, 1), bnd))
+        conv_dev = device_ms(lambda: torch.nn.functional.conv2d(padded, lap_w))
+        copy_dev = device_ms(lambda: xd.clone())
         del padded
         dev_ms = host_ms(lambda: (arr.compute_device(), torch.cuda.synchronize()), reps)
         compute_ms = host_ms(arr.compute, reps)
@@ -475,8 +526,10 @@ def main() -> int:
                              kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
                              kernel_GBps=nbytes / kernel_ms / 1e6, plain_GBps=nbytes / plain_ms / 1e6,
                              bound_ms=bound_ms, bound_by=bound_by, kernel_of_bound=bound_ms / kernel_ms,
-                             copy_ms=copy_ms, copy_GBps=nbytes / copy_ms / 1e6,
-                             conv2d_ms=conv_ms, conv2d_vs_kernel_max_abs=conv_err,
+                             kernel_device_ms=kernel_dev, kernel_of_bound_device=bound_ms / kernel_dev,
+                             kernel_call_less_device_us=(kernel_ms - kernel_dev) * 1e3,
+                             copy_ms=copy_ms, copy_GBps=nbytes / copy_ms / 1e6, copy_device_ms=copy_dev,
+                             conv2d_ms=conv_ms, conv2d_device_ms=conv_dev, conv2d_vs_kernel_max_abs=conv_err,
                              compute_device_ms=dev_ms, compute_device_GBps=nbytes / dev_ms / 1e6,
                              compute_ms=compute_ms, compute_GBps=nbytes / compute_ms / 1e6,
                              max_abs_err=err)
@@ -753,10 +806,37 @@ def main() -> int:
             halo_cases += 1
         del base
         torch.cuda.empty_cache()
+    # the row kernel against the strided kernel on the same values: lo of 0-4
+    # on the last axis in every mode and element size (1, 2, 4, 8, 16 bytes),
+    # a contiguous input, its copy laid out column-major (last stride 257:
+    # the strided kernel), and a view one element into its rows (the row
+    # kernel realigning its source)
+    kernel_paths = {}
+    for seed, dt in enumerate(dtypes):
+        base = random_bytes((257, 1001), dt, 1900 + seed)
+        views = {"contiguous": base, "column_major": base.mT.contiguous().mT,
+                 "offset_1": random_bytes((257, 1003), dt, 1950 + seed)[:, 1:1002]}
+        for lo in range(5):
+            for mode in ("symmetric", "reflect", "edge", "wrap", (0.5, -1.0)):
+                widths, modes = ((1, 2), (lo, 3)), ("edge", mode)
+                outs = {}
+                for name, view in views.items():
+                    kernel_paths.setdefault(name, set()).add(halo.kernel_for(view, widths, modes))
+                    check_halo(halo, view, widths, modes, f"{name} lo={lo} {mode} {dt}")
+                    outs[name] = halo.halo_pad_cuda(view, widths, modes)
+                    halo_cases += 1
+                check(bool(torch.equal(outs["contiguous"].view(torch.uint8), outs["column_major"].view(torch.uint8))),
+                      f"row and strided kernels differ: lo={lo} {mode} {dt}")
+        del base, views, outs
+    check(kernel_paths == {"contiguous": {"rows"}, "column_major": {"strided"}, "offset_1": {"rows"}},
+          f"halo kernel paths {kernel_paths}")
     phase(16, "halo-kernel-vs-plain", cases=halo_cases,
           float32_cases=[[list(sh), list(w), list(m)] for sh, w, m in big],
           every_dtype_cases=[[list(sh), list(w), list(m)] for sh, w, m in small],
           views=["x[500:2500] of (3000, 2048)", "x[:, 300:1700] of (3000, 2048)"],
+          row_vs_strided="(257, 1001) widths ((1, 2), (lo, 3)), lo 0-4, five modes: contiguous and offset-1 views "
+                         "(row kernel), column-major copy (strided kernel)",
+          kernel_paths={k: sorted(v) for k, v in kernel_paths.items()},
           dtypes=[str(d).replace("torch.", "") for d in dtypes], tolerance="equal bytes")
 
     # -- phase 17: stencil2d's slices form, the general halo path ----------------
@@ -872,23 +952,36 @@ def main() -> int:
                              (0.0, "constant", {"value": 0.0})):
         k_ms = cuda_ms(lambda: halo.halo_pad_cuda(xh, d1, (mode, mode)))
         f_ms = cuda_ms(lambda: F.pad(x4d, (1, 1, 1, 1), mode=fmode, **fkw))
+        k_dev = device_ms(lambda: halo.halo_pad_cuda(xh, d1, (mode, mode)))
+        f_dev = device_ms(lambda: F.pad(x4d, (1, 1, 1, 1), mode=fmode, **fkw))
         same = bool(torch.equal(halo.halo_pad_cuda(xh, d1, (mode, mode)), F.pad(x4d, (1, 1, 1, 1), mode=fmode, **fkw)[0, 0]))
         check(same, f"F.pad {fmode} is not the kernel's {mode}")
-        beside[str(mode)] = {"kernel_ms": k_ms, f"F_pad_{fmode}_ms": f_ms}
+        beside[str(mode)] = {"kernel_ms": k_ms, f"F_pad_{fmode}_ms": f_ms, "kernel_device_ms": k_dev,
+                             f"F_pad_{fmode}_device_ms": f_dev}
     # at depth 1, dask's "reflect" (numpy symmetric) repeats the edge element,
     # which is numpy's edge: F.pad's replicate computes the main path's function
     check(bool(torch.equal(halo.halo_pad_cuda(xh, d1, sym), F.pad(x4d, (1, 1, 1, 1), mode="replicate")[0, 0])),
           "F.pad replicate is not dask's reflect at depth 1")
     library_ms = cuda_ms(lambda: F.pad(x4d, (1, 1, 1, 1), mode="replicate"))
+    library_dev = device_ms(lambda: F.pad(x4d, (1, 1, 1, 1), mode="replicate"))
+    halo_dev = device_ms(lambda: halo.halo_pad_cuda(xh, d1, sym))
     copy_ms = cuda_ms(lambda: xh.clone())
+    copy_dev = device_ms(lambda: xh.clone())
     halo_err = float((halo.halo_pad_cuda(xh, d1, sym) - halo.halo_pad_plain(xh, d1, sym)).abs().max())
     halo_bound_ms, halo_bound_by = bound(halo_bytes, 0)
+    # the host's share of a call at 4096^2: per call less on the device
+    x4h = torch.from_numpy(gen_paths["slices_4096"][1]).cuda()
+    h4_ms = cuda_ms(lambda: halo.halo_pad_cuda(x4h, d1, sym))
+    h4_dev = device_ms(lambda: halo.halo_pad_cuda(x4h, d1, sym))
+    del x4h
     phase(21, "timing-halo-16384", card=smi, kernel_ms=kernel_ms, plain_ms=plain_ms, kernel_runs_ms=k_runs,
           plain_runs_ms=p_runs, kernel_GBps=halo_bytes / kernel_ms / 1e6, plain_GBps=halo_bytes / plain_ms / 1e6,
           bound_ms=halo_bound_ms, bound_by=halo_bound_by, kernel_of_bound=halo_bound_ms / kernel_ms,
-          copy_ms=copy_ms, copy_GBps=2 * n * n * 4 / copy_ms / 1e6, beside_F_pad=beside, max_abs_err=halo_err,
-          library_ms=library_ms,
-          library_note="F.pad replicate, equal to dask's reflect at depth 1; F.pad reflect is numpy's reflect")
+          kernel_device_ms=halo_dev, kernel_of_bound_device=halo_bound_ms / halo_dev,
+          copy_ms=copy_ms, copy_device_ms=copy_dev, copy_GBps=2 * n * n * 4 / copy_ms / 1e6, beside_F_pad=beside,
+          max_abs_err=halo_err, library_ms=library_ms, library_device_ms=library_dev,
+          library_note="F.pad replicate, equal to dask's reflect at depth 1; F.pad reflect is numpy's reflect",
+          at_4096={"kernel_ms": h4_ms, "kernel_device_ms": h4_dev, "kernel_call_less_device_us": (h4_ms - h4_dev) * 1e3})
     del xh, x4d
     torch.cuda.empty_cache()
     path_ms = {}
@@ -1112,6 +1205,7 @@ def main() -> int:
             "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"],
             "library_ms": st["conv2d_ms"],
+            "device_ms": st["kernel_device_ms"],
         },
         {
             "name": "multi_stat",
@@ -1151,6 +1245,7 @@ def main() -> int:
             "bound_ms": halo_bound_ms,
             "bound_by": halo_bound_by,
             "library_ms": library_ms,
+            "device_ms": halo_dev,
         },
         {
             "name": "scale",

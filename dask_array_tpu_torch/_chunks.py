@@ -79,10 +79,44 @@ def torch_dtype(dt) -> torch.dtype:
 
 
 def numpy_dtype(dt: torch.dtype) -> np.dtype:
+    if dt == torch.uint64:
+        return np.dtype(np.uint64)
     got = _NUMPY_DTYPES.get(dt)
     if got is None:
         raise TypeError(f"torch dtype {dt} has no numpy counterpart in dask_array_tpu_torch")
     return got
+
+
+# numpy gives uint64 for the sums and products of unsigned integers.  torch
+# holds uint64 (views, cat, .numpy()) but computes little in it, so such a
+# result is computed in int64 and stored as torch.uint64: modular arithmetic
+# gives the same bits.  Inputs of uint16/32/64 stay unsupported.
+_UINT64 = np.dtype(np.uint64)
+
+
+def compute_dtype(dt) -> torch.dtype:
+    """The torch dtype a result of numpy dtype ``dt`` is computed in:
+    int64 for uint64, else ``torch_dtype(dt)``."""
+    return torch.int64 if np.dtype(dt) == _UINT64 else torch_dtype(dt)
+
+
+def to_compute(t: torch.Tensor, dt) -> torch.Tensor:
+    """``t`` in ``compute_dtype(dt)``; a uint64 tensor reinterpreted (its
+    int64 bits), never converted."""
+    want = compute_dtype(dt)
+    if t.dtype == want:
+        return t
+    if t.dtype == torch.uint64 and want == torch.int64:
+        return t.view(torch.int64)
+    return t.to(want)
+
+
+def as_stored(t: torch.Tensor, dt) -> torch.Tensor:
+    """A result computed in ``compute_dtype(dt)`` as the tensor a block of
+    numpy dtype ``dt`` holds: int64 bits viewed as uint64 for uint64."""
+    if np.dtype(dt) == _UINT64:
+        return t.view(torch.uint64)
+    return t
 
 
 def dtype_key(dt) -> str:

@@ -19,7 +19,15 @@ import torch
 
 from dask_array_tpu_torch._chunks import has_unknown_chunks, numpy_dtype
 from dask_array_tpu_torch._expr import ArrayExpr
-from dask_array_tpu_torch.ops.ufuncs import floor_divide_, remainder_
+from dask_array_tpu_torch.ops.ufuncs import (
+    absolute_,
+    floor_divide_,
+    greater_,
+    greater_equal_,
+    less_,
+    less_equal_,
+    remainder_,
+)
 
 
 def new_collection(expr: ArrayExpr) -> "Array":
@@ -118,6 +126,46 @@ def _unop(fn):
         return elemwise(fn, self)
 
     return method
+
+
+# numpy's ndarray ** scalar shortcut (``fast_scalar_power``): a float or
+# complex array to one of these exponents takes the unary ufunc instead
+_POWER_SHORTCUTS = {1.0: torch.positive, -1.0: torch.reciprocal, 0.0: torch.ones_like, 0.5: torch.sqrt,
+                    2.0: torch.square}
+
+
+def _scalar_exponent(other):
+    """``(value, is_float)`` of an exponent numpy's shortcut reads: a
+    Python or numpy int or float, or a 0-d integer or float array; else
+    None."""
+    if isinstance(other, np.ndarray) and other.ndim == 0 and other.dtype.kind in "iuf":
+        return float(other), other.dtype.kind == "f"
+    if isinstance(other, (int, float, np.integer, np.floating)) and not isinstance(other, np.bool_):
+        return float(other), isinstance(other, (float, np.floating))
+    return None
+
+
+_pow = _binop(torch.pow)
+
+
+def _numpy_pow(self, other):
+    """``self ** other`` as numpy's ndarray computes it: a bool or integer
+    array squared is ``square`` (a bool array gives int8), an integer array
+    to a float 2 is squared in float64, and a float or complex array to 0,
+    0.5, 1, -1 or 2 takes ones_like, sqrt, positive, reciprocal or square.
+    Any other exponent is ``power``."""
+    from dask_array_tpu_torch._blockwise import elemwise
+
+    exp = _scalar_exponent(other)
+    if exp is not None:
+        value, is_float = exp
+        kind = self.dtype.kind
+        if kind in "fc":
+            if value in _POWER_SHORTCUTS:
+                return elemwise(_POWER_SHORTCUTS[value], self)
+        elif value == 2.0:
+            return elemwise(torch.square, self.astype(np.float64) if kind in "iu" and is_float else self)
+    return _pow(self, other)
 
 
 class Array:
@@ -317,12 +365,12 @@ class Array:
     __rfloordiv__ = _binop(floor_divide_, reflexive=True)
     __mod__ = _binop(remainder_)
     __rmod__ = _binop(remainder_, reflexive=True)
-    __pow__ = _binop(torch.pow)
+    __pow__ = _numpy_pow
     __rpow__ = _binop(torch.pow, reflexive=True)
-    __lt__ = _binop(torch.lt)
-    __le__ = _binop(torch.le)
-    __gt__ = _binop(torch.gt)
-    __ge__ = _binop(torch.ge)
+    __lt__ = _binop(less_)
+    __le__ = _binop(less_equal_)
+    __gt__ = _binop(greater_)
+    __ge__ = _binop(greater_equal_)
     __eq__ = _binop(torch.eq)
     __ne__ = _binop(torch.ne)
     __and__ = _binop(torch.bitwise_and)
@@ -336,7 +384,7 @@ class Array:
     __rshift__ = _binop(torch.bitwise_right_shift)
     __rrshift__ = _binop(torch.bitwise_right_shift, reflexive=True)
     __neg__ = _unop(torch.neg)
-    __abs__ = _unop(torch.abs)
+    __abs__ = _unop(absolute_)
     __invert__ = _unop(torch.bitwise_not)
 
     def __matmul__(self, other):

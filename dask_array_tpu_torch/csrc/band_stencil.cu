@@ -7,11 +7,30 @@
 // function by kernels/stencil.py::capture_taps.
 //
 // Bound: device memory.  A call must read x and write out once, 2*M*N*itemsize
-// bytes, and does a handful of multiply-adds per element.  Each block stages
-// its (32 + 2*d0) x (32 + 2*d1) halo tile in shared memory once, with
-// neighbouring threads on neighbouring columns, and every tap then reads the
-// tile: the shifted reads never go back to device memory, which sees the
-// tile's halo re-read (a (2*d/32) fraction) on top of the 2*M*N*itemsize.
+// bytes, and does a handful of multiply-adds per element.  The design:
+//  - a block computes a 24-row x 128-column output tile and stages its
+//    (24 + 2*d0) x (128 + 2*d1) input tile in shared memory once, so the
+//    halo re-read is 2*d0/24 + 2*d1/128 of the input (10 % at depth 1, from
+//    the old 32x32 tiles' 13 %).  Short tiles keep 20 KB of shared memory a
+//    block (f32, depth 1), so more blocks per SM overlap one's loads with
+//    another's arithmetic; of 16 to 64 rows, 24 was the fastest on the H100
+//    at 4096^2 and at 16384^2.  Tiles are numbered row-major on a 1-D grid;
+//  - an interior block, whose halo lies inside the array, maps no index: it
+//    copies tile rows with 16-byte cp.async where the row length and the
+//    pointers allow (scalar loads otherwise) and fetches its 2*d1 halo
+//    columns directly; only an edge block maps positions through the
+//    boundary rules.  The branch is uniform per block;
+//  - the taps arrive by value, in a __grid_constant__ parameter block: no
+//    per-block copy, and a thread keeps its weights in registers;
+//  - depth (1,1) (the 5-point and 3x3 stencils) takes a register-window
+//    kernel: a thread owns 4
+//    consecutive columns of 3 consecutive rows, keeps the last 2*d0 + 1
+//    input rows of its 4 + 2*d1 columns in registers, reads shared memory
+//    in aligned 4-element vectors (no bank conflicts) and stores its 4
+//    outputs as one vector.  Every other depth loops over the tap list, a
+//    thread owning 4 columns 32 apart on 3 rows (conflict-free reads,
+//    coalesced stores).  A tap of the dense window that the stencil lacks is skipped,
+//    not multiplied by 0, so an inf in the input stays an inf.
 //
 // Boundaries follow numpy's pad on the whole array, rows first and then
 // columns on the row-padded array (as Overlap._build and the Pallas kernel
@@ -25,16 +44,52 @@
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kTileX = 32;    // output columns per block = blockDim.x
-constexpr int kTileY = 32;    // output rows per block
-constexpr int kThreadsY = 8;  // blockDim.y; each thread owns kTileY / 8 rows
 constexpr int kMaxDepth = 8;
 constexpr int kMaxTaps = (2 * kMaxDepth + 1) * (2 * kMaxDepth + 1);
+constexpr int kTileCols = 128;                  // output columns per block: 32 lanes x 4
+constexpr int kTileRows = 24;                   // output rows per block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = kTileRows / kWarps;
+constexpr int kPad = 8;                         // shared columns beside the tile (>= depth)
+constexpr int kStride = kTileCols + 2 * kPad;   // shared elements per tile row
+constexpr int kMaxWindow = 9;                   // dense window weights, depth (1, 1)
+static_assert((kTileRows + 2 * kMaxDepth) * kStride * sizeof(double) <= 48 * 1024,
+              "a tile beyond the 48 KiB a block gets without opting in");
 
 enum Boundary { kReflect = 0, kNearest = 1, kPeriodic = 2, kConstant = 3 };
+
+// kernels/stencil.py::_tap_table packs these: the kernel a launch takes
+enum Variant { kTaps = 0, kWindow11 = 1 };
+
+// What both kernels read; each kernel's parameter block adds its taps, so a
+// window launch carries about 130 bytes of parameters, a tap-list one 3 KB.
+struct Shape {
+  long long M, N;
+  int tiles_x;  // tiles along a row: tile t is (t / tiles_x, t % tiles_x)
+  int d0, d1, bd0, bd1;
+  int vec;  // 1: rows and pointers allow 16-byte accesses
+  double fill0, fill1;
+};
+
+struct WindowParams {
+  Shape s;
+  unsigned int mask;          // bit a*(2*d1+1)+b: the dense window has a tap at (a-d0, b-d1)
+  double window[kMaxWindow];  // dense weights, row-major over (dy, dx)
+};
+
+struct TapParams {
+  Shape s;
+  int ntaps;
+  double w[kMaxTaps];
+  signed char dy[kMaxTaps];
+  signed char dx[kMaxTaps];
+};
 
 template <typename T>
 struct Acc;
@@ -60,6 +115,12 @@ struct Acc<double> {
   __device__ static double store(double v) { return v; }
 };
 
+// four consecutive elements, read and written as one access (two for double)
+template <typename T>
+struct alignas(4 * sizeof(T) < 16 ? 4 * sizeof(T) : 16) Quad {
+  T v[4];
+};
+
 // The in-range index an out-of-range position i copies under numpy's pad
 // semantics (also past the axis length), or -1 for a constant fill.
 __device__ __forceinline__ long long source_index(long long i, long long n, int mode) {
@@ -79,105 +140,308 @@ __device__ __forceinline__ long long source_index(long long i, long long n, int 
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Stage the input tile: tile row ly, column lx (lx in [-d1, 128 + d1)) holds
+// b[r0 - d0 + ly, c0 + lx] at tile[ly * kStride + kPad + lx].
 template <typename T>
-__global__ void __launch_bounds__(kTileX * kThreadsY)
-band_stencil_kernel(const T* __restrict__ x, T* __restrict__ out, long long M, long long N,
-                    int d0, int d1, int bd0, int bd1, double fill0, double fill1,
-                    const int* __restrict__ offs, const double* __restrict__ weights,
-                    int ntaps) {
-  using A = typename Acc<T>::type;
-  __shared__ A tile[kTileY + 2 * kMaxDepth][kTileX + 2 * kMaxDepth + 1];
-  __shared__ int s_dy[kMaxTaps];
-  __shared__ int s_dx[kMaxTaps];
-  __shared__ A s_w[kMaxTaps];
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int k = tid; k < ntaps; k += blockDim.x * blockDim.y) {
-    s_dy[k] = offs[2 * k];
-    s_dx[k] = offs[2 * k + 1];
-    s_w[k] = static_cast<A>(weights[k]);
-  }
-
-  const long long r0 = static_cast<long long>(blockIdx.y) * kTileY;
-  const long long c0 = static_cast<long long>(blockIdx.x) * kTileX;
-  const int rows = kTileY + 2 * d0;
-  const int cols = kTileX + 2 * d1;
-  const A f0 = static_cast<A>(fill0);
-  const A f1 = static_cast<A>(fill1);
-  for (int ly = threadIdx.y; ly < rows; ly += blockDim.y) {
-    const long long sr = source_index(r0 + ly - d0, M, bd0);
-    for (int lx = threadIdx.x; lx < cols; lx += blockDim.x) {
-      const long long sc = source_index(c0 + lx - d1, N, bd1);
-      A v;
-      if (sc < 0) {
-        v = f1;  // columns pad the row-padded array: axis 1's fill wins
-      } else if (sr < 0) {
-        v = f0;
-      } else {
-        v = Acc<T>::load(x[sr * N + sc]);
+__device__ __forceinline__ void load_tile(const T* __restrict__ x, T* tile, const Shape& p, long long r0,
+                                          long long c0, int d0, int d1, bool interior) {
+  const int rows = kTileRows + 2 * d0;
+  const int tid = threadIdx.x;
+  if (interior) {
+    const T* src0 = x + (r0 - d0) * p.N + c0;
+    if (p.vec) {
+      constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+      constexpr int kChunks = kTileCols / kVec;  // 16-byte chunks a row
+      constexpr int kStep = kThreads / kChunks;  // rows a pass
+      const int ch = tid % kChunks;
+      int ly = tid / kChunks;
+      const T* src = src0 + ly * p.N + ch * kVec;
+      T* dst = tile + ly * kStride + kPad + ch * kVec;
+      const long long src_step = kStep * p.N;
+      for (; ly < rows; ly += kStep, src += src_step, dst += kStep * kStride) cp_async16(dst, src);
+    } else {
+      constexpr int kStep = kThreads / kTileCols;
+      const int lx = tid % kTileCols;
+      int ly = tid / kTileCols;
+      const T* src = src0 + ly * p.N + lx;
+      T* dst = tile + ly * kStride + kPad + lx;
+      const long long src_step = kStep * p.N;
+#pragma unroll 4
+      for (; ly < rows; ly += kStep, src += src_step, dst += kStep * kStride) *dst = *src;
+    }
+    if (d1) {  // the halo columns on both sides: 2*d1 scalars a row
+      const int per_row = 2 * d1;
+      for (int i = tid; i < rows * per_row; i += kThreads) {
+        const int ly = i / per_row;
+        const int k = i - ly * per_row;
+        const int lx = k < d1 ? k - d1 : kTileCols + k - d1;
+        tile[ly * kStride + kPad + lx] = src0[ly * p.N + lx];
       }
-      tile[ly][lx] = v;
+    }
+    cp_async_wait_all();
+  } else {
+    using A = typename Acc<T>::type;
+    const T f0 = Acc<T>::store(static_cast<A>(p.fill0));
+    const T f1 = Acc<T>::store(static_cast<A>(p.fill1));
+    for (int ly = tid >> 5; ly < rows; ly += kWarps) {
+      const long long sr = source_index(r0 - d0 + ly, p.M, p.bd0);
+      const T* srow = x + (sr < 0 ? 0 : sr) * p.N;
+      for (int lx = (tid & 31) - d1; lx < kTileCols + d1; lx += 32) {
+        const long long sc = source_index(c0 + lx, p.N, p.bd1);
+        // columns pad the row-padded array: axis 1's fill wins at a corner
+        tile[ly * kStride + kPad + lx] = sc < 0 ? f1 : (sr < 0 ? f0 : srow[sc]);
+      }
     }
   }
   __syncthreads();
+}
 
-  const long long c = c0 + threadIdx.x;
-  for (int ty = threadIdx.y; ty < kTileY; ty += blockDim.y) {
-    const long long r = r0 + ty;
-    if (r >= M || c >= N) continue;
-    A acc = 0;
-    for (int k = 0; k < ntaps; ++k) {
-      acc += s_w[k] * tile[ty + d0 + s_dy[k]][threadIdx.x + d1 + s_dx[k]];
-    }
-    out[r * N + c] = Acc<T>::store(acc);
+// Four outputs of row r at columns c..c+3: one vector store where the tile
+// is in range and aligned, masked scalars otherwise.
+template <typename T>
+__device__ __forceinline__ void store4(T* __restrict__ out, const Shape& p, long long r, long long c,
+                                       const typename Acc<T>::type (&acc)[4], bool full) {
+  if (full && p.vec) {
+    Quad<T> q;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q.v[j] = Acc<T>::store(acc[j]);
+    *reinterpret_cast<Quad<T>*>(out + r * p.N + c) = q;
+  } else if (r < p.M) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < p.N) out[r * p.N + c + j] = Acc<T>::store(acc[j]);
   }
 }
 
+// The register-window kernel's compute: depth (D0, D1) known at compile
+// time, dense weights, a thread's kRowsPerWarp rows walked top to bottom.
+template <typename T, int D0, int D1>
+__device__ __forceinline__ void compute_window(const T* tile, T* __restrict__ out, const WindowParams& p, long long r0,
+                                               long long c0, bool full) {
+  static_assert(D1 <= 4, "the window reads one aligned 4-vector on each side");
+  using A = typename Acc<T>::type;
+  constexpr int H = 2 * D0 + 1;
+  constexpr int W = 2 * D1 + 1;
+  constexpr int C = 4 + 2 * D1;
+  A wt[H][W];
+  bool on[H][W];
+#pragma unroll
+  for (int a = 0; a < H; ++a)
+#pragma unroll
+    for (int b = 0; b < W; ++b) {
+      wt[a][b] = static_cast<A>(p.window[a * W + b]);
+      on[a][b] = (p.mask >> (a * W + b)) & 1u;
+    }
+  const int lane = threadIdx.x & 31;
+  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;  // the warp's first output row, tile-local
+  const int col = 4 * lane;                           // the thread's first output column
+  A win[H][C];  // win[a][c]: tile row (output row + a), tile column (col - D1 + c)
+#pragma unroll
+  for (int t = 0; t < kRowsPerWarp + 2 * D0; ++t) {
+#pragma unroll
+    for (int a = 0; a + 1 < H; ++a)
+#pragma unroll
+      for (int c = 0; c < C; ++c) win[a][c] = win[a + 1][c];
+    const T* row = tile + (rb + t) * kStride + kPad + col;
+    A vals[12];
+    const Quad<T> mid = *reinterpret_cast<const Quad<T>*>(row);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) vals[4 + k] = Acc<T>::load(mid.v[k]);
+    if constexpr (D1 > 0) {
+      const Quad<T> left = *reinterpret_cast<const Quad<T>*>(row - 4);
+      const Quad<T> right = *reinterpret_cast<const Quad<T>*>(row + 4);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        vals[k] = Acc<T>::load(left.v[k]);
+        vals[8 + k] = Acc<T>::load(right.v[k]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) win[H - 1][c] = vals[4 - D1 + c];
+    if (t >= 2 * D0) {
+      A acc[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j] = 0;
+#pragma unroll
+        for (int a = 0; a < H; ++a)
+#pragma unroll
+          for (int b = 0; b < W; ++b)
+            if (on[a][b]) acc[j] += wt[a][b] * win[a][j + b];
+      }
+      store4<T>(out, p.s, r0 + rb + t - 2 * D0, c0 + col, acc, full);
+    }
+  }
+}
+
+// The tap-list kernel's compute: any depth up to 8, the taps read from the
+// parameter block (uniform across the block), a thread's 8 x 4 outputs at
+// rows warp + 8i and columns lane + 32j.
 template <typename T>
-void launch(const void* x, void* out, long long M, long long N, int d0, int d1, int bd0, int bd1,
-            double fill0, double fill1, const int* offs, const double* weights, int ntaps,
-            cudaStream_t stream) {
-  const dim3 block(kTileX, kThreadsY);
-  const dim3 grid(static_cast<unsigned>((N + kTileX - 1) / kTileX),
-                  static_cast<unsigned>((M + kTileY - 1) / kTileY));
-  band_stencil_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), M, N, d0, d1, bd0, bd1, fill0, fill1,
-      offs, weights, ntaps);
+__device__ __forceinline__ void compute_taps(const T* tile, T* __restrict__ out, const TapParams& p, long long r0,
+                                             long long c0, int d0) {
+  using A = typename Acc<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  A acc[kRowsPerWarp][4];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  for (int k = 0; k < p.ntaps; ++k) {
+    const A w = static_cast<A>(p.w[k]);
+    const T* base = tile + (warp + d0 + p.dy[k]) * kStride + kPad + lane + p.dx[k];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += w * Acc<T>::load(base[i * kWarps * kStride + 32 * j]);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const long long r = r0 + warp + kWarps * i;
+    if (r >= p.s.M) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long c = c0 + lane + 32 * j;
+      if (c < p.s.N) out[r * p.s.N + c] = Acc<T>::store(acc[i][j]);
+    }
+  }
+}
+
+// The tile both kernels stage: the block's origin, whether it is interior
+// (its halo inside the array) and whether its outputs are all in range.
+struct Tile {
+  long long r0, c0;
+  bool interior, full;
+};
+
+__device__ __forceinline__ Tile tile_of(const Shape& p, int d0, int d1) {
+  Tile t;
+  const unsigned ty = blockIdx.x / static_cast<unsigned>(p.tiles_x);
+  t.r0 = static_cast<long long>(ty) * kTileRows;
+  t.c0 = static_cast<long long>(blockIdx.x - ty * static_cast<unsigned>(p.tiles_x)) * kTileCols;
+  t.interior = t.r0 >= d0 && t.r0 + kTileRows + d0 <= p.M && t.c0 >= d1 && t.c0 + kTileCols + d1 <= p.N;
+  t.full = t.r0 + kTileRows <= p.M && t.c0 + kTileCols <= p.N;
+  return t;
+}
+
+template <typename T, int D0, int D1>
+__global__ void __launch_bounds__(kThreads)
+band_stencil_window(const T* __restrict__ x, T* __restrict__ out, const __grid_constant__ WindowParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  const Tile t = tile_of(p.s, D0, D1);
+  load_tile<T>(x, tile, p.s, t.r0, t.c0, D0, D1, t.interior);
+  compute_window<T, D0, D1>(tile, out, p, t.r0, t.c0, t.full);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_stencil_taps(const T* __restrict__ x, T* __restrict__ out, const __grid_constant__ TapParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  const Tile t = tile_of(p.s, p.s.d0, p.s.d1);
+  load_tile<T>(x, tile, p.s, t.r0, t.c0, p.s.d0, p.s.d1, t.interior);
+  compute_taps<T>(tile, out, p, t.r0, t.c0, p.s.d0);
+}
+
+template <typename T, typename Kernel, typename P>
+int launch(Kernel kernel, const void* x, void* out, const P& p, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kTileRows + 2 * p.s.d0) * kStride * sizeof(T);
+  const unsigned tiles = static_cast<unsigned>(p.s.tiles_x * ((p.s.M + kTileRows - 1) / kTileRows));
+  kernel<<<tiles, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The depth each kernel variant takes.
+bool variant_fits(int variant, int d0, int d1) {
+  return variant == kTaps || (variant == kWindow11 && d0 == 1 && d1 == 1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float16, 1 float32, 2 float64.  x and out are contiguous (M, N).
-// offs holds 2*ntaps ints (dy, dx pairs), weights ntaps doubles, both on
-// the device.  Returns a cudaError_t.
-int band_stencil_launch(int dtype, const void* x, void* out, long long M, long long N, int d0,
-                        int d1, int bd0, int bd1, double fill0, double fill1, const int* offs,
-                        const double* weights, int ntaps, void* stream) {
-  if (M <= 0 || N <= 0 || d0 < 0 || d0 > kMaxDepth || d1 < 0 || d1 > kMaxDepth || ntaps < 1 ||
-      ntaps > kMaxTaps || (M + kTileY - 1) / kTileY > 65535) {
+// dtype: 0 float16, 1 float32, 2 float64.  x and out are contiguous (M, N)
+// on the device.  table: host bytes packed by kernels/stencil.py::_tap_table,
+// little-endian:
+//   int32 d0, d1, bd0, bd1, ntaps, variant, window_mask, 0;   (32 bytes)
+//   float64 fill0, fill1;                                     (offset 32)
+//   float64 window[9];                                        (offset 48)
+//   float64 w[ntaps];                                         (offset 120)
+//   int32 dy[ntaps]; int32 dx[ntaps];
+// vec: 1 when N * itemsize and both pointers are multiples of 16 bytes
+// (checked here).  Returns a cudaError_t.
+int band_stencil_launch(int dtype, const void* x, void* out, long long M, long long N, const void* table, int vec,
+                        void* stream) {
+  const unsigned char* t = static_cast<const unsigned char*>(table);
+  int head[8];
+  memcpy(head, t, sizeof(head));
+  const int d0 = head[0], d1 = head[1], ntaps = head[4], variant = head[5];
+  const size_t itemsize = dtype == 0 ? 2 : (dtype == 1 ? 4 : 8);
+  if (dtype < 0 || dtype > 2 || M <= 0 || N <= 0 || d0 < 0 || d0 > kMaxDepth || d1 < 0 || d1 > kMaxDepth ||
+      ntaps < 1 || ntaps > kMaxTaps ||
+      ((M + kTileRows - 1) / kTileRows) * ((N + kTileCols - 1) / kTileCols) > 0x7fffffffLL ||
+      !variant_fits(variant, d0, d1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      launch<__half>(x, out, M, N, d0, d1, bd0, bd1, fill0, fill1, offs, weights, ntaps, s);
-      break;
-    case 1:
-      launch<float>(x, out, M, N, d0, d1, bd0, bd1, fill0, fill1, offs, weights, ntaps, s);
-      break;
-    case 2:
-      launch<double>(x, out, M, N, d0, d1, bd0, bd1, fill0, fill1, offs, weights, ntaps, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 ||
+              (N * static_cast<long long>(itemsize)) % 16)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  return static_cast<int>(cudaGetLastError());
+  Shape sh;
+  memset(&sh, 0, sizeof(sh));
+  sh.M = M;
+  sh.N = N;
+  sh.tiles_x = static_cast<int>((N + kTileCols - 1) / kTileCols);
+  sh.d0 = d0;
+  sh.d1 = d1;
+  sh.bd0 = head[2];
+  sh.bd1 = head[3];
+  sh.vec = vec ? 1 : 0;
+  memcpy(&sh.fill0, t + 32, 8);
+  memcpy(&sh.fill1, t + 40, 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant != kTaps) {
+    WindowParams p;
+    memset(&p, 0, sizeof(p));
+    p.s = sh;
+    p.mask = static_cast<unsigned int>(head[6]);
+    memcpy(p.window, t + 48, sizeof(p.window));
+    switch (dtype) {
+      case 0: return launch<__half>(&band_stencil_window<__half, 1, 1>, x, out, p, s);
+      case 1: return launch<float>(&band_stencil_window<float, 1, 1>, x, out, p, s);
+      default: return launch<double>(&band_stencil_window<double, 1, 1>, x, out, p, s);
+    }
+  }
+  TapParams p;
+  memset(&p, 0, sizeof(p));
+  p.s = sh;
+  p.ntaps = ntaps;
+  memcpy(p.w, t + 120, 8 * static_cast<size_t>(ntaps));
+  const unsigned char* offs = t + 120 + 8 * static_cast<size_t>(ntaps);
+  for (int k = 0; k < ntaps; ++k) {
+    int dy, dx;
+    memcpy(&dy, offs + 4 * k, 4);
+    memcpy(&dx, offs + 4 * (ntaps + k), 4);
+    if (dy < -d0 || dy > d0 || dx < -d1 || dx > d1) return static_cast<int>(cudaErrorInvalidValue);
+    p.dy[k] = static_cast<signed char>(dy);
+    p.dx[k] = static_cast<signed char>(dx);
+  }
+  switch (dtype) {
+    case 0: return launch<__half>(&band_stencil_taps<__half>, x, out, p, s);
+    case 1: return launch<float>(&band_stencil_taps<float>, x, out, p, s);
+    default: return launch<double>(&band_stencil_taps<double>, x, out, p, s);
+  }
 }
 
-const char* band_stencil_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* band_stencil_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
 }  // extern "C"

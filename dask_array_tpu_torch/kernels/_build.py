@@ -4,6 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At its first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` beside the
 package (gitignored), keyed by the source's hash, and loaded with
 ``ctypes``; a later process with the same source reuses the library.
+``Launcher`` binds one entry point and launches it on the current stream;
+every kernel wrapper of the port calls through it.
 """
 
 from __future__ import annotations
@@ -70,3 +72,44 @@ def load_library(name: str):
 
     path, _ = build_library(name)
     return ctypes.CDLL(str(path))
+
+
+class Launcher:
+    """One C entry point ``<name>_launch`` of a kernel library, bound once.
+
+    ``argtypes`` are the entry point's arguments without its last, the
+    stream, which every launch appends: the current stream of the tensor's
+    device (its index, ``tensor.get_device()``), through torch's raw
+    lookup where the build has one (no ``Stream`` object made), and with
+    no ``torch.cuda.device`` context unless that device is not the current
+    one.  A non-zero return is a ``cudaError_t``; the launch then raises
+    with the text of the library's ``<name>_error_string``.
+    """
+
+    def __init__(self, library: str, symbol: str, argtypes, what: str):
+        import ctypes
+
+        import torch
+
+        lib = load_library(library)
+        self._fn = getattr(lib, symbol)
+        self._fn.argtypes = [*argtypes, ctypes.c_void_p]
+        self._fn.restype = ctypes.c_int
+        self._errstr = getattr(lib, symbol.removesuffix("_launch") + "_error_string")
+        self._errstr.argtypes = [ctypes.c_int]
+        self._errstr.restype = ctypes.c_char_p
+        self._what = what
+        self._current_device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+        self._stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+    def __call__(self, index: int, *args):
+        if index == self._current_device():
+            err = self._fn(*args, self._stream(index))
+        else:
+            import torch
+
+            with torch.cuda.device(index):
+                err = self._fn(*args, self._stream(index))
+        if err != 0:
+            raise RuntimeError(f"{self._what} kernel launch failed: {self._errstr(err).decode()}")

@@ -34,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from dask_array_tpu_torch.kernels._build import load_library
+from dask_array_tpu_torch.kernels._build import Launcher, load_library
 
 MAX_RANK = 8
 # dask's boundary names -> numpy's pad modes
@@ -166,68 +166,118 @@ def _merged_axes(x: torch.Tensor, widths, modes):
     return merged
 
 
+def _fill_bytes(value, dtype) -> bytes:
+    return fill_scalar(value, dtype).reshape(1).view(torch.uint8).numpy().tobytes()
+
+
+def launch_plan(shape, stride, widths, modes, dtype):
+    """The arguments ``halo_pad_launch`` gets for a pad, after merging the
+    unpadded axes: ``(plan, fills)``, ``plan`` the int64s ``[ndim,
+    elem_bytes, in_shape, in_stride, lo, hi, mode codes]`` and ``fills``
+    the bytes of each axis's (lo, hi) fill in ``dtype`` (zeros where the
+    axis is not constant).  Raises on a tensor that keeps more than 8 axes
+    after merging."""
+    axes = _merged_axes(torch.empty_strided(shape, stride, dtype=dtype, device="meta"), widths, modes)
+    if len(axes) > MAX_RANK:
+        raise ValueError(f"halo_pad_cuda takes at most {MAX_RANK} axes after merging unpadded ones, got {len(axes)}")
+    size = torch.empty((), dtype=dtype).element_size()
+    codes, fills = [], []
+    for _n, _s, width, mode in axes:
+        if width == (0, 0):
+            codes.append(_CONSTANT_CODE)  # never read: the axis has no pad
+            fills.append(bytes(2 * size))
+        elif _is_constant(mode):
+            codes.append(_CONSTANT_CODE)
+            fills.extend(_fill_bytes(v, dtype) for v in fill_pair(mode))
+        else:
+            codes.append(_MODE_CODES[mode])
+            fills.append(bytes(2 * size))
+    plan = np.array(
+        [len(axes), size, *(a[0] for a in axes), *(a[1] for a in axes), *(a[2][0] for a in axes),
+         *(a[2][1] for a in axes), *codes],
+        dtype=np.int64,
+    )
+    return plan, b"".join(fills)
+
+
+def value_key(v):
+    """A cache key that tells apart what ``==`` equates: -0.0 and 0.0, 1
+    and 1.0 and True (their bytes in a dtype may differ)."""
+    if isinstance(v, str):
+        return v
+    if isinstance(v, (tuple, list)):
+        return tuple(value_key(e) for e in v)
+    return type(v).__name__, repr(v)
+
+
+# (output shape, plan address, fills, the plan array kept alive) by the
+# call's (shape, stride, widths, modes, dtype); modes with a fill key by
+# value_key (-0.0 and 0.0 are equal but give other bits)
+_PLANS: dict = {}
+
+
+def _launch_args(x: torch.Tensor, widths, modes):
+    try:
+        key = (x.shape, x.stride(), tuple(widths), tuple(modes), x.dtype)
+        if not all(type(m) is str for m in key[3]):
+            key = key[:3] + (value_key(key[3]),) + key[4:]
+        got = _PLANS.get(key)
+    except TypeError:  # a width or fill given as a list
+        key, got = None, None
+    if got is None:
+        widths, modes = _normalize(x, widths, modes)
+        out_shape = tuple(n + lo + hi for n, (lo, hi) in zip(x.shape, widths))
+        if 0 in out_shape:
+            got = (out_shape, None, None, None)
+        else:
+            plan, fills = launch_plan(tuple(x.shape), x.stride(), widths, modes, x.dtype)
+            got = (out_shape, plan.ctypes.data, fills, plan)
+        if key is not None:
+            if len(_PLANS) >= 256:
+                _PLANS.clear()
+            _PLANS[key] = got
+    return got
+
+
 def halo_pad_cuda(x: torch.Tensor, widths, modes) -> torch.Tensor:
     """Launch the halo kernel on a CUDA tensor of any dtype.
 
     The kernel reads the source through its strides (a sliced view in
     place); a lazy conjugate or negative view is resolved first, since the
-    kernel moves bytes.  Raises on a non-CUDA tensor, a negative width, an
-    unknown mode, an index-map mode on an empty axis, or a tensor that keeps
-    more than 8 axes after merging the unpadded ones.
+    kernel moves bytes.  The C launcher takes the row kernel when the last
+    axis has unit stride, the strided kernel otherwise.  Raises on a
+    non-CUDA tensor, a negative width, an unknown mode, an index-map mode
+    on an empty axis, or a tensor that keeps more than 8 axes after
+    merging the unpadded ones.  The launch's arguments are cached by the
+    call's own shape, strides, widths, modes and dtype.
     """
     global LAUNCHES
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"halo_pad_cuda needs a CUDA tensor, got one on {x.device}")
     if x.dim() == 0:
         raise ValueError("halo_pad_cuda needs at least 1 dimension")
-    widths, modes = _normalize(x, widths, modes)
-    out_shape = tuple(n + lo + hi for n, (lo, hi) in zip(x.shape, widths))
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+    out_shape, plan_ptr, fills, _ = _launch_args(x, widths, modes)
+    out = x.new_empty(out_shape)
+    if plan_ptr is None:
         return out
-    x = x.resolve_conj().resolve_neg()
-    axes = _merged_axes(x, widths, modes)
-    if len(axes) > MAX_RANK:
-        raise ValueError(f"halo_pad_cuda takes at most {MAX_RANK} axes after merging unpadded ones, got {len(axes)}")
-    size = x.element_size()
-    if x.data_ptr() % size:
+    if x.is_conj() or x.is_neg():
+        x = x.resolve_conj().resolve_neg()
+    if x.data_ptr() % x.element_size():
         raise ValueError("halo_pad_cuda needs a tensor aligned to its element size")
-    nd = len(axes)
-    codes, fills = [], []
-    for _n, _s, width, mode in axes:
-        if width == (0, 0):
-            codes.append(_CONSTANT_CODE)  # never read: the axis has no pad
-            fills.extend([[0] * size] * 2)
-        elif _is_constant(mode):
-            codes.append(_CONSTANT_CODE)
-            fills.extend(fill_scalar(v, x.dtype).reshape(1).view(torch.uint8).tolist() for v in fill_pair(mode))
-        else:
-            codes.append(_MODE_CODES[mode])
-            fills.extend([[0] * size] * 2)
-    longs = ctypes.c_longlong * nd
-    fill_bytes = bytes(b for f in fills for b in f)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.halo_pad_launch(
-            x.data_ptr(), out.data_ptr(), nd,
-            longs(*(a[0] for a in axes)), longs(*(a[1] for a in axes)),
-            longs(*(a[2][0] for a in axes)), longs(*(a[2][1] for a in axes)),
-            (ctypes.c_int * nd)(*codes), fill_bytes, size, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"halo kernel launch failed: {lib.halo_pad_error_string(err).decode()}")
+    _launcher()(x.get_device(), x.data_ptr(), out.data_ptr(), plan_ptr, fills)
     LAUNCHES += 1
     return out
 
 
+def kernel_for(x: torch.Tensor, widths, modes) -> str:
+    """"rows" or "strided": the kernel ``halo_pad_launch`` takes for this
+    pad, as its C launcher decides (needs the built library)."""
+    widths, modes = _normalize(x, widths, modes)
+    plan, _ = launch_plan(tuple(x.shape), x.stride(), widths, modes, x.dtype)
+    return {1: "rows", 0: "strided"}[load_library("halo").halo_pad_kernel_for(ctypes.c_void_p(plan.ctypes.data))]
+
+
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("halo")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lp = ctypes.POINTER(ctypes.c_longlong)
-    lib.halo_pad_launch.argtypes = [p, p, i, lp, lp, lp, lp, ctypes.POINTER(i), ctypes.c_char_p, i, p]
-    lib.halo_pad_launch.restype = i
-    lib.halo_pad_error_string.argtypes = [i]
-    lib.halo_pad_error_string.restype = ctypes.c_char_p
-    return lib
+def _launcher():
+    p = ctypes.c_void_p
+    return Launcher("halo", "halo_pad_launch", [p, p, p, ctypes.c_char_p], "halo")

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from dask_array_tpu_torch.kernels._build import load_library
+from dask_array_tpu_torch.kernels._build import Launcher, load_library
 
 # kernel launches since the last reset; only multi_stat_cuda adds to it
 LAUNCHES = 0
@@ -94,31 +94,26 @@ def multi_stat_packed_cuda(x: torch.Tensor, shift=None) -> torch.Tensor:
         shift.dim() != 0 or shift.dtype != torch.float32 or shift.device != x.device
     ):
         raise ValueError("multi_stat_cuda takes a 0-d float32 shift on the tensor's device")
-    lib = _library()
-    tiles = lib.mstat_tiles_for(M)
+    launch = _launcher()
+    tiles = _tiles_for(M)
     out = torch.empty(N + M + 3, dtype=x.dtype, device=x.device)
     partial = torch.empty((tiles, N), dtype=x.dtype, device=x.device)
     pairs = torch.empty((tiles, 2), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mstat_launch(
-            x.data_ptr(), None if shift is None else shift.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), pairs.data_ptr(), M, N, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"mstat kernel launch failed: {lib.mstat_error_string(err).decode()}")
+    launch(x.get_device(), x.data_ptr(), None if shift is None else shift.data_ptr(), out.data_ptr(),
+           partial.data_ptr(), pairs.data_ptr(), M, N)
     LAUNCHES += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("mstat")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mstat_tiles_for.argtypes = [ll]
-    lib.mstat_tiles_for.restype = ll
-    lib.mstat_launch.argtypes = [p, p, p, p, p, ll, ll, p]
-    lib.mstat_launch.restype = i
-    lib.mstat_error_string.argtypes = [i]
-    lib.mstat_error_string.restype = ctypes.c_char_p
-    return lib
+def _launcher():
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    return Launcher("mstat", "mstat_launch", [p, p, p, p, p, ll, ll], "mstat")
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles_for(M: int) -> int:
+    fn = load_library("mstat").mstat_tiles_for
+    fn.argtypes = [ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    return fn(M)

@@ -27,7 +27,7 @@ import numbers
 
 import torch
 
-from dask_array_tpu_torch.kernels._build import load_library
+from dask_array_tpu_torch.kernels._build import Launcher
 
 # kernel launches since the last reset; only scale_cuda adds to it
 LAUNCHES = 0
@@ -152,22 +152,12 @@ def scale_cuda(x: torch.Tensor, s) -> torch.Tensor:
         if s.device != x.device or not s.is_contiguous():
             s = s.to(x.device).contiguous()
         s_ptr, s_bits = s.data_ptr(), 0  # a scalar, row or column: its elements in order
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.scale_launch(x.data_ptr(), s_ptr, s_bits, out.data_ptr(), rows, cols, ld, rs, cs, code, stream)
-    if err != 0:
-        raise RuntimeError(f"scale kernel launch failed: {lib.scale_error_string(err).decode()}")
+    _launcher()(x.get_device(), x.data_ptr(), s_ptr, s_bits, out.data_ptr(), rows, cols, ld, rs, cs, code)
     LAUNCHES += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("scale")
+def _launcher():
     p, i, ll, ull = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-    lib.scale_launch.argtypes = [p, p, ull, p, ll, ll, ll, ll, ll, i, p]
-    lib.scale_launch.restype = i
-    lib.scale_error_string.argtypes = [i]
-    lib.scale_error_string.restype = ctypes.c_char_p
-    return lib
+    return Launcher("scale", "scale_launch", [p, p, ull, p, ll, ll, ll, ll, ll, i], "scale")

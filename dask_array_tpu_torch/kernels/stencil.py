@@ -21,13 +21,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
+import struct
 from numbers import Integral, Number
 
 import numpy as np
 import torch
 
-from dask_array_tpu_torch.kernels._build import load_library
-from dask_array_tpu_torch.kernels.halo import numpy_mode, pad_axis_plain
+from dask_array_tpu_torch.kernels._build import Launcher
+from dask_array_tpu_torch.kernels.halo import numpy_mode, pad_axis_plain, value_key
 
 MAX_DEPTH = 8
 MAX_TAPS = (2 * MAX_DEPTH + 1) ** 2
@@ -241,6 +242,12 @@ def band_stencil_call(x: torch.Tensor, func, depth, boundary, taps) -> torch.Ten
     return band_stencil_cuda(x, taps, depth, boundary)
 
 
+# csrc/band_stencil.cu's kernels: the register window of depth (1, 1) (the
+# 5-point and 3x3 stencils) and the tap list (every other depth)
+TAP_LIST, WINDOW_11 = 0, 1
+_WINDOW_SLOTS = 9
+
+
 def _boundary_arg(mode, depth, dtype):
     """(code, fill) for one axis; the fill rounded to the tensor's dtype,
     as the plain version's constant pad rounds it."""
@@ -255,11 +262,49 @@ def _boundary_arg(mode, depth, dtype):
     return _CONSTANT_CODE, float(torch.tensor(mode, dtype=dtype).item())
 
 
-@functools.lru_cache(maxsize=64)
-def _taps_on_device(taps, device: str):
-    offs = torch.tensor([v for dy, dx, _ in taps for v in (dy, dx)], dtype=torch.int32, device=device)
-    weights = torch.tensor([w for _, _, w in taps], dtype=torch.float64, device=device)
-    return offs, weights
+def kernel_variant(depth) -> int:
+    """The kernel a depth takes: the register window at (1, 1), else the
+    tap list."""
+    return WINDOW_11 if tuple(depth) == (1, 1) else TAP_LIST
+
+
+def _tap_table(taps, depth, boundary, dtype) -> bytes:
+    """The launch's parameter bytes, as ``band_stencil_launch`` reads them:
+    the header (depths, boundary codes, tap count, kernel variant, the
+    dense window's tap mask), the two fills, the dense window's weights
+    (row-major over (dy, dx), zero where no tap is), then the tap list's
+    weights and offsets.  Raises on a depth above 8, a tap outside the
+    depth, or an unknown boundary."""
+    d0, d1 = depth
+    if not (0 <= d0 <= MAX_DEPTH and 0 <= d1 <= MAX_DEPTH):
+        raise ValueError(f"band_stencil_cuda takes depths 0..{MAX_DEPTH}, got {depth}")
+    if not 1 <= len(taps) <= MAX_TAPS or any(abs(dy) > d0 or abs(dx) > d1 for dy, dx, _ in taps):
+        raise ValueError(f"band_stencil_cuda: taps {taps} do not fit depth {depth}")
+    bd0, fill0 = _boundary_arg(boundary[0], d0, dtype)
+    bd1, fill1 = _boundary_arg(boundary[1], d1, dtype)
+    variant = kernel_variant(depth)
+    window, mask = [0.0] * _WINDOW_SLOTS, 0
+    if variant:
+        for dy, dx, w in taps:
+            slot = (dy + d0) * (2 * d1 + 1) + dx + d1
+            window[slot] += w
+            mask |= 1 << slot
+    n = len(taps)
+    return b"".join((
+        struct.pack("<8i", d0, d1, bd0, bd1, n, variant, mask, 0),
+        struct.pack("<2d", fill0, fill1),
+        struct.pack(f"<{_WINDOW_SLOTS}d", *window),
+        struct.pack(f"<{n}d", *(w for _, _, w in taps)),
+        struct.pack(f"<{2 * n}i", *(dy for dy, _, _ in taps), *(dx for _, dx, _ in taps)),
+    ))
+
+
+def vector_ok(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the kernel may move rows in 16-byte vectors: a row's bytes
+    and both tensors' addresses are multiples of 16.  Otherwise it takes
+    scalar loads and stores (a tensor at an odd storage offset, or N*itemsize
+    not a multiple of 16)."""
+    return (x.shape[-1] * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
 
 
 def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
@@ -267,41 +312,63 @@ def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
 
     Raises on anything the kernel does not take: a non-CUDA or
     non-contiguous tensor, a dtype other than float16/32/64, a depth above
-    8, a tap outside the depth, or an unknown boundary.
+    8, a tap outside the depth, or an unknown boundary.  The launch's
+    arguments are cached by the call's own (taps, depth, boundary, dtype),
+    so a repeated call only checks the tensor, allocates the output and
+    launches.
     """
     global LAUNCHES
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"band_stencil_cuda needs a CUDA tensor, got one on {x.device}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("band_stencil_cuda needs a contiguous 2-D tensor")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"band_stencil_cuda does not take {x.dtype}")
-    d0, d1 = (int(d) for d in depth)
-    if not (0 <= d0 <= MAX_DEPTH and 0 <= d1 <= MAX_DEPTH):
-        raise ValueError(f"band_stencil_cuda takes depths 0..{MAX_DEPTH}, got {depth}")
-    taps = tuple((int(dy), int(dx), float(w)) for dy, dx, w in taps)
-    if not 1 <= len(taps) <= MAX_TAPS or any(abs(dy) > d0 or abs(dx) > d1 for dy, dx, _ in taps):
-        raise ValueError(f"band_stencil_cuda: taps {taps} do not fit depth {depth}")
+    code, table = _launch_args(taps, depth, boundary, x.dtype)
     M, N = x.shape
     if M == 0 or N == 0:
         raise ValueError("band_stencil_cuda needs a non-empty tensor")
-    bd0, fill0 = _boundary_arg(boundary[0], d0, x.dtype)
-    bd1, fill1 = _boundary_arg(boundary[1], d1, x.dtype)
-    lib = _library()
-    offs, weights = _taps_on_device(taps, str(x.device))
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.band_stencil_launch(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), M, N, d0, d1,
-            bd0, bd1, fill0, fill1, offs.data_ptr(), weights.data_ptr(), len(taps), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"band_stencil kernel launch failed: {lib.band_stencil_error_string(err).decode()}"
-        )
+    _launcher()(x.get_device(), code, x.data_ptr(), out.data_ptr(), M, N, table, vector_ok(x, out))
     LAUNCHES += 1
     return out
+
+
+# (dtype code, tap table) by (taps, depth, boundary key, dtype)
+_TABLES: dict = {}
+
+
+def _launch_args(taps, depth, boundary, dtype):
+    """``(dtype code, tap table)`` of a launch, cached.  A boundary of two
+    names is its own key; one with a fill keys by ``value_key`` (-0.0 and
+    0.0 are equal but give other bits).  Taps or a depth given as lists
+    are not cached."""
+    bkey = None
+    try:
+        b0, b1 = boundary
+        bkey = boundary if type(b0) is str and type(b1) is str else value_key(boundary)
+        return _TABLES[taps, depth, bkey, dtype]
+    except (KeyError, TypeError, ValueError):
+        pass
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"band_stencil_cuda does not take {dtype}")
+    got = (code, _tap_table(_tap_key(taps), tuple(depth), tuple(boundary), dtype))
+    if len(_TABLES) >= 256:
+        _TABLES.clear()
+    try:
+        _TABLES[taps, depth, bkey, dtype] = got
+    except TypeError:  # unhashable taps or depth
+        pass
+    return got
+
+
+def _tap_key(taps):
+    """Taps as hashable ``(int, int, float)`` triples; a tuple of such
+    triples (``capture_taps``'s form) passes as it is."""
+    if isinstance(taps, tuple) and all(
+        type(t) is tuple and type(t[0]) is int and type(t[1]) is int and type(t[2]) is float for t in taps
+    ):
+        return taps
+    return tuple((int(dy), int(dx), float(w)) for dy, dx, w in taps)
 
 
 # ---------------------------------------------------------------------------
@@ -310,11 +377,6 @@ def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("band_stencil")
-    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    lib.band_stencil_launch.argtypes = [i, p, p, ll, ll, i, i, i, i, d, d, p, p, i, p]
-    lib.band_stencil_launch.restype = i
-    lib.band_stencil_error_string.argtypes = [i]
-    lib.band_stencil_error_string.restype = ctypes.c_char_p
-    return lib
+def _launcher():
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return Launcher("band_stencil", "band_stencil_launch", [i, p, p, ll, ll, ctypes.c_char_p, i], "band_stencil")

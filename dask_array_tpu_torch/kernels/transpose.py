@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from dask_array_tpu_torch.kernels._build import load_library
+from dask_array_tpu_torch.kernels._build import Launcher
 
 PLAIN_TILE = 512  # the probe's block edge
 
@@ -84,24 +84,12 @@ def transpose_last2_cuda(x: torch.Tensor) -> torch.Tensor:
     size = x3.element_size()
     if x3.data_ptr() % size:
         raise ValueError("transpose_last2_cuda needs a tensor aligned to its element size")
-    lib = _library()
-    with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
-        err = lib.transpose_launch(
-            x3.data_ptr(), out.data_ptr(), x3.shape[0], M, N, x3.stride(0), x3.stride(1), size, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"transpose kernel launch failed: {lib.transpose_error_string(err).decode()}")
+    _launcher()(x3.get_device(), x3.data_ptr(), out.data_ptr(), x3.shape[0], M, N, x3.stride(0), x3.stride(1), size)
     LAUNCHES += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("transpose")
+def _launcher():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.transpose_launch.argtypes = [p, p, ll, ll, ll, ll, ll, i, p]
-    lib.transpose_launch.restype = i
-    lib.transpose_error_string.argtypes = [i]
-    lib.transpose_error_string.restype = ctypes.c_char_p
-    return lib
+    return Launcher("transpose", "transpose_launch", [p, p, ll, ll, ll, ll, ll, i], "transpose")

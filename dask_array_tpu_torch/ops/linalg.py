@@ -317,7 +317,9 @@ def vdot(a, b):
     from dask_array_tpu_torch.ops.ufuncs import conj
 
     a, b = asarray(a), asarray(b)
-    return dot(conj(a).ravel(), b.ravel())
+    if a.dtype.kind == "c":  # numpy conjugates a complex a; a bool stays bool (vdot of bools is bool)
+        a = conj(a)
+    return dot(a.ravel(), b.ravel())
 
 
 def outer(a, b):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch._blockwise import elemwise
-from dask_array_tpu_torch._chunks import cached_cumsum, torch_dtype, validate_axis
+from dask_array_tpu_torch._chunks import as_stored, cached_cumsum, compute_dtype, to_compute, torch_dtype, validate_axis
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import is_basic_index
@@ -74,6 +74,41 @@ def _prod_dims(x, dims, keepdim, dtype):
     return out
 
 
+def complex_arg(x, dim, largest, nan_first):
+    """The index along ``dim`` of numpy's extremum of a complex tensor in
+    its lexicographic order (real part, then imaginary part).
+
+    With ``nan_first`` (max, min, argmax, argmin: numpy's maximum.reduce and
+    argmax) the first element with a NaN part wins where there is one;
+    without it (nanmax, nanmin: fmax.reduce) elements with a NaN part lose,
+    and an all-NaN slice gives its first element.  Among equal extrema the
+    first wins."""
+    re, im = x.real, x.imag
+    nan = torch.isnan(re) | torch.isnan(im)
+    fill = -math.inf if largest else math.inf
+    red = torch.amax if largest else torch.amin
+    re_key = torch.where(nan, fill, re)
+    cand = (re_key == red(re_key, dim=dim, keepdim=True)) & ~nan
+    im_key = torch.where(cand, im, fill)
+    win = cand & (im_key == red(im_key, dim=dim, keepdim=True))
+    idx = torch.argmax(win.to(torch.uint8), dim=dim)  # the first True
+    if nan_first:
+        idx = torch.where(nan.any(dim=dim), torch.argmax(nan.to(torch.uint8), dim=dim), idx)
+    return idx
+
+
+def _complex_extremum(kind, x, dims, keepdim):
+    """min/max/nanmin/nanmax of a complex tensor over ``dims`` (flattened
+    in C order): the element ``complex_arg`` picks."""
+    kept = [d for d in range(x.ndim) if d not in dims]
+    flat = x.permute(*kept, *dims).reshape(*[x.shape[d] for d in kept], -1)
+    idx = complex_arg(flat, -1, largest=kind.endswith("max"), nan_first=not kind.startswith("nan"))
+    out = torch.gather(flat, -1, idx.unsqueeze(-1)).squeeze(-1)
+    if keepdim:
+        out = out.reshape([1 if d in dims else x.shape[d] for d in range(x.ndim)])
+    return out
+
+
 def _dense_reduce(kind, x, dims, keepdim, acc):
     """One torch reduce of ``x`` over ``dims`` in dtype ``acc``."""
     inexact = x.is_floating_point() or x.is_complex()
@@ -83,6 +118,8 @@ def _dense_reduce(kind, x, dims, keepdim, acc):
         raise ValueError(
             f"zero-size array to reduction operation {kind} which has no identity"
         )
+    if kind in ("min", "max", "nanmin", "nanmax") and x.is_complex():
+        return _complex_extremum(kind, x, dims, keepdim)
     if kind == "sum":
         return torch.sum(x, dim=dims, keepdim=keepdim, dtype=acc)
     if kind == "prod":
@@ -153,15 +190,14 @@ class Reduction(ArrayExpr):
     def _build(self, ctx):
         _, takes_dtype = _DENSE_KINDS[self.kind]
         x = ctx.build(self.array).dense()
-        out_dt = torch_dtype(self.dtype)
+        out_dt = compute_dtype(self.dtype)  # numpy's uint64 sums run in int64
         acc = out_dt
         if takes_dtype:
             if out_dt.is_floating_point and out_dt.itemsize < 4:
                 # sub-f32 float accumulators stall once the partial's ulp
                 # exceeds the addend; accumulate in f32, cast the result
                 acc = torch.float32
-            if x.dtype != acc:
-                x = x.to(acc)  # cast before the reduce, not after
+            x = to_compute(x, self.dtype) if acc == out_dt else x.to(acc)  # cast before the reduce
         dims, keepdim = tuple(self.axes), bool(self.keepdims)
         if not dims:
             # numpy's axis=(): each element reduces alone
@@ -169,7 +205,7 @@ class Reduction(ArrayExpr):
         dense = _dense_reduce(self.kind, x, dims, keepdim, acc)
         if dense.dtype != out_dt:
             dense = dense.to(out_dt)
-        return BlockView(self.chunks, dense=dense)
+        return BlockView(self.chunks, dense=as_stored(dense, self.dtype))
 
     def _accept_slice(self, index):
         if not is_basic_index(index):
@@ -534,14 +570,25 @@ def _arg_dense(kind, x, axis):
 
     argmin/argmax give the first NaN's index where a NaN is present;
     nanargmin/nanargmax replace NaN by +-inf first, as numpy does, and
-    raise on an all-NaN slice."""
+    raise on an all-NaN slice.  Complex numbers are ordered as numpy
+    orders them (``complex_arg``)."""
     if axis is None:
         x, axis = x.reshape(-1), 0
     if x.shape[axis] == 0:
         raise ValueError(f"attempt to get {kind} of an empty sequence")
     if x.dtype == torch.bool:
         x = x.to(torch.uint8)
-    find = torch.argmin if kind in ("argmin", "nanargmin") else torch.argmax
+    largest = kind in ("argmax", "nanargmax")
+    if x.is_complex():
+        if not kind.startswith("nan"):
+            return complex_arg(x, axis, largest, nan_first=True)
+        nan = torch.isnan(x.real) | torch.isnan(x.imag)
+        if bool(torch.all(nan, dim=axis).any()):
+            raise ValueError(f"All-NaN slice encountered in {kind}")
+        # numpy replaces a NaN by -inf (+inf) + 0j, then takes argmax (argmin)
+        x = torch.where(nan, torch.tensor(complex(-math.inf if largest else math.inf, 0.0), dtype=x.dtype, device=x.device), x)
+        return complex_arg(x, axis, largest, nan_first=False)
+    find = torch.argmax if largest else torch.argmin
     if not x.is_floating_point():
         return find(x, dim=axis)
     nan = torch.isnan(x)
@@ -732,9 +779,9 @@ class CumReduction(ArrayExpr):
         x = ctx.build(self.array).dense()
         if self.kind in _CUM_IDENTITY and (x.is_floating_point() or x.is_complex()):
             x = torch.where(torch.isnan(x), _CUM_IDENTITY[self.kind], x)
-        x = x.to(torch_dtype(self.dtype))  # numpy scans in the result dtype
+        x = to_compute(x, self.dtype)  # numpy scans in the result dtype
         scan = torch.cumsum if self.kind.endswith("cumsum") else torch.cumprod
-        return BlockView(self.chunks, dense=scan(x, dim=self.axis))
+        return BlockView(self.chunks, dense=as_stored(scan(x, dim=self.axis), self.dtype))
 
 
 def _cum(a, kind, axis=None, dtype=None, method="sequential", out=None):
@@ -954,9 +1001,14 @@ def _as_block(res, dtype, device):
     if isinstance(res, (np.ndarray, np.generic)) and res.dtype.names is None and res.dtype != object:
         res = torch.as_tensor(np.asarray(res))
     if isinstance(res, torch.Tensor):
-        want = torch_dtype(dtype)
-        res = res.to(device=device, dtype=want)
+        res = as_stored(to_compute(res.to(device=device), dtype), dtype)
     return res
+
+
+def _partial(b):
+    """A partial as a user function sees it: a uint64 block (an unsigned
+    sum, stored as uint64) as its int64 bits, in which torch computes."""
+    return b.view(torch.int64) if isinstance(b, torch.Tensor) and b.dtype == torch.uint64 else b
 
 
 class PartialReduce(ArrayExpr):
@@ -1013,7 +1065,7 @@ class PartialReduce(ArrayExpr):
         for out_full in iter_block_indices(out_nb):
             def rec(ax, prefix):
                 if ax == ndim:
-                    return view.block(prefix)
+                    return _partial(view.block(prefix))
                 if ax in se:
                     return [rec(ax + 1, prefix + (i,)) for i in groups[ax][out_full[ax]]]
                 return rec(ax + 1, prefix + (out_full[ax],))
@@ -1109,7 +1161,7 @@ def reduction(
     if dtype is None:
         raise ValueError("Must specify dtype")
     dtype = np.dtype(dtype)
-    tdtype = torch_dtype(dtype)
+    tdtype = compute_dtype(dtype)  # a uint64 reduction runs in int64
 
     def with_dtype(fn):
         if fn is not None and _accepts_named_kw(fn, "dtype"):

@@ -35,6 +35,18 @@ class ufunc:
         return getattr(np, self.__name__)(*args, **kwargs)
 
 
+def _numpy_named(np_ufunc):
+    """Mark a port function as standing in for ``np_ufunc`` (its name and
+    numpy's dtype rules, ``_expr._numpy_equivalent``)."""
+
+    def mark(fn):
+        fn.__name__ = fn.__qualname__ = np_ufunc.__name__
+        fn.numpy_ufunc = np_ufunc
+        return fn
+
+    return mark
+
+
 def _zero_safe(torch_fn, np_ufunc):
     """``torch_fn`` with numpy's integer division by zero: 0 where the
     divisor is 0.  torch raises on the CPU for it and is undefined on CUDA,
@@ -42,6 +54,7 @@ def _zero_safe(torch_fn, np_ufunc):
     selected there.  Float operands pass straight through (inf/nan as in
     numpy)."""
 
+    @_numpy_named(np_ufunc)
     def fn(a, b):
         dtype = torch.result_type(a, b)
         if not isinstance(a, torch.Tensor):  # torch.fmod takes no scalar first
@@ -55,8 +68,6 @@ def _zero_safe(torch_fn, np_ufunc):
             return torch.zeros_like(torch_fn(a, 1))
         return torch_fn(a, b)
 
-    fn.__name__ = fn.__qualname__ = np_ufunc.__name__
-    fn.numpy_ufunc = np_ufunc
     return fn
 
 
@@ -64,13 +75,133 @@ floor_divide_ = _zero_safe(torch.floor_divide, np.floor_divide)
 remainder_ = _zero_safe(torch.remainder, np.remainder)
 fmod_ = _zero_safe(torch.fmod, np.fmod)
 
+
+@_numpy_named(np.absolute)
+def absolute_(x):
+    """numpy's absolute: a bool array is its own absolute value (torch has
+    no bool ``abs``)."""
+    return x if x.dtype == torch.bool else torch.abs(x)
+
+
+@_numpy_named(np.rint)
+def rint_(x):
+    """numpy's rint: half to even, each part of a complex number apart."""
+    if x.is_complex():
+        return torch.complex(torch.round(x.real), torch.round(x.imag))
+    return torch.round(x)
+
+
+def _complex_sign(z):
+    """numpy 2's complex sign: z/|z|, 0 at 0; with |z| infinite, the
+    infinite part's sign (NaN where both parts are infinite); NaN where |z|
+    is NaN."""
+    re, im = z.real, z.imag
+    mag = torch.hypot(re, im)
+    out_re, out_im = re / mag, im / mag
+    inf_re, inf_im = torch.isinf(re), torch.isinf(im)
+    nan = torch.full_like(re, float("nan"))
+    on_inf = torch.isinf(mag)
+    out_re = torch.where(on_inf, torch.where(inf_re, torch.where(inf_im, nan, torch.sign(re)), 0.0), out_re)
+    out_im = torch.where(on_inf, torch.where(inf_re, torch.where(inf_im, nan, 0.0), torch.sign(im)), out_im)
+    zero = mag == 0
+    return torch.complex(torch.where(zero, 0.0, out_re), torch.where(zero, 0.0, out_im))
+
+
+@_numpy_named(np.sign)
+def sign_(x):
+    """numpy's sign: NaN stays NaN (torch gives 0), complex by numpy 2's
+    rule (torch refuses it)."""
+    if x.is_complex():
+        return _complex_sign(x)
+    if x.is_floating_point():
+        return torch.where(torch.isnan(x), x, torch.sign(x))
+    return torch.sign(x)
+
+
+# -- complex ordering: numpy orders complex numbers lexicographically (the
+# real part, then the imaginary part); torch has no complex order at all
+
+
+def _complex_pair(a, b):
+    """``(a, b)`` as complex tensors of one dtype when either is complex,
+    else None.  A Python scalar becomes a 0-d tensor of the other's dtype
+    (numpy casts both operands to the loop dtype first)."""
+    ta = a if isinstance(a, torch.Tensor) else None
+    tb = b if isinstance(b, torch.Tensor) else None
+    if not ((ta is not None and ta.is_complex()) or (tb is not None and tb.is_complex())):
+        return None
+    ref = ta if ta is not None and ta.is_complex() else tb
+
+    def as_complex(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(ref.dtype)
+        return torch.tensor(v, dtype=ref.dtype, device=ref.device)
+
+    return as_complex(a), as_complex(b)
+
+
+def has_nan(z):
+    """A NaN in either part of a complex tensor."""
+    return torch.isnan(z.real) | torch.isnan(z.imag)
+
+
+def complex_order(a, b, greater, strict):
+    """numpy's complex comparison (its CGT/CGE/CLT/CLE): the real parts
+    decide where neither imaginary part is NaN, the imaginary parts where
+    the real parts are equal."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    lead = ar > br if greater else ar < br
+    if strict:
+        tie = ai > bi if greater else ai < bi
+    else:
+        tie = ai >= bi if greater else ai <= bi
+    return (lead & ~torch.isnan(ai) & ~torch.isnan(bi)) | ((ar == br) & tie)
+
+
+def _ordered(torch_fn, np_ufunc, greater, strict):
+    @_numpy_named(np_ufunc)
+    def fn(a, b):
+        pair = _complex_pair(a, b)
+        if pair is None:
+            return torch_fn(a, b)
+        return complex_order(*pair, greater, strict)
+
+    return fn
+
+
+def _extremum(torch_fn, np_ufunc, greater, nan_side):
+    """numpy's maximum/minimum (``nan_side`` 0: a NaN in the first operand
+    wins, else the comparison) and fmax/fmin (``nan_side`` 1: a NaN in the
+    second operand loses) of complex operands."""
+
+    @_numpy_named(np_ufunc)
+    def fn(a, b):
+        pair = _complex_pair(a, b)
+        if pair is None:
+            return torch_fn(a, b)
+        a, b = pair
+        keep = has_nan(a if nan_side == 0 else b) | complex_order(a, b, greater, strict=False)
+        return torch.where(keep, a, b)
+
+    return fn
+
+
+greater_ = _ordered(torch.gt, np.greater, greater=True, strict=True)
+greater_equal_ = _ordered(torch.ge, np.greater_equal, greater=True, strict=False)
+less_ = _ordered(torch.lt, np.less, greater=False, strict=True)
+less_equal_ = _ordered(torch.le, np.less_equal, greater=False, strict=False)
+maximum_ = _extremum(torch.maximum, np.maximum, greater=True, nan_side=0)
+minimum_ = _extremum(torch.minimum, np.minimum, greater=False, nan_side=0)
+fmax_ = _extremum(torch.fmax, np.fmax, greater=True, nan_side=1)
+fmin_ = _extremum(torch.fmin, np.fmin, greater=False, nan_side=1)
+
 # numpy name -> torch function (the Elemwise kernel)
 _TABLE = {
     # unary math
-    "abs": torch.abs,
-    "absolute": torch.abs,
-    "rint": torch.round,
-    "sign": torch.sign,
+    "abs": absolute_,
+    "absolute": absolute_,
+    "rint": rint_,
+    "sign": sign_,
     "exp": torch.exp,
     "exp2": torch.exp2,
     "expm1": torch.expm1,
@@ -123,20 +254,20 @@ _TABLE = {
     "hypot": torch.hypot,
     "logaddexp": torch.logaddexp,
     "logaddexp2": torch.logaddexp2,
-    "maximum": torch.maximum,
-    "minimum": torch.minimum,
-    "fmax": torch.fmax,
-    "fmin": torch.fmin,
+    "maximum": maximum_,
+    "minimum": minimum_,
+    "fmax": fmax_,
+    "fmin": fmin_,
     "copysign": torch.copysign,
     "bitwise_and": torch.bitwise_and,
     "bitwise_or": torch.bitwise_or,
     "bitwise_xor": torch.bitwise_xor,
     "left_shift": torch.bitwise_left_shift,
     "right_shift": torch.bitwise_right_shift,
-    "greater": torch.gt,
-    "greater_equal": torch.ge,
-    "less": torch.lt,
-    "less_equal": torch.le,
+    "greater": greater_,
+    "greater_equal": greater_equal_,
+    "less": less_,
+    "less_equal": less_equal_,
     "equal": torch.eq,
     "not_equal": torch.ne,
     "logical_and": torch.logical_and,

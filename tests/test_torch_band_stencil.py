@@ -325,3 +325,102 @@ def test_cuda_wrapper_refuses_cpu_tensor():
     # the kernel itself runs in tests/test_torch_gpu.py, on a card
     with pytest.raises(ValueError, match="CUDA tensor"):
         stencil.band_stencil_cuda(torch.zeros(8, 8), LAPLACE_TAPS, (1, 1), ("reflect", "reflect"))
+
+
+# ---------------------------------------------------------------------------
+# what the launcher gets: the tap table, the kernel variant, the row path
+# ---------------------------------------------------------------------------
+
+
+def unpack_table(table):
+    """``band_stencil_launch``'s reading of a tap table."""
+    import struct
+
+    head = struct.unpack("<8i", table[:32])
+    n = head[4]
+    fills = struct.unpack("<2d", table[32:48])
+    window = struct.unpack("<9d", table[48:120])
+    weights = struct.unpack(f"<{n}d", table[120:120 + 8 * n])
+    offs = struct.unpack(f"<{2 * n}i", table[120 + 8 * n:])
+    assert len(table) == 120 + 16 * n
+    return head, fills, window, weights, offs[:n], offs[n:]
+
+
+@pytest.mark.parametrize("depth, variant", [((1, 1), 1), ((2, 2), 0), ((1, 0), 0), ((0, 1), 0), ((2, 1), 0),
+                                            ((8, 8), 0), ((0, 0), 0), ((3, 3), 0)])
+def test_kernel_variant_by_depth(depth, variant):
+    assert stencil.kernel_variant(depth) == variant
+
+
+def test_tap_table_of_the_five_point_stencil():
+    head, fills, window, weights, dys, dxs = unpack_table(
+        stencil._tap_table(LAPLACE_TAPS, (1, 1), ("reflect", 2.5), torch.float32))
+    assert head[:6] == (1, 1, 0, 3, 5, 1)  # depths, reflect, constant, 5 taps, window (1,1)
+    assert fills == (0.0, 2.5)
+    taps = {(dy, dx): w for dy, dx, w in LAPLACE_TAPS}
+    # the dense 3x3 window holds each tap at (dy + 1) * 3 + dx + 1, its mask
+    # bit set there and nowhere else: the empty corners are skipped, not
+    # multiplied by 0 (an inf input stays an inf)
+    for a in range(3):
+        for b in range(3):
+            slot = a * 3 + b
+            assert bool(head[6] >> slot & 1) == ((a - 1, b - 1) in taps)
+            assert window[slot] == taps.get((a - 1, b - 1), 0.0)
+    assert list(zip(dys, dxs, weights)) == [(dy, dx, w) for dy, dx, w in LAPLACE_TAPS]
+
+
+def test_tap_table_of_the_tap_list_kernel():
+    taps = stencil.capture_taps(lambda b: torch.roll(b, 2, 0) - torch.roll(b, -1, 1) * 0.5, (2, 1))
+    head, _, window, weights, dys, dxs = unpack_table(
+        stencil._tap_table(taps, (2, 1), ("periodic", "nearest"), torch.float64))
+    assert head[:7] == (2, 1, 2, 1, 2, 0, 0)  # no window: variant 0 and an empty mask
+    assert window == (0.0,) * 9
+    assert sorted(zip(dys, dxs, weights)) == [(-2, 0, 1.0), (0, 1, -0.5)]
+
+
+def test_tap_table_rounds_a_fill_to_the_dtype():
+    _, fills, *_ = unpack_table(stencil._tap_table(LAPLACE_TAPS, (1, 1), (0.1, 1e-8), torch.float16))
+    assert fills == (float(np.float16(0.1)), float(np.float16(1e-8)))
+
+
+@pytest.mark.parametrize("taps, depth, boundary, match", [
+    (LAPLACE_TAPS, (9, 1), ("reflect", "reflect"), "depths"),
+    (((2, 0, 1.0),), (1, 1), ("reflect", "reflect"), "do not fit"),
+    (LAPLACE_TAPS, (1, 1), ("wrap", "reflect"), "boundary"),
+    (LAPLACE_TAPS, (1, 1), ("none", "reflect"), "boundary"),
+])
+def test_tap_table_refuses(taps, depth, boundary, match):
+    with pytest.raises(ValueError, match=match):
+        stencil._tap_table(taps, depth, boundary, torch.float32)
+
+
+def test_tap_tables_are_cached_by_value_keys():
+    """A fill of -0.0 and one of 0.0 compare equal but give other bits: the
+    cache keeps them apart."""
+    code, pos = stencil._launch_args(LAPLACE_TAPS, (1, 1), (0.0, "reflect"), torch.float32)
+    _, neg = stencil._launch_args(LAPLACE_TAPS, (1, 1), (-0.0, "reflect"), torch.float32)
+    assert code == 1 and pos[32:40] != neg[32:40]
+    assert stencil._launch_args(LAPLACE_TAPS, (1, 1), (0.0, "reflect"), torch.float32)[1] is pos
+    # taps as lists are read, not cached
+    assert stencil._launch_args([[0, 0, -4.0], [1, 0, 1.0]], [1, 1], ["reflect", "reflect"], torch.float64)[0] == 2
+    assert stencil._tap_key([[0, 1, 2]]) == ((0, 1, 2.0),)
+    with pytest.raises(TypeError, match="does not take"):
+        stencil._launch_args(LAPLACE_TAPS, (1, 1), ("reflect", "reflect"), torch.int32)
+
+
+@pytest.mark.parametrize("shape, dtype, offset, vector", [
+    ((64, 1024), torch.float32, 0, True),
+    ((64, 1003), torch.float32, 0, False),   # a row of 4012 bytes
+    ((64, 1024), torch.float32, 1, False),   # one element into its storage
+    ((64, 1024), torch.float32, 4, True),
+    ((64, 1024), torch.float16, 0, True),
+    ((64, 1028), torch.float16, 0, False),   # 2056 bytes: 8-byte rows only
+    ((64, 1026), torch.float64, 0, True),
+    ((64, 1027), torch.float64, 0, False),
+])
+def test_vector_path_needs_16_byte_rows_and_pointers(shape, dtype, offset, vector):
+    base = torch.zeros(shape[0] * shape[1] + 16, dtype=dtype)
+    x = base[offset:offset + shape[0] * shape[1]].view(shape)
+    aligned = torch.zeros(shape, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    assert stencil.vector_ok(x, aligned) is vector

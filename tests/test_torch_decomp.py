@@ -136,7 +136,7 @@ def test_svd_methods_without_sign_fix(values, dtype):
 
 
 def test_svd_single_block_complex_and_integer():
-    # complex: without svd_flip (the port has no complex ordering yet)
+    # complex without svd_flip, held against the JAX package by magnitude
     xc = sample((60, 7), "complex128", seed=3)
     t = tda.linalg.svd(tda.from_array(xc, chunks=(60, 7)), coerce_signs=False)
     assert [a.dtype for a in t] == [np.complex128, np.float64, np.complex128]  # numpy's dtypes
@@ -160,6 +160,27 @@ def test_svd_tall_complex_uses_the_hermitian_gram():
     check_svd(u, s, vh, x)
     js = jda.linalg.svd(jda.from_array(x, chunks=(100, 6)), coerce_signs=False)[1].compute()
     close_s(s, js, "complex128")
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+@pytest.mark.parametrize("chunks", [(60, 7), (15, 7)], ids=["single-block", "tsqr"])
+def test_svd_flip_of_complex_singular_vectors(dtype, chunks):
+    """Complex svd with its default svd_flip (numpy's complex order decides
+    the sign of each pair): numpy's magnitudes and singular values, a
+    reconstruction, and every row of vh summing to a value >= 0 in numpy's
+    order."""
+    x = sample((60, 7), dtype, seed=11)
+    u, s, vh = tda.compute(*tda.linalg.svd(tda.from_array(x, chunks=chunks)))
+    check_svd(u, s, vh, x)
+    nu, ns, nvh = np.linalg.svd(x.astype(np.complex128), full_matrices=False)
+    close(np.abs(u), np.abs(nu), dtype, "|u|")
+    close(np.abs(vh), np.abs(nvh), dtype, "|vh|")
+    assert np.greater_equal(vh.sum(axis=1), 0).all()
+    # u-based: each column of u sums to a value >= 0
+    fu, fvh = tda.compute(*tda.linalg.svd_flip(tda.from_array(u, chunks=(15, 7)), tda.from_array(vh, chunks=7),
+                                               u_based_decision=True))
+    assert np.greater_equal(fu.sum(axis=0), 0).all()
+    check_svd(fu, s, fvh, x)
 
 
 def test_svd_compute_uv_false_and_errors():

@@ -64,6 +64,72 @@ def test_kernel_matches_plain_for_every_boundary_pair(cuda, dtype, func, depth):
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+def stencil_reaching(d0, d1):
+    """A linear stencil reaching exactly (d0, d1), with a corner tap."""
+
+    def f(b):
+        out = -3.0 * b
+        for s in range(1, d0 + 1):
+            out = out + torch.roll(b, s, 0) * (0.5 / s) - torch.roll(b, -s, 0) * (0.25 / s)
+        for s in range(1, d1 + 1):
+            out = out + torch.roll(b, s, 1) * (0.75 / s) + torch.roll(b, -s, 1) / (2.0 * s)
+        if d0 and d1:
+            out = out + torch.roll(torch.roll(b, d0, 0), -d1, 1) * 0.125
+        return out
+
+    return f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("depth", [(1, 1), (2, 1), (8, 8)])
+@pytest.mark.parametrize("layout", ["vector", "n_not_multiple_of_4", "storage_offset_1"])
+def test_kernel_paths_match_plain(cuda, dtype, depth, layout):
+    """The redesigned kernel's paths: 300 rows make 24x128 tiles both interior
+    (no index mapped) and at the edge; 16-byte rows where the row length and
+    the pointer allow, scalars for a row length not a multiple of 4 and for
+    a contiguous tensor one element into its storage; the register window at
+    depth (1, 1), the tap list at (2, 1) and (8, 8)."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    n = {"vector": 1024, "n_not_multiple_of_4": 1003, "storage_offset_1": 1024}[layout]
+    gen = torch.Generator(device=cuda).manual_seed(sum(depth))
+    flat = torch.randn(300 * n + 1, generator=gen, device=cuda, dtype=torch.float32).to(dtype)
+    x = flat[1:].view(300, n) if layout == "storage_offset_1" else flat[: 300 * n].view(300, n)
+    assert stencil.vector_ok(x, torch.empty_like(x)) is (layout == "vector")
+    assert stencil.kernel_variant(depth) == (1 if depth == (1, 1) else 0)
+    func = stencil_reaching(*depth)
+    taps = stencil.capture_taps(func, depth)
+    for bnd in (("reflect", "periodic"), (2.5, "nearest"), ("periodic", 0.0)):
+        got = stencil.band_stencil_cuda(x, taps, depth, bnd)
+        scale = sum(abs(w) for _, _, w in taps) * float(x.abs().max())
+        if dtype == torch.float16:  # accumulated in float32, rounded once
+            want = stencil.band_stencil_plain(x.float(), func, depth, bnd).half()
+            rtol, atol = 1e-3, scale * 2.0**-11
+        else:
+            want = stencil.band_stencil_plain(x, func, depth, bnd)
+            rtol, atol = (1e-5, scale * 2.0**-21) if dtype == torch.float32 else (1e-12, scale * 1e-12)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_kernel_window_skips_the_taps_a_stencil_lacks(cuda):
+    """The 5-point stencil in the dense 3x3 window: an inf input gives the
+    plain version's infs and no NaN (0 * inf in an empty corner would)."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    x = torch.randn((256, 512), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    x[100, 200] = float("inf")
+    x[30, 300] = -float("inf")
+    taps = stencil.capture_taps(laplace, (1, 1))
+    got = stencil.band_stencil_cuda(x, taps, (1, 1), ("reflect", "reflect"))
+    want = stencil.band_stencil_plain(x, laplace, (1, 1), ("reflect", "reflect"))
+    torch.cuda.synchronize()
+    assert not bool(got.isnan().any()) and torch.equal(got.isinf(), want.isinf())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
     from dask_array_tpu_torch.kernels import stencil
@@ -322,6 +388,30 @@ def test_halo_kernel_matches_plain_byte_for_byte(cuda, dtype):
         for modes in (("symmetric", "wrap"), (1.0, "reflect")):
             widths = ((2, 1), (3, 3))
             assert same_bytes(halo.halo_pad_cuda(view, widths, modes), halo.halo_pad_plain(view, widths, modes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float16, torch.float32, torch.float64, torch.complex128], ids=str)
+@pytest.mark.parametrize("lo", range(5))
+def test_halo_row_kernel_matches_strided_kernel_byte_for_byte(cuda, dtype, lo):
+    """Element sizes 1, 2, 4, 8 and 16 bytes, lo 0-4 on the last axis: the
+    row kernel (a contiguous input; a view one element into its rows, whose
+    source it realigns) and the strided kernel (the same values laid out
+    column-major) against each other and the plain version."""
+    from dask_array_tpu_torch.kernels import halo
+
+    x = random_bytes((67, 1001), dtype, cuda, seed=lo)
+    column_major = x.mT.contiguous().mT
+    shifted = random_bytes((67, 1003), dtype, cuda, seed=10 + lo)[:, 1:1002]
+    for mode in ("symmetric", "reflect", "edge", "wrap", (0.5, -1.0)):
+        widths, modes = ((1, 2), (lo, 3)), ("edge", mode)
+        assert halo.kernel_for(x, widths, modes) == "rows"
+        assert halo.kernel_for(shifted, widths, modes) == "rows"
+        assert halo.kernel_for(column_major, widths, modes) == "strided"
+        rows = halo.halo_pad_cuda(x, widths, modes)
+        assert same_bytes(rows, halo.halo_pad_plain(x, widths, modes))
+        assert same_bytes(halo.halo_pad_cuda(column_major, widths, modes), rows)
+        assert same_bytes(halo.halo_pad_cuda(shifted, widths, modes), halo.halo_pad_plain(shifted, widths, modes))
 
 
 @pytest.mark.gpu

@@ -256,3 +256,55 @@ def test_probe_band_assembly_is_a_slice_of_halo_pad(d):
     padded = halo.halo_pad(torch.from_numpy(x), [(d, d), (2, 2)], ["edge", "symmetric"]).numpy()
     for i in range(512 // T):
         np.testing.assert_array_equal(padded[i * T:i * T + T + 2 * d], probe_band(x, i, T=T, d=d))
+
+
+# ---------------------------------------------------------------------------
+# what the launcher gets: the plan and the fills
+# ---------------------------------------------------------------------------
+
+
+def test_launch_plan_merges_unpadded_axes():
+    plan, fills = halo.launch_plan((5, 6, 7), (42, 7, 1), ((1, 2), (0, 0), (0, 0)), ("wrap", "edge", "edge"),
+                                   torch.float32)
+    # axes 1 and 2 merge into one of 42; the unpadded axis's fills are zeros
+    assert plan.tolist() == [2, 4, 5, 42, 42, 1, 1, 0, 2, 0, 3, 4]
+    assert fills == bytes(16)
+
+
+def test_launch_plan_fills_are_the_dtype_bytes():
+    plan, fills = halo.launch_plan((3, 4), (4, 1), ((1, 1), (2, 0)), ((1.5, -0.0), "symmetric"), torch.float16)
+    assert plan.tolist() == [2, 2, 3, 4, 4, 1, 1, 2, 1, 0, 4, 0]
+    want = np.array([1.5, -0.0], dtype=np.float16).tobytes() + bytes(4)
+    assert fills == want
+
+
+def test_launch_plan_reads_a_view_through_its_strides():
+    base = torch.zeros((30, 20))
+    view = base.mT  # (20, 30) with a last axis of stride 20: the strided kernel reads it
+    plan, _ = halo.launch_plan(tuple(view.shape), view.stride(), ((1, 1), (1, 1)), ("edge", "edge"), torch.float32)
+    assert plan.tolist() == [2, 4, 20, 30, 1, 20, 1, 1, 1, 1, 2, 2]
+
+
+def test_launch_plan_refuses_more_than_eight_axes():
+    shape = (2,) * 9
+    stride = tuple(2 ** (8 - a) for a in range(9))
+    with pytest.raises(ValueError, match="at most 8 axes"):
+        halo.launch_plan(shape, stride, ((1, 1),) * 9, ("edge",) * 9, torch.float32)
+
+
+@pytest.mark.parametrize("a, b", [(0.0, -0.0), (1, 1.0), (True, 1), (np.float32(1.0), 1.0)])
+def test_plans_are_cached_by_value_keys(a, b):
+    """Fills that compare equal but may give other bits get their own plans."""
+    assert halo.value_key((a, "edge")) != halo.value_key((b, "edge"))
+    x = torch.zeros((3, 4))
+    pa = halo._launch_args(x, ((1, 1), (1, 1)), (a, "edge"))
+    pb = halo._launch_args(x, ((1, 1), (1, 1)), (b, "edge"))
+    assert pa is not pb
+    assert halo._launch_args(x, [(1, 1), (1, 1)], [a, "edge"]) is pa  # lists key as tuples
+    assert pa[0] == (5, 6) and pa[1] == pa[3].ctypes.data
+
+
+def test_launch_args_of_an_empty_output_plan_no_launch():
+    assert halo._launch_args(torch.zeros((0, 4)), ((0, 0), (1, 1)), ("edge", 2.0))[:2] == ((0, 6), None)
+    with pytest.raises(ValueError, match="negative width"):
+        halo._launch_args(torch.zeros((3, 4)), ((-1, 0), (1, 1)), ("edge", "edge"))
