@@ -34,7 +34,9 @@ Phases (each prints one line of its own numbers; any failure raises):
      also on the device alone (device_ms), and the kernel's host share of a
      call (per call less on the device, in µs);
   7. the multi-statistic kernel against its plain version on the card:
-     (10000, 10000), (1000, 1003), (1, 7), (4097, 33) float32;
+     (10000, 10000), (1000, 1003), (1, 7), (4097, 33), (1000000, 128),
+     (128, 1000000) and a contiguous (1000, 1024) at storage offset 1 (the
+     scalar loads) float32, each run twice for the same bits;
   8. reduction_tree (BASELINE config 2): 10000x10000 float32, chunks 1000,
      split_every 4, the three arrays computed together through compute(),
      against numpy in float64, and the kernel's three results on the same
@@ -44,15 +46,17 @@ Phases (each prints one line of its own numbers; any failure raises):
      float64 on 256 rows (column mean and std from the whole of a);
  10. blocked_matmul (BASELINE config 3): 8192x8192 float32, chunks 1024
      against 512, against torch.matmul in float64 on the card;
- 11. timing of phases 7-10: the multi-statistic kernel, its plain version,
-     torch's trio x.sum(0), x.sum(1) / N, x.std(correction=0) and a device
-     copy of the same bytes at 10000^2; compute() and compute_device() of
-     phases 8-10; the TFLOP/s of phase 10's contraction;
+ 11. timing of phases 7-10: the multi-statistic kernel (per call and on
+     the device alone), its plain version, torch's trio x.sum(0), x.sum(1) /
+     N, x.std(correction=0) and a device copy of the same bytes at 10000^2,
+     1000000x128 and 128x1000000, each with its bound; compute() and
+     compute_device() of phases 8-10; the TFLOP/s of phase 10's contraction;
  12. the transpose kernel against its plain version on the card, byte for
      byte through an integer view (NaN payloads and -0.0 count): (8192,
      8192), (16384, 16384), (32768, 4096), (1000, 1003), (1, 7), (4097, 33),
      a batched (3, 513, 257), a row-sliced and a column-sliced view, each in
-     bool, int8, float16, float32, float64, int64, complex64, complex128;
+     bool, int8, float16, float32, float64, int64, complex64, complex128,
+     uint16, uint32, uint64;
  13. rechunk_relayout (BASELINE metric 2): 8192x8192 float32, chunks 1024,
      through compute(), byte for byte against x.T; then the persist form,
      whose compute_device() must be a contiguous tensor on the card;
@@ -66,9 +70,10 @@ Phases (each prints one line of its own numbers; any failure raises):
  16. the halo kernel against its plain version on the card, byte for byte
      through an integer view: (16384, 16384) depth 1 in each of the five
      modes and (4096, 4096) depth 8 in float32; then in bool, int8,
-     float16, float32, float64, int64, complex64 and complex128: (1000,
-     1003) with widths ((3, 0), (0, 5)), a 1-D (1 << 24,), a 3-D (64, 513,
-     257) with widths (1, 2, 3), widths of 7 on a length-3 axis in wrap,
+     float16, float32, float64, int64, complex64, complex128, uint16, uint32
+     and uint64: (1000, 1003) with widths ((3, 0), (0, 5)), a 1-D (1 << 24,),
+     a 3-D (64, 513, 257) with widths (1, 2, 3), widths of 7 on a length-3
+     axis in wrap,
      symmetric and reflect, mixed modes with constant corners and per-side
      fills, a row-sliced and a column-sliced view; then the row kernel
      against the strided kernel on the same values, lo 0-4 in every mode
@@ -116,7 +121,13 @@ Phases (each prints one line of its own numbers; any failure raises):
      device time alone (the card spinning first); compute() and compute_device() of
      tall_skinny_svd, and compute_device() with the input persisted on the
      card (the device walk alone); torch.linalg.svd of the whole 1e6x128
-     as a reference.
+     as a reference;
+ 25. numpy's unsigned integers on the card: 4096x4096 uint16, uint32 and
+     uint64 (0, 1, the maximum, 2**63) in chunks of 1024 through +, -, *,
+     a scalar, negation, ~, comparisons (2**63 included), maximum/minimum,
+     //, % (zero divisors), >>, << (past the width), astype to float64,
+     float32, int64, uint8, and sum/prod/nansum/cumsum/max/min/nanmax/
+     argmax/argmin/any/all, each equal to numpy; mean/std/var to 1e-12.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -303,6 +314,62 @@ def check_transpose(tk, x, what):
     want = tk.transpose_last2_plain(x)
     check(got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous(), f"{what}: shape/dtype")
     check(bool(torch.equal(got.view(torch.uint8), want.view(torch.uint8))), f"{what}: bytes differ")
+
+
+def unsigned_cases(da, n25, seed=25):
+    """numpy's unsigned integers through the port: arithmetic, comparisons,
+    //, %, shifts, casts and the reductions of uint16/32/64 (n25, n25) arrays,
+    each against numpy; returns (exact cases, relative errors of the moments)."""
+    import numpy as np
+
+    rng25 = np.random.default_rng(seed)
+    exact_cases = 0
+    float_errs = {}
+    for dt in (np.uint16, np.uint32, np.uint64):
+        info = np.iinfo(dt)
+        a = rng25.integers(0, info.max, size=(n25, n25), dtype=dt, endpoint=True)
+        a.ravel()[:6] = [0, 1, info.max, info.max - 1, 2**15, info.max // 2 + 1]  # 2**63 for uint64
+        b = rng25.integers(0, info.max, size=(n25, n25), dtype=dt, endpoint=True)
+        b.ravel()[::97] = 0  # numpy's 0 for // and % by zero
+        s = (np.arange(n25 * n25) % 70).astype(dt).reshape(n25, n25)  # shifts past every width
+        x, y, sh = (da.from_array(v, chunks=1024) for v in (a, b, s))
+        with np.errstate(all="ignore"):
+            exact = {
+                "add": (x + y, a + b), "subtract": (x - y, a - b), "multiply": (x * y, a * b),
+                "add_scalar": (x + 7, a + 7), "negative": (-x, -a), "invert": (~x, ~a),
+                "less": (x < y, a < b), "greater_equal": (x >= y, a >= b), "equal": (x == y, a == b),
+                "less_scalar": (x < info.max // 2 + 1, a < info.max // 2 + 1),
+                "maximum": (da.maximum(x, y), np.maximum(a, b)), "minimum": (da.minimum(x, y), np.minimum(a, b)),
+                "floor_divide": (x // y, a // b), "remainder": (x % y, a % b), "floor_divide_scalar": (x // 3, a // 3),
+                "right_shift": (x >> sh, a >> s), "left_shift": (x << sh, a << s),
+                "astype_float64": (x.astype(np.float64), a.astype(np.float64)),
+                "astype_float32": (x.astype(np.float32), a.astype(np.float32)),
+                "astype_int64": (x.astype(np.int64), a.astype(np.int64)),
+                "astype_uint8": (x.astype(np.uint8), a.astype(np.uint8)),
+                "sum": (x.sum(), a.sum()), "sum_axis0": (x.sum(axis=0), a.sum(axis=0)),
+                "prod_axis1": (x.prod(axis=1), a.prod(axis=1)), "nansum_axis1": (da.nansum(x, axis=1), np.nansum(a, axis=1)),
+                "cumsum_axis1": (da.cumsum(x, axis=1), np.cumsum(a, axis=1)),
+                "max": (x.max(), a.max()), "min_axis0": (x.min(axis=0), a.min(axis=0)),
+                "nanmax_axis1": (da.nanmax(x, axis=1), np.nanmax(a, axis=1)),
+                "argmax": (x.argmax(), a.argmax()), "argmin_axis0": (x.argmin(axis=0), a.argmin(axis=0)),
+                "any_axis0": (x.any(axis=0), a.any(axis=0)), "all": (x.all(), a.all()),
+            }
+            close = {"mean": (x.mean(), a.mean()), "mean_axis1": (x.mean(axis=1), a.mean(axis=1)),
+                     "std": (x.std(), a.std()), "var_axis0": (x.var(axis=0), a.var(axis=0))}
+        names = list(exact) + list(close)
+        got = da.compute(*[v[0] for v in exact.values()], *[v[0] for v in close.values()])
+        for name, g in zip(names, got):
+            want = exact[name][1] if name in exact else close[name][1]
+            g, want = np.asarray(g), np.asarray(want)
+            check(g.dtype == want.dtype and g.shape == want.shape, f"{dt.__name__} {name}: {g.dtype} {g.shape}")
+            if name in exact:
+                check(bool(np.array_equal(g, want)), f"{dt.__name__} {name}: values differ from numpy")
+                exact_cases += 1
+            else:
+                np.testing.assert_allclose(g, want, rtol=1e-12)
+                float_errs[f"{dt.__name__} {name}"] = float(np.max(np.abs(g / want - 1)))
+        del got, a, b, s, x, y, sh, exact, close
+    return exact_cases, float_errs
 
 
 STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (rowmean /N); "
@@ -543,23 +610,36 @@ def main() -> int:
     # -- phase 7: the multi-statistic kernel against its plain version -------
     gen = torch.Generator(device="cuda").manual_seed(7)
     ms_errs = {}
-    for shape in [(10000, 10000), (1000, 1003), (1, 7), (4097, 33)]:
-        x = torch.randn(shape, generator=gen, device="cuda")
+    ms_paths = {}
+    for shape in [(10000, 10000), (1000, 1003), (1, 7), (4097, 33), (1_000_000, 128), (128, 1_000_000),
+                  "offset1"]:
+        if shape == "offset1":  # a contiguous tensor one element into its storage: scalar loads
+            x = torch.randn(1000 * 1024 + 1, generator=gen, device="cuda")[1:].view(1000, 1024)
+            check(x.is_contiguous() and x.storage_offset() == 1 and not mstat.vector_ok(x), "offset 1: not scalar")
+            shape = (1000, 1024)
+            key = "(1000, 1024) at storage offset 1"
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            key = str(shape)
+        ms_paths[key] = "16-byte" if mstat.vector_ok(x) else "scalar"
         got = mstat.multi_stat_cuda(x)
         want = mstat.multi_stat_plain(x)
         torch.cuda.synchronize()
         check([tuple(g.shape) for g in got] == [(shape[1],), (shape[0],), ()], f"{shape}: shapes")
-        ms_errs[str(shape)] = stats_errors(got, want, x)
+        ms_errs[key] = stats_errors(got, want, x)
         # a shift moves s and ss to the power sums of x - shift
         packed = mstat.multi_stat_packed_cuda(x, x[0, 0])
         d = (x - x[0, 0]).double()
         torch.testing.assert_close(packed[-2].double(), d.sum(), rtol=1e-4, atol=2.0**-20 * float(d.abs().sum()))
         torch.testing.assert_close(packed[-1].double(), (d * d).sum(), rtol=1e-4, atol=0.0)
         again = mstat.multi_stat_cuda(x)
-        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)), f"{shape}: two runs differ")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)), f"{key}: two runs differ")
+        packed_again = mstat.multi_stat_packed_cuda(x, x[0, 0])
+        check(bool(torch.equal(packed, packed_again)), f"{key}: two shifted runs differ")
         del x, d
+    check(set(ms_paths.values()) == {"16-byte", "scalar"}, f"mstat load paths {ms_paths}")
     phase(7, "mstat-kernel-vs-plain", max_abs_err=ms_errs, tolerance=STATS_TOLERANCE,
-          outputs="colsum, rowmean, std")
+          outputs="colsum, rowmean, std", loads=ms_paths, same_bits_on_two_runs=True)
     mstat_err = max(ms_errs[str((10000, 10000))])
 
     # -- phase 8: reduction_tree, the reductions path --------------------------
@@ -621,18 +701,29 @@ def main() -> int:
           tolerance=f"rtol 1e-5, atol 2^-20*max(|a|@|b|) = {2.0**-20 * scale_bm}")
 
     # -- phase 11: timing of phases 7-10 ------------------------------------------
-    M, N = xd.shape
-    ms_ms, ms_plain_ms, ms_k_runs, ms_p_runs = paired_ms(
-        lambda: mstat.multi_stat_plain(xd), lambda: mstat.multi_stat_cuda(xd))
-    trio_ms = cuda_ms(lambda: (xd.sum(0), xd.sum(1) / N, xd.std(correction=0)))
-    ms_copy_ms = cuda_ms(lambda: xd.clone())
-    ms_bytes = (M * N + N + M + 3) * 4
-    ms_bound_ms, ms_bound_by = bound(ms_bytes, 6 * M * N)
-    phase(11, "timing-mstat-10000", card=smi, kernel_ms=ms_ms, plain_ms=ms_plain_ms,
-          kernel_runs_ms=ms_k_runs, plain_runs_ms=ms_p_runs, torch_trio_ms=trio_ms,
-          copy_ms=ms_copy_ms, copy_GBps=2 * M * N * 4 / ms_copy_ms / 1e6,
-          kernel_GBps=ms_bytes / ms_ms / 1e6, bound_ms=ms_bound_ms, bound_by=ms_bound_by,
-          kernel_of_bound=ms_bound_ms / ms_ms)
+    # the multi-statistic kernel at the main path's 10000^2 and the two
+    # skinny shapes: per call and on the device alone, beside its plain
+    # version, torch's trio (the nearest library calls) and a device copy
+    gen11 = torch.Generator(device="cuda").manual_seed(11)
+    ms_timings = {}
+    for M, N in ((10000, 10000), (1_000_000, 128), (128, 1_000_000)):
+        xm = xd if (M, N) == tuple(xd.shape) else torch.randn((M, N), generator=gen11, device="cuda")
+        kernel_ms, plain_ms, k_runs, p_runs = paired_ms(lambda: mstat.multi_stat_plain(xm),
+                                                        lambda: mstat.multi_stat_cuda(xm))
+        trio = lambda: (xm.sum(0), xm.sum(1) / N, xm.std(correction=0))  # noqa: E731
+        nbytes = (M * N + N + M + 3) * 4
+        bound_ms, bound_by = bound(nbytes, 6 * M * N)
+        t = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
+                 device_ms=device_ms(lambda: mstat.multi_stat_cuda(xm)), trio_ms=cuda_ms(trio),
+                 trio_device_ms=device_ms(trio), copy_ms=cuda_ms(lambda: xm.clone()),
+                 copy_device_ms=device_ms(lambda: xm.clone()), bound_ms=bound_ms, bound_by=bound_by)
+        t.update(kernel_of_bound=bound_ms / kernel_ms, device_of_bound=bound_ms / t["device_ms"],
+                 kernel_GBps=nbytes / kernel_ms / 1e6, trio_over_kernel=t["trio_ms"] / kernel_ms,
+                 max_abs_err=max(stats_errors(mstat.multi_stat_cuda(xm), mstat.multi_stat_plain(xm), xm)))
+        ms_timings[f"{M}x{N}"] = t
+        phase(11, f"timing-mstat-{M}x{N}", card=smi, **t)
+        del xm
+    ms_main = ms_timings["10000x10000"]
 
     tree_exprs = [a.expr for a in tree]
     tree_dev_ms = host_ms(lambda: (compute_exprs(tree_exprs), torch.cuda.synchronize()), 3)
@@ -655,7 +746,7 @@ def main() -> int:
 
     # -- phase 12: the transpose kernel against its plain version -------------
     dtypes = [torch.bool, torch.int8, torch.float16, torch.float32, torch.float64, torch.int64,
-              torch.complex64, torch.complex128]
+              torch.complex64, torch.complex128, torch.uint16, torch.uint32, torch.uint64]
     shapes = [(8192, 8192), (16384, 16384), (32768, 4096), (1000, 1003), (1, 7), (4097, 33), (3, 513, 257)]
     checked = 0
     for seed, dt in enumerate(dtypes):
@@ -1189,6 +1280,14 @@ def main() -> int:
     del xs_d, x23, u23
     torch.cuda.empty_cache()
 
+    # -- phase 25: numpy's unsigned integers on the card ----------------------------
+    n25 = 4096
+    exact_cases, float_errs = unsigned_cases(da, n25)
+    phase(25, "unsigned-4096", shape=[n25, n25], chunks=1024, dtypes=["uint16", "uint32", "uint64"],
+          exact_cases=exact_cases, moments_max_rel_err=float_errs,
+          tolerance={"arithmetic, comparisons, shifts, casts, sums, extrema, arg and scans": "equal to numpy",
+                     "mean, std, var": "rtol 1e-12 against numpy"})
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -1214,11 +1313,15 @@ def main() -> int:
             "replaces": "bench/probe_reduction.py:72",
             "launches": mstat_launches,
             "max_abs_err": mstat_err,
-            "ms": ms_ms,
-            "plain_ms": ms_plain_ms,
-            "bound_ms": ms_bound_ms,
-            "bound_by": ms_bound_by,
-            "library_ms": trio_ms,
+            "ms": ms_main["kernel_ms"],
+            "plain_ms": ms_main["plain_ms"],
+            "bound_ms": ms_main["bound_ms"],
+            "bound_by": ms_main["bound_by"],
+            "library_ms": ms_main["trio_ms"],
+            "device_ms": ms_main["device_ms"],
+            "shapes": {k: {key: t[key] for key in ("kernel_ms", "device_ms", "plain_ms", "bound_ms", "trio_ms",
+                                                    "trio_device_ms", "kernel_of_bound", "device_of_bound")}
+                       for k, t in ms_timings.items()},
         },
         {
             "name": "transpose",

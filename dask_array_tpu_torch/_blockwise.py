@@ -20,8 +20,12 @@ import torch
 from dask_array_tpu_torch import config
 from dask_array_tpu_torch._chunks import (
     cached_cumsum,
+    cast,
+    cat,
+    compute_dtype,
     has_unknown_chunks,
     parse_bytes,
+    to_compute,
     torch_dtype,
     unify_blockdims,
 )
@@ -106,12 +110,15 @@ def _host_scalar(a, loop_dtype=None):
     scalar (or a wrapped number) in the second position of a binary op
     unrounded, in its float32 compute type, so float16 ``x * 0.1`` would
     multiply by 0.1 and ``0.1 * x`` by float16(0.1).  A 0-d tensor of the
-    loop dtype gives numpy's value in either position, on any device.
+    loop dtype gives numpy's value in either position, on any device.  (A
+    uint64 loop takes its ints as bits: ``ops/ufuncs.py::uint64_loop``.)
     """
     if isinstance(a, (np.generic, np.ndarray)) and np.ndim(a) == 0:
         a = a.item()
     if loop_dtype is not None and isinstance(a, (bool, int, float)) and np.dtype(loop_dtype) == np.float16:
         return torch.tensor(a, dtype=torch_dtype(loop_dtype))
+    if isinstance(a, bool) and loop_dtype is not None and np.dtype(loop_dtype).kind != "b":
+        return int(a)  # torch takes a Python bool as a bool tensor
     return a
 
 
@@ -140,12 +147,15 @@ def _scale_operands(func, args, out_dtype, kwargs):
     return x, s
 
 
-def _cast(t, dtype):
-    """Cast a tensor to the torch twin of numpy ``dtype`` (no-op if equal)."""
-    if not isinstance(t, torch.Tensor):
-        return t
-    want = torch_dtype(dtype)
-    return t if t.dtype == want else t.to(want)
+def _operand(t, dtype):
+    """A held block as an operand of a loop of numpy ``dtype``: in its
+    compute dtype (``_chunks.to_compute``); numbers pass through."""
+    return to_compute(t, dtype) if isinstance(t, torch.Tensor) else t
+
+
+def _store(t, dtype):
+    """A result computed for numpy ``dtype`` as the block that dtype holds."""
+    return cast(t, dtype) if isinstance(t, torch.Tensor) else t
 
 
 class Blockwise(ArrayExpr):
@@ -381,7 +391,7 @@ class Blockwise(ArrayExpr):
                 return parts[0]
             if not self.concatenate:
                 return parts
-            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=pos)
+            return parts[0] if len(parts) == 1 else cat(parts, dim=pos)
 
         return rec(0, ())
 
@@ -402,7 +412,7 @@ class Blockwise(ArrayExpr):
                     args.append(arr)
                 else:
                     args.append(self._arg_block(views[arr._name], ind, coord_of))
-            blocks[tuple(out_coord)] = _cast(self._call(args, kwargs, out_coord), self.dtype)
+            blocks[tuple(out_coord)] = _store(self._call(args, kwargs, out_coord), self.dtype)
         return BlockView(self.chunks, blocks=blocks)
 
     def _call(self, args, kwargs, out_coord):
@@ -512,19 +522,33 @@ class Elemwise(Blockwise):
 
     def _build(self, ctx):
         args = [ctx.build(a).dense() if isinstance(a, ArrayExpr) else a for a in self.args]
-        dts = loop_dtypes(self.func, args)
+        func = self.func
+        dts = loop_dtypes(func, args)
         if dts is not None:
-            args = [_host_scalar(_cast(a, dt), dt) for a, dt in zip(args, dts)]
+            from dask_array_tpu_torch.ops.ufuncs import compare_outside_range
+
+            decided = compare_outside_range(func, args, dts)
+            if decided is not None:
+                return BlockView(self.chunks, dense=decided)
+            args = [_host_scalar(_operand(a, dt), dt) for a, dt in zip(args, dts)]
+            if any(np.dtype(dt) == np.uint64 for dt in dts):
+                from dask_array_tpu_torch.ops.ufuncs import uint64_loop
+
+                func = uint64_loop(func, dts)
+            elif not isinstance(args[0], torch.Tensor) and len(args) > 1 and isinstance(args[1], torch.Tensor):
+                # a number first: a 0-d tensor of its loop dtype (torch's
+                # comparisons and extrema take no number there)
+                args[0] = torch.tensor(args[0], dtype=compute_dtype(dts[0]), device=args[1].device)
         else:
             args = [_host_scalar(a) for a in args]
-        scaled = _scale_operands(self.func, args, self.dtype, self.kwargs)
+        scaled = _scale_operands(func, args, self.dtype, self.kwargs)
         if scaled is not None:
             from dask_array_tpu_torch.kernels.scale import scale
 
             dense = scale(*scaled)
         else:
-            dense = self.func(*args, **self._kwargs_dict)
-        return BlockView(self.chunks, dense=_cast(dense, self.dtype))
+            dense = func(*args, **self._kwargs_dict)
+        return BlockView(self.chunks, dense=_store(dense, self.dtype))
 
     # slice pushdown: x[idx] == op(a, b)[idx] == op(a[idx'], b[idx'])
     def _accept_slice(self, index):

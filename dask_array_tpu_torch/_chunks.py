@@ -51,11 +51,13 @@ def parse_bytes(s) -> int:
 # dtypes: metadata follows numpy's rules; tensors carry the torch twin
 # ---------------------------------------------------------------------------
 
-# the dtypes the port computes in (bfloat16 and uint16/32/64 wait: torch's
-# support for the wide unsigned types is partial)
+# numpy dtype -> the torch dtype its blocks are held in (bfloat16 waits)
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.uint32): torch.uint32,
+    np.dtype(np.uint64): torch.uint64,
     np.dtype(np.int8): torch.int8,
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
@@ -70,7 +72,7 @@ _NUMPY_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
 def torch_dtype(dt) -> torch.dtype:
-    """The torch dtype a block of numpy dtype ``dt`` is computed in."""
+    """The torch dtype a block of numpy dtype ``dt`` is held in."""
     dt = np.dtype(dt)
     got = _TORCH_DTYPES.get(dt)
     if got is None:
@@ -79,44 +81,129 @@ def torch_dtype(dt) -> torch.dtype:
 
 
 def numpy_dtype(dt: torch.dtype) -> np.dtype:
-    if dt == torch.uint64:
-        return np.dtype(np.uint64)
     got = _NUMPY_DTYPES.get(dt)
     if got is None:
         raise TypeError(f"torch dtype {dt} has no numpy counterpart in dask_array_tpu_torch")
     return got
 
 
-# numpy gives uint64 for the sums and products of unsigned integers.  torch
-# holds uint64 (views, cat, .numpy()) but computes little in it, so such a
-# result is computed in int64 and stored as torch.uint64: modular arithmetic
-# gives the same bits.  Inputs of uint16/32/64 stay unsupported.
+# numpy's unsigned integers.  torch holds uint16/32/64 tensors (views,
+# copies, .numpy()) but computes almost nothing in them ("add_stub not
+# implemented for 'UInt64'"), so a block of such a dtype is held in its torch
+# twin and computed in a signed type: uint16 in int32 and uint32 in int64,
+# exactly, and wrapped to the width when stored (numpy's modular result is
+# the low bits); uint64 in the bits of an int64, where two's complement gives
+# numpy's + - * << & | ^ ~ (ops/ufuncs.py::uint64_loop the rest).  Every
+# conversion goes through a view as the signed type of the same width, so
+# no torch kernel of an unsigned dtype is needed, on the CPU or the card.
 _UINT64 = np.dtype(np.uint64)
+_COMPUTE = {np.dtype(np.uint16): torch.int32, np.dtype(np.uint32): torch.int64, _UINT64: torch.int64}
+_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+_WRAP = {np.dtype(np.uint16): 0xFFFF, np.dtype(np.uint32): 0xFFFFFFFF}
+INT64_MIN = -(1 << 63)
 
 
 def compute_dtype(dt) -> torch.dtype:
-    """The torch dtype a result of numpy dtype ``dt`` is computed in:
-    int64 for uint64, else ``torch_dtype(dt)``."""
-    return torch.int64 if np.dtype(dt) == _UINT64 else torch_dtype(dt)
+    """The torch dtype a value of numpy dtype ``dt`` is computed in: int32
+    for uint16, int64 for uint32 and uint64, else ``torch_dtype(dt)``."""
+    dt = np.dtype(dt)
+    return _COMPUTE.get(dt) or torch_dtype(dt)
+
+
+def u64_to_float(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint64 values held as int64 bits in float ``dtype``, rounded once as
+    numpy's cast rounds them: a value of 2**63 or more is halved, keeping
+    its last bit as a sticky bit, converted and doubled."""
+    real = torch.float32 if dtype in (torch.float16, torch.float32, torch.complex64) else torch.float64
+    halved = ((bits >> 1) & ~INT64_MIN) | (bits & 1)
+    out = torch.where(bits < 0, halved.to(real) * 2, bits.to(real))
+    return out.to(dtype)
+
+
+def _float_to_u64(t: torch.Tensor) -> torch.Tensor:
+    """numpy's float -> uint64 cast, as int64 bits: truncation toward zero,
+    exact up to 2**64 (a negative value wraps through int64, as on x86)."""
+    top = 2.0**63
+    return torch.where(t >= top, (t - top).to(torch.int64) + INT64_MIN, t.to(torch.int64))
 
 
 def to_compute(t: torch.Tensor, dt) -> torch.Tensor:
-    """``t`` in ``compute_dtype(dt)``; a uint64 tensor reinterpreted (its
-    int64 bits), never converted."""
+    """A held block ``t`` (its torch dtype names its numpy dtype) in
+    ``compute_dtype(dt)``, converted as numpy's ``astype(dt)`` converts."""
+    dt = np.dtype(dt)
     want = compute_dtype(dt)
-    if t.dtype == want:
+    if t.dtype == want and dt not in _WRAP:
         return t
-    if t.dtype == torch.uint64 and want == torch.int64:
-        return t.view(torch.int64)
+    if t.dtype == torch.uint64:
+        t = t.view(torch.int64)
+        if want.is_floating_point or want.is_complex:
+            return u64_to_float(t, want)
+    elif t.dtype in _SIGNED_TWIN:
+        # uint16/32: the signed twin's bits, zero-extended (exact)
+        same = t.dtype == _TORCH_DTYPES.get(dt)
+        t = t.view(_SIGNED_TWIN[t.dtype]).to(torch.int64) & _WRAP[numpy_dtype(t.dtype)]
+        if same:
+            return t.to(want)
+    elif t.is_complex() and dt.kind in "biu":
+        t = t.real  # numpy drops the imaginary part (with a ComplexWarning)
+    if t.is_floating_point() and dt.kind == "u":
+        if dt == _UINT64:
+            return _float_to_u64(t)
+        t = t.to(torch.int64)  # truncate, then wrap below
+    if dt in _WRAP:
+        return (t.to(torch.int64) & _WRAP[dt]).to(want)
     return t.to(want)
 
 
 def as_stored(t: torch.Tensor, dt) -> torch.Tensor:
-    """A result computed in ``compute_dtype(dt)`` as the tensor a block of
-    numpy dtype ``dt`` holds: int64 bits viewed as uint64 for uint64."""
-    if np.dtype(dt) == _UINT64:
-        return t.view(torch.uint64)
+    """A value computed in ``compute_dtype(dt)`` as the tensor a block of
+    numpy dtype ``dt`` holds: the low bits of the signed type of the width,
+    viewed as the unsigned one (int64 bits as uint64)."""
+    dt = np.dtype(dt)
+    held = _TORCH_DTYPES.get(dt)
+    twin = _SIGNED_TWIN.get(held)
+    if twin is None:
+        return t
+    return (t if t.dtype == twin else t.to(twin)).view(held)
+
+
+def cast(t: torch.Tensor, dt) -> torch.Tensor:
+    """A held block, or a value in ``compute_dtype(dt)``, as the block of
+    numpy dtype ``dt`` that numpy's ``astype`` makes of it."""
+    if t.dtype == torch_dtype(dt):
+        return t
+    return as_stored(t if t.dtype == compute_dtype(dt) else to_compute(t, dt), dt)
+
+
+def computable(t):
+    """A held block as torch computes on it: uint16/32/64 in
+    ``compute_dtype`` (uint64 as its int64 bits); anything else as it is."""
+    if isinstance(t, torch.Tensor) and t.dtype in _SIGNED_TWIN:
+        return to_compute(t, numpy_dtype(t.dtype))
     return t
+
+
+def cat(parts, dim=0) -> torch.Tensor:
+    """``torch.cat`` of held blocks, uint16/32/64 through their signed twin."""
+    twin = _SIGNED_TWIN.get(parts[0].dtype)
+    if twin is None or any(p.dtype != parts[0].dtype for p in parts):
+        return torch.cat(parts, dim=dim)
+    return torch.cat([p.view(twin) for p in parts], dim=dim).view(parts[0].dtype)
+
+
+def moved(fn, t: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """``fn(t, ...)`` for a function that only moves elements (flip,
+    index_select, gather), through the signed twin of a uint16/32/64
+    tensor: torch has no such kernels for those dtypes."""
+    twin = _SIGNED_TWIN.get(t.dtype)
+    if twin is None:
+        return fn(t, *args, **kwargs)
+    return fn(t.view(twin), *args, **kwargs).view(t.dtype)
+
+
+def uint64_bits(v):
+    """A Python int in [0, 2**64) as the int64 bits of that uint64."""
+    return v - (1 << 64) if v >= 1 << 63 else v
 
 
 def dtype_key(dt) -> str:

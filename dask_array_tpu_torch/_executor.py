@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import cached_cumsum
+from dask_array_tpu_torch._chunks import cached_cumsum, cat
 from dask_array_tpu_torch._expr import ArrayExpr
 
 
@@ -79,7 +79,7 @@ def _assemble(blocks: dict, numblocks):
         parts = [rec(axis + 1, prefix + (i,)) for i in range(numblocks[axis])]
         if len(parts) == 1:
             return parts[0]
-        return torch.cat(parts, dim=axis)
+        return cat(parts, dim=axis)
 
     return rec(0, ())
 

@@ -646,7 +646,9 @@ def loop_dtypes(func, args):
             spec.append(numpy_dtype(dt) if isinstance(dt, torch.dtype) else np.dtype(dt))
         elif isinstance(a, np.generic):
             spec.append(a.dtype)
-        elif isinstance(a, (bool, int, float, complex)):
+        elif isinstance(a, bool):
+            spec.append(np.dtype(np.bool_))
+        elif isinstance(a, (int, float, complex)):
             spec.append(type(a))
         else:
             return None

@@ -16,7 +16,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cached_cumsum
+from dask_array_tpu_torch._chunks import cached_cumsum, moved
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 
@@ -131,7 +131,7 @@ def getitem_tensor(t: torch.Tensor, index) -> torch.Tensor:
             asc.append(ind)
         out_dim += 1
     out = t[tuple(asc)]
-    return torch.flip(out, flip_dims) if flip_dims else out
+    return moved(torch.flip, out, flip_dims) if flip_dims else out
 
 
 def sliced_blockdim(dim_chunks, sl: slice):

@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from dask_array_tpu_torch._chunks import cast, cat, moved, numpy_dtype, uint64_bits
 from dask_array_tpu_torch.kernels._build import Launcher, load_library
 
 MAX_RANK = 8
@@ -71,9 +72,19 @@ def fill_pair(mode):
 
 def fill_scalar(value, dtype, device="cpu") -> torch.Tensor:
     """The fill as a 0-d tensor of ``dtype``: the one conversion both the
-    plain version and the kernel's fill bytes go through."""
+    plain version and the kernel's fill bytes go through.  A uint16/32/64
+    fill converts as numpy's cast converts it (a negative or fractional one
+    too), made on the host through the signed type of its width."""
     if isinstance(value, np.generic):
         value = value.item()
+    if dtype in (torch.uint16, torch.uint32, torch.uint64):
+        if isinstance(value, float):
+            src = torch.tensor(value, dtype=torch.float64)
+        else:
+            src = torch.tensor(uint64_bits(value) if value >= 0 else value, dtype=torch.int64)
+            if value >= 1 << 63:  # the bits of a uint64
+                src = src.view(torch.uint64)
+        return cast(src, numpy_dtype(dtype)).to(device)
     return torch.full((), value, dtype=dtype, device=device)
 
 
@@ -119,7 +130,7 @@ def pad_axis_plain(t: torch.Tensor, axis: int, lo: int, hi: int, mode) -> torch.
     if not (lo or hi):
         return t
     if not _is_constant(mode):
-        return torch.index_select(t, axis, _source_index(t.shape[axis], lo, hi, mode, t.device))
+        return moved(torch.index_select, t, axis, _source_index(t.shape[axis], lo, hi, mode, t.device))
     parts = []
     for width, value in ((lo, fill_pair(mode)[0]), (None, None), (hi, fill_pair(mode)[1])):
         if width is None:
@@ -128,7 +139,7 @@ def pad_axis_plain(t: torch.Tensor, axis: int, lo: int, hi: int, mode) -> torch.
             shape = list(t.shape)
             shape[axis] = width
             parts.append(fill_scalar(value, t.dtype, t.device).expand(shape))
-    return torch.cat(parts, dim=axis)
+    return cat(parts, dim=axis)
 
 
 def halo_pad_plain(x: torch.Tensor, widths, modes) -> torch.Tensor:

@@ -13,7 +13,10 @@ probe of the ``reduction_tree`` workload: ``x.sum(0)``, ``x.mean(1)`` and
 ``multi_stat`` runs ``multi_stat_plain`` for a CPU tensor and launches the
 CUDA kernel (``csrc/mstat.cu``) for a CUDA tensor, with no fallback
 between them.  The probe's ``N % rows == 0`` tiling condition is dropped:
-the kernel masks ragged edges.
+the kernel masks ragged edges.  Its grid is planned here, by
+``launch_plan``, a pure function of the shape and the card's SM count: one
+wave of resident blocks, each with an equal run of (column strip, row)
+units, whatever the shape (10000^2, 1e6 x 128 and 128 x 1e6 alike).
 
 The ``*_packed`` forms return one buffer ``[colsum | rowmean | std | s |
 ss]`` and take an optional 0-d ``shift``: s and ss are then sums of
@@ -25,10 +28,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-from dask_array_tpu_torch.kernels._build import Launcher, load_library
+from dask_array_tpu_torch.kernels._build import Launcher
 
 # kernel launches since the last reset; only multi_stat_cuda adds to it
 LAUNCHES = 0
@@ -94,26 +98,95 @@ def multi_stat_packed_cuda(x: torch.Tensor, shift=None) -> torch.Tensor:
         shift.dim() != 0 or shift.dtype != torch.float32 or shift.device != x.device
     ):
         raise ValueError("multi_stat_cuda takes a 0-d float32 shift on the tensor's device")
-    launch = _launcher()
-    tiles = _tiles_for(M)
+    index = x.get_device()
+    plan = launch_plan(M, N, _sm_count(index))
     out = torch.empty(N + M + 3, dtype=x.dtype, device=x.device)
-    partial = torch.empty((tiles, N), dtype=x.dtype, device=x.device)
-    pairs = torch.empty((tiles, 2), dtype=x.dtype, device=x.device)
-    launch(x.get_device(), x.data_ptr(), None if shift is None else shift.data_ptr(), out.data_ptr(),
-           partial.data_ptr(), pairs.data_ptr(), M, N)
+    scratch = torch.empty(plan.scratch, dtype=x.dtype, device=x.device)
+    col, row = scratch.data_ptr(), scratch.data_ptr() + 4 * plan.colpart
+    pairs = row + 4 * plan.rowpart
+    _launcher()(index, x.data_ptr(), None if shift is None else shift.data_ptr(), out.data_ptr(), col, row,
+                pairs, M, N, plan.lanes.bit_length() - 1, plan.across.bit_length() - 1, plan.strips, plan.blocks,
+                int(vector_ok(x)))
     LAUNCHES += 1
     return out
 
 
+# -- the launch plan (csrc/mstat.cu mirrors it) -----------------------------------
+
+THREADS = 256  # threads a block
+BLOCKS_PER_SM = 2  # blocks resident on an SM: __launch_bounds__(256, 2)
+
+
+class Plan(NamedTuple):
+    """How the kernel covers an (M, N) array.  ``lanes`` threads share a
+    row, 4 columns each; ``across`` warps lie side by side across a strip of
+    ``width = 4 * lanes * across`` columns, and the block's other warps go
+    down the rows.  The ``units = strips * M`` (strip, row) pairs are laid
+    out strip by strip, and a persistent grid of ``blocks`` blocks takes
+    equal runs of them, block b units ``[b * units // blocks, (b + 1) *
+    units // blocks)``.  ``colpart``, ``rowpart`` and ``pairs`` are the
+    scratch floats of the column, row and (s, ss) partials."""
+
+    lanes: int
+    across: int
+    width: int
+    strips: int
+    blocks: int
+    units: int
+    colpart: int
+    rowpart: int
+    pairs: int
+
+    @property
+    def scratch(self) -> int:
+        return self.colpart + self.rowpart + self.pairs
+
+
+def launch_plan(M: int, N: int, sms: int = 132) -> Plan:
+    """The kernel's launch plan for an (M, N) array on a card of ``sms``
+    SMs: one wave of ``sms * BLOCKS_PER_SM`` blocks, each with the same
+    number of (strip, row) units to within one.  A row is read in pieces of
+    up to 4 KB (8 warps of 32 lanes side by side); a narrow array gives a
+    warp several rows at once."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < N:
+        lanes *= 2
+    across = 1
+    while across < THREADS // 32 and 4 * lanes * across < N:
+        across *= 2
+    width = 4 * lanes * across
+    strips = -(-N // width)
+    blocks = sms * BLOCKS_PER_SM
+    row_strips = strips * across
+    return Plan(lanes, across, width, strips, blocks, strips * M, (blocks + strips) * width,
+                row_strips * M if row_strips > 1 else 0, 2 * blocks)
+
+
+def segments(plan: Plan, M: int):
+    """``(block, strip, row0, row1)`` for every segment the kernel walks:
+    each block's run of units, cut where a strip ends."""
+    out = []
+    for b in range(plan.blocks):
+        u, u1 = b * plan.units // plan.blocks, (b + 1) * plan.units // plan.blocks
+        while u < u1:
+            s = u // M
+            end = min(u1, (s + 1) * M)
+            out.append((b, s, u - s * M, end - s * M))
+            u = end
+    return out
+
+
+def vector_ok(x: torch.Tensor) -> bool:
+    """The 16-byte path: rows a multiple of 16 bytes, and x 16-byte aligned."""
+    return x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    p, ll = ctypes.c_void_p, ctypes.c_longlong
-    return Launcher("mstat", "mstat_launch", [p, p, p, p, p, ll, ll], "mstat")
-
-
-@functools.lru_cache(maxsize=64)
-def _tiles_for(M: int) -> int:
-    fn = load_library("mstat").mstat_tiles_for
-    fn.argtypes = [ctypes.c_longlong]
-    fn.restype = ctypes.c_longlong
-    return fn(M)
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    return Launcher("mstat", "mstat_launch", [p, p, p, p, p, p, ll, ll, i, i, ll, ll, i], "mstat")

@@ -3,21 +3,18 @@
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from dask_array_tpu_torch._blockwise import Elemwise
-from dask_array_tpu_torch._chunks import torch_dtype
+from dask_array_tpu_torch._chunks import cast
 
 
 def _astype(x, dtype=None):
+    """numpy's ``astype`` of a block (``_chunks.cast``: floats to unsigned
+    truncate toward zero then wrap, uint64 converts from and to its bits)."""
     dt = np.dtype(dtype)
     if isinstance(x, np.ndarray):
         return x.astype(dt)
-    if dt.kind == "u" and x.is_floating_point():
-        # numpy float->unsigned casts truncate toward zero then wrap;
-        # route through int64 (truncates) then to unsigned (wraps)
-        return x.to(torch.int64).to(torch_dtype(dt))
-    return x.to(torch_dtype(dt))
+    return cast(x, dt)
 
 
 def astype_expr(expr, dtype):

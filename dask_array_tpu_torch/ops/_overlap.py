@@ -20,7 +20,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cached_cumsum, is_float_dtype, torch_dtype, validate_axis
+from dask_array_tpu_torch._chunks import cached_cumsum, cast, is_float_dtype, to_compute, validate_axis
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.kernels.halo import halo_pad, numpy_mode
@@ -357,7 +357,7 @@ class BandStencil(ArrayExpr):
         dense = ctx.build(self.array).dense().contiguous()
         dep = tuple(lo for lo, _hi in self.depth)
         out = band_stencil_call(dense, self.func, dep, tuple(self.boundary), self.taps)
-        return BlockView(self.chunks, dense=out.to(torch_dtype(self._dtype)))
+        return BlockView(self.chunks, dense=cast(out, self._dtype))
 
 
 def _normalize(x, depth, boundary):
@@ -732,7 +732,7 @@ class Push(ArrayExpr):
         return np.empty((0,) * self.array.ndim, dtype=dt)
 
     def _build(self, ctx):
-        dense = ctx.build(self.array).dense().to(torch_dtype(self.dtype))
+        dense = to_compute(ctx.build(self.array).dense(), self.dtype)
         axis = self.axis
         shape = [1] * dense.ndim
         shape[axis] = dense.shape[axis]

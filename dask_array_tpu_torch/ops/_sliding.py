@@ -20,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import is_float_dtype, torch_dtype, validate_axis
+from dask_array_tpu_torch._chunks import INT64_MIN, cast, computable, is_float_dtype, to_compute, validate_axis
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.kernels.halo import halo_pad
@@ -77,21 +77,26 @@ class SlidingWindowReduce(ArrayExpr):
 
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
-        out_dt = torch_dtype(self.dtype)
         w, axis, kind = self.window, self.axis, self.kind
         if kind in ("sum", "prod"):
             # accumulate in the output dtype (bool counts become ints, and an
             # explicit dtype= accumulates wide, as numpy does)
-            out = _reduce_window(dense.to(out_dt), kind, w, axis)
+            out = _reduce_window(to_compute(dense, self.dtype), kind, w, axis)
+        elif kind in ("max", "min", "nanmax", "nanmin") and not dense.is_floating_point():
+            # integers carry no NaNs; uint64 bits with the sign bit flipped
+            # order as signed
+            flip = dense.dtype == torch.uint64
+            x = dense.to(torch.int32) if dense.dtype == torch.bool else computable(dense)
+            out = _reduce_window(x ^ INT64_MIN if flip else x, kind.removeprefix("nan"), w, axis)
+            out = out ^ INT64_MIN if flip else out
         elif kind in ("max", "min"):
-            x = dense.to(torch.int32) if dense.dtype == torch.bool else dense
-            out = _reduce_window(x, kind, w, axis)
+            out = _reduce_window(dense, kind, w, axis)
         elif kind == "mean":
-            out = _reduce_window(dense.to(out_dt), "sum", w, axis) / w
+            out = _reduce_window(to_compute(dense, self.dtype), "sum", w, axis) / w
         elif kind in ("var", "std"):
             # shifted power sums: without the shift, s2/w - mean^2 loses all
             # precision when |mean| >> std
-            x = dense.to(out_dt)
+            x = to_compute(dense, self.dtype)
             d = x - x.mean()
             s = _reduce_window(d, "sum", w, axis)
             s2 = _reduce_window(d * d, "sum", w, axis)
@@ -99,10 +104,10 @@ class SlidingWindowReduce(ArrayExpr):
             if kind == "std":
                 out = torch.sqrt(out)
         elif kind in ("any", "all"):
-            s = _reduce_window(dense.to(out_dt).to(torch.int32), "sum", w, axis)
+            s = _reduce_window(to_compute(dense, self.dtype).to(torch.int32), "sum", w, axis)
             out = (s > 0) if kind == "any" else (s == w)
         elif kind in ("nansum", "nanprod", "nanmean"):
-            x = dense.to(out_dt)
+            x = to_compute(dense, self.dtype)
             base = "prod" if kind == "nanprod" else "sum"
             if x.is_floating_point() or x.is_complex():
                 valid = ~torch.isnan(x)  # complex: real or imaginary NaN, as numpy
@@ -116,18 +121,14 @@ class SlidingWindowReduce(ArrayExpr):
                 if kind == "nanmean":
                     out = out / w
         elif kind in ("nanmin", "nanmax"):
-            x = dense
-            if x.is_floating_point():
-                valid = ~torch.isnan(x)
-                fill = math.inf if kind == "nanmin" else -math.inf
-                out = _reduce_window(torch.where(valid, x, fill), kind[3:], w, axis)
-                cnt = _reduce_window(valid.to(torch.int32), "sum", w, axis)
-                out = torch.where(cnt == 0, torch.nan, out)
-            else:
-                out = _reduce_window(x.to(torch.int32) if x.dtype == torch.bool else x, kind[3:], w, axis)
+            valid = ~torch.isnan(dense)
+            fill = math.inf if kind == "nanmin" else -math.inf
+            out = _reduce_window(torch.where(valid, dense, fill), kind[3:], w, axis)
+            cnt = _reduce_window(valid.to(torch.int32), "sum", w, axis)
+            out = torch.where(cnt == 0, torch.nan, out)
         else:
             raise NotImplementedError(kind)
-        return BlockView(self.chunks, dense=out.to(out_dt))
+        return BlockView(self.chunks, dense=cast(out, self.dtype))
 
 
 # reduction kinds the fusion understands
@@ -157,7 +158,7 @@ class MovingWindowReduction(ArrayExpr):
         return np.empty((0,) * self.array.ndim, dtype=dt)
 
     def _build(self, ctx):
-        dense = ctx.build(self.array).dense().to(torch_dtype(self.dtype))
+        dense = to_compute(ctx.build(self.array).dense(), self.dtype)
         w, axis, kind = self.window, self.axis, self.kind
         mc = self.min_count if self.min_count is not None else w
         valid = ~torch.isnan(dense)

@@ -21,7 +21,16 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cached_cumsum, normalize_chunks, torch_dtype, validate_axis
+from dask_array_tpu_torch._chunks import (
+    as_stored,
+    cached_cumsum,
+    cast,
+    compute_dtype,
+    normalize_chunks,
+    torch_dtype,
+    uint64_bits,
+    validate_axis,
+)
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import sliced_blockdim
@@ -50,7 +59,10 @@ class BroadcastTrick(ArrayExpr):
     def _build(self, ctx):
         # "empty": contents unspecified; zeros here
         fill = 0 if self.fill_value is None else self.fill_value
-        dense = torch.full(self.shape, fill, dtype=torch_dtype(self._dtype), device=ctx.device)
+        if np.dtype(self._dtype) == np.uint64:
+            fill = uint64_bits(int(fill))
+        dense = as_stored(torch.full(self.shape, fill, dtype=compute_dtype(self._dtype), device=ctx.device),
+                          self._dtype)
         return BlockView(self.chunks_, dense=dense)
 
     def _accept_slice(self, index):
@@ -143,7 +155,7 @@ class Arange(ArrayExpr):
             isinstance(v, float) for v in (self.start, self.step)
         ) else torch.int64
         idx = torch.arange(self.shape[0], dtype=acc, device=ctx.device)
-        dense = (self.start + idx * self.step).to(torch_dtype(self._dtype))
+        dense = cast(self.start + idx * self.step, self._dtype)
         return BlockView(self.chunks_, dense=dense)
 
     def _accept_slice(self, index):
@@ -241,7 +253,7 @@ class Linspace(ArrayExpr):
 
     def _build(self, ctx):
         idx = torch.arange(self.num, dtype=torch.float64, device=ctx.device)
-        dense = (self.start + idx * self._step).to(torch_dtype(self._dtype))
+        dense = cast(self.start + idx * self._step, self._dtype)
         return BlockView(self.chunks_, dense=dense)
 
     def _accept_rechunk(self, target_chunks):
@@ -293,7 +305,7 @@ class Eye(ArrayExpr):
     def _build(self, ctx):
         rows = torch.arange(self.N, device=ctx.device)[:, None]
         cols = torch.arange(self.M, device=ctx.device)[None, :]
-        dense = (cols - rows == self.k).to(torch_dtype(self._dtype))
+        dense = cast(cols - rows == self.k, self._dtype)
         return BlockView(self.chunks_, dense=dense)
 
     def _accept_rechunk(self, target_chunks):
@@ -402,7 +414,7 @@ class Tri(ArrayExpr):
     def _build(self, ctx):
         rows = torch.arange(self.N, device=ctx.device)[:, None]
         cols = torch.arange(self.M, device=ctx.device)[None, :]
-        dense = (cols - rows <= self.k).to(torch_dtype(self._dtype))
+        dense = cast(cols - rows <= self.k, self._dtype)
         return BlockView(self.chunks_, dense=dense)
 
 
@@ -598,7 +610,7 @@ class Pad(ArrayExpr):
             out = halo_pad(dense, widths, [mode] * dense.ndim)
         else:
             out = _pad_by_steps(dense, widths, mode, kw)
-        return BlockView(self.chunks, dense=out.to(torch_dtype(self.dtype)))
+        return BlockView(self.chunks, dense=cast(out, self.dtype))
 
 
 _PAD_KWARGS = {

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import common_blockdim, torch_dtype
+from dask_array_tpu_torch._chunks import cast, common_blockdim, to_compute
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 
@@ -127,7 +127,7 @@ def exact_einsum(spec_in, out_labels, operands):
     order = list(out_labels) + sorted({c for labels in spec_in for c in labels} - set(out_labels))
     prod = None
     for t, labels in zip(operands, spec_in):
-        t, labels = _diagonal_labels(t.to(torch.int64), labels)
+        t, labels = _diagonal_labels(to_compute(t, np.int64), labels)
         # put this operand's labels in ``order``, size 1 where it lacks one
         perm = sorted(range(len(labels)), key=lambda p: order.index(labels[p]))
         t = t.permute(*perm)
@@ -218,17 +218,15 @@ class Einsum(ArrayExpr):
     def _build(self, ctx):
         denses = [ctx.build(a).dense() for a in self.arrays]
         kwargs = dict(self.kwargs or ())
-        out_dt = torch_dtype(self.dtype)
         if self.exact:
+            # int64 products wrap as numpy's narrower and unsigned ones do
             dense = exact_einsum(self.input_labels, self.out_labels, denses)
         else:
             spec = ",".join(self.input_labels) + "->" + self.out_labels
             precision = kwargs.get("precision") or config.get("matmul-precision", "highest")
             with matmul_precision(precision):
-                dense = torch.einsum(spec, *[d.to(out_dt) for d in denses])
-        if dense.dtype != out_dt:
-            dense = dense.to(out_dt)
-        return BlockView(self.chunks, dense=dense)
+                dense = torch.einsum(spec, *[cast(d, self.dtype) for d in denses])
+        return BlockView(self.chunks, dense=cast(dense, self.dtype))
 
 
 def einsum(subscripts, *operands, dtype=None, optimize=False, split_every=None,

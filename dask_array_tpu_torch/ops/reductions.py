@@ -26,7 +26,19 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch._blockwise import elemwise
-from dask_array_tpu_torch._chunks import as_stored, cached_cumsum, compute_dtype, to_compute, torch_dtype, validate_axis
+from dask_array_tpu_torch._chunks import (
+    INT64_MIN,
+    as_stored,
+    cached_cumsum,
+    cast,
+    cat,
+    computable,
+    compute_dtype,
+    numpy_dtype,
+    to_compute,
+    torch_dtype,
+    validate_axis,
+)
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import is_basic_index
@@ -197,12 +209,21 @@ class Reduction(ArrayExpr):
                 # sub-f32 float accumulators stall once the partial's ulp
                 # exceeds the addend; accumulate in f32, cast the result
                 acc = torch.float32
-            x = to_compute(x, self.dtype) if acc == out_dt else x.to(acc)  # cast before the reduce
+            # cast before the reduce
+            x = to_compute(x, self.dtype if acc == out_dt else numpy_dtype(acc))
         dims, keepdim = tuple(self.axes), bool(self.keepdims)
         if not dims:
             # numpy's axis=(): each element reduces alone
             x, dims, keepdim = x.unsqueeze(-1), (x.ndim,), False
+        flip = self.kind in ("min", "max", "nanmin", "nanmax") and x.dtype == torch.uint64
+        if not takes_dtype:
+            # min/max/any/all of uint16/32/64 in their compute dtype, a uint64
+            # as its bits with the sign bit flipped: the signed order is then
+            # the unsigned one
+            x = computable(x) ^ INT64_MIN if flip else computable(x)
         dense = _dense_reduce(self.kind, x, dims, keepdim, acc)
+        if flip:
+            dense = dense ^ INT64_MIN
         if dense.dtype != out_dt:
             dense = dense.to(out_dt)
         return BlockView(self.chunks, dense=as_stored(dense, self.dtype))
@@ -578,6 +599,10 @@ def _arg_dense(kind, x, axis):
         raise ValueError(f"attempt to get {kind} of an empty sequence")
     if x.dtype == torch.bool:
         x = x.to(torch.uint8)
+    elif x.dtype == torch.uint64:
+        x = x.view(torch.int64) ^ INT64_MIN  # the unsigned order, as signed
+    else:
+        x = computable(x)
     largest = kind in ("argmax", "nanargmax")
     if x.is_complex():
         if not kind.startswith("nan"):
@@ -869,14 +894,12 @@ class _GenericCumLowered(ArrayExpr):
         dtype = self.operand("_dtype")
         if dtype is not None:
             return np.empty((0,) * self.array.ndim, dtype=dtype)
-        from dask_array_tpu_torch._chunks import numpy_dtype
-
-        probe = torch.ones((1,) * self.array.ndim, dtype=torch_dtype(self.array.dtype))
+        probe = torch.ones((1,) * self.array.ndim, dtype=compute_dtype(self.array.dtype))
         out = self.func(probe, axis=self.axis)
         return np.empty((0,) * self.array.ndim, dtype=numpy_dtype(out.dtype))
 
     def _scan_one(self, b):
-        return self.func(b, axis=self.axis).to(torch_dtype(self.dtype))
+        return cast(self.func(computable(b), axis=self.axis), self.dtype)
 
     def _build(self, ctx):
         view = ctx.build(self.array)
@@ -918,7 +941,7 @@ class _GenericCumLowered(ArrayExpr):
 
 def _concat_parts(parts, axis):
     if isinstance(parts[0], torch.Tensor):
-        return torch.cat(parts, dim=axis)
+        return cat(parts, dim=axis)
     return np.concatenate(parts, axis=axis)
 
 
@@ -986,6 +1009,7 @@ class ChunkReduce(ArrayExpr):
         blocks = {}
         for idx in iter_block_indices(view.numblocks):
             b = view.block(idx)
+            b = computable(b)  # uint16/32/64 as torch computes on them
             if wview is not None:
                 res = self.func(b, wview.block(idx), axis=self.axes, keepdims=True)
             else:
@@ -1008,7 +1032,7 @@ def _as_block(res, dtype, device):
 def _partial(b):
     """A partial as a user function sees it: a uint64 block (an unsigned
     sum, stored as uint64) as its int64 bits, in which torch computes."""
-    return b.view(torch.int64) if isinstance(b, torch.Tensor) and b.dtype == torch.uint64 else b
+    return computable(b)
 
 
 class PartialReduce(ArrayExpr):

@@ -18,7 +18,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import common_blockdim, has_unknown_chunks, torch_dtype, validate_axis
+from dask_array_tpu_torch._chunks import cast, cat, common_blockdim, has_unknown_chunks, validate_axis
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import Slice, is_basic_index, normalize_slice
@@ -120,10 +120,8 @@ class Concatenate(ArrayExpr):
     def _build(self, ctx):
         # flattened parts may differ in dtype: cast each to numpy's promoted
         # dtype first (torch.cat promotes by torch's rules)
-        want = torch_dtype(self.dtype)
-        parts = [ctx.build(a).dense() for a in self.arrays]
-        parts = [p if p.dtype == want else p.to(want) for p in parts]
-        return BlockView(self.chunks, dense=torch.cat(parts, dim=self.axis))
+        parts = [cast(ctx.build(a).dense(), self.dtype) for a in self.arrays]
+        return BlockView(self.chunks, dense=cat(parts, dim=self.axis))
 
     def _accept_slice(self, index):
         if not is_basic_index(index):

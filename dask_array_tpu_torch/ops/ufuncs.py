@@ -8,10 +8,13 @@ before the torch call (``Elemwise._build``).
 
 from __future__ import annotations
 
+import operator
+
 import numpy as np
 import torch
 
 from dask_array_tpu_torch._blockwise import elemwise
+from dask_array_tpu_torch._chunks import INT64_MIN, uint64_bits
 
 
 class ufunc:
@@ -83,6 +86,16 @@ def absolute_(x):
     return x if x.dtype == torch.bool else torch.abs(x)
 
 
+@_numpy_named(np.reciprocal)
+def reciprocal_(x):
+    """numpy's reciprocal: an integer's is the C quotient 1 / x (1 and -1
+    keep themselves, everything else gives 0, and so does 0)."""
+    if x.is_floating_point() or x.is_complex():
+        return torch.reciprocal(x)
+    out = (x == 1).to(x.dtype)
+    return out - (x == -1).to(x.dtype) if x.dtype.is_signed else out
+
+
 @_numpy_named(np.rint)
 def rint_(x):
     """numpy's rint: half to even, each part of a complex number apart."""
@@ -140,6 +153,16 @@ def _complex_pair(a, b):
     return as_complex(a), as_complex(b)
 
 
+def _tensors(a, b):
+    """``(a, b)`` with a number made a 0-d tensor of the other's dtype
+    (torch's extrema take no number; the uint64 loops want int64 bits)."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a, b
+    ref = a if isinstance(a, torch.Tensor) else b
+    return tuple(v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=ref.dtype, device=ref.device)
+                 for v in (a, b))
+
+
 def has_nan(z):
     """A NaN in either part of a complex tensor."""
     return torch.isnan(z.real) | torch.isnan(z.imag)
@@ -178,7 +201,7 @@ def _extremum(torch_fn, np_ufunc, greater, nan_side):
     def fn(a, b):
         pair = _complex_pair(a, b)
         if pair is None:
-            return torch_fn(a, b)
+            return torch_fn(*_tensors(a, b))
         a, b = pair
         keep = has_nan(a if nan_side == 0 else b) | complex_order(a, b, greater, strict=False)
         return torch.where(keep, a, b)
@@ -194,6 +217,139 @@ maximum_ = _extremum(torch.maximum, np.maximum, greater=True, nan_side=0)
 minimum_ = _extremum(torch.minimum, np.minimum, greater=False, nan_side=0)
 fmax_ = _extremum(torch.fmax, np.fmax, greater=True, nan_side=1)
 fmin_ = _extremum(torch.fmin, np.fmin, greater=False, nan_side=1)
+
+# -- uint64 held as int64 bits (``_chunks``): the loops whose result
+# depends on signedness, each on the bits
+
+
+def _ult(a, b):
+    """a < b as uint64 bits: the sign bit flipped, the order is signed."""
+    return (a ^ INT64_MIN) < (b ^ INT64_MIN)
+
+
+_INT64_MAX = ~INT64_MIN
+_COMPARE = {"less": operator.lt, "less_equal": operator.le, "greater": operator.gt,
+            "greater_equal": operator.ge, "equal": operator.eq, "not_equal": operator.ne}
+
+
+def _u64_compare(cmp, a, b, ua, ub):
+    """numpy's comparison of a uint64 with a uint64 (the order of the flipped
+    bits) or with an int64 (a uint64 of 2**63 or more is the larger)."""
+    a, b = _tensors(a, b)
+    if ua and ub:
+        return cmp(a ^ INT64_MIN, b ^ INT64_MIN)
+    if ua:
+        return torch.where(a < 0, cmp(1, 0), cmp(a, b))
+    return torch.where(b < 0, cmp(0, 1), cmp(a, b))
+
+
+def _u64_divmod(a, b):
+    """Unsigned quotient and remainder of uint64 bits, numpy's 0 for a zero
+    divisor: a divisor under 2**63 divides the halved dividend (exact in
+    int64), doubles and corrects once; a larger one goes 0 or 1 times."""
+    a, b = _tensors(a, b)
+    zero = b == 0
+    b = torch.where(zero, 1, b)
+    small = torch.where(b < 0, 1, b)
+    q = (((a >> 1) & _INT64_MAX) // small) << 1
+    r = a - q * small
+    over = ~_ult(r, small)
+    q, r = q + over.to(torch.int64), torch.where(over, r - small, r)
+    q_big = (~_ult(a, b)).to(torch.int64)
+    q = torch.where(b < 0, q_big, q)
+    r = torch.where(b < 0, a - q_big * b, r)
+    return torch.where(zero, 0, q), torch.where(zero, 0, r)
+
+
+def _u64_shift(a, s, left):
+    """numpy's shift of uint64 bits: logical, and 0 for 64 places or more."""
+    a, s = _tensors(a, s)
+    inside = (s >= 0) & (s < 64)
+    s = torch.where(inside, s, 0)
+    if left:
+        out = a << s
+    else:
+        out = (a >> s) & ~((-1 << (63 - s)) << 1)  # the top s bits cleared
+    return torch.where(inside, out, 0)
+
+
+def _u64_extremum(a, b, larger):
+    """numpy's maximum (``larger``) or minimum of uint64 bits."""
+    a, b = _tensors(a, b)
+    return torch.where(_ult(a, b) == larger, b, a)
+
+
+def _u64_power(a, e):
+    """numpy's uint64 power: a product wrapped to 64 bits, square and
+    multiply over the exponent's bits."""
+    a, e = _tensors(a, e)
+    out = torch.ones_like(a)
+    for i in range(64):
+        out = torch.where(((e >> i) & 1).bool(), out * a, out)
+        a = a * a
+    return out
+
+
+_UINT64_LOOPS = {
+    "floor_divide": lambda a, b: _u64_divmod(a, b)[0],
+    "remainder": lambda a, b: _u64_divmod(a, b)[1],
+    "fmod": lambda a, b: _u64_divmod(a, b)[1],
+    "right_shift": lambda a, s: _u64_shift(a, s, left=False),
+    "left_shift": lambda a, s: _u64_shift(a, s, left=True),
+    "power": _u64_power,
+    "maximum": lambda a, b: _u64_extremum(a, b, larger=True),
+    "minimum": lambda a, b: _u64_extremum(a, b, larger=False),
+    "absolute": lambda x: x,
+    "sign": lambda x: (x != 0).to(torch.int64),
+    "reciprocal": lambda x: (x == 1).to(torch.int64),
+}
+_UINT64_LOOPS["fmax"] = _UINT64_LOOPS["maximum"]
+_UINT64_LOOPS["fmin"] = _UINT64_LOOPS["minimum"]
+
+
+def compare_outside_range(func, args, loop_dtypes):
+    """The result of a comparison of an integer loop with a Python int
+    outside its loop dtype's range (numpy 2 compares such ints exactly:
+    every uint8 is below 256, every uint64 above -1), else None."""
+    from dask_array_tpu_torch._expr import _numpy_equivalent
+
+    cmp = _COMPARE.get(_numpy_equivalent(func).__name__)
+    if cmp is None or len(args) != 2:
+        return None
+    for pos, (v, dt) in enumerate(zip(args, loop_dtypes)):
+        dt = np.dtype(dt)
+        if dt.kind in "iu" and isinstance(v, int) and not isinstance(v, bool):
+            info = np.iinfo(dt)
+            if not info.min <= v <= info.max:
+                first_smaller = (v < info.min) == (pos == 0)
+                other = args[1 - pos]
+                return torch.full(other.shape, cmp(0, 1) if first_smaller else cmp(1, 0), dtype=torch.bool,
+                                  device=other.device)
+    return None
+
+
+def uint64_loop(func, loop_dtypes):
+    """``func`` for operands in numpy loop dtypes of which at least one is
+    uint64, held as int64 bits: numpy's unsigned semantics where the result
+    depends on signedness (order, division, shifts, power, sign), ``func``
+    itself where two's complement gives numpy's bits.  An int operand of a
+    uint64 loop becomes its bits."""
+    from dask_array_tpu_torch._expr import _numpy_equivalent
+
+    name = _numpy_equivalent(func).__name__
+    unsigned = [np.dtype(dt) == np.uint64 for dt in loop_dtypes]
+
+    def loop(*args, **kwargs):
+        cmp = _COMPARE.get(name)
+        args = [uint64_bits(v) if u and isinstance(v, int) and not isinstance(v, bool) else v
+                for v, u in zip(args, unsigned)]
+        if cmp is not None:
+            return _u64_compare(cmp, *args, *unsigned)
+        impl = _UINT64_LOOPS.get(name)
+        return impl(*args) if impl is not None else func(*args, **kwargs)
+
+    return loop
+
 
 # numpy name -> torch function (the Elemwise kernel)
 _TABLE = {
@@ -211,7 +367,7 @@ _TABLE = {
     "log1p": torch.log1p,
     "sqrt": torch.sqrt,
     "square": torch.square,
-    "reciprocal": torch.reciprocal,
+    "reciprocal": reciprocal_,
     "sin": torch.sin,
     "cos": torch.cos,
     "tan": torch.tan,

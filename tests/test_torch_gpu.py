@@ -2,7 +2,8 @@
 halo and scale kernels against their plain versions, their input checks,
 and the main paths through ``compute()`` (stencil2d in both forms, a
 non-linear map_overlap, pad, sliding windows and push, reduction_tree,
-normalize_contract, rechunk_relayout, tall_skinny_svd).
+normalize_contract, rechunk_relayout, tall_skinny_svd), and uint64
+arithmetic and order above 2**63.
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -177,12 +178,20 @@ def assert_stats(got, want, x):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1000, 1003), (1, 7), (4097, 33), (64, 5000)])
+@pytest.mark.parametrize("shape", [(1000, 1003), (1, 7), (4097, 33), (64, 5000), (1_000_000, 128), (128, 1_000_000),
+                                   "offset1"], ids=str)
 def test_mstat_kernel_matches_plain(cuda, shape):
+    """Every shape the launch plan cuts differently: one strip or many,
+    narrow rows shared by a warp, the skinny shapes, and a contiguous
+    tensor at storage offset 1 (the scalar loads)."""
     from dask_array_tpu_torch.kernels import mstat
 
     gen = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(shape, generator=gen, device=cuda) + 2.0
+    if shape == "offset1":
+        x = (torch.randn(1000 * 1024 + 1, generator=gen, device=cuda) + 2.0)[1:].view(1000, 1024)
+        assert x.is_contiguous() and not mstat.vector_ok(x)
+    else:
+        x = torch.randn(shape, generator=gen, device=cuda) + 2.0
     before = mstat.LAUNCHES
     got = mstat.multi_stat_cuda(x)
     assert mstat.LAUNCHES == before + 1
@@ -276,7 +285,7 @@ def test_integer_and_float_contractions_on_the_card(cuda):
 
 
 TRANSPOSE_DTYPES = [torch.bool, torch.int8, torch.float16, torch.float32, torch.float64, torch.int64,
-                    torch.complex64, torch.complex128]
+                    torch.complex64, torch.complex128, torch.uint16, torch.uint32, torch.uint64]
 
 
 def random_bytes(shape, dtype, device, seed):
@@ -604,3 +613,52 @@ def test_tall_skinny_svd_on_the_card(cuda):
     assert np.linalg.norm((u * s) @ vh - x) / np.linalg.norm(x) < 20 * 2.0**-23 * 32
     assert np.abs(u.T @ u - np.eye(32)).max() < 20 * 2.0**-23 * 32
     assert (vh.sum(axis=1) >= 0).all()
+
+
+@pytest.mark.gpu
+def test_uint64_arithmetic_and_order_above_2_63_on_the_card(cuda):
+    """A uint64 sum takes arithmetic; uint64 values of 2**63 and more keep
+    numpy's order, division and float conversion on the card."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    with config.set({"device": "cuda"}):
+        x = da.from_array(np.arange(42, dtype=np.uint8).reshape(6, 7), chunks=3)
+        got = (x.sum() + 1).compute()
+        assert got == np.uint64(862) and np.asarray(got).dtype == np.uint64
+        a = np.array([[2**63 + 7, 5, 2**64 - 1], [0, 2**63, 2**63 - 1]], dtype=np.uint64)
+        d = da.from_array(a, chunks=2)
+        cases = {"max": (d.max(), a.max()), "argmax": (d.argmax(), a.argmax()), "// 3": (d // 3, a // 3),
+                 "% 7": (d % 7, a % 7), ">> 1": (d >> 1, a >> 1), "< 2**63": (d < 2**63, a < 2**63),
+                 "astype(float64)": (d.astype(np.float64), a.astype(np.float64)), "* 3 + 1": (d * 3 + 1, a * 3 + 1),
+                 "mean": (d.mean(), a.mean())}
+        for name, (got, want) in cases.items():
+            got = np.asarray(got.compute())
+            assert got.dtype == np.asarray(want).dtype, name
+            if name == "mean":  # the card sums in another order than numpy
+                np.testing.assert_allclose(got, want, rtol=1e-15, err_msg=name)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_unsigned_layout_goes_through_the_kernels_byte_for_byte(cuda, dtype):
+    """x.T through the transpose kernel and pad through the halo kernel, in
+    the unsigned dtypes, equal to numpy byte for byte."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo
+    from dask_array_tpu_torch.kernels import transpose as tk
+
+    a = np.random.default_rng(3).integers(0, np.iinfo(dtype).max, size=(300, 257), dtype=dtype, endpoint=True)
+    with config.set({"device": "cuda"}):
+        x = da.from_array(a, chunks=100)
+        before = (tk.LAUNCHES, halo.LAUNCHES)
+        t = x.T.compute()
+        p = da.pad(x, ((2, 1), (0, 3)), mode="symmetric").compute()
+        assert tk.LAUNCHES > before[0] and halo.LAUNCHES > before[1]
+    assert t.dtype == a.dtype and t.tobytes() == np.ascontiguousarray(a.T).tobytes()
+    want = np.pad(a, ((2, 1), (0, 3)), mode="symmetric")
+    assert p.dtype == want.dtype and p.tobytes() == want.tobytes()
+

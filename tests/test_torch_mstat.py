@@ -152,3 +152,102 @@ def test_route_declines_what_the_kernel_does_not_compute():
     x64 = x.astype("f8")
     np.testing.assert_allclose(got[2], x64.var(), rtol=1e-4)
     np.testing.assert_allclose(got[0], x64.sum(0), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (kernels/mstat.py::launch_plan, mirrored by
+# csrc/mstat.cu): a pure function of (M, N) and the SM count
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(1, 7), (4097, 33), (1000, 1003), (10000, 10000), (1_000_000, 128), (128, 1_000_000)]
+H100_SMS = 132
+
+
+def _covered(plan, M, N):
+    """How many times the plan's segments cover each (row, column), as a
+    count of row cover per strip (the columns follow from the strips)."""
+    rows = np.zeros((plan.strips, M), dtype=np.int64)
+    for b, s, r0, r1 in mstat.segments(plan, M):
+        assert 0 <= b < plan.blocks and 0 <= s < plan.strips and 0 <= r0 < r1 <= M
+        rows[s, r0:r1] += 1
+    return rows
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_covers_every_element_once(shape):
+    M, N = shape
+    plan = mstat.launch_plan(M, N, H100_SMS)
+    assert np.array_equal(_covered(plan, M, N), np.ones((plan.strips, M), dtype=np.int64))
+    # the strips tile the columns: every column in exactly one strip
+    assert plan.width == 4 * plan.lanes * plan.across
+    assert (plan.strips - 1) * plan.width < N <= plan.strips * plan.width
+    assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
+    assert plan.across in (1, 2, 4, 8) and (plan.across == 1 or plan.lanes == 32)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_fills_the_card(shape):
+    """One wave of resident blocks, each with the same work to a row."""
+    M, N = shape
+    plan = mstat.launch_plan(M, N, H100_SMS)
+    assert plan.blocks >= H100_SMS * mstat.BLOCKS_PER_SM
+    assert plan.blocks % H100_SMS == 0
+    work = np.zeros(plan.blocks, dtype=np.int64)
+    for b, _s, r0, r1 in mstat.segments(plan, M):
+        work[b] += r1 - r0
+    assert work.max() - work.min() <= 1
+    # a narrow array gives a warp several rows: more than half of the
+    # columns the threads own are the array's
+    assert 2 * N > plan.strips * plan.width
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_partials_stay_small(shape):
+    """Column partials (one strip row a segment), row partials (one a
+    warp-wide strip) and the (s, ss) pairs: under 2 % of x's bytes, or under
+    2 MiB for an array too small for that to matter."""
+    M, N = shape
+    plan = mstat.launch_plan(M, N, H100_SMS)
+    nbytes = M * N * 4
+    assert plan.scratch * 4 <= max(0.02 * nbytes, 2 << 20)
+    assert plan.colpart == (plan.blocks + plan.strips) * plan.width
+    assert plan.rowpart == (plan.strips * plan.across * M if plan.strips * plan.across > 1 else 0)
+    if nbytes >= 1 << 28:
+        assert plan.scratch * 4 <= 0.02 * nbytes
+
+
+def test_plan_is_pure():
+    for shape in PLAN_SHAPES:
+        assert mstat.launch_plan(*shape) == mstat.launch_plan(*shape)
+        assert mstat.launch_plan(*shape, sms=66).blocks == 66 * mstat.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("case", ["aligned", "N=1003", "offset 1", "N=6", "N=128"])
+def test_vector_path_only_for_16_byte_rows_and_pointers(case):
+    if case == "aligned":
+        x, want = torch.zeros((16, 1024)), True
+    elif case == "N=1003":
+        x, want = torch.zeros((16, 1003)), False
+    elif case == "offset 1":
+        x, want = torch.zeros(16 * 1024 + 1)[1:].view(16, 1024), False
+    elif case == "N=6":
+        x, want = torch.zeros((16, 6)), False
+    else:
+        x, want = torch.zeros((100, 128)), True
+    assert x.is_contiguous()
+    assert mstat.vector_ok(x) == want
+    assert (x.shape[1] * 4 % 16 == 0 and x.data_ptr() % 16 == 0) == want
+
+
+def test_plain_matches_the_probe_at_the_plan_shapes_cut_down(probe):
+    """The plain version, which the kernel is held to on the card, against
+    the probe's jnp reference on (M, N) with the skinny shapes' aspect."""
+    import jax.numpy as jnp
+
+    for shape in [(4000, 128), (128, 4000), (1000, 1003)]:
+        x = sample(shape)
+        got = mstat.multi_stat_plain(torch.from_numpy(x))
+        ref = [np.asarray(r, dtype="f8") for r in probe.triple(jnp.asarray(x))]
+        assert_stats(got, ref, x)
+        x64 = x.astype("f8")
+        assert_stats(got, [x64.sum(0), x64.mean(1), x64.std()], x)
