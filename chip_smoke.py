@@ -372,6 +372,239 @@ def unsigned_cases(da, n25, seed=25):
     return exact_cases, float_errs
 
 
+NEW_UNARY = ["fabs", "cbrt", "degrees", "radians", "isneginf", "isposinf", "signbit", "spacing", "real", "imag",
+             "angle", "i0", "sinc", "nan_to_num", "fix", "isreal", "iscomplex"]
+NEW_BINARY = ["float_power", "nextafter", "heaviside", "gcd", "lcm", "ldexp"]
+# units in the last place of numpy's result (0: equal, the sign of a zero too);
+# divmod: the card's float16 floor division rounds its quotient once more;
+# i0: numpy's own series, but the card's exp is not the host's (3 units seen)
+SURFACE_ULPS = {"cbrt": 2, "i0": 4, "sinc": 2, "degrees": 2, "radians": 1, "angle": 4, "float_power": 4,
+                "divmod": 1}
+
+
+def agree_ulps(got, want, ulps):
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if want.dtype.kind not in "fc":
+        return bool(np.array_equal(got, want))
+    with np.errstate(all="ignore"):
+        if ulps == 0:
+            zero = (want == 0) & (got == 0)
+            return bool(np.array_equal(got, want, equal_nan=True)
+                        and np.array_equal(np.signbit(got[zero]), np.signbit(want[zero])))
+        tol = ulps * np.abs(np.spacing(np.abs(want)))
+        return bool(np.all((np.abs(got - want) <= tol) | (got == want) | (np.isnan(got) & np.isnan(want))))
+
+
+def ulps_off(got, want):
+    """The most units in ``want``'s last place ``got`` is off (NaN matching
+    NaN and equal values count 0)."""
+    import numpy as np
+
+    with np.errstate(all="ignore"):
+        d = np.abs(got - want) / np.abs(np.spacing(np.abs(want)))
+        d[(got == want) | (np.isnan(got) & np.isnan(want))] = 0
+        return float(np.nanmax(d)) if d.size else 0.0
+
+
+def surface_data(dt, n, seed):
+    """(n, n) of dtype ``dt``: its special values (NaN, ±inf, ±0, the
+    smallest subnormal, ±max, exact cubes; 0, 1, the extremes) in the first
+    row, random values after."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dt)
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        a = rng.integers(info.min, info.max, size=(n, n), dtype=dt, endpoint=True)
+        special = [0, 1, info.max, info.min, 2, 3, 6, 12, 27] + ([-1, -8, -27] if dt.kind == "i" else [])
+    else:
+        a = (rng.standard_normal((n, n), dtype=np.float32) * 10).astype(dt)
+        fi = np.finfo(dt)
+        special = [np.nan, np.inf, -np.inf, 0.0, -0.0, fi.smallest_subnormal, -fi.smallest_subnormal, fi.max,
+                   -fi.max, 1.0, -1.0, 27.0, -8.0, 0.5, 2.5, -2.5]
+    a[0, :len(special)] = np.array(special, dtype=dt)
+    return a
+
+
+def ufunc_surface(da, n):
+    """Every new ufunc and elementwise function at (n, n) in float16/32/64
+    and the integer types it takes, through compute() on the card, against
+    numpy with equal dtypes.  Returns (cases checked, cases numpy refuses,
+    the units in the last place each float case is off where it is)."""
+    import warnings
+
+    import numpy as np
+
+    checked, refused, worst = 0, 0, {}
+    for dt in ["float16", "float32", "float64", "int8", "int32", "int64", "uint8", "uint64"]:
+        a, b = surface_data(dt, n, 26), surface_data(dt, n, 27)
+        e = (np.arange(n * n, dtype=np.int64).reshape(n, n) % 61 - 30).astype(np.int32)
+        x, y, xe = (da.from_array(v, chunks=1024) for v in (a, b, e))
+        lazy, want, ulps = [], [], []
+        with warnings.catch_warnings(), np.errstate(all="ignore"):
+            warnings.simplefilter("ignore")
+            for name in NEW_UNARY + NEW_BINARY + ["frexp", "modf", "divmod", "clip"]:
+                args = {"ldexp": (a, e), "clip": (a, 1, 100)}.get(name, (a, b) if name in NEW_BINARY + ["divmod"] else (a,))
+                largs = {"ldexp": (x, xe), "clip": (x, 1, 100)}.get(name, (x, y) if name in NEW_BINARY + ["divmod"] else (x,))
+                try:
+                    if name == "i0" and dt in ("float16", "float32"):
+                        w = np.i0(a.astype(np.float64)).astype(dt)  # numpy's own loops are units off
+                    else:
+                        w = getattr(np, name)(*args)
+                except TypeError:
+                    refused += 1
+                    continue
+                outs = getattr(da, name)(*largs)
+                outs, w = (outs, w) if isinstance(w, tuple) else ((outs,), (w,))
+                for o, wi in zip(outs, w):
+                    lazy.append((name, o))
+                    want.append(wi)
+                    ulps.append(SURFACE_ULPS.get(name, 0))
+            got = da.compute(*[o for _, o in lazy])
+        for (name, _), g, w, u in zip(lazy, got, want, ulps):
+            g, w = np.asarray(g), np.asarray(w)
+            if name in ("frexp", "modf", "divmod") and w.dtype.kind == "f":
+                g = np.where(np.isnan(w), np.nan, g).astype(w.dtype)  # a NaN's sign aside
+            off = ulps_off(g, w) if w.dtype.kind in "fc" and g.shape == w.shape else 0.0
+            if off:
+                worst[f"{name} {dt}"] = off
+            if not agree_ulps(g, w, u):
+                bad = np.argwhere(~((g == w) | (np.isnan(g) & np.isnan(w))))[:4] if g.shape == w.shape else []
+                shown = [(a[tuple(i)].item(), g[tuple(i)].item(), w[tuple(i)].item()) for i in bad]
+                check(False, f"{name} {dt}: differs from numpy ({g.dtype}, {w.dtype}) by {off} units in the "
+                             f"last place; (x, got, numpy): {shown}")
+            checked += 1
+        del a, b, e, x, y, xe, lazy, want, got
+    return checked, refused, worst
+
+
+def surface_paths(da, torch, n, smi):
+    """The indexing, assignment and routine paths at (n, n) float32 on the
+    card: each against numpy; the host syncs of the boolean paths; an
+    out-of-range index raising IndexError before any gather, the next
+    compute() working; compute() and compute_device() of each path (the
+    input persisted on the card) beside a plain torch expression of the
+    same operation on the tensor already there, with effective GB/s."""
+    import numpy as np
+
+    from dask_array_tpu_torch.ops import _fancy_indexing as fi
+    from dask_array_tpu_torch.ops._blocks import FromBlocks
+
+    rng = np.random.default_rng(2026)
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    s = (a + rng.standard_normal((n, n), dtype=np.float32) * 1e-6).astype(np.float32)
+    x = da.from_array(a, chunks=4096).persist()
+    xs = da.from_array(s, chunks=4096).persist()
+    t, ts = x.compute_device(), xs.compute_device()
+    rows = rng.permutation(n)[:4096]
+    pi, pj = rng.integers(0, n, 10**7), rng.integers(0, n, 10**7)
+    keep = rng.random(n) < 0.25
+    vals = rng.standard_normal((100, n), dtype=np.float32)
+    rows_t, pi_t, pj_t = (torch.from_numpy(v).cuda() for v in (rows, pi, pj))
+    keep_t, vals_t = torch.from_numpy(keep).cuda(), torch.from_numpy(vals).cuda()
+    vals_lazy = da.from_array(vals, chunks=(100, 4096)).persist()
+    nb = a.nbytes
+    out = {"shape": [n, n], "chunks": 4096, "card": smi}
+
+    # each path: (lazy, numpy result, plain torch on the card, bytes it must move)
+    def masked():
+        z = x.copy()
+        z[z < -1] = 0
+        return z
+
+    def slab():
+        z = x.copy()
+        z[100:200] = vals_lazy
+        return z
+
+    sel = int((a > 0).sum())
+    paths = {
+        "newaxis": (lambda: x[:, None], lambda: a[:, None], lambda: t[:, None], 2 * nb),
+        "bool_mask": (lambda: x[x > 0], lambda: a[a > 0], lambda: torch.masked_select(t, t > 0), nb + 4 * sel),
+        "take_rows": (lambda: x[rows], lambda: a[rows], lambda: torch.index_select(t, 0, rows_t), 2 * 4096 * n * 4),
+        "take_cols": (lambda: x[:, rows], lambda: a[:, rows], lambda: torch.index_select(t, 1, rows_t), 2 * 4096 * n * 4),
+        "vindex_1e7": (lambda: x.vindex[pi, pj], lambda: a[pi, pj], lambda: t[pi_t, pj_t], 10**7 * 24),
+        "setitem_mask": (masked, lambda: np.where(a < -1, np.float32(0), a),
+                         lambda: t.masked_fill(t < -1, 0), 2 * nb),
+        "setitem_slab": (slab, lambda: np.concatenate([a[:100], vals, a[200:]]),
+                         lambda: torch.cat([t[:100], vals_t, t[200:]]), 2 * nb),
+        "where": (lambda: da.where(x > 0, x, 0), lambda: np.where(a > 0, a, np.float32(0)),
+                  lambda: torch.where(t > 0, t, 0), 2 * nb),
+        "tril": (lambda: da.tril(x), lambda: np.tril(a), lambda: torch.tril(t), 2 * nb),
+        "diff": (lambda: da.diff(x), lambda: np.diff(a), lambda: torch.diff(t), 2 * nb),
+        "isclose": (lambda: da.isclose(x, xs), lambda: np.isclose(a, s), lambda: torch.isclose(t, ts),
+                    2 * nb + a.size),
+        "nonzero_sparse": (lambda: da.nonzero(x > 4.5), lambda: np.nonzero(a > 4.5),
+                           lambda: torch.nonzero(t > 4.5), nb),
+        "compress": (lambda: da.compress(keep, x, axis=0), lambda: np.compress(keep, a, axis=0),
+                     lambda: torch.index_select(t, 0, torch.nonzero(keep_t).reshape(-1)), 2 * int(keep.sum()) * n * 4),
+    }
+    for name, (lazy, ref, plain, nbytes) in paths.items():
+        arr = lazy()
+        outs = arr if isinstance(arr, tuple) else (arr,)
+        fi.SYNCS = 0
+        got = da.compute(*outs)
+        syncs = fi.SYNCS
+        want = ref()
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), f"{name}: differs from numpy")
+        del got, want
+
+        def run_device(outs=outs):
+            for o in outs:
+                o.compute_device()
+            torch.cuda.synchronize()
+
+        def run_compute(outs=outs):
+            da.compute(*outs)
+
+        dev_ms = host_ms(run_device, 5)
+        comp_ms = host_ms(run_compute, 3)
+        plain_ms = cuda_ms(plain, reps=10)
+        out[name] = {"compute_ms": comp_ms, "compute_device_ms": dev_ms, "plain_torch_ms": plain_ms,
+                     "bytes": nbytes, "device_GBps": nbytes / dev_ms / 1e6, "plain_GBps": nbytes / plain_ms / 1e6,
+                     "host_syncs": syncs}
+        torch.cuda.empty_cache()
+
+    # x[x > 0] then compute_chunk_sizes(): the grid kept, its blocks on the card
+    y = x[x > 0]
+    nblocks = len(y.chunks[0])
+    fi.SYNCS = 0
+    t0 = time.perf_counter()
+    y.compute_chunk_sizes()
+    ccs_ms = (time.perf_counter() - t0) * 1e3
+    check(fi.SYNCS == nblocks and isinstance(y.expr, FromBlocks), "compute_chunk_sizes: one sync per block")
+    check(all(b.device.type == "cuda" for b in y.expr.blocks.values()), "compute_chunk_sizes: blocks left the card")
+    check(sum(y.chunks[0]) == sel and np.array_equal(y.compute(), a[a > 0]), "compute_chunk_sizes: values")
+    out["compute_chunk_sizes"] = {"ms": ccs_ms, "blocks": nblocks, "host_syncs": nblocks, "on_card": True}
+    del y
+
+    # an out-of-range index raises before any gather; the card keeps working
+    raised = []
+    try:
+        x[[10**9]]
+    except IndexError:
+        raised.append("numpy index")
+    try:
+        x[da.from_array(np.array([0, 10**9]), chunks=1)].compute()
+    except IndexError:
+        raised.append("lazy index")
+    again = x[da.from_array(np.array([n - 1, 0]), chunks=1)].compute()
+    torch.cuda.synchronize()
+    check(raised == ["numpy index", "lazy index"] and np.array_equal(again, a[[n - 1, 0]]),
+          "out-of-range index: no IndexError, or the card stopped working")
+    out["out_of_range"] = {"raised": raised, "next_compute_ok": True}
+    del x, xs, t, ts
+    torch.cuda.empty_cache()
+    return out
+
+
 STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (rowmean /N); "
                    "std rtol 1e-4")
 
@@ -1287,6 +1520,19 @@ def main() -> int:
           exact_cases=exact_cases, moments_max_rel_err=float_errs,
           tolerance={"arithmetic, comparisons, shifts, casts, sums, extrema, arg and scans": "equal to numpy",
                      "mean, std, var": "rtol 1e-12 against numpy"})
+
+    # -- phase 26: the NumPy surface on the card -----------------------------------
+    t26 = time.perf_counter()
+    checked26, refused26, ulps26 = ufunc_surface(da, 4096)
+    phase(26, "ufuncs-4096", shape=[4096, 4096], chunks=1024, cases=checked26, numpy_refuses=refused26,
+          max_ulps=ulps26, numpy=np.__version__,
+          dtypes=["float16", "float32", "float64", "int8", "int32", "int64", "uint8", "uint64"],
+          tolerance={"default": "equal to numpy, dtype and the sign of a zero included",
+                     "ulps": SURFACE_ULPS, "i0 float16/32": "numpy's float64 i0 rounded"},
+          seconds=time.perf_counter() - t26)
+    surface = surface_paths(da, torch, 16384, smi)
+    phase(26, "indexing-routines-16384", **surface)
+    print(smi, flush=True)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)

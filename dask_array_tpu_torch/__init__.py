@@ -106,8 +106,13 @@ from dask_array_tpu_torch.ops.manipulation import (
 from dask_array_tpu_torch.ops.stacking import block, concatenate, dstack, hstack, stack, vstack
 from dask_array_tpu_torch.ops.reductions import *  # noqa: F403 (sum, mean, ...)
 from dask_array_tpu_torch.ops.reductions import __all__ as _reduction_names
+from dask_array_tpu_torch.ops.routines import *  # noqa: F403 (where, round, diff, ...)
+from dask_array_tpu_torch.ops.routines import __all__ as _routine_names
 from dask_array_tpu_torch.ops.ufuncs import *  # noqa: F403 (the ufunc table)
 from dask_array_tpu_torch.ops.ufuncs import __all__ as _ufunc_names
+from dask_array_tpu_torch.ops.ufuncs import gcd, heaviside, lcm, wrap_elemwise  # noqa: F401 (not in __all__)
+from dask_array_tpu_torch.ops._fancy_indexing import take
+from dask_array_tpu_torch.ops._from_array import array, asanyarray
 
 
 
@@ -131,10 +136,49 @@ def compute(*collections, **kwargs):
     return tuple(out)
 
 
+def optimize(x, keys=None, **kwargs):
+    """``x`` with its expression optimized (``Array.optimize``); anything
+    else passes through unchanged."""
+    if isinstance(x, Array):
+        return x.optimize()
+    return x
+
+
+# numpy's constants and dtype names, as in the JAX package
+import numpy as _np  # noqa: E402
+
+newaxis = None
+nan = _np.nan
+inf = _np.inf
+e = _np.e
+pi = _np.pi
+euler_gamma = _np.euler_gamma
+
+bool = _np.bool_
+int8 = _np.int8
+int16 = _np.int16
+int32 = _np.int32
+int64 = _np.int64
+uint8 = _np.uint8
+uint16 = _np.uint16
+uint32 = _np.uint32
+uint64 = _np.uint64
+float32 = _np.float32
+float64 = _np.float64
+complex64 = _np.complex64
+complex128 = _np.complex128
+
+_CONSTANTS = [
+    "newaxis", "nan", "inf", "e", "pi", "euler_gamma", "bool", "int8", "int16", "int32", "int64", "uint8",
+    "uint16", "uint32", "uint64", "float32", "float64", "complex64", "complex128",
+]
+
 __all__ = [
     "Array",
     "PerformanceWarning",
     "arange",
+    "array",
+    "asanyarray",
     "asarray",
     "atleast_1d",
     "atleast_2d",
@@ -174,6 +218,7 @@ __all__ = [
     "normalize_chunks",
     "ones",
     "ones_like",
+    "optimize",
     "outer",
     "overlap",
     "pad",
@@ -190,6 +235,7 @@ __all__ = [
     "squeeze",
     "stack",
     "swapaxes",
+    "take",
     "tensordot",
     "tile",
     "transpose",
@@ -201,5 +247,7 @@ __all__ = [
     "zeros",
     "zeros_like",
     *_reduction_names,
+    *_routine_names,
     *_ufunc_names,
+    *_CONSTANTS,
 ]

@@ -539,7 +539,9 @@ class Elemwise(Blockwise):
                 # a number first: a 0-d tensor of its loop dtype (torch's
                 # comparisons and extrema take no number there)
                 args[0] = torch.tensor(args[0], dtype=compute_dtype(dts[0]), device=args[1].device)
-        else:
+        elif getattr(func, "numpy_function", None) is None:
+            # (a port function of a numpy non-ufunc converts its own
+            # operands: a numpy scalar keeps its dtype there)
             args = [_host_scalar(a) for a in args]
         scaled = _scale_operands(func, args, self.dtype, self.kwargs)
         if scaled is not None:

@@ -240,14 +240,34 @@ class Array:
         return BlockAccessor(self)
 
     @property
+    def vindex(self):
+        from dask_array_tpu_torch.ops._fancy_indexing import VIndexAccessor
+
+        return VIndexAccessor(self)
+
+    @property
     def T(self):
         from dask_array_tpu_torch.ops.manipulation import transpose
 
         return transpose(self)
 
+    @property
+    def real(self):
+        from dask_array_tpu_torch.ops.ufuncs import real
+
+        return real(self)
+
+    @property
+    def imag(self):
+        from dask_array_tpu_torch.ops.ufuncs import imag
+
+        return imag(self)
+
     def __len__(self):
         if not self.shape:
             raise TypeError("len() of unsized object")
+        if isinstance(self.shape[0], float):
+            raise ValueError("Cannot call len() on array with unknown chunk sizes; call compute_chunk_sizes() first")
         return int(self.shape[0])
 
     def __bool__(self):
@@ -344,12 +364,58 @@ class Array:
             return NotImplemented
         return f(*inputs, **kwargs)
 
+    def __array_function__(self, func, types, args, kwargs):
+        from dask_array_tpu_torch._dispatch import lookup_array_function
+
+        impl = lookup_array_function(func)
+        if impl is None:
+            return NotImplemented
+        return impl(*args, **kwargs)
+
     # -- indexing ---------------------------------------------------------------
 
     def __getitem__(self, index):
         from dask_array_tpu_torch.ops._getitem import getitem_router
 
         return getitem_router(self, index)
+
+    def __setitem__(self, index, value):
+        """numpy's assignment, as a new expression for this collection (the
+        values it was built from are not changed)."""
+        from dask_array_tpu_torch.ops._setitem import setitem
+
+        self._replace_expr(setitem(self, index, value).expr)
+
+    def compute_chunk_sizes(self):
+        """Compute the unknown (nan) chunk sizes, in place (returns self).
+
+        The block grid is kept: each unknown chunk takes the size of its
+        computed block, and the blocks stay on the device as the leaves of
+        the new expression (``ops/_blocks.py::from_blocks``).  A root that
+        assembled densely is one block along its unknown axes."""
+        if not has_unknown_chunks(self.chunks):
+            return self
+        from dask_array_tpu_torch._executor import execute_views
+        from dask_array_tpu_torch._materialize import optimize_expr
+        from dask_array_tpu_torch.ops._blocks import from_blocks
+
+        view = execute_views([optimize_expr(self._expr)])[0]
+        if view._blocks is None:
+            dense = view.dense()
+            out = from_blocks({(0,) * dense.ndim: dense}, tuple((s,) for s in dense.shape))
+            known = tuple(c if not any(isinstance(x, float) for x in c) else (s,)
+                          for c, s in zip(self.chunks, dense.shape))
+            out = out.rechunk(known)
+        else:
+            blocks = view.blocks_dict()
+            nb = view.numblocks
+            chunks = tuple(
+                tuple(int(blocks[tuple(i if d == ax else 0 for d in range(len(nb)))].shape[ax]) for i in range(nb[ax]))
+                for ax in range(len(nb))
+            )
+            out = from_blocks(blocks, chunks)
+        self._replace_expr(out.expr)
+        return self
 
     # -- operators ---------------------------------------------------------------
 
@@ -456,6 +522,42 @@ class Array:
 
     def copy(self):
         return new_collection(self._expr)
+
+    def repeat(self, repeats, axis=None):
+        from dask_array_tpu_torch.ops.creation import repeat
+
+        return repeat(self, repeats, axis=axis)
+
+    def round(self, decimals=0):
+        from dask_array_tpu_torch.ops.routines import round as _round
+
+        return _round(self, decimals)
+
+    def clip(self, min=None, max=None):
+        from dask_array_tpu_torch.ops.ufuncs import clip
+
+        return clip(self, min, max)
+
+    def conj(self):
+        from dask_array_tpu_torch.ops.ufuncs import conj
+
+        return conj(self)
+
+    def choose(self, choices):
+        from dask_array_tpu_torch.ops.routines import choose
+
+        return choose(self, choices)
+
+    def nonzero(self):
+        from dask_array_tpu_torch.ops.routines import nonzero
+
+        return nonzero(self)
+
+    def item(self):
+        return self.compute().item()
+
+    def tolist(self):
+        return np.asarray(self.compute()).tolist()
 
     def map_blocks(self, func, *args, **kwargs):
         from dask_array_tpu_torch.ops._map_blocks import map_blocks

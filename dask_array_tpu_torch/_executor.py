@@ -166,6 +166,12 @@ def execute(root: ArrayExpr) -> torch.Tensor:
 def execute_many(roots) -> list:
     """Execute several lowered trees in one walk: shared nodes build once
     and every leaf moves to the device once."""
+    return [view.dense() for view in execute_views(roots)]
+
+
+def execute_views(roots) -> list:
+    """``execute_many``, returning each root's ``BlockView`` (its blocks,
+    where the root built them per block)."""
     device = current_device()
     leaves = {}
     for root in roots:
@@ -173,4 +179,4 @@ def execute_many(roots) -> list:
             if key not in leaves:
                 leaves[key] = to_device(buf, device)
     ctx = BuildContext(leaves, device)
-    return [ctx.build(root).dense() for root in roots]
+    return [ctx.build(root) for root in roots]

@@ -661,8 +661,10 @@ def loop_dtypes(func, args):
 def compute_meta(func, out_ndim, *args, **kwargs):
     """Infer an output meta.
 
-    Order: the numpy-equivalent function on tiny numpy inputs (numpy dtype
-    rules, matching the reference API); then ``func`` on torch ``meta``
+    Order: the numpy-equivalent function (a ufunc, or the numpy function a
+    port function declares as ``numpy_function``; with ``numpy_strict`` its
+    refusal raises) on tiny numpy inputs (numpy dtype rules, matching the
+    reference API); then ``func`` on torch ``meta``
     tensors, then a real call on tiny CPU tensors.  The last two run with
     torch's default dtype at float64, so an integer meeting a Python float
     (or a true division of integers) promotes as numpy's rule says, and not
@@ -677,13 +679,17 @@ def compute_meta(func, out_ndim, *args, **kwargs):
         else:
             metas.append(a)
 
-    np_fn = _numpy_equivalent(func)
+    np_fn = _numpy_equivalent(func) or getattr(func, "numpy_function", None)
     if np_fn is not None:
         try:
             with np.errstate(all="ignore"):
                 out = np_fn(*metas, **kwargs)
         except (TypeError, ValueError):
+            if getattr(func, "numpy_strict", False):
+                raise  # numpy refuses these operands: so does the port
             out = None  # torch-only keywords or operands: ask torch below
+        if isinstance(out, tuple):  # a ufunc of several outputs: this one's
+            out = out[getattr(func, "numpy_output", 0)]
         if out is not None:
             nd = out_ndim if out_ndim is not None else getattr(out, "ndim", 0)
             return meta_from_array(out, ndim=nd)

@@ -1,18 +1,69 @@
-"""The ``.blocks`` accessor: index an array by block coordinates.
+"""The ``.blocks`` accessor: index an array by block coordinates; and
+``from_blocks``, an array made of computed device blocks.
 
 Port of ``dask_array_tpu/ops/_blocks.py``.  Selecting blocks maps to
 element slices over the block boundaries, so the result is an ordinary
-(sliced, concatenated) expression.
+(sliced, concatenated) expression.  ``FromBlocks`` is the port's own small
+stand-in for the JAX package's ``io/_from_map.py::from_blocks`` (IO is a
+later slice): its blocks stay where they were computed, on the device.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
+import uuid
 from numbers import Integral
 
 import numpy as np
 
-from dask_array_tpu_torch._chunks import cached_cumsum
+from dask_array_tpu_torch._chunks import cached_cumsum, numpy_dtype
+from dask_array_tpu_torch._executor import BlockView
+from dask_array_tpu_torch._expr import ArrayExpr
+
+
+class FromBlocks(ArrayExpr):
+    """A leaf of computed tensors, one per block of ``chunks_``.
+
+    Named by ``pinned_name`` (a token of its own), so tokenizing a plan
+    that holds it never hashes, or copies, the tensors."""
+
+    _parameters = ("blocks", "chunks_", "pinned_name")
+
+    _fusable_leaf = True
+
+    @property
+    def _name(self):  # type: ignore[override]
+        return self.pinned_name
+
+    @property
+    def deterministic_token(self):  # type: ignore[override]
+        return self.pinned_name
+
+    @property
+    def chunks(self):
+        return self.chunks_
+
+    @functools.cached_property
+    def _meta(self):
+        dtype = numpy_dtype(next(iter(self.blocks.values())).dtype)
+        return np.empty((0,) * len(self.chunks_), dtype=dtype)
+
+    def _leaf_buffers(self):
+        for idx, t in self.blocks.items():
+            yield (f"{self.pinned_name}-{'.'.join(map(str, idx))}", t)
+
+    def _build(self, ctx):
+        blocks = {idx: ctx.leaf(f"{self.pinned_name}-{'.'.join(map(str, idx))}") for idx in self.blocks}
+        return BlockView(self.chunks_, blocks=blocks)
+
+
+def from_blocks(blocks: dict, chunks):
+    """An Array of computed tensors keyed by block index (the full grid of
+    ``chunks``); the tensors are used where they are, without a copy."""
+    from dask_array_tpu_torch._collection import new_collection
+
+    return new_collection(FromBlocks(dict(blocks), tuple(chunks), f"from-blocks-{uuid.uuid4().hex}"))
 
 
 class BlockAccessor:

@@ -93,3 +93,15 @@ def asarray(a, chunks=None, dtype=None):
             return a.astype(dtype)
         return a
     return from_array(np.asarray(a, dtype=dtype), chunks=chunks if chunks is not None else "auto")
+
+
+def asanyarray(a, dtype=None, order=None, *, like=None, inline_array=False):
+    return asarray(a, dtype=dtype)
+
+
+def array(x, dtype=None, ndmin=None, *, like=None):
+    out = asarray(x, dtype=dtype)
+    if ndmin is not None:
+        while out.ndim < ndmin:
+            out = out[None]
+    return out

@@ -218,8 +218,11 @@ def test_basic_slicing(index, x64):
 
 
 def test_fancy_indexing_is_not_ported_yet(x64):
-    with pytest.raises(NotImplementedError):
-        tda.from_array(x64, chunks=4)[[0, 2]]
+    # (the name predates the port of fancy indexing; it now holds the
+    # integer-list take against numpy and the JAX package)
+    got = tda.from_array(x64, chunks=4)[[0, 2]].compute()
+    np.testing.assert_array_equal(got, x64[[0, 2]])
+    np.testing.assert_array_equal(got, jda.from_array(x64, chunks=4)[[0, 2]].compute())
 
 
 def test_transpose_and_rechunk(x64):

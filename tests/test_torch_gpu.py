@@ -662,3 +662,83 @@ def test_unsigned_layout_goes_through_the_kernels_byte_for_byte(cuda, dtype):
     want = np.pad(a, ((2, 1), (0, 3)), mode="symmetric")
     assert p.dtype == want.dtype and p.tobytes() == want.tobytes()
 
+
+
+@pytest.mark.gpu
+def test_out_of_range_index_raises_and_the_card_keeps_working(cuda):
+    """An index out of range raises numpy's IndexError before any gather on
+    the card (a device-side assert would leave the CUDA context unusable),
+    and the next compute() in the process works."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    a = np.arange(60, dtype=np.float32).reshape(6, 10)
+    with config.set({"device": "cuda"}):
+        x = da.from_array(a, chunks=3)
+        with pytest.raises(IndexError):
+            x[[10**9]]
+        with pytest.raises(IndexError):
+            x[da.from_array(np.array([1, 10**9]), chunks=1)].compute()
+        with pytest.raises(IndexError):
+            x.vindex[da.from_array(np.array([-7]), chunks=1), [0]].compute()
+        with pytest.raises(IndexError):
+            z = da.from_array(a, chunks=3)
+            z[da.from_array(np.array([0, 99]))] = 1.0
+            z.compute()
+        got = x[da.from_array(np.array([5, -6]), chunks=1)].compute()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, a[[5, -6]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nextafter", "spacing", "i0", "sinc"])
+def test_float16_ufuncs_on_the_card(cuda, name):
+    """float16 nextafter/spacing equal numpy's; sinc to 2 units in the last
+    place of numpy's float16 sinc, i0 of numpy's float64 i0 rounded to
+    float16."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    fi = np.finfo(np.float16)
+    a = np.array([0.0, -0.0, 1.0, -1.0, 2.5, -65504.0, 65504.0, fi.smallest_subnormal, np.inf, -np.inf, np.nan,
+                  1e-3, 7.0, -3.5, 11.0, 0.25], np.float16).reshape(4, 4)
+    b = np.roll(a, 3)
+    with np.errstate(all="ignore"), config.set({"device": "cuda"}):
+        x, y = da.from_array(a, chunks=2), da.from_array(b, chunks=2)
+        if name == "nextafter":
+            got, want = da.nextafter(x, y).compute(), np.nextafter(a, b)
+        elif name == "spacing":
+            got, want = da.spacing(x).compute(), np.spacing(a)
+        elif name == "sinc":  # numpy's float16 steps (pi * x rounded to float16 first)
+            got, want = da.sinc(x).compute(), np.sinc(a)
+        else:
+            got, want = da.i0(x).compute(), np.i0(a.astype(np.float64)).astype(np.float16)
+    assert got.dtype == np.float16
+    if name in ("nextafter", "spacing"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        tol = 2 * np.spacing(np.abs(want))
+        assert np.all((np.abs(got - want) <= tol) | (got == want) | (np.isnan(got) & np.isnan(want))), (got, want)
+
+
+@pytest.mark.gpu
+def test_compute_chunk_sizes_keeps_the_blocks_on_the_card(cuda):
+    """x[x > 0].compute_chunk_sizes(): the grid is kept, its blocks are the
+    CUDA tensors the boolean index computed, one host sync per block."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.ops import _fancy_indexing
+    from dask_array_tpu_torch.ops._blocks import FromBlocks
+
+    a = np.random.default_rng(8).standard_normal((64, 48)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        x = da.from_array(a, chunks=16)
+        y = x[x > 0]
+        nblocks = len(y.chunks[0])
+        _fancy_indexing.SYNCS = 0
+        y.compute_chunk_sizes()
+        assert _fancy_indexing.SYNCS == nblocks
+        assert isinstance(y.expr, FromBlocks) and len(y.chunks[0]) == nblocks
+        assert all(t.device.type == "cuda" for t in y.expr.blocks.values())
+        np.testing.assert_array_equal(y.compute(), a[a > 0])
+        np.testing.assert_array_equal(y[5:].compute(), a[a > 0][5:])

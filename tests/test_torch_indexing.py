@@ -1,0 +1,279 @@
+"""Indexing through the port on the CPU: newaxis, Ellipsis, integer and
+boolean arrays (numpy's and lazy ones), their mixes with slices and
+integers, ``vindex``, ``take``, ``__setitem__`` in each form, and unknown
+(nan) chunks through ``compute()`` and ``compute_chunk_sizes()``.
+
+Each program runs on an array of several chunks made from a numpy seed,
+through the port, the JAX package and numpy.  Indexing moves values, so
+every result must equal numpy's exactly, dtype and shape included.  Where
+the JAX package differs from numpy (``KNOWN_REFERENCE_FAULTS``) the port
+pins numpy.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import dask_array_tpu as jda
+import dask_array_tpu_torch as tda
+from dask_array_tpu_torch import config as tconfig
+from dask_array_tpu_torch.ops import _fancy_indexing
+
+torch.set_num_threads(1)
+
+SHAPE = (9, 11)
+CHUNKS = (4, 5)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    with tconfig.set({"device": "cpu"}):
+        yield
+
+
+def base(dtype="float32", seed=0, shape=SHAPE):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * 10).astype(dtype)
+
+
+class Numpy:
+    """numpy standing in for a lazy module: indices stay numpy arrays."""
+
+    @staticmethod
+    def lazy(a, chunks=None):
+        return np.asarray(a)
+
+
+class Lazy:
+    def __init__(self, mod):
+        self.mod = mod
+
+    def lazy(self, a, chunks=3):
+        return self.mod.from_array(np.asarray(a), chunks=chunks)
+
+
+def run(prog, lib, a):
+    x = a.copy() if lib is Numpy else lib.mod.from_array(a, chunks=CHUNKS)
+    out = prog(x, lib)
+    return np.asarray(out if lib is Numpy else out.compute())
+
+
+def same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, want.dtype, got.shape, want.shape)
+    np.testing.assert_array_equal(got, want)
+
+
+ROW = np.array([True, False, True, True, False, False, True, False, True])
+COL = np.arange(11) % 3 == 1
+
+GETITEM = {
+    "none_lead": lambda x, L: x[None],
+    "none_mid": lambda x, L: x[:, None],
+    "none_both": lambda x, L: x[None, ..., None],
+    "none_after_int": lambda x, L: x[1, None],
+    "ellipsis_int": lambda x, L: x[..., 2],
+    "int_list": lambda x, L: x[[0, 2, -1]],
+    "int_list_repeat_axis1": lambda x, L: x[:, [3, 1, 1, -11]],
+    "int_2d_index": lambda x, L: x[np.array([[0, 1], [8, 3]])],
+    "empty_list": lambda x, L: x[[]],
+    "int_array_then_int": lambda x, L: x[[1, 2], 3],
+    "slice_then_array": lambda x, L: x[1:, [1, 2]],
+    "array_then_slice": lambda x, L: x[[0, 5], 2:9:3],
+    "two_arrays": lambda x, L: x[[1, 2, 8], [3, 4, 0]],
+    "two_arrays_broadcast": lambda x, L: x[np.array([[1], [2]]), np.array([3, 4, -1])],
+    "bool_row": lambda x, L: x[ROW],
+    "bool_col": lambda x, L: x[:, COL],
+    "bool_row_and_slice": lambda x, L: x[ROW, 3:],
+    "bool_full": lambda x, L: x[x > 0],
+    "bool_full_numpy": lambda x, L: x[base() > 0],
+    "lazy_int": lambda x, L: x[L.lazy([3, -1, 0, 3])],
+    "lazy_int_axis1": lambda x, L: x[:, L.lazy([10, 0, -2])],
+    "lazy_bool_row": lambda x, L: x[L.lazy(ROW)],
+    "lazy_bool_col": lambda x, L: x[:, L.lazy(COL)],
+    "take_axis1": lambda x, L: (np if L is Numpy else L.mod).take(x, [1, 2, -1], axis=1),
+    "take_2d_indices": lambda x, L: (np if L is Numpy else L.mod).take(x, np.array([[0, 1], [2, 8]]), axis=0),
+}
+
+VINDEX = {
+    "points": (lambda x, L: x.vindex[[1, 2, 3], [0, 4, 5]], lambda a: a[[1, 2, 3], [0, 4, 5]]),
+    "negative": (lambda x, L: x.vindex[[-1, 0], [-11, 10]], lambda a: a[[-1, 0], [-11, 10]]),
+    "broadcast": (lambda x, L: x.vindex[np.array([[1], [2]]), np.array([3, 4])],
+                  lambda a: a[np.array([[1], [2]]), np.array([3, 4])]),
+    # the index dims lead (the vindex contract), unlike numpy's a[:, [3, 1]]
+    "with_slice": (lambda x, L: x.vindex[:, [3, 1]], lambda a: a[:, [3, 1]].T),
+    "lazy": (lambda x, L: x.vindex[L.lazy([1, -2]), [0, 4]], lambda a: a[[1, -2], [0, 4]]),
+}
+
+# the JAX package's results that differ from numpy's, the port pinning
+# numpy: its uint64 assignment of an array changes the values it leaves in
+# place above 2**53 (by up to 21 units at 2**64 on these inputs)
+KNOWN_REFERENCE_FAULTS = {
+    (name, "uint64") for name in ("broadcast_column", "descending_slice", "int_array_values", "lazy_values",
+                                  "row_values", "mask_values")
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "uint64", "complex64"])
+@pytest.mark.parametrize("name", sorted(GETITEM))
+def test_getitem(name, dtype):
+    a = base(dtype)
+    prog = GETITEM[name]
+    want = run(prog, Numpy, a)
+    same(run(prog, Lazy(tda), a), want)
+    if (name, dtype) not in KNOWN_REFERENCE_FAULTS:
+        same(run(prog, Lazy(jda), a), want)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int16", "uint32", "bool"])
+@pytest.mark.parametrize("name", sorted(VINDEX))
+def test_vindex(name, dtype):
+    a = base(dtype)
+    prog, numpy_prog = VINDEX[name]
+    want = numpy_prog(a)
+    same(run(prog, Lazy(tda), a), want)
+    same(run(prog, Lazy(jda), a), want)
+
+
+def test_leading_mask_of_a_3d_array():
+    a = base("float32", shape=(4, 5, 3))
+    m = a[..., 0] > 0
+    x = tda.from_array(a, chunks=(2, 2, 3))
+    same(x[m].compute(), a[m])
+    same(x[tda.from_array(m, chunks=2)].compute(), a[m])
+
+
+@pytest.mark.parametrize("index", [[9], [-10], (slice(None), [11]), [[1], [12]]])
+def test_out_of_range_numpy_index_raises_when_built(index):
+    x = tda.from_array(base(), chunks=CHUNKS)
+    with pytest.raises(IndexError):
+        x[tuple(index) if isinstance(index, tuple) else index]
+    with pytest.raises(IndexError):
+        base()[tuple(index) if isinstance(index, tuple) else index]
+
+
+def test_out_of_range_lazy_index_raises_before_the_gather():
+    x = tda.from_array(base(), chunks=CHUNKS)
+    _fancy_indexing.SYNCS = 0
+    with pytest.raises(IndexError, match="out of bounds"):
+        x[tda.from_array(np.array([0, 10**9]), chunks=1)].compute()
+    with pytest.raises(IndexError, match="out of bounds"):
+        x.vindex[tda.from_array(np.array([-10]), chunks=1), [0]].compute()
+    assert _fancy_indexing.SYNCS == 2  # one min/max check each
+    same(x[tda.from_array(np.array([8, -9]), chunks=1)].compute(), base()[[8, -9]])
+
+
+def test_boolean_index_gives_one_unknown_block_per_block():
+    a = base()
+    x = tda.from_array(a, chunks=CHUNKS)
+    y = x[x > 0]
+    assert len(y.chunks[0]) == len(tda.ravel(x).chunks[0])
+    assert all(np.isnan(c) for c in y.chunks[0])
+    with pytest.raises(ValueError):
+        len(y)
+    _fancy_indexing.SYNCS = 0
+    same(y.compute(), a[a > 0])
+    assert _fancy_indexing.SYNCS == len(y.chunks[0])  # one host sync per block
+    z = x[tda.from_array(ROW, chunks=4)]
+    assert z.chunks[0] == (_fancy_indexing.NAN,) * 3 and z.chunks[1] == x.chunks[1]
+    same(z.compute(), a[ROW])
+
+
+@pytest.mark.parametrize("form", ["full", "row"])
+def test_compute_chunk_sizes_keeps_the_grid(form):
+    a = base()
+    x = tda.from_array(a, chunks=CHUNKS)
+    y = x[x > 0] if form == "full" else x[tda.from_array(ROW, chunks=4)]
+    want = a[a > 0] if form == "full" else a[ROW]
+    grid = tuple(len(c) for c in y.chunks)
+    assert y.compute_chunk_sizes() is y
+    assert tuple(len(c) for c in y.chunks) == grid
+    assert not any(np.isnan(c) for cs in y.chunks for c in cs)
+    assert y.shape == want.shape
+    same(y.compute(), want)
+    # the computed blocks are the new leaves: slicing and arithmetic work
+    same(y[1:].compute(), want[1:])
+    np.testing.assert_allclose((y * 2).sum().compute(), (want * 2).sum(), rtol=1e-6)
+    ref = jda.from_array(a, chunks=CHUNKS)
+    ref = ref[ref > 0] if form == "full" else ref[jda.from_array(ROW, chunks=4)]
+    assert ref.compute_chunk_sizes().chunks == y.chunks
+
+
+def test_compute_of_unknown_chunks_and_elementwise_on_them():
+    a = base()
+    x = tda.from_array(a, chunks=CHUNKS)
+    y = x[x > 1]
+    same((y + 1).compute(), a[a > 1] + 1)
+    same(tda.compute(y, y * 2)[1], a[a > 1] * 2)
+
+
+SETITEM = {
+    "int": lambda x, L: x.__setitem__(0, 1),
+    "negative_int": lambda x, L: x.__setitem__((-1, 2), 5),
+    "slice": lambda x, L: x.__setitem__((slice(1, 3), slice(None, None, 2)), 7),
+    "descending_slice": lambda x, L: x.__setitem__((slice(7, 2, -2), slice(None)), np.arange(11)),
+    "row_values": lambda x, L: x.__setitem__(slice(0, 2), np.arange(22).reshape(2, 11)),
+    "broadcast_column": lambda x, L: x.__setitem__((slice(None), 4), np.arange(9)),
+    "mask_scalar": lambda x, L: x.__setitem__(x > 1, 0),
+    "numpy_mask_scalar": lambda x, L: x.__setitem__(base() < -1, 3),
+    "mask_values": lambda x, L: x.__setitem__(base() < -5, np.arange(int((base() < -5).sum()))),
+    "row_mask": lambda x, L: x.__setitem__(ROW, 2),
+    "int_array": lambda x, L: x.__setitem__([0, 2, -1], 4),
+    "int_array_values": lambda x, L: x.__setitem__(([1, 3], slice(None)), np.ones((2, 11))),
+    "lazy_int_array": lambda x, L: x.__setitem__(L.lazy([8, 0]), 6),
+    "lazy_values": lambda x, L: x.__setitem__(slice(3, 5), L.lazy(np.full((2, 11), 9.0), (1, 11))),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16", "uint64"])
+@pytest.mark.parametrize("name", sorted(SETITEM))
+def test_setitem(name, dtype):
+    a = base(dtype)
+
+    def prog(x, L):
+        SETITEM[name](x, L)
+        return x
+
+    want = run(prog, Numpy, a)
+    before = a.copy()
+    same(run(prog, Lazy(tda), a), want)
+    np.testing.assert_array_equal(a, before)  # the source is not written
+    if (name, dtype) not in KNOWN_REFERENCE_FAULTS:
+        same(run(prog, Lazy(jda), a), want)
+
+
+def test_setitem_twice_reads_no_stale_plan():
+    a = base()
+    x = tda.from_array(a, chunks=CHUNKS)
+    y = x + 1
+    y[0] = 1.0
+    first = y.compute()
+    y[0] = 2.0
+    second = y.compute()
+    assert (first[0] == 1).all() and (second[0] == 2).all()
+    same(second[1:], a[1:] + 1)
+    v = np.zeros(11, np.float32)
+    y[1] = v
+    v[:] = 5  # numpy's assignment read v when it was made
+    assert (y.compute()[1] == 0).all()
+
+
+def test_setitem_errors_raise_at_assignment():
+    x = tda.from_array(base(), chunks=CHUNKS)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        x[0:2] = np.ones((3, 11))
+    with pytest.raises(IndexError):
+        x[[12]] = 1
+    with pytest.raises(IndexError):
+        x[None] = 1
+    xi = tda.from_array(np.arange(8, dtype=np.int8), chunks=3)
+    with pytest.raises(OverflowError):
+        xi[0] = 300
+    with pytest.raises(ValueError, match="cannot assign"):
+        x[base() > 0] = np.arange(3)
+        x.compute()
+
+
+def test_field_access_names_its_slice():
+    x = tda.from_array(base(), chunks=CHUNKS)
+    with pytest.raises(NotImplementedError, match="S9"):
+        x["a"]
