@@ -128,6 +128,24 @@ Phases (each prints one line of its own numbers; any failure raises):
      //, % (zero divisors), >>, << (past the width), astype to float64,
      float32, int64, uint8, and sum/prod/nansum/cumsum/max/min/nanmax/
      argmax/argmin/any/all, each equal to numpy; mean/std/var to 1e-12.
+ 26. the NumPy surface: every new ufunc at 4096^2 in eight dtypes against
+     numpy (units in the last place), then at 16384^2 float32 (persisted)
+     the indexing, assignment and routine paths against numpy, timed beside
+     plain torch, with their host syncs;
+ 27. the second half of the routines, the gufuncs, shuffle and the
+     quantiles (ROUTINE_SIZES): at 16384^2 float32 (persisted) median,
+     quantile, nanmedian (1 % NaN), topk/argtopk, coarsen, gradient,
+     apply_along_axis, apply_gufunc, shuffle and isin (int32); on 2^26
+     values histogram (256 uniform bins, weighted, 257 edges), histogram2d,
+     bincount (weighted too) and unique; searchsorted/digitize of 2^24
+     values into 2^20 edges, ravel_multi_index/unravel_index of 2^24
+     points; cov, corrcoef and a weighted cov of 256 x 2^20 float32 (the
+     transpose and scale kernels launched, and held against their plain
+     versions at that shape); repeat with one count per row at 4096^2.
+     Each against numpy (a part of the large results), with
+     compute_device()/compute() times, the nearest torch call, the bound
+     and the host syncs; then the histogram's counting route (K2) at 2^26
+     float32 into 256 bins beside torch.histc and its bound.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -603,6 +621,265 @@ def surface_paths(da, torch, n, smi):
     del x, xs, t, ts
     torch.cuda.empty_cache()
     return out
+
+
+ROUTINE_SIZES = {"square": 16384, "flat": 1 << 26, "vars": 256, "obs": 1 << 20, "rows": 4096, "points": 1 << 24,
+                 "edges": 1 << 20}
+
+
+def routine_paths(da, torch, sizes, timer, sync):
+    """The routines, gufuncs, shuffle and quantiles of the ninth slice on
+    the configured device, each against numpy on the host: (square,)^2
+    float32 (persisted), ``flat`` elements, ``vars`` x ``obs`` float32 for
+    cov/corrcoef, ``rows``^2 for repeat.  The host references take a part
+    of the large results (columns or rows, cov's top-left 32x32 block).
+    For each path: its max error against numpy (0: equal), compute_device()
+    (median of 5) and compute() (median of 3) in ms, the nearest torch call
+    on the tensor already on the device (``timer``), the bytes the path
+    must move and their least time at 3.35 TB/s, the host syncs, and the
+    transpose and scale launches of one compute()."""
+    import warnings
+
+    import numpy as np
+
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.ops import _fancy_indexing as fi
+
+    n, flat, nv, nobs, nr = (sizes[k] for k in ("square", "flat", "vars", "obs", "rows"))
+    npts, nedges = sizes["points"], sizes["edges"]
+    rng = np.random.default_rng(2027)
+    device = torch.device(da.config.get("device"))
+    out = {}
+
+    def on_device(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+
+    def run(name, lazy, ref, lib, nbytes, rtol=0.0):
+        """``lazy()`` gives the arrays, ``ref(results)`` the pairs (got,
+        numpy) to compare, ``lib()`` the torch call."""
+        arrs = lazy()
+        arrs = arrs if isinstance(arrs, tuple) else (arrs,)
+        fi.SYNCS, tk.LAUNCHES, sk.LAUNCHES = 0, 0, 0
+        got = da.compute(*arrs)
+        syncs, p3t, p3c = fi.SYNCS, tk.LAUNCHES, sk.LAUNCHES
+        t0 = time.perf_counter()
+        err = 0.0
+        with warnings.catch_warnings(), np.errstate(all="ignore"):
+            warnings.simplefilter("ignore")
+            for g, w in ref(got):
+                g, w = np.asarray(g), np.asarray(w)
+                check(g.shape == w.shape and g.dtype == w.dtype, f"{name}: shape/dtype {g.shape} {g.dtype} against "
+                                                                 f"numpy's {w.shape} {w.dtype}")
+                check(np.array_equal(np.isnan(g), np.isnan(w)) if w.dtype.kind == "f" else True, f"{name}: NaNs differ")
+                if rtol:
+                    # the error relative to the largest of numpy's values (a mean near 0 has no relative error)
+                    fin = np.isfinite(w)
+                    e = float(np.abs(g[fin].astype(np.float64) - w[fin]).max() / max(np.abs(w[fin]).max(), 1e-300)) \
+                        if fin.any() else 0.0
+                    check(e <= rtol, f"{name}: error {e} of numpy's largest value, over {rtol}")
+                    err = max(err, e)
+                else:
+                    check(np.array_equal(g, w, equal_nan=w.dtype.kind in "fc"), f"{name}: differs from numpy")
+        ref_s = time.perf_counter() - t0
+        del got
+
+        def run_device():
+            for a in arrs:
+                a.compute_device()
+            sync()
+
+        out[name] = {"max_err_of_max" if rtol else "vs_numpy": err if rtol else "equal", "numpy_s": ref_s,
+                     "compute_device_ms": host_ms(run_device, 5),
+                     "compute_ms": host_ms(lambda: da.compute(*arrs), 3),
+                     "torch_call": lib[0], "torch_call_ms": timer(lib[1]) if lib[1] else None,
+                     "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "host_syncs": syncs,
+                     "transpose_launches": p3t, "scale_launches": p3c}
+        phase(27, name, **out[name])
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- (n, n) float32, persisted -------------------------------------------------
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    s = a.copy()
+    s.ravel()[rng.choice(n * n, n * n // 100, replace=False)] = np.nan
+    ai = (a * 100).astype(np.int32)
+    x, xs, xi = (da.from_array(v, chunks=n // 4).persist() for v in (a, s, ai))
+    t, ts, ti = x.compute_device(), xs.compute_device(), xi.compute_device()
+    k = min(256, n)
+    cols = slice(0, k)
+    nb = a.nbytes
+    q = [0.1, 0.5, 0.9]
+    perm = rng.permutation(n)
+    groups = [perm[i * (n // 4):(i + 1) * (n // 4)].tolist() for i in range(4)]
+    test = np.arange(-5000, 5000, 37, dtype=np.int32)
+    test_t = on_device(test)
+    perm_t = on_device(perm)
+    mid = [n // 2 - 1, n // 2]
+    qidx = [int((n - 1) * v) for v in q]
+    run("median_axis0", lambda: da.median(x, axis=0), lambda g: [(g[0][cols], np.median(a[:, cols], axis=0))],
+        ("torch.sort + gather", lambda: torch.sort(t, 0).values[mid].mean(0)), nb + n * 4)
+    run("quantile_axis1", lambda: da.quantile(x, q, axis=1),
+        lambda g: [(g[0][:, :k], np.quantile(a[:k], q, axis=1))],
+        ("torch.sort + gather", lambda: torch.sort(t, 1).values[:, qidx]), nb + 3 * n * 8, rtol=1e-6)
+    run("nanmedian_axis0", lambda: da.nanmedian(xs, axis=0), lambda g: [(g[0][cols], np.nanmedian(s[:, cols], axis=0))],
+        ("torch.nanmedian (the lower middle)", lambda: torch.nanmedian(ts, 0)), nb + n * 4)
+    run("topk_64_axis1", lambda: da.topk(x, 64, 1), lambda g: [(g[0][:k], -np.sort(-a[:k], axis=1)[:, :64])],
+        ("torch.topk", lambda: torch.topk(t, 64, 1)), nb + n * 64 * 4)
+    run("argtopk_-64_axis0", lambda: da.argtopk(x, -64, 0),
+        lambda g: [(np.take_along_axis(a[:, cols], g[0][:, cols], 0), np.sort(a[:, cols], axis=0)[:64])],
+        ("torch.topk(largest=False)", lambda: torch.topk(t, 64, 0, largest=False)), nb + n * 64 * 8)
+    run("coarsen_mean_4x4", lambda: da.coarsen(np.mean, x, {0: 4, 1: 4}),
+        lambda g: [(g[0][:k // 4], a[:k].reshape(k // 4, 4, n // 4, 4).mean(axis=(1, 3)))],
+        ("F.avg_pool2d", lambda: torch.nn.functional.avg_pool2d(t[None, None], 4)), nb + nb // 16, rtol=1e-6)
+    run("gradient", lambda: tuple(da.gradient(x)),
+        lambda g: [(g[0][:k], np.gradient(a[:k + 1], axis=0)[:k]), (g[0][-1], np.gradient(a[-2:], axis=0)[-1]),
+                   (g[1][:k], np.gradient(a[:k], axis=1))],
+        ("torch.gradient", lambda: torch.gradient(t)), 3 * nb)
+    run("apply_along_axis_ptp", lambda: da.apply_along_axis(lambda r: r.amax() - r.amin(), 1, x),
+        lambda g: [(g[0][:k], np.ptp(a[:k], axis=1))], ("t.amax(1) - t.amin(1)", lambda: t.amax(1) - t.amin(1)),
+        nb + n * 4)
+    run("apply_gufunc_max", lambda: da.apply_gufunc(lambda v: v.amax(-1), "(i)->()", x, allow_rechunk=True),
+        lambda g: [(g[0][:k], a[:k].max(axis=1))], ("t.amax(1)", lambda: t.amax(1)), nb + n * 4)
+    run("shuffle_4_row_groups", lambda: da.shuffle(x, groups, axis=0),
+        lambda g: [(g[0][:k], a[perm[:k]])], ("torch.index_select", lambda: torch.index_select(t, 0, perm_t)), 2 * nb)
+    run("isin_int32", lambda: da.isin(xi, test), lambda g: [(g[0][:k], np.isin(ai[:k], test))],
+        ("torch.isin", lambda: torch.isin(ti, test_t)), nb + n * n)
+    del x, xs, xi, t, ts, ti, a, s, ai
+
+    # -- flat elements: histograms, counts, search, index math ---------------------
+    h = rng.standard_normal(flat, dtype=np.float32)
+    hy = rng.standard_normal(flat, dtype=np.float32)
+    w = rng.random(flat, dtype=np.float32)
+    ints = rng.integers(0, 65536, flat)
+    u32 = rng.integers(0, 1 << 20, flat, dtype=np.int32)
+    edges = np.sort(rng.standard_normal(257) * 2)
+    hv, hyv, wv, iv, uv = (da.from_array(v, chunks=flat // 4).persist() for v in (h, hy, w, ints, u32))
+    ht, hyt, it, ut = hv.compute_device(), hyv.compute_device(), iv.compute_device(), uv.compute_device()
+    wt = wv.compute_device()
+    edges_t = on_device(edges)
+    hb = h.nbytes
+    run("histogram_256", lambda: da.histogram(hv, bins=256, range=(-4, 4))[0],
+        lambda g: [(g[0], np.histogram(h, bins=256, range=(-4, 4))[0])],
+        ("torch.histc", lambda: torch.histc(ht, 256, -4, 4)), hb + 256 * 8)
+    run("histogram_256_weighted", lambda: da.histogram(hv, bins=256, range=(-4, 4), weights=wv)[0],
+        lambda g: [(g[0], np.histogram(h, bins=256, range=(-4, 4), weights=w)[0])],
+        ("torch.bucketize + torch.bincount", None), 2 * hb + 256 * 4, rtol=1e-4)
+    run("histogram_257_edges", lambda: da.histogram(hv, bins=edges)[0], lambda g: [(g[0], np.histogram(h, bins=edges)[0])],
+        ("torch.bucketize + torch.bincount", lambda: torch.bincount(torch.bucketize(ht, edges_t.float()), minlength=258)),
+        hb + 256 * 8)
+    run("histogram2d_64x64", lambda: da.histogram2d(hv, hyv, bins=64, range=[(-4, 4), (-4, 4)])[0],
+        lambda g: [(g[0], np.histogram2d(h, hy, bins=64, range=[(-4, 4), (-4, 4)])[0])],
+        ("torch.bucketize x2 + torch.bincount", None), 2 * hb + 64 * 64 * 8)
+    run("bincount_65536", lambda: da.bincount(iv), lambda g: [(g[0], np.bincount(ints))],
+        ("torch.bincount", lambda: torch.bincount(it)), ints.nbytes + 65536 * 8)
+    run("bincount_65536_weighted", lambda: da.bincount(iv, weights=wv),
+        lambda g: [(g[0], np.bincount(ints, weights=w))], ("torch.bincount(weights)", lambda: torch.bincount(it, wt)),
+        ints.nbytes + w.nbytes + 65536 * 8, rtol=1e-9)
+    counts = np.bincount(u32, minlength=1 << 20)
+    run("unique_counts_int32", lambda: da.unique(uv, return_counts=True),
+        lambda g: [(g[0], np.nonzero(counts)[0].astype(np.int32)), (g[1], counts[counts > 0])],
+        ("torch.unique(return_counts=True)", lambda: torch.unique(ut, return_counts=True)),
+        u32.nbytes + int((counts > 0).sum()) * 12)
+    del h, hy, w, ints, u32, counts, hv, hyv, wv, iv, uv, ht, hyt, it, ut, wt
+    sorted_edges = np.sort(rng.standard_normal(nedges))
+    vals = rng.standard_normal(npts) * 1.1
+    se_v, vals_v = da.from_array(sorted_edges, chunks=nedges).persist(), da.from_array(vals, chunks=npts // 4).persist()
+    se_t, vals_t = se_v.compute_device(), vals_v.compute_device()
+    part = slice(0, npts // 16)  # numpy's searches of 2^24 values take 10 s each: a sixteenth of them
+    run("searchsorted_2^24_into_2^20", lambda: da.searchsorted(se_v, vals_v),
+        lambda g: [(g[0][part], np.searchsorted(sorted_edges, vals[part]))],
+        ("torch.searchsorted", lambda: torch.searchsorted(se_t, vals_t)), vals.nbytes + sorted_edges.nbytes + npts * 8)
+    run("digitize_2^24_into_2^20", lambda: da.digitize(vals_v, sorted_edges),
+        lambda g: [(g[0][part], np.digitize(vals[part], sorted_edges))],
+        ("torch.bucketize(right=True)", lambda: torch.bucketize(vals_t, se_t, right=True)),
+        vals.nbytes + sorted_edges.nbytes + npts * 8)
+    del se_v, vals_v, se_t, vals_t, vals
+    ci, cj = rng.integers(0, 4096, npts), rng.integers(0, 4096, npts)
+    civ, cjv = (da.from_array(v, chunks=npts // 4).persist() for v in (ci, cj))
+    cit, cjt = civ.compute_device(), cjv.compute_device()
+    run("ravel_multi_index_2^24", lambda: da.ravel_multi_index((civ, cjv), (4096, 4096)),
+        lambda g: [(g[0], np.ravel_multi_index((ci, cj), (4096, 4096)))], ("i * 4096 + j", lambda: cit * 4096 + cjt),
+        3 * npts * 8)
+    flat_idx = ci * 4096 + cj
+    fv = da.from_array(flat_idx, chunks=npts // 4).persist()
+    ft = fv.compute_device()
+    run("unravel_index_2^24", lambda: da.unravel_index(fv, (4096, 4096)),
+        lambda g: list(zip(g, np.unravel_index(flat_idx, (4096, 4096)))),
+        ("// and %", lambda: (torch.div(ft, 4096, rounding_mode="floor"), ft % 4096)), 3 * npts * 8)
+    del civ, cjv, cit, cjt, fv, ft, ci, cj, flat_idx
+
+    # -- cov and corrcoef: vars x obs float32 ---------------------------------------
+    X = rng.standard_normal((nv, nobs), dtype=np.float32)
+    X += np.arange(nv, dtype=np.float32)[:, None] * 0.01 * X[:1]  # correlated variables
+    aw = rng.random(nobs) + 0.5
+    Xv = da.from_array(X, chunks=(nv, nobs // 4)).persist()
+    Xt = Xv.compute_device()
+    top = X[:32]
+    cov_bytes = X.nbytes + nv * nv * 8
+    run("cov", lambda: da.cov(Xv), lambda g: [(g[0][:32, :32], np.cov(top))],
+        ("torch.cov (float64)", lambda: torch.cov(Xt.double())), cov_bytes, rtol=1e-9)
+    run("corrcoef", lambda: da.corrcoef(Xv), lambda g: [(g[0][:32, :32], np.corrcoef(top))],
+        ("torch.corrcoef (float64)", lambda: torch.corrcoef(Xt.double())), cov_bytes, rtol=1e-9)
+    aw_t = on_device(aw)
+    run("cov_aweights", lambda: da.cov(Xv, aweights=aw), lambda g: [(g[0][:32, :32], np.cov(top, aweights=aw))],
+        ("torch.cov(aweights) (float64)", lambda: torch.cov(Xt.double(), aweights=aw_t)), cov_bytes + aw.nbytes,
+        rtol=1e-9)
+    for name in ("cov", "corrcoef", "cov_aweights"):
+        check(out[name]["transpose_launches"] >= 1 or device.type != "cuda", f"{name}: no transpose launch")
+    check(out["cov_aweights"]["scale_launches"] >= 1 or device.type != "cuda", "cov_aweights: no scale launch")
+    if device.type == "cuda":
+        # the two kernels at cov's shapes against their plain versions
+        X64 = Xt.double()
+        check_transpose(tk, X64, "transpose (vars, obs) float64")
+        row = torch.from_numpy(aw.reshape(1, nobs)).to(device)
+        check(same_values(sk.scale_cuda(X64, row), sk.scale_plain(X64, row)), "scale (vars, obs) float64 by a row")
+        check(same_values(sk.scale_cuda(X64, 1.0 / (nobs - 1)), sk.scale_plain(X64, 1.0 / (nobs - 1))),
+              "scale (vars, obs) float64 by a scalar")
+        phase(27, "kernels-at-cov-shape", shape=[nv, nobs], dtype="float64",
+              transpose="equal bytes to its plain version", scale="a row and a scalar: equal bytes to its plain version")
+        del X64, row
+    del Xv, Xt, X, top
+
+    # -- repeat with one count per row -----------------------------------------------
+    r = rng.standard_normal((nr, nr), dtype=np.float32)
+    reps = rng.integers(0, 4, nr)
+    rv = da.from_array(r, chunks=nr // 4).persist()
+    rt, reps_t = rv.compute_device(), on_device(reps)
+    run("repeat_counts_rows", lambda: da.repeat(rv, reps, axis=0), lambda g: [(g[0], np.repeat(r, reps, axis=0))],
+        ("torch.repeat_interleave", lambda: torch.repeat_interleave(rt, reps_t, dim=0)),
+        r.nbytes + int(reps.sum()) * nr * 4)
+    del rv, rt, r
+    return out
+
+
+def k2_timing(torch, flat, timer, device_timer, seed=27):
+    """K2, the histogram's counting route (``ops/_histogram.py::
+    histogram_counts``), on ``flat`` float32 values into 256 uniform bins
+    on the device: per call and on the device alone, beside torch.histc
+    and torch.bucketize + torch.bincount, with the bound of one read."""
+    import numpy as np
+
+    from dask_array_tpu_torch.ops._histogram import histogram_counts
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(flat, generator=g, device="cuda")
+    edges = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), 256, (-4, 4))).cuda()
+    got = histogram_counts(x, edges)
+    want = np.histogram(x.cpu().numpy(), bins=256, range=(-4, 4))[0]
+    check(np.array_equal(got.cpu().numpy(), want), "K2: differs from numpy")
+    nbytes = flat * 4
+    res = {"values": flat, "bins": 256, "vs_numpy": "equal",
+           "ms": timer(lambda: histogram_counts(x, edges)),
+           "device_ms": device_timer(lambda: histogram_counts(x, edges)),
+           "torch_histc_ms": timer(lambda: torch.histc(x, 256, -4, 4)),
+           "torch_histc_device_ms": device_timer(lambda: torch.histc(x, 256, -4, 4)),
+           "bucketize_bincount_ms": timer(lambda: torch.bincount(torch.bucketize(x, edges.float()), minlength=258)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    res["of_bound"] = res["bound_ms"] / res["device_ms"]
+    del x
+    torch.cuda.empty_cache()
+    return res
 
 
 STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (rowmean /N); "
@@ -1532,6 +1809,17 @@ def main() -> int:
           seconds=time.perf_counter() - t26)
     surface = surface_paths(da, torch, 16384, smi)
     phase(26, "indexing-routines-16384", **surface)
+    print(smi, flush=True)
+
+    # -- phase 27: the second half of the routines, gufuncs, shuffle, quantiles -------
+    t27 = time.perf_counter()
+    routines = routine_paths(da, torch, ROUTINE_SIZES, lambda fn: cuda_ms(fn, reps=10), torch.cuda.synchronize)
+    phase(27, "routines-gufuncs-shuffle-quantiles", card=smi, sizes=ROUTINE_SIZES, numpy=np.__version__,
+          paths=len(routines), tolerance={"default": "equal to numpy, dtype and NaNs included",
+                                          "max_err_of_max": "max |got - numpy| / max |numpy| under each path's rtol"},
+          seconds=time.perf_counter() - t27)
+    k2 = k2_timing(torch, 1 << 26, cuda_ms, device_ms)
+    phase(27, "timing-k2-histogram-2^26-f32-256-bins", card=smi, **k2)
     print(smi, flush=True)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)

@@ -27,8 +27,11 @@ path (``overlap``/``map_overlap``/``trim_overlap``, ``pad``,
 ``svd`` and ``linalg.svd_flip``, ``lu``, ``cholesky``, ``solve``,
 ``solve_triangular``, ``inv``, ``lstsq``, ``norm``), which are
 ``linalg``'s names, as in dask, and attributes here as in the JAX package,
-but not in ``__all__``.  ``svd_compressed``, quantiles and the rest wait
-(ROADMAP.md).
+but not in ``__all__``; the NumPy surface (the ufunc table, fancy indexing
+and assignment, the routines with ``cov``/``gradient``/``unique``/
+``histogram``/``topk``/``coarsen``/``apply_along_axis``), the gufuncs,
+``shuffle`` and the quantiles.  ``svd_compressed``, IO and diagnostics
+wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -113,6 +116,9 @@ from dask_array_tpu_torch.ops.ufuncs import __all__ as _ufunc_names
 from dask_array_tpu_torch.ops.ufuncs import gcd, heaviside, lcm, wrap_elemwise  # noqa: F401 (not in __all__)
 from dask_array_tpu_torch.ops._fancy_indexing import take
 from dask_array_tpu_torch.ops._from_array import array, asanyarray
+from dask_array_tpu_torch.ops._gufunc import apply_gufunc, as_gufunc, gufunc
+from dask_array_tpu_torch.ops._histogram import histogram, histogram2d, histogramdd
+from dask_array_tpu_torch._shuffle import shuffle
 
 
 
@@ -176,7 +182,9 @@ _CONSTANTS = [
 __all__ = [
     "Array",
     "PerformanceWarning",
+    "apply_gufunc",
     "arange",
+    "as_gufunc",
     "array",
     "asanyarray",
     "asarray",
@@ -206,6 +214,10 @@ __all__ = [
     "fromfunction",
     "full",
     "full_like",
+    "gufunc",
+    "histogram",
+    "histogram2d",
+    "histogramdd",
     "hstack",
     "indices",
     "linspace",
@@ -231,6 +243,7 @@ __all__ = [
     "roll",
     "rollaxis",
     "rot90",
+    "shuffle",
     "sliding_window_view",
     "squeeze",
     "stack",

@@ -206,6 +206,73 @@ def uint64_bits(v):
     return v - (1 << 64) if v >= 1 << 63 else v
 
 
+# numpy's sort order of a held block: NaN last (all NaNs equal), -0.0 equal
+# to +0.0, uint64 unsigned, complex lexicographic with numpy's NaN classes
+
+_FLOAT_BITS = {torch.float16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def order_key(t: torch.Tensor) -> torch.Tensor:
+    """An integer (or integer-valued) tensor whose torch order is numpy's
+    sort order of the real held block ``t``: ints as computed, a uint64's
+    bits with the sign bit flipped, bool as uint8, and a float as the
+    integer of its bits (negatives' magnitude bits flipped) after -0.0 is
+    folded onto +0.0 and every NaN onto one NaN, which lands above +inf."""
+    if t.dtype == torch.bool:
+        return t.to(torch.uint8)
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64) ^ INT64_MIN
+    t = computable(t)
+    if not t.is_floating_point():
+        return t
+    bits_dt = _FLOAT_BITS[t.dtype]
+    bits = torch.where(torch.isnan(t), math.nan, t + 0.0).view(bits_dt)
+    width = torch.iinfo(bits_dt).bits
+    return bits ^ ((bits >> (width - 1)) & torch.iinfo(bits_dt).max)
+
+
+def complex_keys(z: torch.Tensor):
+    """Real keys, most significant first, whose lexicographic order is
+    numpy's complex sort order: R + Rj, then R + nanj, nan + Rj and
+    nan + nanj, each class ordered by its non-NaN parts."""
+    re_nan, im_nan = torch.isnan(z.real), torch.isnan(z.imag)
+    cls = torch.where(re_nan, torch.where(im_nan, 3, 2), torch.where(im_nan, 1, 0)).to(torch.int8)
+    first = torch.where(re_nan, torch.where(im_nan, 0.0, z.imag), z.real)
+    second = torch.where(re_nan | im_nan, 0.0, z.imag)
+    return [cls, first, second]
+
+
+def lexsort(keys, dim=-1) -> torch.Tensor:
+    """The stable permutation along ``dim`` that orders ``keys`` (most
+    significant first) lexicographically: one stable sort per key, from the
+    least significant."""
+    perm = torch.argsort(keys[-1], dim=dim, stable=True)
+    for key in reversed(keys[:-1]):
+        perm = torch.gather(perm, dim, torch.argsort(torch.gather(key, dim, perm), dim=dim, stable=True))
+    return perm
+
+
+def argsort_numpy(t: torch.Tensor, dim=-1) -> torch.Tensor:
+    """Stable argsort of a held block along ``dim`` in numpy's order."""
+    if t.is_complex():
+        return lexsort(complex_keys(t), dim)
+    return torch.argsort(order_key(t), dim=dim, stable=True)
+
+
+def sort_numpy(t: torch.Tensor, dim=-1) -> torch.Tensor:
+    """A held block sorted along ``dim`` in numpy's order, in its held
+    dtype (floats by ``torch.sort``, which puts NaN last as numpy does)."""
+    if t.is_complex():
+        return torch.gather(t, dim, argsort_numpy(t, dim))
+    if t.is_floating_point():
+        return torch.sort(t, dim=dim).values
+    if t.dtype == torch.bool:
+        return torch.sort(t.to(torch.uint8), dim=dim).values.to(torch.bool)
+    if t.dtype == torch.uint64:
+        return (torch.sort(t.view(torch.int64) ^ INT64_MIN, dim=dim).values ^ INT64_MIN).view(torch.uint64)
+    return as_stored(torch.sort(computable(t), dim=dim).values, numpy_dtype(t.dtype))
+
+
 def dtype_key(dt) -> str:
     """Canonical unique string for a dtype (token keys)."""
     dt = np.dtype(dt)

@@ -528,6 +528,21 @@ class Array:
 
         return repeat(self, repeats, axis=axis)
 
+    def shuffle(self, indexer, axis=0, chunks="auto"):
+        from dask_array_tpu_torch._shuffle import shuffle
+
+        return shuffle(self, indexer, axis=axis, chunks=chunks)
+
+    def topk(self, k, axis=-1, split_every=None):
+        from dask_array_tpu_torch.ops.routines import topk
+
+        return topk(self, k, axis=axis, split_every=split_every)
+
+    def argtopk(self, k, axis=-1, split_every=None):
+        from dask_array_tpu_torch.ops.routines import argtopk
+
+        return argtopk(self, k, axis=axis, split_every=split_every)
+
     def round(self, decimals=0):
         from dask_array_tpu_torch.ops.routines import round as _round
 

@@ -72,6 +72,14 @@ def _table():
         np.angle: _uf.angle, np.i0: _uf.i0, np.sinc: _uf.sinc, np.nan_to_num: _uf.nan_to_num,
         np.fix: _uf.fix, np.isneginf: _uf.isneginf, np.isposinf: _uf.isposinf,
         np.isreal: _uf.isreal, np.iscomplex: _uf.iscomplex,
+        np.median: _red.median, np.nanmedian: _red.nanmedian,
+        np.quantile: _red.quantile, np.nanquantile: _red.nanquantile,
+        np.percentile: _red.percentile, np.nanpercentile: _red.nanpercentile,
+        np.unique: _rt.unique, np.union1d: _rt.union1d, np.isin: _rt.isin,
+        np.bincount: _rt.bincount, np.digitize: _rt.digitize, np.searchsorted: _rt.searchsorted,
+        np.cov: _rt.cov, np.corrcoef: _rt.corrcoef, np.gradient: _rt.gradient,
+        np.ravel_multi_index: _rt.ravel_multi_index, np.unravel_index: _rt.unravel_index,
+        np.apply_along_axis: _rt.apply_along_axis, np.apply_over_axes: _rt.apply_over_axes,
     }
 
 

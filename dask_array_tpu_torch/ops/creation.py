@@ -709,7 +709,23 @@ def repeat(a, repeats, axis=None):
         axis = 0
     axis = validate_axis(axis, a.ndim)
     if not isinstance(repeats, Integral):
-        raise NotImplementedError("repeat with one count per element needs take, which the port lacks")
+        # one count per element: a take of the repeated positions, the
+        # counts checked on the host as numpy checks them
+        from dask_array_tpu_torch.ops._fancy_indexing import take
+
+        counts = np.asarray(repeats)
+        if counts.ndim == 0:
+            return repeat(a, int(counts), axis)
+        n = a.shape[axis]
+        if counts.ndim != 1 or counts.shape[0] not in (1, n):
+            raise ValueError(f"operands could not be broadcast together with shape ({n},) ({counts.shape[0]},)")
+        if counts.dtype.kind not in "iub":
+            raise TypeError(f"Cannot cast array data from {counts.dtype} to int64 according to the rule 'safe'")
+        if (counts < 0).any():
+            raise ValueError("repeats may not contain negative values.")
+        return take(a, np.repeat(np.arange(n, dtype=np.int64), np.broadcast_to(counts, (n,))), axis=axis)
+    if repeats < 0:
+        raise ValueError("repeats may not contain negative values.")
     return new_collection(Repeat(a.expr, int(repeats), axis))
 
 

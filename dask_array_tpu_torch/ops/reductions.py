@@ -11,7 +11,9 @@ for ``arg_reduction``'s structured-array protocol.
 
 Result dtypes follow numpy (``Reduction._meta`` asks numpy), and every
 reduce runs in that dtype: operands are cast before the reduce, not after.
-The masked/duck host lane and quantiles wait for later slices (ROADMAP).
+The quantiles (``median``, ``quantile`` and their nan forms,
+``percentile``) sort along the reduced axes and gather by numpy's host
+tables.  The masked/duck host lane waits for a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import builtins
 import functools
 import inspect
 import math
+import warnings
 from numbers import Integral
 
 import numpy as np
@@ -34,7 +37,9 @@ from dask_array_tpu_torch._chunks import (
     cat,
     computable,
     compute_dtype,
+    moved,
     numpy_dtype,
+    sort_numpy,
     to_compute,
     torch_dtype,
     validate_axis,
@@ -167,6 +172,37 @@ def _dense_reduce(kind, x, dims, keepdim, acc):
     raise ValueError(f"unknown reduction {kind!r}")
 
 
+def reduce_dense(kind, x, axes, keepdims, dtype):
+    """A typed reduction of the held block ``x`` over ``axes``, its result
+    in numpy's ``dtype`` as the block of that dtype."""
+    _, takes_dtype = _DENSE_KINDS[kind]
+    out_dt = compute_dtype(dtype)  # numpy's uint64 sums run in int64
+    acc = out_dt
+    if takes_dtype:
+        if out_dt.is_floating_point and out_dt.itemsize < 4:
+            # sub-f32 float accumulators stall once the partial's ulp
+            # exceeds the addend; accumulate in f32, cast the result
+            acc = torch.float32
+        # cast before the reduce
+        x = to_compute(x, dtype if acc == out_dt else numpy_dtype(acc))
+    dims, keepdim = tuple(axes), bool(keepdims)
+    if not dims:
+        # numpy's axis=(): each element reduces alone
+        x, dims, keepdim = x.unsqueeze(-1), (x.ndim,), False
+    flip = kind in ("min", "max", "nanmin", "nanmax") and x.dtype == torch.uint64
+    if not takes_dtype:
+        # min/max/any/all of uint16/32/64 in their compute dtype, a uint64
+        # as its bits with the sign bit flipped: the signed order is then
+        # the unsigned one
+        x = computable(x) ^ INT64_MIN if flip else computable(x)
+    dense = _dense_reduce(kind, x, dims, keepdim, acc)
+    if flip:
+        dense = dense ^ INT64_MIN
+    if dense.dtype != out_dt:
+        dense = dense.to(out_dt)
+    return as_stored(dense, dtype)
+
+
 class Reduction(ArrayExpr):
     """A typed whole-axis reduction, executed as one dense torch reduce."""
 
@@ -200,33 +236,8 @@ class Reduction(ArrayExpr):
         return np.empty((0,) * nd, dtype=out.dtype)
 
     def _build(self, ctx):
-        _, takes_dtype = _DENSE_KINDS[self.kind]
         x = ctx.build(self.array).dense()
-        out_dt = compute_dtype(self.dtype)  # numpy's uint64 sums run in int64
-        acc = out_dt
-        if takes_dtype:
-            if out_dt.is_floating_point and out_dt.itemsize < 4:
-                # sub-f32 float accumulators stall once the partial's ulp
-                # exceeds the addend; accumulate in f32, cast the result
-                acc = torch.float32
-            # cast before the reduce
-            x = to_compute(x, self.dtype if acc == out_dt else numpy_dtype(acc))
-        dims, keepdim = tuple(self.axes), bool(self.keepdims)
-        if not dims:
-            # numpy's axis=(): each element reduces alone
-            x, dims, keepdim = x.unsqueeze(-1), (x.ndim,), False
-        flip = self.kind in ("min", "max", "nanmin", "nanmax") and x.dtype == torch.uint64
-        if not takes_dtype:
-            # min/max/any/all of uint16/32/64 in their compute dtype, a uint64
-            # as its bits with the sign bit flipped: the signed order is then
-            # the unsigned one
-            x = computable(x) ^ INT64_MIN if flip else computable(x)
-        dense = _dense_reduce(self.kind, x, dims, keepdim, acc)
-        if flip:
-            dense = dense ^ INT64_MIN
-        if dense.dtype != out_dt:
-            dense = dense.to(out_dt)
-        return BlockView(self.chunks, dense=as_stored(dense, self.dtype))
+        return BlockView(self.chunks, dense=reduce_dense(self.kind, x, self.axes, self.keepdims, self.dtype))
 
     def _accept_slice(self, index):
         if not is_basic_index(index):
@@ -1268,8 +1279,421 @@ def trace(a, offset=0, axis1=0, axis2=1, dtype=None):
     return diag.sum(axis=-1, dtype=dtype)
 
 
+# ---------------------------------------------------------------------------
+# quantiles: sort along the axis (NaN last, as numpy sorts) and gather
+# ---------------------------------------------------------------------------
+
+
+def _interpolate_index(n, q, alpha, beta):
+    # numpy's _compute_virtual_index: n * q + (alpha + q * (1 - alpha - beta)) - 1
+    return n * q + (alpha + q * (1 - alpha - beta)) - 1
+
+
+def _discrete_index(index, prefer_previous):
+    """numpy's _discret_interpolation_to_boundaries: the order statistic
+    below ``index`` where the method's condition holds, else the one above."""
+    previous = np.floor(index)
+    following = previous + 1
+    gamma = index - previous
+    res = np.where(prefer_previous(gamma, index), previous, following).astype(np.intp)
+    res[res < 0] = 0
+    return res
+
+
+# method -> (virtual index of (n, q), gamma fix of (gamma, index) or None);
+# numpy's _QuantileMethods, computed with the same numpy operations
+_QUANTILE_METHODS = {
+    "inverted_cdf": (lambda n, q: _discrete_index(n * q - 1, lambda g, _: g == 0), None),
+    "averaged_inverted_cdf": (lambda n, q: n * q - 1, lambda g, _: np.where(g == 0, 0.5, 1.0)),
+    "closest_observation": (
+        lambda n, q: _discrete_index(n * q - 1 - 0.5, lambda g, i: (g == 0) & (np.floor(i) % 2 == 1)), None),
+    "interpolated_inverted_cdf": (lambda n, q: _interpolate_index(n, q, 0, 1), lambda g, _: g),
+    "hazen": (lambda n, q: _interpolate_index(n, q, 0.5, 0.5), lambda g, _: g),
+    "weibull": (lambda n, q: _interpolate_index(n, q, 0, 0), lambda g, _: g),
+    "linear": (lambda n, q: (n - 1) * q, lambda g, _: g),
+    "median_unbiased": (lambda n, q: _interpolate_index(n, q, 1 / 3.0, 1 / 3.0), lambda g, _: g),
+    "normal_unbiased": (lambda n, q: _interpolate_index(n, q, 3 / 8.0, 3 / 8.0), lambda g, _: g),
+    "lower": (lambda n, q: np.floor((n - 1) * q).astype(np.intp), None),
+    "higher": (lambda n, q: np.ceil((n - 1) * q).astype(np.intp), None),
+    "midpoint": (lambda n, q: 0.5 * (np.floor((n - 1) * q) + np.ceil((n - 1) * q)),
+                 lambda g, i: np.where(i % 1 == 0, 0.0, 0.5)),
+    "nearest": (lambda n, q: np.around((n - 1) * q).astype(np.intp), None),
+}
+
+
+def quantile_tables(method, q, counts, inexact):
+    """numpy's order statistics and weights of quantiles ``q`` (a typed
+    numpy array) in sorted slices of ``counts`` values (an int array), on
+    the host with numpy's own arithmetic: its tie rules compare ``n * q``
+    exactly, so the tables are not recomputed on the device.
+
+    Returns (lower, upper, gamma), each (len(q), len(counts)); indices may
+    be -1 (the slice's last value); gamma is None for a method whose index
+    is an integer (one order statistic)."""
+    index_of, fix_gamma = _QUANTILE_METHODS[method]
+    q = q.reshape(-1, 1)
+    n = np.asarray(counts).reshape(1, -1)
+    # numpy's count is a Python int: weak against a float q
+    n = n.astype(q.dtype) if q.dtype.kind == "f" else n
+    index = np.asanyarray(index_of(n, q))
+    if index.dtype.kind in "iu" or fix_gamma is None:
+        index = np.broadcast_to(index, (q.shape[0], n.shape[1])).astype(np.intp)
+        return index, index, None
+    lower = np.floor(index)
+    upper = lower + 1
+    above = index >= n - 1
+    lower[above] = upper[above] = -1
+    below = index < 0
+    lower[below] = upper[below] = 0
+    if inexact:
+        nan = np.isnan(index)
+        lower[nan] = upper[nan] = -1
+    lower, upper = lower.astype(np.intp), upper.astype(np.intp)
+    gamma = np.asanyarray(fix_gamma(np.asanyarray(index - lower), index), dtype=index.dtype)
+    return lower, upper, np.broadcast_to(gamma, lower.shape)
+
+
+def _work_layout(x, axes):
+    """``x`` with the reduced axes moved last and merged: (slices, n)."""
+    kept = [d for d in range(x.ndim) if d not in axes]
+    work = x.permute(*kept, *axes) if list(axes) != list(range(x.ndim - len(axes), x.ndim)) else x
+    return work.reshape(-1, math.prod(x.shape[d] for d in axes)), [x.shape[d] for d in kept]
+
+
+def _median_acc(dt):
+    """numpy's mean dtype for the middle values: float32 for float16,
+    float64 for integers and bools."""
+    if dt.kind in "biu":
+        return np.dtype(np.float64)
+    return np.dtype(np.float32) if dt == np.float16 else dt
+
+
+def _median_sorted(xs, counts, dt, out_dt):
+    """numpy's median of each sorted row of ``xs`` over its first ``counts``
+    values: the middle value, or the mean of the middle two; NaN where a
+    row has none."""
+    n = xs.shape[-1]
+    acc = _median_acc(dt)
+    cnt = torch.as_tensor(counts, device=xs.device).reshape(-1, 1).expand(xs.shape[0], 1)
+    hi = torch.clamp(cnt // 2, max=builtins.max(n - 1, 0))
+    lo = torch.clamp(cnt - 1 - cnt // 2, min=0)
+    if n == 0:
+        return torch.full((xs.shape[0],), math.nan, dtype=compute_dtype(out_dt), device=xs.device)
+    a = to_compute(moved(torch.gather, xs, -1, lo), acc).reshape(-1)
+    b = to_compute(moved(torch.gather, xs, -1, hi), acc).reshape(-1)
+    cnt = cnt.reshape(-1)
+    out = torch.where(cnt % 2 == 1, b, (a + b) / 2)
+    out = out.to(compute_dtype(out_dt))
+    return torch.where(cnt == 0, math.nan, out) if out.is_floating_point() or out.is_complex() else out
+
+
+def _lerp_sorted(xs, counts, lower, upper, gamma, dt, out_dt):
+    """numpy's quantiles of each sorted row of ``xs`` from the host tables
+    (rows of ``lower``/``upper``/``gamma`` per quantile, columns per row or
+    one column for every row): ``_lerp``'s two forms, switched at gamma
+    0.5, the difference taken in the data's own dtype as numpy takes it."""
+    device = xs.device
+    cnt = torch.as_tensor(counts, device=device).reshape(1, -1)
+
+    def take(index):
+        idx = torch.as_tensor(np.ascontiguousarray(index), device=device)
+        idx = torch.where(idx < 0, cnt + idx, idx).expand(index.shape[0], xs.shape[0])
+        return moved(torch.gather, xs, -1, idx.T.contiguous())  # (rows, len(q))
+
+    a = take(lower)
+    if gamma is None:
+        return to_compute(a, out_dt).T
+    b = take(upper)
+    diff = cast(computable(b) - computable(a), dt)
+    t = np.ascontiguousarray(gamma.T)
+    g = torch.as_tensor(t.astype(out_dt), device=device)
+    g1 = torch.as_tensor((1 - t).astype(out_dt), device=device)
+    high = torch.as_tensor(t >= 0.5, device=device)
+    a, b, diff = (to_compute(v, out_dt) for v in (a, b, diff))
+    return torch.where(high, b - diff * g1, a + diff * g).T
+
+
+def quantile_dense(x, q, axes, method, kind, keepdims, out_dt):
+    """numpy's median/nanmedian/quantile/nanquantile of the held block
+    ``x`` over ``axes``: one sort along the merged axes (``sort_numpy``,
+    NaN last; never ``torch.quantile``, which refuses more than 2**24
+    values), then gathers by the host tables.  A nan-kind reduction of
+    float data takes each row's count of non-NaN values to the host in one
+    sync."""
+    from dask_array_tpu_torch.ops._fancy_indexing import count_sync
+
+    dt = numpy_dtype(x.dtype)
+    work, kept = _work_layout(x, axes)
+    xs = sort_numpy(work, dim=-1)
+    n = xs.shape[-1]
+    inexact = dt.kind in "fc"
+    has_nan = None
+    if kind.startswith("nan") and inexact:
+        counts = (~torch.isnan(xs)).sum(dim=-1).cpu().numpy()
+        count_sync()
+    else:
+        counts = np.array([n])
+        if inexact and n:
+            has_nan = torch.isnan(xs[:, -1])
+    if kind.endswith("median"):
+        out = _median_sorted(xs, counts, dt, out_dt)[None]
+        lead = ()
+    else:
+        uniq, inverse = np.unique(counts, return_inverse=True)
+        lower, upper, gamma = quantile_tables(method, q, uniq, inexact)
+        cols = inverse.reshape(-1)
+        lower, upper = lower[:, cols], upper[:, cols]
+        gamma = None if gamma is None else gamma[:, cols]
+        if n == 0:
+            out = torch.full((q.size, xs.shape[0]), math.nan, dtype=compute_dtype(out_dt), device=x.device)
+        else:
+            out = _lerp_sorted(xs, counts if len(counts) > 1 else counts[:1], lower, upper, gamma, dt, out_dt)
+        lead = q.shape
+        if kind.startswith("nan") and inexact:
+            empty = torch.as_tensor(counts == 0, device=x.device)
+            out = torch.where(empty, math.nan, out)
+    if has_nan is not None:
+        out = torch.where(has_nan, to_compute(xs[:, -1], out_dt), out)
+    out = out.reshape(lead + tuple(kept))
+    if keepdims:
+        for ax in sorted(axes):
+            out = out.unsqueeze(len(lead) + ax)
+    return as_stored(out, out_dt)
+
+
+def _quantile_dtype(dt, q, method, kind):
+    """numpy's result dtype (a probe of the installed numpy: its refusals
+    raise here)."""
+    probe = np.ones(3, dtype=dt)
+    with np.errstate(all="ignore"):
+        if kind.endswith("median"):
+            return np.asarray(getattr(np, kind)(probe)).dtype
+        return np.asarray(getattr(np, kind)(probe, q, method=method)).dtype
+
+
+class Quantile(ArrayExpr):
+    """numpy's median, nanmedian, quantile or nanquantile over ``axis`` (a
+    tuple), every numpy method; ``q`` is numpy's typed quantile array (None
+    for a median), whose dims lead the result's."""
+
+    _parameters = ("array", "q", "axis", "method", "kind", "keepdims")
+
+    def _name_prefix(self):
+        return self.kind
+
+    @functools.cached_property
+    def chunks(self):
+        base = []
+        for ax, c in enumerate(self.array.chunks):
+            if ax in self.axis:
+                if self.keepdims:
+                    base.append((1,))
+            else:
+                base.append(c)
+        lead = () if self.q is None else tuple((s,) for s in self.q.shape)
+        return lead + tuple(base)
+
+    @functools.cached_property
+    def _meta(self):
+        dt = _quantile_dtype(self.array.dtype, self.q, self.method, self.kind)
+        return np.empty((0,) * len(self.chunks), dtype=dt)
+
+    def _build(self, ctx):
+        x = ctx.build(self.array).dense()
+        out = quantile_dense(x, self.q, self.axis, self.method, self.kind, self.keepdims, self.dtype)
+        return BlockView(self.chunks, dense=out)
+
+
+def _quantile_axes(ndim, axis):
+    if axis is None:
+        return tuple(range(ndim))
+    axes = np.lib.array_utils.normalize_axis_tuple(axis, ndim)
+    return tuple(sorted(axes))
+
+
+def _quantile(a, q, axis, method, keepdims, kind, kwargs):
+    from dask_array_tpu_torch._collection import new_collection
+
+    if kwargs.pop("interpolation", None) is not None:
+        warnings.warn("The `interpolation` argument to quantile was renamed to `method`.", FutureWarning,
+                      stacklevel=3)
+    if kwargs.pop("weights", None) is not None:
+        raise NotImplementedError("weighted quantiles are not supported")
+    kwargs.pop("overwrite_input", None)
+    if kwargs:
+        raise TypeError(f"unexpected arguments {sorted(kwargs)}")
+    a = _coerce(a)
+    if a.dtype.kind == "c" and kind.endswith("quantile"):
+        raise TypeError("a must be an array of real numbers")
+    if q is not None:
+        if isinstance(q, (int, float)) and a.dtype.kind == "f":
+            q = np.asanyarray(q, dtype=a.dtype)
+        else:
+            q = np.asanyarray(q)
+        if not (np.all(q >= 0) and np.all(q <= 1)):
+            raise ValueError("Quantiles must be in the range [0, 1]")
+        if method not in _QUANTILE_METHODS:
+            raise ValueError(f"'{method}' is not a valid method. Use one of: {sorted(_QUANTILE_METHODS)}")
+    expr = Quantile(a.expr, q, _quantile_axes(a.ndim, axis), method, kind, bool(keepdims))
+    expr._meta  # numpy's refusals (a bool quantile's difference) raise here
+    return new_collection(expr)
+
+
+def quantile(a, q, axis=None, method="linear", keepdims=False, **kwargs):
+    return _quantile(a, q, axis, method, keepdims, "quantile", kwargs)
+
+
+def nanquantile(a, q, axis=None, method="linear", keepdims=False, **kwargs):
+    return _quantile(a, q, axis, method, keepdims, "nanquantile", kwargs)
+
+
+def median(a, axis=None, keepdims=False, out=None, **kwargs):
+    return handle_out(out, _quantile(a, None, axis, "linear", keepdims, "median", kwargs))
+
+
+def nanmedian(a, axis=None, keepdims=False, out=None, **kwargs):
+    return handle_out(out, _quantile(a, None, axis, "linear", keepdims, "nanmedian", kwargs))
+
+
+def _percent(a, q):
+    """numpy's percentile -> quantile conversion: q / 100, the divisor in
+    the data's float dtype."""
+    q = np.true_divide(q, a.dtype.type(100) if a.dtype.kind == "f" else 100)
+    q = np.asanyarray(q)
+    if not (np.all(q >= 0) and np.all(q <= 1)):
+        raise ValueError("Percentiles must be in the range [0, 100]")
+    return q
+
+
+def _interp(x, xp, fp):
+    """Linear interpolation of increasing ``xp`` as the JAX package's
+    merge takes it (``jnp.interp``): the segment right of ``x``'s
+    right-side position, a zero-width segment giving its left value, the
+    ends held flat."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    flat = dx.abs() <= np.spacing(np.finfo(np.float64).eps)
+    f = torch.where(flat, fp[i - 1], fp[i - 1] + ((x - xp[i - 1]) / torch.where(flat, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+class ApproxPercentile(ArrayExpr):
+    """The scalable approximate percentile of a 1-D array (dask's
+    ``internal_method="dask"``/``"tdigest"``): each block's percentiles on
+    a grid padded with 0 and 100, weighted by the block's length, merged by
+    sorted cumulative counts."""
+
+    _parameters = ("array", "q", "method")
+
+    def _name_prefix(self):
+        return "approx-percentile"
+
+    @functools.cached_property
+    def chunks(self):
+        return ((len(self.q),),)
+
+    @functools.cached_property
+    def _meta(self):
+        dt = self.array.dtype
+        return np.empty((0,), dtype=np.dtype("f8") if dt.kind in "biu" else dt)
+
+    def _build(self, ctx):
+        view = ctx.build(self.array)
+        q = np.asarray(self.q, dtype="f8")
+        calc_q = np.pad(q, 1, mode="constant")
+        calc_q[-1] = 100.0
+        grid = calc_q / 100.0
+        vals, weights = [], []
+        for bi, n in enumerate(self.array.chunks[0]):
+            if n == 0:
+                continue
+            block = cast(view.block((bi,)), self.dtype)
+            vals.append(quantile_dense(block, grid, (0,), self.method, "quantile", False, self.dtype))
+            c = np.empty(len(calc_q))
+            c[0] = calc_q[0]
+            c[1:] = np.diff(calc_q)
+            weights.append(c * n)
+        if not vals:
+            raise ValueError("No non-trivial arrays found")
+        total = builtins.sum(n for n in self.array.chunks[0])
+        combined = torch.cat([computable(v) for v in vals])
+        order = torch.argsort(combined, stable=True)
+        combined = combined[order]
+        cum = torch.cumsum(torch.as_tensor(np.concatenate(weights), device=combined.device)[order], 0)
+        desired = torch.as_tensor(q * total, device=combined.device)
+        if self.method == "linear":
+            rv = _interp(desired, cum, combined.to(torch.float64))
+        else:
+            left = torch.searchsorted(cum, desired, right=False)
+            right = torch.searchsorted(cum, desired, right=True) - 1
+            left = torch.clamp(left, max=combined.numel() - 1)
+            lower, upper = torch.minimum(left, right), torch.maximum(left, right)
+            if self.method == "lower":
+                rv = combined[lower]
+            elif self.method == "higher":
+                rv = combined[upper]
+            elif self.method == "midpoint":
+                rv = 0.5 * (combined[lower] + combined[upper])
+            elif self.method == "nearest":
+                lres, ures = (cum[lower] - desired).abs(), (cum[upper] - desired).abs()
+                rv = torch.where(lres > ures, combined[upper], combined[lower])
+            else:
+                raise ValueError("interpolation method can only be 'linear', 'lower', 'higher', 'midpoint', or "
+                                 "'nearest'")
+        return BlockView(self.chunks, dense=cast(rv.to(compute_dtype(self.dtype)), self.dtype))
+
+
+def percentile(a, q, method="linear", internal_method=None, **kwargs):
+    """Percentiles of a 1-D array (dask's signature: a 1-D result, one value
+    per q); an n-d array gives numpy's percentile.  ``internal_method``
+    ``"dask"``/``"tdigest"`` takes the approximate merge of per-block
+    percentiles (``ApproxPercentile``); otherwise the exact sort."""
+    from dask_array_tpu_torch._collection import new_collection
+
+    if "interpolation" in kwargs:
+        warnings.warn("The `interpolation=` argument to percentile was renamed to `method=`", FutureWarning)
+        method = kwargs.pop("interpolation")
+    if method in ("default", "dask", "tdigest"):
+        warnings.warn("The `method=` argument was renamed to `internal_method=`", FutureWarning)
+        internal_method, method = method, "linear"
+    a = _coerce(a)
+    if a.ndim == 0:
+        raise NotImplementedError("support for arrays of ndim 0 is not implemented.")
+    if a.dtype.kind == "c":
+        raise TypeError("a must be an array of real numbers")
+    q01 = _percent(a, q)
+    if a.ndim > 1:
+        return quantile(a, q01, method=method, **kwargs)
+    if internal_method in ("dask", "tdigest"):
+        return new_collection(ApproxPercentile(a.expr, tuple(np.atleast_1d(np.asarray(q, "f8")).tolist()), method))
+    kwargs.pop("axis", None)  # a 1-D array has one
+    return quantile(a, np.atleast_1d(q01), axis=0, method=method, **kwargs)
+
+
+def nanpercentile(a, q, method="linear", **kwargs):
+    """numpy's nanpercentile: ``nanquantile`` of q / 100 (axis 0 for 1-D)."""
+    if "interpolation" in kwargs:
+        warnings.warn("The `interpolation=` argument to nanpercentile was renamed to `method=`", FutureWarning)
+        method = kwargs.pop("interpolation")
+    a = _coerce(a)
+    if a.dtype.kind == "c":
+        raise TypeError("a must be an array of real numbers")
+    q01 = _percent(a, q)
+    if a.ndim == 1 and "axis" not in kwargs:
+        kwargs["axis"] = 0
+    return nanquantile(a, q01, method=method, **kwargs)
+
+
 __all__ = [
     "all",
+    "median",
+    "nanmedian",
+    "nanpercentile",
+    "nanquantile",
+    "percentile",
+    "quantile",
     "any",
     "arg_reduction",
     "argmax",

@@ -82,13 +82,13 @@ def _device_of(args):
 
 def as_operand(a, dt, device):
     """One operand as a tensor in ``compute_dtype(dt)``: a held block
-    converted as numpy's ``astype(dt)`` converts it; a number or numpy
-    scalar converted by numpy (a Python int out of an integer type's range
+    converted as numpy's ``astype(dt)`` converts it; a number, numpy
+    scalar or numpy array converted by numpy (a Python int out of an integer type's range
     wraps, as numpy's ``where`` wraps it)."""
     if isinstance(a, torch.Tensor):
         return to_compute(a, dt)
     with np.errstate(all="ignore"):
-        v = np.asarray(a).astype(dt).reshape(())
+        v = np.asarray(a).astype(dt)
     return to_compute(torch.from_numpy(v.copy()), dt).to(device)
 
 

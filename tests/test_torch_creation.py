@@ -398,9 +398,30 @@ def test_repeat(rng, repeats, axis):
     check(got, np.repeat(x, repeats, axis=axis), want)
 
 
-def test_repeat_per_element_counts_are_refused():
-    with pytest.raises(NotImplementedError, match="take"):
-        tda.repeat(tda.arange(4, chunks=2), [1, 2, 0, 3])
+@pytest.mark.parametrize("counts, axis, chunks", [
+    ([1, 2, 0, 3, 1], 0, (2, 4)),  # counts that cross the chunk borders
+    ([0, 0, 0, 0, 0], 0, (2, 4)),
+    ([3, 0, 1, 0, 2, 5], 1, (5, 1)),
+    (np.arange(30) % 4, None, (2, 4)),
+    ([2], 1, (3, 2)),  # one count for every element
+    (np.array([1, 1, 2, 0, 1], np.uint8), -2, (1, 6)),
+])
+def test_repeat_per_element_counts(rng, counts, axis, chunks):
+    x = rng.integers(0, 9, (5, 6))
+    got = tda.repeat(tda.from_array(x, chunks=chunks), counts, axis=axis)
+    want = jda.repeat(jda.from_array(x, chunks=chunks), counts, axis=axis)
+    check(got, np.repeat(x, counts, axis=axis), want)
+    check(tda.from_array(x, chunks=chunks).repeat(counts, axis=axis), np.repeat(x, counts, axis=axis))
+
+
+def test_repeat_counts_are_checked_as_numpy_checks_them():
+    x = tda.arange(4, chunks=2)
+    with pytest.raises(ValueError, match="negative"):
+        tda.repeat(x, [1, -1, 0, 2])
+    with pytest.raises(ValueError, match="broadcast"):
+        tda.repeat(x, [1, 2, 3])
+    with pytest.raises(ValueError, match="negative"):
+        tda.repeat(x, -2)
 
 
 @pytest.mark.parametrize("indexing", ["ij", "xy"])

@@ -742,3 +742,139 @@ def test_compute_chunk_sizes_keeps_the_blocks_on_the_card(cuda):
         assert all(t.device.type == "cuda" for t in y.expr.blocks.values())
         np.testing.assert_array_equal(y.compute(), a[a > 0])
         np.testing.assert_array_equal(y[5:].compute(), a[a > 0][5:])
+
+
+@pytest.mark.gpu
+def test_unique_on_the_card(cuda):
+    """unique's four outputs (NaNs folded into one, numpy 2's rule) from one
+    sort and one sync on the card."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.ops import _fancy_indexing
+
+    rng = np.random.default_rng(9)
+    a = np.round(rng.standard_normal(5000) * 3, 1)
+    a[::97] = np.nan
+    a[1::101] = -0.0
+    with config.set({"device": "cuda"}):
+        outs = da.unique(da.from_array(a, chunks=700), return_index=True, return_inverse=True, return_counts=True)
+        _fancy_indexing.SYNCS = 0
+        got = da.compute(*outs)
+        assert _fancy_indexing.SYNCS == 1
+    want = np.unique(a, return_index=True, return_inverse=True, return_counts=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.ravel(g), np.ravel(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int64", "uint64"])
+def test_histogram_with_int64_edges_on_the_card(cuda, dtype):
+    """Integer edges up to INT64_MAX: the last bin closed with no edge + 1;
+    int64 data against float edges compared in float64, as numpy does."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    top = np.iinfo(np.int64).max
+    a = np.array([top, top - 1, 0, 5, 3, top, 2**62, 2**53 + 1], dtype=dtype)
+    edges = np.array([0, 4, 2**62, top], dtype=np.int64)
+    fedges = np.array([0.0, 2.0**53, 2.0**53 + 2, 1e19])
+    with config.set({"device": "cuda"}):
+        x = da.from_array(a, chunks=3)
+        h, e = da.histogram(x, bins=edges)
+        hf, _ = da.histogram(x, bins=fedges)
+        got, got_e, got_f = h.compute(), e.compute(), hf.compute()
+    np.testing.assert_array_equal(got, np.histogram(a, bins=edges)[0])
+    np.testing.assert_array_equal(got_e, edges)
+    np.testing.assert_array_equal(got_f, np.histogram(a, bins=fedges)[0])
+
+
+@pytest.mark.gpu
+def test_topk_of_uint64_with_negative_k_on_the_card(cuda):
+    """k < 0 gives the smallest values in unsigned order (never a negation);
+    NaN counts as the largest float."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    u = np.array([2**64 - 1, 2**63, 1, 0, 2**63 + 5, 7], np.uint64)
+    f = np.array([1.0, np.nan, -1.0, 3.0, np.inf], np.float32)
+    with config.set({"device": "cuda"}):
+        got_u = da.topk(da.from_array(u, chunks=4), -3).compute()
+        got_top = da.topk(da.from_array(u, chunks=4), 2).compute()
+        got_f = da.topk(da.from_array(f, chunks=2), 2).compute()
+        got_i = da.argtopk(da.from_array(f, chunks=2), -2).compute()
+    np.testing.assert_array_equal(got_u, np.array([0, 1, 7], np.uint64))
+    np.testing.assert_array_equal(got_top, np.array([2**64 - 1, 2**63 + 5], np.uint64))
+    np.testing.assert_array_equal(got_f, np.array([np.nan, np.inf], np.float32))
+    np.testing.assert_array_equal(got_i, [2, 0])
+
+
+@pytest.mark.gpu
+def test_quantile_past_2_24_elements_on_the_card(cuda):
+    """torch.quantile refuses more than 2**24 values; the port sorts and
+    gathers, so a quantile of 2**24 + 3 values works, with numpy's value."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    b = np.random.default_rng(10).standard_normal((1 << 24) + 3).astype(np.float32)
+    a = b.copy()
+    a[::1000] = np.nan
+    with config.set({"device": "cuda"}):
+        q = da.nanquantile(da.from_array(a, chunks=1 << 22), [0.01, 0.5, 0.99]).compute()
+        m = da.median(da.from_array(b, chunks=1 << 22)).compute()
+    np.testing.assert_allclose(q, np.nanquantile(a, [0.01, 0.5, 0.99]), rtol=1e-6)
+    assert m == np.median(b)
+
+
+@pytest.mark.gpu
+def test_ravel_multi_index_raise_then_a_working_compute_on_the_card(cuda):
+    """mode "raise": numpy's ValueError from a device-side range check, with
+    no device assert; the next compute() in the process works."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    with config.set({"device": "cuda"}):
+        bad = (da.from_array(np.array([0, 5, 1]), chunks=2), da.from_array(np.array([1, 1, 0]), chunks=2))
+        with pytest.raises(ValueError, match="invalid entry"):
+            da.ravel_multi_index(bad, (3, 4)).compute()
+        with pytest.raises(ValueError, match="Sorter index out of range"):
+            da.searchsorted(da.arange(5.0, chunks=2), da.from_array(np.array([1.5])),
+                            sorter=da.from_array(np.array([0, 1, 2, 3, 9]))).compute()
+        ok = (da.from_array(np.array([0, 2, 1]), chunks=2), bad[1])
+        got = da.ravel_multi_index(ok, (3, 4)).compute()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, np.ravel_multi_index(([0, 2, 1], [1, 1, 0]), (3, 4)))
+
+
+@pytest.mark.gpu
+def test_repeat_with_counts_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    a = np.arange(48, dtype=np.float32).reshape(8, 6)
+    counts = [0, 2, 1, 3, 0, 1, 1, 2]
+    with config.set({"device": "cuda"}):
+        got = da.repeat(da.from_array(a, chunks=3), counts, axis=0).compute()
+        flat = da.from_array(a, chunks=3).repeat(np.arange(48) % 3).compute()
+    np.testing.assert_array_equal(got, np.repeat(a, counts, axis=0))
+    np.testing.assert_array_equal(flat, np.repeat(a, np.arange(48) % 3))
+
+
+@pytest.mark.gpu
+def test_cov_launches_the_transpose_and_scale_kernels(cuda):
+    """cov's conj(Xc).T goes through the transpose kernel, a weighted
+    cov's Xc * w and the 1 / fact multiply through the scale kernel."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((16, 3000)).astype(np.float32)
+    w = rng.random(3000) + 0.5
+    with config.set({"device": "cuda"}):
+        tk.LAUNCHES = sk.LAUNCHES = 0
+        got = da.cov(da.from_array(x, chunks=(16, 700)), aweights=w).compute()
+        assert tk.LAUNCHES >= 1 and sk.LAUNCHES >= 1
+        cc = da.corrcoef(da.from_array(x, chunks=(16, 700))).compute()
+    np.testing.assert_allclose(got, np.cov(x, aweights=w), rtol=1e-10)
+    np.testing.assert_allclose(cc, np.corrcoef(x), rtol=1e-10, atol=1e-14)
