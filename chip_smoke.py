@@ -145,7 +145,28 @@ Phases (each prints one line of its own numbers; any failure raises):
      Each against numpy (a part of the large results), with
      compute_device()/compute() times, the nearest torch call, the bound
      and the host syncs; then the histogram's counting route (K2) at 2^26
-     float32 into 256 bins beside torch.histc and its bound.
+     float32 into 256 bins beside torch.histc and its bound;
+ 28. da.random, fft, svd_compressed and multi-output map_blocks
+     (RANDOM_SIZES), with inputs drawn on the card: (a) a 16384^2 float32
+     standard normal (1 GiB) in chunks of 4096: the same bytes twice and at
+     chunks 1024, two draws of one Generator differ, compute_device()
+     beside torch.randn; (b) every distribution at 2^24 values (nsample 50
+     for the urns) held to its law's mean and variance (scipy.stats, 6
+     standard errors), with its time and host syncs; (c) reduction_tree,
+     stencil2d (roll form), tall_skinny_svd and rechunk_relayout drawn by
+     da.random (the JAX package's input form) beside their numpy-input
+     forms fed the same values: equal bytes, compute() and compute_device(),
+     and the launches of the band-stencil, multi-statistic, transpose and
+     scale kernels, read per form; (d) rfft along axis 1 of 16384^2 float32
+     in row chunks of 2048, its irfft round trip, fft2 of 8192^2 complex64
+     and fftn of 512^3 complex64, each beside the torch.fft call on the
+     tensor already on the card, the bound from bytes, and the same
+     transform against numpy at 4096^2 (256^3 for fftn); (e)
+     svd_compressed(x, k=32, n_power_iter=2) of a persisted 1e6x1024
+     float32 of rank 32 plus 1e-4 noise in row chunks of 100 000: s within
+     1e-3 of svd(x)'s top 32, with the scale kernel's launches; (f) sin and
+     cos through map_blocks_multi_output at 16384^2 float32: one call per
+     block.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -851,6 +872,327 @@ def routine_paths(da, torch, sizes, timer, sync):
         r.nbytes + int(reps.sum()) * nr * 4)
     del rv, rt, r
     return out
+
+
+RANDOM_SIZES = {"leaf": 16384, "values": 1 << 24, "nsample": 50, "tree": 10000, "tree_chunk": 1000,
+                "stencil": 4096, "stencil_chunk": 1024, "svd_rows": 1_000_000, "svd_cols": 128,
+                "svd_chunk": 100_000, "relayout": 8192, "relayout_chunk": 1024, "rfft": 16384, "rfft_rows": 2048,
+                "fft2": 8192, "fftn": 512, "check": 4096, "check3": 256, "cs_rows": 1_000_000,
+                "cs_cols": 1024, "cs_chunk": 100_000, "cs_k": 32, "multi": 16384}
+
+# phase 28 (b): name -> (draw of (generator, n values), scipy law and its arguments); the
+# several-column laws draw n values in all and are held by one column's marginal law
+RANDOM_LAWS = {
+    "random": (lambda r, n: r.random(n), ("uniform", ())),
+    "uniform": (lambda r, n: r.uniform(-1, 3, n), ("uniform", (-1, 4))),
+    "normal": (lambda r, n: r.normal(1, 2, n), ("norm", (1, 2))),
+    "standard_normal": (lambda r, n: r.standard_normal(n), ("norm", ())),
+    "integers": (lambda r, n: r.integers(-5, 12, n), ("randint", (-5, 12))),
+    "integers_uint64_2^64": (lambda r, n: r.integers(0, 2**64, n, dtype="uint64") / 2.0**64,
+                             ("uniform", ())),
+    "beta": (lambda r, n: r.beta(2, 3, n), ("beta", (2, 3))),
+    "binomial": (lambda r, n: r.binomial(10, 0.3, n), ("binom", (10, 0.3))),
+    "chisquare": (lambda r, n: r.chisquare(3, n), ("chi2", (3,))),
+    "exponential": (lambda r, n: r.exponential(2, n), ("expon", (0, 2))),
+    "standard_exponential": (lambda r, n: r.standard_exponential(n), ("expon", ())),
+    "f": (lambda r, n: r.f(5, 20, n), ("f", (5, 20))),
+    "gamma": (lambda r, n: r.gamma(2.5, 1.5, n), ("gamma", (2.5, 0, 1.5))),
+    "standard_gamma": (lambda r, n: r.standard_gamma(0.5, n), ("gamma", (0.5,))),
+    "geometric": (lambda r, n: r.geometric(0.3, n), ("geom", (0.3,))),
+    "gumbel": (lambda r, n: r.gumbel(1, 2, n), ("gumbel_r", (1, 2))),
+    "laplace": (lambda r, n: r.laplace(1, 2, n), ("laplace", (1, 2))),
+    "logistic": (lambda r, n: r.logistic(1, 2, n), ("logistic", (1, 2))),
+    "lognormal": (lambda r, n: r.lognormal(0.5, 0.25, n), ("lognorm", (0.25, 0, 1.6487212707001282))),
+    "negative_binomial": (lambda r, n: r.negative_binomial(5, 0.4, n), ("nbinom", (5, 0.4))),
+    "pareto": (lambda r, n: r.pareto(10, n), ("lomax", (10,))),
+    "poisson": (lambda r, n: r.poisson(4, n), ("poisson", (4,))),
+    "power": (lambda r, n: r.power(3, n), ("powerlaw", (3,))),
+    "rayleigh": (lambda r, n: r.rayleigh(2, n), ("rayleigh", (0, 2))),
+    "standard_cauchy": (lambda r, n: r.standard_cauchy(n), ("cauchy", ())),
+    "standard_t": (lambda r, n: r.standard_t(10, n), ("t", (10,))),
+    "triangular": (lambda r, n: r.triangular(0, 1, 3, n), ("triang", (1 / 3, 0, 3))),
+    "vonmises": (lambda r, n: r.vonmises(0.0, 2, n), ("vonmises", (2,))),
+    "wald": (lambda r, n: r.wald(2, 3, n), ("invgauss", (2 / 3, 0, 3))),
+    "weibull": (lambda r, n: r.weibull(2, n), ("weibull_min", (2,))),
+    "hypergeometric": (lambda r, n: r.hypergeometric(100, 100, RANDOM_SIZES["nsample"], n),
+                       ("hypergeom", (200, 100, RANDOM_SIZES["nsample"]))),
+    "logseries": (lambda r, n: r.logseries(0.6, n), ("logser", (0.6,))),
+    "noncentral_chisquare": (lambda r, n: r.noncentral_chisquare(3, 2, n), ("ncx2", (3, 2))),
+    "noncentral_f": (lambda r, n: r.noncentral_f(5, 20, 2, n), ("ncf", (5, 20, 2))),
+    "zipf": (lambda r, n: r.zipf(6, n), ("zipf", (6,))),
+    "multinomial": (lambda r, n: r.multinomial(20, [0.1, 0.2, 0.3, 0.4], n // 4)[:, 1], ("binom", (20, 0.2))),
+    "multivariate_hypergeometric": (
+        lambda r, n: r.multivariate_hypergeometric([40, 60, 100], RANDOM_SIZES["nsample"], n // 3)[:, 0],
+        ("hypergeom", (200, 40, RANDOM_SIZES["nsample"]))),
+    "multivariate_normal": (lambda r, n: r.multivariate_normal([1.0, -2.0], [[2.0, 0.5], [0.5, 1.0]], n // 2)[:, 0],
+                            ("norm", (1.0, 2.0**0.5))),
+    "permutation": (lambda r, n: r.permutation(n), None),
+}
+
+
+def random_paths(da, torch, sizes, timer, sync, device):
+    """da.random, fft, svd_compressed and multi-output map_blocks on the
+    configured device (phase 28): (a) a random
+    leaf at (leaf,)^2 float32 beside torch.randn; (b) every distribution at
+    ``values`` float64 values, held to its law's mean and variance; (c) the
+    BASELINE pipelines drawn by ``da.random`` beside their numpy-input
+    forms; (d) the FFTs beside torch.fft; (e) svd_compressed of a persisted
+    rank-``cs_k`` matrix; (f) a two-output map_blocks.  Returns one dict of
+    numbers per part and the hand kernels' launches on (c) and (e)."""
+    import numpy as np
+    from scipy import stats
+
+    from dask_array_tpu_torch._materialize import compute_exprs
+    from dask_array_tpu_torch.kernels import mstat, stencil
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.models import pipelines as P
+    from dask_array_tpu_torch.ops import _fancy_indexing
+    from dask_array_tpu_torch.ops._map_blocks import map_blocks_multi_output
+
+    out = {}
+
+    def dev_ms(arrays, reps=3):
+        exprs = [a.expr for a in arrays]
+        return host_ms(lambda: (compute_exprs(exprs), sync()), reps)
+
+    # -- (a) the random leaf: the same bytes twice and on two grids; two draws differ
+    n = sizes["leaf"]
+    draw = lambda chunks: da.random.default_rng(0).standard_normal((n, n), dtype="float32", chunks=chunks)  # noqa: E731
+    leaf = draw(n // 4)
+    a = leaf.compute_device()
+    check(a.device.type == device.type and a.dtype == torch.float32, "random leaf: device/dtype")
+    check(bool(torch.equal(a, draw(n // 4).compute_device())), "random leaf: one seed, two runs differ")
+    check(bool(torch.equal(a, draw(n // 16).compute_device())), "random leaf: the chunk grid changed values")
+    r = da.random.default_rng(0)
+    r.standard_normal((n, n), dtype="float32", chunks=n // 4)
+    second = r.standard_normal((n, n), dtype="float32", chunks=n // 4).compute_device()
+    check(not bool(torch.equal(a, second)), "random leaf: two draws are equal")
+    del second
+    z_mean = float(a.double().mean()) * n  # the mean over its standard error 1 / n
+    check(abs(z_mean) < 6 and abs(float(a.double().std()) - 1) < 6 * (0.5 / n**2) ** 0.5, "random leaf: moments")
+    gen = torch.Generator(device=device).manual_seed(0)
+    nbytes = n * n * 4
+    out["a"] = {"shape": [n, n], "chunks": [n // 4, n // 16], "same_bytes_twice": True,
+                "same_bytes_on_both_grids": True, "two_draws_differ": True, "mean_over_se": z_mean,
+                "compute_device_ms": host_ms(lambda: (leaf.compute_device(), sync()), 5),
+                "compute_device_event_ms": timer(leaf.compute_device),
+                "torch_randn_ms": timer(lambda: torch.randn((n, n), generator=gen, device=device)),
+                "bound_ms": bound(nbytes, 0)[0], "bound_by": "bytes"}
+    del a
+
+    # -- (b) every distribution at ``values`` values: time, host syncs, moments
+    nv = sizes["values"]
+    laws = {}
+    for name, (call, law) in RANDOM_LAWS.items():
+        x = call(da.random.default_rng(28), nv)
+        _fancy_indexing.SYNCS = 0
+        v = x.compute_device()
+        sync()
+        syncs = _fancy_indexing.SYNCS
+        ms = host_ms(lambda: (x.compute_device(), sync()), 3)
+        v = v.double()
+        count = v.numel()
+        got = {"ms": ms, "syncs": syncs, "values": count, "dtype": str(x.dtype)}
+        if law is None:  # the permutation: every index once
+            check(bool(torch.equal(v.sort().values, torch.arange(count, device=v.device, dtype=v.dtype))),
+                  "permutation is not one")
+            laws[name] = got
+            continue
+        mean, var, kurt = (float(t) for t in getattr(stats, law[0])(*law[1]).stats(moments="mvk"))
+        if np.isfinite(mean):
+            se_mean, se_var = (var / count) ** 0.5, ((kurt + 2) * var**2 / count) ** 0.5
+            got.update(mean=float(v.mean()), var=float(v.var(correction=0)), law_mean=mean, law_var=var)
+            got.update(mean_over_se=(got["mean"] - mean) / se_mean, var_over_se=(got["var"] - var) / se_var)
+            check(abs(got["mean_over_se"]) <= 6 and abs(got["var_over_se"]) <= 6, f"{name}: moments {got}")
+        else:  # Cauchy: its median, standard error pi / (2 sqrt(n))
+            got.update(median=float(v.median()))
+            check(abs(got["median"]) <= 6 * np.pi / 2 / count**0.5, f"{name}: median {got}")
+        check(bool(torch.isfinite(v).all()), f"{name}: non-finite values")
+        laws[name] = got
+        del v
+    out["b"] = laws
+
+    # -- (c) the BASELINE pipelines drawn by da.random beside their numpy-input forms
+    counters = {"band_stencil": stencil, "multi_stat": mstat, "transpose": tk, "scale": sk}
+
+    def launches(fn):
+        for m in counters.values():
+            m.LAUNCHES = 0
+        res = fn()
+        return res, {k: m.LAUNCHES for k, m in counters.items()}
+
+    def host(seed, shape, chunks):
+        return da.random.default_rng(seed).standard_normal(shape, dtype="float32", chunks=chunks).compute()
+
+    pipes = {}
+    nt, ct = sizes["tree"], sizes["tree_chunk"]
+    x_np = host(0, (nt, nt), ct)
+    forms = {"random": P.reduction_tree(chunk=ct, n=nt), "numpy": P.reduction_tree(x_np, chunk=ct)}
+    res = {}
+    for form, arrays in forms.items():
+        res[form], lc = launches(lambda: da.compute(*arrays))
+        pipes[f"reduction_tree_{form}"] = {"compute_ms": host_ms(lambda: da.compute(*arrays), 3),
+                                           "compute_device_ms": dev_ms(arrays), "launches": lc}
+        check(lc["multi_stat"] == 1, f"reduction_tree {form}: multi-statistic launches {lc}")
+    check(all(np.asarray(g).tobytes() == np.asarray(w).tobytes() for g, w in zip(res["random"], res["numpy"])),
+          "reduction_tree: the random-input form differs from the numpy form")
+    xd = torch.from_numpy(x_np).to(device)
+    ref64 = [xd.double().sum(0), xd.double().mean(1), xd.double().std(correction=0)]
+    pipes["reduction_tree_random"]["max_abs_err_vs_f64"] = stats_errors(res["random"], ref64, xd)
+    del xd, ref64, x_np
+
+    ns, cs = sizes["stencil"], sizes["stencil_chunk"]
+    x_np = host(0, (ns, ns), cs)
+    forms = {"random": P.stencil2d(chunk=cs, form="roll", n=ns), "numpy": P.stencil2d(x_np, chunk=cs, form="roll")}
+    for form, arr in forms.items():
+        res[form], lc = launches(arr.compute)
+        pipes[f"stencil2d_roll_{form}"] = {"compute_ms": host_ms(arr.compute, 3), "compute_device_ms": dev_ms([arr]),
+                                           "launches": lc}
+        check(lc["band_stencil"] == 1, f"stencil2d {form}: band-stencil launches {lc}")
+    check(res["random"].tobytes() == res["numpy"].tobytes(), "stencil2d: the two forms differ")
+    xd = torch.from_numpy(x_np).to(device)
+    want = stencil.band_stencil_plain(xd, P.laplace_roll, (1, 1), ("reflect", "reflect"))
+    atol = 8 * float(xd.abs().max()) * 2.0**-21
+    got = torch.from_numpy(res["random"]).to(device)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    pipes["stencil2d_roll_random"]["max_abs_err_vs_plain"] = float((got - want).abs().max())
+    del xd, want, got, x_np
+
+    nr, nc, cr = sizes["svd_rows"], sizes["svd_cols"], sizes["svd_chunk"]
+    x_np = host(0, (nr, nc), (cr, nc))
+    forms = {"random": P.tall_skinny_svd(chunk_rows=cr, rows=nr, cols=nc),
+             "numpy": P.tall_skinny_svd(x_np, chunk_rows=cr)}
+    for form, arrays in forms.items():
+        res[form], lc = launches(lambda: da.compute(*arrays))
+        pipes[f"tall_skinny_svd_{form}"] = {"compute_ms": host_ms(lambda: da.compute(*arrays), 3),
+                                            "compute_device_ms": dev_ms(arrays), "launches": lc}
+        check(lc["scale"] == 3, f"tall_skinny_svd {form}: scale launches {lc}")
+    check(all(g.tobytes() == w.tobytes() for g, w in zip(res["random"], res["numpy"])),
+          "tall_skinny_svd: the two forms differ")
+    s64 = torch.linalg.svdvals(torch.from_numpy(x_np).to(device).double())
+    s_err = float((torch.from_numpy(res["random"][1]).to(device).double() - s64).abs().max() / s64.max())
+    check(s_err < 1e-4, f"tall_skinny_svd: s relative error {s_err}")
+    pipes["tall_skinny_svd_random"]["s_max_rel_err_vs_f64"] = s_err
+    del s64, x_np
+
+    nl, cl = sizes["relayout"], sizes["relayout_chunk"]
+    x_np = host(0, (nl, nl), (cl, nl))
+    forms = {"random": P.rechunk_relayout(chunk=cl, n=nl), "numpy": P.rechunk_relayout(x_np, chunk=cl)}
+    for form, arr in forms.items():
+        res[form], lc = launches(arr.compute)
+        pipes[f"rechunk_relayout_{form}"] = {"compute_ms": host_ms(arr.compute, 3), "compute_device_ms": dev_ms([arr]),
+                                             "launches": lc}
+        check(lc["transpose"] == 1, f"rechunk_relayout {form}: transpose launches {lc}")
+        check(res[form].tobytes() == np.ascontiguousarray(x_np.T).tobytes(), f"rechunk_relayout {form}: bytes")
+    del x_np, res
+    out["c"] = pipes
+    kernel_launches = {k: sum(p["launches"][k] for name, p in pipes.items() if name.endswith("_random"))
+                       for k in counters}
+
+    # -- (d) the FFTs beside torch.fft on the tensor already on the device
+    ffts = {}
+
+    def fft_case(name, port, plain, nbytes, small_port, small_numpy, tol):
+        y = port()
+        ms = host_ms(lambda: (y.compute_device(), sync()), 5)
+        got_small = small_port().compute()
+        want_small = small_numpy()
+        check(got_small.dtype == want_small.dtype, f"{name}: dtype {got_small.dtype} against {want_small.dtype}")
+        err = float(np.abs(got_small.astype(np.complex128) - want_small).max() / np.abs(want_small).max())
+        check(err <= tol, f"{name}: relative error {err} against numpy")
+        ffts[name] = {"compute_device_ms": ms, "torch_fft_ms": timer(plain), "bound_ms": bound(nbytes, 0)[0],
+                      "bound_by": "bytes", "max_rel_err_vs_numpy_small": err, "tolerance": tol}
+
+    nf, rows = sizes["rfft"], sizes["rfft_rows"]
+    x = da.random.default_rng(1).standard_normal((nf, nf), dtype="float32", chunks=(rows, nf)).persist()
+    xt = x.compute_device()
+    k = sizes["check"]
+    xs = da.random.default_rng(11).standard_normal((k, k), dtype="float32", chunks=(k // 8, k))
+    xs_np = xs.compute()
+    fft_case("rfft_axis1", lambda: da.fft.rfft(x, axis=1), lambda: torch.fft.rfft(xt, dim=1),
+             nf * nf * 4 + nf * (nf // 2 + 1) * 8, lambda: da.fft.rfft(xs, axis=1),
+             lambda: np.fft.rfft(xs_np, axis=1), 1e-5)
+    rt = da.fft.irfft(da.fft.rfft(x, axis=1), n=nf, axis=1)
+    rt_err = float((rt.compute_device() - xt).abs().max() / xt.abs().max())
+    check(rt_err <= 1e-5, f"irfft round trip: relative error {rt_err}")
+    fft_case("irfft_of_rfft", lambda: rt, lambda: torch.fft.irfft(torch.fft.rfft(xt, dim=1), n=nf, dim=1),
+             2 * nf * nf * 4, lambda: da.fft.irfft(da.fft.rfft(xs, axis=1), n=k, axis=1),
+             lambda: np.fft.irfft(np.fft.rfft(xs_np, axis=1), n=k, axis=1), 1e-5)
+    ffts["irfft_of_rfft"]["round_trip_max_rel_err"] = rt_err
+    del x, xt, rt
+
+    def complex_draw(seed, shape, chunks):
+        g = da.random.default_rng(seed)
+        re, im = (g.standard_normal(shape, dtype="float32", chunks=chunks) for _ in range(2))
+        z = re + 1j * im
+        check(z.dtype == np.complex64, f"complex draw dtype {z.dtype}")
+        return z
+
+    n2 = sizes["fft2"]
+    z = complex_draw(2, (n2, n2), n2).persist()
+    zt = z.compute_device()
+    zs = complex_draw(12, (k, k), k)
+    zs_np = zs.compute()
+    fft_case("fft2_complex64", lambda: da.fft.fft2(z), lambda: torch.fft.fft2(zt), 2 * n2 * n2 * 8,
+             lambda: da.fft.fft2(zs), lambda: np.fft.fft2(zs_np), 1e-5)
+    del z, zt
+    n3, k3 = sizes["fftn"], sizes["check3"]
+    z = complex_draw(3, (n3, n3, n3), n3).persist()
+    zt = z.compute_device()
+    zs = complex_draw(13, (k3, k3, k3), k3)
+    zs_np = zs.compute()
+    fft_case("fftn_complex64", lambda: da.fft.fftn(z), lambda: torch.fft.fftn(zt), 2 * n3**3 * 8,
+             lambda: da.fft.fftn(zs), lambda: np.fft.fftn(zs_np), 1e-5)
+    del z, zt, zs_np, xs_np
+    out["d"] = ffts
+
+    # -- (e) svd_compressed of a persisted rank-k matrix plus noise
+    m, ncs, ch, kk = sizes["cs_rows"], sizes["cs_cols"], sizes["cs_chunk"], sizes["cs_k"]
+    g = da.random.default_rng(5)
+    a_ = g.standard_normal((m, kk), dtype="float32", chunks=(ch, kk))
+    b_ = g.standard_normal((kk, ncs), dtype="float32", chunks=(kk, ncs))
+    noise = g.standard_normal((m, ncs), dtype="float32", chunks=(ch, ncs))
+    x = (a_ @ b_ + 1e-4 * noise).persist()
+    s_exact = da.linalg.svd(x)[1].compute_device()[:kk].double()
+    cu, cs, cvh = da.svd_compressed(x, k=kk, n_power_iter=2, seed=0)
+    got, lc = launches(lambda: compute_exprs([cu.expr, cs.expr, cvh.expr]))
+    check(lc["scale"] >= 1, f"svd_compressed: scale launches {lc}")
+    s_err = float(((got[1].double() - s_exact).abs() / s_exact).max())
+    check(s_err <= 1e-3, f"svd_compressed: s relative error {s_err} against svd")
+    orth = float((got[0].double().mT @ got[0].double() - torch.eye(kk, device=got[0].device, dtype=torch.float64))
+                 .abs().max())
+    out["e"] = {"shape": [m, ncs], "chunk_rows": ch, "k": kk, "n_power_iter": 2, "s_max_rel_err_vs_svd": s_err,
+                "u_orthogonality_max": orth, "launches": lc,
+                "compute_device_ms": dev_ms([cu, cs, cvh]), "compute_ms": host_ms(lambda: da.compute(cu, cs, cvh), 3),
+                "svd_compute_device_ms": dev_ms([da.linalg.svd(x)[1]])}
+    kernel_launches["scale_svd_compressed"] = lc["scale"]
+    del x, got, s_exact
+
+    # -- (f) a two-output map_blocks: the function runs once per block
+    nm = sizes["multi"]
+    x = da.random.default_rng(6).standard_normal((nm, nm), dtype="float32", chunks=nm // 4).persist()
+    xt = x.compute_device()
+    calls = [0]
+
+    def sin_cos(b):
+        calls[0] += 1
+        return torch.sin(b), torch.cos(b)
+
+    s_, c_ = map_blocks_multi_output(sin_cos, x, dtypes=["float32", "float32"])
+    got = compute_exprs([s_.expr, c_.expr])
+    blocks = int(np.prod(x.numblocks))
+    check(calls[0] == blocks, f"map_blocks_multi_output: {calls[0]} calls for {blocks} blocks")
+    err = max(float((got[0] - torch.sin(xt)).abs().max()), float((got[1] - torch.cos(xt)).abs().max()))
+    check(err <= 1e-6, f"map_blocks_multi_output: error {err} against torch.sin/cos")
+    del got
+    out["f"] = {"shape": [nm, nm], "blocks": blocks, "calls_per_compute": blocks, "max_abs_err": err,
+                "tolerance": "1e-6 against torch.sin/cos of the whole tensor",
+                "compute_device_ms": dev_ms([s_, c_]),
+                "torch_sin_cos_ms": timer(lambda: (torch.sin(xt), torch.cos(xt))),
+                "bound_ms": bound(3 * nm * nm * 4, 0)[0]}
+    del x, xt
+    return out, kernel_launches
 
 
 def k2_timing(torch, flat, timer, device_timer, seed=27):
@@ -1821,6 +2163,24 @@ def main() -> int:
     k2 = k2_timing(torch, 1 << 26, cuda_ms, device_ms)
     phase(27, "timing-k2-histogram-2^26-f32-256-bins", card=smi, **k2)
     print(smi, flush=True)
+    torch.cuda.empty_cache()
+
+    # -- phase 28: da.random, the random-input pipelines, fft, svd_compressed, multi-output map_blocks
+    t28 = time.perf_counter()
+    rp, rp_launches = random_paths(da, torch, RANDOM_SIZES, cuda_ms, torch.cuda.synchronize, torch.device("cuda"))
+    check(all(rp_launches[k] > 0 for k in ("band_stencil", "multi_stat", "transpose", "scale")),
+          f"a kernel of the random-input pipelines launched no time: {rp_launches}")
+    phase(28, "random-leaf", card=smi, **rp["a"])
+    phase(28, "distributions", card=smi, values=RANDOM_SIZES["values"], nsample=RANDOM_SIZES["nsample"],
+          tolerance="mean and variance within 6 standard errors of scipy.stats' (the Cauchy law: its median)",
+          laws=rp["b"])
+    phase(28, "random-input-pipelines", card=smi, launches=rp_launches, pipelines=rp["c"],
+          tolerance="each random-input form equal byte for byte to its numpy form fed the same values; "
+                    "against the plain result as phases 4, 8, 13 and 23 hold it")
+    phase(28, "fft", card=smi, cases=rp["d"], small_shapes=[RANDOM_SIZES["check"], RANDOM_SIZES["check3"]])
+    phase(28, "svd_compressed", card=smi, **rp["e"], tolerance="s within 1e-3 relative of svd(x)'s top k")
+    phase(28, "map_blocks_multi_output", card=smi, **rp["f"], seconds=time.perf_counter() - t28)
+    print(smi, flush=True)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
@@ -1829,6 +2189,7 @@ def main() -> int:
         {
             "name": "band_stencil",
             "route": "cuda",
+            "launches_random_input": rp_launches["band_stencil"],
             "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
             "replaces": "dask_array_tpu/kernels/stencil.py:83",
             "launches": stencil_launches,
@@ -1843,6 +2204,7 @@ def main() -> int:
         {
             "name": "multi_stat",
             "route": "cuda",
+            "launches_random_input": rp_launches["multi_stat"],
             "source": "dask_array_tpu_torch/csrc/mstat.cu",
             "replaces": "bench/probe_reduction.py:72",
             "launches": mstat_launches,
@@ -1860,6 +2222,7 @@ def main() -> int:
         {
             "name": "transpose",
             "route": "cuda",
+            "launches_random_input": rp_launches["transpose"],
             "source": "dask_array_tpu_torch/csrc/transpose.cu",
             "replaces": "bench/probe_pallas_min.py:42",
             "launches": transpose_launches,
@@ -1887,6 +2250,7 @@ def main() -> int:
         {
             "name": "scale",
             "route": "cuda",
+            "launches_random_input": rp_launches["scale"],
             "source": "dask_array_tpu_torch/csrc/scale.cu",
             "replaces": "bench/probe_pallas_min.py:26",
             "launches": scale_launches,
@@ -1896,6 +2260,7 @@ def main() -> int:
             "bound_ms": scale_bound_ms,
             "bound_by": scale_bound_by,
             "library_ms": mul_ms,
+            "launches_svd_compressed": rp_launches["scale_svd_compressed"],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

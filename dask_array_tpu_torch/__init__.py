@@ -30,14 +30,19 @@ path (``overlap``/``map_overlap``/``trim_overlap``, ``pad``,
 but not in ``__all__``; the NumPy surface (the ufunc table, fancy indexing
 and assignment, the routines with ``cov``/``gradient``/``unique``/
 ``histogram``/``topk``/``coarsen``/``apply_along_axis``), the gufuncs,
-``shuffle`` and the quantiles.  ``svd_compressed``, IO and diagnostics
-wait (ROADMAP.md).
+``shuffle`` and the quantiles; the ``random`` submodule (numpy's
+``Generator`` and ``RandomState`` with every distribution, drawn on the
+device from a seeded ``torch.Generator``), the ``fft`` submodule (over
+``torch.fft``), the randomized ``svd_compressed`` (also ``linalg``'s,
+with ``compression_level`` and ``compression_matrix``) and
+``ops._map_blocks.map_blocks_multi_output``.  IO and diagnostics wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch import linalg, reductions
+from dask_array_tpu_torch import fft, linalg, random, reductions
 from dask_array_tpu_torch._blockwise import blockwise, elemwise
 from dask_array_tpu_torch._chunks import PerformanceWarning, normalize_chunks
 from dask_array_tpu_torch._collection import Array, new_collection
@@ -87,6 +92,7 @@ from dask_array_tpu_torch.ops.linalg_decomp import (
     solve,
     solve_triangular,
     svd,
+    svd_compressed,
     tsqr,
 )
 from dask_array_tpu_torch.ops.manipulation import (

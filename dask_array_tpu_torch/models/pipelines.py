@@ -6,9 +6,15 @@ pushdown + fusion), the flagship ``normalize_contract`` step, the
 with misaligned chunks (BASELINE config 3), the 2-D ``map_overlap``
 Laplace stencil (BASELINE config 4), the tall-skinny SVD (BASELINE config
 5) and the rows-to-columns relayout of a transposed array (BASELINE
-metric 2).  Inputs are numpy arrays made by the
-caller from a seed, since the reference's ``da.random`` streams cannot be
-reproduced in torch.
+metric 2).
+
+``reduction_tree``, ``stencil2d``, ``tall_skinny_svd`` and
+``rechunk_relayout`` take their input in two forms.  Given no numpy array,
+they build it as the JAX package does, on the device with
+``da.random.default_rng(seed).standard_normal(...)`` and the same sizes,
+chunks and seeds (the values are torch's stream, not JAX's).  Given a
+numpy array ``x_np``, they read it through ``from_array``, so a test can
+feed both packages the same values.
 """
 
 from __future__ import annotations
@@ -33,15 +39,24 @@ def normalize_contract(a, b):
     return (y * y).sum(axis=1)
 
 
-def reduction_tree(x_np, chunk=1000, split_every=4):
+def _input(x_np, shape, dtype, chunks, seed):
+    """``x_np`` through ``from_array``, or, without one, the JAX package's
+    input: a standard normal of ``shape`` drawn on the device."""
+    import dask_array_tpu_torch as da
+
+    if x_np is None:
+        return da.random.default_rng(seed).standard_normal(shape, dtype=dtype, chunks=chunks)
+    return da.from_array(np.asarray(x_np), chunks=chunks)
+
+
+def reduction_tree(x_np=None, chunk=1000, split_every=4, n=10000):
     """sum/mean/std cascade with explicit split_every (BASELINE config 2):
-    ``x.sum(axis=0)``, ``x.mean(axis=1)`` and ``x.std()`` of ``x_np``.
+    ``x.sum(axis=0)``, ``x.mean(axis=1)`` and ``x.std()`` of ``x_np``, or
+    of an (n, n) float32 standard normal drawn with seed 0.
 
     Computed together (``dask_array_tpu_torch.compute(*reduction_tree(x))``)
     the three go through the multi-statistic kernel in one read."""
-    import dask_array_tpu_torch as da
-
-    x = da.from_array(np.asarray(x_np), chunks=chunk)
+    x = _input(x_np, (n, n), "float32", chunk, 0)
     s = x.sum(axis=0, split_every=split_every)
     m = x.mean(axis=1, split_every=split_every)
     sd = x.std(split_every=split_every)
@@ -77,8 +92,9 @@ def laplace_slices(p):
     )
 
 
-def stencil2d(x_np, chunk=1024, form="auto"):
-    """depth-1 map_overlap Laplace stencil (BASELINE config 4) of ``x_np``.
+def stencil2d(x_np=None, chunk=1024, form="auto", n=4096, dtype="float32", seed=0):
+    """depth-1 map_overlap Laplace stencil (BASELINE config 4) of ``x_np``,
+    or of an (n, n) standard normal drawn with ``seed``.
 
     ``form="auto"`` picks the ROLL form when the band-stencil kernel will
     engage (config ``stencil-kernel`` is not "off"), otherwise the
@@ -90,7 +106,7 @@ def stencil2d(x_np, chunk=1024, form="auto"):
 
     if form == "auto":
         form = "slices" if config.get("stencil-kernel", "auto") in ("off", False, None) else "roll"
-    x = da.from_array(np.asarray(x_np), chunks=chunk)
+    x = _input(x_np, (n, n), dtype, chunk, seed)
     dtype = x.dtype
     if form == "roll":
         return da.map_overlap(laplace_roll, x, depth=1, boundary="reflect", dtype=dtype)
@@ -102,10 +118,11 @@ def stencil2d(x_np, chunk=1024, form="auto"):
     )
 
 
-def rechunk_relayout(x_np, chunk=1024, persist=False):
+def rechunk_relayout(x_np=None, chunk=1024, persist=False, n=8192, dtype="float32", seed=0):
     """Rows->cols block relayout of a transposed array (BASELINE metric 2).
 
-    ``x_np`` (n0, n1) is read in row panels of ``chunk`` rows; the result
+    ``x_np`` (n0, n1), or an (n, n) standard normal drawn with ``seed``,
+    is read in row panels of ``chunk`` rows; the result
     is its transpose in row panels of ``chunk`` rows, (chunk, n0) each.  On
     one device this is one physical transpose of the whole array (read and
     write every byte once), which the tiled transpose kernel performs on a
@@ -114,23 +131,22 @@ def rechunk_relayout(x_np, chunk=1024, persist=False):
     freeze keeps the rechunk from being pushed below the transpose, where
     it would merge with the input's chunking and leave no relayout.
     """
-    import dask_array_tpu_torch as da
-
-    x_np = np.asarray(x_np)
-    x = da.from_array(x_np, chunks=(chunk, x_np.shape[1]))
+    n0, n1 = (n, n) if x_np is None else np.shape(x_np)
+    x = _input(x_np, (n0, n1), dtype, (chunk, n1), seed)
     if persist:
         x = x.persist()
-    return x.T.freeze_chunks().rechunk((chunk, x_np.shape[0]))
+    return x.T.freeze_chunks().rechunk((chunk, n0))
 
 
-def tall_skinny_svd(x_np, chunk_rows=100_000):
+def tall_skinny_svd(x_np=None, chunk_rows=100_000, rows=1_000_000, cols=128, dtype="float32", seed=0):
     """TSQR-based SVD of a tall-skinny matrix (BASELINE config 5: 1e6 x 128
-    float32 in row chunks of 100 000): ``(u, s, vh)`` of ``x_np``.
+    float32 in row chunks of 100 000): ``(u, s, vh)`` of ``x_np``, or of a
+    (rows, cols) standard normal drawn with ``seed``.
 
     Computed together (``dask_array_tpu_torch.compute(u, s, vh)``) the three
     share one CholeskyQR3 factorization; ``svd_flip``'s multiplies go
     through the scale kernel."""
     import dask_array_tpu_torch as da
 
-    x_np = np.asarray(x_np)
-    return da.linalg.svd(da.from_array(x_np, chunks=(chunk_rows, x_np.shape[1])))
+    cols = cols if x_np is None else np.shape(x_np)[1]
+    return da.linalg.svd(_input(x_np, (rows, cols), dtype, (chunk_rows, cols), seed))

@@ -1,8 +1,9 @@
 """map_blocks: apply a function to every block.
 
-Port of ``dask_array_tpu/ops/_map_blocks.py`` (single-output): dtype,
-chunks, drop_axis, new_axis, and ``block_id``/``block_info`` injection.
-The function runs once per block on torch tensors.
+Port of ``dask_array_tpu/ops/_map_blocks.py``: dtype, chunks, drop_axis,
+new_axis, ``block_id``/``block_info`` injection, and
+``map_blocks_multi_output`` for a function of several outputs.  The
+function runs once per block on torch tensors.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ from numbers import Integral, Number
 
 import numpy as np
 
-from dask_array_tpu_torch._blockwise import Blockwise, _normalize_kwargs
+from dask_array_tpu_torch._blockwise import Blockwise, _normalize_kwargs, _store
 from dask_array_tpu_torch._chunks import cached_cumsum, validate_axis
-from dask_array_tpu_torch._executor import BlockView
+from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
 
 
@@ -311,3 +312,91 @@ def map_blocks(
                 "chunks= can change block SIZES, not the block count"
             )
     return new_collection(ChunksOverride(expr, tuple(norm)))
+
+
+# ---------------------------------------------------------------------------
+# multi-output map_blocks
+# ---------------------------------------------------------------------------
+
+
+class MapBlocksMultiOutput(ArrayExpr):
+    """Inner node: func returns a TUPLE of tensors per block.
+
+    The walk builds a node once (``BuildContext.build`` caches by name), so
+    the function runs once per block however many outputs are selected.
+    """
+
+    _parameters = ("func", "n_out", "kwargs")
+    # operands[3:] are the input expressions
+
+    @property
+    def arrays(self):
+        return self.operands[3:]
+
+    @property
+    def _array_args(self):
+        return [a for a in self.arrays if isinstance(a, ArrayExpr)]
+
+    @property
+    def chunks(self):
+        return self._array_args[0].chunks  # grid carrier only
+
+    @property
+    def _meta(self):
+        return self._array_args[0]._meta
+
+    def _build(self, ctx):
+        views = [ctx.build(a) if isinstance(a, ArrayExpr) else a for a in self.arrays]
+        grid = next(v for v in views if isinstance(v, BlockView))
+        kwargs = dict(self.kwargs or ())
+        blocks = {}
+        for idx in iter_block_indices(grid.numblocks):
+            args = [v.block(idx) if isinstance(v, BlockView) else v for v in views]
+            out = self.func(*args, **kwargs)
+            if not isinstance(out, tuple) or len(out) != self.n_out:
+                raise ValueError(
+                    f"map_blocks_multi_output function must return a tuple of "
+                    f"{self.n_out} arrays"
+                )
+            blocks[tuple(idx)] = out
+        return BlockView(self.chunks, blocks=blocks)
+
+
+class MultiOutputBlock(ArrayExpr):
+    """Selector: output ``index`` of a MapBlocksMultiOutput."""
+
+    _parameters = ("inner", "index", "chunks_", "_dtype")
+
+    @property
+    def chunks(self):
+        return self.chunks_
+
+    @property
+    def _meta(self):
+        return np.empty((0,) * len(self.chunks_), dtype=self._dtype)
+
+    def _build(self, ctx):
+        view = ctx.build(self.inner)
+        blocks = {idx: _store(blk[self.index], self._dtype) for idx, blk in view.blocks_dict().items()}
+        return BlockView(self.chunks_, blocks=blocks)
+
+
+def map_blocks_multi_output(func, *args, dtypes, chunkss=None, **kwargs):
+    """Apply a function producing several outputs per block.
+
+    ``dtypes``: one dtype per output. ``chunkss``: optional per-output chunk
+    tuples (default: the first input's chunks).
+    """
+    from dask_array_tpu_torch._collection import Array, new_collection
+
+    arrays = [a.expr if isinstance(a, Array) else a for a in args]
+    if not any(isinstance(a, ArrayExpr) for a in arrays):
+        raise ValueError("map_blocks_multi_output requires at least one Array")
+    n_out = len(dtypes)
+    inner = MapBlocksMultiOutput(func, n_out, tuple(sorted(kwargs.items())), *arrays)
+    grid_chunks = next(a for a in arrays if isinstance(a, ArrayExpr)).chunks
+    outs = []
+    for i, dt in enumerate(dtypes):
+        ch = tuple(chunkss[i]) if chunkss is not None else grid_chunks
+        outs.append(new_collection(MultiOutputBlock(inner, i, ch, np.dtype(dt))))
+    return tuple(outs)

@@ -1,5 +1,5 @@
-"""Matrix decompositions: qr/tsqr/sfqr, svd/svd_flip, lu, cholesky,
-solve/solve_triangular/inv/lstsq, norm.
+"""Matrix decompositions: qr/tsqr/sfqr, svd/svd_flip, the randomized
+svd_compressed, lu, cholesky, solve/solve_triangular/inv/lstsq, norm.
 
 Port of ``dask_array_tpu/ops/linalg_decomp.py``.  The blocked algorithms
 stay as the reference has them (TSQR by CholeskyQR3, the fused tall-skinny
@@ -23,7 +23,12 @@ reference:
   TF32 Gram breaks CholeskyQR's orthogonality;
 - failures are values, as in JAX: a Cholesky of a matrix that is not
   positive definite gives NaNs (``cholesky_ex``), and nothing syncs the
-  device to raise.
+  device to raise; but CholeskyQR3 reads its R's finiteness once on the
+  host and, where a pass failed, takes Householder's QR of the panel
+  (``_cholqr3``), and the small SVD behind the tall-skinny one
+  eigendecomposes its Gram in double precision for single-precision input
+  (``_svd_fn``), so a numerically rank-deficient panel factors as numpy
+  factors it.
 """
 
 from __future__ import annotations
@@ -107,11 +112,27 @@ def _cholqr_pass(a, shift=16.0):
 
 def _cholqr3(a):
     """CholeskyQR3 of a tall panel: ``(q2, w3, r)`` with the final Q equal
-    to ``q2 @ w3`` (never formed here) and ``r = r3 r2 r1``."""
+    to ``q2 @ w3`` (never formed here) and ``r = r3 r2 r1``.
+
+    Where a pass's Cholesky fails (its Gram not positive definite: an
+    exactly rank-deficient panel, or a float32 Gram whose rounding over a
+    million rows passes the second pass's shift), R comes out non-finite;
+    one host read of R's finiteness (counted in
+    ``ops._fancy_indexing.SYNCS``) then takes Householder's QR of the panel
+    instead, its R's diagonal made non-negative as CholeskyQR's is."""
+    from dask_array_tpu_torch.ops._fancy_indexing import count_sync
+
     q1, r1, _ = _cholqr_pass(a, shift=16.0)
     q2, r2, _ = _cholqr_pass(q1, shift=1.0)
     _q3, r3, w3 = _cholqr_pass(q2, shift=0.0)
-    return q2, w3, _mm(r3, _mm(r2, r1))
+    r = _mm(r3, _mm(r2, r1))
+    count_sync()
+    if bool(torch.isfinite(r).all()):
+        return q2, w3, r
+    q, r = torch.linalg.qr(a, mode="reduced")
+    d = torch.sgn(torch.diagonal(r))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    return q * d.conj()[None, :], _eye(r.shape[0], r), r * d.conj()[:, None]
 
 
 class TSQR(ArrayExpr):
@@ -200,6 +221,12 @@ def _svd_fn(a, full_matrices=False):
     (it squares the condition number, fine downstream of CholeskyQR).
     ``full_matrices=True`` is ``torch.linalg.svd``: the complete basis of
     the wide side does not come out of the small Gram matrix.
+
+    A single-precision matrix is decomposed in double precision and the
+    triplets rounded back: its squared condition number can pass 1/eps of
+    float32 (a numerically rank-deficient panel, whose small eigenvalues
+    are then a cluster of rounding noise about 0), where cuSOLVER's
+    float32 ``syevd`` fails to converge.
     """
     if full_matrices:
         return torch.linalg.svd(a, full_matrices=full_matrices)
@@ -207,14 +234,16 @@ def _svd_fn(a, full_matrices=False):
     if m < n:
         u, s, vh = _svd_fn(a.mH)
         return vh.mH.resolve_conj(), s, u.mH.resolve_conj()
-    g = _mm(a.mH, a)  # Hermitian Gram
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}.get(a.dtype, a.dtype)
+    a_w = a.to(wide)
+    g = _mm(a_w.mH, a_w)  # Hermitian Gram
     w, v = torch.linalg.eigh(g)  # ascending eigenvalues
     w = torch.clamp(w.flip(0), min=0.0)
     v = v.flip(1)
     s = torch.sqrt(w)
     safe = torch.where(s > 0, s, torch.ones_like(s))
-    u = _mm(a, v) / safe[None, :].to(v.dtype)
-    return u, s, v.mH.resolve_conj()
+    u = _mm(a_w, v) / safe[None, :].to(v.dtype)
+    return u.to(a.dtype), s.to(a.real.dtype), v.mH.resolve_conj().to(a.dtype)
 
 
 def _pivoted_lu(a):
@@ -589,6 +618,79 @@ def svd(a, coerce_signs=True, full_matrices=False, compute_uv=True):
     return u, s, vh
 
 
+def compression_level(n, q, n_oversamples=10, min_subspace_size=20):
+    """Compression level for svd_compressed: ``q`` plus oversamples, floored
+    at ``min_subspace_size``, capped by the space size."""
+    return min(max(min_subspace_size, q + n_oversamples), n)
+
+
+def compression_matrix(data, q, iterator="power", n_power_iter=0, n_oversamples=10, seed=None, compute=False):
+    """Orthonormal panel spanning the most active subspace: the (comp, m)
+    matrix whose transpose is the sampled range basis."""
+    q_mat = _range_panel(data, q, iterator, n_power_iter, n_oversamples, seed)
+    return q_mat.T
+
+
+def _range_panel(a, k, iterator, n_power_iter, n_oversamples, seed):
+    """The randomized range finder shared by compression_matrix and
+    svd_compressed: sample, (power|QR)-iterate, orthonormalize by TSQR."""
+    from dask_array_tpu_torch.ops.random import default_rng
+
+    m, n = a.shape
+    comp_level = compression_level(min(m, n), k, n_oversamples=n_oversamples)
+    rng = default_rng(seed)
+    omega = rng.standard_normal(
+        size=(n, comp_level), chunks=(a.chunks[1], -1)
+    ).astype(_float_dtype(a.dtype))
+    mat_h = a @ omega
+    if iterator == "power":
+        # plain power iteration, ONE orthonormalization at the end.  Each
+        # step is rescaled by its max-abs (a lazy scalar: no sync), which
+        # leaves the spanned subspace as it is: singular values grow as
+        # sigma^(2k+1) and CholeskyQR squares them again, so a float32
+        # panel would overflow without it
+        from dask_array_tpu_torch.ops.reductions import max as _max
+        from dask_array_tpu_torch.ops.ufuncs import abs as _abs
+
+        for _ in range(n_power_iter):
+            mat_h = a @ (a.T @ mat_h)
+            mat_h = mat_h / _max(_abs(mat_h))
+        q, _ = tsqr(mat_h)
+    elif iterator == "QR":
+        # re-orthonormalize by TSQR every half-step (stable for large
+        # n_power_iter)
+        q, _ = tsqr(mat_h)
+        for _ in range(n_power_iter):
+            q, _ = tsqr(a.T @ q)
+            q, _ = tsqr(a @ q)
+    else:
+        raise ValueError(
+            f"Compression matrix iterator must be 'power' or 'QR', got {iterator!r}"
+        )
+    return q
+
+
+def svd_compressed(a, k, iterator="power", n_power_iter=0, n_oversamples=10, seed=None, compute=False,
+                   coerce_signs=True):
+    """Randomized (compressed) SVD: the top ``k`` singular triplets from a
+    sampled range panel, a composition of matmuls and TSQRs."""
+    q = _range_panel(a, k, iterator, n_power_iter, n_oversamples, seed)
+    b = q.T @ a
+    comp_level = q.shape[1]
+    if comp_level >= b.shape[1]:
+        # square-ish compressed panel: the m >= n svd path needs ONE column
+        # block (b is comp x n, small either way)
+        b = b.rechunk((b.shape[0], b.shape[1]))
+    else:
+        b = b.rechunk((b.shape[0], b.chunks[1]))
+    u_inner, s, vh = svd(b, coerce_signs=False)
+    u = q @ u_inner
+    u, s, vh = u[:, :k], s[:k], vh[:k, :]
+    if coerce_signs:
+        u, vh = svd_flip(u, vh)
+    return u, s, vh
+
+
 def cholesky(a, lower=False):
     m, n = a.shape
     if m != n:
@@ -941,6 +1043,8 @@ def norm(x, ord=None, axis=None, keepdims=False):
 
 __all__ = [
     "cholesky",
+    "compression_level",
+    "compression_matrix",
     "inv",
     "lstsq",
     "lu",
@@ -950,6 +1054,7 @@ __all__ = [
     "solve",
     "solve_triangular",
     "svd",
+    "svd_compressed",
     "svd_flip",
     "tsqr",
 ]

@@ -2,8 +2,11 @@
 halo and scale kernels against their plain versions, their input checks,
 and the main paths through ``compute()`` (stencil2d in both forms, a
 non-linear map_overlap, pad, sliding windows and push, reduction_tree,
-normalize_contract, rechunk_relayout, tall_skinny_svd), and uint64
-arithmetic and order above 2**63.
+normalize_contract, rechunk_relayout, tall_skinny_svd), uint64
+arithmetic and order above 2**63, and ``da.random``'s surroundings: a
+random leaf's determinism and grid independence, the laws' moments,
+``integers`` up to 2**64, fft against numpy, svd_compressed, multi-output
+map_blocks and the random-input pipelines with their kernel launches.
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -18,7 +21,11 @@ multi-statistic kernel: colsum/rowmean rtol 1e-5 with atol 4 * sqrt(terms)
 bytes: their results must equal the plain versions' byte for byte.  The
 scale kernel rounds one product as torch does: equal bytes, a NaN matching
 any NaN.  tall_skinny_svd: singular values rtol 1e-4 against float64
-numpy, reconstruction and orthogonality 20 * eps * n.
+numpy, reconstruction and orthogonality 20 * eps * n.  Random draws:
+mean and variance within 6 standard errors of scipy's law.  fft: rtol
+1e-5 of the max for single precision, 1e-12 for double, 2**-10 for
+float16 input.  svd_compressed of an exact-rank input: s to 1e-8 of s_max
+in float64, 1e-4 in float32.
 """
 
 import numpy as np
@@ -878,3 +885,187 @@ def test_cov_launches_the_transpose_and_scale_kernels(cuda):
         cc = da.corrcoef(da.from_array(x, chunks=(16, 700))).compute()
     np.testing.assert_allclose(got, np.cov(x, aweights=w), rtol=1e-10)
     np.testing.assert_allclose(cc, np.corrcoef(x), rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.gpu
+def test_a_random_leaf_on_the_card_is_deterministic_and_grid_independent(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    with config.set({"device": "cuda"}):
+        def draw(chunks, seed=0):
+            return da.random.default_rng(seed).standard_normal((1000, 600), dtype="float32", chunks=chunks)
+
+        a = draw(7).compute_device()
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        assert torch.equal(a, draw(7).compute_device())  # one seed, the same bytes
+        assert torch.equal(a, draw(250).compute_device())  # another grid, the same bytes
+        assert torch.equal(a, draw(7).rechunk((300, 600)).compute_device())
+        r = da.random.default_rng(0)
+        first, second = r.standard_normal((1000, 600), chunks=250), r.standard_normal((1000, 600), chunks=250)
+        assert not torch.equal(first.compute_device(), second.compute_device())
+        card = da.random.default_rng(5).random(1000).compute()
+    with config.set({"device": "cpu"}):
+        host = da.random.default_rng(5).random(1000).compute()
+    # one seed, two generators: the card's stream is not the CPU's
+    assert not np.array_equal(card, host)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, call, law", [
+    ("standard_normal", lambda r, n: r.standard_normal(n), ("norm", ())),
+    ("gamma", lambda r, n: r.gamma(2.5, 1.5, n), ("gamma", (2.5, 0, 1.5))),
+    ("binomial", lambda r, n: r.binomial(10, 0.3, n), ("binom", (10, 0.3))),
+    ("poisson", lambda r, n: r.poisson(4, n), ("poisson", (4,))),
+    ("vonmises", lambda r, n: r.vonmises(0.0, 2, n), ("vonmises", (2,))),
+    ("zipf", lambda r, n: r.zipf(6, n), ("zipf", (6,))),
+    ("hypergeometric", lambda r, n: r.hypergeometric(20, 30, 10, n), ("hypergeom", (50, 20, 10))),
+    ("integers", lambda r, n: r.integers(-5, 12, n), ("randint", (-5, 12))),
+    ("multinomial", lambda r, n: r.multinomial(20, [0.2, 0.3, 0.5], n)[:, 1], ("binom", (20, 0.3))),
+    ("multivariate_normal", lambda r, n: r.multivariate_normal([1.0, -2.0], [[2.0, 0.5], [0.5, 1.0]], n)[:, 0],
+     ("norm", (1.0, 2.0**0.5))),
+])
+def test_distributions_on_the_card_follow_their_laws(cuda, name, call, law):
+    """Mean and variance within 6 standard errors of scipy's, 1e5 draws."""
+    from scipy import stats
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    n = 100_000
+    with config.set({"device": "cuda"}):
+        x = call(da.random.default_rng(11), n).compute().astype(np.float64)
+    mean, var, kurt = (float(v) for v in getattr(stats, law[0])(*law[1]).stats(moments="mvk"))
+    assert np.isfinite(x).all()
+    assert abs(x.mean() - mean) <= 6 * np.sqrt(var / n)
+    assert abs(x.var() - var) <= 6 * np.sqrt((kurt + 2) * var**2 / n)
+
+
+@pytest.mark.gpu
+def test_integers_up_to_2_64_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    with config.set({"device": "cuda"}):
+        r = da.random.default_rng(3)
+        u = r.integers(0, 2**64, size=10_000, dtype=np.uint64).compute()
+        w = r.integers(0, 2**63 + 2**61, size=10_000, dtype=np.uint64).compute()
+        s = r.integers(-(2**63), 2**63, size=10_000).compute()
+    assert u.dtype == np.uint64 and (u >= 2**63).any() and (u < 2**63).any()
+    assert w.max() < 2**63 + 2**61 and (w >= 2**63).any()
+    assert s.dtype == np.int64 and (s < 0).any() and (s > 0).any()
+
+
+FFT_CASES = [(kind, kw, dtype)
+             for kind, kw in [("fft", {}), ("rfft", {"axis": 0}), ("irfft", {"n": 30}), ("fft2", {}),
+                              ("ifftn", {"axes": (0, 1)}), ("hfft", {}), ("rfftn", {"s": (32, 20), "axes": (0, 1)})]
+             for dtype in ["float16", "float32", "float64", "complex64", "int32"]
+             if not (dtype == "complex64" and kind in ("rfft", "rfftn"))]  # numpy refuses those
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind, kw, dtype", FFT_CASES)
+def test_fft_on_the_card_against_numpy(cuda, dtype, kind, kw):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((48, 30)) * 3
+    if dtype == "complex64":
+        a = a + 1j * rng.standard_normal((48, 30))
+    a = a.astype(dtype)
+    want = getattr(np.fft, kind)(a, **kw)
+    with config.set({"device": "cuda"}):
+        got = getattr(da.fft, kind)(da.from_array(a, chunks=-1), **kw).compute()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 2.0**-10 if dtype == "float16" else 1e-5 if want.dtype in (np.complex64, np.float32) else 1e-12
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got.astype(np.complex128) - want).max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, tol", [("float64", 1e-8), ("float32", 1e-4)])
+def test_svd_compressed_on_the_card(cuda, dtype, tol):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import scale as sk
+
+    rng = np.random.default_rng(7)
+    k = 8
+    u0, _ = np.linalg.qr(rng.standard_normal((4000, k)))
+    v0, _ = np.linalg.qr(rng.standard_normal((200, k)))
+    x = ((u0 * np.linspace(9.0, 2.0, k)) @ v0.T).astype(dtype)
+    with config.set({"device": "cuda"}):
+        sk.LAUNCHES = 0
+        u, s, vh = da.compute(*da.svd_compressed(da.from_array(x, chunks=(500, 200)), k, n_power_iter=2, seed=0))
+        assert sk.LAUNCHES >= 1  # svd_flip's multiplies
+    want = np.linalg.svd(x.astype(np.float64), compute_uv=False)[:k]
+    assert s.dtype == np.dtype(dtype) and u.shape == (4000, k) and vh.shape == (k, 200)
+    np.testing.assert_allclose(s, want, rtol=0, atol=tol * want[0])
+    assert (vh.astype(np.float64).sum(axis=1) >= 0).all()
+
+
+@pytest.mark.gpu
+def test_multi_output_map_blocks_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.ops._map_blocks import map_blocks_multi_output
+
+    calls = []
+
+    def sin_cos(b):
+        calls.append(b.device.type)
+        return torch.sin(b), torch.cos(b)
+
+    x = np.random.default_rng(8).standard_normal((300, 200)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        s, c = map_blocks_multi_output(sin_cos, da.from_array(x, chunks=100), dtypes=["f4", "f4"])
+        got_s, got_c = da.compute(s, c)
+    assert calls == ["cuda"] * 6
+    np.testing.assert_allclose(got_s, np.sin(x), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_c, np.cos(x), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_random_input_pipelines_on_the_card_launch_their_kernels(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import mstat, stencil
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.models import pipelines as p
+
+    with config.set({"device": "cuda"}):
+        mstat.LAUNCHES = stencil.LAUNCHES = tk.LAUNCHES = 0
+        tree = da.compute(*p.reduction_tree(chunk=100, n=600))
+        assert mstat.LAUNCHES == 1
+        st = p.stencil2d(chunk=128, form="roll", n=512).compute()
+        assert stencil.LAUNCHES == 1
+        rel = p.rechunk_relayout(chunk=128, n=512).compute()
+        assert tk.LAUNCHES == 1
+        x = da.random.default_rng(0).standard_normal((600, 600), dtype="float32", chunks=100).compute()
+        x2 = da.random.default_rng(0).standard_normal((512, 512), dtype="float32", chunks=128).compute()
+    x64 = x.astype(np.float64)
+    np.testing.assert_allclose(tree[0], x64.sum(0), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(tree[2], x64.std(), rtol=1e-4)
+    assert rel.tobytes() == np.ascontiguousarray(x2.T).tobytes()
+    assert st.shape == (512, 512) and np.isfinite(st).all()
+
+
+@pytest.mark.gpu
+def test_svd_of_a_numerically_rank_deficient_float32_panel_on_the_card(cuda):
+    """The Gram's eigendecomposition of a float32 R whose squared condition
+    passes 1/eps runs in float64: cuSOLVER's float32 syevd did not
+    converge on such a panel (rank 32 plus 1e-4 noise, 1e6 x 1024)."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((50_000, 16)) @ rng.standard_normal((16, 512)) + 1e-4 * rng.standard_normal((50_000, 512))
+    x = x.astype(np.float32)
+    with config.set({"device": "cuda"}):
+        s = da.linalg.svd(da.from_array(x, chunks=(5000, 512)))[1].compute()
+        cs = da.svd_compressed(da.from_array(x, chunks=(5000, 512)), 16, n_power_iter=2, seed=0)[1].compute()
+    want = np.linalg.svd(x.astype(np.float64), compute_uv=False)
+    rel = np.abs(s - want) / want
+    assert rel[:16].max() <= 2.0**-20 and rel.max() <= 1e-3
+    assert (np.abs(cs - want[:16]) / want[:16]).max() <= 1e-3
