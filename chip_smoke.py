@@ -8,9 +8,9 @@ version.  Run from the root of a checkout, with no arguments:
 
 Phases (each prints one line of its own numbers; any failure raises):
   1. setup: config "device" = "cuda"; build the band-stencil, the
-     multi-statistic, the transpose, the halo and the scale kernels from
-     dask_array_tpu_torch/csrc (one nvcc each, started together); print the
-     card's name and power limit;
+     multi-statistic, the transpose, the halo, the scale and the histogram
+     kernels from dask_array_tpu_torch/csrc (one nvcc each, started
+     together); print the card's name and power limit;
   2. the band-stencil kernel against its plain version on the card: every
      boundary and every mixed pair, depths (1,1) (2,1) (1,0) (8,8),
      float16/32/64, a ragged shape; then the redesign's paths: 16-byte rows
@@ -143,9 +143,13 @@ Phases (each prints one line of its own numbers; any failure raises):
      transpose and scale kernels launched, and held against their plain
      versions at that shape); repeat with one count per row at 4096^2.
      Each against numpy (a part of the large results), with
-     compute_device()/compute() times, the nearest torch call, the bound
-     and the host syncs; then the histogram's counting route (K2) at 2^26
-     float32 into 256 bins beside torch.histc and its bound;
+     compute_device()/compute() times, the nearest torch call, the bound,
+     the host syncs and the histogram kernel's launches (one on each
+     histogram and bincount path); then the histogram kernel (K2) on 2^26
+     float32 values into 256 bins (also weighted, its sums the same bits
+     on three runs) and 65536 bins, and a 65536-bin bincount of 2^26
+     int64, each equal to numpy and beside its plain version, torch.histc
+     (or bucketize + bincount, bincount) and its bound;
  28. da.random, fft, svd_compressed and multi-output map_blocks
      (RANDOM_SIZES), with inputs drawn on the card: (a) a 16384^2 float32
      standard normal (1 GiB) in chunks of 4096: the same bytes twice and at
@@ -663,6 +667,7 @@ def routine_paths(da, torch, sizes, timer, sync):
 
     import numpy as np
 
+    from dask_array_tpu_torch.kernels import histogram as hk
     from dask_array_tpu_torch.kernels import scale as sk
     from dask_array_tpu_torch.kernels import transpose as tk
     from dask_array_tpu_torch.ops import _fancy_indexing as fi
@@ -681,9 +686,9 @@ def routine_paths(da, torch, sizes, timer, sync):
         numpy) to compare, ``lib()`` the torch call."""
         arrs = lazy()
         arrs = arrs if isinstance(arrs, tuple) else (arrs,)
-        fi.SYNCS, tk.LAUNCHES, sk.LAUNCHES = 0, 0, 0
+        fi.SYNCS, tk.LAUNCHES, sk.LAUNCHES, hk.LAUNCHES = 0, 0, 0, 0
         got = da.compute(*arrs)
-        syncs, p3t, p3c = fi.SYNCS, tk.LAUNCHES, sk.LAUNCHES
+        syncs, p3t, p3c, k2 = fi.SYNCS, tk.LAUNCHES, sk.LAUNCHES, hk.LAUNCHES
         t0 = time.perf_counter()
         err = 0.0
         with warnings.catch_warnings(), np.errstate(all="ignore"):
@@ -715,7 +720,7 @@ def routine_paths(da, torch, sizes, timer, sync):
                      "compute_ms": host_ms(lambda: da.compute(*arrs), 3),
                      "torch_call": lib[0], "torch_call_ms": timer(lib[1]) if lib[1] else None,
                      "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "host_syncs": syncs,
-                     "transpose_launches": p3t, "scale_launches": p3c}
+                     "transpose_launches": p3t, "scale_launches": p3c, "histogram_launches": k2}
         phase(27, name, **out[name])
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -802,6 +807,10 @@ def routine_paths(da, torch, sizes, timer, sync):
         lambda g: [(g[0], np.nonzero(counts)[0].astype(np.int32)), (g[1], counts[counts > 0])],
         ("torch.unique(return_counts=True)", lambda: torch.unique(ut, return_counts=True)),
         u32.nbytes + int((counts > 0).sum()) * 12)
+    for name in ("histogram_256", "histogram_256_weighted", "histogram_257_edges", "bincount_65536",
+                 "bincount_65536_weighted"):
+        check(out[name]["histogram_launches"] == 1 or device.type != "cuda", f"{name}: the histogram kernel "
+              f"launched {out[name]['histogram_launches']} times")
     del h, hy, w, ints, u32, counts, hv, hyv, wv, iv, uv, ht, hyt, it, ut, wt
     sorted_edges = np.sort(rng.standard_normal(nedges))
     vals = rng.standard_normal(npts) * 1.1
@@ -1196,32 +1205,71 @@ def random_paths(da, torch, sizes, timer, sync, device):
 
 
 def k2_timing(torch, flat, timer, device_timer, seed=27):
-    """K2, the histogram's counting route (``ops/_histogram.py::
-    histogram_counts``), on ``flat`` float32 values into 256 uniform bins
-    on the device: per call and on the device alone, beside torch.histc
-    and torch.bucketize + torch.bincount, with the bound of one read."""
+    """K2, the histogram kernel (``kernels/histogram.py``), on ``flat``
+    float32 values on the device: into 256 uniform bins (float32 edges of
+    (-4, 4)), the same with float64 weights, and into 65536 bins; then a
+    65536-bin bincount of int64 values.  Each case: the kernel against
+    numpy (equal counts; weighted sums to rtol 1e-12) and its plain version
+    (``histogram_counts_plain``: searchsorted + bincount), per call in the
+    order plain, kernel, kernel, plain, and on the device alone, beside the
+    nearest PyTorch call (``torch.histc``; ``torch.bucketize`` +
+    ``torch.bincount`` where histc has no weights; ``torch.bincount``), with
+    the bound (each input read once, the counts written once, at 3.35 TB/s;
+    four float32 operations a value) and the kernel's share of it.
+    Weighted sums below the shared-memory cap must repeat their bits."""
     import numpy as np
 
-    from dask_array_tpu_torch.ops._histogram import histogram_counts
+    from dask_array_tpu_torch.kernels import histogram as hk
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(flat, generator=g, device="cuda")
-    edges = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), 256, (-4, 4))).cuda()
-    got = histogram_counts(x, edges)
-    want = np.histogram(x.cpu().numpy(), bins=256, range=(-4, 4))[0]
-    check(np.array_equal(got.cpu().numpy(), want), "K2: differs from numpy")
-    nbytes = flat * 4
-    res = {"values": flat, "bins": 256, "vs_numpy": "equal",
-           "ms": timer(lambda: histogram_counts(x, edges)),
-           "device_ms": device_timer(lambda: histogram_counts(x, edges)),
-           "torch_histc_ms": timer(lambda: torch.histc(x, 256, -4, 4)),
-           "torch_histc_device_ms": device_timer(lambda: torch.histc(x, 256, -4, 4)),
-           "bucketize_bincount_ms": timer(lambda: torch.bincount(torch.bucketize(x, edges.float()), minlength=258)),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    res["of_bound"] = res["bound_ms"] / res["device_ms"]
-    del x
+    w = torch.rand(flat, generator=g, device="cuda", dtype=torch.float64)
+    ints = torch.randint(0, 65536, (flat,), generator=g, device="cuda")
+    xn, wn, intsn = x.cpu().numpy(), w.cpu().numpy(), ints.cpu().numpy()
+    out = {}
+
+    def case(name, kernel, plain, lib, want, nbytes, rtol=0.0):
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        g64, r64 = got.cpu().numpy().astype(np.float64), ref.cpu().numpy().astype(np.float64)
+        if rtol:
+            check(np.allclose(g64, want, rtol=rtol, atol=0), f"K2 {name}: differs from numpy")
+        else:
+            check(np.array_equal(g64, want), f"K2 {name}: differs from numpy")
+        k_ms, p_ms, k_runs, p_runs = paired_ms(plain, kernel, reps=20)
+        b_ms, b_by = bound(nbytes, 4 * flat)
+        dev = device_timer(kernel)
+        out[name] = {"vs_numpy": "equal" if not rtol else f"rtol {rtol}",
+                     "max_abs_err_vs_plain": float(np.abs(g64 - r64).max()),
+                     "kernel_ms": k_ms, "kernel_device_ms": dev, "kernel_runs_ms": k_runs,
+                     "plain_ms": p_ms, "plain_runs_ms": p_runs, "library": lib[0],
+                     "library_ms": timer(lib[1]), "library_device_ms": device_timer(lib[1]),
+                     "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev}
+
+    for nbins in (256, 65536):
+        edges = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nbins, (-4, 4))).cuda()
+        want = np.histogram(xn, bins=nbins, range=(-4, 4))[0].astype(np.float64)
+        case(f"histogram_{nbins}", lambda: hk.histogram_counts_cuda(x, edges),
+             lambda: hk.histogram_counts_plain(x, edges), ("torch.histc", lambda: torch.histc(x, nbins, -4, 4)),
+             want, flat * 4 + nbins * 8)
+        if nbins == 256:
+            edges256 = edges
+            want = np.histogram(xn, bins=256, range=(-4, 4), weights=wn)[0]
+            case("histogram_256_weighted", lambda: hk.histogram_counts_cuda(x, edges, w),
+                 lambda: hk.histogram_counts_plain(x, edges, w),
+                 ("torch.bucketize + torch.bincount(weights)",
+                  lambda: torch.bincount(torch.bucketize(x, edges), w, minlength=258)), want, flat * 12 + 256 * 8,
+                 rtol=1e-12)
+    case("bincount_65536", lambda: hk.bincount_cuda(ints, 65536), lambda: hk.bincount_plain(ints, 65536),
+         ("torch.bincount", lambda: torch.bincount(ints, minlength=65536)),
+         np.bincount(intsn, minlength=65536).astype(np.float64), flat * 8 + 65536 * 8)
+    runs = [hk.histogram_counts_cuda(x, edges256, w) for _ in range(3)]
+    check(all(torch.equal(r, runs[0]) for r in runs), "K2: weighted sums below the cap changed their bits")
+    out["weighted_repeats_bits"] = True
+    del x, w, ints, runs
     torch.cuda.empty_cache()
-    return res
+    return out
 
 
 STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (rowmean /N); "
@@ -1262,7 +1310,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    built = _build.build_all(["band_stencil", "mstat", "transpose", "halo", "scale"])
+    built = _build.build_all(["band_stencil", "mstat", "transpose", "halo", "scale", "histogram"])
     build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2160,8 +2208,9 @@ def main() -> int:
           paths=len(routines), tolerance={"default": "equal to numpy, dtype and NaNs included",
                                           "max_err_of_max": "max |got - numpy| / max |numpy| under each path's rtol"},
           seconds=time.perf_counter() - t27)
+    k2_launches = sum(v["histogram_launches"] for v in routines.values())
     k2 = k2_timing(torch, 1 << 26, cuda_ms, device_ms)
-    phase(27, "timing-k2-histogram-2^26-f32-256-bins", card=smi, **k2)
+    phase(27, "timing-k2-histogram-2^26-f32", card=smi, launches=k2_launches, **k2)
     print(smi, flush=True)
     torch.cuda.empty_cache()
 
@@ -2261,6 +2310,23 @@ def main() -> int:
             "bound_by": scale_bound_by,
             "library_ms": mul_ms,
             "launches_svd_compressed": rp_launches["scale_svd_compressed"],
+        },
+        {
+            "name": "histogram",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/histogram.cu",
+            "replaces": "dask_array_tpu/kernels/histogram.py:202",
+            "launches": k2_launches,
+            "max_abs_err": k2["histogram_256"]["max_abs_err_vs_plain"],
+            "ms": k2["histogram_256"]["kernel_ms"],
+            "plain_ms": k2["histogram_256"]["plain_ms"],
+            "bound_ms": k2["histogram_256"]["bound_ms"],
+            "bound_by": k2["histogram_256"]["bound_by"],
+            "library_ms": k2["histogram_256"]["library_ms"],
+            "device_ms": k2["histogram_256"]["kernel_device_ms"],
+            "cases": {k: {key: v[key] for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "of_bound")}
+                      for k, v in k2.items() if isinstance(v, dict)},
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

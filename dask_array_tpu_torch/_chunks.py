@@ -122,9 +122,11 @@ def u64_to_float(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _float_to_u64(t: torch.Tensor) -> torch.Tensor:
     """numpy's float -> uint64 cast, as int64 bits: truncation toward zero,
-    exact up to 2**64 (a negative value wraps through int64, as on x86)."""
+    exact up to 2**64 (a negative value wraps through int64, as on x86; 2**64
+    and above give x86's 0 on every device, where CUDA would saturate)."""
     top = 2.0**63
-    return torch.where(t >= top, (t - top).to(torch.int64) + INT64_MIN, t.to(torch.int64))
+    high = torch.where(t >= 2 * top, INT64_MIN, (t - top).to(torch.int64))
+    return torch.where(t >= top, high + INT64_MIN, t.to(torch.int64))
 
 
 def to_compute(t: torch.Tensor, dt) -> torch.Tensor:
@@ -189,6 +191,13 @@ def cat(parts, dim=0) -> torch.Tensor:
     if twin is None or any(p.dtype != parts[0].dtype for p in parts):
         return torch.cat(parts, dim=dim)
     return torch.cat([p.view(twin) for p in parts], dim=dim).view(parts[0].dtype)
+
+
+def signed_bits(t: torch.Tensor) -> torch.Tensor:
+    """A uint16/32/64 tensor viewed as its signed twin (the same bits, so
+    nonzero where the value is); any other tensor as it is."""
+    twin = _SIGNED_TWIN.get(t.dtype)
+    return t if twin is None else t.view(twin)
 
 
 def moved(fn, t: torch.Tensor, *args, **kwargs) -> torch.Tensor:
@@ -271,6 +280,25 @@ def sort_numpy(t: torch.Tensor, dim=-1) -> torch.Tensor:
     if t.dtype == torch.uint64:
         return (torch.sort(t.view(torch.int64) ^ INT64_MIN, dim=dim).values ^ INT64_MIN).view(torch.uint64)
     return as_stored(torch.sort(computable(t), dim=dim).values, numpy_dtype(t.dtype))
+
+
+def search_numpy(a, v, right):
+    """numpy's searchsorted of held blocks: both in their common dtype,
+    ordered as numpy orders it (``order_key``: NaN last, uint64 unsigned);
+    complex data by one lexicographic sort of both, ties broken by side."""
+    dt = np.result_type(numpy_dtype(a.dtype), numpy_dtype(v.dtype))
+    a, v = cast(a, dt), cast(v, dt)
+    if dt.kind != "c":
+        return torch.searchsorted(order_key(a).contiguous(), order_key(v), right=right)
+    flat = v.reshape(-1)
+    both = torch.cat([a, flat])
+    is_a = torch.arange(both.numel(), device=a.device) < a.numel()
+    tie = (~is_a if right else is_a).to(torch.int8)
+    perm = lexsort(complex_keys(both) + [tie])
+    a_before = torch.cumsum(is_a[perm], 0)
+    out = torch.empty(both.numel(), dtype=torch.int64, device=a.device)
+    out[perm] = a_before
+    return out[a.numel():].reshape(v.shape)
 
 
 def dtype_key(dt) -> str:

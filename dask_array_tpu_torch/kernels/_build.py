@@ -44,7 +44,7 @@ def build_library(name: str) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, str(source),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)

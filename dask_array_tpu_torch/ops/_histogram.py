@@ -1,22 +1,23 @@
-"""histogram / histogram2d / histogramdd, and their counting route (K2).
+"""histogram / histogram2d / histogramdd, and their counting step (K2).
 
 Port of ``dask_array_tpu/ops/_histogram.py`` with its compare-accumulate
-scan ``dask_array_tpu/kernels/histogram.py`` (K2), which the JAX package
-leaves to XLA.  Here K2 is torch ops (``histogram_counts``): each value's
-bin is one ``searchsorted`` of its order key into the edges' (numpy's
-comparison dtype: int64 data against float edges compares in float64, int
-against int in the integers, NaN above every edge), the last bin closed,
-values outside the edges or NaN dropped into one spare bin; the counts are
-one ``torch.bincount`` in int64, or of float64 weights (on CUDA a float
-bincount adds with atomics, so a weighted count's last bits may change
-from run to run).  ``torch.bincount`` reads its input's extremes on the
-host, a sync of torch's own.
+scan ``dask_array_tpu/kernels/histogram.py`` (K2).  Here K2 is
+``kernels/histogram.py``: ``histogram_counts`` runs its plain version
+(each value's bin by one ``searchsorted`` of numpy's order keys, then one
+``torch.bincount``) for a CPU tensor and the hand CUDA kernel for a CUDA
+tensor, which reads the data once with no host sync.  Each value is
+compared in numpy's comparison dtype (int64 data against float edges in
+float64, int against int in the integers, complex lexicographically), the
+last bin closed, values outside the edges or NaN dropped; the counts are
+int64, or the float64 (complex128) sums of the weights.
 
 Edges given as numpy data, or derived from a numeric range, are numpy's
 own (``np.histogram_bin_edges``).  Edges derived from the data's min/max
 or from a lazy range (``LinspaceEdges``) bring their two endpoints to the
 host in one sync: numpy's ValueError for a NaN or infinite range needs
 them there; the edges are then numpy's linspace of those endpoints.
+``histogramdd`` keeps its own ``searchsorted`` + ``bincount`` (the JAX
+package does not reach K2 there).
 """
 
 from __future__ import annotations
@@ -27,48 +28,10 @@ import functools
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cast, compute_dtype, numpy_dtype, order_key, to_compute
+from dask_array_tpu_torch._chunks import cast, compute_dtype, numpy_dtype, to_compute
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
-
-
-def _positions(x, edges):
-    """numpy's ``searchsorted(edges, x, side="right")`` in the common dtype
-    of the held blocks (NaN after every edge), and where x is the last
-    edge."""
-    dt = np.result_type(numpy_dtype(x.dtype), numpy_dtype(edges.dtype))
-    kx, ke = order_key(cast(x, dt)), order_key(cast(edges, dt)).contiguous()
-    return torch.searchsorted(ke, kx, right=True), kx == ke[-1]
-
-
-def bin_indices(x, edges):
-    """Each value's bin among ``len(edges) - 1``, the last bin closed;
-    values outside the edges, and NaN, get the spare bin
-    ``len(edges) - 1``."""
-    nbins = edges.shape[0] - 1
-    pos, on_last = _positions(x, edges)
-    idx = torch.where(on_last, nbins - 1, pos - 1)
-    return torch.where((idx < 0) | (idx >= nbins), nbins, idx)
-
-
-def _weighted_bincount(idx, weights, length):
-    """``bincount`` of float64 weights (complex: each part apart)."""
-    if weights.is_complex():
-        re = torch.bincount(idx, weights=weights.real.to(torch.float64), minlength=length)
-        im = torch.bincount(idx, weights=weights.imag.to(torch.float64), minlength=length)
-        return torch.complex(re, im)
-    return torch.bincount(idx, weights=weights.to(torch.float64), minlength=length)
-
-
-def histogram_counts(x, edges, weights=None):
-    """K2: numpy's histogram counts of the held block ``x`` (any shape)
-    over ``edges`` (a tensor): int64, or the float64 (complex128) sums of
-    ``weights``."""
-    nbins = edges.shape[0] - 1
-    idx = bin_indices(x.reshape(-1), edges)
-    if weights is None:
-        return torch.bincount(idx, minlength=nbins + 1)[:nbins]
-    return _weighted_bincount(idx, weights.reshape(-1), nbins + 1)[:nbins]
+from dask_array_tpu_torch.kernels.histogram import histogram_counts, positions
 
 
 def _edges_tensor(edges, ctx):
@@ -171,7 +134,7 @@ def _resolve_edges(a, bins, range):
         return bins.expr, bins.shape[0] - 1, bins
     if np.ndim(bins) == 1:
         edges = np.asarray(bins)
-        if edges.dtype.kind not in "iuf":
+        if edges.dtype.kind not in "iufc":
             edges = edges.astype("f8")
         if np.any(edges[:-1] > edges[1:]):
             raise ValueError("`bins` must increase monotonically, when an array")
@@ -268,7 +231,7 @@ class HistogramDD(ArrayExpr):
         nbin = [e.shape[0] + 1 for e in edges]
         flat = None
         for c, e, stride in zip(self.coords, edges, np.cumprod([1] + nbin[::-1])[::-1][1:].tolist()):
-            pos, on_last = _positions(cast(ctx.build(c).dense().reshape(-1), self.sample_dtype), e)
+            pos, on_last = positions(cast(ctx.build(c).dense().reshape(-1), self.sample_dtype), e)
             idx = pos - on_last.to(torch.int64)
             flat = idx * stride if flat is None else flat + idx * stride
         total = int(np.prod(nbin))

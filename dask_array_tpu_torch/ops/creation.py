@@ -22,11 +22,16 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch._chunks import (
+    INT64_MIN,
+    argsort_numpy,
     as_stored,
     cached_cumsum,
     cast,
+    computable,
     compute_dtype,
     normalize_chunks,
+    sort_numpy,
+    to_compute,
     torch_dtype,
     uint64_bits,
     validate_axis,
@@ -453,16 +458,14 @@ def _at(axis, ind, ndim):
     return (slice(None),) * axis + (ind,) + (slice(None),) * (ndim - axis - 1)
 
 
-def _round_if_needed(t, dtype):
-    return torch.round(t) if not (dtype.is_floating_point or dtype.is_complex) else t
-
-
-def _pad_by_steps(x, widths, mode, kw):
+def _pad_by_steps(x, widths, mode, kw, dt):
     """numpy's ``pad`` for the modes that are no index map ("linear_ramp",
     "maximum", "mean", "median", "minimum", "empty", and "reflect" /
     "symmetric" with ``reflect_type="odd"``), step by step as numpy does:
-    an empty padded tensor with ``x`` in its centre, then one axis at a time
-    on the region that axes before it have already padded."""
+    an empty padded tensor with ``x`` (a block of numpy dtype ``dt`` in its
+    compute dtype) in its centre, then one axis at a time on the region
+    that axes before it have already padded.  The result is in the compute
+    dtype of ``dt``."""
     nd = x.ndim
     shape = [n + lo + hi for n, (lo, hi) in zip(x.shape, widths)]
     padded = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -481,19 +484,10 @@ def _pad_by_steps(x, widths, mode, kw):
             end_lo, end_hi = _as_pairs(kw.get("end_values", 0), nd)[axis]
             for width, end, edge_at, sl in ((lo, end_lo, lo, slice(0, lo)),
                                             (hi, end_hi, lo + n - 1, slice(lo + n, lo + n + hi))):
-                if not width:
-                    continue
-                end = end.item() if isinstance(end, np.generic) else end
-                edge = roi[_at(axis, slice(edge_at, edge_at + 1), nd)].to(torch.complex128 if x.is_complex() else torch.float64)
-                step_shape = [1] * nd
-                step_shape[axis] = width
-                i = torch.arange(width, dtype=edge.dtype, device=x.device).reshape(step_shape)
-                ramp = end + i * ((edge - end) / width)
-                if sl.start:  # the hi side's ramp runs from the edge outwards
-                    ramp = ramp.flip(axis)
-                if not (x.is_floating_point() or x.is_complex()):
-                    ramp = torch.floor(ramp)
-                roi[_at(axis, sl, nd)] = ramp.to(x.dtype)
+                if width:
+                    edge = roi[_at(axis, slice(edge_at, edge_at + 1), nd)]
+                    ramp = _linear_ramp(end, edge, width, axis, dt)
+                    roi[_at(axis, sl, nd)] = ramp.flip(axis) if sl.start else ramp
         else:
             length_lo, length_hi = _as_pairs(kw.get("stat_length"), nd)[axis]
             stats = []
@@ -502,28 +496,143 @@ def _pad_by_steps(x, widths, mode, kw):
                 if length == 0 and mode in ("maximum", "minimum"):
                     raise ValueError("stat_length of 0 yields no value for padding")
                 part = roi[_at(axis, slice(lo, lo + length) if first else slice(lo + n - length, lo + n), nd)]
-                stats.append(_stat(part, mode, axis))
+                stats.append(_stat(part, mode, axis, dt))
             roi[_at(axis, slice(0, lo), nd)] = stats[0]
             roi[_at(axis, slice(lo + n, lo + n + hi), nd)] = stats[1]
     return padded
 
 
-def _stat(part, mode, axis):
-    """numpy's statistic of ``part`` over ``axis`` (kept), rounded back to
-    an integer dtype where numpy rounds."""
-    if mode == "maximum":
-        return part.amax(axis, keepdim=True)
-    if mode == "minimum":
-        return part.amin(axis, keepdim=True)
-    exact = part.is_floating_point() or part.is_complex()
-    work = part if exact else part.to(torch.float64)
+def _linear_ramp(end, edge, width, axis, dt):
+    """numpy's ``linspace(end, edge, width, endpoint=False, dtype=dt)``
+    along ``axis`` in ``dt``'s compute dtype: in numpy's working dtype (the
+    result type of the end value and the edge, made inexact), ``i * step +
+    end``, or ``i / width * delta + end`` when any step is 0; floored for
+    integers."""
+    wdt = np.linspace(end, np.zeros((), dt), 2, endpoint=False).dtype
+    edge_w = to_compute(as_stored(edge, dt), wdt)
+    end_w = torch.as_tensor(np.asarray(end, dtype=wdt), device=edge.device)
+    delta = edge_w - end_w
+    step = _numpy_div(delta, width)
+    shape = [1] * edge.ndim
+    shape[axis] = width
+    i = torch.arange(width, device=edge.device).to(compute_dtype(wdt))  # numpy's arange in the working dtype
+    i = i.reshape(shape)
+    ramp = torch.where((step == 0).any(), _numpy_div(i, width) * delta, i * step) + end_w
+    if dt.kind in "iu":
+        ramp = torch.floor(ramp)
+    return to_compute(ramp, dt)
+
+
+_FLOAT_MEAN = {np.dtype(np.float16): np.dtype(np.float32)}  # numpy's sum dtype of a mean
+
+
+def _pairwise(t):
+    """numpy's pairwise sum along the last axis (``pairwise_sum``: under 8
+    values one by one from -0.0, up to 128 in eight interleaved sums, else
+    the two halves, a multiple of 8 first).  numpy counts a complex value
+    as two: under 4 values one by one, up to 64 in four sums, halves cut
+    at a multiple of 4."""
+    k = 4 if t.is_complex() else 8
+    n = t.shape[-1]
+    if n < k:
+        acc = torch.full(t.shape[:-1], -0.0, dtype=t.dtype, device=t.device)
+        for i in range(n):
+            acc = acc + t[..., i]
+        return acc
+    if n <= 16 * k:
+        r = t[..., :k]
+        m = n - n % k
+        for i in range(k, m, k):
+            r = r + t[..., i:i + k]
+        res = (r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])
+        if k == 8:
+            res = res + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+        for i in range(m, n):
+            res = res + t[..., i]
+        return res
+    half = (n - n % 8) // 2 if k == 4 else n // 2 - (n // 2) % 8
+    return _pairwise(t[..., :half]) + _pairwise(t[..., half:])
+
+
+def _numpy_sum(t, axis):
+    """numpy's ``add.reduce(t, axis, keepdims=True)`` in numpy's order for a
+    C-ordered block: pairwise along the last axis, else one value after
+    another (a float64 cumulative sum, exact in order on the CPU; float32
+    added one row at a time)."""
+    if axis == t.ndim - 1:
+        return _pairwise(t).unsqueeze(-1)
+    n = t.shape[axis]
+    if t.dtype in (torch.float64, torch.complex128):
+        return torch.cumsum(t, axis).narrow(axis, n - 1, 1)
+    acc = t.narrow(axis, 0, 1)
+    for i in range(1, n):
+        acc = acc + t.narrow(axis, i, 1)
+    return acc
+
+
+def _numpy_mean(t, axis):
+    """numpy's mean over ``axis`` (kept) of ``t`` in its sum dtype: the sum
+    in numpy's order, divided by the count (an intp: in float64 or
+    complex128) and rounded back."""
+    wide = torch.complex128 if t.is_complex() else torch.float64
+    return _numpy_div(_numpy_sum(t, axis).to(wide), t.shape[axis]).to(t.dtype)
+
+
+def _numpy_div(t, n):
+    """numpy's ``t / n`` for an integer ``n``: a real value divided by it
+    (a 0-d tensor on t's device: torch's CUDA division by a Python number
+    multiplies by its reciprocal), a complex one times its reciprocal, as
+    numpy's complex division by a real divisor does."""
+    if t.is_complex():
+        return t * (1.0 / n)
+    return t / torch.tensor(n, dtype=t.dtype, device=t.device)
+
+
+def _stat(part, mode, axis, dt):
+    """numpy's statistic of ``part`` (a compute block of numpy dtype
+    ``dt``) over ``axis`` (kept), as numpy assigns it to the pad: rounded
+    for integers, nonzero for bool."""
+    if mode in ("maximum", "minimum"):
+        return _extreme(part, axis, dt, mode == "maximum")
+    held = as_stored(part, dt)
+    work = np.dtype(np.float64) if dt.kind in "biu" else _FLOAT_MEAN.get(dt, dt)
     if mode == "mean":
-        out = work.mean(axis, keepdim=True)
-    else:  # median: the mean of the two middle values, as numpy's
-        s = work.sort(axis).values
+        out = _numpy_mean(to_compute(held, work), axis)
+    else:  # median: numpy's mean of the middle one or two in order, NaN where the sort ends in one
+        s = sort_numpy(held, axis)
         k = s.shape[axis]
-        out = (s.narrow(axis, (k - 1) // 2, 1) + s.narrow(axis, k // 2, 1)) / 2
-    return _round_if_needed(out, part.dtype).to(part.dtype)
+        mid = to_compute(s.narrow(axis, (k - 1) // 2, 2 - k % 2), work)
+        out = _numpy_mean(mid, axis) if k % 2 == 0 else mid
+        last = to_compute(s.narrow(axis, k - 1, 1), work)
+        if last.is_floating_point() or last.is_complex():
+            out = torch.where(torch.isnan(last), last, out)
+    if dt.kind in "iu":
+        out = torch.round(out)
+    return to_compute(out, dt)
+
+
+def _extreme(part, axis, dt, largest):
+    """numpy's ``amax``/``amin`` over ``axis`` (kept): uint64 in unsigned
+    order, complex lexicographically with the first NaN winning, NaN
+    propagated for floats."""
+    if dt == np.uint64:
+        flip = part ^ INT64_MIN
+        return (flip.amax(axis, keepdim=True) if largest else flip.amin(axis, keepdim=True)) ^ INT64_MIN
+    if not part.is_complex():
+        return part.amax(axis, keepdim=True) if largest else part.amin(axis, keepdim=True)
+    order = argsort_numpy(part, axis)
+    pick = order.narrow(axis, part.shape[axis] - 1 if largest else 0, 1)
+    nan = torch.isnan(part.real) | torch.isnan(part.imag)
+    first_nan = nan.to(torch.uint8).argmax(axis, keepdim=True)
+    pick = torch.where(nan.any(axis, keepdim=True), first_nan, pick)
+    return torch.gather(part, axis, pick)
+
+
+def _odd(edge, chunk):
+    """``2 * edge - chunk`` as numpy computes it (bool in int64)."""
+    if chunk.dtype == torch.bool:
+        edge, chunk = edge.to(torch.int64), chunk.to(torch.int64)
+    return 2 * edge - chunk
 
 
 def _reflect_odd(roi, axis, lo, hi, n, include_edge):
@@ -548,7 +657,7 @@ def _reflect_odd(roi, axis, lo, hi, n, include_edge):
             length = min(old, lo)
             stop = lo - offset
             chunk = roi[_at(axis, slice(stop + 1, stop + length + 1), nd)].flip(axis)
-            chunk = 2 * roi[_at(axis, slice(lo, lo + 1), nd)] - chunk
+            chunk = _odd(roi[_at(axis, slice(lo, lo + 1), nd)], chunk)
             roi[_at(axis, slice(lo - length, lo), nd)] = chunk
             lo -= length
         if hi > 0:
@@ -556,7 +665,7 @@ def _reflect_odd(roi, axis, lo, hi, n, include_edge):
             start = total - hi + offset - 2  # numpy's negative start, as a position
             chunk = roi[_at(axis, slice(start - length + 1, start + 1), nd)].flip(axis)
             edge = roi[_at(axis, slice(total - hi - 1, total - hi), nd)]
-            roi[_at(axis, slice(total - hi, total - hi + length), nd)] = 2 * edge - chunk
+            roi[_at(axis, slice(total - hi, total - hi + length), nd)] = _odd(edge, chunk)
             hi -= length
 
 
@@ -609,7 +718,7 @@ class Pad(ArrayExpr):
         elif mode in _INDEX_MODES and kw.get("reflect_type", "even") == "even":
             out = halo_pad(dense, widths, [mode] * dense.ndim)
         else:
-            out = _pad_by_steps(dense, widths, mode, kw)
+            out = _pad_by_steps(computable(dense), widths, mode, kw, self.dtype)
         return BlockView(self.chunks, dense=cast(out, self.dtype))
 
 

@@ -628,7 +628,12 @@ def compression_matrix(data, q, iterator="power", n_power_iter=0, n_oversamples=
     """Orthonormal panel spanning the most active subspace: the (comp, m)
     matrix whose transpose is the sampled range basis."""
     q_mat = _range_panel(data, q, iterator, n_power_iter, n_oversamples, seed)
-    return q_mat.T
+    return _ct(q_mat)
+
+
+def _ct(x):
+    """The conjugate transpose (the transpose of real data)."""
+    return x.conj().T if x.dtype.kind == "c" else x.T
 
 
 def _range_panel(a, k, iterator, n_power_iter, n_oversamples, seed):
@@ -653,7 +658,7 @@ def _range_panel(a, k, iterator, n_power_iter, n_oversamples, seed):
         from dask_array_tpu_torch.ops.ufuncs import abs as _abs
 
         for _ in range(n_power_iter):
-            mat_h = a @ (a.T @ mat_h)
+            mat_h = a @ (_ct(a) @ mat_h)
             mat_h = mat_h / _max(_abs(mat_h))
         q, _ = tsqr(mat_h)
     elif iterator == "QR":
@@ -661,7 +666,7 @@ def _range_panel(a, k, iterator, n_power_iter, n_oversamples, seed):
         # n_power_iter)
         q, _ = tsqr(mat_h)
         for _ in range(n_power_iter):
-            q, _ = tsqr(a.T @ q)
+            q, _ = tsqr(_ct(a) @ q)
             q, _ = tsqr(a @ q)
     else:
         raise ValueError(
@@ -675,7 +680,7 @@ def svd_compressed(a, k, iterator="power", n_power_iter=0, n_oversamples=10, see
     """Randomized (compressed) SVD: the top ``k`` singular triplets from a
     sampled range panel, a composition of matmuls and TSQRs."""
     q = _range_panel(a, k, iterator, n_power_iter, n_oversamples, seed)
-    b = q.T @ a
+    b = _ct(q) @ a
     comp_level = q.shape[1]
     if comp_level >= b.shape[1]:
         # square-ish compressed panel: the m >= n svd path needs ONE column
@@ -979,6 +984,8 @@ def norm(x, ord=None, axis=None, keepdims=False):
     from dask_array_tpu_torch.ops.manipulation import expand_dims
     from dask_array_tpu_torch.ops.ufuncs import abs as _abs, sqrt
 
+    if x.dtype.kind not in "fc":  # numpy: integers and bool in float64, before any square or sum
+        x = x.astype(np.float64)
     if axis is None:
         if ord is None:
             # numpy: default norm of an unaxed array of ANY ndim is the

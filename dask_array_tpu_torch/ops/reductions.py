@@ -816,6 +816,13 @@ class CumReduction(ArrayExpr):
         if self.kind in _CUM_IDENTITY and (x.is_floating_point() or x.is_complex()):
             x = torch.where(torch.isnan(x), _CUM_IDENTITY[self.kind], x)
         x = to_compute(x, self.dtype)  # numpy scans in the result dtype
+        if x.dtype == torch.float16:
+            # numpy rounds a float16 scan to float16 after every step, which
+            # no torch scan does (they carry float32): numpy's own scan, on
+            # the host for a CUDA tensor
+            scan = np.cumsum if self.kind.endswith("cumsum") else np.cumprod
+            out = torch.from_numpy(scan(x.cpu().numpy(), axis=self.axis)).to(x.device)
+            return BlockView(self.chunks, dense=out)
         scan = torch.cumsum if self.kind.endswith("cumsum") else torch.cumprod
         return BlockView(self.chunks, dense=as_stored(scan(x, dim=self.axis), self.dtype))
 

@@ -35,18 +35,20 @@ from dask_array_tpu_torch._chunks import (
     as_stored,
     cast,
     common_blockdim,
-    complex_keys,
     computable,
     compute_dtype,
-    lexsort,
     moved,
     numpy_dtype,
     order_key,
+    search_numpy,
+    signed_bits,
     to_compute,
+    torch_dtype,
     validate_axis,
 )
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
+from dask_array_tpu_torch.kernels.histogram import bincount_counts
 from dask_array_tpu_torch.ops._fancy_indexing import NAN, count_sync
 from dask_array_tpu_torch.ops.ufuncs import (
     _device_of,
@@ -443,6 +445,9 @@ def ediff1d(ary, to_end=None, to_begin=None):
     from dask_array_tpu_torch.ops.stacking import concatenate
 
     ary = _asarray(ary).ravel()
+    if ary.dtype == bool:  # numpy subtracts neighbours, which bool refuses
+        raise TypeError("numpy boolean subtract, the `-` operator, is not supported, use the bitwise_xor, the `^` "
+                        "operator, or the logical_xor function instead.")
     out = diff(ary)
     # numpy casts to_begin and to_end to the result's dtype
     parts = [_asarray(p).ravel().astype(out.dtype) for p in (to_begin,) if p is not None]
@@ -465,19 +470,19 @@ def _nonzero_bands(array, view):
         parts, off = [], 0
         for k in range(len(bounds)):
             b = view.block((k,))
-            nz = moved(torch.nonzero, b)
+            nz = torch.nonzero(signed_bits(b))
             parts.append(nz + off)
             off += b.shape[0]
             count_sync()
         return parts
     dense = view.dense()
     if any(isinstance(c, float) for c in bounds):
-        nz = moved(torch.nonzero, dense)
+        nz = torch.nonzero(signed_bits(dense))
         count_sync()
         return [nz] + [nz[:0]] * (len(bounds) - 1)
     parts, off = [], 0
     for size in bounds:
-        nz = moved(torch.nonzero, dense[off:off + size])
+        nz = torch.nonzero(signed_bits(dense[off:off + size]))
         nz[:, 0] += off
         parts.append(nz)
         off += size
@@ -984,7 +989,8 @@ def union1d(ar1, ar2):
 class Bincount(ArrayExpr):
     """numpy's bincount: its length ``max(x.max() + 1, minlength)`` comes
     to the host with the minimum in one sync (a negative value raises
-    numpy's ValueError, before any count); weights add up in float64."""
+    numpy's ValueError, before any count); the counts are K2's direct mode
+    (``kernels/histogram.py::bincount_counts``), weights added in float64."""
 
     _parameters = ("array", "weights", "minlength")
 
@@ -1008,7 +1014,7 @@ class Bincount(ArrayExpr):
                 raise ValueError("'list' argument must have no negative elements")
             length = max(hi + 1, length)
         w = None if self.weights is None else to_compute(ctx.build(self.weights).dense(), np.float64)
-        out = torch.bincount(x, weights=w, minlength=length)
+        out = bincount_counts(x, length, w)
         return BlockView(self.chunks, blocks={(0,): out.to(compute_dtype(self.dtype))})
 
 
@@ -1030,25 +1036,6 @@ def bincount(x, weights=None, minlength=0, split_every=None):
             raise ValueError("The weights and list don't have the same length.")
         w = w.expr
     return new_collection(Bincount(x.expr, w, int(minlength)))
-
-
-def search_numpy(a, v, right):
-    """numpy's searchsorted of held blocks: both in their common dtype,
-    ordered as numpy orders it (``order_key``: NaN last, uint64 unsigned);
-    complex data by one lexicographic sort of both, ties broken by side."""
-    dt = np.result_type(numpy_dtype(a.dtype), numpy_dtype(v.dtype))
-    a, v = cast(a, dt), cast(v, dt)
-    if dt.kind != "c":
-        return torch.searchsorted(order_key(a).contiguous(), order_key(v), right=right)
-    flat = v.reshape(-1)
-    both = torch.cat([a, flat])
-    is_a = torch.arange(both.numel(), device=a.device) < a.numel()
-    tie = (~is_a if right else is_a).to(torch.int8)
-    perm = lexsort(complex_keys(both) + [tie])
-    a_before = torch.cumsum(is_a[perm], 0)
-    out = torch.empty(both.numel(), dtype=torch.int64, device=a.device)
-    out[perm] = a_before
-    return out[a.numel():].reshape(v.shape)
 
 
 class Searchsorted(ArrayExpr):
@@ -1365,6 +1352,24 @@ class ApplyAlongAxis(ArrayExpr):
         return BlockView(self.chunks, dense=cast(out.permute(perm), self._dtype))
 
 
+def _probe_1d(func1d, dt, n, args, kwargs):
+    """``func1d`` of a CPU tensor of ones and numpy's dtype of its result.
+    The probe holds numpy's dtype ``dt``, so that uint16/32/64 stay
+    unsigned (torch reduces them to int64, where numpy gives uint64); where
+    torch has no kernel of that unsigned dtype, it runs in the compute dtype
+    (int32 or int64), whose result then is ``dt`` again."""
+    unsigned = np.dtype(dt).kind == "u" and compute_dtype(dt) != torch_dtype(dt)
+    if unsigned:
+        try:
+            test = torch.as_tensor(func1d(torch.ones(n, dtype=torch_dtype(dt)), *args, **kwargs))
+        except (NotImplementedError, RuntimeError, TypeError):
+            test = torch.as_tensor(func1d(torch.ones(n, dtype=compute_dtype(dt)), *args, **kwargs))
+            return test, np.dtype(dt) if test.dtype == compute_dtype(dt) else numpy_dtype(test.dtype)
+        return test, np.dtype(np.uint64) if test.dtype == torch.int64 else numpy_dtype(test.dtype)
+    test = torch.as_tensor(func1d(torch.ones(n, dtype=compute_dtype(dt)), *args, **kwargs))
+    return test, numpy_dtype(test.dtype)
+
+
 def apply_along_axis(func1d, axis, arr, *args, dtype=None, shape=None, **kwargs):
     """numpy's apply_along_axis with a function of torch 1-D tensors; its
     output shape and dtype come from one call on a small CPU tensor
@@ -1374,10 +1379,9 @@ def apply_along_axis(func1d, axis, arr, *args, dtype=None, shape=None, **kwargs)
     arr = _asarray(arr)
     axis = validate_axis(axis, arr.ndim)
     if shape is None or dtype is None:
-        probe = torch.ones(max(1, arr.shape[axis]), dtype=compute_dtype(arr.dtype))
-        test = torch.as_tensor(func1d(probe, *args, **kwargs))
+        test, dt = _probe_1d(func1d, arr.dtype, max(1, arr.shape[axis]), args, kwargs)
         shape = tuple(test.shape) if shape is None else shape
-        dtype = numpy_dtype(test.dtype) if dtype is None else dtype
+        dtype = dt if dtype is None else dtype
     return new_collection(ApplyAlongAxis(arr.expr, func1d, axis, tuple(shape), np.dtype(dtype), tuple(args),
                                          tuple(sorted(kwargs.items()))))
 

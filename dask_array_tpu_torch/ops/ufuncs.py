@@ -187,7 +187,7 @@ def _complex_sign(z):
     return torch.complex(torch.where(zero, 0.0, out_re), torch.where(zero, 0.0, out_im))
 
 
-@_numpy_named(np.sign)
+@_numpy_named(np.sign, strict=True)
 def sign_(x):
     """numpy's sign: NaN stays NaN (torch gives 0), complex by numpy 2's
     rule (torch refuses it)."""

@@ -323,6 +323,104 @@ def test_pad_constant_chunksizes():
     check(result, np.pad(np.ones((10, 10)), ((0, 6), (0, 0))))
 
 
+# -- pad's step modes off the float dtypes, against numpy ----------------------
+
+PAD_DTYPES = ["bool", "int8", "int32", "int64", "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
+              "complex64", "complex128"]
+PAD_MODES = {
+    "maximum": ("maximum", {}), "minimum": ("minimum", {}), "maximum_stat": ("maximum", {"stat_length": 2}),
+    "minimum_stat": ("minimum", {"stat_length": (1, 3)}), "mean": ("mean", {}), "mean_stat": ("mean", {"stat_length": 3}),
+    "median": ("median", {}), "median_stat": ("median", {"stat_length": 2}), "linear_ramp": ("linear_ramp", {}),
+    "linear_ramp_ends": ("linear_ramp", {"end_values": (5, 2)}),
+    "reflect_odd": ("reflect", {"reflect_type": "odd"}), "symmetric_odd": ("symmetric", {"reflect_type": "odd"}),
+}
+PAD_WIDTH = ((2, 3), (1, 4))
+
+
+def pad_data(dtype, shape=(5, 7), seed=11):
+    """Seeded values over the dtype's range: uint64 mostly at or above
+    2**63, the signed types both signs, a NaN (a NaN part) in the floats."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    if dt.kind == "b":
+        return rng.random(shape) > 0.6
+    if dt == np.uint64:
+        return rng.integers(2**62, 2**64 - 1, shape, dtype=np.uint64, endpoint=True)
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        return rng.integers(info.min // 2, info.max // 2, shape, endpoint=True).astype(dt)
+    a = rng.standard_normal(shape) * 10
+    if dt.kind == "c":
+        a = a + 1j * rng.standard_normal(shape)
+    a = a.astype(dt)
+    a.flat[3] = complex(np.nan, 1) if dt.kind == "c" else np.nan
+    return a
+
+
+# the JAX package's pads that differ from numpy's (each checked to differ
+# below), the port pinning numpy: the means, medians and ramps of int32 and
+# wider integers, a float16 ramp with end values, complex maximum, minimum
+# and median (refused), and the odd reflection of bool (refused).  The
+# uint64 means are the case both packages missed before the port took
+# numpy's conversion and order of summation
+PAD_REFERENCE_FAULTS = {
+    ("reflect_odd", "bool"), ("symmetric_odd", "bool"), ("linear_ramp_ends", "float16"),
+    *((name, dt) for dt in ("int32", "int64", "uint32", "uint64") for name in ("linear_ramp", "linear_ramp_ends",
+                                                                               "mean", "mean_stat")),
+    *((name, dt) for dt in ("int32", "uint32") for name in ("median", "median_stat")),
+    *((name, dt) for dt in ("complex64", "complex128") for name in ("maximum", "maximum_stat", "minimum", "median",
+                                                                   "median_stat")),
+}
+
+
+def _pad_same(got, want, dtype, rtol=0.0):
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, want.dtype)
+    if rtol and want.dtype.kind in "fc":
+        np.testing.assert_allclose(got, want, rtol=rtol, equal_nan=True)
+    else:
+        assert np.array_equal(got, want, equal_nan=want.dtype.kind in "fc")
+
+
+@pytest.mark.parametrize("name", sorted(PAD_MODES))
+@pytest.mark.parametrize("dtype", PAD_DTYPES)
+def test_pad_steps_every_dtype(name, dtype):
+    """numpy's step modes in every dtype, values and dtype equal to
+    numpy's: maximum/minimum of unsigned and complex, the odd reflection
+    of unsigned, ramps of complex and uint64, means and medians of bool and
+    uint64, medians with NaN."""
+    mode, kw = PAD_MODES[name]
+    a = pad_data(dtype)
+    want = np.pad(a, PAD_WIDTH, mode, **kw)
+    got = tda.pad(tda.from_array(a, chunks=3), PAD_WIDTH, mode, **kw)
+    assert got.dtype == want.dtype
+    _pad_same(got.compute(), want, dtype)
+    if (name, dtype) in PAD_REFERENCE_FAULTS:
+        return
+    ref = np.asarray(jda.pad(jda.from_array(a, chunks=3), PAD_WIDTH, mode, **kw).compute())
+    _pad_same(ref, want, dtype, rtol=1e-3 if dtype in ("float16", "complex64") else 1e-6)
+
+
+@pytest.mark.parametrize("name, dtype", sorted(PAD_REFERENCE_FAULTS))
+def test_pad_reference_faults_are_real(name, dtype):
+    mode, kw = PAD_MODES[name]
+    a = pad_data(dtype)
+    want = np.pad(a, PAD_WIDTH, mode, **kw)
+    with pytest.raises((AssertionError, TypeError, ValueError)):
+        ref = np.asarray(jda.pad(jda.from_array(a, chunks=3), PAD_WIDTH, mode, **kw).compute())
+        _pad_same(ref, want, dtype, rtol=1e-3 if dtype in ("float16", "complex64") else 1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bool", "uint16", "uint64", "float32", "complex128"])
+@pytest.mark.parametrize("shape, pad_width", [((9,), (4, 2)), ((3, 4, 5), ((1, 2), (0, 3), (2, 1))),
+                                              ((12, 40), ((3, 1), (2, 9)))])
+def test_pad_steps_shapes(dtype, shape, pad_width):
+    """The step modes on 1-D, 3-D and longer (pairwise-summed) axes."""
+    a = pad_data(dtype, shape, seed=len(shape))
+    for mode, kw in PAD_MODES.values():
+        want = np.pad(a, pad_width, mode, **kw)
+        _pad_same(tda.pad(tda.from_array(a, chunks=4), pad_width, mode, **kw).compute(), want, dtype)
+
+
 @pytest.mark.parametrize("chunks, pad_width", [
     ((4, 5), ((1, 9), (11, 2))), (((3, 7), (2, 9)), ((4, 4), (0, 5))), ((10, 11), ((3, 3), (12, 1))),
 ])

@@ -591,6 +591,38 @@ def test_norm_defaults_and_errors():
         tda.linalg.norm(d, ord="nuc", axis=(1, 2))
 
 
+def int_norm_data(dtype):
+    """Integers whose squares overflow their dtype (and int64): up to 2**30
+    for 32-bit types, 2**61 for 64-bit."""
+    rng = np.random.default_rng(32)
+    top = 2**30 if np.dtype(dtype).itemsize == 4 else 2**61
+    lo = 0 if np.dtype(dtype).kind == "u" else -top
+    return rng.integers(lo, top, (6, 5), dtype=np.int64 if lo else np.uint64).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64", "uint32", "uint64"])
+@pytest.mark.parametrize("ord, axis", [(o, (0, 1)) for o in MATRIX_ORDS] + [(o, 1) for o in VECTOR_ORDS] +
+                         [(None, None)], ids=str)
+def test_norm_of_integers_in_float64_like_numpy(dtype, ord, axis):
+    """numpy converts integers to float64 before any square or sum: every
+    ord gives float64 (``ord=1``/``inf`` too), nothing wraps.  The JAX
+    package computes in the integers: it agrees with numpy on the count
+    (``ord=0``) and differs, or refuses a negative power, on every other
+    ord (each checked)."""
+    x = int_norm_data(dtype)
+    want = np.linalg.norm(x, ord=ord, axis=axis)
+    got = np.asarray(tda.linalg.norm(tda.from_array(x, chunks=(4, 2)), ord=ord, axis=axis).compute())
+    assert got.dtype == want.dtype == np.float64
+    close(got, want, "float64", "numpy")
+    try:
+        ref = np.asarray(jda.linalg.norm(jda.from_array(x, chunks=(4, 2)), ord=ord, axis=axis).compute())
+    except TypeError:
+        assert ord == -1 and axis == 1
+        return
+    agrees = ref.dtype == want.dtype and np.allclose(ref, want, rtol=1e-10)
+    assert agrees == (ord == 0 and axis == 1)
+
+
 # -- config ------------------------------------------------------------------------------
 
 

@@ -6,7 +6,13 @@ normalize_contract, rechunk_relayout, tall_skinny_svd), uint64
 arithmetic and order above 2**63, and ``da.random``'s surroundings: a
 random leaf's determinism and grid independence, the laws' moments,
 ``integers`` up to 2**64, fft against numpy, svd_compressed, multi-output
-map_blocks and the random-input pipelines with their kernel launches.
+map_blocks and the random-input pipelines with their kernel launches;
+the histogram kernel (K2) against its plain version and numpy (every
+held dtype, complex data, NaN and infinities, int64 edges to INT64_MAX,
+values on and beside every edge, 1 and 2**16 bins, bincounts, unaligned
+and ragged inputs, weighted sums that repeat their bits) and the paths
+held to numpy's own steps: nonzero and pad of unsigned integers, float16
+scans, complex histograms and svd_compressed, norms of integers.
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -25,7 +31,9 @@ numpy, reconstruction and orthogonality 20 * eps * n.  Random draws:
 mean and variance within 6 standard errors of scipy's law.  fft: rtol
 1e-5 of the max for single precision, 1e-12 for double, 2**-10 for
 float16 input.  svd_compressed of an exact-rank input: s to 1e-8 of s_max
-in float64, 1e-4 in float32.
+in float64, 1e-4 in float32.  Histogram counts equal exactly; weighted
+sums rtol 1e-12 (the kernel adds in another order than the plain
+version's bincount).
 """
 
 import numpy as np
@@ -1069,3 +1077,211 @@ def test_svd_of_a_numerically_rank_deficient_float32_panel_on_the_card(cuda):
     rel = np.abs(s - want) / want
     assert rel[:16].max() <= 2.0**-20 and rel.max() <= 1e-3
     assert (np.abs(cs - want[:16]) / want[:16]).max() <= 1e-3
+
+
+# -- the histogram kernel (K2) ---------------------------------------------------------
+
+HIST_REAL = ["bool", "uint8", "int8", "int16", "uint16", "int32", "uint32", "int64", "uint64", "float16", "float32",
+             "float64"]
+
+
+def _hist_data(dtype, n, seed=0):
+    """Values in about [-12, 12] with ties; NaN, ±inf and -0.0 for floats."""
+    rng = np.random.default_rng(seed)
+    a = np.round(rng.standard_normal(n) * 5, 1)
+    dt = np.dtype(dtype)
+    if dt.kind == "b":
+        return a > 0
+    if dt.kind == "u":
+        a = np.abs(a)
+    a = a.astype(dt)
+    if dt.kind == "f" and n >= 4:
+        a[:4] = [np.nan, np.inf, -np.inf, -0.0]
+    return a
+
+
+def _hist_check(a, edges, weights=None, offset=0):
+    """The kernel against the plain version on the card and numpy: counts
+    equal, weighted sums to rtol 1e-12 (the two add in other orders)."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype), a])).cuda()
+    x = buf[offset:]
+    e = torch.from_numpy(np.asarray(edges)).cuda()
+    w = None if weights is None else torch.from_numpy(weights).cuda()
+    got = hk.histogram_counts_cuda(x, e, w).cpu().numpy()
+    plain = hk.histogram_counts_plain(x, e, w).cpu().numpy()
+    with np.errstate(all="ignore"):
+        want = np.histogram(a, bins=edges, weights=weights)[0]
+    if weights is None:
+        np.testing.assert_array_equal(got, want.astype(np.int64))
+        np.testing.assert_array_equal(got, plain)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(weights).sum())
+        np.testing.assert_allclose(got, plain, rtol=1e-12, atol=1e-12 * np.abs(weights).sum())
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HIST_REAL)
+@pytest.mark.parametrize("edges", ["uniform", "nonuniform", "int"])
+@pytest.mark.parametrize("n", [0, 1, 1001, 1 << 16])
+def test_histogram_kernel_every_real_dtype(cuda, dtype, edges, n):
+    a = _hist_data(dtype, n, seed=n)
+    e = {"uniform": np.linspace(-6.0, 6.0, 25), "nonuniform": np.array([-8.0, -1.5, 0.0, 0.0, 2.5, 3.0, 9.0]),
+         "int": np.array([-5, -1, 0, 3, 8])}[edges]
+    _hist_check(a, e)
+    _hist_check(a, e, offset=1)  # unaligned: element loads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+@pytest.mark.parametrize("real_edges", [True, False])
+def test_histogram_kernel_complex_data(cuda, dtype, real_edges):
+    """numpy's lexicographic order: a value on an edge with a negative
+    imaginary part belongs below it; a NaN part drops the value."""
+    rng = np.random.default_rng(3)
+    a = (np.round(rng.standard_normal(5000) * 3, 0) + 1j * np.round(rng.standard_normal(5000), 1)).astype(dtype)
+    a[:6] = [1 - 0.5j, 1 + 0j, 3 + 0.5j, complex(np.nan, 1), complex(1, np.nan), -3 - 1j]
+    e = np.linspace(-3.0, 3.0, 7)
+    _hist_check(a, e if real_edges else e.astype(dtype))
+    _hist_check(a, np.array([-3.0, -1.0, 1.0, 1.5, 3.0]) if real_edges else e.astype(dtype) * (1 + 0.5j), offset=1)
+    _hist_check(a, e, weights=rng.standard_normal(5000) * (1 - 2j))
+    _hist_check(a.real.copy(), e.astype(dtype) * (1 + 0.5j))  # real data against complex edges
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int64", "uint64"])
+def test_histogram_kernel_integer_edges_up_to_int64_max(cuda, dtype):
+    top = np.iinfo(np.int64).max
+    a = np.array([top, top - 1, 0, 5, 3, top, 2**62, 2**53 + 1] * 300, dtype=dtype)
+    _hist_check(a, np.array([0, 4, 2**62, top], dtype=np.int64))
+    _hist_check(a, np.array([0.0, 2.0**53, 2.0**53 + 2, 1e19]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", [1, 1 << 16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_histogram_kernel_one_and_many_bins(cuda, nbins, weighted):
+    a = np.random.default_rng(4).standard_normal(300_001)
+    w = np.random.default_rng(5).standard_normal(300_001) if weighted else None
+    _hist_check(a, np.linspace(-4, 4, nbins + 1), weights=w)
+    _hist_check(a.astype(np.float32), np.sort(np.random.default_rng(6).standard_normal(nbins + 1)), weights=w)
+
+
+@pytest.mark.gpu
+def test_histogram_kernel_weighted_sums_repeat_their_bits(cuda):
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    x = torch.randn(1 << 22, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    w = torch.rand(1 << 22, device="cuda", dtype=torch.float64, generator=torch.Generator("cuda").manual_seed(1))
+    e = torch.linspace(-4, 4, 257, device="cuda", dtype=torch.float64)
+    assert hk.launch_plan(x.numel(), 256, hk._sm_count(0), 4, 1, 8).copies > 0
+    runs = [hk.histogram_counts_cuda(x, e, w) for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    wc = torch.complex(w, -w)
+    runs = [hk.histogram_counts_cuda(x, e.sort().values ** 3 / 16, wc) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, 300, 1 << 16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bincount_kernel(cuda, length, weighted):
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    rng = np.random.default_rng(length)
+    a = rng.integers(0, length, 100_003)
+    w = rng.standard_normal(100_003) if weighted else None
+    x = torch.from_numpy(a).cuda()
+    wt = None if w is None else torch.from_numpy(w).cuda()
+    got = hk.bincount_cuda(x, length, wt).cpu().numpy()
+    want = np.bincount(a, weights=w, minlength=length)
+    if w is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(w).sum())
+    assert hk.bincount_cuda(x[:0], 0).numel() == 0
+
+
+@pytest.mark.gpu
+def test_histogram_and_bincount_launch_the_kernel(cuda):
+    """Histogram._build and Bincount._build launch K2 on the card (never
+    the plain version), and the kernel refuses what it does not take."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    a = np.random.default_rng(7).standard_normal(10_000).astype(np.float32)
+    ints = np.random.default_rng(8).integers(0, 50, 10_000)
+    with config.set({"device": "cuda"}):
+        hk.LAUNCHES = 0
+        h, _ = da.histogram(da.from_array(a, chunks=3000), bins=16, range=(-3, 3))
+        hw, _ = da.histogram(da.from_array(a, chunks=3000), bins=16, weights=da.from_array(a, chunks=3000))
+        b = da.bincount(da.from_array(ints, chunks=3000))
+        got = da.compute(h, hw, b)
+        assert hk.LAUNCHES == 3
+    np.testing.assert_array_equal(got[0], np.histogram(a, bins=16, range=(-3, 3))[0])
+    np.testing.assert_allclose(got[1], np.histogram(a, bins=16, weights=a)[0], rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(got[2], np.bincount(ints))
+    x = torch.zeros(4, device="cuda")
+    with pytest.raises(ValueError):
+        hk.histogram_counts_cuda(x, torch.zeros(1, device="cuda"))
+    with pytest.raises(TypeError):
+        hk.histogram_counts_cuda(x, torch.linspace(0, 1, 3, device="cuda"), torch.ones(4, device="cuda"))
+    with pytest.raises(TypeError):
+        hk.bincount_cuda(x, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, nbins, lo, hi", [
+    (dt, *r) for dt in ["float16", "float32", "float64", "int64", "complex64"]
+    for r in [(1, -1.0, 1.0), (7, -3.0, 4.0), (256, -4.0, 4.0), (255, 1e6, 1e6 + 3.0), (1 << 16, -4.0, 4.0),
+              (100, -1e4, 1e4)]
+    # (numpy refuses edges that repeat: float16 has no 65536 bins in [-4, 4], float32 no 255 in [1e6, 1e6 + 3])
+    if not (dt == "float16" and r[0] > 256) and not (dt in ("float16", "float32", "complex64") and r[1] > 1e5)])
+def test_histogram_kernel_guess_at_every_edge(cuda, dtype, nbins, lo, hi):
+    """Values on every edge and one step either side of it: the guess's
+    margin must send each of them where numpy's search does."""
+    dt = np.dtype(dtype)
+    edges = np.histogram_bin_edges(np.empty(0, dt), nbins, (lo, hi))
+    real = edges.real.astype(dt if dt.kind != "c" else np.float32) if dt.kind != "i" else np.round(edges)
+    vals = np.concatenate([real, np.nextafter(real, np.inf), np.nextafter(real, -np.inf)]) if dt.kind in "fc" \
+        else np.concatenate([real, real + 1, real - 1])
+    a = np.tile(vals.astype(dt), 3)
+    _hist_check(a, edges)
+
+
+@pytest.mark.gpu
+def test_port_fault_repairs_on_the_card(cuda):
+    """The repaired paths on CUDA tensors: nonzero and pad of unsigned
+    integers, float16 scans, complex histograms, svd_compressed of complex
+    input and norms of integers, each against numpy."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    rng = np.random.default_rng(21)
+    u = rng.integers(0, 3, (40, 30)).astype(np.uint64) * np.uint64(2**63 - 5)
+    h = (rng.random((12, 10)) * 10).astype(np.float16)
+    z = np.round(rng.standard_normal(500) * 2, 0) + 1j * np.round(rng.standard_normal(500), 1)
+    z[:3] = [1 - 0.5j, complex(np.nan, 1), 3 + 0.5j]
+    zm = rng.standard_normal((40, 12)) + 1j * rng.standard_normal((40, 12))
+    ints = rng.integers(-2**61, 2**61, (6, 5))
+    with config.set({"device": "cuda"}):
+        x = da.from_array(u, chunks=7)
+        np.testing.assert_array_equal(da.flatnonzero(x).compute(), np.flatnonzero(u))
+        for mode, kw in [("maximum", {}), ("mean", {"stat_length": 3}), ("median", {}), ("linear_ramp", {}),
+                         ("reflect", {"reflect_type": "odd"})]:
+            got = da.pad(x, ((2, 3), (1, 4)), mode, **kw).compute()
+            want = np.pad(u, ((2, 3), (1, 4)), mode, **kw)
+            assert got.dtype == want.dtype and np.array_equal(got, want), mode
+        for axis in (0, 1, None):
+            assert da.cumsum(da.from_array(h, chunks=5), axis=axis).compute().tobytes() == \
+                np.cumsum(h, axis=axis).tobytes()
+        np.testing.assert_array_equal(da.histogram(da.from_array(z, chunks=100), bins=4, range=(-2, 2))[0].compute(),
+                                      np.histogram(z, bins=4, range=(-2, 2))[0])
+        s = da.svd_compressed(da.from_array(zm, chunks=(10, 12)), 5, n_power_iter=2, seed=0)[1].compute()
+        np.testing.assert_allclose(s, np.linalg.svd(zm, compute_uv=False)[:5], rtol=1e-10)
+        for o in (None, 1, np.inf):
+            np.testing.assert_allclose(da.linalg.norm(da.from_array(ints, chunks=2), ord=o).compute(),
+                                       np.linalg.norm(ints, ord=o), rtol=1e-12)

@@ -321,3 +321,56 @@ def test_bincount_refusals():
     same(tda.bincount(tda.from_array(np.array([], np.int64))).compute(), np.bincount(np.array([], np.int64)))
     same(tda.bincount(tda.from_array(np.array([], np.int64)), minlength=3).compute(),
          np.bincount(np.array([], np.int64), minlength=3))
+
+
+# -- complex data: numpy's lexicographic order ----------------------------------
+
+def complex_data(dtype="complex128", n=200, seed=13):
+    """Integers and tenths on both parts; values on an edge with a negative
+    and a positive imaginary part; NaN real and imaginary parts."""
+    rng = np.random.default_rng(seed)
+    z = np.round(rng.standard_normal(n) * 2, 0) + 1j * np.round(rng.standard_normal(n), 1)
+    z[:8] = [1 - 0.5j, 1 + 0j, 1 + 0.5j, 3 + 0.5j, 3 - 0.5j, complex(np.nan, 1), complex(1, np.nan), -3 - 1j]
+    return z.astype(dtype)
+
+
+COMPLEX_HISTOGRAMS = {
+    "range": {"bins": 3, "range": (0, 3)},
+    "range_wide": {"bins": 6, "range": (-3, 3)},
+    "real_edges": {"bins": np.array([-3.0, -1.0, 1.0, 1.5, 3.0])},
+    "complex_edges": {"bins": np.array([-3, -1 + 0.5j, 1, 1 + 0.25j, 3 + 1j])},
+    "weighted": {"bins": 4, "range": (-2, 2), "weights": np.arange(200.0) % 7 - 3},
+    "weighted_complex": {"bins": np.array([-3.0, 0.0, 1.0, 3.0]), "weights": (np.arange(200.0) % 5) * (1 - 2j)},
+    "density": {"bins": 5, "range": (-2.5, 2.5), "density": True},
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMPLEX_HISTOGRAMS))
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+@pytest.mark.parametrize("chunks", CHUNKINGS)
+def test_histogram_of_complex_data(name, dtype, chunks):
+    """Counts, sums and edges equal numpy's; a NaN part drops the value.
+    The JAX package counts complex data another way on both lanes
+    (``test_complex_reference_faults_are_real``)."""
+    z = complex_data(dtype)
+    kw = COMPLEX_HISTOGRAMS[name]
+    want_h, want_e = quiet(np.histogram, z, **kw)
+    got_h, got_e = hist_of(tda, z, chunks, **dict(kw))
+    same(got_h, want_h, 1e-12 if want_h.dtype.kind in "fc" else 0)
+    same(got_e, want_e)
+    zt, et = torch.from_numpy(z), torch.from_numpy(np.asarray(want_e))
+    w = kw.get("weights")
+    plain = histogram_counts(zt, et, None if w is None else torch.from_numpy(w.astype(np.result_type(w, np.float64))))
+    if not kw.get("density"):
+        same(plain.numpy().astype(want_h.dtype), want_h, 1e-12 if want_h.dtype.kind in "fc" else 0)
+
+
+@pytest.mark.parametrize("name", ["range", "real_edges", "complex_edges", "weighted"])
+def test_complex_reference_faults_are_real(name):
+    z = complex_data()
+    kw = COMPLEX_HISTOGRAMS[name]
+    want_h, _ = quiet(np.histogram, z, **kw)
+    for lane in ("xla", "pallas"):
+        with jda.config.set({"tpu.histogram-kernel": lane}):
+            ref_h, _ = hist_of(jda, z, 7, **dict(kw))
+        assert not np.allclose(ref_h, want_h, rtol=1e-12)

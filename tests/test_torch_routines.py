@@ -253,3 +253,55 @@ def test_unify_chunks_and_the_small_helpers():
     same(tda.from_array(np.arange(3), chunks=2).repeat(2).compute(), np.arange(3).repeat(2))
     same(tda.from_array(np.array([0, 2, 1])).choose([np.arange(3) * 10, 7, np.ones(3, int)]).compute(),
          np.choose([0, 2, 1], [np.arange(3) * 10, 7, np.ones(3, int)]))
+
+
+# -- nonzero of numpy's unsigned integers, and numpy's refusals of bool -------
+
+NONZERO = {
+    "nonzero": lambda x, m: m.nonzero(x),
+    "flatnonzero": lambda x, m: m.flatnonzero(x),
+    "argwhere": lambda x, m: m.argwhere(x),
+    "where": lambda x, m: m.where(x),
+}
+
+
+def unsigned_base(dtype, shape=(9, 11), seed=3):
+    """Zeros among values up to the dtype's maximum (uint64 past 2**63)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 4, shape).astype(dtype)
+    a[a == 3] = np.iinfo(dtype).max
+    a[a == 2] = np.iinfo(dtype).max // 3 * 2
+    return a
+
+
+@pytest.mark.parametrize("chunks", [1, (4, 5), (2, 11), 100])
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+@pytest.mark.parametrize("name", sorted(NONZERO))
+def test_nonzero_family_of_unsigned_integers(name, dtype, chunks):
+    """int64 indices of every unsigned width, known and unknown chunks."""
+    a = unsigned_base(dtype)
+    prog = NONZERO[name]
+    x = tda.from_array(a, chunks=chunks)
+    same_all(value(prog(x, tda)), prog(a, np))
+    same_all(value(prog(x[x != 1], tda)), prog(a[a != 1], np))  # unknown chunks
+    if chunks == (4, 5):
+        same_all(value(prog(jda.from_array(a, chunks=chunks), jda)), prog(a, np))
+
+
+def same_all(got, want):
+    for g, w in zip(got, want) if isinstance(want, tuple) else [(got, want)]:
+        same(g, w)
+
+
+@pytest.mark.parametrize("name, prog", [("sign", lambda x, m: m.sign(x)), ("ediff1d", lambda x, m: m.ediff1d(x))])
+def test_sign_and_ediff1d_of_bool_raise_numpys_type_error(name, prog):
+    """numpy refuses both (no sign loop for bool; bool subtraction); so
+    does the port, with numpy's TypeError.  The JAX package refuses them
+    with a ValueError."""
+    a = base("bool")
+    with pytest.raises(TypeError):
+        prog(a, np)
+    with pytest.raises(TypeError):
+        value(prog(tda.from_array(a, chunks=CHUNKS), tda))
+    with pytest.raises(ValueError):
+        value(prog(jda.from_array(a, chunks=CHUNKS), jda))

@@ -411,6 +411,32 @@ def test_apply_along_axis(name, tfn, jfn, nfn, dtypes, axis):
         assert jnp is not None
 
 
+# apply_along_axis of numpy's unsigned integers: (name, torch, numpy function
+# of a 1-D slice, which the JAX package also runs)
+APPLY_UNSIGNED = [
+    ("double", lambda r: r * 2, lambda r: r * 2),
+    ("add", lambda r: r + r[0], lambda r: r + r[0]),
+    ("range", lambda r: r.amax() - r.amin(), lambda r: r.max() - r.min()),
+    ("sum", lambda r: r.sum(), np.sum),
+    ("cumsum", lambda r: r.cumsum(0), np.cumsum),
+    ("mean", lambda r: r.double().mean(), lambda r: r.astype(np.float64).mean()),
+]
+
+
+@pytest.mark.parametrize("name, tfn, nfn", APPLY_UNSIGNED)
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_apply_along_axis_of_unsigned_integers(name, tfn, nfn, dtype):
+    """numpy's result dtype: an unsigned operand stays unsigned (its sums
+    uint64), values past the signed range included."""
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, np.iinfo(dtype).max // 16, (9, 11), dtype=np.uint64, endpoint=True).astype(dtype)
+    want = np.apply_along_axis(nfn, 1, a)
+    got = tda.apply_along_axis(tfn, 1, tda.from_array(a, chunks=(4, 5))).compute()
+    same(got, want, 1e-12 if want.dtype.kind == "f" else 0)
+    ref = jda.apply_along_axis(nfn, 1, jda.from_array(a, chunks=(4, 5))).compute()  # numpy's functions take jnp
+    same(np.asarray(ref), want, 1e-12 if want.dtype.kind == "f" else 0)
+
+
 def test_apply_along_axis_loops_where_vmap_refuses():
     """``.item()`` cannot run under vmap: the rows are looped on the same
     device."""

@@ -171,6 +171,9 @@ KNOWN_REFERENCE_FAULTS = {
     # svd and qr of a panel with an exactly zero column: the unshifted
     # third CholeskyQR pass fails and every factor is NaN; numpy factors it
     "svd_zero_column": "NaN",
+    # svd_compressed of complex input: the JAX package transposes where the
+    # conjugate transpose belongs (its s off by a third of s_max here)
+    "svd_compressed_complex": "s off",
 }
 
 
@@ -220,6 +223,12 @@ def test_svd_and_qr_of_a_panel_with_a_zero_column(dtype, tol):
 
 @pytest.mark.parametrize("name", sorted(KNOWN_REFERENCE_FAULTS))
 def test_known_reference_faults_are_real(name):
+    if name == "svd_compressed_complex":
+        z = complex_panel()
+        ref = jda.svd_compressed(jda.from_array(z, chunks=(10, 12)), 4, n_power_iter=2, seed=0)[1].compute()
+        want = np.linalg.svd(z, compute_uv=False)
+        assert np.abs(ref - want[:4]).max() > 1e-3 * want[0]
+        return
     if name == "svd_zero_column":
         ref = jda.linalg.svd(jda.from_array(zero_column("float64"), chunks=(500, 16)))[1].compute()
         assert np.isnan(ref).all()
@@ -228,3 +237,27 @@ def test_known_reference_faults_are_real(name):
     want = np.linalg.svd(x.astype(np.float64), compute_uv=False)
     ref = jda.linalg.svd(jda.from_array(x, chunks=(2500, 256)))[1].compute()
     assert (np.abs(ref[8:] - want[8:]) / want[8:]).max() > 1.0
+
+
+def complex_panel():
+    rng = np.random.default_rng(40)
+    return rng.standard_normal((40, 12)) + 1j * rng.standard_normal((40, 12))
+
+
+@pytest.mark.parametrize("k", [3, 8, 12])
+@pytest.mark.parametrize("n_power_iter, iterator", [(0, "power"), (2, "power"), (1, "QR")])
+def test_svd_compressed_of_complex_input(k, n_power_iter, iterator):
+    """Conjugate transposes: the top k singular values of a 40 x 12
+    complex128 matrix to rtol 1e-10 of numpy's, and at k = 12 the factors
+    rebuild the input to 1e-10 of its largest value."""
+    z = complex_panel()
+    u, s, vh = tda.compute(*tda.svd_compressed(tda.from_array(z, chunks=(10, 12)), k, iterator=iterator,
+                                               n_power_iter=n_power_iter, seed=0))
+    want = np.linalg.svd(z, compute_uv=False)
+    assert u.dtype == vh.dtype == np.complex128 and s.dtype == np.float64
+    np.testing.assert_allclose(s, want[:k], rtol=1e-10)
+    if k == 12:
+        assert np.abs((u * s) @ vh - z).max() <= 1e-10 * np.abs(z).max()
+    c = tda.linalg.compression_matrix(tda.from_array(z, chunks=(10, 12)), k, seed=0).compute()
+    assert c.shape == (min(12, max(20, k + 10)), 40)
+    np.testing.assert_allclose(c @ c.conj().T, np.eye(c.shape[0]), atol=1e-12)
