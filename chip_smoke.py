@@ -147,9 +147,10 @@ Phases (each prints one line of its own numbers; any failure raises):
      the host syncs and the histogram kernel's launches (one on each
      histogram and bincount path); then the histogram kernel (K2) on 2^26
      float32 values into 256 bins (also weighted, its sums the same bits
-     on three runs) and 65536 bins, and a 65536-bin bincount of 2^26
-     int64, each equal to numpy and beside its plain version, torch.histc
-     (or bucketize + bincount, bincount) and its bound;
+     on three runs) and 65536 bins (also with every value in one bin), and
+     a 65536-bin bincount of 2^26 int64 (also weighted), each equal to
+     numpy (weighted sums to rtol 1e-12) and beside its plain version,
+     torch.histc (or bucketize + bincount, bincount) and its bound;
  28. da.random, fft, svd_compressed and multi-output map_blocks
      (RANDOM_SIZES), with inputs drawn on the card: (a) a 16384^2 float32
      standard normal (1 GiB) in chunks of 4096: the same bytes twice and at
@@ -1204,35 +1205,74 @@ def random_paths(da, torch, sizes, timer, sync, device):
     return out, kernel_launches
 
 
-def k2_timing(torch, flat, timer, device_timer, seed=27):
-    """K2, the histogram kernel (``kernels/histogram.py``), on ``flat``
-    float32 values on the device: into 256 uniform bins (float32 edges of
-    (-4, 4)), the same with float64 weights, and into 65536 bins; then a
-    65536-bin bincount of int64 values.  Each case: the kernel against
-    numpy (equal counts; weighted sums to rtol 1e-12) and its plain version
-    (``histogram_counts_plain``: searchsorted + bincount), per call in the
-    order plain, kernel, kernel, plain, and on the device alone, beside the
-    nearest PyTorch call (``torch.histc``; ``torch.bucketize`` +
-    ``torch.bincount`` where histc has no weights; ``torch.bincount``), with
-    the bound (each input read once, the counts written once, at 3.35 TB/s;
-    four float32 operations a value) and the kernel's share of it.
-    Weighted sums below the shared-memory cap must repeat their bits."""
+def k2_cases(torch, hk, flat, seed=27):
+    """K2's timing cases on ``flat`` values made on the card from ``seed``:
+    float32 normals into 256 uniform bins of (-4, 4) (float64 edges), the
+    same with float64 weights, into 65536 bins, and into 65536 bins with
+    every value in one bin; a 65536-bin bincount of int64 values, and the
+    same with float64 weights.  Each: (name, kernel, plain version,
+    (library call's name, call), the bytes the function must move (each
+    input read once, the counts written once), rtol against numpy (0:
+    equal), numpy's result from the host copies ``(x, w, ints)``).
+    ``scripts/time_histogram.py`` times the same cases."""
     import numpy as np
-
-    from dask_array_tpu_torch.kernels import histogram as hk
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(flat, generator=g, device="cuda")
     w = torch.rand(flat, generator=g, device="cuda", dtype=torch.float64)
     ints = torch.randint(0, 65536, (flat,), generator=g, device="cuda")
-    xn, wn, intsn = x.cpu().numpy(), w.cpu().numpy(), ints.cpu().numpy()
-    out = {}
+    skew = torch.full((flat,), 0.3, device="cuda")
+    e256, e65536 = (torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nb, (-4, 4))).cuda()
+                    for nb in (256, 65536))
 
-    def case(name, kernel, plain, lib, want, nbytes, rtol=0.0):
+    def hist(nb):
+        return lambda h: np.histogram(h[0], bins=nb, range=(-4, 4))[0]
+
+    return (x, w, ints), [
+        ("histogram_256", lambda: hk.histogram_counts_cuda(x, e256), lambda: hk.histogram_counts_plain(x, e256),
+         ("torch.histc", lambda: torch.histc(x, 256, -4, 4)), flat * 4 + 256 * 8, 0.0, hist(256)),
+        ("histogram_256_weighted", lambda: hk.histogram_counts_cuda(x, e256, w),
+         lambda: hk.histogram_counts_plain(x, e256, w),
+         ("torch.bucketize + torch.bincount(weights)", lambda: torch.bincount(torch.bucketize(x, e256), w, minlength=258)),
+         flat * 12 + 256 * 8, 1e-12, lambda h: np.histogram(h[0], bins=256, range=(-4, 4), weights=h[1])[0]),
+        ("histogram_65536", lambda: hk.histogram_counts_cuda(x, e65536), lambda: hk.histogram_counts_plain(x, e65536),
+         ("torch.histc", lambda: torch.histc(x, 65536, -4, 4)), flat * 4 + 65536 * 8, 0.0, hist(65536)),
+        ("histogram_65536_one_bin", lambda: hk.histogram_counts_cuda(skew, e65536),
+         lambda: hk.histogram_counts_plain(skew, e65536), ("torch.histc", lambda: torch.histc(skew, 65536, -4, 4)),
+         flat * 4 + 65536 * 8, 0.0,
+         lambda h: np.histogram(np.full(1, 0.3, np.float32), bins=65536, range=(-4, 4))[0] * flat),
+        ("bincount_65536", lambda: hk.bincount_cuda(ints, 65536), lambda: hk.bincount_plain(ints, 65536),
+         ("torch.bincount", lambda: torch.bincount(ints, minlength=65536)), flat * 8 + 65536 * 8, 0.0,
+         lambda h: np.bincount(h[2], minlength=65536)),
+        ("bincount_65536_weighted", lambda: hk.bincount_cuda(ints, 65536, w), lambda: hk.bincount_plain(ints, 65536, w),
+         ("torch.bincount(weights)", lambda: torch.bincount(ints, w, minlength=65536)), flat * 16 + 65536 * 8, 1e-12,
+         lambda h: np.bincount(h[2], weights=h[1], minlength=65536)),
+    ]
+
+
+def k2_timing(torch, flat, timer, device_timer, seed=27):
+    """K2, the histogram kernel (``kernels/histogram.py``), on the cases of
+    ``k2_cases``.  Each case: the kernel against numpy (equal counts;
+    weighted sums to rtol 1e-12) and its plain version (searchsorted +
+    bincount), per call in the order plain, kernel, kernel, plain, and on
+    the device alone, beside the nearest PyTorch call, with the bound (each
+    input read once, the counts written once, at 3.35 TB/s; four float32
+    operations a value) and the kernel's share of it.  Weighted sums in
+    one block's shared memory (256 bins) must repeat their bits on three
+    runs."""
+    import numpy as np
+
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    inputs, cases = k2_cases(torch, hk, flat, seed)
+    host = [t.cpu().numpy() for t in inputs]
+    out = {}
+    for name, kernel, plain, lib, nbytes, rtol, numpy_of in cases:
         got = kernel()
         ref = plain()
         torch.cuda.synchronize()
         g64, r64 = got.cpu().numpy().astype(np.float64), ref.cpu().numpy().astype(np.float64)
+        want = numpy_of(host).astype(np.float64)
         if rtol:
             check(np.allclose(g64, want, rtol=rtol, atol=0), f"K2 {name}: differs from numpy")
         else:
@@ -1246,28 +1286,11 @@ def k2_timing(torch, flat, timer, device_timer, seed=27):
                      "plain_ms": p_ms, "plain_runs_ms": p_runs, "library": lib[0],
                      "library_ms": timer(lib[1]), "library_device_ms": device_timer(lib[1]),
                      "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev}
-
-    for nbins in (256, 65536):
-        edges = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nbins, (-4, 4))).cuda()
-        want = np.histogram(xn, bins=nbins, range=(-4, 4))[0].astype(np.float64)
-        case(f"histogram_{nbins}", lambda: hk.histogram_counts_cuda(x, edges),
-             lambda: hk.histogram_counts_plain(x, edges), ("torch.histc", lambda: torch.histc(x, nbins, -4, 4)),
-             want, flat * 4 + nbins * 8)
-        if nbins == 256:
-            edges256 = edges
-            want = np.histogram(xn, bins=256, range=(-4, 4), weights=wn)[0]
-            case("histogram_256_weighted", lambda: hk.histogram_counts_cuda(x, edges, w),
-                 lambda: hk.histogram_counts_plain(x, edges, w),
-                 ("torch.bucketize + torch.bincount(weights)",
-                  lambda: torch.bincount(torch.bucketize(x, edges), w, minlength=258)), want, flat * 12 + 256 * 8,
-                 rtol=1e-12)
-    case("bincount_65536", lambda: hk.bincount_cuda(ints, 65536), lambda: hk.bincount_plain(ints, 65536),
-         ("torch.bincount", lambda: torch.bincount(ints, minlength=65536)),
-         np.bincount(intsn, minlength=65536).astype(np.float64), flat * 8 + 65536 * 8)
-    runs = [hk.histogram_counts_cuda(x, edges256, w) for _ in range(3)]
-    check(all(torch.equal(r, runs[0]) for r in runs), "K2: weighted sums below the cap changed their bits")
+    weighted = next(c for c in cases if c[0] == "histogram_256_weighted")[1]
+    runs = [weighted() for _ in range(3)]
+    check(all(torch.equal(r, runs[0]) for r in runs), "K2: weighted sums in one block's shared memory changed their bits")
     out["weighted_repeats_bits"] = True
-    del x, w, ints, runs
+    del inputs, cases, host, runs
     torch.cuda.empty_cache()
     return out
 

@@ -103,6 +103,24 @@ class Persisted(ArrayExpr):
 
         return BlockView(self.chunks_, dense=ctx.leaf(f"persist-{self.pinned_name}"))
 
+    def __reduce__(self):
+        # the tensor travels in host memory, so a leaf pickled beside a
+        # card loads where there is none
+        return (_load_persisted, (self.buffer.cpu(), self.chunks_, self.pinned_name))
+
+
+def _load_persisted(buffer, chunks, pinned_name):
+    """A pickled ``Persisted`` leaf, its tensor on the configured device.
+    Where that is a card this machine lacks, the tensor stays in host
+    memory: a ``compute()`` there raises as every one does without a card,
+    and one under ``config.set({"device": "cpu"})`` runs."""
+    from dask_array_tpu_torch import config
+
+    device = torch.device(config.get("device", "cuda"))
+    if device.type != "cuda" or torch.cuda.is_available():
+        buffer = buffer.to(device)
+    return Persisted(buffer, chunks, pinned_name)
+
 
 def _binop(fn, reflexive=False):
     def method(self, other):
@@ -175,6 +193,9 @@ class Array:
         if not isinstance(expr, ArrayExpr):
             raise TypeError(f"Array() takes an ArrayExpr, got {type(expr)}")
         object.__setattr__(self, "_expr", expr)
+
+    def __reduce__(self):
+        return (Array, (self._expr,))
 
     def _replace_expr(self, expr: ArrayExpr):
         object.__setattr__(self, "_expr", expr)

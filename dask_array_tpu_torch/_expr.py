@@ -123,6 +123,15 @@ class ArrayExpr:
     def __eq__(self, other):
         return isinstance(other, ArrayExpr) and self._name == other._name
 
+    def __reduce__(self):
+        """Pickle by (class, operands) only: caches are dropped and the
+        singleton registry deduplicates again on load.  torch callables in
+        operands are encoded by public attribute path
+        (``utils/_pickle.py``)."""
+        from dask_array_tpu_torch.utils._pickle import encode_operand, unpickle_expr
+
+        return (unpickle_expr, (type(self), tuple(encode_operand(o) for o in self.operands)))
+
     def __repr__(self):
         return f"{type(self).__name__}({self._describe()})"
 

@@ -17,10 +17,11 @@
 //   Plan (kernels/histogram.py::launch_plan, a pure function of n, the
 //   bins, the SM count and the types).  The flat data is cut into units of
 //   16 bytes (VEC = 16 / sizeof(T) elements); a persistent grid of G blocks
-//   (four an SM where their shared memory allows, two or one otherwise;
-//   fewer for small n) takes equal runs of units, block b units [b*U/G,
-//   (b+1)*U/G), each thread UNROLL units at a time, 256 apart, so a warp's
-//   loads are adjacent: whole rounds of whole units run without per-value
+//   (four of 256 threads an SM where their shared memory allows, two
+//   otherwise, or one: a wide block of 1024 threads for counts, 32 warps as
+//   four blocks have; fewer for small n) takes equal runs of units, block b
+//   units [b*U/G, (b+1)*U/G), each thread UNROLL units at a time, a block's
+//   width apart, so a warp's loads are adjacent: whole rounds of whole units run without per-value
 //   checks, and all bins of a round are found before any is counted, so
 //   the lookups of a thread overlap.  The rest of a run (a round's worth at
 //   most), and all of unaligned data, goes a value a thread at a time.
@@ -43,20 +44,36 @@
 //   binary search.  Either way the result is the search's.  bincount
 //   (direct mode) takes the value itself as the bin.
 //
-//   Counts.  Shared-memory privatized: one copy of the bins per warp where
-//   they fit (fewer copies, down to one a block, for more bins), 32-bit
-//   shared atomics; a block sums its copies into partial[b], and a second
-//   launch sums the partials of each bin into int64, a warp a bin.
-//   Weighted sums take no float atomics while the per-warp copies fit: the
-//   32 lanes of a warp group by bin (__match_any_sync), the group's first
-//   lane adds the group's weights in lane order into its warp's float64
-//   bins, the warps are summed in warp order and the blocks' partials in a
-//   fixed order, so the same input gives the same bits on every run.  Bins
-//   past the shared-memory budget (65536 bins) count with 64-bit integer
-//   atomics in global memory (exact); weighted sums there use float64
-//   global atomics, whose order (and so the last bits) may change from run
-//   to run.
-//
+//   Counts.  Shared-memory privatized, in one of three modes that
+//   launch_plan picks by the bins' bytes (counts 4, float64 sums 8,
+//   complex128 sums 16 a bin):
+//   - copies: one copy of the bins per warp where they fit (fewer, down to
+//     one a block, for more bins), 32-bit shared atomics.  Weighted sums
+//     take no float atomics: the 32 lanes of a warp group by bin
+//     (__match_any_sync), the group's first lane adds the group's weights
+//     (staged in shared memory, loaded 16 bytes at a time) in lane order
+//     into its warp's float64 bins, the warps are summed in warp order and
+//     the blocks' partials in a fixed order, so the same input gives the
+//     same bits on every run.
+//   - half: counts past one copy a block (65536 32-bit counts are 256 KB,
+//     a block's budget 227 KB) in 16-bit shared counters, two a 32-bit
+//     word: 65536 bins in 128 KB, one wide block an SM (32 warps, which
+//     the lookups need to hide their latency).  A counter that wraps is
+//     seen in atomicAdd's old word: its bin gets 65536 in the int64
+//     output, and a low counter's carry into the high one is taken back
+//     there (65535 where that carry wrapped the high counter itself, -1
+//     otherwise).  The bins spread over a thread-block cluster's
+//     distributed shared memory, measured against it, took 2.4 to 8.5
+//     times as long (PERF.md).
+//   - global: past those (weighted sums past one block's copies a warp,
+//     counts past 116216 bins) 64-bit integer or float64 atomics in global
+//     memory; the order of the float adds, and so the last bits of such
+//     sums, may change from run to run.
+//   Copies and half mode end as partials: each block writes its bins (its
+//   16-bit counters) to partial[b], and a second launch sums the blocks of
+//   each bin in a fixed order, a warp a bin, into the output (adding to
+//   the wraps in half mode).
+
 // Launches on the caller's stream; histogram_launch returns
 // cudaGetLastError().
 
@@ -69,9 +86,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads a block
+constexpr int kThreads = 256;  // threads a block: four an SM (64 registers a thread)
 constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 4;  // blocks resident on an SM (64 registers a thread)
+constexpr int kWideThreads = 1024;  // a wide block: counts where one block fits an SM, as many warps as four
 
 template <typename R>
 struct Cplx {
@@ -216,16 +233,41 @@ __device__ __forceinline__ long long run_start(long long b, long long U, long lo
 
 __device__ __forceinline__ size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
-// Shared memory: [copies * nb bins of CB bytes | staged edges | weight stage].
-// wk: 0 counts, 1 float64 weights, 2 complex128 weights.  direct: bincount
-// (T is long long, the value is the bin; C unused).
-template <typename T, typename C, bool kDirect>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// the counting modes (kernels/histogram.py mirrors them)
+constexpr int kCopies = 0;  // copies of the bins in each block's shared memory
+constexpr int kHalf = 1;    // 16-bit counters, two a word, in each block
+constexpr int kGlobal = 2;  // atomics into the output in global memory
+
+// half mode: one count into bin's 16-bit counter (bins 2k and 2k + 1 are the
+// low and high halves of word k).  A counter that wraps adds 65536 to its
+// bin's int64 output; the carry a low counter spills into the high one is
+// taken back there, and where the high counter held 0xFFFF that carry
+// wrapped it: 65536 - 1 then.
+__device__ __forceinline__ void half_add(unsigned* words, unsigned long long* out, int nb, int bin) {
+  const int sh = (bin & 1) << 4;
+  const unsigned old = atomicAdd(words + (bin >> 1), 1u << sh);
+  if (((old >> sh) & 0xFFFFu) != 0xFFFFu) return;
+  atomicAdd(out + bin, 65536ull);
+  if (sh == 0 && bin + 1 < nb) {
+    const long long back = (old >> 16) == 0xFFFFu ? 65535 : -1;
+    atomicAdd(out + bin + 1, static_cast<unsigned long long>(back));
+  }
+}
+
+// Shared memory: [the counts | staged edges | weight stage].  mode kCopies:
+// copies copies of nb bins; kHalf: nb 16-bit counters, two a word; kGlobal:
+// none.  A bin is 4 bytes (wk 0, counts), 8 (wk 1, float64 weights) or 16
+// (wk 2, complex128 weights).  direct: bincount (T is long long, the value
+// is the bin; C unused).  kWide: a block of 1024 threads, one an SM, for
+// counts (wk 0) in modes kCopies and kHalf; else 256 threads, four an SM.
+template <typename T, typename C, bool kDirect, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWideThreads : kThreads, kWide ? 1 : 4)
 hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int nb,
           const double* __restrict__ w, int wk, void* __restrict__ out, void* __restrict__ partial,
-          long long U, int copies, int edges_shared, int aligned) {
+          long long U, int mode, int copies, int edges_shared, int aligned) {
   using O = Ops<C>;
   using G = typename O::G;
+  constexpr int kT = kWide ? kWideThreads : kThreads;
   constexpr int VEC = 16 / sizeof(T);
   // 16-byte units a thread loads before it counts them: 16 elements at most
   constexpr int kUnroll = sizeof(T) == 1 ? 1 : (sizeof(T) == 2 ? 2 : 4);
@@ -234,19 +276,21 @@ hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int cb = wk == 0 ? 4 : (wk == 1 ? 8 : 16);
-  const size_t count_bytes = align16(static_cast<size_t>(copies) * nb * cb);
+  const int words = (nb + 1) >> 1;  // half mode's words
+  const size_t count_bytes = align16(mode == kCopies ? static_cast<size_t>(copies) * nb * cb
+                                                     : (mode == kHalf ? static_cast<size_t>(words) * 4 : 0));
   unsigned* cnt = reinterpret_cast<unsigned*>(smem);
   double* wcnt = reinterpret_cast<double*>(smem);
   const C* E = edges;
   size_t off = count_bytes;
   if (!kDirect && edges_shared) {
     C* es = reinterpret_cast<C*>(smem + off);
-    for (int i = tid; i <= nb; i += kThreads) es[i] = edges[i];
+    for (int i = tid; i <= nb; i += kT) es[i] = edges[i];
     E = es;
     off += align16(static_cast<size_t>(nb + 1) * sizeof(C));
   }
-  double* stage = reinterpret_cast<double*>(smem + off);  // kWarps x 32 x (1 or 2) doubles
-  for (size_t i = tid; i < count_bytes / 4; i += kThreads) cnt[i] = 0u;
+  double* stage = reinterpret_cast<double*>(smem + off);  // kWarps x 32 x wk doubles (weighted copies)
+  for (size_t i = tid; i < count_bytes / 4; i += kT) cnt[i] = 0u;
   __syncthreads();
 
   C e0{}, eN{};
@@ -264,7 +308,7 @@ hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int
     __syncthreads();
     if (span > 0.0 && span < 1e308) {
       double dev = 0.0;
-      for (int i = tid; i <= nb; i += kThreads) {
+      for (int i = tid; i <= nb; i += kT) {
         const double d = fabs(static_cast<double>(O::key(E[i])) - (k0 + span * (static_cast<double>(i) / nb)));
         dev = d <= dev ? dev : (d == d ? d : CUDART_INF);
       }
@@ -280,7 +324,7 @@ hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int
                 scale < static_cast<G>(1e30) && nb < (1 << 22);  // Floor<float> holds to 2^22
     margin = use_guess ? static_cast<G>(m) : G(1);
   }
-  const int mine = copies > 0 ? warp % copies : 0;
+  const int mine = mode == kCopies ? warp % copies : 0;
   const long long u0 = run_start(blockIdx.x, U, gridDim.x);
   const long long u1 = run_start(blockIdx.x + 1, U, gridDim.x);
 
@@ -299,58 +343,62 @@ hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int
       return bin == kSearch ? search_bin<C>(O::make(value), E, nb, use_guess, g0, scale) : bin;
     }
   };
-  // count value idx (valid: it exists) in bin; the 32 lanes of a warp call
-  // it together
-  auto count = [&](int bin, long long idx, bool valid) {
+  // count a value (valid: it exists) in bin, with its weight (re, im)
+  // where weighted; the 32 lanes of a warp call it together
+  auto count = [&](int bin, bool valid, double re, double im) {
     if (wk == 0) {
-      if (bin >= 0) {
-        if (copies > 0) atomicAdd(cnt + static_cast<size_t>(mine) * nb + bin, 1u);
-        else atomicAdd(reinterpret_cast<unsigned long long*>(out) + bin, 1ull);
-      }
-    } else if (copies == 0) {  // past the shared budget: float64 atomics
-      if (bin >= 0) {
-        double* o = reinterpret_cast<double*>(out);
-        if (wk == 1) {
-          atomicAdd(o + bin, w[idx]);
-        } else {
-          atomicAdd(o + 2 * bin, w[2 * idx]);
-          atomicAdd(o + 2 * bin + 1, w[2 * idx + 1]);
+      if (bin < 0) return;
+      if constexpr (kWide) {
+        if (mode == kHalf) {
+          half_add(cnt, reinterpret_cast<unsigned long long*>(out), nb, bin);
+          return;
         }
       }
-    } else {  // the warp's lanes grouped by bin, each group added in lane order
+      if (mode == kCopies) atomicAdd(cnt + static_cast<size_t>(mine) * nb + bin, 1u);
+      else atomicAdd(reinterpret_cast<unsigned long long*>(out) + bin, 1ull);
+    } else if constexpr (!kWide) {
+      if (mode == kGlobal) {  // past a copy a warp: float64 atomics in global memory
+        if (bin < 0) return;
+        double* o = reinterpret_cast<double*>(out) + static_cast<size_t>(bin) * wk;
+        atomicAdd(o, re);
+        if (wk == 2) atomicAdd(o + 1, im);
+        return;
+      }
+      // the warp's lanes grouped by bin, each group added in lane order
       const unsigned peers = __match_any_sync(0xffffffffu, bin);
       double* st = stage + warp * 32 * wk;
       if (valid) {
-        st[lane * wk] = w[wk * idx];
-        if (wk == 2) st[lane * 2 + 1] = w[2 * idx + 1];
+        st[lane * wk] = re;
+        if (wk == 2) st[lane * 2 + 1] = im;
       }
       __syncwarp();
       if (bin >= 0 && lane == __ffs(peers) - 1) {
-        double re = st[lane * wk];
-        double im = wk == 2 ? st[lane * 2 + 1] : 0.0;
+        double sre = re, sim = im;
         for (unsigned m = peers & (peers - 1); m; m &= m - 1) {
           const int l = __ffs(m) - 1;
-          re += st[l * wk];
-          if (wk == 2) im += st[l * 2 + 1];
+          sre += st[l * wk];
+          if (wk == 2) sim += st[l * 2 + 1];
         }
         double* mybins = wcnt + (static_cast<size_t>(warp) * nb + bin) * wk;
-        mybins[0] += re;
-        if (wk == 2) mybins[1] += im;
+        mybins[0] += sre;
+        if (wk == 2) mybins[1] += sim;
       }
       __syncwarp();
     }
   };
 
-  // whole rounds: kUnroll 16-byte units a thread, 256 apart, with no
+  // whole rounds: kUnroll 16-byte units a thread, kT apart, with no
   // per-value checks; every bin of a round is found before any is counted,
-  // so a thread's lookups overlap
-  constexpr long long kRound = static_cast<long long>(kThreads) * kUnroll;
+  // so a thread's lookups overlap.  A unit's weights (VEC * wk doubles, 16
+  // bytes aligned: the wrapper clears aligned otherwise) load as 16-byte
+  // vectors.
+  constexpr long long kRound = static_cast<long long>(kT) * kUnroll;
   long long base = u0;
   for (; aligned && base + kRound <= u1 && (base + kRound) * VEC <= n; base += kRound) {
     T v[kUnroll][VEC];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + (base + k * kThreads + tid) * VEC));
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + (base + k * kT + tid) * VEC));
       memcpy(&v[k][0], &raw, 16);
     }
     int bins[kUnroll][VEC];
@@ -366,24 +414,50 @@ hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
+      const long long first = (base + k * kT + tid) * VEC;  // the unit's first value
+      if (wk == 0 || kWide) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) count(bins[k][j], (base + k * kThreads + tid) * VEC + j, true);
+        for (int j = 0; j < VEC; ++j) count(bins[k][j], true, 0.0, 0.0);
+      } else if (wk == 2) {  // a complex128 weight a value: one 16-byte load each
+        const double2* wv = reinterpret_cast<const double2*>(w) + first;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const double2 c = __ldg(wv + j);
+          count(bins[k][j], true, c.x, c.y);
+        }
+      } else if constexpr (VEC % 2 == 0) {  // float64 weights, two a 16-byte load
+        double2 wv[VEC / 2];
+#pragma unroll
+        for (int q = 0; q < VEC / 2; ++q) wv[q] = __ldg(reinterpret_cast<const double2*>(w + first) + q);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) count(bins[k][j], true, j % 2 ? wv[j / 2].y : wv[j / 2].x, 0.0);
+      } else {  // one 16-byte value, one float64 weight
+        count(bins[k][0], true, w[first], 0.0);
+      }
     }
   }
   // the rest of the run (all of it for unaligned data): a value a thread
   const long long end = u1 * VEC < n ? u1 * VEC : n;
-  for (long long e = base * VEC; e < end; e += kThreads) {
+  for (long long e = base * VEC; e < end; e += kT) {
     const long long idx = e + tid;
     const bool valid = idx < end;
     T value;
     if (valid) memcpy(&value, x + idx, sizeof(T));
     else memset(&value, 0, sizeof(T));
-    count(valid ? resolve(lookup(value), value) : -1, idx, valid);
+    const double re = valid && wk > 0 ? w[wk * idx] : 0.0;
+    const double im = valid && wk == 2 ? w[2 * idx + 1] : 0.0;
+    count(valid ? resolve(lookup(value), value) : -1, valid, re, im);
   }
-  if (copies == 0) return;
+  if (mode == kGlobal) return;
   __syncthreads();
+  if (mode == kHalf) {  // the block's words into partial[b]: the finish takes their halves apart
+    for (int k = tid; k < words; k += kT) {
+      reinterpret_cast<unsigned*>(partial)[static_cast<size_t>(blockIdx.x) * words + k] = cnt[k];
+    }
+    return;
+  }
   // the block's copies, in copy order, into partial[b]
-  for (int bin = tid; bin < nb; bin += kThreads) {
+  for (int bin = tid; bin < nb; bin += kT) {
     if (wk == 0) {
       unsigned s = 0;
       for (int c = 0; c < copies; ++c) s += cnt[static_cast<size_t>(c) * nb + bin];
@@ -401,9 +475,10 @@ hist_main(const T* __restrict__ x, long long n, const C* __restrict__ edges, int
 // Launch 2: one warp an output item (a bin's count, or a real or imaginary
 // part of its sum); lane l adds the partials of blocks l, l + 32, ... in
 // order, then the lanes are added in a fixed tree, so the order is the
-// same on every run.
+// same on every run.  half: the partials are the blocks' 16-bit counters,
+// two a word, added to the output (which holds their wraps).
 __global__ void __launch_bounds__(kThreads)
-hist_finish(const void* __restrict__ partial, void* __restrict__ out, int nb, int blocks, int wk) {
+hist_finish(const void* __restrict__ partial, void* __restrict__ out, int nb, int blocks, int wk, int half) {
   const long long i = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const long long items = static_cast<long long>(nb) * (wk == 0 ? 1 : wk);
@@ -411,10 +486,17 @@ hist_finish(const void* __restrict__ partial, void* __restrict__ out, int nb, in
   if (wk == 0) {
     const unsigned* p = reinterpret_cast<const unsigned*>(partial);
     long long s = 0;
-    for (int b = lane; b < blocks; b += 32) s += p[static_cast<size_t>(b) * nb + i];
+    if (half) {
+      const size_t words = (static_cast<size_t>(nb) + 1) >> 1;
+      const int sh = static_cast<int>(i & 1) << 4;
+      for (int b = lane; b < blocks; b += 32) s += (p[b * words + (i >> 1)] >> sh) & 0xFFFFu;
+    } else {
+      for (int b = lane; b < blocks; b += 32) s += p[static_cast<size_t>(b) * nb + i];
+    }
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
-    if (lane == 0) reinterpret_cast<long long*>(out)[i] = s;
+    long long* o = reinterpret_cast<long long*>(out);
+    if (lane == 0) o[i] = (half ? o[i] : 0) + s;
   } else {
     const double* p = reinterpret_cast<const double*>(partial);
     const size_t row = static_cast<size_t>(nb) * wk;
@@ -427,19 +509,19 @@ hist_finish(const void* __restrict__ partial, void* __restrict__ out, int nb, in
 }
 
 template <typename T, typename C, bool kDirect>
-cudaError_t launch(const void* x, long long n, const void* edges, int nb, const double* w, int wk,
-                   void* out, void* partial, long long U, int blocks, int copies, int edges_shared, int aligned,
-                   size_t smem, cudaStream_t st) {
+cudaError_t launch(const void* x, long long n, const void* edges, int nb, const double* w, int wk, void* out,
+                   void* partial, long long U, int threads, int blocks, int mode, int copies, int edges_shared,
+                   int aligned, size_t smem, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
   if (U != (n + VEC - 1) / VEC) return cudaErrorInvalidValue;
-  auto kernel = hist_main<T, C, kDirect>;
-  if (smem > 48 * 1024) {
+  auto kernel = threads == kWideThreads ? hist_main<T, C, kDirect, true> : hist_main<T, C, kDirect, false>;
+  if (smem > 47 * 1024) {  // past 48 KB with the static share: the opt-in
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, kThreads, smem, st>>>(static_cast<const T*>(x), n, static_cast<const C*>(edges), nb, w,
-                                         wk, out, partial, U, copies, edges_shared, aligned);
+  kernel<<<blocks, threads, smem, st>>>(static_cast<const T*>(x), n, static_cast<const C*>(edges), nb, w, wk, out,
+                                        partial, U, mode, copies, edges_shared, aligned);
   return cudaGetLastError();
 }
 
@@ -450,13 +532,13 @@ cudaError_t launch(const void* x, long long n, const void* edges, int nb, const 
 // KERNEL_PAIRS the pairs instantiated here: a complex comparison takes
 // complex data, the wrapper casting real data to it)
 template <typename C>
-cudaError_t by_data(int tcode, const void* x, long long n, const void* edges, int nb, const double* w,
-                    int wk, void* out, void* partial, long long U, int blocks, int copies, int edges_shared,
-                    int aligned, size_t smem, cudaStream_t st) {
+cudaError_t by_data(int tcode, const void* x, long long n, const void* edges, int nb, const double* w, int wk,
+                    void* out, void* partial, long long U, int threads, int blocks, int mode, int copies,
+                    int edges_shared, int aligned, size_t smem, cudaStream_t st) {
+#define HIST_ARGS x, n, edges, nb, w, wk, out, partial, U, threads, blocks, mode, copies, edges_shared, aligned, smem, st
 #define HIST_CASE(code, T) \
   case code:               \
-    return launch<T, C, false>(x, n, edges, nb, w, wk, out, partial, U, blocks, copies, edges_shared, \
-                               aligned, smem, st);
+    return launch<T, C, false>(HIST_ARGS);
   constexpr bool kF32 = std::is_same<C, float>::value;
   constexpr bool kF64 = std::is_same<C, double>::value;
   constexpr bool kI64 = std::is_same<C, long long>::value;
@@ -464,13 +546,10 @@ cudaError_t by_data(int tcode, const void* x, long long n, const void* edges, in
   constexpr bool kC64 = std::is_same<C, Cplx<float>>::value;
   constexpr bool kC128 = std::is_same<C, Cplx<double>>::value;
   if constexpr (kC64) {
-    if (tcode == 12) return launch<float2, C, false>(x, n, edges, nb, w, wk, out, partial, U, blocks, copies,
-                                                     edges_shared, aligned, smem, st);
+    if (tcode == 12) return launch<float2, C, false>(HIST_ARGS);
   } else if constexpr (kC128) {
-    if (tcode == 12) return launch<float2, C, false>(x, n, edges, nb, w, wk, out, partial, U, blocks, copies,
-                                                     edges_shared, aligned, smem, st);
-    if (tcode == 13) return launch<double2, C, false>(x, n, edges, nb, w, wk, out, partial, U, blocks, copies,
-                                                      edges_shared, aligned, smem, st);
+    if (tcode == 12) return launch<float2, C, false>(HIST_ARGS);
+    if (tcode == 13) return launch<double2, C, false>(HIST_ARGS);
   } else if constexpr (kF32) {  // data that float32 holds exactly
     switch (tcode) {
       HIST_CASE(0, unsigned char) HIST_CASE(1, unsigned char) HIST_CASE(2, signed char) HIST_CASE(3, short)
@@ -498,6 +577,7 @@ cudaError_t by_data(int tcode, const void* x, long long n, const void* edges, in
     }
   }
 #undef HIST_CASE
+#undef HIST_ARGS
   return cudaErrorInvalidValue;
 }
 
@@ -509,16 +589,21 @@ extern "C" {
 // comparison code ccode (ignored when direct: x is int64 and its values are
 // the bins); w: n float64 (wk 1) or complex128 (wk 2) weights or null (wk
 // 0); out: nb int64 counts, float64 or complex128 sums (zeroed by the caller
-// when copies == 0: global atomics); partial: blocks * nb * (4 | 8 | 16)
-// bytes of scratch when copies > 0.  The plan (units, blocks, copies,
-// edges_shared, smem) comes from kernels/histogram.py::launch_plan;
+// in modes kHalf and kGlobal); partial: scratch for the blocks' partials
+// (kCopies: nb bins of 4, 8 or 16 bytes a block; kHalf: (nb + 1) / 2 words
+// a block; none for kGlobal).  The plan (units, threads, blocks, mode,
+// copies, edges_shared, smem) comes from kernels/histogram.py::launch_plan;
 // aligned: x is 16-byte aligned.  All on the device.  Returns a cudaError_t.
 int histogram_launch(const void* x, long long n, int tcode, int ccode, const void* edges, long long nb, int direct,
-                     const double* w, int wk, void* out, void* partial, long long units, long long blocks,
-                     int copies, int edges_shared, int aligned, long long smem, void* stream) {
+                     const double* w, int wk, void* out, void* partial, long long units, int threads,
+                     long long blocks, int mode, int copies, int edges_shared, int aligned, long long smem,
+                     void* stream) {
   if (n < 0 || nb <= 0 || nb > 2147483646LL || blocks <= 0 || blocks > 2147483647LL || wk < 0 || wk > 2 ||
-      copies < 0 || copies > kWarps || (wk > 0 && copies != 0 && copies != kWarps) || smem < 0 ||
-      smem > 227 * 1024 || (wk > 0 && w == nullptr) || (copies > 0 && partial == nullptr)) {
+      (threads != kThreads && threads != kWideThreads) || (threads == kWideThreads && (wk != 0 || mode == kGlobal)) ||
+      mode < kCopies || mode > kGlobal || smem < 0 || smem > 227 * 1024 || (wk > 0 && w == nullptr) ||
+      (mode != kGlobal && partial == nullptr) ||
+      (mode == kCopies && (copies < 1 || copies > kWarps || (wk > 0 && copies != kWarps))) ||
+      (mode == kHalf && threads != kWideThreads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -528,28 +613,25 @@ int histogram_launch(const void* x, long long n, int tcode, int ccode, const voi
   cudaError_t err;
   if (direct) {
     if (tcode != 7) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch<long long, long long, true>(x, n, nullptr, nbi, w, wk, out, partial, units, bi, copies, 0,
-                                             aligned, sm, st);
+    err = launch<long long, long long, true>(x, n, nullptr, nbi, w, wk, out, partial, units, threads, bi, mode,
+                                             copies, 0, aligned, sm, st);
   } else {
+#define HIST_BY(code, C)                                                                                          \
+  case code:                                                                                                      \
+    err = by_data<C>(tcode, x, n, edges, nbi, w, wk, out, partial, units, threads, bi, mode, copies, edges_shared, \
+                     aligned, sm, st);                                                                             \
+    break;
     switch (ccode) {
-      case 0: err = by_data<float>(tcode, x, n, edges, nbi, w, wk, out, partial, units, bi, copies,
-                                   edges_shared, aligned, sm, st); break;
-      case 1: err = by_data<double>(tcode, x, n, edges, nbi, w, wk, out, partial, units, bi, copies,
-                                    edges_shared, aligned, sm, st); break;
-      case 2: err = by_data<long long>(tcode, x, n, edges, nbi, w, wk, out, partial, units, bi, copies,
-                                       edges_shared, aligned, sm, st); break;
-      case 3: err = by_data<unsigned long long>(tcode, x, n, edges, nbi, w, wk, out, partial, units, bi,
-                                                copies, edges_shared, aligned, sm, st); break;
-      case 4: err = by_data<Cplx<float>>(tcode, x, n, edges, nbi, w, wk, out, partial, units, bi, copies,
-                                         edges_shared, aligned, sm, st); break;
-      case 5: err = by_data<Cplx<double>>(tcode, x, n, edges, nbi, w, wk, out, partial, units, bi, copies,
-                                          edges_shared, aligned, sm, st); break;
+      HIST_BY(0, float) HIST_BY(1, double) HIST_BY(2, long long) HIST_BY(3, unsigned long long)
+      HIST_BY(4, Cplx<float>) HIST_BY(5, Cplx<double>)
       default: err = cudaErrorInvalidValue;
     }
+#undef HIST_BY
   }
-  if (err != cudaSuccess || copies == 0) return static_cast<int>(err);
+  if (err != cudaSuccess || mode == kGlobal) return static_cast<int>(err);
   const long long warps = nb * (wk == 0 ? 1 : wk);  // one an output item
-  hist_finish<<<static_cast<unsigned>((warps + kWarps - 1) / kWarps), kThreads, 0, st>>>(partial, out, nbi, bi, wk);
+  hist_finish<<<static_cast<unsigned>((warps + kWarps - 1) / kWarps), kThreads, 0, st>>>(partial, out, nbi, bi, wk,
+                                                                                         mode == kHalf);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,10 +22,13 @@ Each value is compared in numpy's comparison dtype,
 float32, float64 in float64, integers in int64 (uint64 when that is the
 result type), complex lexicographically.  The grid is planned here, by
 ``launch_plan``, a pure function of the sizes, the types and the card's SM
-count.  Weighted sums repeat their bits from run to run while the per-warp
-float64 bins fit in shared memory (``launch_plan(...).copies > 0``); past
-that (65536-bin weighted bincounts) the kernel adds them with float64
-atomics in global memory, whose last bits may then change from run to run.
+count.  Counts past one copy of the bins a block (65536 bins) are kept in
+16-bit shared counters, whose wraps the kernel carries into the int64
+output.  Weighted sums repeat their bits from run to run while the
+per-warp float64 bins fit in shared memory (``launch_plan(...).copies >
+0``); past that (65536-bin weighted bincounts) the kernel adds them with
+float64 atomics in global memory, whose last bits may then change from run
+to run.
 """
 
 from __future__ import annotations
@@ -207,13 +210,17 @@ def guess_margin(edges, compare="float64") -> float:
 
 # -- the launch plan (csrc/histogram.cu mirrors it) ----------------------------------
 
-THREADS = 256  # threads a block
+THREADS = 256  # threads a block: four an SM (64 registers a thread)
+WIDE_THREADS = 1024  # a wide block: counts where one block fits an SM, as many warps as four
 WARPS = THREADS // 32
-MAX_BLOCKS_PER_SM = 4  # __launch_bounds__(256, 4): 64 registers a thread
+MAX_BLOCKS_PER_SM = 4
 SM_SHARED = 233472  # shared bytes of an SM (228 KB), 1 KB of it reserved a block
-BLOCK_SHARED = 232448  # the most one block may take (227 KB)
+BLOCK_SHARED = 232448  # the most one block may take (227 KB), static shared memory included
+STATIC_SHARED = 16  # the kernel's static shared memory (the edges' distance from even spacing)
 EDGE_BUDGET = 32 * 1024  # edges staged in shared memory up to this many bytes
 _COUNT_BYTES = {0: 4, 1: 8, 2: 16}  # a bin's bytes in one copy: counts, float64, complex128 sums
+# the counting modes of csrc/histogram.cu
+COPIES, HALF, GLOBAL = 0, 1, 2
 
 
 def _align16(v: int) -> int:
@@ -222,19 +229,26 @@ def _align16(v: int) -> int:
 
 class Plan(NamedTuple):
     """How the kernel covers ``n`` values of ``itemsize`` bytes.  ``vec``
-    values make a 16-byte unit; ``blocks`` blocks (``per_sm`` resident on
-    each SM, one wave) take equal runs of the ``units`` units, block b units
-    ``[b * units // blocks, (b + 1) * units // blocks)``.  ``copies``
-    private copies of the bins a block in shared memory (one a warp at most;
-    weighted sums need one a warp), or 0: global atomics into the output.
-    ``edges_shared``: the edges staged in shared memory.  ``smem``: dynamic
-    shared bytes; ``partial``: scratch bytes of the blocks' partial
-    counts."""
+    values make a 16-byte unit; ``blocks`` blocks of ``threads`` threads
+    (``per_sm`` resident on each SM, one wave) take equal runs of the
+    ``units`` units, block b units ``[b * units // blocks, (b + 1) * units
+    // blocks)``; counts where one block fits an SM take a wide block of
+    1024 threads (32 warps, as four blocks of 256 have).  ``mode``: where
+    the counts are kept.  COPIES: ``copies`` private copies of the bins a
+    block in shared memory (one a warp at most; weighted sums need one a
+    warp).  HALF: 16-bit counters, two a
+    32-bit word, one copy a block: bin b is half ``b % 2`` of word ``b //
+    2`` (``counter``).  GLOBAL: atomics into the output.  ``edges_shared``:
+    the edges staged in shared memory.  ``smem``: dynamic shared bytes;
+    ``partial``: scratch bytes of the blocks' partials (HALF: their
+    words)."""
 
     vec: int
     units: int
+    threads: int
     blocks: int
     per_sm: int
+    mode: int
     copies: int
     edges_shared: bool
     smem: int
@@ -248,27 +262,40 @@ def launch_plan(n: int, nbins: int, sms: int = 132, itemsize: int = 4, weights: 
     ``nbins`` bins on a card of ``sms`` SMs; ``weights`` 0 (counts), 1
     (float64) or 2 (complex128); ``edge_itemsize`` the bytes of an edge in
     the comparison type (0: bincount's direct mode, no edges).  The most
-    blocks an SM holds (4, 2, then 1) whose shared memory takes the counts:
-    every warp's copy of the bins where they fit in that share (one copy a
-    block at least for counts; weighted sums need all eight), else global
-    atomics with four blocks an SM."""
+    blocks an SM holds (4, 2, then 1) whose shared memory takes copies of
+    the bins: every warp's copy where they fit in that share (one copy a
+    block at least for counts, in a wide block where one fits an SM;
+    weighted sums need a copy for each of their eight warps, and a stage
+    of their weights).  Past that, counts go to 16-bit counters in one wide
+    block an SM, up to 116216 bins; past those, and weighted sums past a
+    copy a warp, to global atomics with four blocks an SM."""
     vec = 16 // itemsize
     units = -(-n // vec)
     edge_bytes = _align16((nbins + 1) * edge_itemsize) if edge_itemsize else 0
     edges_shared = 0 < edge_bytes <= EDGE_BUDGET
     fixed = (edge_bytes if edges_shared else 0) + WARPS * 32 * 8 * weights
     per_copy = nbins * _COUNT_BYTES[weights]
-    per_sm, copies = MAX_BLOCKS_PER_SM, 0
+    budget = BLOCK_SHARED - STATIC_SHARED
+    mode, threads, per_sm, copies, partial_block = GLOBAL, THREADS, MAX_BLOCKS_PER_SM, 0, 0
+    smem = edge_bytes if edges_shared else 0  # GLOBAL: no copies, no weight stage
     for resident in (MAX_BLOCKS_PER_SM, 2, 1):
-        room = (min(BLOCK_SHARED, SM_SHARED // resident - 1024) - fixed) // per_copy
+        room = (min(budget, SM_SHARED // resident - 1024 - STATIC_SHARED) - fixed) // per_copy
         fit = min(WARPS, room) if weights == 0 else (WARPS if room >= WARPS else 0)
         if fit > 0:
-            per_sm, copies = resident, fit
+            mode, per_sm, copies = COPIES, resident, fit
+            smem, partial_block = _align16(fit * per_copy) + fixed, per_copy
+            threads = WIDE_THREADS if weights == 0 and resident == 1 else THREADS
             break
-    blocks = max(1, min(sms * per_sm, -(-units // THREADS)))
-    smem = (_align16(copies * per_copy) + fixed) if copies else (edge_bytes if edges_shared else 0)
-    partial = blocks * per_copy if copies else 0
-    return Plan(vec, units, blocks, per_sm, copies, edges_shared, smem, partial)
+    words = -(-nbins // 2) * 4
+    if mode == GLOBAL and weights == 0 and _align16(words) + fixed <= budget:
+        mode, threads, per_sm, smem, partial_block = HALF, WIDE_THREADS, 1, _align16(words) + fixed, words
+    blocks = max(1, min(sms * per_sm, -(-units // threads)))
+    return Plan(vec, units, threads, blocks, per_sm, mode, copies, edges_shared, smem, blocks * partial_block)
+
+
+def counter(b: int):
+    """``(word, shift)``: bin ``b``'s 16-bit counter in HALF mode."""
+    return b // 2, 16 * (b % 2)
 
 
 def shares(plan: Plan, n: int):
@@ -303,14 +330,16 @@ def _run(x, ccode, edges_c, nbins, direct, weights):
     n = x.numel()
     plan = launch_plan(n, nbins, _sm_count(index), x.element_size(), wk,
                        0 if direct else edges_c.element_size())
+    # 16-byte loads of the values, and of the weights
+    aligned = x.data_ptr() % 16 == 0 and (w is None or w.data_ptr() % 16 == 0)
     out_dtype = (torch.int64, torch.float64, torch.complex128)[wk]
-    make = torch.empty if plan.copies else torch.zeros
+    make = torch.zeros if plan.mode in (HALF, GLOBAL) else torch.empty
     out = make(nbins, dtype=out_dtype, device=x.device)
-    partial = torch.empty(plan.partial, dtype=torch.uint8, device=x.device) if plan.copies else None
+    partial = torch.empty(plan.partial, dtype=torch.uint8, device=x.device) if plan.mode != GLOBAL else None
     _launcher()(index, x.data_ptr(), n, DATA_CODES[x.dtype], ccode, None if direct else edges_c.data_ptr(),
                 nbins, int(direct), None if w is None else w.data_ptr(), wk, out.data_ptr(),
-                None if partial is None else partial.data_ptr(), plan.units, plan.blocks, plan.copies,
-                int(plan.edges_shared), int(x.data_ptr() % 16 == 0), plan.smem)
+                None if partial is None else partial.data_ptr(), plan.units, plan.threads, plan.blocks, plan.mode,
+                plan.copies, int(plan.edges_shared), int(aligned), plan.smem)
     LAUNCHES += 1
     return out
 
@@ -360,4 +389,4 @@ def _sm_count(index: int) -> int:
 def _launcher():
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     return Launcher("histogram", "histogram_launch",
-                    [p, ll, i, i, p, ll, i, p, i, p, p, ll, ll, i, i, i, ll], "histogram")
+                    [p, ll, i, i, p, ll, i, p, i, p, p, ll, i, ll, i, i, i, i, ll], "histogram")

@@ -1124,12 +1124,13 @@ def _hist_check(a, edges, weights=None, offset=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", HIST_REAL)
-@pytest.mark.parametrize("edges", ["uniform", "nonuniform", "int"])
+@pytest.mark.parametrize("edges", ["uniform", "nonuniform", "int", "65536"])
 @pytest.mark.parametrize("n", [0, 1, 1001, 1 << 16])
 def test_histogram_kernel_every_real_dtype(cuda, dtype, edges, n):
     a = _hist_data(dtype, n, seed=n)
     e = {"uniform": np.linspace(-6.0, 6.0, 25), "nonuniform": np.array([-8.0, -1.5, 0.0, 0.0, 2.5, 3.0, 9.0]),
-         "int": np.array([-5, -1, 0, 3, 8])}[edges]
+         "int": np.array([-5, -1, 0, 3, 8]),
+         "65536": np.linspace(-13.0, 13.0, 65537)}[edges]  # past one copy a block: 16-bit counters
     _hist_check(a, e)
     _hist_check(a, e, offset=1)  # unaligned: element loads
 
@@ -1202,6 +1203,112 @@ def test_bincount_kernel(cuda, length, weighted):
     else:
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(w).sum())
     assert hk.bincount_cuda(x[:0], 0).numel() == 0
+
+
+# the bins around the shared-memory budget: three copies in exactly 48 KB
+# (4096, float64 edges: the opt-in past 48 KB with the static share), one
+# block's copy (57344), 16-bit counters (58112: one copy would take the
+# whole 227 KB; 65536) and global atomics (131072, 2**20); weighted sums
+# past a copy a warp in global atomics
+BUDGET_BINS = [4096, 57344, 58112, 65536, 131072, 1 << 20]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", BUDGET_BINS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_histogram_kernel_at_the_shared_memory_budget(cuda, nbins, weighted):
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    rng = np.random.default_rng(nbins)
+    a = rng.uniform(-1.1, 1.1, 3_000_017).astype(np.float32)
+    w = rng.standard_normal(a.size) if weighted else None
+    edges = np.linspace(-1.0, 1.0, nbins + 1)
+    plan = hk.launch_plan(a.size, nbins, hk._sm_count(0), 4, int(weighted), 8)
+    assert plan.smem + hk.STATIC_SHARED <= hk.BLOCK_SHARED
+    _hist_check(a, edges, weights=w)
+    _hist_check(a, edges, weights=w, offset=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", BUDGET_BINS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bincount_kernel_at_the_shared_memory_budget(cuda, length, weighted):
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    rng = np.random.default_rng(length + 1)
+    a = rng.integers(0, length, 3_000_017)
+    w = rng.standard_normal(a.size) if weighted else None
+    got = hk.bincount_cuda(torch.from_numpy(a).cuda(), length, None if w is None else torch.from_numpy(w).cuda())
+    want = np.bincount(a, weights=w, minlength=length)
+    if w is None:
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12, atol=1e-12 * np.abs(w).sum())
+
+
+@pytest.mark.gpu
+def test_histogram_kernel_all_values_in_one_bin(cuda):
+    """2**26 values in one of 65536 bins: the worst contention, and some 8
+    wraps of the 16-bit counter in each block; the count is exact.  The same for a
+    65536-bin bincount, into its first and its last bin."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    n = 1 << 26
+    x = torch.full((n,), 0.3, device="cuda")
+    e = torch.linspace(-4, 4, 65537, device="cuda", dtype=torch.float64)
+    got = hk.histogram_counts_cuda(x, e)
+    want = np.histogram(np.full(4, 0.3, np.float32), bins=e.cpu().numpy())[0] * (n // 4)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for value in (0, 65535):
+        got = hk.bincount_cuda(torch.full((n,), value, device="cuda", dtype=torch.int64), 65536).cpu().numpy()
+        assert got[value] == n and got.sum() == n
+    del x
+
+
+@pytest.mark.gpu
+def test_weighted_65536_bins_past_the_budget(cuda):
+    """Weighted 65536-bin sums, past a copy a warp: within rtol 1e-12 of
+    numpy on every run (float64 atomics in global memory: their order, and
+    so the last bits, may change between runs)."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 65536, 1 << 22)
+    w = rng.random(a.size)
+    plan = hk.launch_plan(a.size, 65536, hk._sm_count(0), 8, 1, 0)
+    assert plan.mode == hk.GLOBAL
+    want = np.bincount(a, weights=w, minlength=65536)
+    x, wt = torch.from_numpy(a).cuda(), torch.from_numpy(w).cuda()
+    for _ in range(3):
+        np.testing.assert_allclose(hk.bincount_cuda(x, 65536, wt).cpu().numpy(), want, rtol=1e-12, atol=0)
+    h = rng.standard_normal(1 << 22)
+    e = np.linspace(-4, 4, 65537)
+    _hist_check(h, e, weights=w)
+    _hist_check(h, e, weights=w * (1 - 2j))  # complex128 sums
+
+
+@pytest.mark.gpu
+def test_persisted_leaf_pickles_from_the_card(cuda):
+    """A leaf persisted on the card pickles from host memory and loads on
+    the configured device: the CPU, or the card."""
+    import gc
+    import pickle
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    a = np.random.default_rng(13).standard_normal((64, 32))
+    with config.set({"device": "cuda"}):
+        p = da.from_array(a, chunks=16).persist()
+        blob = pickle.dumps((p + 1).sum(0))
+        assert p.expr.buffer.device.type == "cuda"
+    del p
+    gc.collect()  # no leaf of that name is left: the load builds it from the pickled tensor
+    with config.set({"device": "cpu"}):
+        y = pickle.loads(blob)
+        np.testing.assert_allclose(y.compute(), (a + 1).sum(0), rtol=1e-12)
+    with config.set({"device": "cuda"}):
+        np.testing.assert_allclose(pickle.loads(blob).compute(), (a + 1).sum(0), rtol=1e-12)
 
 
 @pytest.mark.gpu

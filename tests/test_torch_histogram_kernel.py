@@ -46,15 +46,34 @@ def check_plan(n, nbins, itemsize, weights, edge_itemsize, sms=132):
     plan = hk.launch_plan(n, nbins, sms, itemsize, weights, edge_itemsize)
     assert plan.vec * itemsize == 16 and plan.units == -(-n // plan.vec)
     assert 1 <= plan.blocks <= sms * plan.per_sm and plan.per_sm in (1, 2, 4)
+    # a wide block for counts where one block fits an SM, 256 threads otherwise
+    assert plan.threads == (hk.WIDE_THREADS if weights == 0 and plan.per_sm == 1 and plan.mode != hk.GLOBAL
+                            else hk.THREADS)
     shares = hk.shares(plan, n)
     assert shares[0][0] == 0 and shares[-1][1] == n
-    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))  # contiguous: each value once
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))  # contiguous: each value read once
     runs = [(b + 1) * plan.units // plan.blocks - b * plan.units // plan.blocks for b in range(plan.blocks)]
     assert sum(runs) == plan.units and max(runs) - min(runs) <= 1
-    assert plan.smem <= hk.BLOCK_SHARED and plan.per_sm * (plan.smem + 1024) <= hk.SM_SHARED
-    if plan.copies:
-        assert plan.partial == plan.blocks * nbins * {0: 4, 1: 8, 2: 16}[weights]
+    # no block takes over 227 KB, static shared memory included; per_sm of them fit an SM
+    assert plan.smem + hk.STATIC_SHARED <= hk.BLOCK_SHARED
+    assert plan.per_sm * (plan.smem + hk.STATIC_SHARED + 1024) <= hk.SM_SHARED
+    cb = {0: 4, 1: 8, 2: 16}[weights]
+    if plan.mode == hk.COPIES:
+        assert 1 <= plan.copies <= hk.WARPS and plan.partial == plan.blocks * nbins * cb
         assert weights == 0 or plan.copies == hk.WARPS  # deterministic sums: a copy a warp
+        assert plan.smem >= plan.copies * nbins * cb + hk.WARPS * 32 * 8 * weights  # the copies, the weight stage
+    elif plan.mode == hk.HALF:
+        assert weights == 0 and plan.copies == 0 and plan.per_sm == 1
+        words = -(-nbins // 2)
+        assert plan.partial == plan.blocks * words * 4 and plan.smem >= words * 4
+        # every bin has exactly one 16-bit counter of a block's words
+        word, shift = hk.counter(np.arange(nbins))
+        assert word.max() < words and set(np.unique(shift)) <= {0, 16}
+        assert np.unique(word * 2 + shift // 16).size == nbins
+    else:
+        assert plan.mode == hk.GLOBAL and plan.partial == 0 and plan.copies == 0
+        # global atomics only where no copy a warp (weighted) or 16-bit counters (counts) fit
+        assert weights or -(-nbins // 2) * 4 > hk.BLOCK_SHARED - hk.STATIC_SHARED - (plan.smem if plan.edges_shared else 0)
     return plan
 
 
@@ -69,16 +88,84 @@ def test_launch_plan_reads_every_value_once(itemsize, nbins, weights, edge_items
 
 def test_launch_plan_at_the_main_path_shapes():
     """2**26 float32 values: 256 bins in shared memory, a copy a warp, four
-    blocks an SM; 65536 bins and 65536-bin bincounts in global atomics."""
+    blocks an SM; 65536 bins and 65536-bin bincounts in 16-bit counters
+    (128 KB, one block of 1024 threads an SM); weighted 65536-bin
+    bincounts and 2**17 bins in global atomics."""
     p = check_plan(2**26, 256, 4, 0, 4)
-    assert (p.blocks, p.per_sm, p.copies, p.edges_shared) == (528, 4, 8, True)
+    assert (p.blocks, p.threads, p.per_sm, p.mode, p.copies, p.edges_shared) == (528, 256, 4, hk.COPIES, 8, True)
     p = check_plan(2**26, 256, 4, 1, 4)
-    assert (p.per_sm, p.copies) == (4, 8)
-    assert check_plan(2**26, 65536, 4, 0, 4).copies == 0
-    assert check_plan(2**26, 65536, 8, 1, 0).copies == 0  # float64 atomics: bits may vary
+    assert (p.per_sm, p.mode, p.copies) == (4, hk.COPIES, 8)
+    p = check_plan(2**26, 65536, 4, 0, 4)
+    assert (p.mode, p.threads, p.blocks, p.smem) == (hk.HALF, 1024, 132, 131072)
+    p = check_plan(2**26, 65536, 8, 0, 0)
+    assert (p.mode, p.threads, p.blocks, p.partial) == (hk.HALF, 1024, 132, 132 * 131072)
+    assert check_plan(2**26, 65536, 8, 1, 0).mode == hk.GLOBAL  # float64 atomics: bits may vary
     p = check_plan(2**26, 2000, 4, 1, 8)
-    assert (p.per_sm, p.copies) == (1, 8)
+    assert (p.per_sm, p.threads, p.mode, p.copies) == (1, 256, hk.COPIES, 8)
+    p = check_plan(2**26, 16384, 4, 0, 4)
+    assert (p.per_sm, p.threads, p.mode, p.copies) == (2, 256, hk.COPIES, 1)
+    p = check_plan(2**26, 32768, 4, 0, 4)
+    assert (p.per_sm, p.threads, p.mode, p.copies) == (1, 1024, hk.COPIES, 1)
+    assert check_plan(2**26, 1 << 17, 8, 0, 0).mode == hk.GLOBAL
     assert check_plan(0, 1, 4, 0, 4).blocks == 1
+
+
+# nb from 1 to 2**20 around every edge of the budget: copies a warp and one
+# copy a block, 16-bit counters, global atomics
+EDGE_BINS = [1, 2, 3, 255, 256, 1000, 3632, 3633, 7264, 14328, 14329, 29056, 57344, 58107, 58108, 58109, 58112,
+             65535, 65536, 65537, 116215, 116216, 116217, 131072, 262144, 2**20 - 1, 2**20]
+
+
+@pytest.mark.parametrize("weights, edge_itemsize", [(0, 0), (0, 4), (0, 8), (1, 0), (1, 8), (2, 16)])
+@pytest.mark.parametrize("nbins", EDGE_BINS)
+def test_launch_plan_over_the_shared_memory_budget(weights, edge_itemsize, nbins):
+    """No block takes over 227 KB, every bin has one counter, every value is
+    read once; counts stay on chip up to 116216 bins (16-bit counters past
+    58108), weighted sums while a copy a warp fits."""
+    edge_bytes = (nbins + 1) * edge_itemsize
+    staged = -(-edge_bytes // 16) * 16 if 0 < edge_bytes <= hk.EDGE_BUDGET else 0
+    room = hk.BLOCK_SHARED - hk.STATIC_SHARED - staged
+    for n in (0, 1, 1000, 2**26):
+        p = check_plan(n, nbins, 4, weights, edge_itemsize)
+        if weights == 0:
+            assert (p.mode == hk.COPIES) == (nbins * 4 <= room)
+            assert (p.mode == hk.HALF) == (nbins * 4 > room >= -(-nbins // 2) * 4)
+        else:
+            assert (p.mode == hk.COPIES) == (hk.WARPS * (nbins + 32) * 8 * weights <= room)
+
+
+def half_counts(order, nbins=2):
+    """The 16-bit counters of csrc/histogram.cu's half mode emulated on one
+    32-bit word (bins 0 and 1: its low and high halves, ``counter``) and
+    the int64 output, for counts arriving in ``order`` (a sequence of
+    bins)."""
+    word, out = 0, np.zeros(nbins, np.int64)
+    for b in order:
+        sh = hk.counter(b)[1]
+        old = word
+        word = (word + (1 << sh)) & 0xFFFFFFFF  # atomicAdd: a carry out of the word is lost
+        if (old >> sh) & 0xFFFF == 0xFFFF:  # this counter wrapped
+            out[b] += 65536
+            if sh == 0 and b + 1 < nbins:  # the carry into the high counter, taken back
+                out[b + 1] += 65535 if old >> 16 == 0xFFFF else -1
+    # the flush: each counter's 16 bits added to the output
+    return out + np.array([(word >> (16 * (b & 1))) & 0xFFFF for b in range(nbins)])
+
+
+@pytest.mark.parametrize("lo, hi", [(200_000, 0), (0, 200_000), (200_000, 131_071), (65_535, 65_536),
+                                    (65_536, 65_535), (300_001, 262_145)])
+def test_sixteen_bit_counters_hold_the_count_past_65535(lo, hi):
+    """The wrap-and-carry holds both counts exactly past 65535, in order,
+    reversed, and in random interleavings (a low counter's carry may reach
+    the high one while it holds 0xFFFF, before or after its own wraps)."""
+    seq = np.array([0] * lo + [1] * hi)
+    for order in (seq, seq[::-1], *(np.random.default_rng(s).permutation(seq) for s in range(3))):
+        np.testing.assert_array_equal(half_counts(order), [lo, hi])
+    # a high counter at 0xFFFF when the low one carries into it, then wraps by its own count
+    order = [1] * 65535 + [0] * 65536 + [1] * 3
+    np.testing.assert_array_equal(half_counts(order), [65536, 65538])
+    # the last bin of an odd count has no high neighbour: its carry is dropped
+    np.testing.assert_array_equal(half_counts([0] * 70_000, nbins=1), [70_000])
 
 
 # -- the comparison type ------------------------------------------------------------
