@@ -171,7 +171,29 @@ Phases (each prints one line of its own numbers; any failure raises):
      float32 of rank 32 plus 1e-4 noise in row chunks of 100 000: s within
      1e-3 of svd(x)'s top 32, with the scale kernel's launches; (f) sin and
      cos through map_blocks_multi_output at 16384^2 float32: one call per
-     block.
+     block;
+ 29. IO and interop (IO_SIZES; float32 from a numpy seed; files under a
+     temporary directory in build/, deleted at the end; no h5py, zarr,
+     xarray or tiledb): (a) stencil2d's roll form at 16384^2 (chunks 4096,
+     one band-stencil launch) written by to_zarr (v2, raw, the vendored
+     store), every chunk file equal to compute()'s bytes, beside np.save of
+     the same array; (b) from_zarr of it (16 blocks of 64 MiB through
+     FromMap) and compute(x.sum(0), x.mean(1), x.var()) (one
+     multi-statistic launch where the route takes the FromMap leaf; the
+     route reported) against float64 under STATS_TOLERANCE, with the share
+     of compute_device() that the chunk reads and the upload take; (c) a
+     [:4096, :4096] slice of it loads one chunk file (LOADS == 1); (d)
+     rechunk_relayout at 8192^2 (one transpose launch) to an npy stack and
+     back through from_npy_stack(mmap_mode="r"), equal bytes; (e) store
+     into open_memmap targets with regions and compute=False, with
+     return_stored, from_map of np.load, from_delayed, from_blocks and
+     barrier, each equal byte for byte; (f) the xarray chunk manager at
+     4096^2 (chunks 1024): rechunk, reduction of np.nansum, scan of
+     np.cumsum, map_blocks of a numpy function, apply_gufunc of np.mean and
+     store against numpy, with the host lane's calls (one a block on the
+     numpy paths, none on the torch ones); (g) plankit loads, and
+     optimize() of a plan of 600-block axes with the library and with its
+     Python paths, beside each helper's time both ways.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -1203,6 +1225,277 @@ def random_paths(da, torch, sizes, timer, sync, device):
                 "bound_ms": bound(3 * nm * nm * 4, 0)[0]}
     del x, xt
     return out, kernel_launches
+
+
+IO_SIZES = {"stencil": 16384, "stencil_chunk": 4096, "relayout": 8192, "relayout_chunk": 1024, "surface": 4096,
+            "surface_chunk": 1024, "plan_blocks": 600}
+
+
+def io_paths(da, torch, sizes, sync, device, root):
+    """IO and interop on the configured device (phase 29), writing under a
+    temporary directory in ``root`` (deleted at the end): (a) stencil2d's
+    roll form to zarr (v2, raw) beside np.save; (b) from_zarr of it through
+    the reductions path; (c) a culled read; (d) rechunk_relayout to an npy
+    stack and back; (e) store, from_map, from_delayed, from_blocks, barrier;
+    (f) the xarray chunk manager with numpy callables; (g) plankit.
+    Returns one dict of numbers per part and the kernels' launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dask_array_tpu_torch import _host, native
+    from dask_array_tpu_torch._chunks import common_blockdim, unify_blockdims
+    from dask_array_tpu_torch._materialize import compute_exprs
+    from dask_array_tpu_torch._slicing import sliced_blockdim
+    from dask_array_tpu_torch._xarray import make_manager_class
+    from dask_array_tpu_torch.io import _from_map, delayed
+    from dask_array_tpu_torch.io._from_map import FromMap
+    from dask_array_tpu_torch.kernels import mstat, stencil
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.models import pipelines as P
+    from dask_array_tpu_torch.ops._multistat import MultiStat, fuse_multi_stat
+
+    out = {}
+    launches = {}
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="io-", dir=root)
+    try:
+        # -- (a) write: stencil2d's roll form to zarr, beside np.save of the same array
+        n, c = sizes["stencil"], sizes["stencil_chunk"]
+        x_np = np.random.default_rng(29).random((n, n), dtype=np.float32)
+        arr = P.stencil2d(x_np, chunk=c, form="roll")
+        url = f"{tmp}/stencil.zarr"
+        stencil.LAUNCHES = 0
+        t0 = time.perf_counter()
+        arr.to_zarr(url, zarr_format=2)
+        write_s = time.perf_counter() - t0
+        launches["band_stencil"] = stencil.LAUNCHES
+        check(stencil.LAUNCHES == 1, f"to_zarr of stencil2d: band-stencil launches {stencil.LAUNCHES}")
+        ref = arr.compute()
+        t0 = time.perf_counter()
+        np.save(f"{tmp}/stencil.npy", ref)
+        npsave_s = time.perf_counter() - t0
+        equal_files = 0
+        for i in range(n // c):
+            for j in range(n // c):
+                raw = np.fromfile(f"{url}/{i}.{j}", dtype=np.float32)
+                check(raw.tobytes() == np.ascontiguousarray(ref[i * c:(i + 1) * c, j * c:(j + 1) * c]).tobytes(),
+                      f"to_zarr: chunk file {i}.{j} differs from compute()")
+                equal_files += 1
+        nbytes = n * n * 4
+        out["a"] = {"shape": [n, n], "chunks": c, "chunk_files_equal": equal_files, "to_zarr_s": write_s,
+                    "to_zarr_GBps": nbytes / write_s / 1e9, "np_save_s": npsave_s,
+                    "np_save_GBps": nbytes / npsave_s / 1e9, "band_stencil_launches": launches["band_stencil"]}
+        del x_np, arr
+
+        # -- (b) read: from_zarr through the reductions path (the multi-statistic route)
+        z = da.from_zarr(url)
+        check(type(z.expr) is FromMap and z.numblocks == (n // c, n // c),
+              f"from_zarr: {type(z.expr).__name__} of {z.numblocks} blocks")
+        stats = [z.sum(0), z.mean(1), z.var()]
+        # the route is taken where the fused plans hold a MultiStat node over
+        # the FromMap leaf; where not, the reason is reported, not forced
+        fused = fuse_multi_stat([st.expr for st in stats])
+        routed = [type(nd.array).__name__ for e in fused for nd in e.walk() if isinstance(nd, MultiStat)]
+        mstat.LAUNCHES = 0
+        _from_map.LOADS = 0
+        got = da.compute(*stats)
+        launches["multi_stat"] = mstat.LAUNCHES
+        loads = _from_map.LOADS
+        check(loads == (n // c) ** 2, f"from_zarr read: {loads} loads for {(n // c) ** 2} blocks")
+        check(mstat.LAUNCHES == (1 if routed else 0), f"from_zarr read: multi-statistic launches {mstat.LAUNCHES}, "
+              f"route over {routed}")
+        route = (f"MultiStat over {routed[0]}" if routed else
+                 "not taken: fuse_multi_stat found fewer than two of its statistics of one float32 operand")
+        xd = torch.from_numpy(ref).to(device)
+        ref64 = [xd.double().sum(0), xd.double().mean(1), xd.double().std(correction=0)]
+        errs = stats_errors([got[0], got[1], np.sqrt(got[2])], ref64, xd)
+        del ref64
+        cd_ms = host_ms(lambda: (compute_exprs([s.expr for s in stats]), sync()), 3)
+        zarr_arr = da.io._zarr._require_zarr().open_array(url, mode="r")
+        slices = [(slice(i * c, (i + 1) * c), slice(j * c, (j + 1) * c)) for i in range(n // c) for j in range(n // c)]
+        t0 = time.perf_counter()
+        blocks = [zarr_arr[sl] for sl in slices]
+        read_ms = (time.perf_counter() - t0) * 1e3
+        upload_ms = host_ms(lambda: ([torch.from_numpy(b).to(device) for b in blocks], sync()), 3)
+        del blocks
+        out["b"] = {"blocks": (n // c) ** 2, "block_MiB": c * c * 4 / 2**20, "loads": loads,
+                    "multi_stat_launches": launches["multi_stat"], "multi_stat_route": route,
+                    "max_abs_err_colsum_rowmean_std": errs,
+                    "tolerance": STATS_TOLERANCE + " (std as the square root of var)",
+                    "compute_device_ms": cd_ms, "chunk_reads_ms": read_ms, "upload_ms": upload_ms,
+                    "upload_share": upload_ms / cd_ms, "read_share": read_ms / cd_ms,
+                    "compute_ms": host_ms(lambda: da.compute(*stats), 3)}
+
+        # -- (c) culling: a slice loads the one chunk file it touches
+        _from_map.LOADS = 0
+        v = float(da.from_zarr(url)[:c, :c].sum().compute())
+        culled_loads = _from_map.LOADS
+        check(culled_loads == 1, f"from_zarr(...)[:{c}, :{c}].sum(): {culled_loads} loads")
+        want = float(xd[:c, :c].double().sum())
+        atol = 4 * c * float(xd[:c, :c].abs().max()) * 2.0**-23
+        check(abs(v - want) <= atol, f"culled sum {v} against {want}")
+        out["c"] = {"loads": culled_loads, "sum_abs_err": abs(v - want), "atol": atol}
+        del xd, ref, z, stats, got
+
+        # -- (d) npy stacks: rechunk_relayout to a stack and back
+        nl, cl = sizes["relayout"], sizes["relayout_chunk"]
+        x8 = np.random.default_rng(30).random((nl, nl), dtype=np.float32)
+        y = P.rechunk_relayout(x8, chunk=cl)
+        tk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        da.to_npy_stack(f"{tmp}/stack", y)
+        stack_s = time.perf_counter() - t0
+        launches["transpose"] = tk.LAUNCHES
+        check(tk.LAUNCHES == 1, f"to_npy_stack of rechunk_relayout: transpose launches {tk.LAUNCHES}")
+        back = da.from_npy_stack(f"{tmp}/stack", mmap_mode="r")
+        t0 = time.perf_counter()
+        got = back.compute()
+        read_s = time.perf_counter() - t0
+        check(got.tobytes() == np.ascontiguousarray(x8.T).tobytes(), "from_npy_stack: bytes differ from x.T")
+        out["d"] = {"shape": [nl, nl], "files": len(back.chunks[0]), "to_npy_stack_s": stack_s,
+                    "from_npy_stack_compute_s": read_s, "transpose_launches": launches["transpose"],
+                    "equal_bytes": True}
+        del x8, y, got, back
+
+        # -- (e) the rest of the IO surface, each against numpy byte for byte
+        m, cm = sizes["surface"], sizes["surface_chunk"]
+        xe = np.random.default_rng(31).random((m, m), dtype=np.float32)
+        src = da.from_array(xe, chunks=cm)
+        surface = {}
+        target = np.lib.format.open_memmap(f"{tmp}/target.npy", mode="w+", dtype=np.float32, shape=(2 * m, m))
+        handle = da.store([src, src * 2], [target, target], regions=[(slice(0, m), slice(None)),
+                                                                      (slice(m, 2 * m), slice(None))], compute=False)
+        check(not target.any(), "store(compute=False) wrote before compute()")
+        t0 = time.perf_counter()
+        handle.compute()
+        surface["store_regions_compute_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        target.flush()  # the memmap's pages to the file: the disk's time, not the port's
+        surface["memmap_flush_s"] = time.perf_counter() - t0
+        check(target[:m].tobytes() == xe.tobytes() and target[m:].tobytes() == (xe * 2).tobytes(),
+              "store with regions: bytes differ")
+        second = np.lib.format.open_memmap(f"{tmp}/second.npy", mode="w+", dtype=np.float32, shape=(m, m))
+        stored = da.store(src + 1, second, return_stored=True)
+        check(stored.compute().tobytes() == (xe + 1).tobytes() == np.asarray(second).tobytes(),
+              "store(return_stored=True): bytes differ")
+        paths = []
+        for i in range(m // cm):
+            paths.append(f"{tmp}/part{i}.npy")
+            np.save(paths[-1], xe[i * cm:(i + 1) * cm])
+        fm = da.from_map(np.load, paths, chunks=((cm,) * (m // cm), (m,)), shape=(m, m), dtype=np.float32)
+        _from_map.LOADS = 0
+        t0 = time.perf_counter()
+        check(fm.compute().tobytes() == xe.tobytes(), "from_map of np.load: bytes differ")
+        surface["from_map_np_load_s"] = time.perf_counter() - t0
+        surface["from_map_loads"] = _from_map.LOADS
+        check(_from_map.LOADS == m // cm, f"from_map: {_from_map.LOADS} loads")
+        fd = da.concatenate([da.from_delayed(delayed(np.load)(p), shape=(cm, m), dtype=np.float32) for p in paths])
+        check(fd.compute().tobytes() == xe.tobytes(), "from_delayed: bytes differ")
+        fb = da.from_blocks({(i, 0): xe[i * cm:(i + 1) * cm] for i in range(m // cm)}, chunks=((cm,) * (m // cm), (m,)))
+        check(fb.compute().tobytes() == xe.tobytes(), "from_blocks: bytes differ")
+        bar = da.barrier(src * 2)[cm:3 * cm]
+        check(bar.compute().tobytes() == (xe[cm:3 * cm] * 2).tobytes(), "barrier: bytes differ")
+        surface["equal_bytes"] = ["store regions compute=False", "store return_stored", "from_map np.load",
+                                  "from_delayed", "from_blocks", "barrier"]
+        out["e"] = surface
+        del target, second
+
+        # -- (f) the xarray chunk manager at (surface,)^2, numpy callables in the host lane
+        mgr = make_manager_class()()
+        d = mgr.from_array(xe, (cm, cm))
+        nb = (m // cm) ** 2
+        lanes = {}
+
+        def hosted(name, lazy, want, expect_calls, exact=True):
+            _host.HOST_CALLS = 0
+            t0 = time.perf_counter()
+            got = np.asarray(mgr.compute(lazy)[0])
+            ms = (time.perf_counter() - t0) * 1e3
+            if exact:
+                check(got.tobytes() == np.asarray(want).tobytes(), f"manager {name}: bytes differ from numpy")
+                err = 0.0
+            else:
+                err = float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+                check(err <= 1e-5, f"manager {name}: relative error {err}")
+            check(_host.HOST_CALLS == expect_calls, f"manager {name}: {_host.HOST_CALLS} host calls, "
+                  f"expected {expect_calls}")
+            lanes[name] = {"host_calls": _host.HOST_CALLS, "compute_ms": ms, "max_rel_err": err}
+
+        r = mgr.rechunk(d, (2 * cm, m))
+        hosted("rechunk", r, xe, 0)
+        rows = [np.nansum(np.concatenate([np.nansum(xe[i:i + cm, j:j + cm], axis=(1,), keepdims=True, dtype=np.float32)
+                                          for j in range(0, m, cm)], axis=1), axis=(1,), dtype=np.float32)
+                for i in range(0, m, cm)]
+        hosted("reduction_nansum", mgr.reduction(d, np.nansum, aggregate_func=np.nansum, axis=(1,), dtype="f4"),
+               np.concatenate(rows), nb + m // cm)
+        hosted("scan_cumsum", mgr.scan(np.cumsum, np.add, 0, d, axis=1, dtype="f4"),
+               np.cumsum(xe.astype(np.float64), axis=1), 0, exact=False)
+
+        def root_abs(b):
+            return np.sqrt(np.abs(b) + np.float32(1))
+
+        hosted("map_blocks_numpy", mgr.map_blocks(root_abs, d, dtype="f4"), root_abs(xe), nb)
+        hosted("apply_gufunc_numpy", mgr.apply_gufunc(lambda a: np.mean(a, axis=-1), "(i)->()", r,
+                                                      output_dtypes=["f4"]),
+               np.concatenate([np.mean(xe[i:i + 2 * cm], axis=-1) for i in range(0, m, 2 * cm)]), m // (2 * cm))
+        hosted("map_blocks_torch", mgr.map_blocks(torch.sqrt, d, dtype="f4"), np.sqrt(xe), 0, exact=False)
+        hosted("reduction_torch", mgr.reduction(d, torch.sum, aggregate_func=torch.sum, axis=(1,), dtype="f4"),
+               xe.astype(np.float64).sum(1), 0, exact=False)
+        target = np.lib.format.open_memmap(f"{tmp}/manager.npy", mode="w+", dtype=np.float32, shape=(m, m))
+        mgr.store([d], [target])
+        check(np.asarray(target).tobytes() == xe.tobytes(), "manager store: bytes differ")
+        lanes["store"] = {"equal_bytes": True}
+        out["f"] = lanes
+        del target, xe, src
+
+        # -- (g) plankit: optimize() of a plan whose axes hold > 256 chunks
+        check(native.available(), "plankit did not build or load")
+        nbk = sizes["plan_blocks"]
+        rows_a, rows_b = (7,) * nbk, (5, 9) * (nbk // 2)
+        total = sum(rows_a)
+        rows_b = rows_b[:-1] + (total - sum(rows_b[:-1]),) if sum(rows_b) != total else rows_b
+
+        def plan(seed):
+            base = np.full((total, 4), seed, dtype=np.float32)
+            a = da.from_array(base, chunks=(rows_a, 4))
+            b = da.from_array(base + 1, chunks=(rows_b, 4))
+            return ((a + b)[3:total - 5:2] * 2).sum(0)
+
+        def optimize_ms(reps):
+            times = []
+            for rep in range(reps):
+                p = plan(rep + 1)
+                t0 = time.perf_counter()
+                p.expr.optimize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        def helper_ms(fn, reps=20):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        helpers = {"sliced_blockdim": lambda: sliced_blockdim(rows_a, slice(3, total - 5, 2)),
+                   "common_blockdim": lambda: common_blockdim([rows_a, rows_b]),
+                   "unify_blockdims_coarse": lambda: unify_blockdims([(rows_a, 1.0), (rows_b, 1.0)], policy="coarse")}
+        native_ms = {k: helper_ms(f) for k, f in helpers.items()}
+        native_opt = optimize_ms(5)
+        loader = native._load
+        native._load = lambda: None  # the Python paths, as where a call declines
+        try:
+            python_ms = {k: helper_ms(f) for k, f in helpers.items()}
+            python_opt = optimize_ms(5)
+        finally:
+            native._load = loader
+        out["g"] = {"available": True, "library": native.library_path().name, "blocks_per_axis": [len(rows_a),
+                    len(rows_b)], "optimize_ms_native": native_opt, "optimize_ms_python": python_opt,
+                    "helpers_ms_native": native_ms, "helpers_ms_python": python_ms}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches
 
 
 def k2_cases(torch, hk, flat, seed=27):
@@ -2253,6 +2546,23 @@ def main() -> int:
     phase(28, "svd_compressed", card=smi, **rp["e"], tolerance="s within 1e-3 relative of svd(x)'s top k")
     phase(28, "map_blocks_multi_output", card=smi, **rp["f"], seconds=time.perf_counter() - t28)
     print(smi, flush=True)
+    torch.cuda.empty_cache()
+
+    # -- phase 29: IO and interop on the card (zarr, npy stacks, stores, the chunk manager, plankit)
+    from pathlib import Path
+
+    t29 = time.perf_counter()
+    iop, io_launches = io_paths(da, torch, IO_SIZES, torch.cuda.synchronize, torch.device("cuda"),
+                                Path(__file__).resolve().parent / "build")
+    phase(29, "to_zarr-stencil2d", card=smi, **iop["a"])
+    phase(29, "from_zarr-reductions", card=smi, **iop["b"])
+    phase(29, "from_zarr-culled", card=smi, **iop["c"])
+    phase(29, "npy-stack-rechunk_relayout", card=smi, **iop["d"])
+    phase(29, "io-surface", card=smi, size=IO_SIZES["surface"], chunks=IO_SIZES["surface_chunk"], **iop["e"])
+    phase(29, "xarray-chunk-manager", card=smi, size=IO_SIZES["surface"], chunks=IO_SIZES["surface_chunk"],
+          host_calls={k: v.get("host_calls") for k, v in iop["f"].items()}, paths=iop["f"])
+    phase(29, "plankit", card=smi, **iop["g"], launches=io_launches, seconds=time.perf_counter() - t29)
+    print(smi, flush=True)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
@@ -2262,6 +2572,7 @@ def main() -> int:
             "name": "band_stencil",
             "route": "cuda",
             "launches_random_input": rp_launches["band_stencil"],
+            "launches_io": io_launches["band_stencil"],
             "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
             "replaces": "dask_array_tpu/kernels/stencil.py:83",
             "launches": stencil_launches,
@@ -2277,6 +2588,7 @@ def main() -> int:
             "name": "multi_stat",
             "route": "cuda",
             "launches_random_input": rp_launches["multi_stat"],
+            "launches_io": io_launches["multi_stat"],
             "source": "dask_array_tpu_torch/csrc/mstat.cu",
             "replaces": "bench/probe_reduction.py:72",
             "launches": mstat_launches,
@@ -2295,6 +2607,7 @@ def main() -> int:
             "name": "transpose",
             "route": "cuda",
             "launches_random_input": rp_launches["transpose"],
+            "launches_io": io_launches["transpose"],
             "source": "dask_array_tpu_torch/csrc/transpose.cu",
             "replaces": "bench/probe_pallas_min.py:42",
             "launches": transpose_launches,

@@ -35,8 +35,15 @@ and assignment, the routines with ``cov``/``gradient``/``unique``/
 device from a seeded ``torch.Generator``), the ``fft`` submodule (over
 ``torch.fft``), the randomized ``svd_compressed`` (also ``linalg``'s,
 with ``compression_level`` and ``compression_matrix``) and
-``ops._map_blocks.map_blocks_multi_output``.  IO and diagnostics wait
-(ROADMAP.md).
+``ops._map_blocks.map_blocks_multi_output``; IO (``io``: stores, zarr
+with a vendored store, hdf5, npy stacks, ``from_map``/``from_delayed``/
+``from_blocks``, ``from_graph``, the tiledb shim), ``barrier``, the xarray
+chunk manager (``xarray.register()``), block functions written in numpy
+(run on the host: ``_host.py``), and the native plan algebra
+(``native``, built with g++ at first use).  ``barrier`` and
+``from_blocks`` are attributes, as in the JAX package, but not in
+``__all__`` (dask has neither).  The diagnostics and
+``register_chunk_type`` wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -125,6 +132,21 @@ from dask_array_tpu_torch.ops._from_array import array, asanyarray
 from dask_array_tpu_torch.ops._gufunc import apply_gufunc, as_gufunc, gufunc
 from dask_array_tpu_torch.ops._histogram import histogram, histogram2d, histogramdd
 from dask_array_tpu_torch._shuffle import shuffle
+from dask_array_tpu_torch._materialize import barrier
+from dask_array_tpu_torch import chunk, creation, io, xarray
+from dask_array_tpu_torch.io import (
+    from_blocks,
+    from_delayed,
+    from_map,
+    from_npy_stack,
+    from_tiledb,
+    from_zarr,
+    store,
+    to_hdf5,
+    to_npy_stack,
+    to_tiledb,
+    to_zarr,
+)
 
 
 
@@ -220,6 +242,11 @@ __all__ = [
     "fromfunction",
     "full",
     "full_like",
+    "from_delayed",
+    "from_map",
+    "from_npy_stack",
+    "from_tiledb",
+    "from_zarr",
     "gufunc",
     "histogram",
     "histogram2d",
@@ -253,10 +280,15 @@ __all__ = [
     "sliding_window_view",
     "squeeze",
     "stack",
+    "store",
     "swapaxes",
     "take",
     "tensordot",
     "tile",
+    "to_hdf5",
+    "to_npy_stack",
+    "to_tiledb",
+    "to_zarr",
     "transpose",
     "tri",
     "trim_internal",
@@ -270,3 +302,32 @@ __all__ = [
     *_ufunc_names,
     *_CONSTANTS,
 ]
+
+
+# -- derived docstrings -----------------------------------------------------------
+# functions that shadow a numpy name and carry no docstring of their own
+# inherit numpy's (with a note), as in the JAX package
+from dask_array_tpu_torch.utils._derived import derive_docstrings as _derive_docstrings  # noqa: E402
+
+_derive_docstrings(
+    globals(),
+    __all__,
+    [
+        ("", _np),
+        ("linalg.", _np.linalg),
+        ("fft.", _np.fft),
+        ("lib.stride_tricks.", _np.lib.stride_tricks),
+        ("ma.", _np.ma),
+    ],
+)
+for _mod, _srcs in (
+    (linalg, [("linalg.", _np.linalg), ("", _np)]),
+    (fft, [("fft.", _np.fft)]),
+    (random, [("random.", _np.random)]),
+):
+    _derive_docstrings(
+        {_n: getattr(_mod, _n) for _n in dir(_mod) if not _n.startswith("_")},
+        [_n for _n in dir(_mod) if not _n.startswith("_")],
+        _srcs,
+    )
+del _derive_docstrings, _mod, _srcs

@@ -191,6 +191,7 @@ class Blockwise(ArrayExpr):
     }
 
     _fusable = True
+    _lane_operands = ("func",)
 
     def _name_prefix(self):
         tok = self.operand("token")
@@ -412,11 +413,18 @@ class Blockwise(ArrayExpr):
                     args.append(arr)
                 else:
                     args.append(self._arg_block(views[arr._name], ind, coord_of))
-            blocks[tuple(out_coord)] = _store(self._call(args, kwargs, out_coord), self.dtype)
+            blocks[tuple(out_coord)] = _store(self._call(args, kwargs, out_coord, ctx.device), self.dtype)
         return BlockView(self.chunks, blocks=blocks)
 
-    def _call(self, args, kwargs, out_coord):
-        return self.func(*args, **kwargs)
+    def _call(self, args, kwargs, out_coord, device):
+        """The function on one output block's arguments, in its lane
+        (torch, or numpy on the host: ``_host.py``)."""
+        from dask_array_tpu_torch import _host
+
+        return _host.call(self, "func", self.func, args, self._block_kwargs(kwargs, out_coord), device)
+
+    def _block_kwargs(self, kwargs, out_coord):
+        return kwargs
 
 
 class Elemwise(Blockwise):
@@ -549,7 +557,9 @@ class Elemwise(Blockwise):
 
             dense = scale(*scaled)
         else:
-            dense = func(*args, **self._kwargs_dict)
+            from dask_array_tpu_torch import _host
+
+            dense = _host.call(self, "func", func, args, self._kwargs_dict, ctx.device)
         return BlockView(self.chunks, dense=_store(dense, self.dtype))
 
     # slice pushdown: x[idx] == op(a, b)[idx] == op(a[idx'], b[idx'])

@@ -6,8 +6,8 @@ Chunks are a tuple (one entry per axis) of tuples of block sizes, e.g.
 Unknown block sizes are ``nan``.
 
 Backend-neutral port of ``dask_array_tpu/_chunks.py``: the same
-normalization and unification policies, on the pure-Python paths (the
-native plankit library is not ported yet).
+normalization and unification policies; long axes take the native plankit
+library (``native/``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -535,6 +535,18 @@ def common_blockdim(blockdims):
     totals = {sum(b) for b in non_trivial}
     if len(totals) > 1:
         raise ValueError(f"Chunks do not align along axis: lengths {sorted(totals)}")
+    # refinement: sweep all boundaries (native pairwise fold for long axes)
+    nt = sorted(non_trivial, key=len)
+    if sum(len(b) for b in nt) > 512:
+        from dask_array_tpu_torch import native
+
+        acc = tuple(nt[0])
+        for b in nt[1:]:
+            acc = native.refine_axis(acc, b)
+            if acc is None:
+                break
+        else:
+            return acc
     cuts = set()
     for b in non_trivial:
         cuts.update(_boundaries(b))
@@ -629,11 +641,23 @@ def unify_blockdims(candidates, policy="auto", limit_bytes=None, row_bytes=1.0):
     if policy == "refine":
         return refined
 
-    inter = None
-    for c in distinct:
-        s = set(_boundaries(c))
-        inter = s if inter is None else (inter & s)
-    coarse = _from_boundaries(sorted(inter))
+    # coarsest common coarsening: intersection of all boundary sets
+    coarse = None
+    layouts = sorted(distinct, key=len)
+    if sum(map(len, layouts)) > 256:
+        from dask_array_tpu_torch import native
+
+        coarse = layouts[0]
+        for other in layouts[1:]:
+            coarse = native.coarse_axis(coarse, other)
+            if coarse is None:
+                break
+    if coarse is None:
+        inter = None
+        for c in distinct:
+            s = set(_boundaries(c))
+            inter = s if inter is None else (inter & s)
+        coarse = _from_boundaries(sorted(inter))
 
     if limit_bytes is not None and coarse and max(coarse) * row_bytes > limit_bytes:
         warnings.warn(

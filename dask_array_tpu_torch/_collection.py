@@ -544,6 +544,39 @@ class Array:
     def copy(self):
         return new_collection(self._expr)
 
+    # -- IO (io/) ----------------------------------------------------------
+
+    def store(self, targets, **kwargs):
+        from dask_array_tpu_torch.io._store import store
+
+        return store(self, targets, **kwargs)
+
+    def to_zarr(self, *args, **kwargs):
+        from dask_array_tpu_torch.io._zarr import to_zarr
+
+        return to_zarr(self, *args, **kwargs)
+
+    def to_hdf5(self, filename, datapath, **kwargs):
+        from dask_array_tpu_torch.io._store import to_hdf5
+
+        return to_hdf5(filename, datapath, self, **kwargs)
+
+    def to_tiledb(self, uri, *args, **kwargs):
+        from dask_array_tpu_torch.io._tiledb import to_tiledb
+
+        return to_tiledb(self, uri, *args, **kwargs)
+
+    def to_delayed(self, optimize_graph=True):
+        """An object array of one ``Delayed`` handle per block."""
+        import itertools
+
+        from dask_array_tpu_torch.io._from_map import Delayed
+
+        out = np.empty(self.numblocks, dtype=object)
+        for idx in itertools.product(*(range(n) for n in self.numblocks)):
+            out[idx] = Delayed(self.blocks[idx].compute)
+        return out
+
     def repeat(self, repeats, axis=None):
         from dask_array_tpu_torch.ops.creation import repeat
 

@@ -129,6 +129,8 @@ def collect_leaves(root: ArrayExpr):
             if key not in seen_keys:
                 seen_keys.add(key)
                 pairs.append((key, buf))
+        if getattr(node, "_leaf_stop", False):
+            continue  # a barrier's buffer covers its subtree
         # push children reversed so they pop in operand order
         stack.extend(reversed(node.dependencies()))
     return pairs
@@ -149,9 +151,20 @@ def current_device() -> torch.device:
 
 def to_device(buf, device: torch.device) -> torch.Tensor:
     """One leaf buffer on ``device``: a host numpy buffer is copied there;
-    a tensor (a persisted leaf) already there is used as it is."""
+    a tensor (a persisted leaf) already there is used as it is.  A block a
+    loader makes (``materialize()``: ``io/_from_map.py``) is made first; an
+    array-like store without ``__array__`` is read whole by slicing.  A
+    block of a dtype with no torch counterpart (an object payload) stays
+    on the host."""
+    if hasattr(buf, "materialize"):
+        buf = buf.materialize()
     if isinstance(buf, torch.Tensor):
         return buf.to(device)
+    if not isinstance(buf, np.ndarray) and not hasattr(buf, "__array__") and hasattr(buf, "shape"):
+        buf = buf[(slice(None),) * len(buf.shape)]
+    buf = np.asarray(buf)
+    if buf.dtype.hasobject:
+        return buf
     # torch.from_numpy needs a writable, positively-strided buffer
     arr = np.require(buf, requirements=("C", "W"))
     return torch.from_numpy(arr).to(device)

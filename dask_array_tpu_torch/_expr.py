@@ -53,6 +53,9 @@ class ArrayExpr:
     _parameters: tuple = ()
     _defaults: dict = {}
     _pushdown_gate: str | None = None
+    # operands that are block functions a user may write in numpy: their
+    # lane (``_host.py``) shows in ``pprint``
+    _lane_operands: tuple = ()
 
     _instances: "weakref.WeakValueDictionary[str, ArrayExpr]" = weakref.WeakValueDictionary()
     _instances_lock = threading.Lock()
@@ -272,7 +275,12 @@ class ArrayExpr:
                 r = r[:29] + "..."
             extras.append(f"{name}={r}")
         inner = ", ".join(extras)
-        return f"{type(self).__name__}({inner})"
+        note = ""
+        if self._lane_operands:
+            from dask_array_tpu_torch._host import lane_note
+
+            note = lane_note(self, [(k, self.operand(k)) for k in self._lane_operands])
+        return f"{type(self).__name__}({inner}){note}"
 
     def pprint(self):
         print(self.tree_repr(), end="")

@@ -9,6 +9,8 @@ computed together.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from dask_array_tpu_torch import config
@@ -51,7 +53,8 @@ def compute_exprs(exprs) -> list:
 
 
 def to_numpy(out, expr: ArrayExpr) -> np.ndarray:
-    arr = out.detach().cpu().numpy()
+    # object payloads (store(load_stored=False)'s targets) stay on the host
+    arr = out if isinstance(out, np.ndarray) else out.detach().cpu().numpy()
     if arr.dtype != expr.dtype:
         raise TypeError(f"computed {arr.dtype} where the metadata says {expr.dtype}")
     return arr
@@ -59,3 +62,47 @@ def to_numpy(out, expr: ArrayExpr) -> np.ndarray:
 
 def compute_to_numpy(expr: ArrayExpr) -> np.ndarray:
     return to_numpy(compute_expr(expr), expr)
+
+
+class Barrier(ArrayExpr):
+    """A program split point: the subtree below computes in its own walk
+    (optimized on its own) and feeds the parent as a leaf tensor on the
+    device.  No slice or rechunk is pushed through it."""
+
+    _parameters = ("array",)
+
+    # the subtree below is covered by this node's buffer: leaf collection
+    # does not descend into it
+    _leaf_stop = True
+
+    @property
+    def chunks(self):
+        return self.array.chunks
+
+    @property
+    def _meta(self):
+        return self.array._meta
+
+    @functools.cached_property
+    def _leaf_key(self):
+        return f"barrier-{self._name}"
+
+    def _leaf_buffers(self):
+        buf = getattr(self, "_cached_buffer", None)
+        if buf is None:
+            buf = self._cached_buffer = compute_expr(self.array)
+        yield (self._leaf_key, buf)
+
+    def _build(self, ctx):
+        from dask_array_tpu_torch._executor import BlockView
+
+        return BlockView(self.chunks, dense=ctx.leaf(self._leaf_key))
+
+
+def barrier(x):
+    """Split the computation here: everything below runs as a walk of its
+    own whose result feeds the rest as a tensor on the device."""
+    from dask_array_tpu_torch._collection import Array, new_collection
+
+    expr = x.expr if isinstance(x, Array) else x
+    return new_collection(Barrier(expr))

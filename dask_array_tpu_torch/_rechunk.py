@@ -60,6 +60,69 @@ class Rechunk(ArrayExpr):
     def _build(self, ctx):
         return BlockView(self.chunks, dense=ctx.build(self.array).dense())
 
+    def transfer_bytes(self):
+        """Between-block movement estimate: (min, max) bytes.  min: only
+        the misaligned fraction moves; max: the whole array once."""
+        nb = self.array.nbytes
+        if isinstance(nb, float) and math.isnan(nb):
+            return (0, 0)
+        moved = _moved_fraction(self.array.chunks, self.target_chunks)
+        return (int(round(nb * moved)), int(nb))
+
+
+def _axis_moved_fraction(src, dst):
+    """Fraction of one axis's elements a src->dst relayout moves.
+
+    Min-model: each destination chunk is assembled where its largest
+    single-source piece lives; that piece stays put, the rest travels to
+    join it.  Splits are free, merges move everything but the largest run
+    member, jittered layouts move only boundary-crossing slivers.
+    """
+    src = tuple(src)
+    dst = tuple(dst)
+    total = sum(src)
+    if not total or src == dst:
+        return 0.0
+    if any(isinstance(c, float) and math.isnan(c) for c in src + dst):
+        return 0.0
+    if sum(dst) != total:
+        return 0.0
+    if len(src) + len(dst) > 256:
+        from dask_array_tpu_torch import native
+
+        out = native.moved_fraction_axis(src, dst)
+        if out is not None:
+            return out
+    moved = 0.0
+    i = 0
+    src_lo = 0
+    dst_lo = 0
+    for d in dst:
+        dst_hi = dst_lo + d
+        best = 0
+        while True:
+            src_hi = src_lo + src[i]
+            overlap = min(src_hi, dst_hi) - max(src_lo, dst_lo)
+            if overlap > best:
+                best = overlap
+            if src_hi <= dst_hi and i + 1 < len(src):
+                i += 1
+                src_lo = src_hi
+            else:
+                break
+        moved += d - best
+        dst_lo = dst_hi
+    return moved / total
+
+
+def _moved_fraction(old, new):
+    """Fraction of elements whose block assignment changes: an element
+    stays only if it stays along every axis."""
+    stay = 1.0
+    for o, n in zip(old, new):
+        stay *= 1.0 - _axis_moved_fraction(o, n)
+    return 1.0 - stay
+
 
 def rechunk(x, chunks="auto", threshold=None, block_size_limit=None, balance=False):
     """Change the chunking of ``x`` (values unchanged)."""
@@ -106,9 +169,21 @@ def _balance_axis(c):
 
 
 def old_to_new(old_chunks, new_chunks):
-    """For each axis, for each new block: list of (old_block, slice) pieces."""
+    """For each axis, for each new block: list of (old_block, slice) pieces.
+    Long axes take the native plankit expansion."""
     out = []
     for o, n in zip(old_chunks, new_chunks):
+        if len(o) + len(n) > 512:
+            from dask_array_tpu_torch import native
+
+            res = native.old_to_new_axis(o, n)
+            if res is not None:
+                offsets, p_old, p_lo, p_hi = res
+                out.append([
+                    [(int(p_old[k]), slice(int(p_lo[k]), int(p_hi[k]))) for k in range(offsets[j], offsets[j + 1])]
+                    for j in range(len(n))
+                ])
+                continue
         o_bounds = np.cumsum([0] + list(o))
         axis = []
         pos = 0
@@ -134,6 +209,15 @@ def _stage_degree(old, new):
     """Max number of old blocks feeding one new block along any axis."""
     deg = 1
     for o, n in zip(old, new):
+        if len(o) + len(n) > 256 and not any(
+            isinstance(c, float) and math.isnan(c) for c in tuple(o) + tuple(n)
+        ):
+            from dask_array_tpu_torch import native
+
+            d = native.stage_degree_axis(o, n)
+            if d is not None:
+                deg = max(deg, d)
+                continue
         mapping = old_to_new((o,), (n,))[0]
         deg = max(deg, max((len(pieces) for pieces in mapping), default=1))
     return deg

@@ -139,9 +139,18 @@ def sliced_blockdim(dim_chunks, sl: slice):
 
     Returns (new_chunks, kept) where kept is the list of (block, inner_slice)
     in output order; empty contributions are dropped (dask semantics).
+    Long positive-step axes take the native plankit kernel, which leaves
+    ``kept`` None (every caller reads only the new chunks).
     """
     total = sum(dim_chunks)
     start, stop, step = sl.indices(int(total))
+    if step > 0 and len(dim_chunks) > 256:
+        from dask_array_tpu_torch import native
+
+        counts = native.sliced_blockdim_counts(dim_chunks, start, stop, step)
+        if counts is not None:
+            nc = tuple(int(c) for c in counts if c)
+            return (nc or (0,)), None
     bounds = cached_cumsum(dim_chunks, initial_zero=True)
     new_chunks = []
     kept = []

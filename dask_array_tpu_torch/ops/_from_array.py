@@ -1,8 +1,13 @@
-"""FromArray: wrap a concrete numpy array as a leaf.
+"""FromArray: wrap a concrete array or an array-like store as a leaf.
 
 Port of ``dask_array_tpu/ops/_from_array.py``, including the deferred
 ``region`` slicing: pushed-down slices shrink what is copied to the device,
-because the executor moves only ``source[region]``.
+because the executor moves only ``source[region]``.  An array-like store
+(an h5py dataset, a zarr array: anything with ``shape``, ``dtype`` and
+``__getitem__``) is kept as it is and read at compute time, only the
+region a slice needs; its grid defaults to the storage granule (its
+``shards`` or ``chunks``), and a rechunk is absorbed only where its
+boundaries land on granule edges.
 """
 
 from __future__ import annotations
@@ -16,6 +21,38 @@ from dask_array_tpu_torch._chunks import normalize_chunks, torch_dtype
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import fuse_slice, is_basic_index, sliced_blockdim
+
+
+def _storage_granule(src):
+    """Per-axis storage read granule of ``src``: its ``.shards`` (the larger
+    IO unit) or ``.chunks``, or None for in-memory arrays.  Lazy-indexing
+    adapters (xarray's) wrap a chunked store without re-exposing its grid;
+    the store is reached through the adapter chain (``.array`` /
+    ``._array``), a handful deep at most."""
+    for _ in range(16):
+        if isinstance(src, np.ndarray) or hasattr(src, "device"):
+            return None
+        granule = getattr(src, "shards", None) or getattr(src, "chunks", None)
+        if granule is not None:
+            return granule
+        nxt = getattr(src, "array", None)
+        if nxt is None:
+            nxt = getattr(src, "_array", None)
+        if nxt is None or nxt is src:
+            return None
+        src = nxt
+    return None
+
+
+def is_store(x) -> bool:
+    """An array-like that ``from_array`` keeps as it is: numpy's ``shape``
+    and ``dtype`` and ``__getitem__``, but not a numpy array or scalar."""
+    return (
+        not isinstance(x, (np.ndarray, np.generic))
+        and isinstance(getattr(x, "dtype", None), np.dtype)
+        and hasattr(x, "shape")
+        and hasattr(x, "__getitem__")
+    )
 
 
 class FromArray(ArrayExpr):
@@ -68,20 +105,86 @@ class FromArray(ArrayExpr):
                 new_chunks.append(nc)
         return FromArray(self.source, tuple(new_chunks), region)
 
+    @functools.cached_property
+    def _storage_chunks(self):
+        """Per-axis storage granule of a chunked store, or None for an
+        in-memory source (where slicing is free)."""
+        granule = _storage_granule(self.source)
+        if granule is None:
+            return None
+        try:
+            granule = tuple(int(c) for c in granule)
+        except (TypeError, ValueError):
+            return None
+        if len(granule) != len(self.chunks_) or any(g <= 0 for g in granule):
+            return None
+        return granule
+
     def _accept_rechunk(self, target_chunks):
-        # in-memory source: slicing is free, so any grid is absorbed
-        return FromArray(self.source, tuple(target_chunks), self.region)
+        storage = self._storage_chunks
+        if storage is None:
+            # in-memory source: slicing is free, so any grid is absorbed
+            return FromArray(self.source, tuple(target_chunks), self.region)
+        # chunked store: absorb only grids whose boundaries land on granule
+        # boundaries (each granule read once); a finer axis reads at the
+        # granule grid with the fine rechunk left outside
+        from dask_array_tpu_torch._rechunk import Rechunk
+
+        starts = tuple(
+            (r.start or 0) if isinstance(r, slice) else 0
+            for r in (self.region or (slice(None),) * len(storage))
+        )
+        leaf_chunks = []
+        residual = False
+        for ax, want in enumerate(target_chunks):
+            s = storage[ax]
+            off = starts[ax]
+            bounds = np.cumsum((0,) + tuple(want))
+            if all((off + int(b)) % s == 0 or b == bounds[-1] for b in bounds):
+                leaf_chunks.append(tuple(want))
+                continue
+            total = int(bounds[-1])
+            first = min(total, s - (off % s) if off % s else s)
+            grid = [first]
+            while sum(grid) < total:
+                grid.append(min(s, total - sum(grid)))
+            leaf_chunks.append(tuple(grid))
+            residual = residual or tuple(grid) != tuple(want)
+        leaf = self if tuple(leaf_chunks) == self.chunks_ else FromArray(self.source, tuple(leaf_chunks), self.region)
+        if not residual:
+            return leaf
+        if leaf is self:
+            return None  # already reading at the granule grid: the Rechunk stays
+        return Rechunk(leaf, tuple(target_chunks))
 
 
-def from_array(x, chunks="auto", name=None):
-    """Create a lazy Array from a numpy array-like."""
+def from_array(x, chunks="auto", name=None, lock=False, asarray=None, fancy=True, meta=None, inline_array=False):
+    """Create a lazy Array from a numpy array or an array-like store.
+
+    A store (anything with ``shape``, ``dtype`` and ``__getitem__`` that is
+    not a numpy array) is kept as it is and read at compute time, only the
+    region a slice needs; its grid defaults to the storage granule.
+    ``lock``, ``asarray``, ``fancy``, ``meta`` and ``inline_array`` are
+    accepted for dask's signature: reads are serial, and the executor
+    makes every block a tensor.
+    """
     from dask_array_tpu_torch._collection import Array, new_collection
 
     if isinstance(x, Array):
         raise ValueError("Array is already a lazy dask_array_tpu_torch.Array")
-    x = np.asarray(x)
+    if not is_store(x):
+        x = np.asarray(x)
     torch_dtype(x.dtype)  # refuse dtypes the port cannot compute in, now
-    chunks = normalize_chunks(chunks, x.shape, dtype=x.dtype)
+    prev = None
+    granule = _storage_granule(x)
+    if granule is not None:
+        try:
+            prev = tuple((int(c),) for c in granule)
+        except (TypeError, ValueError):
+            prev = None
+        if prev is not None and len(prev) != len(x.shape):
+            prev = None
+    chunks = normalize_chunks(chunks, tuple(x.shape), dtype=x.dtype, previous_chunks=prev)
     return new_collection(FromArray(x, chunks, None, name))
 
 

@@ -3,7 +3,8 @@
 Port of ``dask_array_tpu/ops/_map_blocks.py``: dtype, chunks, drop_axis,
 new_axis, ``block_id``/``block_info`` injection, and
 ``map_blocks_multi_output`` for a function of several outputs.  The
-function runs once per block on torch tensors.
+function runs once per block on torch tensors, or on their numpy copies
+where it is written in numpy (``_host.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from numbers import Integral, Number
 
 import numpy as np
 
+from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._blockwise import Blockwise, _normalize_kwargs, _store
 from dask_array_tpu_torch._chunks import cached_cumsum, validate_axis
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
@@ -33,10 +35,10 @@ class MapBlocks(Blockwise):
             return None
         return super()._accept_slice(index)
 
-    def _call(self, args, kwargs, out_coord):
+    def _block_kwargs(self, kwargs, out_coord):
         if type(self)._inject_block_id:
-            kwargs = dict(kwargs, block_id=tuple(out_coord))
-        return self.func(*args, **kwargs)
+            return dict(kwargs, block_id=tuple(out_coord))
+        return kwargs
 
 
 class _MapBlocksWithId(MapBlocks):
@@ -51,7 +53,7 @@ class MapBlocksInfo(Blockwise):
         # array-locations as seen by the func
         return None
 
-    def _call(self, args, kwargs, out_coord):
+    def _block_kwargs(self, kwargs, out_coord):
         kwargs = dict(kwargs)
         info = {}
         for i, (arr, ind) in enumerate(self.arg_pairs):
@@ -81,7 +83,7 @@ class MapBlocksInfo(Blockwise):
             "dtype": self.dtype,
         }
         kwargs["block_info"] = info
-        return self.func(*args, **kwargs)
+        return kwargs
 
 
 class ChunksFreeze(ArrayExpr):
@@ -327,6 +329,7 @@ class MapBlocksMultiOutput(ArrayExpr):
     """
 
     _parameters = ("func", "n_out", "kwargs")
+    _lane_operands = ("func",)
     # operands[3:] are the input expressions
 
     @property
@@ -352,7 +355,7 @@ class MapBlocksMultiOutput(ArrayExpr):
         blocks = {}
         for idx in iter_block_indices(grid.numblocks):
             args = [v.block(idx) if isinstance(v, BlockView) else v for v in views]
-            out = self.func(*args, **kwargs)
+            out = _host.call(self, "func", self.func, args, kwargs, ctx.device)
             if not isinstance(out, tuple) or len(out) != self.n_out:
                 raise ValueError(
                     f"map_blocks_multi_output function must return a tuple of "

@@ -241,6 +241,18 @@ class ExpandDims(ArrayExpr):
     def _meta(self):
         return np.empty((0,) * (self.array.ndim + len(self.axes)), dtype=self.array.dtype)
 
+    def _simplify_down(self):
+        # fold into a loader leaf: size-1 inserted axes keep the C-order
+        # block numbering, so the same per-block args describe the higher
+        # rank grid (stack() is expand_dims + concatenate: with this,
+        # stack-of-from_delayed collapses to one FromMap)
+        from dask_array_tpu_torch.io._from_map import FromMap, fm_pinned
+
+        if type(self.array) is FromMap and not fm_pinned(self.array):
+            fm = self.array
+            return FromMap(fm.func, fm.args_per_block, self.chunks, fm.operand("_dtype"), fm.kwargs)
+        return None
+
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
         for ax in self.axes:  # ascending output positions

@@ -28,6 +28,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
+from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._blockwise import elemwise
 from dask_array_tpu_torch._chunks import (
     INT64_MIN,
@@ -902,6 +903,7 @@ def cumreduction(func, binop, ident, x, axis=None, dtype=None, out=None, method=
 class _GenericCumLowered(ArrayExpr):
     _parameters = ("array", "func", "binop", "ident", "axis", "_dtype", "method", "preop")
     _defaults = {"method": "sequential", "preop": None}
+    _lane_operands = ("func", "binop", "preop")
 
     @property
     def chunks(self):
@@ -912,18 +914,32 @@ class _GenericCumLowered(ArrayExpr):
         dtype = self.operand("_dtype")
         if dtype is not None:
             return np.empty((0,) * self.array.ndim, dtype=dtype)
+        if _host.fixed_lane(self.func) is not False:
+            # numpy's dtype rule for a numpy (or duck) function, on numpy's dtype
+            try:
+                out = self.func(np.ones((1,) * self.array.ndim, dtype=self.array.dtype), axis=self.axis)
+                return np.empty((0,) * self.array.ndim, dtype=np.asarray(out).dtype)
+            except Exception:
+                if _host.fixed_lane(self.func):
+                    raise
         probe = torch.ones((1,) * self.array.ndim, dtype=compute_dtype(self.array.dtype))
         out = self.func(probe, axis=self.axis)
-        return np.empty((0,) * self.array.ndim, dtype=numpy_dtype(out.dtype))
+        dt = out.dtype
+        return np.empty((0,) * self.array.ndim, dtype=numpy_dtype(dt) if isinstance(dt, torch.dtype) else dt)
 
-    def _scan_one(self, b):
-        return cast(self.func(computable(b), axis=self.axis), self.dtype)
+    def _scan_one(self, b, device):
+        out = _host.call(self, "func", self.func, (b,), {"axis": self.axis}, device, torch_args=(computable(b),))
+        return cast(out, self.dtype)
 
     def _build(self, ctx):
         view = ctx.build(self.array)
         axis = self.axis
         blocks = {}
         nb = view.numblocks
+
+        def binop(a, b):
+            return _host.call(self, "binop", self.binop, (a, b), {}, ctx.device)
+
         if self.method == "blelloch":
             # phase 1: per-block totals; phase 2: inclusive prefix of totals
             # feeds each block's combine
@@ -932,20 +948,21 @@ class _GenericCumLowered(ArrayExpr):
                 b = view.block(idx)
                 key_prev = idx[:axis] + (idx[axis] - 1,) + idx[axis + 1 :]
                 if idx[axis] > 0:
-                    t_prev = self.preop(view.block(key_prev), axis=axis, keepdims=True)
-                    p = t_prev if idx[axis] == 1 else self.binop(prefix[key_prev], t_prev)
+                    t_prev = _host.call(self, "preop", self.preop, (view.block(key_prev),),
+                                        {"axis": axis, "keepdims": True}, ctx.device)
+                    p = t_prev if idx[axis] == 1 else binop(prefix[key_prev], t_prev)
                     prefix[tuple(idx)] = p
-                    blocks[tuple(idx)] = self.binop(p, self._scan_one(b))
+                    blocks[tuple(idx)] = binop(p, self._scan_one(b, ctx.device))
                 else:
-                    blocks[tuple(idx)] = self._scan_one(b)
+                    blocks[tuple(idx)] = self._scan_one(b, ctx.device)
             return BlockView(self.chunks, blocks=blocks)
         carry = {}
         for idx in iter_block_indices(nb):
             b = view.block(idx)
-            scanned = self._scan_one(b)
+            scanned = self._scan_one(b, ctx.device)
             key_prev = idx[:axis] + (idx[axis] - 1,) + idx[axis + 1:]
             if idx[axis] > 0:
-                scanned = self.binop(carry[key_prev], scanned)
+                scanned = binop(carry[key_prev], scanned)
             # carry: last slice along axis
             last = [slice(None)] * len(nb)
             last[axis] = slice(-1, None)
@@ -1002,6 +1019,7 @@ class ChunkReduce(ArrayExpr):
 
     _parameters = ("array", "func", "axes", "output_size", "_dtype", "weights")
     _defaults = {"weights": None}
+    _lane_operands = ("func",)
 
     def _name_prefix(self):
         fn = self.func
@@ -1025,14 +1043,13 @@ class ChunkReduce(ArrayExpr):
         view = ctx.build(self.array)
         wview = ctx.build(self.weights) if self.weights is not None else None
         blocks = {}
+        kwargs = {"axis": self.axes, "keepdims": True}
         for idx in iter_block_indices(view.numblocks):
             b = view.block(idx)
-            b = computable(b)  # uint16/32/64 as torch computes on them
-            if wview is not None:
-                res = self.func(b, wview.block(idx), axis=self.axes, keepdims=True)
-            else:
-                res = self.func(b, axis=self.axes, keepdims=True)
-            blocks[tuple(idx)] = res
+            args = (b,) if wview is None else (b, wview.block(idx))
+            # a torch function takes uint16/32/64 as torch computes on them
+            blocks[tuple(idx)] = _host.call(self, "func", self.func, args, kwargs, ctx.device,
+                                            torch_args=(computable(b),) + args[1:])
         return BlockView(self.chunks, blocks=blocks)
 
 
@@ -1053,6 +1070,13 @@ def _partial(b):
     return computable(b)
 
 
+def _lol_map(fn, window):
+    """``fn`` on every partial of a nested-list window."""
+    if isinstance(window, list):
+        return [_lol_map(fn, w) for w in window]
+    return fn(window)
+
+
 class PartialReduce(ArrayExpr):
     """One tree step: reduce windows of ``split_every`` blocks per axis.
 
@@ -1063,6 +1087,7 @@ class PartialReduce(ArrayExpr):
 
     _parameters = ("array", "func", "split_every", "keepdims", "_dtype", "output_size", "name_")
     _defaults = {"output_size": 1, "name_": None}
+    _lane_operands = ("func",)
 
     def _name_prefix(self):
         return self.operand("name_") or "partial-reduce"
@@ -1107,12 +1132,15 @@ class PartialReduce(ArrayExpr):
         for out_full in iter_block_indices(out_nb):
             def rec(ax, prefix):
                 if ax == ndim:
-                    return _partial(view.block(prefix))
+                    return view.block(prefix)
                 if ax in se:
                     return [rec(ax + 1, prefix + (i,)) for i in groups[ax][out_full[ax]]]
                 return rec(ax + 1, prefix + (out_full[ax],))
 
-            res = _as_block(self.func(rec(0, ())), self.dtype, ctx.device)
+            window = rec(0, ())
+            res = _host.call(self, "func", self.func, (window,), {}, ctx.device,
+                             torch_args=(_lol_map(_partial, window),))
+            res = _as_block(res, self.dtype, ctx.device)
             if self.keepdims:
                 out_key = tuple(out_full)
             else:
@@ -1192,7 +1220,9 @@ def reduction(
     finishes.  With ``concatenate=True`` (default) the window is
     concatenated into one tensor first; with ``concatenate=False`` the
     functions receive the nested list of raw partials (the dict protocol).
-    A function that takes ``dtype=`` receives the torch dtype.  ``weights``
+    A function that takes ``dtype=`` receives the torch dtype (numpy's, if
+    it is a numpy function).  Functions written in numpy run on the host
+    (``_host.py``).  ``weights``
     are broadcast to ``x`` and passed per block as the chunk function's
     second argument.
     """
@@ -1203,11 +1233,15 @@ def reduction(
     if dtype is None:
         raise ValueError("Must specify dtype")
     dtype = np.dtype(dtype)
-    tdtype = compute_dtype(dtype)  # a uint64 reduction runs in int64
+    try:
+        tdtype = compute_dtype(dtype)  # a uint64 reduction runs in int64
+    except TypeError:
+        tdtype = dtype  # an object payload: its functions run on the host
 
     def with_dtype(fn):
+        # a numpy function takes numpy's dtype (uint64, not its int64 bits)
         if fn is not None and _accepts_named_kw(fn, "dtype"):
-            return functools.partial(fn, dtype=tdtype)
+            return functools.partial(fn, dtype=dtype if _host.fixed_lane(fn) else tdtype)
         return fn
 
     weights_expr = None

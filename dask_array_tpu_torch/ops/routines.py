@@ -187,6 +187,7 @@ def isnull(values):
 
 
 def notnull(values):
+    """Element-wise inverse of :func:`isnull`."""
     return ~isnull(values)
 
 

@@ -98,7 +98,47 @@ class Concatenate(ArrayExpr):
                 else:
                     flat.append(a)
             return Concatenate(self.axis, *flat)
-        return None
+        return self._merge_from_map()
+
+    def _merge_from_map(self):
+        """concatenate(from_map, from_map, ...) -> one FromMap: N loader
+        leaves become one plan node with N block args (the read-many-files
+        pattern keeps an O(1) plan).  Declines where the function (by
+        identity), kwargs, dtype or off-axis grids differ, or a leaf is
+        pinned (a user's name, opaque payloads)."""
+        from dask_array_tpu_torch.io._from_map import FromMap, fm_pinned
+
+        arrs = self.arrays
+        if not all(type(a) is FromMap for a in arrs) or any(fm_pinned(a) for a in arrs):
+            return None
+        f0 = arrs[0]
+        axis = self.axis
+        if not all(
+            a.func is f0.func and a.kwargs == f0.kwargs and a.dtype == f0.dtype and a.ndim == f0.ndim
+            for a in arrs[1:]
+        ):
+            return None
+        if not all(a.chunks[ax] == f0.chunks[ax] for a in arrs[1:] for ax in range(f0.ndim) if ax != axis):
+            return None
+        from dask_array_tpu_torch._executor import iter_block_indices
+
+        grids = [tuple(len(c) for c in a.chunks) for a in arrs]
+        child_of = []  # merged axis-block -> (child, local axis-block)
+        for ci, g in enumerate(grids):
+            child_of.extend((ci, j) for j in range(g[axis]))
+        merged_grid = list(grids[0])
+        merged_grid[axis] = len(child_of)
+        args = []
+        for idx in iter_block_indices(tuple(merged_grid)):
+            ci, local = child_of[idx[axis]]
+            lidx = list(idx)
+            lidx[axis] = local
+            args.append(arrs[ci].args_per_block[int(np.ravel_multi_index(lidx, grids[ci]))])
+        merged_chunks = tuple(
+            tuple(c for a in arrs for c in a.chunks[ax]) if ax == axis else f0.chunks[ax]
+            for ax in range(f0.ndim)
+        )
+        return FromMap(f0.func, tuple(args), merged_chunks, f0.operand("_dtype"), f0.kwargs)
 
     def _lower(self):
         from dask_array_tpu_torch._rechunk import Rechunk

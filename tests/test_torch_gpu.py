@@ -1392,3 +1392,68 @@ def test_port_fault_repairs_on_the_card(cuda):
         for o in (None, 1, np.inf):
             np.testing.assert_allclose(da.linalg.norm(da.from_array(ints, chunks=2), ord=o).compute(),
                                        np.linalg.norm(ints, ord=o), rtol=1e-12)
+
+
+@pytest.mark.gpu
+def test_block_functions_written_in_numpy_on_the_card(cuda):
+    """The host lane on CUDA tensors: numpy's reduction, scan, map_blocks,
+    blockwise and gufunc functions run on the blocks' host copies and give
+    numpy's bytes; a torch function stays on the card."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import _host, config
+    from dask_array_tpu_torch.ops._map_blocks import map_blocks_multi_output
+
+    x = np.random.default_rng(22).standard_normal((40, 30))
+    x[::7, ::5] = np.nan
+    with config.set({"device": "cuda"}):
+        d = da.from_array(x, chunks=(10, (12, 8, 10)))
+        _host.HOST_CALLS = 0
+        got = da.reduction(d, np.nansum, np.nansum, axis=1, dtype="f8").compute()
+        want = np.concatenate([np.nansum(np.concatenate([np.nansum(x[i:i + 10, a:b], axis=(1,), keepdims=True)
+                                                         for a, b in ((0, 12), (12, 20), (20, 30))], axis=1), axis=(1,))
+                               for i in range(0, 40, 10)])
+        assert got.tobytes() == want.tobytes() and _host.HOST_CALLS == 12 + 4
+        got = da.cumreduction(lambda b, axis=None: np.fmax.accumulate(b, axis=axis), np.fmax, None, d,
+                              axis=1).compute()
+        assert got.tobytes() == np.fmax.accumulate(x, axis=1).tobytes()
+        got = da.map_blocks(lambda b: np.nansum(b, 0, keepdims=True), d, chunks=((1,) * 4, (12, 8, 10)),
+                            dtype="f8").compute()
+        assert got.shape == (4, 30)
+        got = da.blockwise(lambda a, b: np.add(np.asarray(a), np.asarray(b)), "ij", d, "ij", d, "ij",
+                           dtype="f8").compute()
+        np.testing.assert_array_equal(got, x + x)
+        m = da.apply_gufunc(lambda a: np.nanmean(a, axis=-1), "(i)->()", d, output_dtypes="f8",
+                            allow_rechunk=True).compute()
+        np.testing.assert_array_equal(m, np.nanmean(x, axis=-1))
+        s, c = map_blocks_multi_output(lambda b: (np.sin(b), np.cos(b)), d, dtypes=["f8", "f8"])
+        np.testing.assert_array_equal(da.compute(s, c)[0], np.sin(x))
+        _host.HOST_CALLS = 0
+        dev = da.map_blocks(lambda b: torch.nan_to_num(b) * 2, d, dtype="f8").compute_device()
+        assert dev.device.type == "cuda" and _host.HOST_CALLS == 0
+
+
+@pytest.mark.gpu
+def test_io_on_the_card(cuda, tmp_path):
+    """zarr, npy stacks, store and from_map on the card: the blocks go up
+    to the card once a walk, a slice loads only its blocks."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.io import _from_map
+
+    x = np.random.default_rng(23).random((64, 48), dtype=np.float32)
+    with config.set({"device": "cuda"}):
+        d = da.from_array(x, chunks=(16, 24))
+        da.to_zarr(d, str(tmp_path / "a.zarr"))
+        z = da.from_zarr(str(tmp_path / "a.zarr"))
+        assert z.compute_device().device.type == "cuda"
+        _from_map.LOADS = 0
+        assert z[16:32, :24].compute().tobytes() == x[16:32, :24].tobytes() and _from_map.LOADS == 1
+        np.testing.assert_allclose(z.sum(0).compute(), x.sum(0), rtol=1e-5)
+        da.to_npy_stack(str(tmp_path / "s"), d.T)
+        assert da.from_npy_stack(str(tmp_path / "s")).compute().tobytes() == np.ascontiguousarray(x.T).tobytes()
+        target = np.zeros((64, 48), np.float32)
+        stored = da.store(d * 2, target, return_stored=True)
+        assert stored.compute().tobytes() == (x * 2).tobytes() == target.tobytes()
+        fm = da.from_map(lambda i: torch.full((4, 5), float(i), device="cuda"), range(3), chunks=((4,) * 3, (5,)))
+        np.testing.assert_array_equal(fm.compute(), np.repeat(np.arange(3.0, dtype=np.float32), 20).reshape(12, 5))
+        assert da.barrier(d + 1)[3:9].compute().tobytes() == (x[3:9] + 1).tobytes()

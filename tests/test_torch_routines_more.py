@@ -512,10 +512,10 @@ def test_the_slices_names_exist_and_22_are_left():
         assert name in tda.__all__ and callable(getattr(tda, name)), name
     public = [n for n in dir(jda) if not n.startswith("_") and not isinstance(getattr(jda, n), types.ModuleType)]
     missing = sorted(n for n in public if not hasattr(tda, n))
-    # svd_compressed has since been ported: 21 names are left
+    # svd_compressed, then the IO names and barrier have since been
+    # ported: 9 names are left
     assert missing == sorted(
-        "register_chunk_type store to_hdf5 to_zarr from_zarr to_npy_stack from_npy_stack to_tiledb "
-        "from_tiledb from_map from_delayed from_blocks barrier explain chunk_report expr_table expr_flow plan_table "
+        "register_chunk_type explain chunk_report expr_table expr_flow plan_table "
         "tier_report trace_rewrites xla_profile".split())
     from dask_array_tpu_torch import chunk, routines
 
