@@ -195,6 +195,22 @@ Phases (each prints one line of its own numbers; any failure raises):
      optimize() of a plan of 600-block axes with the library and with its
      Python paths, beside each helper's time both ways.
 
+ 30. the out-of-core lane (STREAM_SIZES; host numpy inputs from one
+     broadcast fill; sizes halve, each cut printed, when MemAvailable is
+     short), each case streamed under an explicit "memory-budget" and held
+     against its in-core compute() ("out-of-core": "off") in this process:
+     (a) stencil2d's roll form on 32768^2 float32 in chunks of 4096 under
+     3 GiB (K1 once a panel, equal bytes), (b) tanh(laplace) through
+     map_overlap (the halo kernel once a panel, equal bytes), (c)
+     sum(axis=0), mean() and nanmax() of 2^20 x 2048 float32 in row chunks
+     of 2^16 under 2 GiB (rtol 1e-4 against plain torch in float64), (d) A @ W of
+     2^20 x 1024 by a numpy 1024^2 under 2 GiB (W pinned once; rtol 1e-5
+     against in-core); each with its panels, pinned leaves, launches, host
+     GB each way, streamed and in-core ms and GB/s; then the "auto"
+     budget (the same, within 1 GiB, before and after the in-core runs),
+     "auto" off for a 1 GiB program, and that an xla_profile trace of
+     case (a) names K1's kernel.
+
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
 The README example and normalize_contract (b.T) launch the transpose too;
@@ -1498,6 +1514,215 @@ def io_paths(da, torch, sizes, sync, device, root):
     return out, launches
 
 
+# phase 30: the out-of-core lane on the card.  "square" is case (a)/(b)'s
+# side (32768^2 float32, 4 GiB each way), "rows" x "cols" case (c)'s input
+# (2^20 x 2048 float32, 8 GiB), "mm_cols" case (d)'s A width (2^20 x 1024,
+# 4 GiB); "panel" the chunk height; budgets per case.  Sizes halve when the
+# host's MemAvailable is short (each cut printed).
+STREAM_SIZES = {"square": 32768, "square_chunk": 4096, "rows": 1 << 20, "cols": 2048, "mm_cols": 1024,
+                "panel": 1 << 16, "budget_ab": "3 GiB", "budget_cd": "2 GiB", "host_gib_needed": 28}
+
+
+# how far the "auto" budget may move across phase 30's in-core runs: they
+# hold nothing on the card afterwards, so only small allocations that stay
+# (kernel tables, library workspaces) may change it
+AUTO_BUDGET_DRIFT_GIB = 1.0
+
+
+def stream_sizes():
+    """STREAM_SIZES, halved until the host's MemAvailable covers the phase's
+    peak (about 16 GiB at full size); returns (sizes, cuts)."""
+    sizes = dict(STREAM_SIZES)
+    cuts = []
+    try:
+        with open("/proc/meminfo") as f:
+            avail = next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable:"))
+    except (OSError, StopIteration):
+        return sizes, ["MemAvailable unreadable: full sizes"]
+    need = sizes["host_gib_needed"] << 30
+    while avail < need and sizes["square"] > 4096:
+        sizes["square"] //= 2
+        sizes["rows"] //= 2
+        need //= 2
+        cuts.append(f"MemAvailable {avail / 2**30:.1f} GiB: square {sizes['square']}, rows {sizes['rows']}")
+    return sizes, cuts
+
+
+def streaming_paths(da, torch, sizes):
+    """The out-of-core lane on the card (phase 30).  Each case streams under
+    an explicit "memory-budget" (config "out-of-core": "auto") and is held
+    against the in-core compute() of the same program ("out-of-core":
+    "off") in this process: (a) stencil2d's roll form on a host 32768^2
+    float32 (K1 once a panel), (b) tanh(laplace) through map_overlap
+    (Overlap -> halo kernel -> map_blocks -> trim, the halo kernel once a
+    panel), (c) sum(axis=0), mean() and nanmax() of 2^20 x 2048 float32
+    (reduce-stream), (d) A @ W of 2^20 x 1024 by a numpy 1024^2 (W pinned
+    once).  Then the "auto" budget (checked to stay within
+    AUTO_BUDGET_DRIFT_GIB across the in-core runs), that "auto" stays off
+    for a 1 GiB program, and that an xla_profile trace of case (a) names
+    K1's kernel.  Returns (numbers, launches)."""
+    import gc
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from dask_array_tpu_torch import _hostcopy, _streaming, config
+    from dask_array_tpu_torch.kernels import halo, stencil
+    from dask_array_tpu_torch.models.pipelines import laplace_roll
+
+    st = _streaming.STREAMED
+    n, c = sizes["square"], sizes["square_chunk"]
+    rng = np.random.default_rng(30)
+    def auto_budget_gib():
+        # the "auto" budget after a collection: the readings compare what
+        # the caching allocator holds, not when Python's cyclic collector
+        # last ran (tests/test_torch_no_cycles.py holds the port to leaving
+        # no tensor in a cycle)
+        gc.collect()
+        with config.set({"memory-budget": "auto"}):
+            return _streaming._budget() / 2**30
+
+    # the auto budget before any in-core run: the runs leave their blocks
+    # in the caching allocator, which the budget must count as free
+    out = {"auto_budget_GiB_first": auto_budget_gib()}
+    launches = {"band_stencil": 0, "halo": 0}
+
+    def fill(rows, cols):
+        # cheap: one broadcast pass (rows differ, columns random)
+        x = np.empty((rows, cols), np.float32)
+        np.add(np.arange(rows, dtype=np.float32)[:, None] * np.float32(1e-6),
+               rng.random(cols, dtype=np.float32)[None, :], out=x)
+        return x
+
+    def run(arr, budget):
+        """(streamed, in-core, numbers) of ``arr`` (a dask array)."""
+        with config.set({"out-of-core": "off"}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            in_core = arr.compute()
+            in_core_ms = (time.perf_counter() - t0) * 1e3
+        before = dict(st)
+        cbefore = dict(_hostcopy.COPIES)
+        halo.LAUNCHES = stencil.LAUNCHES = 0
+        with config.set({"out-of-core": "auto", "memory-budget": budget}):
+            t0 = time.perf_counter()
+            streamed = arr.compute()
+            ms = (time.perf_counter() - t0) * 1e3
+        d = {k: st[k] - before[k] for k in st}
+        up, down = d["h2d_bytes"], d["d2h_bytes"]
+        num = {"budget": budget, "panels": d["panels"], "pinned": d["pinned"], "count": d["count"],
+               "band_stencil_launches": stencil.LAUNCHES, "halo_launches": halo.LAUNCHES,
+               "h2d_GB": up / 1e9, "d2h_GB": down / 1e9,
+               "ring_h2d_GB": (_hostcopy.COPIES["h2d_bytes"] - cbefore["h2d_bytes"]) / 1e9,
+               "ring_d2h_GB": (_hostcopy.COPIES["d2h_bytes"] - cbefore["d2h_bytes"]) / 1e9,
+               "streamed_ms": ms, "in_core_ms": in_core_ms, "GBps": (up + down) / ms / 1e6}
+        launches["band_stencil"] += stencil.LAUNCHES
+        launches["halo"] += halo.LAUNCHES
+        check(d["count"] == 1 and d["panels"] >= 2, f"phase 30: streamed {d}")
+        return streamed, in_core, num
+
+    def same_bits(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+    # (a) stencil2d's roll form: K1 once per panel, equal bytes
+    x = fill(n, n)
+    xa = da.from_array(x, chunks=c)
+    sa = da.map_overlap(laplace_roll, xa, depth=1, boundary="reflect", dtype="float32")
+    streamed, in_core, num = run(sa, sizes["budget_ab"])
+    check(num["band_stencil_launches"] == num["panels"], f"phase 30 (a): K1 launches {num}")
+    check(same_bits(streamed, in_core), "phase 30 (a): streamed stencil differs from in-core")
+    num["equal_bytes"] = True
+    out["a"] = num
+    del streamed, in_core
+
+    # (b) tanh(laplace): the Overlap route, the halo kernel once per panel
+    sb = da.map_overlap(lambda b: torch.tanh(laplace_roll(b)), xa, depth=1, boundary="reflect", dtype="float32")
+    streamed, in_core, num = run(sb, sizes["budget_ab"])
+    check(num["halo_launches"] == num["panels"] and num["band_stencil_launches"] == 0,
+          f"phase 30 (b): launches {num}")
+    check(same_bits(streamed, in_core), "phase 30 (b): streamed tanh(laplace) differs from in-core")
+    num["equal_bytes"] = True
+    out["b"] = num
+    del streamed, in_core
+
+    # the auto budget, and auto off for a 1 GiB program
+    out["auto_budget_GiB"] = auto_budget_gib()
+    with config.set({"memory-budget": "auto"}):
+        check(abs(out["auto_budget_GiB"] - out["auto_budget_GiB_first"]) <= AUTO_BUDGET_DRIFT_GIB,
+              f"phase 30: the auto budget moved from {out['auto_budget_GiB_first']} to {out['auto_budget_GiB']} GiB "
+              "across the in-core runs")
+        small = da.from_array(x[: (1 << 28) // n], chunks=c)  # 1 GiB of rows
+        before = st["count"]
+        with config.set({"out-of-core": "auto"}):
+            (small + 1).compute()
+        out["auto_off_for_GiB"] = small.nbytes / 2**30
+        out["auto_stays_off"] = st["count"] == before
+    check(out["auto_stays_off"], "phase 30: auto streamed a 1 GiB program")
+
+    # xla_profile of case (a): does the trace name K1's kernel?
+    logdir = tempfile.mkdtemp(prefix="phase30-profile-", dir=os.path.join(os.path.dirname(__file__), "build"))
+    try:
+        with config.set({"out-of-core": "auto", "memory-budget": sizes["budget_ab"]}):
+            with da.xla_profile(logdir):
+                sa.compute()
+        text = "".join(open(p).read() for p in glob.glob(os.path.join(logdir, "*.json")))
+        out["profile_names_k1"] = "band_stencil_" in text
+        out["profile_trace_MB"] = len(text) / 1e6
+    finally:
+        import shutil
+
+        shutil.rmtree(logdir, ignore_errors=True)
+    check(out["profile_names_k1"], "phase 30: the xla_profile trace of case (a) does not name K1's kernel")
+    del x, xa, sa, sb, small
+
+    # (c) reduce-stream of sum(axis=0), mean() and nanmax()
+    rows, cols, panel = sizes["rows"], sizes["cols"], sizes["panel"]
+    y = fill(rows, cols)
+    ya = da.from_array(y, chunks=(panel, cols))
+    # float64 references by plain torch on the card (numpy's float64 passes
+    # over 8 GiB take seconds each)
+    y64 = torch.from_numpy(y).to(config.get("device", "cuda")).double()
+    ref = {"sum0": y64.sum(0).cpu().numpy(), "mean": float(y64.mean()), "nanmax": float(y64.max())}
+    del y64
+    torch.cuda.empty_cache()
+    out["c"] = {}
+    for name, arr in (("sum0", ya.sum(axis=0)), ("mean", ya.mean()), ("nanmax", da.nanmax(ya))):
+        streamed, in_core, num = run(arr, sizes["budget_cd"])
+        streamed, in_core = np.asarray(streamed), np.asarray(in_core)
+        err = float(np.max(np.abs(streamed.astype(np.float64) - ref[name]) / np.maximum(np.abs(ref[name]), 1e-30)))
+        check(err <= 1e-4, f"phase 30 (c) {name}: rel err {err} against float64")
+        if name == "nanmax":
+            check(streamed == in_core, "phase 30 (c) nanmax: streamed differs from in-core")
+        else:
+            np.testing.assert_allclose(streamed, in_core, rtol=1e-4)
+        num.update(rel_err_vs_f64=err, tolerance="rtol 1e-4 vs plain torch in float64 and vs in-core (nanmax equal)")
+        out["c"][name] = num
+    del y, ya
+
+    # (d) A @ W, row panels of A, W pinned once
+    a = fill(rows, sizes["mm_cols"])
+    w = rng.standard_normal((sizes["mm_cols"], sizes["mm_cols"])).astype(np.float32) / np.float32(32)
+    prod = da.from_array(a, chunks=(panel, sizes["mm_cols"])) @ w
+    streamed, in_core, num = run(prod, sizes["budget_cd"])
+    check(num["pinned"] == 1, f"phase 30 (d): pinned {num}")
+    np.testing.assert_allclose(streamed, in_core, rtol=1e-5, atol=1e-5)
+    rows_checked = np.r_[0:256, rows - 256:rows]
+    ref_rows = a[rows_checked].astype(np.float64) @ w.astype(np.float64)
+    err = float(np.max(np.abs(streamed[rows_checked] - ref_rows)))
+    check(err <= 1e-3, f"phase 30 (d): abs err {err} against float64 numpy")
+    num.update(max_abs_err_vs_f64_rows=err, equal_bytes_to_in_core=bool(same_bits(streamed, in_core)),
+               tolerance="rtol 1e-5, atol 1e-5 vs in-core; atol 1e-3 vs float64 numpy on 512 rows")
+    out["d"] = num
+    out["ring_pinned_MiB"] = _hostcopy.ring_bytes() / 2**20
+    out["auto_budget_GiB_last"] = auto_budget_gib()
+    check(abs(out["auto_budget_GiB_last"] - out["auto_budget_GiB_first"]) <= AUTO_BUDGET_DRIFT_GIB,
+          f"phase 30: the auto budget moved from {out['auto_budget_GiB_first']} to {out['auto_budget_GiB_last']} GiB "
+          "across the in-core runs")
+    return out, launches
+
+
 def k2_cases(torch, hk, flat, seed=27):
     """K2's timing cases on ``flat`` values made on the card from ``seed``:
     float32 normals into 256 uniform bins of (-4, 4) (float64 edges), the
@@ -2564,6 +2789,30 @@ def main() -> int:
     phase(29, "plankit", card=smi, **iop["g"], launches=io_launches, seconds=time.perf_counter() - t29)
     print(smi, flush=True)
 
+    # -- phase 30: the out-of-core lane on the card (map- and reduce-streams, pinned copies)
+    torch.cuda.empty_cache()
+    t30 = time.perf_counter()
+    sizes30, cuts30 = stream_sizes()
+    for cut in cuts30:
+        print(f"phase 30 cut: {cut}", flush=True)
+    sp, stream_launches = streaming_paths(da, torch, sizes30)
+    phase(30, "stream-stencil2d-roll", card=smi, shape=[sizes30["square"]] * 2, chunks=sizes30["square_chunk"],
+          **sp["a"])
+    phase(30, "stream-tanh-laplace", card=smi, shape=[sizes30["square"]] * 2, chunks=sizes30["square_chunk"],
+          **sp["b"])
+    for name, num in sp["c"].items():
+        phase(30, f"stream-reduce-{name}", card=smi, shape=[sizes30["rows"], sizes30["cols"]],
+              chunk_rows=sizes30["panel"], **num)
+    phase(30, "stream-matmul", card=smi, a=[sizes30["rows"], sizes30["mm_cols"]], w=[sizes30["mm_cols"]] * 2,
+          chunk_rows=sizes30["panel"], **sp["d"])
+    phase(30, "stream-engagement", card=smi, auto_budget_GiB=sp["auto_budget_GiB"],
+          auto_budget_GiB_first=sp["auto_budget_GiB_first"], auto_budget_GiB_last=sp["auto_budget_GiB_last"],
+          auto_stays_off=sp["auto_stays_off"], auto_off_for_GiB=sp["auto_off_for_GiB"],
+          profile_names_k1=sp["profile_names_k1"], profile_trace_MB=sp["profile_trace_MB"],
+          ring_pinned_MiB=sp["ring_pinned_MiB"], cuts=cuts30,
+          launches=stream_launches, seconds=time.perf_counter() - t30)
+    print(smi, flush=True)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -2573,6 +2822,7 @@ def main() -> int:
             "route": "cuda",
             "launches_random_input": rp_launches["band_stencil"],
             "launches_io": io_launches["band_stencil"],
+            "launches_streamed": stream_launches["band_stencil"],
             "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
             "replaces": "dask_array_tpu/kernels/stencil.py:83",
             "launches": stencil_launches,
@@ -2621,6 +2871,7 @@ def main() -> int:
         {
             "name": "halo",
             "route": "cuda",
+            "launches_streamed": stream_launches["halo"],
             "source": "dask_array_tpu_torch/csrc/halo.cu",
             "replaces": "bench/probe_band_bisect.py:32-122, bench/probe_band_bisect2.py:68",
             "launches": halo_launches,

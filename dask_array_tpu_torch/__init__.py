@@ -42,8 +42,14 @@ chunk manager (``xarray.register()``), block functions written in numpy
 (run on the host: ``_host.py``), and the native plan algebra
 (``native``, built with g++ at first use).  ``barrier`` and
 ``from_blocks`` are attributes, as in the JAX package, but not in
-``__all__`` (dask has neither).  The diagnostics and
-``register_chunk_type`` wait (ROADMAP.md).
+``__all__`` (dask has neither).  The out-of-core lane streams programs
+larger than the card's memory panel by panel (``_streaming.py``, config
+``"out-of-core"``), and every host copy goes through pinned staging rings
+(``_hostcopy.py``).  The diagnostics (``explain``, ``chunk_report``,
+``expr_table``, ``expr_flow``, ``trace_rewrites``; ``plan_table``,
+``tier_report`` and ``xla_profile``, a ``torch.profiler`` trace, are
+attributes but not in ``__all__``) are ported; ``register_chunk_type``
+waits (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +59,16 @@ from dask_array_tpu_torch import fft, linalg, random, reductions
 from dask_array_tpu_torch._blockwise import blockwise, elemwise
 from dask_array_tpu_torch._chunks import PerformanceWarning, normalize_chunks
 from dask_array_tpu_torch._collection import Array, new_collection
+from dask_array_tpu_torch._diagnostics import (
+    chunk_report,
+    explain,
+    expr_table,
+    plan_table,
+    tier_report,
+    trace_rewrites,
+    xla_profile,
+)
+from dask_array_tpu_torch._expr_flow import expr_flow
 from dask_array_tpu_torch._rechunk import rechunk
 from dask_array_tpu_torch.ops._from_array import asarray, from_array
 from dask_array_tpu_torch.ops._map_blocks import map_blocks
@@ -222,6 +238,7 @@ __all__ = [
     "block",
     "blockwise",
     "broadcast_to",
+    "chunk_report",
     "compute",
     "concatenate",
     "config",
@@ -234,6 +251,9 @@ __all__ = [
     "empty",
     "empty_like",
     "expand_dims",
+    "explain",
+    "expr_flow",
+    "expr_table",
     "eye",
     "flip",
     "fliplr",
@@ -289,6 +309,7 @@ __all__ = [
     "to_npy_stack",
     "to_tiledb",
     "to_zarr",
+    "trace_rewrites",
     "transpose",
     "tri",
     "trim_internal",

@@ -158,6 +158,22 @@ def _store(t, dtype):
     return cast(t, dtype) if isinstance(t, torch.Tensor) else t
 
 
+def _gather(arr_view, coords, contracted, concatenate, pos, prefix):
+    """The blocks of ``arr_view`` at ``coords`` (one tuple of block indices
+    an axis), nested a level per contracted axis and concatenated there
+    when ``concatenate``.  A plain recursion: a closure that calls itself
+    is a reference cycle, which would keep ``arr_view`` on the device until
+    a garbage collection."""
+    if pos == len(coords):
+        return arr_view.block(prefix)
+    parts = [_gather(arr_view, coords, contracted, concatenate, pos + 1, prefix + (c,)) for c in coords[pos]]
+    if pos not in contracted:
+        return parts[0]
+    if not concatenate:
+        return parts
+    return parts[0] if len(parts) == 1 else cat(parts, dim=pos)
+
+
 class Blockwise(ArrayExpr):
     """Apply ``func`` block-wise following an index pattern.
 
@@ -384,17 +400,7 @@ class Blockwise(ArrayExpr):
         if not contracted:
             return arr_view.block(tuple(c[0] for c in coords))
 
-        def rec(pos, prefix):
-            if pos == len(coords):
-                return arr_view.block(prefix)
-            parts = [rec(pos + 1, prefix + (c,)) for c in coords[pos]]
-            if pos not in contracted:
-                return parts[0]
-            if not self.concatenate:
-                return parts
-            return parts[0] if len(parts) == 1 else cat(parts, dim=pos)
-
-        return rec(0, ())
+        return _gather(arr_view, coords, contracted, self.concatenate, 0, ())
 
     def _build(self, ctx):
         views = {arr._name: ctx.build(arr) for arr, _ in self.array_args}

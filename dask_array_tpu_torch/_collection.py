@@ -98,6 +98,11 @@ class Persisted(ArrayExpr):
     def _leaf_buffers(self):
         yield (f"persist-{self.pinned_name}", self.buffer)
 
+    def _structural_operands(self):
+        from dask_array_tpu_torch._chunks import dtype_key
+
+        return [("buf", dtype_key(self._meta.dtype)), self.chunks_]
+
     def _build(self, ctx):
         from dask_array_tpu_torch._executor import BlockView
 
@@ -331,7 +336,8 @@ class Array:
         return out
 
     def compute_device(self) -> torch.Tensor:
-        """Compute and keep the result on the device (a dense tensor)."""
+        """Compute and keep the result on the device (a dense tensor); a
+        result the out-of-core lane streamed comes back as host numpy."""
         from dask_array_tpu_torch._materialize import compute_expr
 
         return compute_expr(self._expr)
@@ -342,6 +348,10 @@ class Array:
         from dask_array_tpu_torch._materialize import compute_expr
 
         buf = compute_expr(self._expr)
+        if isinstance(buf, np.ndarray):
+            # streamed out of core: the result stays in host memory, and
+            # each later compute uploads what it reads of it
+            buf = torch.from_numpy(buf)
         if buf.device.type == "cpu" or not buf.is_contiguous():
             # a compact snapshot: a CPU result may share memory with the
             # numpy source, a view would keep its whole base alive
@@ -353,6 +363,28 @@ class Array:
                 c if not any(np.isnan(x) for x in c) else (s,) for c, s in zip(chunks, buf.shape)
             )
         return new_collection(Persisted(buf, chunks, self.name))
+
+    def visualize(self, *args, **kwargs):
+        """The expression tree as a table (``diagnostics.expr_table``)."""
+        from dask_array_tpu_torch._diagnostics import expr_table
+
+        return expr_table(self)
+
+    def explain(self, **kwargs):
+        from dask_array_tpu_torch._diagnostics import explain
+
+        return explain(self, **kwargs)
+
+    def to_svg(self, size=500):
+        """An SVG image of the chunk grid."""
+        from dask_array_tpu_torch._svg import array_svg
+
+        return array_svg(self.chunks)
+
+    def _repr_html_(self):
+        from dask_array_tpu_torch._svg import repr_html
+
+        return repr_html(self)
 
     def freeze_chunks(self) -> "Array":
         """Pin the current chunking as load-bearing: the optimizer may

@@ -19,6 +19,7 @@ import torch
 from dask_array_tpu_torch import config
 from dask_array_tpu_torch._chunks import cached_cumsum, cat
 from dask_array_tpu_torch._expr import ArrayExpr
+from dask_array_tpu_torch._hostcopy import upload
 
 
 def block_slices(chunks, index):
@@ -68,20 +69,16 @@ class BlockView:
         return self._dense
 
 
-def _assemble(blocks: dict, numblocks):
-    """Concatenate a full grid of blocks into one dense tensor."""
-    if not numblocks:
-        return blocks[()]
-
-    def rec(axis, prefix):
-        if axis == len(numblocks):
-            return blocks[prefix]
-        parts = [rec(axis + 1, prefix + (i,)) for i in range(numblocks[axis])]
-        if len(parts) == 1:
-            return parts[0]
-        return cat(parts, dim=axis)
-
-    return rec(0, ())
+def _assemble(blocks: dict, numblocks, axis: int = 0, prefix: tuple = ()):
+    """Concatenate a full grid of blocks into one dense tensor.  A plain
+    recursion: a closure that calls itself is a reference cycle, and its
+    cell would keep every block on the device until a garbage collection."""
+    if axis == len(numblocks):
+        return blocks[prefix]
+    parts = [_assemble(blocks, numblocks, axis + 1, prefix + (i,)) for i in range(numblocks[axis])]
+    if len(parts) == 1:
+        return parts[0]
+    return cat(parts, dim=axis)
 
 
 class BuildContext:
@@ -150,21 +147,27 @@ def current_device() -> torch.device:
 
 
 def to_device(buf, device: torch.device) -> torch.Tensor:
-    """One leaf buffer on ``device``: a host numpy buffer is copied there;
-    a tensor (a persisted leaf) already there is used as it is.  A block a
-    loader makes (``materialize()``: ``io/_from_map.py``) is made first; an
-    array-like store without ``__array__`` is read whole by slicing.  A
-    block of a dtype with no torch counterpart (an object payload) stays
-    on the host."""
+    """One leaf buffer on ``device``: a host buffer is copied there (on a
+    CUDA device through the pinned ring of ``_hostcopy.upload``: the copy
+    is queued, and the current stream waits for it); a tensor already there
+    (a persisted or resident leaf) is used as it is.  A block a loader makes
+    (``materialize()``: ``io/_from_map.py``) is made first; an array-like
+    store without ``__array__`` is read whole by slicing.  A block of a
+    dtype with no torch counterpart (an object payload) stays on the
+    host."""
     if hasattr(buf, "materialize"):
         buf = buf.materialize()
     if isinstance(buf, torch.Tensor):
+        if buf.device.type == "cpu" and device.type == "cuda":
+            return upload(buf, device)
         return buf.to(device)
     if not isinstance(buf, np.ndarray) and not hasattr(buf, "__array__") and hasattr(buf, "shape"):
         buf = buf[(slice(None),) * len(buf.shape)]
     buf = np.asarray(buf)
     if buf.dtype.hasobject:
         return buf
+    if device.type == "cuda":
+        return upload(buf, device)
     # torch.from_numpy needs a writable, positively-strided buffer
     arr = np.require(buf, requirements=("C", "W"))
     return torch.from_numpy(arr).to(device)
@@ -193,3 +196,50 @@ def execute_views(roots) -> list:
                 leaves[key] = to_device(buf, device)
     ctx = BuildContext(leaves, device)
     return [ctx.build(root) for root in roots]
+
+
+def structural_key(root: ArrayExpr) -> str:
+    """A key of the program's structure that ignores the contents of its
+    leaf buffers: two same-shaped datasets through the same plan share it.
+    Every other operand, scalar literals included, stays in the key, and
+    leaves carry their first-visit ordinal, so sharing patterns (f(A, A, B)
+    against f(A, B, B)) key apart.
+
+    The plan-record fingerprint (``_planrec``) first; a plan its grammar
+    declines takes the tokenize walk.  The two kinds of key have prefixes
+    of their own, so they never collide.  The streaming lane's single-plan
+    rule (``_streaming._keys_bounded``) reads it; ``plan_table`` shows the
+    plan record it is taken over."""
+    from dask_array_tpu_torch._planrec import plan_fingerprint
+    from dask_array_tpu_torch.utils._tokenize import tokenize
+
+    cached = getattr(root, "_skey_memo", None)
+    if cached is not None:
+        return cached
+    pf = plan_fingerprint(root)
+    if pf is not None:
+        out = "plan:" + pf[0]
+    else:
+        memo: dict[str, str] = {}
+        leaf_ordinal: dict[str, int] = {}
+
+        def rec(node: ArrayExpr) -> str:
+            got = memo.get(node._name)
+            if got is not None:
+                return got
+            parts: list = [type(node).__qualname__]
+            spec = node._structural_operands() if hasattr(node, "_structural_operands") else None
+            if spec is not None:
+                parts.append(("leaf", leaf_ordinal.setdefault(node._name, len(leaf_ordinal))))
+                ops = spec
+            else:
+                ops = node.operands
+            for op in ops:
+                parts.append(rec(op) if isinstance(op, ArrayExpr) else op)
+            tok = tokenize(*parts)
+            memo[node._name] = tok
+            return tok
+
+        out = "walk:" + rec(root)
+    root._skey_memo = out
+    return out

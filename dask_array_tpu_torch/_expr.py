@@ -31,6 +31,14 @@ from dask_array_tpu_torch._chunks import (
 )
 from dask_array_tpu_torch.utils._tokenize import tokenize
 
+# rewrite tracing hook (``_diagnostics.trace_rewrites`` and ``explain``)
+_trace_hook = None  # callable(rule, before, after, phase) | None
+
+
+def _record_rewrite(rule: str, before, after, phase: str) -> None:
+    if _trace_hook is not None and after is not None and after._name != before._name:
+        _trace_hook(rule, before, after, phase)
+
 
 @functools.lru_cache(maxsize=None)
 def _param_index(cls) -> dict:
@@ -324,17 +332,23 @@ class ArrayExpr:
         for d in dependents.get(self._name, ()):
             if type(d)._pushdown_gate != "_slice_pushdown":
                 return None
-        return self._accept_slice(parent.index)
+        out = self._accept_slice(parent.index)
+        _record_rewrite(f"{type(self).__name__}._accept_slice", parent, out, "simplify")
+        return out
 
     def _rechunk_pushdown(self, parent, dependents):
         if len(dependents.get(self._name, ())) > 1:
             return None
-        return self._accept_rechunk(parent.target_chunks)
+        out = self._accept_rechunk(parent.target_chunks)
+        _record_rewrite(f"{type(self).__name__}._accept_rechunk", parent, out, "simplify")
+        return out
 
     def _transpose_pushdown(self, parent, dependents):
         if len(dependents.get(self._name, ())) > 1:
             return None
-        return self._accept_transpose(parent.axes)
+        out = self._accept_transpose(parent.axes)
+        _record_rewrite(f"{type(self).__name__}._accept_transpose", parent, out, "simplify")
+        return out
 
     def _accept_slice(self, index):
         """Return an expression equivalent to self[index], or None to decline."""
@@ -404,6 +418,7 @@ class ArrayExpr:
         expr = self
         out = expr._lower()
         if out is not None and out._name != expr._name:
+            _record_rewrite(f"{type(expr).__name__}._lower", expr, out, "lower")
             expr = out
         new_operands = []
         changed = False
@@ -438,6 +453,13 @@ class ArrayExpr:
                 break
             expr = new
         return expr
+
+    # -- cost model -------------------------------------------------------------
+
+    def transfer_bytes(self):
+        """(min, max) bytes this node moves between blocks; block-local
+        nodes move none.  Read by ``explain`` and ``expr_table``."""
+        return (0, 0)
 
     # -- execution hooks ----------------------------------------------------------
 
@@ -553,6 +575,7 @@ def _simplify_pass(expr: ArrayExpr, dependents, memo) -> ArrayExpr:
         new = out._simplify_down()
         if new is None or new._name == out._name:
             break
+        _record_rewrite(f"{type(out).__name__}._simplify_down", out, new, "simplify")
         out = new
     if out._name != expr._name:
         memo[expr._name] = out

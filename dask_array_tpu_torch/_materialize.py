@@ -16,6 +16,7 @@ import numpy as np
 from dask_array_tpu_torch import config
 from dask_array_tpu_torch._executor import execute, execute_many
 from dask_array_tpu_torch._expr import ArrayExpr
+from dask_array_tpu_torch._hostcopy import fetch
 
 
 def optimize_expr(expr: ArrayExpr, fuse: bool = True) -> ArrayExpr:
@@ -25,19 +26,62 @@ def optimize_expr(expr: ArrayExpr, fuse: bool = True) -> ArrayExpr:
     key = (fuse, bool(opt_flag), config.epoch())
     cached = getattr(expr, "_opt_memo", None)
     if cached is not None and cached[0] == key:
-        return cached[1]
+        return _from_memo(expr, cached[1])
     if not opt_flag:
         out = expr.lower_completely()
     else:
         from dask_array_tpu_torch.ops._multistat import fuse_multi_stat
 
         out = fuse_multi_stat([expr])[0].optimize(fuse=fuse)
-    expr._opt_memo = (key, out)
+    memo = _to_memo(expr, out)
+    if memo is not _NO_MEMO:
+        expr._opt_memo = (key, memo)
     return out
 
 
+_NO_MEMO = object()
+
+
+def _to_memo(expr: ArrayExpr, out: ArrayExpr):
+    """What ``expr``'s optimize memo keeps of ``out``: never a graph that
+    holds ``expr``.  That reference cycle would keep the leaves (a
+    persisted tensor, computed blocks) on the card after the last
+    collection that names them is dropped, until a garbage collection.
+    None stands for ``expr`` itself, ``("fused", n)`` for
+    ``FusedBlockwise(expr, n)``; any other graph that holds ``expr`` is not
+    memoized."""
+    from dask_array_tpu_torch._blockwise import FusedBlockwise
+
+    if out is expr:
+        return None
+    if type(out) is FusedBlockwise and out.root is expr:
+        return ("fused", out.n_fused)
+    if any(node is expr for node in out.walk()):
+        return _NO_MEMO
+    return out
+
+
+def _from_memo(expr: ArrayExpr, memo):
+    from dask_array_tpu_torch._blockwise import FusedBlockwise
+
+    if memo is None:
+        return expr
+    if isinstance(memo, tuple):
+        return FusedBlockwise(expr, memo[1])
+    return memo
+
+
 def compute_expr(expr: ArrayExpr, optimize: bool = True):
-    """Optimize + execute; returns the dense tensor on ``config["device"]``."""
+    """Optimize + execute; returns the dense tensor on ``config["device"]``,
+    or a host numpy array where the out-of-core lane answered
+    (``_streaming.maybe_stream``: such a result may itself exceed the
+    card's memory)."""
+    if optimize:
+        from dask_array_tpu_torch._streaming import maybe_stream
+
+        streamed = maybe_stream(expr)
+        if streamed is not None:
+            return streamed
     lowered = optimize_expr(expr) if optimize else expr
     return execute(lowered)
 
@@ -53,8 +97,16 @@ def compute_exprs(exprs) -> list:
 
 
 def to_numpy(out, expr: ArrayExpr) -> np.ndarray:
-    # object payloads (store(load_stored=False)'s targets) stay on the host
-    arr = out if isinstance(out, np.ndarray) else out.detach().cpu().numpy()
+    """The computed value as numpy.  A CUDA tensor comes back through the
+    pinned ring into a new pageable array (``_hostcopy.fetch``); a host
+    array (an object payload of ``store(load_stored=False)``, a streamed
+    result) passes as it is."""
+    if isinstance(out, np.ndarray):
+        arr = out
+    elif out.device.type == "cuda":
+        arr = fetch(out.detach())
+    else:
+        arr = out.detach().numpy()
     if arr.dtype != expr.dtype:
         raise TypeError(f"computed {arr.dtype} where the metadata says {expr.dtype}")
     return arr
@@ -92,6 +144,11 @@ class Barrier(ArrayExpr):
         if buf is None:
             buf = self._cached_buffer = compute_expr(self.array)
         yield (self._leaf_key, buf)
+
+    def _structural_operands(self):
+        from dask_array_tpu_torch._chunks import dtype_key
+
+        return [("buf", dtype_key(self.dtype)), self.chunks]
 
     def _build(self, ctx):
         from dask_array_tpu_torch._executor import BlockView

@@ -30,6 +30,15 @@ _global: dict[str, Any] = {
     # (kernels/stencil.py): "auto" routes every eligible map_overlap to a
     # BandStencil node; "off" keeps the Overlap -> map_blocks -> trim form
     "stencil-kernel": "auto",
+    # the out-of-core lane (_streaming.py): "auto" streams a program whose
+    # estimated device bytes exceed "memory-budget", "force" streams
+    # whatever it can plan, "off" never streams
+    "out-of-core": "auto",
+    # bytes ("12 GiB", an int) or "auto": three quarters of the configured
+    # CUDA device's free memory; on the CPU "auto" is unbounded
+    "memory-budget": "auto",
+    # panels in flight beyond the one being fetched (1: double buffering)
+    "stream-depth": 1,
 }
 
 # reference keys that keep their name and meaning in the port
@@ -107,8 +116,10 @@ def from_reference(values: dict[str, Any]) -> dict[str, Any]:
 
     Keys with a meaning here (the optimizer and chunk-policy keys) carry
     over unchanged; ``tpu.stencil-kernel`` becomes ``"stencil-kernel"``
-    ("off" stays off, every engaging setting becomes "auto") and
-    ``tpu.matmul-precision`` becomes ``"matmul-precision"``.  The TPU-only
+    ("off" stays off, every engaging setting becomes "auto"),
+    ``tpu.matmul-precision`` becomes ``"matmul-precision"``, and
+    ``tpu.out-of-core``, ``tpu.memory-budget`` and ``tpu.stream-depth``
+    become ``"out-of-core"``, ``"memory-budget"`` and ``"stream-depth"``.  The TPU-only
     keys (PRNG, QR/SVD methods, Gram precision, jit, donation, mesh and
     lane selection) have no counterpart and are dropped.
     """
@@ -118,6 +129,8 @@ def from_reference(values: dict[str, Any]) -> dict[str, Any]:
             out[key] = value
         elif key == "tpu.matmul-precision":
             out["matmul-precision"] = value
+        elif key in ("tpu.out-of-core", "tpu.memory-budget", "tpu.stream-depth"):
+            out[key.removeprefix("tpu.")] = value
         elif key == "tpu.stencil-kernel":
             out["stencil-kernel"] = "off" if value in ("off", False, None) else "auto"
     return out

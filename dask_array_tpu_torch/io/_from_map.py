@@ -53,6 +53,13 @@ class FromMap(ArrayExpr):
         for i, args in enumerate(self.args_per_block):
             yield (self._leaf_key(i), _LazyBlock(self.func, args, kwargs))
 
+    def _structural_operands(self):
+        # func and args only decide the blocks' contents; the program's
+        # shape is the chunk grid and the dtype
+        from dask_array_tpu_torch._chunks import dtype_key
+
+        return [("frommap", dtype_key(self._dtype)), self.chunks_]
+
     def _build(self, ctx):
         blocks = {}
         resolved = [list(c) for c in self.chunks_]

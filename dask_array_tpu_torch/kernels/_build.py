@@ -32,12 +32,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels build at their first CUDA call")
 
 
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu``'s current source lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    return BUILD_DIR / f"lib{name}-{hashlib.sha256(src).hexdigest()[:16]}.so"
+
+
 def build_library(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` for sm_90a if the build for this source
     hash is missing; returns (library path, compiler output)."""
     source = CSRC / f"{name}.cu"
-    src = source.read_bytes()
-    lib_path = BUILD_DIR / f"lib{name}-{hashlib.sha256(src).hexdigest()[:16]}.so"
+    lib_path = library_path(name)
     if lib_path.exists():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

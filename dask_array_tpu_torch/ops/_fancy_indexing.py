@@ -64,6 +64,12 @@ class Take(ArrayExpr):
         chunks[self.axis] = self.out_chunks_axis
         return tuple(chunks)
 
+    def transfer_bytes(self):
+        nb = self.array.nbytes
+        if isinstance(nb, float) and nb != nb:
+            return (0, 0)
+        return (0, int(nb * len(self.indices) / max(1, self.array.shape[self.axis])))
+
     @property
     def _meta(self):
         return self.array._meta
@@ -280,6 +286,12 @@ class VIndex(ArrayExpr):
     @property
     def _index_exprs(self):
         return self.operands[4:]
+
+    def transfer_bytes(self):
+        nb = self.array.nbytes
+        if isinstance(nb, float) and nb != nb:
+            return (0, 0)
+        return (0, int(nb))
 
     @functools.cached_property
     def chunks(self):

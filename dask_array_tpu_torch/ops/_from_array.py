@@ -16,11 +16,13 @@ import functools
 from numbers import Integral
 
 import numpy as np
+import torch
 
-from dask_array_tpu_torch._chunks import normalize_chunks, torch_dtype
+from dask_array_tpu_torch._chunks import normalize_chunks, numpy_dtype, torch_dtype
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import fuse_slice, is_basic_index, sliced_blockdim
+from dask_array_tpu_torch.utils._tokenize import tokenize
 
 
 def _storage_granule(src):
@@ -56,10 +58,20 @@ def is_store(x) -> bool:
 
 
 class FromArray(ArrayExpr):
-    _parameters = ("source", "chunks_", "region", "name_")
-    _defaults = {"region": None, "name_": None}
+    _parameters = ("source", "chunks_", "region", "name_", "source_token")
+    _defaults = {"region": None, "name_": None, "source_token": None}
 
     _fusable_leaf = True
+
+    @functools.cached_property
+    def deterministic_token(self) -> str:
+        # ``from_array`` hashes the source once and every node a pushdown
+        # derives from it (a slice, a region: each panel of the streaming
+        # lane) names it by that token, and does not read it again
+        tok = self.source_token
+        if tok is None:
+            return super().deterministic_token
+        return tokenize(type(self).__qualname__, ("source-token", tok), *self.operands[1:4])
 
     def _collection_name(self):
         return self.operand("name_") or self._name
@@ -69,8 +81,15 @@ class FromArray(ArrayExpr):
         return self.chunks_
 
     @functools.cached_property
+    def _source_dtype(self):
+        # a tensor source is a leaf the streaming lane made resident on the
+        # card (``_streaming._pin_resident``)
+        src = self.source
+        return numpy_dtype(src.dtype) if isinstance(src, torch.Tensor) else src.dtype
+
+    @functools.cached_property
     def _meta(self):
-        return np.empty((0,) * len(self.chunks_), dtype=self.source.dtype)
+        return np.empty((0,) * len(self.chunks_), dtype=self._source_dtype)
 
     @functools.cached_property
     def _leaf_key(self):
@@ -82,12 +101,23 @@ class FromArray(ArrayExpr):
             src = src[tuple(self.region)]
         yield (self._leaf_key, src)
 
+    def _structural_operands(self):
+        # the bound buffer's spec, not its contents: same-shaped datasets
+        # share one structural key
+        from dask_array_tpu_torch._chunks import dtype_key
+
+        return [("buf", dtype_key(self._source_dtype)), self.chunks_]
+
     def _build(self, ctx):
         return BlockView(self.chunks_, dense=ctx.leaf(self._leaf_key))
 
     def _accept_slice(self, index):
         if not is_basic_index(index):
             return None
+        if isinstance(self.source, torch.Tensor) and any(
+            isinstance(i, slice) and (i.step or 1) < 0 for i in index
+        ):
+            return None  # torch slices take no negative step
         if self.region is not None:
             region = fuse_slice(tuple(self.region), tuple(index), self.source.shape)
             if region is None:
@@ -103,7 +133,7 @@ class FromArray(ArrayExpr):
             else:
                 nc, _ = sliced_blockdim(self.chunks_[ax], ind)
                 new_chunks.append(nc)
-        return FromArray(self.source, tuple(new_chunks), region)
+        return FromArray(self.source, tuple(new_chunks), region, None, self.source_token)
 
     @functools.cached_property
     def _storage_chunks(self):
@@ -124,7 +154,7 @@ class FromArray(ArrayExpr):
         storage = self._storage_chunks
         if storage is None:
             # in-memory source: slicing is free, so any grid is absorbed
-            return FromArray(self.source, tuple(target_chunks), self.region)
+            return FromArray(self.source, tuple(target_chunks), self.region, None, self.source_token)
         # chunked store: absorb only grids whose boundaries land on granule
         # boundaries (each granule read once); a finer axis reads at the
         # granule grid with the fine rechunk left outside
@@ -150,7 +180,11 @@ class FromArray(ArrayExpr):
                 grid.append(min(s, total - sum(grid)))
             leaf_chunks.append(tuple(grid))
             residual = residual or tuple(grid) != tuple(want)
-        leaf = self if tuple(leaf_chunks) == self.chunks_ else FromArray(self.source, tuple(leaf_chunks), self.region)
+        leaf = (
+            self
+            if tuple(leaf_chunks) == self.chunks_
+            else FromArray(self.source, tuple(leaf_chunks), self.region, None, self.source_token)
+        )
         if not residual:
             return leaf
         if leaf is self:
@@ -185,7 +219,7 @@ def from_array(x, chunks="auto", name=None, lock=False, asarray=None, fancy=True
         if prev is not None and len(prev) != len(x.shape):
             prev = None
     chunks = normalize_chunks(chunks, tuple(x.shape), dtype=x.dtype, previous_chunks=prev)
-    return new_collection(FromArray(x, chunks, None, name))
+    return new_collection(FromArray(x, chunks, None, name, tokenize(x)))
 
 
 def asarray(a, chunks=None, dtype=None):

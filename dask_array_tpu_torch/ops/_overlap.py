@@ -107,6 +107,19 @@ class Overlap(ArrayExpr):
     def _meta(self):
         return self.array._meta
 
+    def transfer_bytes(self):
+        """Halo bytes moved between blocks."""
+        itemsize = self.dtype.itemsize
+        total = 0
+        grid = self._body_grid
+        for ax, c in enumerate(grid):
+            lo, hi = self.depth[ax]
+            mlo, mhi = self._margins[ax]
+            other = math.prod(sum(c2) for ax2, c2 in enumerate(grid) if ax2 != ax)
+            cuts = max(0, len(c) - 1) + bool(mlo) + bool(mhi)
+            total += (lo + hi) * cuts * other * itemsize
+        return (total, total)
+
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
         # boundary-extend every axis in one halo_pad (one kernel launch on
@@ -341,23 +354,114 @@ class BandStencil(ArrayExpr):
     version runs ``func`` itself (``kernels.stencil.band_stencil_call``).
     Same locality contract as the reference's node: ``func`` is local
     within ``depth`` and size-preserving.
+
+    ``margin`` (per-axis ``(mlo, mhi)``) marks rows at the input's ends
+    that serve as halo only, as in ``Overlap``: a slice pushed below the
+    node (``_accept_slice``) reads its cut's neighbor rows as margins,
+    computes over the slab and trims them, so the boundary applies only at
+    the array's true edges; ``body_chunks`` is then the output grid.
     """
 
-    _parameters = ("array", "func", "depth", "boundary", "_dtype", "taps")
+    _parameters = ("array", "func", "depth", "boundary", "_dtype", "taps", "margin", "body_chunks")
+    _defaults = {"margin": None, "body_chunks": None}
+
+    @functools.cached_property
+    def _margins(self):
+        m = self.operand("margin")
+        if m is None:
+            return tuple((0, 0) for _ in self.depth)
+        return tuple(tuple(x) for x in m)
 
     @functools.cached_property
     def chunks(self):
-        return self.array.chunks
+        b = self.operand("body_chunks")
+        return self.array.chunks if b is None else tuple(tuple(x) for x in b)
 
     @functools.cached_property
     def _meta(self):
         return np.empty((0,) * self.array.ndim, dtype=self._dtype)
 
+    def transfer_bytes(self):
+        """Halo bytes the stencil reads across block edges (the JAX
+        package's ``ShardStencil`` model)."""
+        itemsize = self.dtype.itemsize
+        shape = self.array.shape
+        total = 0
+        for ax, (lo, hi) in enumerate(self.depth):
+            total += (lo + hi) * math.prod(s for ax2, s in enumerate(shape) if ax2 != ax) * itemsize
+        return (0, total)
+
     def _build(self, ctx):
         dense = ctx.build(self.array).dense().contiguous()
         dep = tuple(lo for lo, _hi in self.depth)
         out = band_stencil_call(dense, self.func, dep, tuple(self.boundary), self.taps)
+        if any(mlo or mhi for mlo, mhi in self._margins):
+            # rows computed from the pad, not from data: trimmed
+            out = out[tuple(slice(mlo, out.shape[ax] - mhi) for ax, (mlo, mhi) in enumerate(self._margins))]
         return BlockView(self.chunks, dense=cast(out, self._dtype))
+
+    def _accept_slice(self, index):
+        """Push a basic slice below the stencil.
+
+        On an axis without depth the slice commutes.  On an axis with depth
+        a unit-step slice widens by the depth into the input; a side that
+        stops short of the array's end reads its neighbor rows as a margin,
+        and a side at the true edge keeps the boundary.  A cut closer to an
+        edge than the depth, a stepped slice or an integer stays outside,
+        and so does a periodic axis's slice that reaches an edge (its wrap
+        halo comes from the other end of the array)."""
+        from dask_array_tpu_torch._slicing import Slice, is_basic_index, sliced_blockdim
+
+        if not is_basic_index(index) or len(index) != len(self.depth):
+            return None
+        body = self.chunks
+        inner, outer, new_margin, new_body = [], [], [], []
+        changed = False
+        for ax, ind in enumerate(index):
+            lo, hi = self.depth[ax]
+            mlo, mhi = self._margins[ax]
+            c = body[ax]
+            n = int(sum(c))
+            start, stop, step = ind.indices(n) if isinstance(ind, slice) else (0, n, 1)
+            cut = None
+            if isinstance(ind, slice) and step == 1 and stop > start and (start, stop) != (0, n):
+                if not (lo or hi):
+                    cut = (start + mlo, stop + mlo, 0, 0)
+                else:
+                    length = mlo + n + mhi
+                    a_in, b_in = mlo + start - lo, mlo + stop + hi
+                    top = (a_in, lo) if a_in >= 0 else (0, 0) if start == 0 and mlo == 0 else None
+                    bottom = (b_in, hi) if b_in <= length else (length, 0) if stop == n and mhi == 0 else None
+                    edge = top is not None and bottom is not None and (top[1] == 0 or bottom[1] == 0)
+                    if top is not None and bottom is not None and not (edge and self.boundary[ax] == "periodic"):
+                        cut = (top[0], bottom[0], top[1], bottom[1])
+            if cut is None:
+                inner.append(slice(None))
+                outer.append(ind)
+                new_margin.append((mlo, mhi))
+                new_body.append(c)
+                continue
+            a, b, nlo, nhi = cut
+            inner.append(slice(a, b, 1))
+            outer.append(slice(None))
+            new_margin.append((nlo, nhi))
+            new_body.append(tuple(sliced_blockdim(c, slice(start, stop, 1))[0]))
+            changed = True
+        if not changed:
+            return None
+        pushed = BandStencil(
+            Slice(self.array, tuple(inner)),
+            self.func,
+            self.depth,
+            self.boundary,
+            self._dtype,
+            self.taps,
+            tuple(new_margin),
+            tuple(new_body),
+        )
+        if all(o == slice(None) for o in outer):
+            return pushed
+        return Slice(pushed, tuple(outer))
 
 
 def _normalize(x, depth, boundary):

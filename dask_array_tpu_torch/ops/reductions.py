@@ -1077,6 +1077,18 @@ def _lol_map(fn, window):
     return fn(window)
 
 
+def _window(view, se, groups, out_full, ax, prefix):
+    """The nested lists of ``view``'s blocks that output block ``out_full``
+    of a ``PartialReduce`` combines (a plain recursion, not a closure that
+    calls itself: that cycle would keep ``view`` on the device until a
+    garbage collection)."""
+    if ax == len(out_full):
+        return view.block(prefix)
+    if ax in se:
+        return [_window(view, se, groups, out_full, ax + 1, prefix + (i,)) for i in groups[ax][out_full[ax]]]
+    return _window(view, se, groups, out_full, ax + 1, prefix + (out_full[ax],))
+
+
 class PartialReduce(ArrayExpr):
     """One tree step: reduce windows of ``split_every`` blocks per axis.
 
@@ -1130,14 +1142,7 @@ class PartialReduce(ArrayExpr):
         )
         blocks = {}
         for out_full in iter_block_indices(out_nb):
-            def rec(ax, prefix):
-                if ax == ndim:
-                    return view.block(prefix)
-                if ax in se:
-                    return [rec(ax + 1, prefix + (i,)) for i in groups[ax][out_full[ax]]]
-                return rec(ax + 1, prefix + (out_full[ax],))
-
-            window = rec(0, ())
+            window = _window(view, se, groups, out_full, 0, ())
             res = _host.call(self, "func", self.func, (window,), {}, ctx.device,
                              torch_args=(_lol_map(_partial, window),))
             res = _as_block(res, self.dtype, ctx.device)

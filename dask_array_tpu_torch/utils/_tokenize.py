@@ -33,9 +33,20 @@ _object_tokens: "weakref.WeakValueDictionary[int, object]" = weakref.WeakValueDi
 _token_registry: dict[int, str] = {}
 _registry_lock = threading.Lock()
 
+# bumped every time an identity token is consulted: the plan flattener
+# (``_planrec.py``) reads it to tell a plan that is stable in this process
+# only from one that is stable across processes
+_identity_uses = 0
+
+
+def identity_epoch() -> int:
+    return _identity_uses
+
 
 def _identity_token(obj) -> str:
     """Stable-per-object random token (objects too big/opaque to hash)."""
+    global _identity_uses
+    _identity_uses += 1
     key = id(obj)
     with _registry_lock:
         existing = _object_tokens.get(key)

@@ -12,7 +12,12 @@ held dtype, complex data, NaN and infinities, int64 edges to INT64_MAX,
 values on and beside every edge, 1 and 2**16 bins, bincounts, unaligned
 and ragged inputs, weighted sums that repeat their bits) and the paths
 held to numpy's own steps: nonzero and pad of unsigned integers, float16
-scans, complex histograms and svd_compressed, norms of integers.
+scans, complex histograms and svd_compressed, norms of integers; the
+pinned host copies (uploads and fetches byte for byte as the pageable
+copies in 13 dtypes and strided views, more pieces than slots, the
+compute stream ordered after the copy, concurrent callers) and the
+out-of-core lane (streamed stencils equal in bytes to in-core with K1 once
+a panel; streamed reductions and a panel-swept matmul).
 
 Every test here needs a card and carries the ``gpu`` marker; without one
 it skips.  The file imports neither jax nor the JAX package, so a machine
@@ -1457,3 +1462,158 @@ def test_io_on_the_card(cuda, tmp_path):
         fm = da.from_map(lambda i: torch.full((4, 5), float(i), device="cuda"), range(3), chunks=((4,) * 3, (5,)))
         np.testing.assert_array_equal(fm.compute(), np.repeat(np.arange(3.0, dtype=np.float32), 20).reshape(12, 5))
         assert da.barrier(d + 1)[3:9].compute().tobytes() == (x[3:9] + 1).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# pinned host copies (_hostcopy) and the out-of-core lane (_streaming)
+# ---------------------------------------------------------------------------
+
+HOSTCOPY_DTYPES = ["f2", "f4", "f8", "i1", "i4", "i8", "u1", "u2", "u4", "u8", "b1", "c8", "c16"]
+
+
+def _pageable_up(arr, cuda):
+    return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HOSTCOPY_DTYPES)
+@pytest.mark.parametrize("view", ["contiguous", "columns", "reversed", "transpose", "scalar", "empty"])
+def test_pinned_upload_and_fetch_equal_pageable_bytes(cuda, dtype, view):
+    from dask_array_tpu_torch import _hostcopy
+
+    rng = np.random.default_rng(40)
+    base = (rng.standard_normal((300, 257)) * 100).astype(dtype)
+    arr = {"contiguous": base, "columns": base[:, 3:200], "reversed": base[::-1, ::-2], "transpose": base.T,
+           "scalar": np.asarray(base[1, 2]), "empty": base[:0]}[view]
+    up = _hostcopy.upload(arr, cuda)
+    want = _pageable_up(arr, cuda)
+    assert up.dtype == want.dtype and up.shape == want.shape
+    assert torch.equal(up.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8))
+    back = _hostcopy.fetch(up)
+    assert back.dtype == want.cpu().numpy().dtype and back.tobytes() == want.cpu().numpy().tobytes()
+    assert back.flags.writeable and not torch.from_numpy(back).is_pinned()
+
+
+@pytest.mark.gpu
+def test_pinned_copies_of_more_than_a_ring(cuda, monkeypatch):
+    """More pieces than slots, strided sources and destinations, a slot size
+    that does not divide the rows: every byte as the pageable copy."""
+    from dask_array_tpu_torch import _hostcopy
+
+    # fresh rings of small slots, dropped after the test
+    monkeypatch.setattr(_hostcopy, "SLOT_BYTES", 4096 + 8)
+    monkeypatch.setattr(_hostcopy, "_rings", {})
+    arr = np.random.default_rng(41).standard_normal((513, 97))
+    strided = arr[::3, 1::2]
+    up = _hostcopy.upload(strided, cuda)
+    assert torch.equal(up, _pageable_up(strided, cuda))
+    out = np.zeros((171 * 2, 48 * 2))
+    _hostcopy.fetch_into(up, out[::2, 1::2])
+    np.testing.assert_array_equal(out[::2, 1::2], strided)
+    assert (out[1::2] == 0).all() and (out[:, ::2] == 0).all()
+
+
+@pytest.mark.gpu
+def test_compute_goes_up_and_down_through_the_rings(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import _hostcopy
+
+    x = np.random.default_rng(42).standard_normal((2048, 1536)).astype("f4")
+    before = dict(_hostcopy.COPIES)
+    with da.config.set({"device": "cuda"}):
+        got = (da.from_array(x, chunks=512) * 2 + 1).compute()
+    assert got.tobytes() == (torch.from_numpy(x).to(cuda) * 2 + 1).cpu().numpy().tobytes()
+    assert _hostcopy.COPIES["h2d_bytes"] - before["h2d_bytes"] == x.nbytes
+    assert _hostcopy.COPIES["d2h_bytes"] - before["d2h_bytes"] == x.nbytes
+    assert not torch.from_numpy(got).is_pinned()  # a plain pageable array for the caller
+    assert _hostcopy.ring_bytes() == 2 * _hostcopy.SLOTS * _hostcopy.SLOT_BYTES  # one ring each way
+
+
+@pytest.mark.gpu
+def test_an_upload_is_ordered_before_the_work_that_reads_it(cuda):
+    """The compute stream waits on the copy: a kernel queued right after
+    the upload reads the new values, not the recycled block's old ones."""
+    from dask_array_tpu_torch import _hostcopy
+
+    for i in range(20):
+        arr = np.full((4096, 1024), float(i), dtype="f4")
+        t = _hostcopy.upload(arr, cuda)
+        assert float(t.sum()) == float(i) * arr.size
+        del t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["reflect", "nearest", 0.5])
+def test_streamed_stencil_equals_in_core(cuda, boundary):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch._streaming import STREAMED
+    from dask_array_tpu_torch.kernels import stencil
+
+    x = np.random.default_rng(43).standard_normal((4096, 1024)).astype("f4")
+    with da.config.set({"device": "cuda"}):
+        st = da.map_overlap(laplace, da.from_array(x, chunks=(512, 1024)), depth=1, boundary=boundary, dtype="f4")
+        with da.config.set({"out-of-core": "off"}):
+            in_core = st.compute()
+        before = dict(STREAMED)
+        launches = stencil.LAUNCHES
+        with da.config.set({"out-of-core": "auto", "memory-budget": 8 << 20}):
+            out = st.compute()
+    panels = STREAMED["panels"] - before["panels"]
+    assert STREAMED["count"] - before["count"] == 1 and panels >= 2
+    assert stencil.LAUNCHES - launches == panels
+    assert out.tobytes() == in_core.tobytes()
+
+
+@pytest.mark.gpu
+def test_streamed_reductions_and_matmul_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch._streaming import STREAMED
+
+    rng = np.random.default_rng(44)
+    a = rng.standard_normal((1 << 16, 256)).astype("f4")
+    w = rng.standard_normal((256, 64)).astype("f4")
+    with da.config.set({"device": "cuda", "out-of-core": "force"}):
+        x = da.from_array(a, chunks=(4096, 256))
+        before = dict(STREAMED)
+        s0 = x.sum(axis=0).compute()
+        m = x.mean().compute()
+        nm = da.nanmax(x).compute()
+        mm = (x @ w).compute()
+    assert STREAMED["count"] - before["count"] == 4 and STREAMED["pinned"] - before["pinned"] == 1
+    np.testing.assert_allclose(s0, a.astype("f8").sum(axis=0), rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(m, a.astype("f8").mean(), rtol=1e-4, atol=1e-6)
+    assert nm == a.max()
+    np.testing.assert_allclose(mm, a.astype("f8") @ w.astype("f8"), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_pinned_rings_under_concurrent_callers(cuda):
+    """More caller threads than cores share the rings (each ring's lock
+    orders its slots): every round trip returns its own bytes."""
+    import sys
+    import threading
+
+    from dask_array_tpu_torch import _hostcopy
+
+    errors = []
+
+    def worker(k):
+        rng = np.random.default_rng(100 + k)
+        for _ in range(4):
+            arr = rng.standard_normal((1 << 12, 1 << 9 + k % 3)).astype("f4")
+            back = _hostcopy.fetch(_hostcopy.upload(arr, cuda) * 2)
+            if back.tobytes() != (arr * 2).tobytes():
+                errors.append(k)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(24)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []

@@ -512,11 +512,9 @@ def test_the_slices_names_exist_and_22_are_left():
         assert name in tda.__all__ and callable(getattr(tda, name)), name
     public = [n for n in dir(jda) if not n.startswith("_") and not isinstance(getattr(jda, n), types.ModuleType)]
     missing = sorted(n for n in public if not hasattr(tda, n))
-    # svd_compressed, then the IO names and barrier have since been
-    # ported: 9 names are left
-    assert missing == sorted(
-        "register_chunk_type explain chunk_report expr_table expr_flow plan_table "
-        "tier_report trace_rewrites xla_profile".split())
+    # svd_compressed, then the IO names and barrier, then the diagnostics
+    # have since been ported: one name is left (S9)
+    assert missing == ["register_chunk_type"]
     from dask_array_tpu_torch import chunk, routines
 
     assert routines.unique is tda.unique and chunk.topk is not None
