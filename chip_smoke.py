@@ -209,7 +209,22 @@ Phases (each prints one line of its own numbers; any failure raises):
      GB each way, streamed and in-core ms and GB/s; then the "auto"
      budget (the same, within 1 GiB, before and after the in-core runs),
      "auto" off for a 1 GiB program, and that an xla_profile trace of
-     case (a) names K1's kernel.
+     case (a) names K1's kernel;
+ 31. S9 (S9_SIZES): (a) K1 in bfloat16 at 4096^2 and 16384^2 (depth 1,
+     reflect) against its plain version (at most 1 bfloat16 step apart),
+     with conv2d in bfloat16 and the bound; K2 on 2^26 bfloat16 values into
+     256 and 65536 bins (counts equal to the plain version) beside
+     torch.histc; (b) where ml_dtypes imports: blocked_matmul at 8192^2 in
+     bfloat16 (chunks 1024 against 512; float32 accumulation) against a
+     float32 product, with TFLOP/s beside one torch.matmul, and stencil2d's
+     roll form and a histogram of a 4096^2 bfloat16 numpy input through
+     compute() (K1 and K2 launches counted); (c) 2^24 datetime64[ns] with
+     1 % NaT: diff, min, max, a compare/where and a cast to [s], equal to
+     numpy, computed as int64 ticks on the card; (d) the host lanes, each
+     equal to numpy: a 4096^2 float64 masked array with 10 % masked
+     (chunks 1024) through sum/mean/var/argmax/cumsum and sqrt beside
+     numpy.ma, 2^20 records (field arithmetic on the card), and a
+     registered duck type end to end.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -1817,6 +1832,283 @@ STATS_TOLERANCE = ("colsum/rowmean rtol 1e-5, atol 4*sqrt(terms)*max|x|*2^-23 (r
                    "std rtol 1e-4")
 
 
+# phase 31 (S9): sizes of its cases
+S9_SIZES = {"k1": (4096, 16384), "k2_flat": 1 << 26, "k2_bins": (256, 65536), "matmul": 8192, "matmul_chunk": 1024,
+            "stencil": 4096, "stencil_chunk": 1024, "datetime": 1 << 24, "datetime_chunk": 1 << 22,
+            "masked": 4096, "masked_chunk": 1024, "records": 1 << 20, "records_chunk": 1 << 18}
+
+
+def bf16_close(got, want, scale):
+    """Whether two bfloat16 stencil results agree: at most 1 bfloat16 step
+    of the value (2^-7 of it), plus 4 float32 steps of ``scale`` (sum |w| *
+    max |x|).  The kernel and the plain version each add the taps in
+    float32 and round once, in other orders: a sum next to a bfloat16 tie
+    rounds to either side (1 step), and where the taps cancel their float32
+    sums differ by a few steps of the largest term."""
+    return bool(((got.float() - want.float()).abs() <= 2.0**-7 * want.float().abs() + 2.0**-21 * scale).all())
+
+
+class _Wrapped:
+    """A minimal NEP-13/NEP-18 duck array over a numpy buffer (the shape of
+    dask's ``EncapsulateNDArray``), for phase 31's registered chunk type."""
+
+    __array_priority__ = 20.0
+
+    def __init__(self, arr):
+        import numpy as np
+
+        self.arr = np.asarray(arr)
+
+    shape = property(lambda self: self.arr.shape)
+    dtype = property(lambda self: self.arr.dtype)
+    ndim = property(lambda self: self.arr.ndim)
+
+    def __getitem__(self, idx):
+        return _rewrap(self.arr[idx])
+
+    def astype(self, dtype, **kwargs):
+        return _Wrapped(self.arr.astype(dtype, **kwargs))
+
+    def reshape(self, *shape):
+        return _Wrapped(self.arr.reshape(*shape))
+
+    def __array__(self, dtype=None, copy=None):
+        return self.arr if dtype is None else self.arr.astype(dtype)
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        if kwargs.get("out") is not None:
+            return NotImplemented
+        return _rewrap(getattr(ufunc, method)(*(_unwrap(i) for i in inputs), **kwargs))
+
+    def __array_function__(self, func, types, args, kwargs):
+        return _rewrap(func(*_unwrap(args), **_unwrap(kwargs)))
+
+
+def _unwrap(x):
+    if isinstance(x, _Wrapped):
+        return x.arr
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _unwrap(v) for k, v in x.items()}
+    return x
+
+
+def _rewrap(x):
+    import numpy as np
+
+    if isinstance(x, (list, tuple)):
+        return type(x)(_rewrap(v) for v in x)
+    return _Wrapped(x) if isinstance(x, np.ndarray) and x.ndim > 0 else x
+
+
+def s9_paths(da, torch, sizes, smi):
+    """Phase 31 (S9): (a) K1 and K2 in bfloat16 on tensors against their
+    plain versions and library calls; (b) bfloat16 through the public API
+    (only where ml_dtypes imports: numpy knows bfloat16 through it);
+    (c) datetime64[ns] with NaTs on the card; (d) the host lanes (masked,
+    records, a registered duck type), each equal to numpy.  Returns
+    ({case: numbers}, the K1/K2 bf16 entries of the kernels line)."""
+    import numpy as np
+
+    from dask_array_tpu_torch import _hostcopy
+    from dask_array_tpu_torch._dispatch import _HANDLED_CHUNK_TYPES, _refresh_duck_types, register_chunk_type
+    from dask_array_tpu_torch.kernels import histogram as hk
+    from dask_array_tpu_torch.kernels import stencil
+    from dask_array_tpu_torch.models.pipelines import blocked_matmul, laplace_roll, stencil2d
+
+    out, entries = {}, {}
+    bnd = ("reflect", "reflect")
+    taps = stencil.capture_taps(laplace_roll, (1, 1))
+    lap_w = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], device="cuda",
+                         dtype=torch.bfloat16)[None, None]
+    g = torch.Generator(device="cuda").manual_seed(31)
+    # (a) K1 in bfloat16: the plain version computes the taps in float32 and
+    # rounds once, as the kernel does (tolerance: ``bf16_close``)
+    wsum = sum(abs(w) for _, _, w in taps)
+    for n in sizes["k1"]:
+        x = torch.randn((n, n), generator=g, device="cuda").to(torch.bfloat16)
+        got = stencil.band_stencil_cuda(x, taps, (1, 1), bnd)
+        ref = stencil.band_stencil_plain(x, laplace_roll, (1, 1), bnd)
+        scale = wsum * float(x.float().abs().max())
+        check(bf16_close(got, ref, scale), f"phase 31 K1 bf16 {n}: differs from its plain version")
+        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: stencil.band_stencil_plain(x, laplace_roll, (1, 1), bnd),
+                                               lambda: stencil.band_stencil_cuda(x, taps, (1, 1), bnd))
+        padded = stencil.pad_axis(stencil.pad_axis(x, 0, 1, 1, "reflect"), 1, 1, 1, "reflect")[None, None]
+        conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(padded, lap_w))
+        dev = device_ms(lambda: stencil.band_stencil_cuda(x, taps, (1, 1), bnd))
+        b_ms, b_by = bound(2 * n * n * 2, 2 * len(taps) * n * n)
+        out[f"k1-bf16-{n}"] = {"max_abs_err": float((got.float() - ref.float()).abs().max()),
+                               "tolerance": f"2^-7 |plain| + 2^-21 * {scale} (sum|w| max|x|)", "kernel_ms": k_ms, "kernel_runs_ms": k_runs,
+                               "plain_ms": p_ms, "plain_runs_ms": p_runs, "kernel_device_ms": dev,
+                               "conv2d_bf16_ms": conv_ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "kernel_of_bound": b_ms / k_ms}
+        del x, got, ref, padded
+    # (a) K2 with bfloat16 data: every bfloat16 value is exact in float32,
+    # so the counts equal the plain version's
+    flat = sizes["k2_flat"]
+    x = torch.randn(flat, generator=g, device="cuda").to(torch.bfloat16)
+    for nb in sizes["k2_bins"]:
+        e = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nb, (-4, 4))).cuda()
+        got, ref = hk.histogram_counts_cuda(x, e), hk.histogram_counts_plain(x, e)
+        check(torch.equal(got, ref), f"phase 31 K2 bf16 {nb}: counts differ from the plain version")
+        try:
+            torch.histc(x, nb, -4, 4)
+            lib_name, lib = "torch.histc", (lambda: torch.histc(x, nb, -4, 4))
+        except RuntimeError:
+            lib_name, lib = "torch.histc of the float32 cast", (lambda: torch.histc(x.float(), nb, -4, 4))
+        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: hk.histogram_counts_plain(x, e),
+                                               lambda: hk.histogram_counts_cuda(x, e), reps=30)
+        dev = device_ms(lambda: hk.histogram_counts_cuda(x, e))
+        b_ms, b_by = bound(flat * 2 + nb * 8, 4 * flat)
+        out[f"k2-bf16-{nb}"] = {"max_abs_err": float((got - ref).abs().max()), "kernel_ms": k_ms,
+                                "kernel_runs_ms": k_runs, "plain_ms": p_ms, "plain_runs_ms": p_runs,
+                                "kernel_device_ms": dev, "library": lib_name, "library_ms": cuda_ms(lib),
+                                "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev}
+    del x
+    torch.cuda.empty_cache()
+    # (b) bfloat16 through the public API
+    try:
+        import ml_dtypes
+    except ImportError as exc:
+        out["public-bf16"] = {"ran": False, "why": f"ml_dtypes does not import here ({exc}): numpy has no bfloat16"}
+        ml_dtypes = None
+    launches = {"band_stencil": 0, "histogram": 0}
+    if ml_dtypes is not None:
+        bf16 = ml_dtypes.bfloat16
+        rng = np.random.default_rng(31)
+        n, c = sizes["matmul"], sizes["matmul_chunk"]
+        a_np = rng.standard_normal((n, n), dtype=np.float32).astype(bf16)
+        b_np = rng.standard_normal((n, n), dtype=np.float32).astype(bf16)
+        mm = blocked_matmul(a_np, b_np, chunk=c)
+        check(np.dtype(mm.dtype) == np.dtype(bf16), f"phase 31: blocked_matmul bf16 gives {mm.dtype}")
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # float32 accumulation
+        got = mm.compute_device()
+        check(got.dtype == torch.bfloat16 and tuple(got.shape) == (n, n), "phase 31: blocked_matmul bf16 shape/dtype")
+        ad, bd = torch.from_numpy(a_np.view(np.uint16)).cuda().view(torch.bfloat16), \
+            torch.from_numpy(b_np.view(np.uint16)).cuda().view(torch.bfloat16)
+        want = ad.float() @ bd.float()
+        err = float((got.float() - want).abs().max())
+        scale = float(want.abs().max())
+        check(torch.allclose(got.float(), want, rtol=2.0**-7, atol=2.0**-16 * scale),
+              f"phase 31: blocked_matmul bf16 error {err} against float32")
+        dev_ms = host_ms(lambda: (mm.compute_device(), torch.cuda.synchronize()), 3)
+        mm_ms = cuda_ms(lambda: ad @ bd, reps=10)
+        out["blocked_matmul-bf16"] = {"size": n, "chunks": [c, c // 2], "max_abs_err_vs_f32": err,
+                                      "tolerance": f"rtol 2^-7, atol 2^-16*max|ab| = {2.0**-16 * scale}",
+                                      "compute_device_ms": dev_ms, "TFLOPs": 2 * n**3 / dev_ms / 1e9,
+                                      "torch_matmul_ms": mm_ms, "torch_matmul_TFLOPs": 2 * n**3 / mm_ms / 1e9}
+        del got, want, ad, bd, mm, a_np, b_np
+        torch.cuda.empty_cache()
+        n, c = sizes["stencil"], sizes["stencil_chunk"]
+        x_np = rng.standard_normal((n, n), dtype=np.float32).astype(bf16)
+        st = stencil2d(x_np, chunk=c, form="roll")
+        h, _ = da.histogram(da.from_array(x_np, chunks=c), bins=256, range=(-4, 4))
+        stencil.LAUNCHES = hk.LAUNCHES = 0
+        got_st, got_h = st.compute(), h.compute()
+        launches = {"band_stencil": stencil.LAUNCHES, "histogram": hk.LAUNCHES}
+        check(launches["band_stencil"] >= 1 and launches["histogram"] >= 1, f"phase 31 (b): launches {launches}")
+        xt = torch.from_numpy(x_np.view(np.uint16)).view(torch.bfloat16)
+        ref_st = stencil.band_stencil_plain(xt, laplace_roll, (1, 1), bnd)
+        got_t = torch.from_numpy(got_st.view(np.uint16)).view(torch.bfloat16)
+        st_err = float((got_t.float() - ref_st.float()).abs().max())
+        check(np.dtype(got_st.dtype) == np.dtype(bf16) and bf16_close(got_t, ref_st, wsum * float(xt.float().abs().max())),
+              f"phase 31 stencil2d bf16: differs from the plain version on the CPU ({st_err})")
+        want_h = np.histogram(x_np.astype(np.float32), bins=256, range=(-4, 4))[0]
+        check(np.array_equal(got_h, want_h), "phase 31: histogram of bf16 differs from numpy's of its float32 cast")
+        out["stencil2d-bf16"] = {"size": n, "chunks": c, "max_abs_err_vs_plain_cpu": st_err,
+                                 "compute_ms": host_ms(st.compute, 3), "launches": launches}
+        del x_np, st, h, got_st, got_h, xt, ref_st, got_t
+    # (c) datetime64[ns] with NaTs: int64 ticks on the card
+    n, c = sizes["datetime"], sizes["datetime_chunk"]
+    rng = np.random.default_rng(32)
+    ticks = rng.integers(-(10**18), 10**18, n)
+    ticks[rng.random(n) < 0.01] = np.iinfo(np.int64).min
+    t = ticks.view("M8[ns]")
+    d = da.from_array(t, chunks=c)
+    pivot = t[n // 2] if not np.isnat(t[n // 2]) else np.datetime64(0, "ns")
+    cases = {"diff": (da.diff(d), np.diff(t)), "min": (d.min(), t.min()), "max": (d.max(), t.max()),
+             "where": (da.where(d > pivot, d, d[0]), np.where(t > pivot, t, t[0])),
+             "astype_s": (d.astype("M8[s]"), t.astype("M8[s]"))}
+    dt_out = {}
+    for name, (arr, want) in cases.items():
+        _hostcopy.COPIES.update({k: 0 for k in _hostcopy.COPIES})
+        dev = arr.compute_device()
+        check(isinstance(dev, torch.Tensor) and dev.is_cuda and dev.dtype == torch.int64,
+              f"phase 31 datetime {name}: the result is not int64 ticks on the card")
+        up = _hostcopy.COPIES["h2d_bytes"]
+        got = arr.compute()
+        check(np.asarray(got).dtype == np.asarray(want).dtype and
+              np.array_equal(np.asarray(got).view("i8"), np.asarray(want).view("i8")),
+              f"phase 31 datetime {name}: differs from numpy")
+        dt_out[name] = {"compute_device_ms": host_ms(lambda: (arr.compute_device(), torch.cuda.synchronize()), 3),
+                        "uploaded_bytes": up, "result_bytes_on_card": dev.numel() * 8}
+    out["datetime-ns"] = {"values": n, "chunks": c, "nat_share": float(np.isnat(t).mean()), "equal_to_numpy": True,
+                          **dt_out}
+    del d, cases, t, ticks
+    # (d) the host lanes, each equal to numpy (host lanes by design, as in
+    # the JAX package: numpy.ma and records have no device form)
+    n, c = sizes["masked"], sizes["masked_chunk"]
+    rng = np.random.default_rng(33)
+    m = np.ma.masked_array(rng.standard_normal((n, n)), mask=rng.random((n, n)) < 0.1)
+    x = da.from_array(m, chunks=c)
+    ma_out = {}
+    for name, lazy, ref in (("sum", lambda: x.sum(), lambda: m.sum()), ("mean", lambda: x.mean(), lambda: m.mean()),
+                            ("var", lambda: x.var(), lambda: m.var()), ("argmax", lambda: x.argmax(),
+                                                                        lambda: m.argmax()),
+                            ("cumsum", lambda: x.cumsum(axis=1), lambda: np.ma.cumsum(m, axis=1)),
+                            ("sqrt", lambda: da.sqrt(x), lambda: np.ma.sqrt(m))):
+        arr = lazy()
+        got, want = arr.compute(), ref()
+        if name in ("cumsum", "sqrt"):
+            check(isinstance(got, np.ma.MaskedArray) and np.array_equal(np.ma.getmaskarray(got),
+                                                                        np.ma.getmaskarray(want)),
+                  f"phase 31 masked {name}: the mask differs")
+            close = np.allclose(got.filled(0), want.filled(0), rtol=1e-12, atol=1e-9)
+        else:
+            close = np.allclose(float(got), float(want), rtol=1e-10, atol=0)
+        check(close, f"phase 31 masked {name}: differs from numpy.ma")
+        ma_out[name] = {"ms": host_ms(arr.compute, 1), "numpy_ma_ms": host_ms(ref, 1)}
+    out["masked-4096"] = {"size": n, "chunks": c, "masked_share": float(m.mask.mean()), "lane": "host (numpy.ma)",
+                          **ma_out}
+    del m, x
+    n, c = sizes["records"], sizes["records_chunk"]
+    rec = np.empty(n, dtype=[("a", "f8"), ("b", "i4"), ("c", "f4")])
+    rec["a"], rec["b"], rec["c"] = rng.standard_normal(n), rng.integers(0, 100, n), 2.0
+    r = da.from_array(rec, chunks=c)
+    arith = r["a"] * 2 + r["b"]
+    dev = arith.compute_device()
+    check(dev.is_cuda, "phase 31 records: the field's arithmetic did not run on the card")
+    check(np.allclose(arith.compute(), rec["a"] * 2 + rec["b"], rtol=1e-15), "phase 31 records: differs from numpy")
+    check(np.array_equal(r[["b", "a"]][1000:2000].compute(), rec[["b", "a"]][1000:2000]),
+          "phase 31 records: a field list differs")
+    out["records"] = {"records": n, "chunks": c, "lane": "host records, fields on the card",
+                      "field_arith_ms": host_ms(arith.compute, 3), "numpy_ms": host_ms(lambda: rec["a"] * 2 + rec["b"], 3)}
+    del rec, r, arith, dev
+    saved = list(_HANDLED_CHUNK_TYPES)
+    register_chunk_type(_Wrapped)
+    try:
+        buf = rng.standard_normal((1000, 800))
+        w = da.from_array(_Wrapped(buf), chunks=(250, 200))
+        got = ((w + 1) * 2).sum(axis=0).compute()
+        check(isinstance(got, _Wrapped) and np.allclose(got.arr, ((buf + 1) * 2).sum(axis=0), rtol=1e-12),
+              "phase 31 duck: the type or the values were lost")
+        got_t = w.T[:10].compute()
+        check(isinstance(got_t, _Wrapped) and np.array_equal(got_t.arr, buf.T[:10]), "phase 31 duck: transpose")
+        out["duck"] = {"shape": [1000, 800], "lane": "host (the registered type's NEP-18 dispatch)", "type_kept": True}
+    finally:
+        _HANDLED_CHUNK_TYPES[:] = saved
+        _refresh_duck_types()
+    k1, k2 = out[f"k1-bf16-{sizes['k1'][0]}"], out[f"k2-bf16-{sizes['k2_bins'][0]}"]
+    entries["band_stencil"] = {"launches_bf16": launches["band_stencil"], "max_abs_err_bf16": k1["max_abs_err"],
+                               "ms_bf16": k1["kernel_ms"], "plain_ms_bf16": k1["plain_ms"],
+                               "bound_ms_bf16": k1["bound_ms"], "library_ms_bf16": k1["conv2d_bf16_ms"]}
+    entries["histogram"] = {"launches_bf16": launches["histogram"], "max_abs_err_bf16": k2["max_abs_err"],
+                            "ms_bf16": k2["kernel_ms"], "plain_ms_bf16": k2["plain_ms"],
+                            "bound_ms_bf16": k2["bound_ms"], "library_ms_bf16": k2["library_ms"]}
+    return out, entries
+
+
 def main() -> int:
     import torch
 
@@ -2813,6 +3105,14 @@ def main() -> int:
           launches=stream_launches, seconds=time.perf_counter() - t30)
     print(smi, flush=True)
 
+    # -- phase 31: S9, bfloat16 kernels and public paths, datetime on the card, the host lanes
+    t31 = time.perf_counter()
+    s9, s9_entries = s9_paths(da, torch, S9_SIZES, smi)
+    for name, num in s9.items():
+        phase(31, name, card=smi, **num)
+    phase(31, "seconds", seconds=time.perf_counter() - t31)
+    print(smi, flush=True)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -2833,6 +3133,7 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": st["conv2d_ms"],
             "device_ms": st["kernel_device_ms"],
+            **s9_entries["band_stencil"],
         },
         {
             "name": "multi_stat",
@@ -2914,6 +3215,7 @@ def main() -> int:
             "cases": {k: {key: v[key] for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
                                                   "bound_ms", "of_bound")}
                       for k, v in k2.items() if isinstance(v, dict)},
+            **s9_entries["histogram"],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,8 +48,11 @@ larger than the card's memory panel by panel (``_streaming.py``, config
 (``_hostcopy.py``).  The diagnostics (``explain``, ``chunk_report``,
 ``expr_table``, ``expr_flow``, ``trace_rewrites``; ``plan_table``,
 ``tier_report`` and ``xla_profile``, a ``torch.profiler`` trace, are
-attributes but not in ``__all__``) are ported; ``register_chunk_type``
-waits (ROADMAP.md).
+attributes but not in ``__all__``) are ported.  Masked, structured,
+object and string arrays and registered duck chunk types
+(``register_chunk_type``) compute on the host lane (``_host.py``);
+datetime64/timedelta64 blocks are int64 ticks on the device, and
+ml_dtypes' bfloat16 and float8 types are torch's.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from dask_array_tpu_torch import config
 from dask_array_tpu_torch import fft, linalg, random, reductions
 from dask_array_tpu_torch._blockwise import blockwise, elemwise
 from dask_array_tpu_torch._chunks import PerformanceWarning, normalize_chunks
+from dask_array_tpu_torch._dispatch import register_chunk_type
 from dask_array_tpu_torch._collection import Array, new_collection
 from dask_array_tpu_torch._diagnostics import (
     chunk_report,
@@ -182,7 +186,7 @@ def compute(*collections, **kwargs):
     denses = compute_exprs([c.expr for _, c in arrays]) if arrays else []
     for (i, c), dense in zip(arrays, denses):
         arr = to_numpy(dense, c.expr)
-        out[i] = arr[()] if arr.ndim == 0 else arr
+        out[i] = arr[()] if arr.ndim == 0 and type(arr) is _np.ndarray else arr
     return tuple(out)
 
 
@@ -290,6 +294,7 @@ __all__ = [
     "push",
     "ravel",
     "rechunk",
+    "register_chunk_type",
     "repeat",
     "reshape",
     "reshape_blockwise",

@@ -24,6 +24,7 @@ from dask_array_tpu_torch._chunks import (
     cat,
     compute_dtype,
     has_unknown_chunks,
+    is_float_dtype,
     parse_bytes,
     to_compute,
     torch_dtype,
@@ -131,7 +132,7 @@ def _scale_operands(func, args, out_dtype, kwargs):
     """
     from dask_array_tpu_torch.kernels.scale import scale_form
 
-    if func is not torch.mul or kwargs or len(args) != 2 or np.dtype(out_dtype).kind != "f":
+    if func is not torch.mul or kwargs or len(args) != 2 or not is_float_dtype(out_dtype):
         return None
     if not all(isinstance(a, (torch.Tensor, bool, int, float)) for a in args):
         return None
@@ -535,8 +536,23 @@ class Elemwise(Blockwise):
         return None
 
     def _build(self, ctx):
+        from dask_array_tpu_torch import _host
+
         args = [ctx.build(a).dense() if isinstance(a, ArrayExpr) else a for a in self.args]
         func = self.func
+        if _host.any_host_block(args):
+            # masked, duck or record blocks: numpy's counterpart on the host
+            out = _host.call(self, "func", func, args, self._kwargs_dict, ctx.device)
+            if _host.is_host_block(out) and out.dtype != self.dtype:
+                out = out.astype(self.dtype)
+            return BlockView(self.chunks, dense=out)
+        if not getattr(func, "ticks_aware", False):
+            from dask_array_tpu_torch.ops._casting import datetime_call, is_datetime
+
+            if any(is_datetime(a) for a in self.args):
+                # datetime operands: int64 ticks in numpy's loop units
+                out = datetime_call(func, self.args, args, self.dtype, self._kwargs_dict)
+                return BlockView(self.chunks, dense=_store(out, self.dtype))
         dts = loop_dtypes(func, args)
         if dts is not None:
             from dask_array_tpu_torch.ops.ufuncs import compare_outside_range

@@ -45,6 +45,19 @@ def astype(x, astype_dtype=None, **kwargs):
     return cast(x, astype_dtype)
 
 
+def view(x, dtype, order="C"):
+    """numpy's ``view`` of one block (a tensor by ``Tensor.view``)."""
+    if _is_numpy(x):
+        if order == "C":
+            return np.asarray(x).view(dtype)
+        return np.asfortranarray(np.asarray(x)).T.view(dtype).T
+    from dask_array_tpu_torch._chunks import torch_dtype
+
+    if order == "C":
+        return x.contiguous().view(torch_dtype(dtype))
+    return x.mT.contiguous().view(torch_dtype(dtype)).mT if x.ndim > 1 else x.contiguous().view(torch_dtype(dtype))
+
+
 def trim(x, axes=None):
     """Trim ``axes`` elements off both sides of every axis (an int for all
     axes, a sequence or a dict by axis)."""

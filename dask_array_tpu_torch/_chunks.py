@@ -51,7 +51,7 @@ def parse_bytes(s) -> int:
 # dtypes: metadata follows numpy's rules; tensors carry the torch twin
 # ---------------------------------------------------------------------------
 
-# numpy dtype -> the torch dtype its blocks are held in (bfloat16 waits)
+# numpy dtype -> the torch dtype its blocks are held in
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.uint8): torch.uint8,
@@ -68,16 +68,80 @@ _TORCH_DTYPES = {
     np.dtype(np.complex64): torch.complex64,
     np.dtype(np.complex128): torch.complex128,
 }
+
+# ml_dtypes' extension floats that torch holds.  numpy knows them only when
+# ml_dtypes is importable (nothing installs it for the port); every other
+# ml_dtypes type (int2/int4, float4/6, float8_e3m4 ...) has no torch dtype
+# and is refused by name (``torch_dtype``).
+try:
+    import ml_dtypes
+except ImportError:  # pragma: no cover - the port runs without it
+    ml_dtypes = None
+ML_FLOATS = ("bfloat16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz")
+if ml_dtypes is not None:
+    for _name in ML_FLOATS:
+        _TORCH_DTYPES[np.dtype(getattr(ml_dtypes, _name))] = getattr(torch, _name)
 _NUMPY_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
+# a torch dtype numpy cannot hold as such crosses as the unsigned integer of
+# its width (the bytes of ``torch.from_numpy`` and ``Tensor.numpy``)
+_CROSSING = {t: (torch.uint16 if t.itemsize == 2 else torch.uint8) for t in _NUMPY_DTYPES
+             if _NUMPY_DTYPES[t].type.__module__ == "ml_dtypes"}
+
+
+def is_ml_dtype(dt) -> bool:
+    """An ml_dtypes extension type (kind 'V' without fields, or 'f' for
+    float8_e5m2)."""
+    dt = np.dtype(dt)
+    return dt.names is None and getattr(dt.type, "__module__", "") == "ml_dtypes"
+
+
+def device_dtype(dt) -> np.dtype:
+    """The numpy dtype a block of logical dtype ``dt`` holds on the device:
+    datetime64 and timedelta64 as their int64 ticks (the unit stays in the
+    metadata), anything else as it is."""
+    dt = np.dtype(dt)
+    return np.dtype(np.int64) if dt.kind in "Mm" else dt
+
+
+def host_only_dtype(dt) -> bool:
+    """True for dtypes with no device form (structured records, strings,
+    objects): their blocks stay host numpy.  ml_dtypes types report kind
+    'V' like records but are device dtypes (or refused by name)."""
+    dt = np.dtype(dt)
+    return dt.kind in "VUSOT" and not is_ml_dtype(dt)
 
 
 def torch_dtype(dt) -> torch.dtype:
-    """The torch dtype a block of numpy dtype ``dt`` is held in."""
-    dt = np.dtype(dt)
+    """The torch dtype a block of numpy dtype ``dt`` is held in (datetime
+    and timedelta blocks as int64 ticks)."""
+    dt = device_dtype(dt)
     got = _TORCH_DTYPES.get(dt)
     if got is None:
+        if is_ml_dtype(dt):
+            raise TypeError(f"ml_dtypes.{dt.name} has no torch dtype: dask_array_tpu_torch holds "
+                            f"{', '.join(ML_FLOATS)} of ml_dtypes' types")
         raise TypeError(f"dtype {dt} has no torch counterpart in dask_array_tpu_torch")
     return got
+
+
+def tensor_of(arr: np.ndarray) -> torch.Tensor:
+    """``torch.from_numpy`` for every held dtype: ml_dtypes floats cross as
+    the unsigned integer of their width, datetimes as int64 ticks."""
+    held = torch_dtype(arr.dtype)
+    cross = _CROSSING.get(held)
+    if cross is not None:
+        return torch.from_numpy(arr.view(_NUMPY_DTYPES[cross])).view(held)
+    if arr.dtype.kind in "Mm":
+        arr = arr.view(np.int64)
+    return torch.from_numpy(arr)
+
+
+def array_of(t: torch.Tensor) -> np.ndarray:
+    """``Tensor.numpy()`` of a CPU tensor for every held dtype."""
+    cross = _CROSSING.get(t.dtype)
+    if cross is not None:
+        return t.view(cross).numpy().view(_NUMPY_DTYPES[t.dtype])
+    return t.numpy()
 
 
 def numpy_dtype(dt: torch.dtype) -> np.dtype:
@@ -171,7 +235,10 @@ def as_stored(t: torch.Tensor, dt) -> torch.Tensor:
 
 def cast(t: torch.Tensor, dt) -> torch.Tensor:
     """A held block, or a value in ``compute_dtype(dt)``, as the block of
-    numpy dtype ``dt`` that numpy's ``astype`` makes of it."""
+    numpy dtype ``dt`` that numpy's ``astype`` makes of it.  A host block
+    (``_host.is_host_block``) is cast by numpy."""
+    if not isinstance(t, torch.Tensor):
+        return t if t.dtype == np.dtype(dt) else t.astype(dt)
     if t.dtype == torch_dtype(dt):
         return t
     return as_stored(t if t.dtype == compute_dtype(dt) else to_compute(t, dt), dt)
@@ -186,7 +253,13 @@ def computable(t):
 
 
 def cat(parts, dim=0) -> torch.Tensor:
-    """``torch.cat`` of held blocks, uint16/32/64 through their signed twin."""
+    """``torch.cat`` of held blocks, uint16/32/64 through their signed twin.
+    Host blocks (``_host.is_host_block``) concatenate on the host as numpy
+    does (``_host.concatenate``)."""
+    if not all(isinstance(p, torch.Tensor) for p in parts):
+        from dask_array_tpu_torch._host import concatenate
+
+        return concatenate(parts, dim)
     twin = _SIGNED_TWIN.get(parts[0].dtype)
     if twin is None or any(p.dtype != parts[0].dtype for p in parts):
         return torch.cat(parts, dim=dim)
@@ -218,7 +291,7 @@ def uint64_bits(v):
 # numpy's sort order of a held block: NaN last (all NaNs equal), -0.0 equal
 # to +0.0, uint64 unsigned, complex lexicographic with numpy's NaN classes
 
-_FLOAT_BITS = {torch.float16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+_FLOAT_BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
 
 
 def order_key(t: torch.Tensor) -> torch.Tensor:
@@ -302,15 +375,25 @@ def search_numpy(a, v, right):
 
 
 def dtype_key(dt) -> str:
-    """Canonical unique string for a dtype (token keys)."""
+    """Canonical unique string for a dtype (token keys).  ``dt.str`` is not
+    unique: ml_dtypes types share '<V1'/'<V2', and records of one itemsize
+    share '|V8'; records key by their field spec, ml_dtypes types by name
+    (both parse back with ``np.dtype``)."""
     dt = np.dtype(dt)
     if dt.names is not None:
         return str(dt)
+    if is_ml_dtype(dt):
+        return dt.name
     return dt.str
 
 
 def is_float_dtype(dt) -> bool:
-    return np.dtype(dt).kind == "f"
+    """``np.issubdtype(dt, np.floating)``, ml_dtypes' floats included (they
+    stand outside numpy's type hierarchy)."""
+    dt = np.dtype(dt)
+    if dt.kind == "f":
+        return True
+    return is_ml_dtype(dt) and "float" in dt.name
 
 
 def is_integer(x) -> bool:

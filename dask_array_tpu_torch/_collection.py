@@ -69,7 +69,8 @@ class Persisted(ArrayExpr):
     The name is the token too, so tokenizing a plan that holds this leaf
     never hashes the tensor's contents."""
 
-    _parameters = ("buffer", "chunks_", "pinned_name")
+    _parameters = ("buffer", "chunks_", "pinned_name", "dtype_")
+    _defaults = {"dtype_": None}
 
     _fusable_leaf = True
 
@@ -93,7 +94,9 @@ class Persisted(ArrayExpr):
 
     @functools.cached_property
     def _meta(self):
-        return np.empty((0,) * len(self.chunks_), dtype=numpy_dtype(self.buffer.dtype))
+        # a datetime's unit is in the metadata only (its ticks are int64)
+        dtype = self.dtype_ if self.dtype_ is not None else numpy_dtype(self.buffer.dtype)
+        return np.empty((0,) * len(self.chunks_), dtype=dtype)
 
     def _leaf_buffers(self):
         yield (f"persist-{self.pinned_name}", self.buffer)
@@ -111,10 +114,10 @@ class Persisted(ArrayExpr):
     def __reduce__(self):
         # the tensor travels in host memory, so a leaf pickled beside a
         # card loads where there is none
-        return (_load_persisted, (self.buffer.cpu(), self.chunks_, self.pinned_name))
+        return (_load_persisted, (self.buffer.cpu(), self.chunks_, self.pinned_name, self.dtype_))
 
 
-def _load_persisted(buffer, chunks, pinned_name):
+def _load_persisted(buffer, chunks, pinned_name, dtype=None):
     """A pickled ``Persisted`` leaf, its tensor on the configured device.
     Where that is a card this machine lacks, the tensor stays in host
     memory: a ``compute()`` there raises as every one does without a card,
@@ -124,7 +127,7 @@ def _load_persisted(buffer, chunks, pinned_name):
     device = torch.device(config.get("device", "cuda"))
     if device.type != "cuda" or torch.cuda.is_available():
         buffer = buffer.to(device)
-    return Persisted(buffer, chunks, pinned_name)
+    return Persisted(buffer, chunks, pinned_name, dtype)
 
 
 def _binop(fn, reflexive=False):
@@ -347,7 +350,14 @@ class Array:
         leaf under this collection's name."""
         from dask_array_tpu_torch._materialize import compute_expr
 
+        from dask_array_tpu_torch import _host
+
         buf = compute_expr(self._expr)
+        if _host.is_host_block(buf):
+            # a masked, duck or record result stays on the host: a leaf of it
+            from dask_array_tpu_torch.ops._from_array import from_array
+
+            return from_array(buf, chunks=self.chunks)
         if isinstance(buf, np.ndarray):
             # streamed out of core: the result stays in host memory, and
             # each later compute uploads what it reads of it
@@ -362,7 +372,8 @@ class Array:
             chunks = tuple(
                 c if not any(np.isnan(x) for x in c) else (s,) for c, s in zip(chunks, buf.shape)
             )
-        return new_collection(Persisted(buf, chunks, self.name))
+        dtype = self.dtype if self.dtype.kind in "Mm" else None
+        return new_collection(Persisted(buf, chunks, self.name, dtype))
 
     def visualize(self, *args, **kwargs):
         """The expression tree as a table (``diagnostics.expr_table``)."""
@@ -726,6 +737,11 @@ class Array:
         from dask_array_tpu_torch.ops.reductions import all as _all
 
         return _all(self, axis=axis, keepdims=keepdims, split_every=split_every, out=out)
+
+    def view(self, dtype=None, order="C"):
+        from dask_array_tpu_torch.ops._view import view
+
+        return view(self, dtype, order)
 
     def argmin(self, axis=None, keepdims=False, split_every=None, out=None):
         from dask_array_tpu_torch.ops.reductions import argmin as _argmin

@@ -5,8 +5,12 @@ Port of the table in ``dask_array_tpu/_dispatch.py`` (``_table``,
 ``lookup_array_function``), pointing at the port's functions and holding
 only the ones the port has.  A numpy function without an entry returns
 ``NotImplemented`` (numpy then raises ``TypeError``): nothing computes in
-numpy on the host instead.  ``register_chunk_type`` waits for the host lane
-of odd chunk types (ROADMAP S9).
+numpy on the host instead.
+
+The chunk-type registry (``register_chunk_type``) names the duck-array
+types a block may be: their blocks stay as they are, on the host lane
+(``_host.py``), and compute through numpy's API, which dispatches through
+the type's ``__array_ufunc__``/``__array_function__``.
 """
 
 from __future__ import annotations
@@ -91,3 +95,48 @@ def lookup_array_function(func):
     if _TABLE is None:
         _TABLE = _table()
     return _TABLE.get(func)
+
+
+# ---------------------------------------------------------------------------
+# the chunk-type registry: duck-array types a block may be
+# ---------------------------------------------------------------------------
+
+_HANDLED_CHUNK_TYPES: list = [np.ndarray, np.ma.MaskedArray]
+
+# the registered types that are not numpy arrays: their blocks ride the
+# host lane with their type kept (a tuple: ``is_duck_chunk`` is on every
+# block's path)
+_DUCK_TYPES: tuple = ()
+
+
+def _refresh_duck_types():
+    global _DUCK_TYPES
+    _DUCK_TYPES = tuple(t for t in _HANDLED_CHUNK_TYPES if isinstance(t, type) and not issubclass(t, np.ndarray))
+
+
+def register_chunk_type(type_):
+    """Register a duck-array type as a valid block type: an array that is
+    not numpy's, that the port wraps as a block and does not defer to in
+    arithmetic and numpy functions.  Its blocks stay on the host, as they
+    are, and compute through numpy's API (NEP-13/NEP-18 dispatch)."""
+    _HANDLED_CHUNK_TYPES.append(type_)
+    _refresh_duck_types()
+
+
+def is_valid_chunk_type(type_) -> bool:
+    """Is ``type_`` a registered block type?  Anything that is not a type
+    is not one."""
+    try:
+        return issubclass(type_, tuple(_HANDLED_CHUNK_TYPES))
+    except TypeError:
+        return False
+
+
+def is_valid_array_chunk(array) -> bool:
+    """Is ``array`` of a type the port can wrap as a block?"""
+    return array is None or isinstance(array, tuple(_HANDLED_CHUNK_TYPES))
+
+
+def is_duck_chunk(x) -> bool:
+    """Is ``x`` a block of a registered duck type (not a numpy array)?"""
+    return bool(_DUCK_TYPES) and isinstance(x, _DUCK_TYPES)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import cached_cumsum, cat
+from dask_array_tpu_torch._chunks import cached_cumsum, cat, tensor_of
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import upload
 
@@ -154,9 +154,15 @@ def to_device(buf, device: torch.device) -> torch.Tensor:
     (``materialize()``: ``io/_from_map.py``) is made first; an array-like
     store without ``__array__`` is read whole by slicing.  A block of a
     dtype with no torch counterpart (an object payload) stays on the
-    host."""
+    host.  So does a block with no device form (masked, of a registered
+    duck type, of a host-only dtype: ``_host.is_host_block``), as it is;
+    a datetime64/timedelta64 block goes up as its int64 ticks."""
+    from dask_array_tpu_torch._host import is_host_block
+
     if hasattr(buf, "materialize"):
         buf = buf.materialize()
+    if is_host_block(buf):
+        return buf
     if isinstance(buf, torch.Tensor):
         if buf.device.type == "cpu" and device.type == "cuda":
             return upload(buf, device)
@@ -164,13 +170,47 @@ def to_device(buf, device: torch.device) -> torch.Tensor:
     if not isinstance(buf, np.ndarray) and not hasattr(buf, "__array__") and hasattr(buf, "shape"):
         buf = buf[(slice(None),) * len(buf.shape)]
     buf = np.asarray(buf)
-    if buf.dtype.hasobject:
+    if is_host_block(buf):
         return buf
+    if buf.dtype.kind in "Mm":
+        buf = buf.view(np.int64)
     if device.type == "cuda":
         return upload(buf, device)
     # torch.from_numpy needs a writable, positively-strided buffer
     arr = np.require(buf, requirements=("C", "W"))
-    return torch.from_numpy(arr).to(device)
+    return tensor_of(arr).to(device)
+
+
+# nodes that keep a mask on the host lane: they move blocks (numpy.ma
+# does), or run numpy(.ma)'s counterpart of their torch code
+# (``_host.host_kernel``).  Any other node would drop the mask, and raises.
+_MASKED_PASSTHROUGH = frozenset({
+    "FromArray", "Slice", "Take", "Concatenate", "ExpandDims", "Rechunk", "MapBlocks", "Elemwise",
+    "Blockwise", "Transpose", "Squeeze", "Reduction", "CumReduction", "ArgReduction",
+})
+
+
+def _masked_below(node, memo) -> bool:
+    got = memo.get(node._name)
+    if got is None:
+        got = memo[node._name] = any(isinstance(b, np.ma.MaskedArray) for _, b in node._leaf_buffers()) or any(
+            _masked_below(d, memo) for d in node.dependencies())
+    return got
+
+
+def check_masked_ops(root: ArrayExpr) -> None:
+    """Raise for a node that cannot keep a mask, where a masked leaf lies
+    below it.  Runs on the logical tree (before lowering, where
+    ``MapBlocks`` is still itself); a branch with no masked leaf (a
+    ``ones()`` meeting a masked array) computes as always."""
+    if not any(isinstance(b, np.ma.MaskedArray) for _, b in collect_leaves(root)):
+        return
+    masked_below: dict[str, bool] = {}
+    for node in root.walk():
+        if _masked_below(node, masked_below) and type(node).__name__ not in _MASKED_PASSTHROUGH:
+            raise NotImplementedError(
+                f"{type(node).__name__} on a masked array would drop the mask; call x.filled(...) first "
+                "(or use map_blocks with numpy.ma functions)")
 
 
 def execute(root: ArrayExpr) -> torch.Tensor:

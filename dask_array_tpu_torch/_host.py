@@ -22,6 +22,15 @@ uint64 block arrives as uint64), passes numpy dtypes for torch ones,
 calls the function, and uploads each numeric result to the node's device;
 other results (object payloads, dicts of them) stay on the host.
 ``HOST_CALLS`` counts host calls.  The lane is shown in ``pprint()``.
+
+Blocks with no device form ride this lane too, decided by the block's type
+and dtype, never by the device: masked arrays (``np.ma``), blocks of a
+registered duck type (``_dispatch.register_chunk_type``) and records,
+strings and objects (``_chunks.host_only_dtype``).  They are never
+uploaded; each node that meets one runs numpy's counterpart of its torch
+code (``host_kernel``: by the numpy function the port's function stands
+for), which keeps the mask (and numpy.ma's domain masking) or the duck
+type.  Where no mask-safe counterpart exists the node raises.
 """
 
 from __future__ import annotations
@@ -31,9 +40,88 @@ import functools
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import numpy_dtype, torch_dtype
+from dask_array_tpu_torch._chunks import array_of, host_only_dtype, numpy_dtype, tensor_of, torch_dtype
+from dask_array_tpu_torch._dispatch import is_duck_chunk
 
 HOST_CALLS = 0
+
+
+def is_host_block(x) -> bool:
+    """A block with no device form: masked, of a registered duck type, or
+    of a host-only dtype (records, strings, objects)."""
+    if isinstance(x, torch.Tensor):
+        return False
+    if isinstance(x, np.ma.MaskedArray) or is_duck_chunk(x):
+        return True
+    dt = getattr(x, "dtype", None)
+    return isinstance(dt, np.dtype) and host_only_dtype(dt)
+
+
+def any_host_block(args) -> bool:
+    return any(is_host_block(v) for v in _leaves(args))
+
+
+def host_array(v):
+    """A tensor operand of a host-lane call as numpy (blocks and numbers
+    pass as they are)."""
+    return array_of(v.detach().cpu()) if isinstance(v, torch.Tensor) else v
+
+
+# torch functions of the port's own use whose numpy counterpart is not
+# named alike (``_expr._TORCH_TO_NUMPY_NAME`` holds the ufunc names)
+_NUMPY_OF = {torch.clamp_min: np.maximum, torch.clamp_max: np.minimum, torch.nan_to_num: np.nan_to_num,
+             torch.real: np.real, torch.conj: np.conjugate}
+
+
+def host_kernel(func, masked: bool):
+    """numpy's counterpart of a node's function, for host blocks.
+
+    The numpy ufunc a torch or port function stands for (numpy.ma's
+    ufuncs mask domain errors: ``sqrt`` of a negative comes back masked);
+    the numpy function a port function declares (``numpy_function``; its
+    ``np.ma`` form for masked blocks); a port function written for host
+    blocks (``host_safe``) or a user's function as it is.  None where there
+    is no such counterpart: the caller raises rather than drop a mask."""
+    from dask_array_tpu_torch._expr import _numpy_equivalent
+
+    np_fn = _numpy_equivalent(func) or _NUMPY_OF.get(func)
+    if np_fn is not None:
+        return np_fn
+    declared = getattr(func, "numpy_function", None)
+    if declared is not None:
+        return getattr(np.ma, declared.__name__, declared) if masked else declared
+    if getattr(func, "host_safe", False) or fixed_lane(func) is not False:
+        return func
+    return None
+
+
+def concatenate(parts, axis=0):
+    """Host blocks (and tensors beside them) concatenated as numpy does: a
+    duck block dispatches ``np.concatenate`` to its type (NEP-18), else a
+    masked one takes ``np.ma.concatenate`` (``np.concatenate`` drops the
+    mask)."""
+    parts = [host_array(p) for p in parts]
+    if any(is_duck_chunk(p) for p in parts):
+        return np.concatenate(parts, axis=axis)
+    if any(isinstance(p, np.ma.MaskedArray) for p in parts):
+        return np.ma.concatenate(parts, axis=axis)
+    return np.concatenate(parts, axis=axis)
+
+
+def call_on_host(func, args, kwargs):
+    """``func`` (a node's function) on host blocks, with every tensor
+    operand copied to numpy.  Raises for a function with no numpy
+    counterpart."""
+    masked = any(isinstance(v, np.ma.MaskedArray) for v in _leaves(args))
+    fn = host_kernel(func, masked)
+    if fn is None:
+        what = "mask-preserving host kernel; call x.filled(...) first" if masked else "numpy host kernel"
+        raise NotImplementedError(f"{getattr(func, '__name__', func)!r} has no {what}")
+    with np.errstate(all="ignore"):
+        out = fn(*tree_map(host_array, args), **tree_map(host_array, kwargs))
+    # a ufunc of several outputs stands behind one node an output
+    return out[func.numpy_output] if isinstance(out, tuple) and hasattr(func, "numpy_output") else out
+
 
 _PACKAGE = __name__.split(".")[0]
 
@@ -112,7 +200,7 @@ def _plain(v):
 
 def _to_host(v):
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        return array_of(v.detach().cpu())
     if isinstance(v, torch.dtype):
         return numpy_dtype(v)
     if isinstance(v, functools.partial):
@@ -124,16 +212,23 @@ def _upload(device):
     def up(v):
         if isinstance(v, (bool, int, float, complex)):
             v = np.asarray(v)
-        if isinstance(v, (np.ndarray, np.generic)) and v.dtype.names is None:
+        if isinstance(v, (np.ndarray, np.generic)) and not is_host_block(v):
             try:
                 torch_dtype(v.dtype)
             except TypeError:
-                return v  # object and other host-only payloads stay on the host
+                return v  # other host-only payloads stay on the host
             arr = np.require(np.asarray(v), requirements=("C", "W"))
-            return torch.from_numpy(arr).to(device)
+            return tensor_of(arr).to(device)
         return v
 
     return up
+
+
+def settle(out, device):
+    """A host-lane result where it belongs: host blocks stay on the host,
+    numeric numpy arrays (a masked array's plain sum, say) go to
+    ``device`` as tensors."""
+    return tree_map(_upload(device), out)
 
 
 def _hosted(out, device):
@@ -162,6 +257,10 @@ def call(node, key, func, args, kwargs, device, torch_args=None):
     a host call reads); ``torch_args``, where given, are the same in the
     form a torch function takes (``_chunks.computable``)."""
     targs = args if torch_args is None else torch_args
+    if any_host_block(args):
+        # blocks with no device form: numpy's counterpart on them, its
+        # result kept on the host where it has no device form either
+        return _hosted(call_on_host(func, args, kwargs), device)
     host = lane_of(node, key, func)
     if host is True:
         return host_call(func, args, kwargs, device)

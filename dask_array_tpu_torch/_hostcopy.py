@@ -35,6 +35,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dask_array_tpu_torch._chunks import array_of, tensor_of
+
 SLOT_BYTES = 32 << 20
 SLOTS = 4
 # host threads that copy a piece between a slot and the caller's array: one
@@ -130,12 +132,13 @@ def _staged(view: np.ndarray, nb: int, like: np.ndarray) -> np.ndarray:
 
 
 def _torch_dtype_of(dtype: np.dtype) -> torch.dtype:
-    # the dtype torch.from_numpy gives: the upload keeps it
-    return torch.from_numpy(np.empty(0, dtype)).dtype
+    # the dtype ``_chunks.tensor_of`` gives (ml_dtypes' bfloat16 as
+    # torch's, a datetime as int64 ticks): the upload keeps it
+    return tensor_of(np.empty(0, dtype)).dtype
 
 
 def _numpy_dtype_of(dtype: torch.dtype) -> np.dtype:
-    return torch.empty(0, dtype=dtype).numpy().dtype
+    return array_of(torch.empty(0, dtype=dtype)).dtype
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:

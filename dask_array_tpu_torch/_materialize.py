@@ -14,7 +14,8 @@ import functools
 import numpy as np
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._executor import execute, execute_many
+from dask_array_tpu_torch._chunks import array_of
+from dask_array_tpu_torch._executor import check_masked_ops, execute, execute_many
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import fetch
 
@@ -76,6 +77,7 @@ def compute_expr(expr: ArrayExpr, optimize: bool = True):
     or a host numpy array where the out-of-core lane answered
     (``_streaming.maybe_stream``: such a result may itself exceed the
     card's memory)."""
+    check_masked_ops(expr)  # on the logical tree: MapBlocks is still itself
     if optimize:
         from dask_array_tpu_torch._streaming import maybe_stream
 
@@ -89,6 +91,8 @@ def compute_expr(expr: ArrayExpr, optimize: bool = True):
 def compute_exprs(exprs) -> list:
     """Optimize several expressions together and execute them in one walk;
     returns their dense tensors on ``config["device"]``."""
+    for e in exprs:
+        check_masked_ops(e)
     if config.get("array.optimize-graph", True):
         from dask_array_tpu_torch.ops._multistat import fuse_multi_stat
 
@@ -100,13 +104,21 @@ def to_numpy(out, expr: ArrayExpr) -> np.ndarray:
     """The computed value as numpy.  A CUDA tensor comes back through the
     pinned ring into a new pageable array (``_hostcopy.fetch``); a host
     array (an object payload of ``store(load_stored=False)``, a streamed
-    result) passes as it is."""
-    if isinstance(out, np.ndarray):
-        arr = out
+    result, a masked array) passes as it is, and so does a block of a
+    registered duck type.  A datetime64/timedelta64 result comes back from
+    its int64 ticks in the unit the metadata records."""
+    from dask_array_tpu_torch._dispatch import is_duck_chunk
+
+    if is_duck_chunk(out):
+        return out
+    if isinstance(out, (np.ndarray, np.generic)):
+        arr = out if isinstance(out, np.ndarray) else np.asarray(out)
     elif out.device.type == "cuda":
         arr = fetch(out.detach())
     else:
-        arr = out.detach().numpy()
+        arr = array_of(out.detach())
+    if expr.dtype.kind in "Mm" and arr.dtype == np.int64:
+        arr = arr.view(expr.dtype)
     if arr.dtype != expr.dtype:
         raise TypeError(f"computed {arr.dtype} where the metadata says {expr.dtype}")
     return arr

@@ -109,8 +109,8 @@ def getitem_tensor(t: torch.Tensor, index) -> torch.Tensor:
 
     Descending slices select the same elements ascending, then flip."""
     index = tuple(index)
-    if all(not isinstance(i, slice) or (i.step or 1) > 0 for i in index):
-        return t[index]
+    if not isinstance(t, torch.Tensor) or all(not isinstance(i, slice) or (i.step or 1) > 0 for i in index):
+        return t[index]  # (a host block takes numpy's index as it is)
     asc = []
     flip_dims = []
     out_dim = 0

@@ -46,6 +46,7 @@ import torch
 
 from dask_array_tpu_torch import config
 from dask_array_tpu_torch._chunks import parse_bytes
+from dask_array_tpu_torch._host import is_host_block
 
 # engagement spy: how often the lane answered, how many panels it ran, how
 # many unshrinkable leaves it made resident, and the host bytes its panels
@@ -123,8 +124,13 @@ def _regular_rows(heights):
 
 
 def _host_only(dt) -> bool:
+    """Dtypes the lane does not stream: the host lane's (records, strings,
+    objects), and datetime ticks and ml_dtypes' types, which compute in
+    core."""
+    from dask_array_tpu_torch._chunks import host_only_dtype, is_ml_dtype
+
     dt = np.dtype(dt)
-    return dt.hasobject or dt.kind in "MmSUV"
+    return host_only_dtype(dt) or dt.kind in "Mm" or is_ml_dtype(dt)
 
 
 def _scan(expr):
@@ -144,8 +150,8 @@ def _scan(expr):
             if _host_only(node.dtype):
                 return None
             if not node.dependencies():
-                if type(node).__name__ == "FromArray" and isinstance(node.source, np.ma.MaskedArray):
-                    return None
+                if type(node).__name__ == "FromArray" and is_host_block(node.source):
+                    return None  # a masked or duck leaf: the host lane
                 if _is_host_leaf(node):
                     leaf_bytes += int(nb)
             biggest = max(biggest, int(nb))

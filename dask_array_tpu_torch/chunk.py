@@ -1,5 +1,4 @@
-"""Public alias for the per-block functions (dask's ``dask.array.chunk``).
-``view`` waits for the host lane of odd dtypes (ROADMAP S9)."""
+"""Public alias for the per-block functions (dask's ``dask.array.chunk``)."""
 
 from dask_array_tpu_torch._chunk import (  # noqa: F401
     arange,
@@ -15,4 +14,5 @@ from dask_array_tpu_torch._chunk import (  # noqa: F401
     topk,
     topk_aggregate,
     trim,
+    view,
 )

@@ -38,10 +38,13 @@
 // periodic wraps modulo the axis length, constant fills.  Where axis 1 is
 // constant, its fill wins at a corner, even when axis 0 is constant too.
 //
-// float16 and float32 accumulate in float, float64 in double.  No shape
+// float16, bfloat16 and float32 accumulate in float, float64 in double; a
+// 16-bit value is widened on load and rounded once, to nearest even, on
+// store.  No shape
 // condition: ragged edges are masked.  Launches on the caller's stream;
 // band_stencil_launch returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +102,13 @@ struct Acc<__half> {
   using type = float;
   __device__ static float load(__half v) { return __half2float(v); }
   __device__ static __half store(float v) { return __float2half_rn(v); }
+};
+
+template <>
+struct Acc<__nv_bfloat16> {
+  using type = float;
+  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __nv_bfloat16 store(float v) { return __float2bfloat16_rn(v); }
 };
 
 template <>
@@ -369,7 +379,7 @@ bool variant_fits(int variant, int d0, int d1) {
 
 extern "C" {
 
-// dtype: 0 float16, 1 float32, 2 float64.  x and out are contiguous (M, N)
+// dtype: 0 float16, 1 float32, 2 float64, 3 bfloat16.  x and out are contiguous (M, N)
 // on the device.  table: host bytes packed by kernels/stencil.py::_tap_table,
 // little-endian:
 //   int32 d0, d1, bd0, bd1, ntaps, variant, window_mask, 0;   (32 bytes)
@@ -385,8 +395,8 @@ int band_stencil_launch(int dtype, const void* x, void* out, long long M, long l
   int head[8];
   memcpy(head, t, sizeof(head));
   const int d0 = head[0], d1 = head[1], ntaps = head[4], variant = head[5];
-  const size_t itemsize = dtype == 0 ? 2 : (dtype == 1 ? 4 : 8);
-  if (dtype < 0 || dtype > 2 || M <= 0 || N <= 0 || d0 < 0 || d0 > kMaxDepth || d1 < 0 || d1 > kMaxDepth ||
+  const size_t itemsize = (dtype == 0 || dtype == 3) ? 2 : (dtype == 1 ? 4 : 8);
+  if (dtype < 0 || dtype > 3 || M <= 0 || N <= 0 || d0 < 0 || d0 > kMaxDepth || d1 < 0 || d1 > kMaxDepth ||
       ntaps < 1 || ntaps > kMaxTaps ||
       ((M + kTileRows - 1) / kTileRows) * ((N + kTileCols - 1) / kTileCols) > 0x7fffffffLL ||
       !variant_fits(variant, d0, d1)) {
@@ -418,6 +428,7 @@ int band_stencil_launch(int dtype, const void* x, void* out, long long M, long l
     switch (dtype) {
       case 0: return launch<__half>(&band_stencil_window<__half, 1, 1>, x, out, p, s);
       case 1: return launch<float>(&band_stencil_window<float, 1, 1>, x, out, p, s);
+      case 3: return launch<__nv_bfloat16>(&band_stencil_window<__nv_bfloat16, 1, 1>, x, out, p, s);
       default: return launch<double>(&band_stencil_window<double, 1, 1>, x, out, p, s);
     }
   }
@@ -438,6 +449,7 @@ int band_stencil_launch(int dtype, const void* x, void* out, long long M, long l
   switch (dtype) {
     case 0: return launch<__half>(&band_stencil_taps<__half>, x, out, p, s);
     case 1: return launch<float>(&band_stencil_taps<float>, x, out, p, s);
+    case 3: return launch<__nv_bfloat16>(&band_stencil_taps<__nv_bfloat16>, x, out, p, s);
     default: return launch<double>(&band_stencil_taps<double>, x, out, p, s);
   }
 }

@@ -77,6 +77,7 @@
 // Launches on the caller's stream; histogram_launch returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -110,6 +111,13 @@ struct Elem<__half> {
   static __device__ __forceinline__ R re(__half v) { return static_cast<R>(__half2float(v)); }
   template <typename R>
   static __device__ __forceinline__ R im(__half) { return R(0); }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  template <typename R>
+  static __device__ __forceinline__ R re(__nv_bfloat16 v) { return static_cast<R>(__bfloat162float(v)); }
+  template <typename R>
+  static __device__ __forceinline__ R im(__nv_bfloat16) { return R(0); }
 };
 template <>
 struct Elem<float2> {
@@ -527,7 +535,7 @@ cudaError_t launch(const void* x, long long n, const void* edges, int nb, const 
 
 // data codes: 0 bool, 1 uint8, 2 int8, 3 int16, 4 uint16, 5 int32, 6 uint32,
 // 7 int64, 8 uint64, 9 float16, 10 float32, 11 float64, 12 complex64,
-// 13 complex128; comparison codes: 0 float32, 1 float64, 2 int64, 3 uint64,
+// 13 complex128, 14 bfloat16; comparison codes: 0 float32, 1 float64, 2 int64, 3 uint64,
 // 4 complex64, 5 complex128 (kernels/histogram.py mirrors both, and its
 // KERNEL_PAIRS the pairs instantiated here: a complex comparison takes
 // complex data, the wrapper casting real data to it)
@@ -553,7 +561,7 @@ cudaError_t by_data(int tcode, const void* x, long long n, const void* edges, in
   } else if constexpr (kF32) {  // data that float32 holds exactly
     switch (tcode) {
       HIST_CASE(0, unsigned char) HIST_CASE(1, unsigned char) HIST_CASE(2, signed char) HIST_CASE(3, short)
-      HIST_CASE(4, unsigned short) HIST_CASE(9, __half) HIST_CASE(10, float)
+      HIST_CASE(4, unsigned short) HIST_CASE(9, __half) HIST_CASE(10, float) HIST_CASE(14, __nv_bfloat16)
       default: break;
     }
   } else if constexpr (kF64) {
@@ -561,6 +569,7 @@ cudaError_t by_data(int tcode, const void* x, long long n, const void* edges, in
       HIST_CASE(0, unsigned char) HIST_CASE(1, unsigned char) HIST_CASE(2, signed char) HIST_CASE(3, short)
       HIST_CASE(4, unsigned short) HIST_CASE(5, int) HIST_CASE(6, unsigned) HIST_CASE(7, long long)
       HIST_CASE(8, unsigned long long) HIST_CASE(9, __half) HIST_CASE(10, float) HIST_CASE(11, double)
+      HIST_CASE(14, __nv_bfloat16)
       default: break;
     }
   } else if constexpr (kI64) {

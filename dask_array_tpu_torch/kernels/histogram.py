@@ -41,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cast, numpy_dtype, order_key, search_numpy, to_compute
+from dask_array_tpu_torch._chunks import cast, is_float_dtype, numpy_dtype, order_key, search_numpy, to_compute
 from dask_array_tpu_torch.kernels._build import Launcher
 
 # kernel launches since the last reset; only the *_cuda functions add to it
@@ -123,15 +123,15 @@ def bincount_counts(x, length, weights=None):
 DATA_CODES = {
     torch.bool: 0, torch.uint8: 1, torch.int8: 2, torch.int16: 3, torch.uint16: 4, torch.int32: 5,
     torch.uint32: 6, torch.int64: 7, torch.uint64: 8, torch.float16: 9, torch.float32: 10, torch.float64: 11,
-    torch.complex64: 12, torch.complex128: 13,
+    torch.complex64: 12, torch.complex128: 13, torch.bfloat16: 14,
 }
 COMPARE_CODES = {"float32": 0, "float64": 1, "int64": 2, "uint64": 3, "complex64": 4, "complex128": 5}
 # the data codes each comparison type takes (csrc/histogram.cu's by_data
 # instantiates exactly these): float32 holds bool, the 8- and 16-bit
-# integers and float16/float32 exactly; a complex comparison takes complex
+# integers and float16/bfloat16/float32 exactly; a complex comparison takes complex
 # data (``kernel_data`` casts real data to it)
 KERNEL_PAIRS = {
-    "float32": {0, 1, 2, 3, 4, 9, 10}, "complex64": {12}, "float64": set(range(12)), "complex128": {12, 13},
+    "float32": {0, 1, 2, 3, 4, 9, 10, 14}, "complex64": {12}, "float64": set(range(12)) | {14}, "complex128": {12, 13},
     "int64": set(range(8)), "uint64": {0, 1, 4, 6, 8},
 }
 _COMPARE_TORCH = {"float32": torch.float32, "float64": torch.float64, "int64": torch.int64, "uint64": torch.int64,
@@ -151,10 +151,10 @@ def comparison_dtype(data_dtype, edges_dtype) -> np.dtype:
 @functools.lru_cache(maxsize=None)
 def kernel_compare(rt) -> str:
     """The type the kernel compares a comparison dtype ``rt`` in: float32
-    for float16/float32 (exact for both), float64, complex64/complex128
+    for float16/bfloat16/float32 (exact for each), float64, complex64/complex128
     (lexicographic), uint64, and int64 for every other integer or bool."""
     rt = np.dtype(rt)
-    if rt.kind == "f":
+    if is_float_dtype(rt):  # bfloat16 too: float32 holds it exactly
         return "float32" if rt.itemsize <= 4 else "float64"
     if rt.kind == "c":
         return rt.name

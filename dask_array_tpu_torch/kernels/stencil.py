@@ -34,7 +34,8 @@ MAX_DEPTH = 8
 MAX_TAPS = (2 * MAX_DEPTH + 1) ** 2
 _BOUNDARY_CODES = {"reflect": 0, "nearest": 1, "periodic": 2}
 _CONSTANT_CODE = 3
-_DTYPE_CODES = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
+_DTYPE_CODES = {torch.float16: 0, torch.float32: 1, torch.float64: 2, torch.bfloat16: 3}
+_KERNEL_DTYPES = ("float16", "bfloat16", "float32", "float64")
 
 # kernel launches since the last reset; only band_stencil_cuda adds to it
 LAUNCHES = 0
@@ -203,7 +204,7 @@ def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
     if not trim or len(arrays) != 1 or kwargs:
         return None
     a = arrays[0]
-    if a.ndim != 2 or np.dtype(a.dtype) not in (np.float16, np.float32, np.float64):
+    if a.ndim != 2 or np.dtype(a.dtype).name not in _KERNEL_DTYPES:
         return None
     if any(not isinstance(s, Integral) or s <= 0 for s in a.shape):
         return None
@@ -226,7 +227,12 @@ def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
 
 
 def band_stencil_plain(x: torch.Tensor, func, depth, boundary) -> torch.Tensor:
-    """``trim(func(pad(x)))`` in torch: the kernel's reference."""
+    """``trim(func(pad(x)))`` in torch: the kernel's reference.  bfloat16
+    computes in float32 and rounds once, as the kernel does (a constant
+    fill rounded to bfloat16 first, as the kernel reads it)."""
+    if x.dtype == torch.bfloat16:
+        boundary = tuple(float(torch.tensor(b, dtype=x.dtype)) if _is_scalar(b) else b for b in boundary)
+        return band_stencil_plain(x.float(), func, depth, boundary).to(x.dtype)
     d0, d1 = depth
     p = pad_axis(x, 0, d0, d0, boundary[0])
     p = pad_axis(p, 1, d1, d1, boundary[1])
@@ -311,7 +317,7 @@ def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
     """Launch the band-stencil kernel on a 2-D CUDA tensor.
 
     Raises on anything the kernel does not take: a non-CUDA or
-    non-contiguous tensor, a dtype other than float16/32/64, a depth above
+    non-contiguous tensor, a dtype other than float16/bfloat16/32/64, a depth above
     8, a tap outside the depth, or an unknown boundary.  The launch's
     arguments are cached by the call's own (taps, depth, boundary, dtype),
     so a repeated call only checks the tensor, allocates the output and

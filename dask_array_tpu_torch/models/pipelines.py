@@ -65,7 +65,9 @@ def reduction_tree(x_np=None, chunk=1000, split_every=4, n=10000):
 
 def blocked_matmul(a_np, b_np, chunk=1024):
     """``a @ b`` with misaligned operand chunks (BASELINE config 3): ``b``
-    is chunked at ``chunk // 2``, which exercises chunk unification."""
+    is chunked at ``chunk // 2``, which exercises chunk unification.
+    BASELINE's operands are bfloat16 (ml_dtypes' type): the product stays
+    bfloat16, each block product accumulated in float32 by cuBLAS."""
     import dask_array_tpu_torch as da
 
     a = da.from_array(np.asarray(a_np), chunks=chunk)

@@ -23,6 +23,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
+from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._chunks import computable, moved, validate_axis
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
@@ -125,6 +126,11 @@ class Take(ArrayExpr):
 
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
+        if _host.is_host_block(dense):
+            # numpy's take: a masked block keeps its mask, a duck block
+            # dispatches through its type
+            idx = np.asarray(_host.host_array(ctx.leaf(self._index_key)), dtype=np.int64)
+            return BlockView(self.chunks, dense=np.take(dense, idx, axis=self.axis))
         out = moved(torch.index_select, dense, self.axis, ctx.leaf(self._index_key))
         return BlockView(self.chunks, dense=out)
 

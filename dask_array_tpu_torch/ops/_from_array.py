@@ -18,7 +18,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import normalize_chunks, numpy_dtype, torch_dtype
+from dask_array_tpu_torch._chunks import host_only_dtype, normalize_chunks, numpy_dtype, torch_dtype
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import fuse_slice, is_basic_index, sliced_blockdim
@@ -200,15 +200,18 @@ def from_array(x, chunks="auto", name=None, lock=False, asarray=None, fancy=True
     region a slice needs; its grid defaults to the storage granule.
     ``lock``, ``asarray``, ``fancy``, ``meta`` and ``inline_array`` are
     accepted for dask's signature: reads are serial, and the executor
-    makes every block a tensor.
+    makes every block a tensor.  A masked array, a registered duck array
+    (``register_chunk_type``) and records, strings or objects are kept as
+    they are: their blocks compute on the host lane (``_host.py``).
     """
     from dask_array_tpu_torch._collection import Array, new_collection
 
     if isinstance(x, Array):
         raise ValueError("Array is already a lazy dask_array_tpu_torch.Array")
-    if not is_store(x):
+    if not is_store(x) and not isinstance(x, np.ma.MaskedArray):
         x = np.asarray(x)
-    torch_dtype(x.dtype)  # refuse dtypes the port cannot compute in, now
+    if not host_only_dtype(x.dtype):
+        torch_dtype(x.dtype)  # refuse dtypes the port cannot compute in, now
     prev = None
     granule = _storage_granule(x)
     if granule is not None:

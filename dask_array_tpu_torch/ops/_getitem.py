@@ -33,9 +33,9 @@ def getitem_router(x, index):
     if isinstance(index, str) or (
         isinstance(index, list) and index and all(isinstance(i, str) for i in index)
     ):
-        raise NotImplementedError(
-            "structured field access waits for the host lane of record dtypes (ROADMAP S9)"
-        )
+        from dask_array_tpu_torch.ops._structured import field_access
+
+        return field_access(x, index)
 
     if not isinstance(index, tuple):
         index = (index,)

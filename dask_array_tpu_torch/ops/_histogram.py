@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cast, compute_dtype, numpy_dtype, to_compute
+from dask_array_tpu_torch._chunks import cast, compute_dtype, numpy_dtype, tensor_of, to_compute
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.kernels.histogram import histogram_counts, positions
@@ -37,7 +37,7 @@ from dask_array_tpu_torch.kernels.histogram import histogram_counts, positions
 def _edges_tensor(edges, ctx):
     if isinstance(edges, ArrayExpr):
         return ctx.build(edges).dense()
-    return torch.as_tensor(np.ascontiguousarray(edges), device=ctx.device)
+    return tensor_of(np.ascontiguousarray(edges)).to(ctx.device)
 
 
 class Histogram(ArrayExpr):

@@ -836,7 +836,10 @@ class Push(ArrayExpr):
         return np.empty((0,) * self.array.ndim, dtype=dt)
 
     def _build(self, ctx):
-        dense = to_compute(ctx.build(self.array).dense(), self.dtype)
+        dense = ctx.build(self.array).dense()
+        if not isinstance(dense, torch.Tensor):
+            return BlockView(self.chunks, dense=_push_numpy(dense.astype(self.dtype), self.n, self.axis))
+        dense = to_compute(dense, self.dtype)
         axis = self.axis
         shape = [1] * dense.ndim
         shape[axis] = dense.shape[axis]
@@ -848,6 +851,20 @@ class Push(ArrayExpr):
             stale = stale | (pos - last > self.n)
         out = torch.where(stale, torch.nan, out)
         return BlockView(self.chunks, dense=out)
+
+
+def _push_numpy(x, n, axis):
+    """``Push`` of a host block with numpy's functions (a duck block
+    dispatches through its type)."""
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    pos = np.arange(x.shape[axis]).reshape(shape)
+    last = np.maximum.accumulate(np.where(np.isnan(x), -1, pos), axis=axis)
+    out = np.take_along_axis(x, np.maximum(last, 0), axis=axis)
+    stale = np.less(last, 0)  # (numpy's functions: a duck type need not have operators)
+    if n is not None:
+        stale = np.logical_or(stale, np.greater(np.subtract(pos, last), n))
+    return np.where(stale, np.nan, out)
 
 
 def push(array, n=None, axis=-1):

@@ -24,13 +24,16 @@ import torch
 from dask_array_tpu_torch._chunks import (
     INT64_MIN,
     argsort_numpy,
+    array_of,
     as_stored,
     cached_cumsum,
     cast,
     computable,
     compute_dtype,
+    host_only_dtype,
     normalize_chunks,
     sort_numpy,
+    tensor_of,
     to_compute,
     torch_dtype,
     uint64_bits,
@@ -64,7 +67,14 @@ class BroadcastTrick(ArrayExpr):
     def _build(self, ctx):
         # "empty": contents unspecified; zeros here
         fill = 0 if self.fill_value is None else self.fill_value
-        if np.dtype(self._dtype) == np.uint64:
+        dt = np.dtype(self._dtype)
+        if host_only_dtype(dt):
+            # records, strings, objects: numpy's constant, on the host lane
+            dense = np.zeros(self.shape, dt) if self.fill_value is None else np.full(self.shape, fill, dt)
+            return BlockView(self.chunks_, dense=dense)
+        if dt.kind in "Mm":
+            fill = int(np.asarray(fill).astype(dt).view(np.int64))  # the fill's ticks
+        if dt == np.uint64:
             fill = uint64_bits(int(fill))
         dense = as_stored(torch.full(self.shape, fill, dtype=compute_dtype(self._dtype), device=ctx.device),
                           self._dtype)
@@ -113,7 +123,8 @@ def _make(cls, shape, dtype, chunks, fill_value=None, name=None):
 
     shape = _wrap_shape(shape)
     dtype = np.dtype(dtype if dtype is not None else float)
-    torch_dtype(dtype)  # refuse dtypes the port cannot compute in, now
+    if not host_only_dtype(dtype):
+        torch_dtype(dtype)  # refuse dtypes the port cannot compute in, now
     chunks = normalize_chunks(chunks, shape, dtype=dtype)
     if cls is Full:
         return new_collection(Full(chunks, dtype, fill_value, name))
@@ -709,9 +720,15 @@ class Pad(ArrayExpr):
         kw = dict(self.kwargs or ())
         widths = self.pad_width
         mode = self.mode
+        if not isinstance(dense, torch.Tensor):
+            # a host block (records, strings, objects): numpy's pad
+            return BlockView(self.chunks, dense=np.pad(dense, widths, mode, **kw))
+        if self.dtype.kind in "Mm" and "constant_values" in kw:
+            # datetime ticks: the fill values in the array's unit
+            kw["constant_values"] = _ticks(kw["constant_values"], self.dtype)
         if callable(mode):
             # a function mode is arbitrary host code
-            out = torch.from_numpy(np.pad(dense.cpu().numpy(), widths, mode, **kw)).to(dense.device)
+            out = tensor_of(np.pad(array_of(dense.cpu()), widths, mode, **kw)).to(dense.device)
         elif mode == "constant":
             fills = [tuple(p) for p in _as_pairs(kw.get("constant_values", 0), dense.ndim)]
             out = halo_pad(dense, widths, fills)
@@ -720,6 +737,12 @@ class Pad(ArrayExpr):
         else:
             out = _pad_by_steps(computable(dense), widths, mode, kw, self.dtype)
         return BlockView(self.chunks, dense=cast(out, self.dtype))
+
+
+def _ticks(v, dt):
+    if isinstance(v, (tuple, list)):
+        return type(v)(_ticks(x, dt) for x in v)
+    return int(np.asarray(v).astype(dt).view(np.int64))
 
 
 _PAD_KWARGS = {

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import cast, common_blockdim, to_compute
+from dask_array_tpu_torch._chunks import cast, common_blockdim, dtype_key, to_compute
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 
@@ -178,7 +178,12 @@ class Einsum(ArrayExpr):
         if dtype is None:
             spec = ",".join(self.input_labels) + "->" + self.out_labels
             metas = [np.ones((1,) * a.ndim, dtype=a.dtype) for a in self.arrays]
-            dtype = np.einsum(spec, *metas).dtype
+            try:
+                dtype = np.einsum(spec, *metas).dtype
+            except TypeError:
+                # numpy's einsum takes no ml_dtypes operand: its promotion
+                # (bfloat16 products stay bfloat16, accumulated in float32)
+                dtype = np.result_type(*[a.dtype for a in self.arrays])
         return np.empty((0,) * len(self.out_labels), dtype=np.dtype(dtype))
 
     @functools.cached_property
@@ -250,7 +255,7 @@ def einsum(subscripts, *operands, dtype=None, optimize=False, split_every=None,
     input_labels, out_labels = parse_einsum(subscripts, [a.ndim for a in arrays])
     kw = {}
     if dtype is not None:
-        kw["dtype"] = np.dtype(dtype).str
+        kw["dtype"] = dtype_key(np.dtype(dtype))
     if precision is not None:
         kw["precision"] = precision
     expr = Einsum(

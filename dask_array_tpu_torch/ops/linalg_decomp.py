@@ -55,10 +55,15 @@ def _count_factorization():
 
 def _float_dtype(dt):
     """The dtype a factorization of ``dt`` runs in: complex and float32
-    stay, everything else (float16, ints, bools) is float64."""
+    stay, ml_dtypes' floats (bfloat16, float8) run in float32, everything
+    else (float16, ints, bools) is float64."""
+    from dask_array_tpu_torch._chunks import is_float_dtype, is_ml_dtype
+
     dt = np.dtype(dt)
     if np.issubdtype(dt, np.complexfloating) or dt == np.float32:
         return dt
+    if is_ml_dtype(dt) and is_float_dtype(dt):
+        return np.dtype("f4")
     return np.dtype("f8")
 
 

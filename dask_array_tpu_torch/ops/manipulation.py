@@ -17,6 +17,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
+from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._blockwise import Blockwise, _NHEAD
 from dask_array_tpu_torch._chunks import validate_axis
 from dask_array_tpu_torch._executor import BlockView
@@ -31,6 +32,8 @@ def _swaps_last2(axes) -> bool:
 
 
 def _transpose_fn(block, axes=None):
+    if _host.is_host_block(block):
+        return np.transpose(block, axes)
     if _swaps_last2(axes):
         return transpose_last2(block)
     return block.permute(axes)
@@ -186,6 +189,8 @@ class Squeeze(ArrayExpr):
 
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
+        if _host.is_host_block(dense):
+            return BlockView(self.chunks, dense=np.squeeze(dense, axis=self.axes))
         return BlockView(self.chunks, dense=torch.squeeze(dense, dim=self.axes))
 
     def _accept_rechunk(self, target_chunks):
@@ -255,6 +260,8 @@ class ExpandDims(ArrayExpr):
 
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
+        if _host.is_host_block(dense):
+            return BlockView(self.chunks, dense=np.expand_dims(dense, tuple(self.axes)))
         for ax in self.axes:  # ascending output positions
             dense = dense.unsqueeze(ax)
         return BlockView(self.chunks, dense=dense)
@@ -404,6 +411,8 @@ class BroadcastTo(ArrayExpr):
 
     def _build(self, ctx):
         dense = ctx.build(self.array).dense()
+        if _host.is_host_block(dense):
+            return BlockView(self.chunks_, dense=np.broadcast_to(dense, self.shape_))
         return BlockView(self.chunks_, dense=dense.expand(self.shape_))
 
 

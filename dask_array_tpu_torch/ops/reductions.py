@@ -13,7 +13,9 @@ Result dtypes follow numpy (``Reduction._meta`` asks numpy), and every
 reduce runs in that dtype: operands are cast before the reduce, not after.
 The quantiles (``median``, ``quantile`` and their nan forms,
 ``percentile``) sort along the reduced axes and gather by numpy's host
-tables.  The masked/duck host lane waits for a later slice (ROADMAP).
+tables.  Masked, duck and host-only blocks reduce on the host lane with
+numpy (``np.ma``'s reducers are mask-aware); datetime64/timedelta64 blocks
+reduce on the device as int64 ticks with numpy's NaT rules.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._blockwise import elemwise
 from dask_array_tpu_torch._chunks import (
     INT64_MIN,
+    array_of,
     as_stored,
     cached_cumsum,
     cast,
@@ -41,6 +44,7 @@ from dask_array_tpu_torch._chunks import (
     moved,
     numpy_dtype,
     sort_numpy,
+    tensor_of,
     to_compute,
     torch_dtype,
     validate_axis,
@@ -173,6 +177,48 @@ def _dense_reduce(kind, x, dims, keepdim, acc):
     raise ValueError(f"unknown reduction {kind!r}")
 
 
+def reduce_on_host(kind, x, axes, keepdims, dtype, device):
+    """A typed reduction of a host block with numpy: masked blocks through
+    numpy.ma (masked elements left out; a slice with none left comes back
+    masked), duck blocks through their type.  A host block stays on the
+    host; a plain numeric result goes to ``device``."""
+    from dask_array_tpu_torch._chunks import host_only_dtype
+
+    np_fn, takes_dtype = _DENSE_KINDS[kind]
+    kwargs = {"axis": tuple(axes), "keepdims": bool(keepdims)}
+    if takes_dtype and not host_only_dtype(dtype):
+        kwargs["dtype"] = dtype
+    with np.errstate(all="ignore"):
+        out = np_fn(x, **kwargs)
+    if _host.is_host_block(out):
+        return out if out.dtype == dtype else out.astype(dtype)
+    return _host.settle(np.asarray(out, dtype=dtype), device)
+
+
+def _nat_reduce(kind, x, dims, keepdim, acc):
+    """A reduction of datetime64/timedelta64 ticks with numpy's NaT rules:
+    NaT (the int64 minimum) wins ``min``, ``max`` and sums; the nan forms
+    leave it out (NaT where a slice holds nothing else)."""
+    nat = x == INT64_MIN
+    has = torch.any(nat, dim=dims, keepdim=keepdim)
+    every = torch.all(nat, dim=dims, keepdim=keepdim)
+    if kind in ("min", "nanmax"):
+        return torch.amin(x, dim=dims, keepdim=keepdim) if kind == "min" else torch.amax(x, dim=dims, keepdim=keepdim)
+    if kind == "max":
+        return torch.where(has, INT64_MIN, torch.amax(x, dim=dims, keepdim=keepdim))
+    if kind == "nanmin":
+        return torch.where(every, INT64_MIN, torch.amin(torch.where(nat, torch.iinfo(torch.int64).max, x),
+                                                        dim=dims, keepdim=keepdim))
+    if kind in ("sum", "nansum", "mean", "nanmean"):
+        ticks = torch.where(nat, 0, x)
+        total = torch.sum(ticks, dim=dims, keepdim=keepdim)
+        if kind.endswith("mean"):
+            n = torch.sum(~nat, dim=dims, keepdim=keepdim) if kind == "nanmean" else math.prod(x.shape[d] for d in dims)
+            total = torch.div(total, n, rounding_mode="trunc")
+        return torch.where(every if kind.startswith("nan") else has, INT64_MIN, total)
+    return _dense_reduce(kind, x, dims, keepdim, acc)
+
+
 def reduce_dense(kind, x, axes, keepdims, dtype):
     """A typed reduction of the held block ``x`` over ``axes``, its result
     in numpy's ``dtype`` as the block of that dtype."""
@@ -196,7 +242,10 @@ def reduce_dense(kind, x, axes, keepdims, dtype):
         # as its bits with the sign bit flipped: the signed order is then
         # the unsigned one
         x = computable(x) ^ INT64_MIN if flip else computable(x)
-    dense = _dense_reduce(kind, x, dims, keepdim, acc)
+    if np.dtype(dtype).kind in "Mm":
+        dense = _nat_reduce(kind, x, dims, keepdim, acc)
+    else:
+        dense = _dense_reduce(kind, x, dims, keepdim, acc)
     if flip:
         dense = dense ^ INT64_MIN
     if dense.dtype != out_dt:
@@ -231,6 +280,10 @@ class Reduction(ArrayExpr):
         if dtype is not None:
             return np.empty((0,) * nd, dtype=np.dtype(dtype))
         np_fn, _ = _DENSE_KINDS[self.kind]
+        if self.array.dtype.kind == "O":
+            # an object reduction stays object (numpy cannot know the
+            # elements' type; the host lane reduces them)
+            return np.empty((0,) * nd, dtype=object)
         probe = np.ones((1,) * self.array.ndim, dtype=self.array.dtype)
         with np.errstate(all="ignore"):
             out = np_fn(probe, axis=self.axes, keepdims=self.keepdims)
@@ -238,6 +291,9 @@ class Reduction(ArrayExpr):
 
     def _build(self, ctx):
         x = ctx.build(self.array).dense()
+        if _host.is_host_block(x):
+            return BlockView(self.chunks, dense=reduce_on_host(self.kind, x, self.axes, self.keepdims, self.dtype,
+                                                                ctx.device))
         return BlockView(self.chunks, dense=reduce_dense(self.kind, x, self.axes, self.keepdims, self.dtype))
 
     def _accept_slice(self, index):
@@ -412,9 +468,33 @@ def moment(a, order, axis=None, dtype=None, keepdims=False, ddof=0, split_every=
     return handle_out(out, m / denom)
 
 
+def _unmasked_ones(b):
+    """1 where an element counts, 0 where it is masked (a masked block's
+    count runs on the host lane)."""
+    if isinstance(b, np.ma.MaskedArray):
+        return (~np.ma.getmaskarray(b)).astype("f8")
+    if isinstance(b, torch.Tensor):
+        return torch.ones_like(b, dtype=torch.float64)
+    return np.ones(np.shape(b), dtype="f8")
+
+
+_unmasked_ones.host_safe = True
+
+
+def _has_masked_leaves(expr) -> bool:
+    from dask_array_tpu_torch._executor import collect_leaves
+
+    return builtins.any(isinstance(b, np.ma.MaskedArray) for _, b in collect_leaves(expr))
+
+
 def _count(a, axis, keepdims, split_every, dtype="f8"):
     from dask_array_tpu_torch.ops.creation import ones
 
+    if _has_masked_leaves(a.expr):
+        # numpy.ma leaves masked elements out of the count too: one more
+        # reduction, on the masked host lane only
+        valid = elemwise(_unmasked_ones, a)
+        return sum(valid, axis=axis, dtype=dtype, keepdims=keepdims, split_every=split_every)
     axes = _axes_of(a, axis)
     sizes = [a.shape[ax] for ax in axes]
     if builtins.all(isinstance(s, (int, np.integer)) for s in sizes):
@@ -532,7 +612,9 @@ def var(a, axis=None, dtype=None, keepdims=False, ddof=0, split_every=None, out=
     else:
         x = a.astype(dt)
         rdt = np.dtype(cdt.char.lower().replace("c", "f")) if cdt.kind == "c" else cdt
-    s = _var_shift(x)
+    # a masked first element would poison every d = x - s: masked data
+    # take the unshifted sums, exact over the elements that count
+    s = None if _has_masked_leaves(a.expr) else _var_shift(x)
     if s is not None:
         if complex_data and cdt.kind != "c":
             s = _real(s).astype(rdt)
@@ -598,7 +680,18 @@ def nanstd(a, axis=None, dtype=None, keepdims=False, ddof=0, split_every=None, o
 # -- arg reductions --------------------------------------------------------------
 
 
-def _arg_dense(kind, x, axis):
+def _arg_on_host(kind, x, axis, keepdims, device):
+    """numpy's arg-reduction of a host block: masked elements never win
+    (numpy.ma), a duck block answers through its type (and stays one)."""
+    fn = getattr(np, kind)
+    with np.errstate(all="ignore"):
+        out = fn(x, axis=axis, keepdims=keepdims)
+    if _host.is_host_block(out):
+        return out
+    return _host.settle(np.asarray(out, dtype=np.intp), device)
+
+
+def _arg_dense(kind, x, axis, nat=False):
     """numpy's arg-reduction of a tensor along ``axis`` (None: flattened).
 
     argmin/argmax give the first NaN's index where a NaN is present;
@@ -626,13 +719,17 @@ def _arg_dense(kind, x, axis):
         x = torch.where(nan, torch.tensor(complex(-math.inf if largest else math.inf, 0.0), dtype=x.dtype, device=x.device), x)
         return complex_arg(x, axis, largest, nan_first=False)
     find = torch.argmax if largest else torch.argmin
-    if not x.is_floating_point():
+    if not x.is_floating_point() and not nat:
         return find(x, dim=axis)
-    nan = torch.isnan(x)
+    # a datetime's NaT (the int64 minimum) is numpy's NaN there
+    nan = x == INT64_MIN if nat else torch.isnan(x)
     if kind.startswith("nan"):
         if bool(torch.all(nan, dim=axis).any()):
             raise ValueError(f"All-NaN slice encountered in {kind}")
-        fill = math.inf if kind == "nanargmin" else -math.inf
+        if nat:
+            fill = torch.iinfo(torch.int64).max if kind == "nanargmin" else INT64_MIN
+        else:
+            fill = math.inf if kind == "nanargmin" else -math.inf
         return find(torch.where(nan, fill, x), dim=axis)
     # argmax of a bool/uint8 mask gives the first True
     first_nan = torch.argmax(nan.to(torch.uint8), dim=axis)
@@ -665,7 +762,10 @@ class ArgReduction(ArrayExpr):
 
     def _build(self, ctx):
         x = ctx.build(self.array).dense()
-        dense = _arg_dense(self.kind, x, self.axis)
+        if _host.is_host_block(x):
+            out = _arg_on_host(self.kind, x, self.axis, self.keepdims, ctx.device)
+            return BlockView(self.chunks, dense=out)
+        dense = _arg_dense(self.kind, x, self.axis, nat=self.array.dtype.kind in "Mm")
         if self.keepdims:
             if self.axis is None:
                 dense = dense.reshape((1,) * self.array.ndim)
@@ -814,15 +914,21 @@ class CumReduction(ArrayExpr):
 
     def _build(self, ctx):
         x = ctx.build(self.array).dense()
+        if _host.is_host_block(x):
+            # numpy's scans: numpy.ma's leave masked terms out (they stay
+            # masked), a duck block's dispatch through its type
+            with np.errstate(all="ignore"):
+                out = getattr(np, self.kind)(x, axis=self.axis, dtype=self.dtype)
+            return BlockView(self.chunks, dense=out)
         if self.kind in _CUM_IDENTITY and (x.is_floating_point() or x.is_complex()):
             x = torch.where(torch.isnan(x), _CUM_IDENTITY[self.kind], x)
         x = to_compute(x, self.dtype)  # numpy scans in the result dtype
-        if x.dtype == torch.float16:
-            # numpy rounds a float16 scan to float16 after every step, which
-            # no torch scan does (they carry float32): numpy's own scan, on
-            # the host for a CUDA tensor
+        if x.dtype in (torch.float16, torch.bfloat16):
+            # numpy rounds a float16 (or bfloat16) scan to its dtype after
+            # every step, which no torch scan does (they carry float32):
+            # numpy's own scan, on the host for a CUDA tensor
             scan = np.cumsum if self.kind.endswith("cumsum") else np.cumprod
-            out = torch.from_numpy(scan(x.cpu().numpy(), axis=self.axis)).to(x.device)
+            out = tensor_of(scan(array_of(x.cpu()), axis=self.axis)).to(x.device)
             return BlockView(self.chunks, dense=out)
         scan = torch.cumsum if self.kind.endswith("cumsum") else torch.cumprod
         return BlockView(self.chunks, dense=as_stored(scan(x, dim=self.axis), self.dtype))

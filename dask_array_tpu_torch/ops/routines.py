@@ -31,6 +31,7 @@ import torch
 
 from dask_array_tpu_torch._blockwise import elemwise
 from dask_array_tpu_torch._chunks import (
+    INT64_MIN,
     argsort_numpy,
     as_stored,
     cast,
@@ -53,6 +54,7 @@ from dask_array_tpu_torch.ops._fancy_indexing import NAN, count_sync
 from dask_array_tpu_torch.ops.ufuncs import (
     _device_of,
     _numpy_function,
+    _numpy_named,
     as_operand,
     numpy_operands,
     numpy_result,
@@ -174,6 +176,15 @@ def iscomplexobj(x):
     return np.issubdtype(getattr(x, "dtype", np.asarray(x).dtype), np.complexfloating)
 
 
+@_numpy_named(np.isnat)
+def _isnat(t):
+    """numpy's isnat of datetime ticks: NaT is the int64 minimum."""
+    return t == INT64_MIN
+
+
+_isnat.ticks_aware = True
+
+
 def isnull(values):
     """NaN test with pandas' meaning (non-float dtypes are never null)."""
     v = _asarray(values)
@@ -181,6 +192,8 @@ def isnull(values):
         from dask_array_tpu_torch.ops.ufuncs import isnan
 
         return isnan(v)
+    if v.dtype.kind in "Mm":
+        return elemwise(_isnat, v)
     from dask_array_tpu_torch.ops.creation import zeros
 
     return zeros(v.shape, dtype=bool, chunks=v.chunks)

@@ -18,6 +18,7 @@ from numbers import Integral
 import numpy as np
 import torch
 
+from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._chunks import cast, cat, common_blockdim, has_unknown_chunks, validate_axis
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
@@ -160,7 +161,12 @@ class Concatenate(ArrayExpr):
     def _build(self, ctx):
         # flattened parts may differ in dtype: cast each to numpy's promoted
         # dtype first (torch.cat promotes by torch's rules)
-        parts = [cast(ctx.build(a).dense(), self.dtype) for a in self.arrays]
+        parts = [ctx.build(a).dense() for a in self.arrays]
+        if _host.any_host_block(parts):
+            # masked, duck and record parts concatenate on the host as
+            # numpy does (a duck part dispatches, a masked one keeps its mask)
+            return BlockView(self.chunks, dense=_host.concatenate(parts, self.axis))
+        parts = [cast(p, self.dtype) for p in parts]
         return BlockView(self.chunks, dense=cat(parts, dim=self.axis))
 
     def _accept_slice(self, index):

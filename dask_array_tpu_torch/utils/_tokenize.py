@@ -23,7 +23,7 @@ from numbers import Number
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import dtype_key
+from dask_array_tpu_torch._chunks import array_of, dtype_key
 
 # Arrays at or below this many bytes are tokenized by content; larger ones by
 # a sampled digest (numpy) or a per-object identity uuid (tensors).
@@ -108,7 +108,7 @@ def _normalize_ndarray(obj: np.ndarray, out: list) -> None:
 def _normalize_tensor(obj: torch.Tensor, out: list) -> None:
     nbytes = obj.numel() * obj.element_size()
     if obj.device.type == "cpu" and nbytes <= _CONTENT_HASH_LIMIT and not obj.requires_grad:
-        arr = obj.detach().contiguous().numpy()
+        arr = array_of(obj.detach().contiguous())
         out.append(f"tensor:{obj.dtype}:{tuple(obj.shape)}:")
         out.append(hashlib.blake2b(arr.tobytes(), digest_size=16).hexdigest())
         return
@@ -160,6 +160,13 @@ def _normalize(obj, out: list) -> None:
         out.append("}")
     elif isinstance(obj, slice):
         out.append(f"slice:{obj.start!r}:{obj.stop!r}:{obj.step!r}")
+    elif isinstance(obj, np.ma.MaskedArray):
+        # the mask is part of the identity; the bytes under it (any memory)
+        # are not: filled first
+        out.append("ma:")
+        _normalize_ndarray(np.ascontiguousarray(obj.filled()), out)
+        _normalize_ndarray(np.ascontiguousarray(np.ma.getmaskarray(obj)), out)
+        _normalize(obj.fill_value, out)
     elif isinstance(obj, np.ndarray):
         _normalize_ndarray(obj, out)
     elif isinstance(obj, torch.Tensor):

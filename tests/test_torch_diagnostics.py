@@ -260,8 +260,8 @@ def test_top_level_compatibility_exports(pkg):
     names = ["sliding_window_view", "PerformanceWarning", "from_delayed", "map_blocks", "map_overlap",
              "register_chunk_type"]
     missing = [n for n in names if not hasattr(pkg.da, n)]
-    # S9 brings register_chunk_type to the port
-    assert missing == (["register_chunk_type"] if pkg.which == "port" else [])
+    # S9 brought register_chunk_type to the port
+    assert missing == []
 
 
 def test_random_star_exports_legacy_wrappers(pkg):

@@ -305,7 +305,7 @@ def test_integer_and_float_contractions_on_the_card(cuda):
 
 
 TRANSPOSE_DTYPES = [torch.bool, torch.int8, torch.float16, torch.float32, torch.float64, torch.int64,
-                    torch.complex64, torch.complex128, torch.uint16, torch.uint32, torch.uint64]
+                    torch.complex64, torch.complex128, torch.uint16, torch.uint32, torch.uint64, torch.bfloat16]
 
 
 def random_bytes(shape, dtype, device, seed):
@@ -1617,3 +1617,160 @@ def test_pinned_rings_under_concurrent_callers(cuda):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert errors == []
+
+
+# -- S9: bfloat16 in K1 and K2, datetime ticks, the host lanes on the card ----------
+
+
+def _bf16_close(got, want, scale):
+    """1 bfloat16 step of the value (2^-7 of it) plus 4 float32 steps of
+    ``scale`` (sum |w| * max |x|): kernel and plain version each add the
+    taps in float32, in other orders, and round once."""
+    d = (got.float() - want.float()).abs()
+    return bool((d <= 2.0**-7 * want.float().abs() + 2.0**-21 * scale).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("func, depth", [(laplace, (1, 1)), (far, (8, 8))])
+def test_kernel_bf16_matches_plain_for_every_boundary_pair(cuda, func, depth):
+    from dask_array_tpu_torch.kernels import stencil
+
+    taps = stencil.capture_taps(func, depth)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    for b0 in MODES:
+        for b1 in MODES:
+            x = torch.randn((67, 131), generator=gen, device=cuda).to(torch.bfloat16)
+            got = stencil.band_stencil_cuda(x, taps, depth, (b0, b1))
+            want = stencil.band_stencil_plain(x, func, depth, (b0, b1))
+            assert got.dtype == torch.bfloat16
+            scale = sum(abs(w) for _, _, w in taps) * float(x.float().abs().max())
+            assert _bf16_close(got, want, scale), (b0, b1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [(1, 1), (2, 1), (8, 8)])
+@pytest.mark.parametrize("layout", ["vector", "n_not_multiple_of_8", "storage_offset_1"])
+def test_kernel_bf16_paths_match_plain(cuda, depth, layout):
+    """16-byte rows hold 8 bfloat16 values, as for float16; odd rows and an
+    odd storage offset take scalar loads."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    f = stencil_reaching(*depth)
+    taps = stencil.capture_taps(f, depth)
+    n = {"vector": 512, "n_not_multiple_of_8": 509, "storage_offset_1": 512}[layout]
+    base = torch.randn((300 * n + 1,), device=cuda).to(torch.bfloat16)
+    x = base[1:].view(300, n) if layout == "storage_offset_1" else base[: 300 * n].view(300, n)
+    got = stencil.band_stencil_cuda(x, taps, depth, ("reflect", 2.5))
+    want = stencil.band_stencil_plain(x, f, depth, ("reflect", 2.5))
+    assert stencil.vector_ok(x, got) == (layout == "vector")
+    assert _bf16_close(got, want, sum(abs(w) for _, _, w in taps) * float(x.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", [1, 7, 256, 4096, 65536])
+@pytest.mark.parametrize("edges_dtype", [torch.float64, torch.float32, torch.bfloat16], ids=str)
+def test_histogram_kernel_bf16_data(cuda, nbins, edges_dtype):
+    """bfloat16 values are exact in float32: the counts equal the plain
+    version's and numpy's on the float32 values, aligned and not."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    gen = torch.Generator(device=cuda).manual_seed(nbins)
+    x = (torch.randn(100_003, generator=gen, device=cuda) * 2).to(torch.bfloat16)
+    x[::101] = float("nan")
+    e = torch.linspace(-4, 4, nbins + 1, device=cuda, dtype=torch.float64).to(edges_dtype)
+    for v in (x, x[1:]):
+        got = hk.histogram_counts_cuda(v, e)
+        torch.testing.assert_close(got, hk.histogram_counts_plain(v, e), rtol=0, atol=0)
+        f = v.float().cpu().numpy()
+        want = np.histogram(f[~np.isnan(f)], bins=e.double().cpu().numpy())[0]
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_bf16_public_paths_launch_k1_and_k2(cuda):
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.kernels import histogram as hk
+    from dask_array_tpu_torch.kernels import stencil
+    from dask_array_tpu_torch.models.pipelines import stencil2d
+
+    x = np.random.default_rng(0).standard_normal((512, 512), dtype=np.float32).astype(ml_dtypes.bfloat16)
+    st = stencil2d(x, chunk=128, form="roll")
+    h, _ = da.histogram(da.from_array(x, chunks=128), bins=64, range=(-4, 4))
+    stencil.LAUNCHES = hk.LAUNCHES = 0
+    got, counts = st.compute(), h.compute()
+    assert stencil.LAUNCHES == 1 and hk.LAUNCHES == 1
+    assert got.dtype == np.dtype(ml_dtypes.bfloat16)
+    np.testing.assert_array_equal(counts, np.histogram(x.astype(np.float32), bins=64, range=(-4, 4))[0])
+
+
+@pytest.mark.gpu
+def test_datetime_on_the_card(cuda):
+    import dask_array_tpu_torch as da
+
+    rng = np.random.default_rng(9)
+    ticks = rng.integers(-(10**17), 10**17, 4096)
+    ticks[::37] = np.iinfo(np.int64).min
+    t = ticks.view("M8[ns]")
+    d = da.from_array(t, chunks=1000)
+    dev = da.diff(d).compute_device()
+    assert dev.is_cuda and dev.dtype == torch.int64
+    for got, want in ((da.diff(d), np.diff(t)), (d.max(), t.max()), (d.min(), t.min()),
+                      (da.where(d > t[1], d, d[0]), np.where(t > t[1], t, t[0])), (d.astype("M8[s]"), t.astype("M8[s]"))):
+        g = np.asarray(got.compute())
+        assert g.dtype == np.asarray(want).dtype and np.array_equal(g.view("i8"), np.asarray(want).view("i8"))
+
+
+@pytest.mark.gpu
+def test_host_lanes_beside_the_card(cuda):
+    """Masked blocks stay on the host (numpy.ma), a device operand meets
+    them there; a record's field computes on the card."""
+    import dask_array_tpu_torch as da
+
+    m = np.ma.masked_array(np.arange(64.0).reshape(8, 8), mask=np.arange(64).reshape(8, 8) % 7 == 0)
+    x = da.from_array(m, chunks=4)
+    got = (x + da.ones((8, 8), chunks=4)).sum(axis=0).compute()
+    want = (m + 1).sum(axis=0)
+    assert isinstance(got, np.ma.MaskedArray)
+    np.testing.assert_array_equal(got.filled(0), want.filled(0))
+    assert float(x.var().compute()) == pytest.approx(float(m.var()), rel=1e-12)
+    rec = np.zeros(100, dtype=[("a", "f8"), ("b", "i4")])
+    rec["a"], rec["b"] = np.linspace(0, 1, 100), np.arange(100)
+    r = da.from_array(rec, chunks=30)
+    assert (r["a"] * 2 + r["b"]).compute_device().is_cuda
+    np.testing.assert_allclose((r["a"] * 2 + r["b"]).compute(), rec["a"] * 2 + rec["b"], rtol=1e-15)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dst", ["uint16", "int32", "uint8", "float64", "bfloat16"])
+def test_view_on_the_card(cuda, dst):
+    import dask_array_tpu_torch as da
+
+    if dst == "bfloat16":
+        dst = pytest.importorskip("ml_dtypes").bfloat16
+    x = np.random.default_rng(5).standard_normal((16, 32)).astype(np.float32)
+    v = da.from_array(x, chunks=(8, 16)).view(dst)
+    assert v.compute_device().is_cuda
+    np.testing.assert_array_equal(v.compute().view(np.uint8), x.view(dst).view(np.uint8))
+
+
+@pytest.mark.gpu
+def test_bf16_through_the_layout_and_scale_kernels_on_public_paths(cuda):
+    """bfloat16 ``.T`` (P3t), ``pad`` (the halo kernel) and a multiply by a
+    bfloat16 scalar (P3c) on the card, each through ``compute()`` with one
+    launch, equal to numpy's bytes (ml_dtypes' bfloat16)."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.kernels import halo
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+
+    bf16 = ml_dtypes.bfloat16
+    x = np.random.default_rng(2).standard_normal((256, 384)).astype(bf16)
+    d = da.from_array(x, chunks=128)
+    tk.LAUNCHES = halo.LAUNCHES = sk.LAUNCHES = 0
+    t, p, m = d.T.compute(), da.pad(d, 2, mode="reflect").compute(), (d * bf16(0.5)).compute()
+    assert (tk.LAUNCHES, halo.LAUNCHES, sk.LAUNCHES) == (1, 1, 1)
+    for got, want in ((t, x.T), (p, np.pad(x, 2, mode="reflect")), (m, x * bf16(0.5))):
+        assert got.dtype == np.dtype(bf16)
+        np.testing.assert_array_equal(got.view(np.uint16), np.ascontiguousarray(want).view(np.uint16))

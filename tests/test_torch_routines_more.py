@@ -513,8 +513,8 @@ def test_the_slices_names_exist_and_22_are_left():
     public = [n for n in dir(jda) if not n.startswith("_") and not isinstance(getattr(jda, n), types.ModuleType)]
     missing = sorted(n for n in public if not hasattr(tda, n))
     # svd_compressed, then the IO names and barrier, then the diagnostics
-    # have since been ported: one name is left (S9)
-    assert missing == ["register_chunk_type"]
+    # and register_chunk_type have since been ported: none is left
+    assert missing == []
     from dask_array_tpu_torch import chunk, routines
 
     assert routines.unique is tda.unique and chunk.topk is not None

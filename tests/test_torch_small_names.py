@@ -28,7 +28,7 @@ from dask_array_tpu_torch import config as tconfig
 
 torch.set_num_threads(1)
 
-STILL_MISSING = ["register_chunk_type"]
+STILL_MISSING = []
 
 
 @pytest.fixture(autouse=True)

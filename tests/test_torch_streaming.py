@@ -7,8 +7,8 @@ elementwise and layout programs, to rtol 1e-12 for float64 reductions,
 whose order of summation differs between torch and XLA; 1e-5 for the
 float32 matmul, with atol 1e-5), each package's values must match numpy as the reference
 test asks, and the ``STREAMED`` deltas (``count``, ``panels``, ``pinned``)
-must be equal.  ``KNOWN_REFERENCE_FAULTS`` lists where the two packages
-differ, with the reason, and each entry is checked to differ.
+must be equal.  A masked leaf declines the lane in both packages, and its
+mask comes back.
 
 Then the port's own: ``BandStencil``'s slice pushdown at every boundary
 mode the band-stencil kernel takes (arbitrary slices and streamed panel
@@ -29,12 +29,6 @@ torch.set_num_threads(1)
 
 ROOTS = {"port": "dask_array_tpu_torch", "jax": "dask_array_tpu"}
 KEYS = ("count", "panels", "pinned")
-
-# case -> reason the two packages differ there (each checked to differ)
-KNOWN_REFERENCE_FAULTS = {
-    "masked_declines": "the port has no masked blocks yet (S9): from_array drops the mask, so there is no "
-                       "masked leaf to decline on, and the port streams the plain data",
-}
 
 
 @pytest.fixture(autouse=True)
@@ -351,11 +345,15 @@ def _run(name, which, tmp_path):
     return fn(p, tmp_path) if name == "memmap_leaf_streams_from_disk" else fn(p)
 
 
-@pytest.mark.parametrize("name", sorted(set(CASES) - set(KNOWN_REFERENCE_FAULTS)))
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_case_through_both_packages(name, tmp_path):
     got = {which: _run(name, which, tmp_path) for which in ROOTS}
     (pv, pd), (jv, jd) = got["port"], got["jax"]
     assert pd == jd, (pd, jd)
+    if isinstance(jv, np.ma.MaskedArray):
+        # a masked leaf declines the lane in both, and keeps its mask
+        assert isinstance(pv, np.ma.MaskedArray) and pd["count"] == 0
+        np.testing.assert_array_equal(np.ma.getmaskarray(pv), np.ma.getmaskarray(jv))
     if pv is None or jv is None:
         assert pv is None and jv is None
         return
@@ -367,13 +365,6 @@ def test_case_through_both_packages(name, tmp_path):
     else:
         atol = 1e-5 if pv.dtype == np.float32 else 1e-12
         np.testing.assert_allclose(pv, jv, rtol=rtol, atol=atol)
-
-
-@pytest.mark.parametrize("name", sorted(KNOWN_REFERENCE_FAULTS))
-def test_known_differences_are_real(name, tmp_path):
-    (pv, pd), (jv, jd) = (_run(name, which, tmp_path) for which in ("port", "jax"))
-    assert isinstance(jv, np.ma.MaskedArray) and jd["count"] == 0
-    assert not isinstance(pv, np.ma.MaskedArray) and pd["count"] == 1
 
 
 # ---------------------------------------------------------------------------
