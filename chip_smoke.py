@@ -210,11 +210,12 @@ Phases (each prints one line of its own numbers; any failure raises):
      budget (the same, within 1 GiB, before and after the in-core runs),
      "auto" off for a 1 GiB program, and that an xla_profile trace of
      case (a) names K1's kernel;
- 31. S9 (S9_SIZES): (a) K1 in bfloat16 at 4096^2 and 16384^2 (depth 1,
-     reflect) against its plain version (at most 1 bfloat16 step apart),
-     with conv2d in bfloat16 and the bound; K2 on 2^26 bfloat16 values into
-     256 and 65536 bins (counts equal to the plain version) beside
-     torch.histc; (b) where ml_dtypes imports: blocked_matmul at 8192^2 in
+ 31. S9 (S9_SIZES): (a) K1 in bfloat16 and float16 at 4096^2 and 16384^2
+     (depth 1, reflect; the 256-column tile) against its plain version (at
+     most 1 step of the type apart: ``close16``), with conv2d in the same
+     type and the bound; K2 on 2^26 bfloat16 and float16 values into 256
+     and 65536 bins (the pattern route; counts equal to the plain version)
+     beside torch.histc of the float32 cast; (b) where ml_dtypes imports: blocked_matmul at 8192^2 in
      bfloat16 (chunks 1024 against 512; float32 accumulation) against a
      float32 product, with TFLOP/s beside one torch.matmul, and stencil2d's
      roll form and a histogram of a 4096^2 bfloat16 numpy input through
@@ -237,6 +238,7 @@ Exits non-zero without a result when torch finds no CUDA device.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -1783,6 +1785,35 @@ def k2_cases(torch, hk, flat, seed=27):
     ]
 
 
+def k2_two_byte_cases(torch, hk, flat, seed=31):
+    """K2's 2-byte timing cases on ``flat`` values made on the card from
+    ``seed``: bfloat16 and float16 normals into 256 and 65536 uniform bins
+    of (-4, 4) (float64 edges), and bfloat16 with every value in one of
+    65536 bins, in the tuples of ``k2_cases`` (no numpy result); the
+    library call is ``torch.histc`` of the float32 cast (it refuses
+    bfloat16).  ``scripts/time_histogram.py`` times them."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    normal = torch.randn(flat, generator=g, device="cuda")
+    out = []
+    for tag, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        x = normal.to(dt)
+        for nb in (256, 65536):
+            e = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nb, (-4, 4))).cuda()
+            out.append((f"histogram_{tag}_{nb}", functools.partial(hk.histogram_counts_cuda, x, e),
+                        functools.partial(hk.histogram_counts_plain, x, e),
+                        ("torch.histc of the float32 cast", functools.partial(lambda v, b: torch.histc(v.float(), b, -4, 4), x, nb)),
+                        flat * 2 + nb * 8, 0.0, None))
+    one = torch.full((flat,), 0.3, device="cuda", dtype=torch.bfloat16)
+    e = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), 65536, (-4, 4))).cuda()
+    out.append(("histogram_bf16_65536_one_bin", functools.partial(hk.histogram_counts_cuda, one, e),
+                functools.partial(hk.histogram_counts_plain, one, e),
+                ("torch.histc of the float32 cast", lambda: torch.histc(one.float(), 65536, -4, 4)),
+                flat * 2 + 65536 * 8, 0.0, None))
+    return out
+
+
 def k2_timing(torch, flat, timer, device_timer, seed=27):
     """K2, the histogram kernel (``kernels/histogram.py``), on the cases of
     ``k2_cases``.  Each case: the kernel against numpy (equal counts;
@@ -1838,14 +1869,18 @@ S9_SIZES = {"k1": (4096, 16384), "k2_flat": 1 << 26, "k2_bins": (256, 65536), "m
             "masked": 4096, "masked_chunk": 1024, "records": 1 << 20, "records_chunk": 1 << 18}
 
 
-def bf16_close(got, want, scale):
-    """Whether two bfloat16 stencil results agree: at most 1 bfloat16 step
-    of the value (2^-7 of it), plus 4 float32 steps of ``scale`` (sum |w| *
-    max |x|).  The kernel and the plain version each add the taps in
-    float32 and round once, in other orders: a sum next to a bfloat16 tie
-    rounds to either side (1 step), and where the taps cancel their float32
-    sums differ by a few steps of the largest term."""
-    return bool(((got.float() - want.float()).abs() <= 2.0**-7 * want.float().abs() + 2.0**-21 * scale).all())
+def close16(got, want, scale):
+    """Whether two 2-byte stencil results agree: at most 1 step of the type
+    (2^-7 of the value in bfloat16, 2^-10 in float16), plus 4 float32
+    steps of ``scale`` (sum |w| * max |x|).  The kernel and the plain
+    version each add the taps in float32 and round once, in other orders:
+    a sum next to a tie of the type rounds to either side (1 step), and
+    where the taps cancel their float32 sums differ by a few steps of the
+    largest term."""
+    import torch
+
+    step = 2.0**-7 if want.dtype == torch.bfloat16 else 2.0**-10
+    return bool(((got.float() - want.float()).abs() <= step * want.float().abs() + 2.0**-21 * scale).all())
 
 
 class _Wrapped:
@@ -1920,52 +1955,59 @@ def s9_paths(da, torch, sizes, smi):
     out, entries = {}, {}
     bnd = ("reflect", "reflect")
     taps = stencil.capture_taps(laplace_roll, (1, 1))
-    lap_w = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], device="cuda",
-                         dtype=torch.bfloat16)[None, None]
     g = torch.Generator(device="cuda").manual_seed(31)
-    # (a) K1 in bfloat16: the plain version computes the taps in float32 and
-    # rounds once, as the kernel does (tolerance: ``bf16_close``)
+    two_byte = {"bf16": torch.bfloat16, "f16": torch.float16}
+    # (a) K1 in bfloat16 and float16: the plain version computes the taps in
+    # float32 and rounds once, as the kernel does (float16's own plain
+    # version rounds each step, so its reference is the float32 one rounded;
+    # tolerance: ``close16``)
     wsum = sum(abs(w) for _, _, w in taps)
-    for n in sizes["k1"]:
-        x = torch.randn((n, n), generator=g, device="cuda").to(torch.bfloat16)
-        got = stencil.band_stencil_cuda(x, taps, (1, 1), bnd)
-        ref = stencil.band_stencil_plain(x, laplace_roll, (1, 1), bnd)
-        scale = wsum * float(x.float().abs().max())
-        check(bf16_close(got, ref, scale), f"phase 31 K1 bf16 {n}: differs from its plain version")
-        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: stencil.band_stencil_plain(x, laplace_roll, (1, 1), bnd),
-                                               lambda: stencil.band_stencil_cuda(x, taps, (1, 1), bnd))
-        padded = stencil.pad_axis(stencil.pad_axis(x, 0, 1, 1, "reflect"), 1, 1, 1, "reflect")[None, None]
-        conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(padded, lap_w))
-        dev = device_ms(lambda: stencil.band_stencil_cuda(x, taps, (1, 1), bnd))
-        b_ms, b_by = bound(2 * n * n * 2, 2 * len(taps) * n * n)
-        out[f"k1-bf16-{n}"] = {"max_abs_err": float((got.float() - ref.float()).abs().max()),
-                               "tolerance": f"2^-7 |plain| + 2^-21 * {scale} (sum|w| max|x|)", "kernel_ms": k_ms, "kernel_runs_ms": k_runs,
-                               "plain_ms": p_ms, "plain_runs_ms": p_runs, "kernel_device_ms": dev,
-                               "conv2d_bf16_ms": conv_ms, "bound_ms": b_ms, "bound_by": b_by,
-                               "kernel_of_bound": b_ms / k_ms}
-        del x, got, ref, padded
-    # (a) K2 with bfloat16 data: every bfloat16 value is exact in float32,
-    # so the counts equal the plain version's
+    for tag, dt in two_byte.items():
+        lap_w = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], device="cuda", dtype=dt)[None, None]
+        for n in sizes["k1"]:
+            x = torch.randn((n, n), generator=g, device="cuda").to(dt)
+            got = stencil.band_stencil_cuda(x, taps, (1, 1), bnd)
+            ref = stencil.band_stencil_plain(x.float(), laplace_roll, (1, 1), bnd).to(dt)
+            scale = wsum * float(x.float().abs().max())
+            check(close16(got, ref, scale), f"phase 31 K1 {tag} {n}: differs from its plain version")
+            k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: stencil.band_stencil_plain(x, laplace_roll, (1, 1), bnd),
+                                                   lambda: stencil.band_stencil_cuda(x, taps, (1, 1), bnd))
+            padded = stencil.pad_axis(stencil.pad_axis(x, 0, 1, 1, "reflect"), 1, 1, 1, "reflect")[None, None]
+            conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(padded, lap_w))
+            dev = device_ms(lambda: stencil.band_stencil_cuda(x, taps, (1, 1), bnd))
+            b_ms, b_by = bound(2 * n * n * 2, 2 * len(taps) * n * n)
+            step = "2^-7" if tag == "bf16" else "2^-10"
+            out[f"k1-{tag}-{n}"] = {"max_abs_err": float((got.float() - ref.float()).abs().max()),
+                                    "tolerance": f"{step} |plain| + 2^-21 * {scale} (sum|w| max|x|)",
+                                    "kernel_ms": k_ms, "kernel_runs_ms": k_runs,
+                                    "plain_ms": p_ms, "plain_runs_ms": p_runs, "kernel_device_ms": dev,
+                                    f"conv2d_{tag}_ms": conv_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                    "kernel_of_bound": b_ms / k_ms}
+            del x, got, ref, padded
+    # (a) K2 with bfloat16 and float16 data (the pattern route): every
+    # 2-byte value is exact in float32, so the counts equal the plain
+    # version's
     flat = sizes["k2_flat"]
-    x = torch.randn(flat, generator=g, device="cuda").to(torch.bfloat16)
-    for nb in sizes["k2_bins"]:
-        e = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nb, (-4, 4))).cuda()
-        got, ref = hk.histogram_counts_cuda(x, e), hk.histogram_counts_plain(x, e)
-        check(torch.equal(got, ref), f"phase 31 K2 bf16 {nb}: counts differ from the plain version")
-        try:
-            torch.histc(x, nb, -4, 4)
-            lib_name, lib = "torch.histc", (lambda: torch.histc(x, nb, -4, 4))
-        except RuntimeError:
-            lib_name, lib = "torch.histc of the float32 cast", (lambda: torch.histc(x.float(), nb, -4, 4))
-        k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: hk.histogram_counts_plain(x, e),
-                                               lambda: hk.histogram_counts_cuda(x, e), reps=30)
-        dev = device_ms(lambda: hk.histogram_counts_cuda(x, e))
-        b_ms, b_by = bound(flat * 2 + nb * 8, 4 * flat)
-        out[f"k2-bf16-{nb}"] = {"max_abs_err": float((got - ref).abs().max()), "kernel_ms": k_ms,
-                                "kernel_runs_ms": k_runs, "plain_ms": p_ms, "plain_runs_ms": p_runs,
-                                "kernel_device_ms": dev, "library": lib_name, "library_ms": cuda_ms(lib),
-                                "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev}
-    del x
+    for tag, dt in two_byte.items():
+        x = torch.randn(flat, generator=g, device="cuda").to(dt)
+        for nb in sizes["k2_bins"]:
+            e = torch.from_numpy(np.histogram_bin_edges(np.empty(0, np.float32), nb, (-4, 4))).cuda()
+            got, ref = hk.histogram_counts_cuda(x, e), hk.histogram_counts_plain(x, e)
+            check(torch.equal(got, ref), f"phase 31 K2 {tag} {nb}: counts differ from the plain version")
+            try:
+                torch.histc(x, nb, -4, 4)
+                lib_name, lib = "torch.histc", (lambda: torch.histc(x, nb, -4, 4))
+            except RuntimeError:
+                lib_name, lib = "torch.histc of the float32 cast", (lambda: torch.histc(x.float(), nb, -4, 4))
+            k_ms, p_ms, k_runs, p_runs = paired_ms(lambda: hk.histogram_counts_plain(x, e),
+                                                   lambda: hk.histogram_counts_cuda(x, e), reps=30)
+            dev = device_ms(lambda: hk.histogram_counts_cuda(x, e))
+            b_ms, b_by = bound(flat * 2 + nb * 8, 4 * flat)
+            out[f"k2-{tag}-{nb}"] = {"max_abs_err": float((got - ref).abs().max()), "kernel_ms": k_ms,
+                                     "kernel_runs_ms": k_runs, "plain_ms": p_ms, "plain_runs_ms": p_runs,
+                                     "kernel_device_ms": dev, "library": lib_name, "library_ms": cuda_ms(lib),
+                                     "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev}
+        del x
     torch.cuda.empty_cache()
     # (b) bfloat16 through the public API
     try:
@@ -2012,7 +2054,7 @@ def s9_paths(da, torch, sizes, smi):
         ref_st = stencil.band_stencil_plain(xt, laplace_roll, (1, 1), bnd)
         got_t = torch.from_numpy(got_st.view(np.uint16)).view(torch.bfloat16)
         st_err = float((got_t.float() - ref_st.float()).abs().max())
-        check(np.dtype(got_st.dtype) == np.dtype(bf16) and bf16_close(got_t, ref_st, wsum * float(xt.float().abs().max())),
+        check(np.dtype(got_st.dtype) == np.dtype(bf16) and close16(got_t, ref_st, wsum * float(xt.float().abs().max())),
               f"phase 31 stencil2d bf16: differs from the plain version on the CPU ({st_err})")
         want_h = np.histogram(x_np.astype(np.float32), bins=256, range=(-4, 4))[0]
         check(np.array_equal(got_h, want_h), "phase 31: histogram of bf16 differs from numpy's of its float32 cast")
@@ -2099,13 +2141,16 @@ def s9_paths(da, torch, sizes, smi):
     finally:
         _HANDLED_CHUNK_TYPES[:] = saved
         _refresh_duck_types()
-    k1, k2 = out[f"k1-bf16-{sizes['k1'][0]}"], out[f"k2-bf16-{sizes['k2_bins'][0]}"]
-    entries["band_stencil"] = {"launches_bf16": launches["band_stencil"], "max_abs_err_bf16": k1["max_abs_err"],
-                               "ms_bf16": k1["kernel_ms"], "plain_ms_bf16": k1["plain_ms"],
-                               "bound_ms_bf16": k1["bound_ms"], "library_ms_bf16": k1["conv2d_bf16_ms"]}
-    entries["histogram"] = {"launches_bf16": launches["histogram"], "max_abs_err_bf16": k2["max_abs_err"],
-                            "ms_bf16": k2["kernel_ms"], "plain_ms_bf16": k2["plain_ms"],
-                            "bound_ms_bf16": k2["bound_ms"], "library_ms_bf16": k2["library_ms"]}
+    entries["band_stencil"] = {"launches_bf16": launches["band_stencil"]}
+    entries["histogram"] = {"launches_bf16": launches["histogram"]}
+    for tag in two_byte:
+        k1, k2 = out[f"k1-{tag}-{sizes['k1'][0]}"], out[f"k2-{tag}-{sizes['k2_bins'][0]}"]
+        entries["band_stencil"].update({f"max_abs_err_{tag}": k1["max_abs_err"], f"ms_{tag}": k1["kernel_ms"],
+                                        f"plain_ms_{tag}": k1["plain_ms"], f"bound_ms_{tag}": k1["bound_ms"],
+                                        f"library_ms_{tag}": k1[f"conv2d_{tag}_ms"]})
+        entries["histogram"].update({f"max_abs_err_{tag}": k2["max_abs_err"], f"ms_{tag}": k2["kernel_ms"],
+                                     f"plain_ms_{tag}": k2["plain_ms"], f"bound_ms_{tag}": k2["bound_ms"],
+                                     f"library_ms_{tag}": k2["library_ms"]})
     return out, entries
 
 

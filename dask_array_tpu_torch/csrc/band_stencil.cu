@@ -8,13 +8,20 @@
 //
 // Bound: device memory.  A call must read x and write out once, 2*M*N*itemsize
 // bytes, and does a handful of multiply-adds per element.  The design:
-//  - a block computes a 24-row x 128-column output tile and stages its
-//    (24 + 2*d0) x (128 + 2*d1) input tile in shared memory once, so the
-//    halo re-read is 2*d0/24 + 2*d1/128 of the input (10 % at depth 1, from
-//    the old 32x32 tiles' 13 %).  Short tiles keep 20 KB of shared memory a
-//    block (f32, depth 1), so more blocks per SM overlap one's loads with
-//    another's arithmetic; of 16 to 64 rows, 24 was the fastest on the H100
-//    at 4096^2 and at 16384^2.  Tiles are numbered row-major on a 1-D grid;
+//  - a block computes a 24-row output tile of 32 lanes x 16 bytes of
+//    columns (kCols: 128 for float32, 256 for float16 and bfloat16; float64
+//    keeps 128, two 16-byte vectors a lane) and stages its
+//    (24 + 2*d0) x (kCols + 2*d1) input tile in shared memory once, so the
+//    halo re-read is 2*d0/24 + 2*d1/kCols of the input (10 % at depth 1,
+//    f32, from the old 32x32 tiles' 13 %).  Short tiles keep 20 KB of
+//    shared memory a block (f32, depth 1), so more blocks per SM overlap
+//    one's loads with another's arithmetic; of 16 to 64 rows, 24 was the
+//    fastest on the H100 at 4096^2 and at 16384^2 (for 2-byte types at
+//    4096^2; 32 rows gained 3 % at 16384^2 there).  A 2-byte tile as wide
+//    as f32's had moved half the bytes for all of its fixed cost (staging,
+//    the wait, the barrier, the halo columns, the index math).  Tiles are
+//    numbered row-major on a 1-D grid, counted here (band_stencil_launch),
+//    not by the caller;
 //  - an interior block, whose halo lies inside the array, maps no index: it
 //    copies tile rows with 16-byte cp.async where the row length and the
 //    pointers allow (scalar loads otherwise) and fetches its 2*d1 halo
@@ -23,14 +30,24 @@
 //  - the taps arrive by value, in a __grid_constant__ parameter block: no
 //    per-block copy, and a thread keeps its weights in registers;
 //  - depth (1,1) (the 5-point and 3x3 stencils) takes a register-window
-//    kernel: a thread owns 4
-//    consecutive columns of 3 consecutive rows, keeps the last 2*d0 + 1
-//    input rows of its 4 + 2*d1 columns in registers, reads shared memory
-//    in aligned 4-element vectors (no bank conflicts) and stores its 4
-//    outputs as one vector.  Every other depth loops over the tap list, a
-//    thread owning 4 columns 32 apart on 3 rows (conflict-free reads,
-//    coalesced stores).  A tap of the dense window that the stencil lacks is skipped,
-//    not multiplied by 0, so an inf in the input stays an inf.
+//    kernel: a thread owns K = kCols / 32 consecutive columns (4; 8 for
+//    2-byte types) of 3 consecutive rows, keeps the last 2*d0 + 1 input
+//    rows of its K + 2*d1 columns in registers, reads shared memory in
+//    aligned K-element vectors (its own and one on each side; no bank
+//    conflicts) and stores its K outputs as one 16-byte vector (two for
+//    double).  For 2-byte types it is compiled for six blocks an SM (40
+//    registers, band_stencil_window16): the wide tiles need that many in
+//    flight (4096^2 bf16 0.0459 ms on the device, against 0.0493 at 58
+//    registers and four blocks, and 0.0484 with 128-column tiles; seven or
+//    eight blocks spill and take 0.066).  A persistent grid that staged a
+//    block's next tile while computing this one took 80 registers and
+//    0.071 ms.  Every other depth loops over the tap list, a thread
+//    owning K columns 32 apart on 3 rows (conflict-free reads, coalesced
+//    stores); column pairs read as one 4-byte word (two and a byte permute
+//    for an odd column offset) took 0.067 ms at 4096^2, depth (2, 3), to
+//    these single reads' 0.060.  A tap of the dense window that the stencil
+//    lacks is skipped, not multiplied by 0, so an inf in the input stays an
+//    inf.  (Measured by scripts/time_stencil.py, PERF.md.)
 //
 // Boundaries follow numpy's pad on the whole array, rows first and then
 // columns on the row-padded array (as Overlap._build and the Pallas kernel
@@ -54,16 +71,27 @@ namespace {
 
 constexpr int kMaxDepth = 8;
 constexpr int kMaxTaps = (2 * kMaxDepth + 1) * (2 * kMaxDepth + 1);
-constexpr int kTileCols = 128;                  // output columns per block: 32 lanes x 4
 constexpr int kTileRows = 24;                   // output rows per block
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = kTileRows / kWarps;
-constexpr int kPad = 8;                         // shared columns beside the tile (>= depth)
-constexpr int kStride = kTileCols + 2 * kPad;   // shared elements per tile row
+constexpr int kPad = 8;                         // shared columns beside the tile (>= depth; 16 bytes for 2-byte types)
 constexpr int kMaxWindow = 9;                   // dense window weights, depth (1, 1)
-static_assert((kTileRows + 2 * kMaxDepth) * kStride * sizeof(double) <= 48 * 1024,
+
+// Output columns a lane owns (16 bytes of them; 4 for double) and a tile's
+// columns and shared row stride, by element type.  Every staged row starts
+// 16 bytes aligned: kPad and kStride elements are multiples of 16 bytes.
+template <typename T>
+constexpr int kLaneCols = sizeof(T) == 2 ? 8 : 4;
+template <typename T>
+constexpr int kCols = 32 * kLaneCols<T>;
+template <typename T>
+constexpr int kStride = kCols<T> + 2 * kPad;
+static_assert((kTileRows + 2 * kMaxDepth) * kStride<double> * sizeof(double) <= 48 * 1024 &&
+                  (kTileRows + 2 * kMaxDepth) * kStride<__half> * sizeof(__half) <= 48 * 1024,
               "a tile beyond the 48 KiB a block gets without opting in");
+static_assert(kPad * sizeof(__half) % 16 == 0 && kStride<__half> * sizeof(__half) % 16 == 0,
+              "2-byte rows staged off 16-byte alignment");
 
 enum Boundary { kReflect = 0, kNearest = 1, kPeriodic = 2, kConstant = 3 };
 
@@ -125,10 +153,10 @@ struct Acc<double> {
   __device__ static double store(double v) { return v; }
 };
 
-// four consecutive elements, read and written as one access (two for double)
-template <typename T>
-struct alignas(4 * sizeof(T) < 16 ? 4 * sizeof(T) : 16) Quad {
-  T v[4];
+// K consecutive elements, read and written as one access (two for 4 doubles)
+template <typename T, int K>
+struct alignas(K * sizeof(T) < 16 ? K * sizeof(T) : 16) Vec {
+  T v[K];
 };
 
 // The in-range index an out-of-range position i copies under numpy's pad
@@ -157,11 +185,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// Stage the input tile: tile row ly, column lx (lx in [-d1, 128 + d1)) holds
-// b[r0 - d0 + ly, c0 + lx] at tile[ly * kStride + kPad + lx].
+// Stage the input tile: tile row ly, column lx (lx in [-d1, kCols + d1))
+// holds b[r0 - d0 + ly, c0 + lx] at tile[ly * kStride + kPad + lx].
 template <typename T>
 __device__ __forceinline__ void load_tile(const T* __restrict__ x, T* tile, const Shape& p, long long r0,
                                           long long c0, int d0, int d1, bool interior) {
+  constexpr int kTileCols = kCols<T>;
+  constexpr int kS = kStride<T>;
   const int rows = kTileRows + 2 * d0;
   const int tid = threadIdx.x;
   if (interior) {
@@ -173,18 +203,18 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ x, T* tile, cons
       const int ch = tid % kChunks;
       int ly = tid / kChunks;
       const T* src = src0 + ly * p.N + ch * kVec;
-      T* dst = tile + ly * kStride + kPad + ch * kVec;
+      T* dst = tile + ly * kS + kPad + ch * kVec;
       const long long src_step = kStep * p.N;
-      for (; ly < rows; ly += kStep, src += src_step, dst += kStep * kStride) cp_async16(dst, src);
+      for (; ly < rows; ly += kStep, src += src_step, dst += kStep * kS) cp_async16(dst, src);
     } else {
       constexpr int kStep = kThreads / kTileCols;
       const int lx = tid % kTileCols;
       int ly = tid / kTileCols;
       const T* src = src0 + ly * p.N + lx;
-      T* dst = tile + ly * kStride + kPad + lx;
+      T* dst = tile + ly * kS + kPad + lx;
       const long long src_step = kStep * p.N;
 #pragma unroll 4
-      for (; ly < rows; ly += kStep, src += src_step, dst += kStep * kStride) *dst = *src;
+      for (; ly < rows; ly += kStep, src += src_step, dst += kStep * kS) *dst = *src;
     }
     if (d1) {  // the halo columns on both sides: 2*d1 scalars a row
       const int per_row = 2 * d1;
@@ -192,7 +222,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ x, T* tile, cons
         const int ly = i / per_row;
         const int k = i - ly * per_row;
         const int lx = k < d1 ? k - d1 : kTileCols + k - d1;
-        tile[ly * kStride + kPad + lx] = src0[ly * p.N + lx];
+        tile[ly * kS + kPad + lx] = src0[ly * p.N + lx];
       }
     }
     cp_async_wait_all();
@@ -206,26 +236,26 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ x, T* tile, cons
       for (int lx = (tid & 31) - d1; lx < kTileCols + d1; lx += 32) {
         const long long sc = source_index(c0 + lx, p.N, p.bd1);
         // columns pad the row-padded array: axis 1's fill wins at a corner
-        tile[ly * kStride + kPad + lx] = sc < 0 ? f1 : (sr < 0 ? f0 : srow[sc]);
+        tile[ly * kS + kPad + lx] = sc < 0 ? f1 : (sr < 0 ? f0 : srow[sc]);
       }
     }
   }
   __syncthreads();
 }
 
-// Four outputs of row r at columns c..c+3: one vector store where the tile
+// K outputs of row r at columns c..c+K-1: one vector store where the tile
 // is in range and aligned, masked scalars otherwise.
-template <typename T>
-__device__ __forceinline__ void store4(T* __restrict__ out, const Shape& p, long long r, long long c,
-                                       const typename Acc<T>::type (&acc)[4], bool full) {
+template <typename T, int K>
+__device__ __forceinline__ void store_vec(T* __restrict__ out, const Shape& p, long long r, long long c,
+                                          const typename Acc<T>::type (&acc)[K], bool full) {
   if (full && p.vec) {
-    Quad<T> q;
+    Vec<T, K> q;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) q.v[j] = Acc<T>::store(acc[j]);
-    *reinterpret_cast<Quad<T>*>(out + r * p.N + c) = q;
+    for (int j = 0; j < K; ++j) q.v[j] = Acc<T>::store(acc[j]);
+    *reinterpret_cast<Vec<T, K>*>(out + r * p.N + c) = q;
   } else if (r < p.M) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < K; ++j)
       if (c + j < p.N) out[r * p.N + c + j] = Acc<T>::store(acc[j]);
   }
 }
@@ -235,11 +265,13 @@ __device__ __forceinline__ void store4(T* __restrict__ out, const Shape& p, long
 template <typename T, int D0, int D1>
 __device__ __forceinline__ void compute_window(const T* tile, T* __restrict__ out, const WindowParams& p, long long r0,
                                                long long c0, bool full) {
-  static_assert(D1 <= 4, "the window reads one aligned 4-vector on each side");
+  static_assert(D1 <= 4, "the window reads one aligned vector on each side");
   using A = typename Acc<T>::type;
+  constexpr int K = kLaneCols<T>;
+  using V = Vec<T, K>;
   constexpr int H = 2 * D0 + 1;
   constexpr int W = 2 * D1 + 1;
-  constexpr int C = 4 + 2 * D1;
+  constexpr int C = K + 2 * D1;
   A wt[H][W];
   bool on[H][W];
 #pragma unroll
@@ -251,7 +283,7 @@ __device__ __forceinline__ void compute_window(const T* tile, T* __restrict__ ou
     }
   const int lane = threadIdx.x & 31;
   const int rb = (threadIdx.x >> 5) * kRowsPerWarp;  // the warp's first output row, tile-local
-  const int col = 4 * lane;                           // the thread's first output column
+  const int col = K * lane;                           // the thread's first output column
   A win[H][C];  // win[a][c]: tile row (output row + a), tile column (col - D1 + c)
 #pragma unroll
   for (int t = 0; t < kRowsPerWarp + 2 * D0; ++t) {
@@ -259,26 +291,26 @@ __device__ __forceinline__ void compute_window(const T* tile, T* __restrict__ ou
     for (int a = 0; a + 1 < H; ++a)
 #pragma unroll
       for (int c = 0; c < C; ++c) win[a][c] = win[a + 1][c];
-    const T* row = tile + (rb + t) * kStride + kPad + col;
-    A vals[12];
-    const Quad<T> mid = *reinterpret_cast<const Quad<T>*>(row);
+    const T* row = tile + (rb + t) * kStride<T> + kPad + col;
+    A vals[3 * K];  // the vectors left of, at and right of the thread's columns
+    const V mid = *reinterpret_cast<const V*>(row);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) vals[4 + k] = Acc<T>::load(mid.v[k]);
+    for (int k = 0; k < K; ++k) vals[K + k] = Acc<T>::load(mid.v[k]);
     if constexpr (D1 > 0) {
-      const Quad<T> left = *reinterpret_cast<const Quad<T>*>(row - 4);
-      const Quad<T> right = *reinterpret_cast<const Quad<T>*>(row + 4);
+      const V left = *reinterpret_cast<const V*>(row - K);
+      const V right = *reinterpret_cast<const V*>(row + K);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < K; ++k) {
         vals[k] = Acc<T>::load(left.v[k]);
-        vals[8 + k] = Acc<T>::load(right.v[k]);
+        vals[2 * K + k] = Acc<T>::load(right.v[k]);
       }
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) win[H - 1][c] = vals[4 - D1 + c];
+    for (int c = 0; c < C; ++c) win[H - 1][c] = vals[K - D1 + c];
     if (t >= 2 * D0) {
-      A acc[4];
+      A acc[K];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < K; ++j) {
         acc[j] = 0;
 #pragma unroll
         for (int a = 0; a < H; ++a)
@@ -286,39 +318,41 @@ __device__ __forceinline__ void compute_window(const T* tile, T* __restrict__ ou
           for (int b = 0; b < W; ++b)
             if (on[a][b]) acc[j] += wt[a][b] * win[a][j + b];
       }
-      store4<T>(out, p.s, r0 + rb + t - 2 * D0, c0 + col, acc, full);
+      store_vec<T, K>(out, p.s, r0 + rb + t - 2 * D0, c0 + col, acc, full);
     }
   }
 }
 
 // The tap-list kernel's compute: any depth up to 8, the taps read from the
-// parameter block (uniform across the block), a thread's 8 x 4 outputs at
-// rows warp + 8i and columns lane + 32j.
+// parameter block (uniform across the block), a thread's 3 x K outputs at
+// rows warp + 8i and columns lane + 32j (K = kLaneCols).
 template <typename T>
 __device__ __forceinline__ void compute_taps(const T* tile, T* __restrict__ out, const TapParams& p, long long r0,
                                              long long c0, int d0) {
   using A = typename Acc<T>::type;
+  constexpr int kS = kStride<T>;
+  constexpr int K = kLaneCols<T>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  A acc[kRowsPerWarp][4];
+  A acc[kRowsPerWarp][K];
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int j = 0; j < K; ++j) acc[i][j] = 0;
   for (int k = 0; k < p.ntaps; ++k) {
     const A w = static_cast<A>(p.w[k]);
-    const T* base = tile + (warp + d0 + p.dy[k]) * kStride + kPad + lane + p.dx[k];
+    const T* base = tile + (warp + d0 + p.dy[k]) * kS + kPad + lane + p.dx[k];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += w * Acc<T>::load(base[i * kWarps * kStride + 32 * j]);
+      for (int j = 0; j < K; ++j) acc[i][j] += w * Acc<T>::load(base[i * kWarps * kS + 32 * j]);
   }
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const long long r = r0 + warp + kWarps * i;
     if (r >= p.s.M) break;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < K; ++j) {
       const long long c = c0 + lane + 32 * j;
       if (c < p.s.N) out[r * p.s.N + c] = Acc<T>::store(acc[i][j]);
     }
@@ -332,7 +366,9 @@ struct Tile {
   bool interior, full;
 };
 
+template <typename T>
 __device__ __forceinline__ Tile tile_of(const Shape& p, int d0, int d1) {
+  constexpr int kTileCols = kCols<T>;
   Tile t;
   const unsigned ty = blockIdx.x / static_cast<unsigned>(p.tiles_x);
   t.r0 = static_cast<long long>(ty) * kTileRows;
@@ -343,13 +379,28 @@ __device__ __forceinline__ Tile tile_of(const Shape& p, int d0, int d1) {
 }
 
 template <typename T, int D0, int D1>
-__global__ void __launch_bounds__(kThreads)
-band_stencil_window(const T* __restrict__ x, T* __restrict__ out, const __grid_constant__ WindowParams p) {
+__device__ __forceinline__ void window_tile(const T* __restrict__ x, T* __restrict__ out, const WindowParams& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
-  const Tile t = tile_of(p.s, D0, D1);
+  const Tile t = tile_of<T>(p.s, D0, D1);
   load_tile<T>(x, tile, p.s, t.r0, t.c0, D0, D1, t.interior);
   compute_window<T, D0, D1>(tile, out, p, t.r0, t.c0, t.full);
+}
+
+template <typename T, int D0, int D1>
+__global__ void __launch_bounds__(kThreads)
+band_stencil_window(const T* __restrict__ x, T* __restrict__ out, const __grid_constant__ WindowParams p) {
+  window_tile<T, D0, D1>(x, out, p);
+}
+
+// The window kernel of 2-byte types, compiled for six blocks an SM (40
+// registers a thread): their wide tiles need more of them in flight.  (A
+// minimum of blocks on the 4- and 8-byte kernels, even of one, changes
+// their registers: float32 took 52 for 44, and 4 % longer.)
+template <typename T, int D0, int D1>
+__global__ void __launch_bounds__(kThreads, 6)
+band_stencil_window16(const T* __restrict__ x, T* __restrict__ out, const __grid_constant__ WindowParams p) {
+  window_tile<T, D0, D1>(x, out, p);
 }
 
 template <typename T>
@@ -357,14 +408,16 @@ __global__ void __launch_bounds__(kThreads)
 band_stencil_taps(const T* __restrict__ x, T* __restrict__ out, const __grid_constant__ TapParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
-  const Tile t = tile_of(p.s, p.s.d0, p.s.d1);
+  const Tile t = tile_of<T>(p.s, p.s.d0, p.s.d1);
   load_tile<T>(x, tile, p.s, t.r0, t.c0, p.s.d0, p.s.d1, t.interior);
   compute_taps<T>(tile, out, p, t.r0, t.c0, p.s.d0);
 }
 
+// The tile grid of T's tiles: tiles_x along a row, set here for T.
 template <typename T, typename Kernel, typename P>
-int launch(Kernel kernel, const void* x, void* out, const P& p, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTileRows + 2 * p.s.d0) * kStride * sizeof(T);
+int launch(Kernel kernel, const void* x, void* out, P p, cudaStream_t stream) {
+  p.s.tiles_x = static_cast<int>((p.s.N + kCols<T> - 1) / kCols<T>);
+  const size_t smem = static_cast<size_t>(kTileRows + 2 * p.s.d0) * kStride<T> * sizeof(T);
   const unsigned tiles = static_cast<unsigned>(p.s.tiles_x * ((p.s.M + kTileRows - 1) / kTileRows));
   kernel<<<tiles, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), p);
   return static_cast<int>(cudaGetLastError());
@@ -398,7 +451,7 @@ int band_stencil_launch(int dtype, const void* x, void* out, long long M, long l
   const size_t itemsize = (dtype == 0 || dtype == 3) ? 2 : (dtype == 1 ? 4 : 8);
   if (dtype < 0 || dtype > 3 || M <= 0 || N <= 0 || d0 < 0 || d0 > kMaxDepth || d1 < 0 || d1 > kMaxDepth ||
       ntaps < 1 || ntaps > kMaxTaps ||
-      ((M + kTileRows - 1) / kTileRows) * ((N + kTileCols - 1) / kTileCols) > 0x7fffffffLL ||
+      ((M + kTileRows - 1) / kTileRows) * ((N + kCols<double> - 1) / kCols<double>) > 0x7fffffffLL ||
       !variant_fits(variant, d0, d1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -410,7 +463,6 @@ int band_stencil_launch(int dtype, const void* x, void* out, long long M, long l
   memset(&sh, 0, sizeof(sh));
   sh.M = M;
   sh.N = N;
-  sh.tiles_x = static_cast<int>((N + kTileCols - 1) / kTileCols);
   sh.d0 = d0;
   sh.d1 = d1;
   sh.bd0 = head[2];
@@ -426,9 +478,9 @@ int band_stencil_launch(int dtype, const void* x, void* out, long long M, long l
     p.mask = static_cast<unsigned int>(head[6]);
     memcpy(p.window, t + 48, sizeof(p.window));
     switch (dtype) {
-      case 0: return launch<__half>(&band_stencil_window<__half, 1, 1>, x, out, p, s);
+      case 0: return launch<__half>(&band_stencil_window16<__half, 1, 1>, x, out, p, s);
       case 1: return launch<float>(&band_stencil_window<float, 1, 1>, x, out, p, s);
-      case 3: return launch<__nv_bfloat16>(&band_stencil_window<__nv_bfloat16, 1, 1>, x, out, p, s);
+      case 3: return launch<__nv_bfloat16>(&band_stencil_window16<__nv_bfloat16, 1, 1>, x, out, p, s);
       default: return launch<double>(&band_stencil_window<double, 1, 1>, x, out, p, s);
     }
   }

@@ -73,6 +73,28 @@
 //   16-bit counters) to partial[b], and a second launch sums the blocks of
 //   each bin in a fixed order, a warp a bin, into the output (adding to
 //   the wraps in half mode).
+//
+//   Patterns (counts of float16 or bfloat16 data, float32 or float64
+//   comparisons).  With 8 or 11 significant bits a large share of 2-byte
+//   values sits exactly on an evenly spaced edge, where the guess above
+//   cannot decide and the value goes through the search: bf16 took twice
+//   f32's time for half its bytes (PERF.md).  But a 2-byte float has only
+//   65536 bit patterns, so this route looks no value up.  Each block maps
+//   a value's 16 bits to an order key (monotone in the value, -0 next to
+//   +0, NaN outside), drops keys outside the window [the least value >=
+//   e0, the greatest <= eN] that every block finds by a binary search over
+//   the keys, and counts the key in shared memory: 32-bit counters where
+//   the window fits the block's share (58108 keys; [-4, 4] in bfloat16 is
+//   33026), else 16-bit counters two a word with half mode's wraps (65536
+//   keys in 128 KB; a wrap adds 65536 to the key's bin at once).  One wide
+//   block an SM.  The finish takes each key's count over the blocks and
+//   adds it to the key's bin, found once a key by the search, numpy's
+//   comparison in the comparison type.  The main loop's work depends on
+//   neither the bins nor the edges' spacing: 2^26 bf16 values take 0.091
+//   ms at 256 bins and 0.095 ms at 65536 on the H100, 44 % of the bytes'
+//   bound.  The loads' latency is not what is left (loading the next round
+//   while counting this one gained 1 %, PERF.md); the one shared atomic a
+//   value is the likely limit.
 
 // Launches on the caller's stream; histogram_launch returns
 // cudaGetLastError().
@@ -245,6 +267,7 @@ __device__ __forceinline__ size_t align16(size_t v) { return (v + 15) & ~size_t(
 constexpr int kCopies = 0;  // copies of the bins in each block's shared memory
 constexpr int kHalf = 1;    // 16-bit counters, two a word, in each block
 constexpr int kGlobal = 2;  // atomics into the output in global memory
+constexpr int kPattern = 3;  // counts of 2-byte float data by bit pattern (hist_patterns)
 
 // half mode: one count into bin's 16-bit counter (bins 2k and 2k + 1 are the
 // low and high halves of word k).  A counter that wraps adds 65536 to its
@@ -516,6 +539,197 @@ hist_finish(const void* __restrict__ partial, void* __restrict__ out, int nb, in
   }
 }
 
+// -- the pattern route: counts of 2-byte float data -------------------------------
+
+// The order key of a 16-bit float pattern p: monotone in its value over the
+// non-NaN patterns (-0 just below +0), NaN patterns beyond -inf and +inf.
+__device__ __forceinline__ unsigned pattern_key(unsigned p) { return p ^ (((p >> 15) * 0x7FFFu) | 0x8000u); }
+
+// pattern_key's inverse
+__device__ __forceinline__ unsigned pattern_of(unsigned k) { return k ^ ((((k >> 15) ^ 1u) * 0x7FFFu) | 0x8000u); }
+
+template <typename T>
+struct Inf16;  // +inf's pattern
+template <>
+struct Inf16<__half> {
+  static constexpr unsigned kBits = 0x7C00u;
+};
+template <>
+struct Inf16<__nv_bfloat16> {
+  static constexpr unsigned kBits = 0x7F80u;
+};
+
+// the value of key k in the comparison type C
+template <typename T, typename C>
+__device__ __forceinline__ C key_value(unsigned k) {
+  const unsigned short p = static_cast<unsigned short>(pattern_of(k));
+  T v;
+  memcpy(&v, &p, sizeof(T));
+  return Ops<C>::make(v);
+}
+
+// The keys of the values in [e0, eN]: [lo, lo + span), span <= 0 for none
+// (a NaN edge, or no 2-byte value between the edges).  Two binary searches
+// over the keys of -inf .. +inf, whose values do not decrease.
+// kernels/histogram.py::key_window mirrors it.
+template <typename T, typename C>
+__device__ __forceinline__ void key_window(C e0, C eN, unsigned& lo, int& span) {
+  using O = Ops<C>;
+  const unsigned kmin = pattern_key(Inf16<T>::kBits | 0x8000u), kend = pattern_key(Inf16<T>::kBits) + 1;
+  unsigned a = kmin, b = kend;  // the first key whose value is >= e0
+  while (a < b) {
+    const unsigned m = (a + b) >> 1;
+    if (O::le(e0, key_value<T, C>(m))) b = m; else a = m + 1;
+  }
+  lo = a;
+  a = kmin;
+  b = kend;  // the first key whose value is > eN
+  while (a < b) {
+    const unsigned m = (a + b) >> 1;
+    if (O::lt(eN, key_value<T, C>(m))) b = m; else a = m + 1;
+  }
+  span = static_cast<int>(a) - static_cast<int>(lo);
+}
+
+// The bin of key k in the window: numpy's (eN itself in the last bin).
+template <typename T, typename C>
+__device__ __noinline__ int key_bin(unsigned k, const C* E, int nb) {
+  const C v = key_value<T, C>(k);
+  return Ops<C>::eq(v, E[nb]) ? nb - 1 : search_bin<C>(v, E, nb, false, 0, 0);
+}
+
+// One count into key d's counter of the window [lo, lo + span): 32-bit
+// counters (kWide32), or 16-bit ones, two a word, whose wraps go to the
+// key's bin in the output at once (half_add's rule: the carry a low counter
+// spills into the high one is taken back from the high key's bin).
+template <typename T, typename C, bool kWide32>
+__device__ __forceinline__ void key_add(unsigned* cnt, unsigned d, unsigned span, unsigned lo, const C* E, int nb,
+                                        unsigned long long* out) {
+  if constexpr (kWide32) {
+    atomicAdd(cnt + d, 1u);
+  } else {
+    const int sh = (d & 1) << 4;
+    const unsigned old = atomicAdd(cnt + (d >> 1), 1u << sh);
+    if (((old >> sh) & 0xFFFFu) != 0xFFFFu) return;
+    atomicAdd(out + key_bin<T, C>(lo + d, E, nb), 65536ull);
+    if (sh == 0 && d + 1 < span) {
+      const long long back = (old >> 16) == 0xFFFFu ? 65535 : -1;
+      atomicAdd(out + key_bin<T, C>(lo + d + 1, E, nb), static_cast<unsigned long long>(back));
+    }
+  }
+}
+
+// A block's run of 16-byte units (8 values each): kPatternUnroll units a
+// thread at a time, a block's width apart, then the rest a value a thread.
+constexpr int kPatternUnroll = 4;
+
+template <typename T, typename C, bool kWide32>
+__device__ __forceinline__ void count_keys(const unsigned short* __restrict__ x, long long n, long long u0,
+                                           long long u1, int aligned, unsigned* cnt, unsigned lo, unsigned span,
+                                           const C* E, int nb, unsigned long long* out) {
+  const int tid = threadIdx.x;
+  auto count = [&](unsigned p) {
+    const unsigned d = pattern_key(p) - lo;  // keys below lo wrap past span
+    if (d < span) key_add<T, C, kWide32>(cnt, d, span, lo, E, nb, out);
+  };
+  constexpr long long kRound = static_cast<long long>(kWideThreads) * kPatternUnroll;
+  long long base = u0;
+  for (; aligned && base + kRound <= u1 && (base + kRound) * 8 <= n; base += kRound) {
+    uint4 v[kPatternUnroll];
+#pragma unroll
+    for (int k = 0; k < kPatternUnroll; ++k) v[k] = __ldg(reinterpret_cast<const uint4*>(x) + base + k * kWideThreads + tid);
+#pragma unroll
+    for (int k = 0; k < kPatternUnroll; ++k) {
+      const unsigned w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        count(w[j] & 0xFFFFu);
+        count(w[j] >> 16);
+      }
+    }
+  }
+  const long long end = u1 * 8 < n ? u1 * 8 : n;
+  for (long long e = base * 8 + tid; e < end; e += kWideThreads) count(x[e]);
+}
+
+// The main launch of the pattern route: one wide block an SM, block b
+// counting units [b*U/G, (b+1)*U/G) into the window's counters in its
+// shared memory (cap 32-bit counters fit), then writing them to
+// partial[b * cap ...].
+template <typename T, typename C>
+__global__ void __launch_bounds__(kWideThreads, 1)
+hist_patterns(const unsigned short* __restrict__ x, long long n, const C* __restrict__ edges, int nb,
+              unsigned long long* __restrict__ out, unsigned* __restrict__ partial, long long U, int cap,
+              int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* cnt = reinterpret_cast<unsigned*>(smem);
+  unsigned lo;
+  int span;
+  key_window<T, C>(edges[0], edges[nb], lo, span);
+  if (span <= 0) return;  // every block and the finish see the same window
+  const bool wide = span <= cap;
+  const int words = wide ? span : (span + 1) >> 1;
+  for (int i = threadIdx.x; i < words; i += kWideThreads) cnt[i] = 0u;
+  __syncthreads();
+  const long long u0 = run_start(blockIdx.x, U, gridDim.x), u1 = run_start(blockIdx.x + 1, U, gridDim.x);
+  if (wide) {
+    count_keys<T, C, true>(x, n, u0, u1, aligned, cnt, lo, span, edges, nb, out);
+  } else {
+    count_keys<T, C, false>(x, n, u0, u1, aligned, cnt, lo, span, edges, nb, out);
+  }
+  __syncthreads();
+  unsigned* mine = partial + static_cast<size_t>(blockIdx.x) * cap;
+  for (int i = threadIdx.x; i < words; i += kWideThreads) mine[i] = cnt[i];
+}
+
+// The finish: a thread a key, its counts over the blocks added in order,
+// then into its bin of the (zeroed) output.
+template <typename T, typename C>
+__global__ void __launch_bounds__(kThreads)
+pattern_finish(const unsigned* __restrict__ partial, const C* __restrict__ edges, int nb, int blocks, int cap,
+               unsigned long long* __restrict__ out) {
+  unsigned lo;
+  int span;
+  key_window<T, C>(edges[0], edges[nb], lo, span);
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= span) return;
+  const bool wide = span <= cap;
+  const unsigned* p = partial + (wide ? d : d >> 1);
+  const int sh = wide ? 0 : (d & 1) << 4;
+  const unsigned mask = wide ? 0xFFFFFFFFu : 0xFFFFu;
+  unsigned long long s = 0;
+#pragma unroll 4
+  for (int b = 0; b < blocks; ++b) s += (p[static_cast<size_t>(b) * cap] >> sh) & mask;
+  if (s) atomicAdd(out + key_bin<T, C>(lo + d, edges, nb), s);
+}
+
+template <typename T, typename C>
+cudaError_t launch_patterns(const void* x, long long n, const void* edges, int nb, void* out, void* partial,
+                            long long U, int blocks, int aligned, size_t smem, cudaStream_t st) {
+  if (U != (n + 7) / 8) return cudaErrorInvalidValue;
+  const int cap = static_cast<int>(smem / 4);
+  const cudaError_t err = cudaFuncSetAttribute(hist_patterns<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const C* e = static_cast<const C*>(edges);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  unsigned* p = static_cast<unsigned*>(partial);
+  hist_patterns<T, C><<<blocks, kWideThreads, smem, st>>>(static_cast<const unsigned short*>(x), n, e, nb, o, p, U,
+                                                          cap, aligned);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return launched;
+  pattern_finish<T, C><<<65536 / kThreads, kThreads, 0, st>>>(p, e, nb, blocks, cap, o);
+  return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t patterns_by_data(int tcode, const void* x, long long n, const void* edges, int nb, void* out,
+                             void* partial, long long U, int blocks, int aligned, size_t smem, cudaStream_t st) {
+  if (tcode == 9) return launch_patterns<__half, C>(x, n, edges, nb, out, partial, U, blocks, aligned, smem, st);
+  if (tcode == 14) return launch_patterns<__nv_bfloat16, C>(x, n, edges, nb, out, partial, U, blocks, aligned, smem, st);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename C, bool kDirect>
 cudaError_t launch(const void* x, long long n, const void* edges, int nb, const double* w, int wk, void* out,
                    void* partial, long long U, int threads, int blocks, int mode, int copies, int edges_shared,
@@ -600,16 +814,20 @@ extern "C" {
 // 0); out: nb int64 counts, float64 or complex128 sums (zeroed by the caller
 // in modes kHalf and kGlobal); partial: scratch for the blocks' partials
 // (kCopies: nb bins of 4, 8 or 16 bytes a block; kHalf: (nb + 1) / 2 words
-// a block; none for kGlobal).  The plan (units, threads, blocks, mode,
-// copies, edges_shared, smem) comes from kernels/histogram.py::launch_plan;
-// aligned: x is 16-byte aligned.  All on the device.  Returns a cudaError_t.
+// a block; none for kGlobal; kPattern: smem bytes a block).  The plan
+// (units, threads, blocks, mode, copies, edges_shared, smem) comes from
+// kernels/histogram.py::launch_plan; aligned: x is 16-byte aligned.  mode
+// kPattern takes counts (wk 0) of float16 or bfloat16 data (tcode 9, 14)
+// against float32 or float64 edges, a 1024-thread block an SM and at least
+// 128 KB (16-bit counters of every key).  All on the device.  Returns a
+// cudaError_t.
 int histogram_launch(const void* x, long long n, int tcode, int ccode, const void* edges, long long nb, int direct,
                      const double* w, int wk, void* out, void* partial, long long units, int threads,
                      long long blocks, int mode, int copies, int edges_shared, int aligned, long long smem,
                      void* stream) {
   if (n < 0 || nb <= 0 || nb > 2147483646LL || blocks <= 0 || blocks > 2147483647LL || wk < 0 || wk > 2 ||
       (threads != kThreads && threads != kWideThreads) || (threads == kWideThreads && (wk != 0 || mode == kGlobal)) ||
-      mode < kCopies || mode > kGlobal || smem < 0 || smem > 227 * 1024 || (wk > 0 && w == nullptr) ||
+      mode < kCopies || mode > kPattern || smem < 0 || smem > 227 * 1024 || (wk > 0 && w == nullptr) ||
       (mode != kGlobal && partial == nullptr) ||
       (mode == kCopies && (copies < 1 || copies > kWarps || (wk > 0 && copies != kWarps))) ||
       (mode == kHalf && threads != kWideThreads)) {
@@ -620,6 +838,16 @@ int histogram_launch(const void* x, long long n, int tcode, int ccode, const voi
   const int bi = static_cast<int>(blocks);
   const size_t sm = static_cast<size_t>(smem);
   cudaError_t err;
+  if (mode == kPattern) {
+    if (direct || wk != 0 || threads != kWideThreads || smem < 65536 / 2 * 4) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (ccode == 0) return static_cast<int>(patterns_by_data<float>(tcode, x, n, edges, nbi, out, partial, units, bi,
+                                                                    aligned, sm, st));
+    if (ccode == 1) return static_cast<int>(patterns_by_data<double>(tcode, x, n, edges, nbi, out, partial, units, bi,
+                                                                     aligned, sm, st));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (direct) {
     if (tcode != 7) return static_cast<int>(cudaErrorInvalidValue);
     err = launch<long long, long long, true>(x, n, nullptr, nbi, w, wk, out, partial, units, threads, bi, mode,

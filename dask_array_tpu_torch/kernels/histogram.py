@@ -13,6 +13,12 @@ float64 (complex128) sums of weights.
   edges lie within a bin of evenly spaced ones (``guess_margin``), and
   reads the edges only where a guess comes near a bin edge; the result is
   the binary search's all the same.
+- Counts of float16 and bfloat16 data take the pattern route instead
+  (``launch_plan(..., patterns=True)``): a 2-byte value's bits are counted
+  by an order key (``pattern_key``) inside the window of keys between the
+  edges (``key_window``), in 32-bit or 16-bit shared counters
+  (``counter_bits``), and each key's count goes to its bin once, found by
+  numpy's comparison (``fold_keys``).  No value is looked up.
 - ``bincount_counts(x, length, weights=None)``: numpy's bincount of int64
   values known to lie in ``[0, length)``; the kernel's direct mode (the
   value is the bin).
@@ -220,7 +226,11 @@ STATIC_SHARED = 16  # the kernel's static shared memory (the edges' distance fro
 EDGE_BUDGET = 32 * 1024  # edges staged in shared memory up to this many bytes
 _COUNT_BYTES = {0: 4, 1: 8, 2: 16}  # a bin's bytes in one copy: counts, float64, complex128 sums
 # the counting modes of csrc/histogram.cu
-COPIES, HALF, GLOBAL = 0, 1, 2
+COPIES, HALF, GLOBAL, PATTERN = 0, 1, 2, 3
+# the data codes the pattern route counts (float16, bfloat16), against
+# float32 or float64 edges
+PATTERN_DATA = {9, 14}
+PATTERN_CODES = {0, 1}  # float32, float64 comparisons
 
 
 def _align16(v: int) -> int:
@@ -238,10 +248,13 @@ class Plan(NamedTuple):
     block in shared memory (one a warp at most; weighted sums need one a
     warp).  HALF: 16-bit counters, two a
     32-bit word, one copy a block: bin b is half ``b % 2`` of word ``b //
-    2`` (``counter``).  GLOBAL: atomics into the output.  ``edges_shared``:
-    the edges staged in shared memory.  ``smem``: dynamic shared bytes;
-    ``partial``: scratch bytes of the blocks' partials (HALF: their
-    words)."""
+    2`` (``counter``).  GLOBAL: atomics into the output.  PATTERN:
+    2-byte float data counted by order key in one wide block an SM,
+    ``keys32`` keys at most in 32-bit counters, more (up to 65536) in
+    16-bit ones (``counter_bits``).  ``edges_shared``: the edges staged in
+    shared memory.  ``smem``: dynamic shared bytes; ``partial``: scratch
+    bytes of the blocks' partials (HALF: their words; PATTERN: ``smem`` a
+    block, its counters)."""
 
     vec: int
     units: int
@@ -253,11 +266,12 @@ class Plan(NamedTuple):
     edges_shared: bool
     smem: int
     partial: int
+    keys32: int = 0
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(n: int, nbins: int, sms: int = 132, itemsize: int = 4, weights: int = 0,
-                edge_itemsize: int = 0) -> Plan:
+                edge_itemsize: int = 0, patterns: bool = False) -> Plan:
     """The kernel's plan for ``n`` values of ``itemsize`` bytes into
     ``nbins`` bins on a card of ``sms`` SMs; ``weights`` 0 (counts), 1
     (float64) or 2 (complex128); ``edge_itemsize`` the bytes of an edge in
@@ -268,9 +282,19 @@ def launch_plan(n: int, nbins: int, sms: int = 132, itemsize: int = 4, weights: 
     weighted sums need a copy for each of their eight warps, and a stage
     of their weights).  Past that, counts go to 16-bit counters in one wide
     block an SM, up to 116216 bins; past those, and weighted sums past a
-    copy a warp, to global atomics with four blocks an SM."""
+    copy a warp, to global atomics with four blocks an SM.  ``patterns``:
+    the counts of 2-byte float data (``PATTERN``): one wide block an SM
+    whose whole share holds the key counters."""
     vec = 16 // itemsize
     units = -(-n // vec)
+    if patterns:
+        if weights or itemsize != 2 or not edge_itemsize:
+            raise ValueError("the pattern route counts 2-byte float data against edges, unweighted")
+        blocks = max(1, min(sms, -(-units // WIDE_THREADS)))
+        if -(-units // blocks) * vec >= 2**32:
+            raise ValueError(f"the pattern route's 32-bit counters cannot take {n} values in {blocks} blocks")
+        smem = BLOCK_SHARED - STATIC_SHARED
+        return Plan(vec, units, WIDE_THREADS, blocks, 1, PATTERN, 0, False, smem, blocks * smem, smem // 4)
     edge_bytes = _align16((nbins + 1) * edge_itemsize) if edge_itemsize else 0
     edges_shared = 0 < edge_bytes <= EDGE_BUDGET
     fixed = (edge_bytes if edges_shared else 0) + WARPS * 32 * 8 * weights
@@ -296,6 +320,69 @@ def launch_plan(n: int, nbins: int, sms: int = 132, itemsize: int = 4, weights: 
 def counter(b: int):
     """``(word, shift)``: bin ``b``'s 16-bit counter in HALF mode."""
     return b // 2, 16 * (b % 2)
+
+
+def pattern_route(dtype, ccode: int, weights: int) -> bool:
+    """Whether the kernel counts values of ``dtype`` compared in
+    comparison code ``ccode`` by bit pattern: unweighted float16 or
+    bfloat16 data against float32 or float64 edges."""
+    return weights == 0 and DATA_CODES.get(dtype) in PATTERN_DATA and ccode in PATTERN_CODES
+
+
+def counter_bits(plan: Plan, span: int) -> int:
+    """The width of the pattern route's shared counters for a window of
+    ``span`` keys: 32 bits while the window fits the block's share, else
+    16 (two a word, their wraps carried as in HALF mode)."""
+    return 32 if span <= plan.keys32 else 16
+
+
+# +inf's bit pattern of the 2-byte floats the pattern route takes
+_INF16 = {torch.float16: 0x7C00, torch.bfloat16: 0x7F80}
+
+
+def pattern_key(p):
+    """The order key of 16-bit float patterns ``p`` (numpy integers):
+    monotone in the value over the non-NaN patterns, -0 just below +0,
+    the NaN patterns beyond -inf and +inf.  ``csrc/histogram.cu``'s."""
+    p = np.asarray(p, dtype=np.uint32)
+    return p ^ (((p >> 15) * 0x7FFF) | 0x8000)
+
+
+def pattern_of(k):
+    """``pattern_key``'s inverse."""
+    k = np.asarray(k, dtype=np.uint32)
+    return k ^ ((((k >> 15) ^ 1) * 0x7FFF) | 0x8000)
+
+
+def key_values(keys, dtype, compare):
+    """The values of order ``keys`` of the 2-byte float ``dtype`` (a
+    torch dtype) in the comparison type ``compare`` (exact)."""
+    bits = torch.from_numpy(pattern_of(keys).astype(np.uint16).view(np.int16))
+    return bits.view(dtype).to(_COMPARE_TORCH[compare]).numpy()
+
+
+def key_window(e0, en, dtype, compare):
+    """``(lo, span)``: the keys of the 2-byte values in ``[e0, en]`` (the
+    edges in the comparison type) are ``[lo, lo + span)``; span <= 0 for
+    none.  The kernel's two binary searches over the keys of -inf .. +inf,
+    as searchsorted."""
+    kmin, kmax = (int(pattern_key(b)) for b in (_INF16[dtype] | 0x8000, _INF16[dtype]))
+    vals = key_values(np.arange(kmin, kmax + 1), dtype, compare)
+    real = np.dtype(compare).type
+    lo = kmin + int(np.searchsorted(vals, real(e0), "left"))
+    return lo, kmin + int(np.searchsorted(vals, real(en), "right")) - lo
+
+
+def fold_keys(key_counts, lo, edges, dtype, compare):
+    """The finish of the pattern route: the counts of keys ``lo ..`` (one
+    a key of the window) added into the bins of ``edges`` (numpy, in the
+    comparison type), each key's bin by numpy's rule, eN in the last
+    bin."""
+    nb = len(edges) - 1
+    keys = lo + np.arange(len(key_counts))
+    v = key_values(keys, dtype, compare)
+    b = np.where(v == edges[-1], nb - 1, np.searchsorted(edges, v, "right") - 1)
+    return np.bincount(b, weights=key_counts, minlength=nb).astype(np.int64)
 
 
 def shares(plan: Plan, n: int):
@@ -328,12 +415,13 @@ def _run(x, ccode, edges_c, nbins, direct, weights):
     wk, w = _check_weights(x, weights)
     index = x.get_device()
     n = x.numel()
+    patterns = not direct and pattern_route(x.dtype, ccode, wk)
     plan = launch_plan(n, nbins, _sm_count(index), x.element_size(), wk,
-                       0 if direct else edges_c.element_size())
+                       0 if direct else edges_c.element_size(), patterns)
     # 16-byte loads of the values, and of the weights
     aligned = x.data_ptr() % 16 == 0 and (w is None or w.data_ptr() % 16 == 0)
     out_dtype = (torch.int64, torch.float64, torch.complex128)[wk]
-    make = torch.zeros if plan.mode in (HALF, GLOBAL) else torch.empty
+    make = torch.zeros if plan.mode in (HALF, GLOBAL, PATTERN) else torch.empty
     out = make(nbins, dtype=out_dtype, device=x.device)
     partial = torch.empty(plan.partial, dtype=torch.uint8, device=x.device) if plan.mode != GLOBAL else None
     _launcher()(index, x.data_ptr(), n, DATA_CODES[x.dtype], ccode, None if direct else edges_c.data_ptr(),

@@ -13,7 +13,9 @@ keeps the ``Overlap -> map_blocks -> trim`` route.
 on the CPU it runs ``band_stencil_plain`` (pad, func, trim in torch); for a
 CUDA tensor it launches the kernel (``csrc/band_stencil.cu``) or raises.
 The kernel is compiled with ``nvcc`` at the first CUDA call
-(``kernels/_build.py``).
+(``kernels/_build.py``).  Its tile is 24 rows by 32 lanes of 16 bytes of
+columns (256 for float16 and bfloat16, 128 for float32 and float64); the
+launcher counts the tiles, so nothing here depends on the width.
 """
 
 from __future__ import annotations

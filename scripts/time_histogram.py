@@ -4,9 +4,11 @@
 
 Imports ``dask_array_tpu_torch.kernels.histogram`` from ``DIR`` (default:
 the checkout holding this script), builds its kernel, and runs the cases
-of ``chip_smoke.k2_cases`` (this checkout's) on 2**26 values: float32 into
-256 bins, weighted, into 65536 bins and into 65536 bins with every value
-in one bin; a 65536-bin bincount of int64, and weighted.  For each case it
+of ``chip_smoke.k2_cases`` and ``chip_smoke.k2_two_byte_cases`` (this
+checkout's) on 2**26 values: float32 into 256 bins, weighted, into 65536
+bins and into 65536 bins with every value in one bin; a 65536-bin
+bincount of int64, and weighted; bfloat16 and float16 into 256 and 65536
+bins, and bfloat16 with every value in one of 65536 bins.  For each case it
 prints one JSON line: the kernel per call and on the device alone, the
 library call the same two ways, the bound (the bytes the function must
 move over 3.35 TB/s) and the kernel's share of it, and whether the kernel
@@ -51,6 +53,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _, cases = smoke.k2_cases(torch, hk, FLAT)
+    cases += smoke.k2_two_byte_cases(torch, hk, FLAT)
     for name, kernel, plain, lib, nbytes, rtol, _ in cases:
         got, ref = kernel(), plain()
         if rtol:

@@ -12,10 +12,17 @@ the same grid, the same leaf grid after ``simplify()``, and numpy's values.
 Then the same programs on an h5py dataset behind a recording wrapper, and
 the full signature.
 
+The JAX package names a store by its pickle and interns expressions by
+name while they live, so two equal stores alive at once share one
+expression there, and a compute reads the first
+(``KNOWN_REFERENCE_FAULTS``, checked to differ).  ``_run`` collects
+cycles first, so that only a live store can collide with a fresh one.
+
 Tolerance: exact (the reads move bytes; sums are of small integers in
 float64, exact).
 """
 
+import gc
 import importlib
 
 import numpy as np
@@ -95,6 +102,7 @@ def _run(which, name):
     da = importlib.import_module(ROOTS[which])
     FromArray = importlib.import_module(f"{ROOTS[which]}.ops._from_array").FromArray
     args, build, _ = PROGRAMS[name]
+    gc.collect()  # an earlier case's expression in an uncollected cycle would hold an equal store
     store = RecordingStore(*args)
     arr = build(da, store)
     assert store.calls == []  # nothing is read while the program is built
@@ -113,6 +121,29 @@ def test_a_recording_store_reads_what_the_jax_package_reads(name):
     assert port["calls"] == jax["calls"]
     np.testing.assert_array_equal(port["value"], jax["value"])
     np.testing.assert_array_equal(port["value"], PROGRAMS[name][2](port["data"]))
+
+
+# case -> how the JAX package differs from the port and dask (each checked to differ)
+KNOWN_REFERENCE_FAULTS = {
+    "two-equal-live-stores": "the JAX package names a store by its pickle (utils/_tokenize.py:250) and interns "
+                             "expressions by name (_expr.py:74-110): the second of two equal live stores gets "
+                             "the first one's expression, and its compute reads the first store",
+}
+
+
+@pytest.mark.parametrize("name", sorted(KNOWN_REFERENCE_FAULTS))
+def test_known_reference_faults_are_real(name):
+    reads = {}
+    for which in ROOTS:
+        da = importlib.import_module(ROOTS[which])
+        first, second = RecordingStore((100, 100), (10, 10)), RecordingStore((100, 100), (10, 10))
+        a, b = da.from_array(first)[15:25, 35:45], da.from_array(second)[15:25, 35:45]
+        np.testing.assert_array_equal(np.asarray(b.compute()), second.data[15:25, 35:45])
+        after_second = (len(first.calls), len(second.calls))
+        np.testing.assert_array_equal(np.asarray(a.compute()), first.data[15:25, 35:45])
+        reads[which] = after_second, (len(first.calls), len(second.calls))
+    assert reads["port"] == ((0, 1), (1, 1))  # the port reads each store it is given
+    assert reads["jax"] == ((1, 0), (1, 0))  # the JAX package reads the first store only
 
 
 def test_the_default_grid_keeps_to_granules():

@@ -10,7 +10,9 @@ map_blocks and the random-input pipelines with their kernel launches;
 the histogram kernel (K2) against its plain version and numpy (every
 held dtype, complex data, NaN and infinities, int64 edges to INT64_MAX,
 values on and beside every edge, 1 and 2**16 bins, bincounts, unaligned
-and ragged inputs, weighted sums that repeat their bits) and the paths
+and ragged inputs, weighted sums that repeat their bits; float16 and
+bfloat16 counts by bit pattern over every pattern, with 16-bit counters
+that wrap) and K1's 256-column tile of 2-byte types; the paths
 held to numpy's own steps: nonzero and pad of unsigned integers, float16
 scans, complex histograms and svd_compressed, norms of integers; the
 pinned host copies (uploads and fetches byte for byte as the pageable
@@ -1622,12 +1624,14 @@ def test_pinned_rings_under_concurrent_callers(cuda):
 # -- S9: bfloat16 in K1 and K2, datetime ticks, the host lanes on the card ----------
 
 
-def _bf16_close(got, want, scale):
-    """1 bfloat16 step of the value (2^-7 of it) plus 4 float32 steps of
-    ``scale`` (sum |w| * max |x|): kernel and plain version each add the
-    taps in float32, in other orders, and round once."""
+def _close16(got, want, scale):
+    """1 step of the 2-byte type (2^-7 of the value for bfloat16, 2^-10 for
+    float16) plus 4 float32 steps of ``scale`` (sum |w| * max |x|): kernel
+    and plain version each add the taps in float32, in other orders, and
+    round once."""
+    step = 2.0**-7 if want.dtype == torch.bfloat16 else 2.0**-10
     d = (got.float() - want.float()).abs()
-    return bool((d <= 2.0**-7 * want.float().abs() + 2.0**-21 * scale).all())
+    return bool((d <= step * want.float().abs() + 2.0**-21 * scale).all())
 
 
 @pytest.mark.gpu
@@ -1644,7 +1648,7 @@ def test_kernel_bf16_matches_plain_for_every_boundary_pair(cuda, func, depth):
             want = stencil.band_stencil_plain(x, func, depth, (b0, b1))
             assert got.dtype == torch.bfloat16
             scale = sum(abs(w) for _, _, w in taps) * float(x.float().abs().max())
-            assert _bf16_close(got, want, scale), (b0, b1)
+            assert _close16(got, want, scale), (b0, b1)
 
 
 @pytest.mark.gpu
@@ -1663,7 +1667,7 @@ def test_kernel_bf16_paths_match_plain(cuda, depth, layout):
     got = stencil.band_stencil_cuda(x, taps, depth, ("reflect", 2.5))
     want = stencil.band_stencil_plain(x, f, depth, ("reflect", 2.5))
     assert stencil.vector_ok(x, got) == (layout == "vector")
-    assert _bf16_close(got, want, sum(abs(w) for _, _, w in taps) * float(x.float().abs().max()))
+    assert _close16(got, want, sum(abs(w) for _, _, w in taps) * float(x.float().abs().max()))
 
 
 @pytest.mark.gpu
@@ -1684,6 +1688,145 @@ def test_histogram_kernel_bf16_data(cuda, nbins, edges_dtype):
         f = v.float().cpu().numpy()
         want = np.histogram(f[~np.isnan(f)], bins=e.double().cpu().numpy())[0]
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# -- 2-byte floats: K1's 256-column tile, K2's pattern route ----------------------------
+
+TWO_BYTE = [torch.bfloat16, torch.float16]
+
+
+def _plain16(x, func, depth, bnd):
+    """The plain version in float32, rounded once to x's 2-byte type (the
+    kernel's arithmetic; float16's own plain version rounds each step)."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    fills = tuple(float(torch.tensor(b, dtype=x.dtype)) if not isinstance(b, str) else b for b in bnd)
+    return stencil.band_stencil_plain(x.float(), func, depth, fills).to(x.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TWO_BYTE, ids=str)
+@pytest.mark.parametrize("depth", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("width", [255, 256, 257, 264, 4097])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_two_byte_tile_widths_match_plain(cuda, dtype, depth, width, offset):
+    """The 256-column tile of 2-byte types: widths one short of, at, one
+    past and 8 past a tile, and 4097 (16 tiles and one column); rows of 16
+    bytes (whole 16-byte vectors and column pairs) and, one element into
+    the storage, rows that take scalar loads and stores; the register
+    window at (1, 1) (six blocks an SM), the tap list at (2, 3) (eight
+    columns a lane, odd and even column offsets)."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    gen = torch.Generator(device=cuda).manual_seed(width + offset)
+    rows = 101
+    base = torch.randn(rows * width + 1, generator=gen, device=cuda).to(dtype)
+    x = base[offset:offset + rows * width].view(rows, width)
+    f = laplace if depth == (1, 1) else stencil_reaching(*depth)
+    taps = stencil.capture_taps(f, depth)
+    for bnd in (("reflect", "periodic"), (2.5, "nearest"), ("periodic", 0.0)):
+        got = stencil.band_stencil_cuda(x, taps, depth, bnd)
+        want = _plain16(x, f, depth, bnd)
+        assert got.dtype == dtype and stencil.vector_ok(x, got) == (offset == 0 and width * 2 % 16 == 0)
+        assert _close16(got, want, sum(abs(w) for _, _, w in taps) * float(x.float().abs().max())), (bnd, width)
+
+
+def _every_pattern(dtype, copies=2, seed=0):
+    """Every 2-byte pattern ``copies`` times, shuffled, on the card."""
+    bits = np.tile(np.arange(65536, dtype=np.uint16), copies)
+    bits = np.random.default_rng(seed).permutation(bits)
+    return torch.from_numpy(bits.view(np.int16)).cuda().view(dtype)
+
+
+def _two_byte_check(x, e):
+    """The kernel against the plain version and numpy of the float32 values
+    (NaN dropped), aligned and one element in."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    for v in (x, x[1:]):
+        got = hk.histogram_counts_cuda(v, e)
+        torch.testing.assert_close(got, hk.histogram_counts_plain(v, e), rtol=0, atol=0)
+        f = v.float().cpu().numpy()
+        with np.errstate(all="ignore"):
+            want = np.histogram(f[~np.isnan(f)], bins=e.double().cpu().numpy())[0]
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TWO_BYTE, ids=str)
+@pytest.mark.parametrize("edges_dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("nbins", [1, 7, 256, 4096, 65536])
+def test_histogram_kernel_two_byte_every_pattern(cuda, dtype, edges_dtype, nbins):
+    """Every pattern as data (NaN, ±0, ±inf, subnormals, the edges' own
+    values), through the pattern route: [-4, 4] (32-bit counters),
+    edges no 2-byte float holds, and -inf .. inf (16-bit counters)."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    x = _every_pattern(dtype, seed=nbins)
+    hk.LAUNCHES = 0
+    for e in (np.linspace(-4.0, 4.0, nbins + 1), np.linspace(-0.3, 0.7, nbins + 1) + 1e-9,
+              np.concatenate([[-np.inf], np.linspace(-100.0, 100.0, nbins - 1), [np.inf]]) if nbins > 1
+              else np.array([-np.inf, np.inf])):
+        _two_byte_check(x, torch.from_numpy(e).to(edges_dtype).cuda())
+    assert hk.LAUNCHES == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TWO_BYTE, ids=str)
+def test_histogram_kernel_two_byte_sixteen_bit_counters(cuda, dtype):
+    """A window of every key takes 16-bit counters: 4e7 copies of one value
+    and 2e7 of its high neighbour (one 32-bit word) wrap both counters
+    in every block, beside every pattern; the counts stay exact."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    e = torch.tensor([-np.inf, -1.0, 0.0, 0.5, 1.0, np.inf], dtype=torch.float64, device=cuda)
+    lo, span = hk.key_window(-np.inf, np.inf, dtype, "float64")
+    assert hk.counter_bits(hk.launch_plan(1 << 22, 5, hk._sm_count(0), 2, 0, 8, True), span) == 16
+    low, high = hk.pattern_of(lo + 2 * 20000), hk.pattern_of(lo + 2 * 20000 + 1)
+    bits = np.concatenate([np.full(40_000_000, low, np.uint16), np.full(20_000_000, high, np.uint16),
+                           np.arange(65536, dtype=np.uint16)])
+    for b in (bits, np.random.default_rng(2).permutation(bits)):
+        _two_byte_check(torch.from_numpy(b.view(np.int16)).cuda().view(dtype), e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TWO_BYTE, ids=str)
+def test_histogram_kernel_two_byte_weighted_keeps_its_route(cuda, dtype):
+    """Weighted sums of 2-byte data keep the copies route: float64 sums to
+    rtol 1e-12 of the plain version and numpy."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    x = _every_pattern(dtype, copies=3, seed=5)
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(x.numel())).cuda()
+    assert hk.launch_plan(x.numel(), 256, hk._sm_count(0), 2, 1, 8).mode == hk.COPIES
+    e = torch.linspace(-4, 4, 257, dtype=torch.float64, device=cuda)
+    keep = ~torch.isnan(x)
+    for v, wv in ((x, w), (x[1:], w[1:])):
+        got = hk.histogram_counts_cuda(v, e, wv)
+        torch.testing.assert_close(got, hk.histogram_counts_plain(v, e, wv), rtol=1e-12, atol=1e-9)
+    f, wn = x.float().cpu().numpy(), w.cpu().numpy()
+    want = np.histogram(f[keep.cpu().numpy()], bins=e.cpu().numpy(), weights=wn[keep.cpu().numpy()])[0]
+    np.testing.assert_allclose(hk.histogram_counts_cuda(x, e, w).cpu().numpy(), want, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", TWO_BYTE, ids=str)
+@pytest.mark.parametrize("edges", ["uniform", "infinite"])
+def test_histogram_kernel_two_byte_all_values_in_one_bin(cuda, dtype, edges):
+    """2**26 copies of one value: one key takes every count (32-bit counters
+    of [-4, 4]; 16-bit ones, wrapping some 8 times a block, of -inf ..
+    inf); the count is exact."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    n = 1 << 26
+    x = torch.full((n,), 0.3, device=cuda, dtype=dtype)
+    e = torch.linspace(-4, 4, 65537, device=cuda, dtype=torch.float64)
+    if edges == "infinite":
+        e[0], e[-1] = -np.inf, np.inf
+    got = hk.histogram_counts_cuda(x, e).cpu().numpy()
+    want = np.histogram(np.full(4, float(x[0]), np.float64), bins=e.cpu().numpy())[0] * (n // 4)
+    np.testing.assert_array_equal(got, want)
+    del x
 
 
 @pytest.mark.gpu

@@ -15,6 +15,14 @@
   (the guess's float32 and float64 arithmetic done here in numpy).
 - The plain version against numpy and the JAX package (its XLA lane and
   its scan, ``tpu.histogram-kernel: pallas``) for every real dtype.
+- The pattern route of float16 and bfloat16 counts, emulated in numpy:
+  the order key of every one of the 65536 patterns, the window of keys
+  between the edges, the counter width (16-bit counters with their wraps
+  and carries, value by value, where the window is too wide for 32-bit
+  ones), then the fold of each key's count into its bin; equal to
+  ``np.histogram`` of the float32 values and to the plain version for
+  float32 and float64 edges, 1 to 65536 bins.  Its launch plan at the
+  main path's shapes and around the span where the counters narrow.
 
 Tolerance: exact (counts, bins, plans).  The kernel is held against the
 plain version and numpy on the card by ``tests/test_torch_gpu.py``.
@@ -42,8 +50,8 @@ HELD = ["bool", "uint8", "int8", "int16", "uint16", "int32", "uint32", "int64", 
 SIZES = list(range(0, 70)) + [255, 256, 257, 1023, 1024, 1025, 4095, 65537, 10**6 + 3, 2**24, 2**26, 2**26 + 17]
 
 
-def check_plan(n, nbins, itemsize, weights, edge_itemsize, sms=132):
-    plan = hk.launch_plan(n, nbins, sms, itemsize, weights, edge_itemsize)
+def check_plan(n, nbins, itemsize, weights, edge_itemsize, sms=132, patterns=False):
+    plan = hk.launch_plan(n, nbins, sms, itemsize, weights, edge_itemsize, patterns)
     assert plan.vec * itemsize == 16 and plan.units == -(-n // plan.vec)
     assert 1 <= plan.blocks <= sms * plan.per_sm and plan.per_sm in (1, 2, 4)
     # a wide block for counts where one block fits an SM, 256 threads otherwise
@@ -62,6 +70,14 @@ def check_plan(n, nbins, itemsize, weights, edge_itemsize, sms=132):
         assert 1 <= plan.copies <= hk.WARPS and plan.partial == plan.blocks * nbins * cb
         assert weights == 0 or plan.copies == hk.WARPS  # deterministic sums: a copy a warp
         assert plan.smem >= plan.copies * nbins * cb + hk.WARPS * 32 * 8 * weights  # the copies, the weight stage
+    elif plan.mode == hk.PATTERN:
+        # one wide block an SM; its whole share holds the key counters, and
+        # so does each block's partial: 32-bit counters for keys32 keys,
+        # 16-bit ones for every key of a 2-byte float
+        assert patterns and weights == 0 and plan.per_sm == 1 and plan.copies == 0 and not plan.edges_shared
+        assert plan.keys32 == plan.smem // 4 and plan.partial == plan.blocks * plan.smem
+        assert plan.smem >= 65536 // 2 * 4
+        assert max(runs) * plan.vec < 2**32  # a block's count of one key fits its 32-bit counter
     elif plan.mode == hk.HALF:
         assert weights == 0 and plan.copies == 0 and plan.per_sm == 1
         words = -(-nbins // 2)
@@ -166,6 +182,42 @@ def test_sixteen_bit_counters_hold_the_count_past_65535(lo, hi):
     np.testing.assert_array_equal(half_counts(order), [65536, 65538])
     # the last bin of an odd count has no high neighbour: its carry is dropped
     np.testing.assert_array_equal(half_counts([0] * 70_000, nbins=1), [70_000])
+
+
+@pytest.mark.parametrize("nbins, edge_itemsize", [(1, 4), (256, 4), (256, 8), (65536, 4), (1 << 20, 8)])
+def test_pattern_plan_reads_every_value_once(nbins, edge_itemsize):
+    for n in SIZES:
+        for sms in (1, 132):
+            p = check_plan(n, nbins, 2, 0, edge_itemsize, sms, patterns=True)
+            assert p.mode == hk.PATTERN and p.vec == 8
+
+
+def test_pattern_plan_at_the_main_path_shapes():
+    """2**26 bfloat16 values: 132 blocks of 1024 threads, the 227 KB a
+    block may take (58108 32-bit counters); [-4, 4] spans 33026 keys in
+    bfloat16 and 34818 in float16 (32-bit counters), -inf .. inf 65282 and
+    63490 (16-bit); the counters narrow past 58108 keys.  Weighted and
+    other data keep their routes."""
+    for edge_itemsize in (4, 8):
+        p = check_plan(2**26, 256, 2, 0, edge_itemsize, patterns=True)
+        assert (p.blocks, p.threads, p.mode, p.smem, p.keys32, p.partial) == (
+            132, 1024, hk.PATTERN, 232432, 58108, 132 * 232432)
+        assert hk.launch_plan(2**26, 65536, 132, 2, 0, edge_itemsize, True) == p  # no bin in the plan
+    assert (hk.counter_bits(p, 58108), hk.counter_bits(p, 58109), hk.counter_bits(p, 65536)) == (32, 16, 16)
+    for dtype, span44, span_all in ((torch.bfloat16, 33026, 65282), (torch.float16, 34818, 63490)):
+        for compare in ("float32", "float64"):
+            assert hk.key_window(-4.0, 4.0, dtype, compare)[1] == span44
+            assert hk.key_window(-np.inf, np.inf, dtype, compare)[1] == span_all
+    assert hk.counter_bits(p, 33026) == 32 and hk.counter_bits(p, 65282) == 16
+    for dtype in (torch.bfloat16, torch.float16):
+        for compare in hk.COMPARE_CODES:
+            assert hk.pattern_route(dtype, hk.COMPARE_CODES[compare], 0) is (compare in ("float32", "float64"))
+        assert not hk.pattern_route(dtype, 0, 1)
+    assert not any(hk.pattern_route(dt, 0, 0) for dt in (torch.float32, torch.float64, torch.int16, torch.uint16))
+    with pytest.raises(ValueError):
+        hk.launch_plan(2**26, 256, 132, 2, 1, 8, True)
+    with pytest.raises(ValueError):  # 2**32 values of one block would wrap a 32-bit counter
+        hk.launch_plan(2**33, 256, 1, 2, 0, 8, True)
 
 
 # -- the comparison type ------------------------------------------------------------
@@ -320,3 +372,112 @@ def test_bincount_plain_and_the_dispatch():
     assert torch.equal(hk.bincount_counts(x, 50, w), torch.bincount(x, weights=w, minlength=50))
     assert hk.LAUNCHES == 0 or isinstance(hk.LAUNCHES, int)
     assert math.isinf(hk.guess_margin(np.array([1.0]), "float64"))
+
+
+# -- the pattern route, emulated -------------------------------------------------------
+
+ALL_PATTERNS = np.arange(65536, dtype=np.uint16)
+
+
+def pattern_counts(bits, edges, dtype, compare, plan):
+    """The pattern route on the 16-bit patterns ``bits`` (in the order the
+    values arrive) over ``edges`` (numpy, in the comparison type): the
+    window, the counter width, the counts (16-bit counters value by value:
+    a wrap adds 65536 to its key's bin at once, a low counter's carry into
+    the high one is taken back from the high key's bin), then the fold."""
+    lo, span = hk.key_window(edges[0], edges[-1], dtype, compare)
+    nb = len(edges) - 1
+    if span <= 0:
+        return np.zeros(nb, np.int64)
+    d = hk.pattern_key(bits).astype(np.int64) - lo
+    d = d[(d >= 0) & (d < span)]
+    if hk.counter_bits(plan, span) == 32:
+        return hk.fold_keys(np.bincount(d, minlength=span), lo, edges, dtype, compare)
+    words, out = np.zeros((span + 1) // 2, np.int64), np.zeros(nb, np.int64)
+
+    def one(key):  # one count of key, folded into its bin
+        c = np.zeros(span, np.int64)
+        c[key] = 1
+        return hk.fold_keys(c, lo, edges, dtype, compare)
+
+    for k in d:
+        sh = 16 * (k & 1)
+        old = words[k >> 1]
+        words[k >> 1] = (old + (1 << sh)) & 0xFFFFFFFF
+        if (old >> sh) & 0xFFFF == 0xFFFF:
+            out += 65536 * one(k)
+            if sh == 0 and k + 1 < span:
+                out += (65535 if old >> 16 == 0xFFFF else -1) * one(k + 1)
+    counters = (words[np.arange(span) >> 1] >> (16 * (np.arange(span) & 1))) & 0xFFFF
+    return out + hk.fold_keys(counters, lo, edges, dtype, compare)
+
+
+def two_byte(dtype, bits):
+    return torch.from_numpy(bits.view(np.int16)).view(dtype)
+
+
+PATTERN_EDGES = {
+    "uniform": lambda nb: np.linspace(-4.0, 4.0, nb + 1),
+    "offset": lambda nb: np.linspace(-0.3, 0.7, nb + 1) + 1e-9,  # no 2-byte float lies on these edges
+    "infinite": lambda nb: np.concatenate([[-np.inf], np.linspace(-100.0, 100.0, nb - 1), [np.inf]]) if nb > 1
+    else np.array([-np.inf, np.inf]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("compare", ["float32", "float64"])
+@pytest.mark.parametrize("nbins", [1, 7, 256, 4096, 65536])
+@pytest.mark.parametrize("edges", sorted(PATTERN_EDGES))
+def test_pattern_route_counts_every_pattern_as_numpy(dtype, compare, nbins, edges):
+    """Every 2-byte pattern as data (NaN, ±0, ±inf, subnormals, the edges'
+    own values where a 2-byte float holds them): the emulated route equals
+    numpy's histogram of the float32 values and the plain version."""
+    e = PATTERN_EDGES[edges](nbins).astype(compare)
+    bits = np.concatenate([ALL_PATTERNS, np.random.default_rng(nbins).permutation(ALL_PATTERNS)])
+    x = two_byte(dtype, bits)
+    vals = x.float().numpy()
+    plan = hk.launch_plan(bits.size, nbins, 132, 2, 0, e.itemsize, True)
+    got = pattern_counts(bits, e, dtype, compare, plan)
+    with np.errstate(all="ignore"):
+        want = np.histogram(vals[~np.isnan(vals)], bins=e)[0]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, hk.histogram_counts_plain(x, torch.from_numpy(e)).numpy())
+    assert got.sum() == ((vals >= e[0]) & (vals <= e[-1])).sum()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("compare", ["float32", "float64"])
+def test_pattern_route_sixteen_bit_counters_carry_their_wraps(dtype, compare):
+    """A window of every finite and infinite key takes 16-bit counters;
+    200001 copies of one value beside 131071 of its high neighbour (a low
+    counter that wraps three times into a high one at 0xFFFF), in arrival
+    order and shuffled, still count exactly, as numpy does."""
+    e = np.array([-np.inf, -1.0, 0.0, 0.5, 1.0, np.inf], dtype=compare)
+    plan = hk.launch_plan(10**6, 5, 132, 2, 0, e.itemsize, True)
+    lo, span = hk.key_window(e[0], e[-1], dtype, compare)
+    assert hk.counter_bits(plan, span) == 16
+    k = lo + 2 * 5000  # a low counter; k + 1 its high neighbour
+    low, high = (hk.pattern_of(k).astype(np.uint16), hk.pattern_of(k + 1).astype(np.uint16))
+    bits = np.concatenate([np.full(131071, high, np.uint16), np.full(200001, low, np.uint16), ALL_PATTERNS])
+    for order in (bits, np.random.default_rng(1).permutation(bits)):
+        got = pattern_counts(order, e, dtype, compare, plan)
+        vals = two_byte(dtype, order).float().numpy()
+        np.testing.assert_array_equal(got, np.histogram(vals[~np.isnan(vals)], bins=e)[0])
+
+
+def test_pattern_keys_follow_the_values():
+    """The order key is a bijection of the 65536 patterns, monotone in the
+    value over -inf .. inf (-0 below +0), NaN outside; float64 edges a
+    2-byte float cannot hold give the window of the values between them."""
+    keys = hk.pattern_key(ALL_PATTERNS)
+    assert np.array_equal(np.sort(keys), np.arange(65536)) and np.array_equal(hk.pattern_of(keys), ALL_PATTERNS)
+    for dtype, inf in ((torch.bfloat16, 0x7F80), (torch.float16, 0x7C00)):
+        lo, hi = int(hk.pattern_key(inf | 0x8000)), int(hk.pattern_key(inf))
+        v = hk.key_values(np.arange(65536), dtype, "float64")
+        assert np.all(np.diff(v[lo:hi + 1]) >= 0) and np.isnan(v[:lo]).all() and np.isnan(v[hi + 1:]).all()
+        assert hk.key_values(hk.pattern_key([0x8000, 0]), dtype, "float64").tolist() == [0.0, 0.0]
+        assert int(hk.pattern_key(0)) == int(hk.pattern_key(0x8000)) + 1
+        lo1, span1 = hk.key_window(0.1, 0.3, dtype, "float64")
+        w = hk.key_values(np.arange(lo1 - 1, lo1 + span1 + 1), dtype, "float64")
+        assert w[0] < 0.1 <= w[1] and w[-2] <= 0.3 < w[-1]
+        assert hk.key_window(np.nan, 1.0, dtype, "float64")[1] <= 0
