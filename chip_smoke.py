@@ -226,6 +226,21 @@ Phases (each prints one line of its own numbers; any failure raises):
      (chunks 1024) through sum/mean/var/argmax/cumsum and sqrt beside
      numpy.ma, 2^20 records (field arithmetic on the card), and a
      registered duck type end to end.
+ 32. the mesh (S12; MESH_SIZES): 4 slots on cuda:0 (on 4 cards where
+     there are 4), 2 x 2 ("x", "y") and a ring ("r",), the JAX package's
+     multichip dry run at full width, each part against the port without
+     a mesh in this process, with its compute_device() both ways, its
+     collectives (parallel._sharded.COLLECTIVES) and lane programs: (a)
+     the flagship step (feature-normalise, contract, row-reduce) on a
+     16384^2 float32 a and a 8192 x 16384 b with a rechunk boundary (one
+     permute); (b) the Laplace stencil under "overlap-method": "shard" (K1
+     once a slot, two permutes a sharded axis) and tanh(laplace) through
+     ShardStencil (the halo kernel once a slot); (c) cumsum, a rechunk
+     that moves a mesh axis (a permute on the grid, an all_to_all on the
+     ring), sum; (d) the shard lane on 1e6 x 128 float32 in 11 uneven row
+     blocks: elemwise + sum, mean, var (one psum a reduction, no
+     all_gather), the Blelloch cumsum (one all_gather), x @ w (no
+     collective), argmax (the vote); (e) auto_mesh() over the cards.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -2154,6 +2169,175 @@ def s9_paths(da, torch, sizes, smi):
     return out, entries
 
 
+# phase 32: the mesh on the card.  "n" is the flagship's a (n x n float32,
+# 1 GiB; b is n/2 x n), "rows" x "cols" the shard lane's irregular grid in
+# the 11 row blocks of "heights" (the JAX package's grid, scaled)
+MESH_SIZES = {"n": 16384, "rows": 1_000_000, "cols": 128, "heights": (23, 7, 15, 31, 9, 12, 4, 11, 8, 10, 7)}
+
+
+def flagship(a, b):
+    """``__graft_entry__._pipeline``: feature-normalise, contract, row-reduce."""
+    centered = a - a.mean(axis=0)
+    scaled = centered / (a.std(axis=0) + 1e-6)
+    y = scaled @ b.T
+    return (y * y).sum(axis=1)
+
+
+def mesh_paths(da, torch, sizes, device="cuda"):
+    """Phase 32: the JAX package's multichip dry run at full width on the
+    card, over 4 slots (2 x 2 ``("x", "y")``, or a ring ``("r",)``) on
+    ``cuda:0``, or on 4 distinct cards where there are 4.  Every part runs
+    with and without the mesh in this process; the values must agree.
+    ``device="cpu"`` runs the same parts on 4 CPU slots (a quick check of
+    the script at small ``sizes``).  Returns ({part: numbers}, the kernel
+    launches under the mesh)."""
+    import contextlib
+
+    import numpy as np
+
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo, mstat, stencil
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.models.pipelines import laplace_roll
+    from dask_array_tpu_torch.parallel import Mesh, auto_mesh, use_mesh
+    from dask_array_tpu_torch.parallel._sharded import COLLECTIVES
+    from dask_array_tpu_torch.parallel.shardlane import ENGAGED
+
+    on_card = device == "cuda"  # the CPU runs the kernels' plain versions: no launch to count
+    cards = torch.cuda.device_count() if on_card else 0
+    slots = [f"cuda:{i}" for i in range(4)] if cards >= 4 else ["cuda:0" if on_card else device] * 4
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    grid = Mesh(np.array(slots, dtype=object).reshape(2, 2), ("x", "y"))
+    ring = Mesh(np.array(slots, dtype=object), ("r",))
+    kernels = {"band_stencil": stencil, "halo": halo, "multi_stat": mstat, "transpose": tk, "scale": sk}
+    total = {k: 0 for k in kernels}
+    out = {}
+
+    def run(e, mesh):
+        """compute_device() of ``e`` (twice; the second timed), under
+        ``mesh`` or none: (tensor, ms, launches, collectives, lane
+        programs) of the timed run."""
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            e.compute_device()
+            for m in kernels.values():
+                m.LAUNCHES = 0
+            coll, eng, nb = COLLECTIVES.snapshot(), ENGAGED["count"], dict(COLLECTIVES.nbytes)
+            sync()
+            t0 = time.perf_counter()
+            got = e.compute_device()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: m.LAUNCHES for k, m in kernels.items()}
+        if mesh is not None:
+            for k, v in launched.items():
+                total[k] += v
+        moved = {k: (n, COLLECTIVES.nbytes[k] - nb[k]) for k, n in COLLECTIVES.delta(coll).items()}
+        return got, ms, {k: v for k, v in launched.items() if v}, moved, ENGAGED["count"] - eng
+
+    def part(name, e, mesh, rtol, expect=None):
+        want, plain_ms, plain_launches, _, _ = run(e, None)
+        got, mesh_ms, launched, moved_bytes, engaged = run(e, mesh)
+        moved = {k: n for k, (n, _) in moved_bytes.items()}
+        check(got.shape == want.shape and got.dtype == want.dtype, f"phase 32 {name}: shape/dtype")
+        scale = float(want.double().abs().max()) if want.is_floating_point() else 1.0
+        err = float((got.double() - want.double()).abs().max())
+        check(err <= rtol * max(scale, 1.0), f"phase 32 {name}: {err} from the no-mesh answer (scale {scale})")
+        if expect is not None:
+            expect(launched, moved, engaged)
+        out[name] = {"mesh": dict(mesh.shape), "slots": [str(d) for d in mesh.slots], "max_abs_err": err,
+                     "rtol": rtol, "no_mesh_ms": plain_ms, "mesh_ms": mesh_ms, "launches": launched,
+                     "no_mesh_launches": plain_launches, "collectives": moved,
+                     "collective_bytes": {k: b for k, (_, b) in moved_bytes.items()}, "lane_programs": engaged}
+        return got
+
+    n = sizes["n"]
+    g = torch.Generator(device=device).manual_seed(32)
+    # drawn on the card, entered from numpy and persisted there: (a)-(c)
+    # time the device work, not the upload
+    a = da.from_array(torch.randn((n, n), generator=g, device=device).cpu().numpy(), chunks=(n // 2, n // 2)).persist()
+    b = da.from_array(torch.randn((n // 2, n), generator=g, device=device).cpu().numpy(),
+                      chunks=(n // 2, n // 2)).persist()
+
+    # (a) the flagship step, with an explicit rechunk boundary (on the 2 x 2
+    # mesh the solver swaps b's two mesh axes: one whole-shard permute)
+    def swap_once(launched, moved, engaged):
+        check(moved.get("ppermute") == 1 and "all_gather" not in moved, f"phase 32 flagship: {moved}")
+
+    part("flagship", flagship(a, b.freeze_chunks().rechunk((n // 4, n))), grid, 1e-4, expect=swap_once)
+
+    # (b) the stencil under overlap-method "shard": the band-stencil kernel
+    # once a slot, two permutes a sharded axis (both axes: four)
+    def k1_per_slot(launched, moved, engaged):
+        check(launched.get("band_stencil") == 4 or not on_card, f"phase 32 stencil: K1 launches {launched}")
+        check(moved == {"ppermute": 4, "gather": 1}, f"phase 32 stencil: {moved}")
+
+    with config.set({"overlap-method": "shard"}):
+        st = da.map_overlap(laplace_roll, a, depth=1, boundary="reflect")
+    check(type(st.expr).__name__ == "BandStencil", "phase 32: the stencil is no BandStencil")
+    part("stencil", st, grid, 1e-5, expect=k1_per_slot)
+
+    # (b) a func K1 does not take, through ShardStencil on the ring: rows
+    # exchanged, the whole column axis padded by the halo kernel once a slot
+    def halo_per_slot(launched, moved, engaged):
+        check(launched.get("halo") == 4 or not on_card, f"phase 32 tanh: halo launches {launched}")
+        check(not launched.get("band_stencil"), f"phase 32 tanh: {launched}")
+        check(moved == {"ppermute": 2, "gather": 1}, f"phase 32 tanh: {moved}")
+
+    with config.set({"overlap-method": "shard"}):  # routed when the graph is built
+        tanh_laplace = da.map_overlap(lambda blk: torch.tanh(laplace_roll(blk)), a, depth=1, boundary="nearest",
+                                      dtype="float32")
+    check(type(tanh_laplace.expr).__name__ == "ShardStencil", "phase 32: tanh(laplace) is no ShardStencil")
+    part("tanh-laplace", tanh_laplace, ring, 1e-5, expect=halo_per_slot)
+
+    # (c) the relayout: a scan, a rechunk that moves a mesh axis, a sum
+    def relayout(kind):
+        def expect(launched, moved, engaged):
+            check(moved.get(kind) and "all_gather" not in moved, f"phase 32 relayout: {moved}")
+
+        return expect
+
+    part("relayout-grid", a.cumsum(axis=1).rechunk((n, n // 2)).sum(axis=0), grid, 1e-4,
+         expect=relayout("ppermute"))
+    part("relayout-ring", a.cumsum(axis=1).rechunk((n, n // 4)).sum(axis=0), ring, 1e-4,
+         expect=relayout("all_to_all"))
+    del a, b
+
+    # (d) the shard lane on an irregular grid of 11 row blocks
+    rows, cols = sizes["rows"], sizes["cols"]
+    hs = [int(h * rows / sum(sizes["heights"])) for h in sizes["heights"]]
+    hs[-1] += rows - sum(hs)
+    # the lane takes from_array leaves of host data: each slot uploads its rows
+    x = da.from_array(torch.randn((rows, cols), generator=g, device=device).cpu().numpy(), chunks=(tuple(hs), cols))
+    w = da.from_array(torch.randn((cols, cols), generator=g, device=device).cpu().numpy(), chunks=(cols, cols))
+
+    def lane(combines):
+        def expect(launched, moved, engaged):
+            check(engaged == 1, f"phase 32 lane: {engaged} lane programs")
+            got = {k: v for k, v in moved.items() if k != "gather"}
+            check(got == combines, f"phase 32 lane: collectives {moved}, want {combines}")
+
+        return expect
+
+    part("lane-sum", (x * 2 + 1).sum(axis=0), grid, 1e-5, expect=lane({"psum": 1}))
+    part("lane-mean", x.mean(axis=0), grid, 1e-5, expect=lane({"psum": 1}))
+    part("lane-var", x.var(axis=0), grid, 1e-5, expect=lane({"psum": 2}))
+    # a float32 scan of 1e6 rows: the carry is added once a slot where the
+    # single scan runs on, so the two round apart by up to 1e-4 of the top
+    part("lane-cumsum", da.cumsum(x, axis=0), grid, 1e-4, expect=lane({"all_gather": 1}))
+    part("lane-matmul", x @ w, grid, 1e-5, expect=lane({}))
+    # the vote: the extremum (pmax), NaN presence (pmax), the first index (pmin)
+    part("lane-argmax", x.argmax(axis=0), grid, 0.0, expect=lane({"pmax": 2, "pmin": 1}))
+
+    # (e) auto_mesh over the cards present
+    am = auto_mesh() if device == "cuda" else auto_mesh(devices=[device])
+    part("auto-mesh-sum", (x * 2 + 1).sum(axis=0), am, 1e-5, expect=lane({"psum": 1}))
+    del x, w
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out, total
+
+
 def main() -> int:
     import torch
 
@@ -3158,6 +3342,18 @@ def main() -> int:
     phase(31, "seconds", seconds=time.perf_counter() - t31)
     print(smi, flush=True)
 
+    # -- phase 32: the mesh on the card (S12): 4 slots, the flagship step,
+    # the stencils, the relayout, the shard lane, auto_mesh
+    t32 = time.perf_counter()
+    mp, mesh_launches = mesh_paths(da, torch, MESH_SIZES)
+    for name, num in mp.items():
+        phase(32, name, card=smi, **num)
+    phase(32, "seconds", launches=mesh_launches, cards=torch.cuda.device_count(),
+          seconds=time.perf_counter() - t32)
+    check(mesh_launches["band_stencil"] > 0 and mesh_launches["halo"] > 0,
+          f"phase 32: a kernel of the mesh paths never launched: {mesh_launches}")
+    print(smi, flush=True)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -3168,6 +3364,7 @@ def main() -> int:
             "launches_random_input": rp_launches["band_stencil"],
             "launches_io": io_launches["band_stencil"],
             "launches_streamed": stream_launches["band_stencil"],
+            "launches_mesh": mesh_launches["band_stencil"],
             "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
             "replaces": "dask_array_tpu/kernels/stencil.py:83",
             "launches": stencil_launches,
@@ -3218,6 +3415,7 @@ def main() -> int:
             "name": "halo",
             "route": "cuda",
             "launches_streamed": stream_launches["halo"],
+            "launches_mesh": mesh_launches["halo"],
             "source": "dask_array_tpu_torch/csrc/halo.cu",
             "replaces": "bench/probe_band_bisect.py:32-122, bench/probe_band_bisect2.py:68",
             "launches": halo_launches,

@@ -82,12 +82,16 @@ def _assemble(blocks: dict, numblocks, axis: int = 0, prefix: tuple = ()):
 
 
 class BuildContext:
-    """Carries the memo cache, leaf bindings and device through one walk."""
+    """Carries the memo cache, leaf bindings, device and mesh through one
+    walk.  Under a mesh (``parallel.Mesh``) the walk runs on the mesh's
+    first slot and nodes with a sharded form (``Rechunk``, ``ShardStencil``)
+    run per slot."""
 
-    def __init__(self, leaf_values: dict, device: torch.device):
+    def __init__(self, leaf_values: dict, device: torch.device, mesh=None):
         self.cache: dict[str, BlockView] = {}
         self.leaf_values = leaf_values  # key -> tensor on ``device``
         self.device = device
+        self.mesh = mesh
         self.shared_values: dict = {}
 
     def build(self, expr: ArrayExpr) -> BlockView:
@@ -225,17 +229,49 @@ def execute_many(roots) -> list:
     return [view.dense() for view in execute_views(roots)]
 
 
+def walk_device(mesh=None) -> torch.device:
+    """The device a walk runs on: ``config["device"]``, or under a mesh
+    its first slot (whose device type must be the configured one)."""
+    device = current_device()
+    if mesh is None:
+        return device
+    first = mesh.devices.flat[0]
+    if first.type != device.type:
+        raise RuntimeError(f"the mesh's devices are {first.type!r} but config 'device' is {str(device)!r}")
+    return first
+
+
 def execute_views(roots) -> list:
     """``execute_many``, returning each root's ``BlockView`` (its blocks,
-    where the root built them per block)."""
-    device = current_device()
+    where the root built them per block).
+
+    Under a mesh (``parallel.use_mesh``) the walk runs on the mesh's first
+    slot, and config ``"execution-lane"`` ("auto" or "shard-map") first
+    offers each root to the shard lane (``parallel/shardlane.py``): a root
+    its planner matches runs as per-slot programs, every other root walks.
+    A decline is decided in planning; an error while the lane executes
+    propagates."""
+    from dask_array_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    device = walk_device(mesh)
+    views: dict = {}
+    if mesh is not None and config.get("execution-lane", "auto") in ("auto", "shard-map"):
+        from dask_array_tpu_torch.parallel.shardlane import try_execute_shard
+
+        for i, root in enumerate(roots):
+            res = try_execute_shard(root, mesh)
+            if res is not None:
+                views[i] = BlockView(root.chunks, dense=res)
     leaves = {}
-    for root in roots:
+    for i, root in enumerate(roots):
+        if i in views:
+            continue
         for key, buf in collect_leaves(root):
             if key not in leaves:
                 leaves[key] = to_device(buf, device)
-    ctx = BuildContext(leaves, device)
-    return [ctx.build(root) for root in roots]
+    ctx = BuildContext(leaves, device, mesh)
+    return [views[i] if i in views else ctx.build(root) for i, root in enumerate(roots)]
 
 
 def structural_key(root: ArrayExpr) -> str:
@@ -249,13 +285,17 @@ def structural_key(root: ArrayExpr) -> str:
     declines takes the tokenize walk.  The two kinds of key have prefixes
     of their own, so they never collide.  The streaming lane's single-plan
     rule (``_streaming._keys_bounded``) reads it; ``plan_table`` shows the
-    plan record it is taken over."""
+    plan record it is taken over.  Under a mesh the key carries the mesh's
+    identity (``Mesh.key``: axis names, shape, slot devices)."""
     from dask_array_tpu_torch._planrec import plan_fingerprint
+    from dask_array_tpu_torch.parallel.mesh import current_mesh
     from dask_array_tpu_torch.utils._tokenize import tokenize
 
+    mesh = current_mesh()
+    mkey = None if mesh is None else mesh.key()
     cached = getattr(root, "_skey_memo", None)
-    if cached is not None:
-        return cached
+    if cached is not None and cached[0] == mkey:
+        return cached[1]
     pf = plan_fingerprint(root)
     if pf is not None:
         out = "plan:" + pf[0]
@@ -281,5 +321,8 @@ def structural_key(root: ArrayExpr) -> str:
             return tok
 
         out = "walk:" + rec(root)
-    root._skey_memo = out
+    if mkey is not None:
+        # a program keys apart on each mesh (the JAX package's _mesh_key)
+        out += "|mesh:" + tokenize(mkey)
+    root._skey_memo = (mkey, out)
     return out

@@ -4,8 +4,8 @@ Port of ``dask_array_tpu/_shuffle.py``: each indexer group becomes one
 output chunk (small neighbouring groups merged toward the mean input
 chunk); the reorder is one ``index_select`` along the axis from an int64
 leaf, its positions checked on the host when the expression is built, so
-no out-of-range gather ever launches.  ``transfer_bytes`` (a mesh
-diagnostic) waits for the multi-GPU slice (ROADMAP S12/S13).
+no out-of-range gather ever launches.  ``transfer_bytes`` is the JAX
+package's estimate of the bytes the reorder moves between blocks.
 """
 
 from __future__ import annotations
@@ -68,6 +68,16 @@ class Shuffle(ArrayExpr):
         dense = ctx.build(self.array).dense()
         out = moved(torch.index_select, dense, self.axis, ctx.leaf(self._index_key))
         return BlockView(self.chunks, dense=out)
+
+    def transfer_bytes(self):
+        """(min, max) bytes between blocks: the gathered share of the
+        input, as the JAX package estimates it."""
+        nb = self.array.nbytes
+        if isinstance(nb, float) and np.isnan(nb):
+            return (0, 0)
+        out_elems = sum(len(g) for g in self.indexer)
+        n = self.array.shape[self.axis]
+        return (0, int(nb * out_elems / max(1, n)))
 
 
 def shuffle(x, indexer, axis=0, chunks="auto"):

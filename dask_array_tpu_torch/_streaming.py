@@ -33,8 +33,9 @@ Where the port differs from the JAX package: the ``"auto"`` budget comes
 from ``torch.cuda.mem_get_info`` of the configured device (unbounded on
 the CPU, so ``"auto"`` never engages there); a host leaf is a ``FromArray``
 of host data (numpy, a memmap, an array-like store), and a tensor source
-is resident; a pinned leaf goes up through the pinned ring.  The mesh test
-of the JAX package's ``_pin_resident`` waits for the multi-GPU slice.
+is resident; a pinned leaf goes up through the pinned ring.  Under a mesh
+``_pin_resident`` pins nothing: mesh placement is the layout solver's job,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -252,7 +253,10 @@ def _pin_resident(expr, probe_opt, budget):
     weights of a panel-swept matmul.  Returns the (possibly substituted)
     expression."""
     from dask_array_tpu_torch._executor import to_device
+    from dask_array_tpu_torch.parallel.mesh import current_mesh
 
+    if current_mesh() is not None:
+        return expr  # mesh placement is the layout solver's job
     cap = budget * 0.3
     spent = 0
     pinned_srcs = []

@@ -16,6 +16,10 @@ from typing import Any
 _global: dict[str, Any] = {
     # -- optimizer / planner (same meaning as in the reference package) --
     "array.rechunk.threshold": 32,
+    # under a mesh: "auto" relayouts with explicit all_to_all stages when a
+    # mesh axis moves between array axes; "tasks" never does;
+    # "collective"/"p2p" always try the explicit schedule
+    "array.rechunk.method": "auto",
     "array.unify-chunks-policy": "auto",  # "auto" | "coarse" | "refine"
     "array.unify-chunks-limit": "512 MiB",
     "array.chunk-size": "128 MiB",
@@ -39,11 +43,23 @@ _global: dict[str, Any] = {
     "memory-budget": "auto",
     # panels in flight beyond the one being fetched (1: double buffering)
     "stream-depth": 1,
+    # -- multi-device (parallel/) --
+    # the shard lane under a mesh: "auto" and "shard-map" run every program
+    # its planner matches as per-slot programs (parallel/shardlane.py);
+    # "gspmd" keeps the executor's walk
+    "execution-lane": "auto",
+    # map_overlap under a mesh: "shard" routes an eligible stencil to one
+    # ShardStencil node (halo exchange between slots, the func per slot)
+    "overlap-method": "auto",
+    # mesh axes of the slow inter-node fabric; None = by name
+    # ("dcn"/"slice"/"pod"), a tuple pins them
+    "dcn-axes": None,
 }
 
 # reference keys that keep their name and meaning in the port
 _SHARED_KEYS = (
     "array.rechunk.threshold",
+    "array.rechunk.method",
     "array.unify-chunks-policy",
     "array.unify-chunks-limit",
     "array.chunk-size",
@@ -114,14 +130,15 @@ class set(contextlib.AbstractContextManager):
 def from_reference(values: dict[str, Any]) -> dict[str, Any]:
     """Map a ``dask_array_tpu`` config dict onto this package's keys.
 
-    Keys with a meaning here (the optimizer and chunk-policy keys) carry
-    over unchanged; ``tpu.stencil-kernel`` becomes ``"stencil-kernel"``
-    ("off" stays off, every engaging setting becomes "auto"),
-    ``tpu.matmul-precision`` becomes ``"matmul-precision"``, and
-    ``tpu.out-of-core``, ``tpu.memory-budget`` and ``tpu.stream-depth``
-    become ``"out-of-core"``, ``"memory-budget"`` and ``"stream-depth"``.  The TPU-only
-    keys (PRNG, QR/SVD methods, Gram precision, jit, donation, mesh and
-    lane selection) have no counterpart and are dropped.
+    Keys with a meaning here (the optimizer, chunk-policy and
+    ``array.rechunk.method`` keys) carry over unchanged;
+    ``tpu.stencil-kernel`` becomes ``"stencil-kernel"`` ("off" stays off,
+    every engaging setting becomes "auto"), ``tpu.matmul-precision``
+    becomes ``"matmul-precision"``; ``tpu.out-of-core``,
+    ``tpu.memory-budget``, ``tpu.stream-depth`` and the mesh keys
+    ``tpu.execution-lane``, ``tpu.overlap-method`` and ``tpu.dcn-axes``
+    lose their ``tpu.`` prefix.  The TPU-only keys (PRNG, QR/SVD methods,
+    Gram precision, jit, donation) have no counterpart and are dropped.
     """
     out: dict[str, Any] = {}
     for key, value in values.items():
@@ -129,7 +146,8 @@ def from_reference(values: dict[str, Any]) -> dict[str, Any]:
             out[key] = value
         elif key == "tpu.matmul-precision":
             out["matmul-precision"] = value
-        elif key in ("tpu.out-of-core", "tpu.memory-budget", "tpu.stream-depth"):
+        elif key in ("tpu.out-of-core", "tpu.memory-budget", "tpu.stream-depth", "tpu.execution-lane",
+                     "tpu.overlap-method", "tpu.dcn-axes"):
             out[key.removeprefix("tpu.")] = value
         elif key == "tpu.stencil-kernel":
             out["stencil-kernel"] = "off" if value in ("off", False, None) else "auto"

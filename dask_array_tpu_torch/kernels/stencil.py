@@ -190,37 +190,48 @@ def capture_taps(func, depth):
 # ---------------------------------------------------------------------------
 
 
-def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
-    """The taps of an eligible map_overlap, or None.
+def stencil_taps(ndim, dtype, depth, boundary, func, kwargs):
+    """The taps the band-stencil kernel takes for ``func`` over blocks of
+    ``ndim`` axes and ``dtype``, or None.
 
-    Eligible: config ``stencil-kernel`` not "off"; one 2-D float array with
-    ``trim=True`` and no extra func kwargs; symmetric depth at most 8 per
-    axis; each boundary with depth one of reflect, nearest, periodic or a
-    scalar constant; and ``capture_taps`` reads a stencil off ``func``.
-    Decided when the graph is built, whatever the device.
+    ``depth`` holds one ``(lo, hi)`` pair and ``boundary`` one mode per
+    axis.  Eligible: config ``stencil-kernel`` not "off"; 2-D float; no
+    extra func kwargs; symmetric depth at most 8 per axis; each boundary
+    with depth one of reflect, nearest, periodic or a scalar constant; and
+    ``capture_taps`` reads a stencil off ``func``.  The one gate of every
+    route to the kernel (``map_overlap``'s and the shard lane's).
     """
     from dask_array_tpu_torch import config
 
     if config.get("stencil-kernel", "auto") in ("off", False, None):
         return None
-    if not trim or len(arrays) != 1 or kwargs:
-        return None
-    a = arrays[0]
-    if a.ndim != 2 or np.dtype(a.dtype).name not in _KERNEL_DTYPES:
-        return None
-    if any(not isinstance(s, Integral) or s <= 0 for s in a.shape):
+    if ndim != 2 or np.dtype(dtype).name not in _KERNEL_DTYPES or kwargs:
         return None
     dep = []
-    for ax in range(2):
-        lo, hi = depths[0].get(ax, (0, 0))
+    for (lo, hi), b in zip(depth, boundary):
         if lo != hi or lo > MAX_DEPTH:
             return None
-        dep.append(lo)
-    for ax in range(2):
-        b = bounds[0].get(ax)
-        if dep[ax] and b not in _BOUNDARY_CODES and not _is_scalar(b):
+        if lo and b not in _BOUNDARY_CODES and not _is_scalar(b):
             return None
+        dep.append(lo)
     return capture_taps(func, tuple(dep))
+
+
+def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
+    """The taps of an eligible map_overlap, or None.
+
+    Eligible: one array of known, non-empty shape with ``trim=True``, that
+    ``stencil_taps`` takes.  Decided when the graph is built, whatever the
+    device.
+    """
+    if not trim or len(arrays) != 1:
+        return None
+    a = arrays[0]
+    if any(not isinstance(s, Integral) or s <= 0 for s in a.shape):
+        return None
+    axes = range(a.ndim)
+    return stencil_taps(a.ndim, a.dtype, [depths[0].get(ax, (0, 0)) for ax in axes],
+                        [bounds[0].get(ax) for ax in axes], func, kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,13 @@ window views and forward fill.
 Port of ``dask_array_tpu/ops/_overlap.py``: ``Overlap``, ``TrimInternal``,
 ``BandStencil``, ``overlap``, ``trim_internal``/``trim_overlap``,
 ``map_overlap``, ``SlidingWindowView``/``sliding_window_view`` and
-``Push``/``push``.  ``Overlap`` boundary-extends the dense tensor over all
-axes in one ``kernels.halo.halo_pad`` (the halo kernel on the card; numpy
-pad semantics, dask's "reflect" being numpy's "symmetric") and takes each
-block with its halo as a view of it.  ``ShardStencil``'s mesh body waits
-for a later slice of the port.
+``Push``/``push``, and ``ShardStencil``.  ``Overlap`` boundary-extends the
+dense tensor over all axes in one ``kernels.halo.halo_pad`` (the halo kernel
+on the card; numpy pad semantics, dask's "reflect" being numpy's
+"symmetric") and takes each block with its halo as a view of it.  Under a
+mesh, ``ShardStencil`` and ``BandStencil`` run per slot: one halo exchange
+(two ``ppermute``s) a sharded axis, then the func on each slot's haloed
+shard (``_shard_body``).
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cached_cumsum, cast, is_float_dtype, to_compute, validate_axis
+from dask_array_tpu_torch._chunks import cached_cumsum, cast, cat, is_float_dtype, to_compute, validate_axis
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
-from dask_array_tpu_torch.kernels.halo import halo_pad, numpy_mode
+from dask_array_tpu_torch.kernels.halo import halo_pad, numpy_mode, pad_axis_plain
 from dask_array_tpu_torch.kernels.stencil import band_stencil_call
+from dask_array_tpu_torch.parallel._sharded import ShardedView
 
 
 def coerce_depth(ndim, depth):
@@ -394,6 +397,21 @@ class BandStencil(ArrayExpr):
     def _build(self, ctx):
         dense = ctx.build(self.array).dense().contiguous()
         dep = tuple(lo for lo, _hi in self.depth)
+        spec = None
+        if ctx.mesh is not None and not any(mlo or mhi for mlo, mhi in self._margins):
+            spec = _stencil_spec(self.array, self.depth, ctx.mesh)
+        if spec is not None:
+            # under a mesh: the ShardStencil body, the band-stencil kernel
+            # once a slot over its shard with halos from its neighbors (the
+            # kernel pads the whole axes with the boundary itself)
+            def func(padded, sharded_axes):
+                out = band_stencil_call(padded.contiguous(), self.func, dep, tuple(self.boundary), self.taps)
+                return out[tuple(
+                    slice(d, out.shape[ax] - d) if ax in sharded_axes else slice(None) for ax, d in enumerate(dep)
+                )]
+
+            out = _shard_body(dense, ctx.mesh, spec, self.depth, self.boundary, func, self._dtype, pad_whole=False)
+            return ShardedView(self.chunks, out)
         out = band_stencil_call(dense, self.func, dep, tuple(self.boundary), self.taps)
         if any(mlo or mhi for mlo, mhi in self._margins):
             # rows computed from the pad, not from data: trimmed
@@ -462,6 +480,149 @@ class BandStencil(ArrayExpr):
         if all(o == slice(None) for o in outer):
             return pushed
         return Slice(pushed, tuple(outer))
+
+
+class ShardStencil(ArrayExpr):
+    """``map_overlap`` as one shard-level stencil with explicit collectives.
+
+    Opt-in via config ``"overlap-method": "shard"`` (for a func the
+    band-stencil kernel does not take).  Under a mesh each slot
+    ring-exchanges one lo/hi halo per sharded axis (two ``ppermute``s),
+    realizes the boundary locally on the edge slots and on whole axes (the
+    halo kernel), applies ``func`` to its whole haloed shard and trims.
+    Without a mesh, or with a halo deeper than a shard, it is pad -> func
+    -> trim over the whole array.
+
+    Contract: ``func`` is local (output at a point depends only on inputs
+    within ``depth``) and size-preserving, the standard ``map_overlap``
+    assumption; block boundaries inside a shard are never cut.
+    """
+
+    _parameters = ("array", "func", "depth", "boundary", "kwargs", "_dtype")
+
+    @functools.cached_property
+    def chunks(self):
+        return self.array.chunks
+
+    @functools.cached_property
+    def _meta(self):
+        return np.empty((0,) * self.array.ndim, dtype=self._dtype)
+
+    transfer_bytes = BandStencil.transfer_bytes
+
+    def _func(self, padded):
+        return self.func(padded, **dict(self.kwargs or ()))
+
+    def _apply_global(self, dense):
+        """Mesh-free form: pad -> func -> trim over the whole array (equal
+        to the per-block form under the locality contract)."""
+        widths = [(lo, hi) for lo, hi in self.depth]
+        modes = [numpy_mode(bd) if (lo or hi) else "edge" for (lo, hi), bd in zip(self.depth, self.boundary)]
+        out = self._func(halo_pad(dense, widths, modes))
+        out = out[tuple(slice(lo, out.shape[ax] - hi) for ax, (lo, hi) in enumerate(self.depth))]
+        return cast(out, self._dtype)
+
+    def _build(self, ctx):
+        dense = ctx.build(self.array).dense()
+        spec = _stencil_spec(self.array, self.depth, ctx.mesh) if ctx.mesh is not None else None
+        if spec is None:
+            return BlockView(self.chunks, dense=self._apply_global(dense))
+
+        def func(padded, sharded_axes):
+            out = self._func(padded)
+            return out[tuple(slice(lo, out.shape[ax] - hi) for ax, (lo, hi) in enumerate(self.depth))]
+
+        out = _shard_body(dense, ctx.mesh, spec, self.depth, self.boundary, func, self._dtype, pad_whole=True)
+        return ShardedView(self.chunks, out)
+
+
+def _stencil_spec(array, depth, mesh):
+    """The mesh layout a stencil runs under (``plan_layout`` of its input),
+    or None where it runs whole: no axis is sharded, or a shard is
+    shallower than its halo (a nested entry like ``("dcn", "x")``
+    shards over the group's product)."""
+    from dask_array_tpu_torch.parallel._sharded import spec_size
+    from dask_array_tpu_torch.parallel.layout import plan_layout
+
+    spec = plan_layout(array.shape, array.chunks, mesh)
+    for ax, name in enumerate(spec):
+        lo, hi = depth[ax]
+        if name is not None and (lo or hi) and array.shape[ax] // spec_size(mesh, name) < max(lo, hi):
+            return None
+    return None if all(s is None for s in spec) else spec
+
+
+def _edge_fill(shard, ax, width, bd, side):
+    """A global edge's halo from the slot's own edge rows."""
+    lo, hi = (width, 0) if side == "lo" else (0, width)
+    padded = pad_axis_plain(shard, ax, lo, hi, numpy_mode(bd))
+    start = 0 if side == "lo" else padded.shape[ax] - width
+    return padded.narrow(ax, start, width)
+
+
+def _shard_body(dense, mesh, spec, depth, boundary, func, dtype, pad_whole):
+    """The per-slot stencil: shard ``dense`` under ``spec``; along each
+    sharded axis with depth exchange one halo each way between ring
+    neighbors (the edge slots realize the boundary, a periodic ring
+    wraps); with ``pad_whole`` pad the whole axes with their boundary (one
+    ``halo_pad`` a slot); then ``func(padded, sharded_axes)`` returns the
+    slot's trimmed output.  Returns the ``ShardedTensor`` of outputs."""
+    from dask_array_tpu_torch.parallel._sharded import ShardedTensor, entry_names, shard
+    from dask_array_tpu_torch.parallel.collectives import group_size, ppermute
+
+    st = shard(dense, mesh, spec)
+    shards = list(st.shards)
+    sharded_axes = set()
+    for ax, (lo, hi) in enumerate(depth):
+        name = spec[ax]
+        if name is None or not (lo or hi):
+            continue
+        sharded_axes.add(ax)
+        names = entry_names(name)
+        n = group_size(mesh, names)
+        bd = boundary[ax]
+        wrap = bd == "periodic"
+        from_left = from_right = None
+        if lo:
+            tails = [t.narrow(ax, t.shape[ax] - lo, lo) for t in shards]
+            fwd = [(i, (i + 1) % n) for i in range(n if wrap else n - 1)]
+            from_left = ppermute(tails, mesh, names, fwd)
+        if hi:
+            heads = [t.narrow(ax, 0, hi) for t in shards]
+            bwd = [(i, (i - 1) % n) for i in range(n) if wrap or i > 0]
+            from_right = ppermute(heads, mesh, names, bwd)
+        grown = []
+        for s, t in enumerate(shards):
+            parts = []
+            if lo:
+                parts.append(from_left[s] if from_left[s] is not None else _edge_fill(t, ax, lo, bd, "lo"))
+            parts.append(t)
+            if hi:
+                parts.append(from_right[s] if from_right[s] is not None else _edge_fill(t, ax, hi, bd, "hi"))
+            grown.append(cat(parts, dim=ax) if len(parts) > 1 else t)
+        shards = grown
+    outs = []
+    for t in shards:
+        if pad_whole:
+            widths = [(lo, hi) if ax not in sharded_axes else (0, 0) for ax, (lo, hi) in enumerate(depth)]
+            modes = [numpy_mode(bd) if w != (0, 0) else "edge" for w, bd in zip(widths, boundary)]
+            t = halo_pad(t, widths, modes)
+        outs.append(cast(func(t, sharded_axes), dtype))
+    return ShardedTensor(mesh, st.spec, outs, st.global_shape)
+
+
+def _shard_stencil_eligible(arrays, depths, bounds, trim, kwargs):
+    """Route map_overlap through ShardStencil?  (opt-in method="shard")"""
+    if len(arrays) != 1 or not trim:
+        return False
+    if any(k in kwargs for k in ("chunks", "new_axis", "drop_axis", "meta")):
+        return False  # shape-changing funcs keep the per-block pipeline
+    d, b = depths[0], bounds[0]
+    for ax in range(arrays[0].ndim):
+        lo, hi = d[ax]
+        if (lo or hi) and b[ax] == "none":
+            return False  # 'none' shrinks edge halos: inherently per-block
+    return True
 
 
 def _normalize(x, depth, boundary):
@@ -609,6 +770,21 @@ def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=
             tuple(bounds[0][ax] for ax in range(2)),
             np.dtype(dtype),
             taps,
+        ))
+
+    from dask_array_tpu_torch import config
+
+    if config.get("overlap-method", "auto") == "shard" and _shard_stencil_eligible(
+            arrays, depths, bounds, trim, kwargs):
+        from dask_array_tpu_torch._blockwise import _normalize_kwargs
+
+        a = arrays[0]
+        if dtype is None:
+            meta = compute_meta(func, a.ndim, a.expr, **fkw)
+            dtype = getattr(meta, "dtype", a.dtype) if meta is not None else a.dtype
+        return new_collection(ShardStencil(
+            a.expr, func, tuple(depths[0][ax] for ax in range(a.ndim)),
+            tuple(bounds[0][ax] for ax in range(a.ndim)), _normalize_kwargs(fkw), np.dtype(dtype),
         ))
 
     if dtype is not None:

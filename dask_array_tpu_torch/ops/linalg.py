@@ -221,7 +221,11 @@ class Einsum(ArrayExpr):
         return Einsum(*self.operands[:4], *new_arrays)
 
     def _build(self, ctx):
-        denses = [ctx.build(a).dense() for a in self.arrays]
+        return BlockView(self.chunks, dense=self.contract([ctx.build(a).dense() for a in self.arrays]))
+
+    def contract(self, denses):
+        """The contraction of these operand tensors (the whole operands, or
+        a shard lane slot's parts of them) in this node's dtype."""
         kwargs = dict(self.kwargs or ())
         if self.exact:
             # int64 products wrap as numpy's narrower and unsigned ones do
@@ -231,7 +235,7 @@ class Einsum(ArrayExpr):
             precision = kwargs.get("precision") or config.get("matmul-precision", "highest")
             with matmul_precision(precision):
                 dense = torch.einsum(spec, *[cast(d, self.dtype) for d in denses])
-        return BlockView(self.chunks, dense=cast(dense, self.dtype))
+        return cast(dense, self.dtype)
 
 
 def einsum(subscripts, *operands, dtype=None, optimize=False, split_every=None,

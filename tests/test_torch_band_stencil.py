@@ -274,6 +274,37 @@ def test_capture_taps_declines(func, depth):
     assert stencil.capture_taps(func, depth) is None
 
 
+def _row8(b):
+    return torch.roll(b, 8, 0) - 2 * b + torch.roll(b, -8, 0)
+
+
+@pytest.mark.parametrize(
+    "cfg, ndim, dtype, depth, boundary, kwargs, takes",
+    [
+        ({}, 2, "float32", ((8, 8), (0, 0)), ("reflect", None), {}, True),
+        ({}, 2, "bfloat16", ((8, 8), (0, 0)), (2.5, None), {}, True),
+        ({}, 2, "float32", ((9, 9), (0, 0)), ("reflect", None), {}, False),
+        ({"stencil-kernel": "off"}, 2, "float32", ((8, 8), (0, 0)), ("reflect", None), {}, False),
+        ({}, 2, "int32", ((8, 8), (0, 0)), ("reflect", None), {}, False),
+        ({}, 3, "float32", ((8, 8), (0, 0), (0, 0)), ("reflect", None, None), {}, False),
+        ({}, 2, "float32", ((8, 7), (0, 0)), ("reflect", None), {}, False),
+        ({}, 2, "float32", ((8, 8), (0, 0)), ("none", None), {}, False),
+        ({}, 2, "float32", ((8, 8), (0, 0)), ("reflect", None), {"scale": 2.0}, False),
+    ],
+    ids=["depth8", "bf16_constant", "depth9", "kernel_off", "int", "three_d", "asymmetric", "boundary_none",
+         "kwargs"],
+)
+def test_stencil_taps_gate(cfg, ndim, dtype, depth, boundary, kwargs, takes):
+    """The one gate of every route to the band-stencil kernel: the config,
+    the dtype, the rank, symmetric depth at most 8, the boundary and the
+    func kwargs, then ``capture_taps``."""
+    with tconfig.set(cfg):
+        taps = stencil.stencil_taps(ndim, dtype, depth, boundary, _row8, kwargs)
+    assert (taps is not None) == takes
+    if takes:
+        assert sorted(taps) == [(-8, 0, 1.0), (0, 0, -2.0), (8, 0, 1.0)]
+
+
 # ---------------------------------------------------------------------------
 # routes that are not eligible take Overlap, and still agree
 # ---------------------------------------------------------------------------

@@ -1917,3 +1917,174 @@ def test_bf16_through_the_layout_and_scale_kernels_on_public_paths(cuda):
     for got, want in ((t, x.T), (p, np.pad(x, 2, mode="reflect")), (m, x * bf16(0.5))):
         assert got.dtype == np.dtype(bf16)
         np.testing.assert_array_equal(got.view(np.uint16), np.ascontiguousarray(want).view(np.uint16))
+
+
+# -- the mesh on the card: 4 slots on cuda:0 ---------------------------------------
+
+
+def _card_mesh(shape=(2, 2), names=("x", "y")):
+    from dask_array_tpu_torch.parallel import Mesh
+
+    return Mesh(np.array(["cuda:0"] * 4, dtype=object).reshape(shape), names)
+
+
+@pytest.mark.gpu
+def test_halo_exchange_and_psum_on_the_card(cuda):
+    """``halo_exchange`` and ``psum_reduce`` over 4 slots on one card: the
+    shards live on the card, the values are numpy's, and the record shows
+    two permutes and one psum."""
+    from dask_array_tpu_torch.parallel import collectives
+    from dask_array_tpu_torch.parallel._sharded import COLLECTIVES
+
+    x = np.random.default_rng(4).standard_normal((64, 48))
+    t = torch.from_numpy(x).to(cuda)
+    mesh = _card_mesh((4,), ("r",))
+    before = COLLECTIVES.snapshot()
+    h = collectives.halo_exchange(t, mesh, "r", 0, 2, wrap=True)
+    assert all(s.is_cuda for s in h.shards)
+    want = np.concatenate([np.concatenate([np.roll(x, 2, 0)[16 * i:16 * i + 2], x[16 * i:16 * i + 16],
+                                           np.roll(x, -2, 0)[16 * i + 14:16 * i + 16]]) for i in range(4)])
+    np.testing.assert_array_equal(h.gather().cpu().numpy(), want)
+    p = collectives.psum_reduce(t, mesh, "r", 0)
+    np.testing.assert_allclose(p.gather().cpu().numpy(), x.sum(0), rtol=1e-12)
+    assert COLLECTIVES.delta(before) == {"ppermute": 2, "psum": 1, "gather": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["reflect", "periodic", 0.5])
+def test_band_stencil_under_a_mesh_launches_once_a_slot(cuda, boundary):
+    """A 2-D stencil the band-stencil kernel takes, under a 2 x 2 mesh on
+    the card: the kernel once a slot (4 launches), two permutes a sharded
+    axis, values equal to the walk without a mesh."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import stencil
+    from dask_array_tpu_torch.parallel import use_mesh
+    from dask_array_tpu_torch.parallel._sharded import COLLECTIVES
+
+    x = np.random.default_rng(6).standard_normal((512, 384)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        e = da.map_overlap(laplace, da.from_array(x, chunks=(256, 192)), depth=1, boundary=boundary)
+        want = e.compute()
+        stencil.LAUNCHES = 0
+        before = COLLECTIVES.snapshot()
+        with use_mesh(_card_mesh()):
+            got = e.compute()
+        assert stencil.LAUNCHES == 4
+        assert COLLECTIVES.delta(before) == {"ppermute": 4, "gather": 1}
+    scale = 8 * float(np.abs(x).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=scale * 2.0**-21)
+
+
+@pytest.mark.gpu
+def test_shard_stencil_and_lane_stencil_on_the_card(cuda):
+    """``ShardStencil`` (a non-linear func: the halo kernel once a slot) and
+    the shard lane's stencil plan (a linear func on an irregular grid: the
+    band-stencil kernel once a slot; under ``stencil-kernel: off`` never)
+    on the card, equal to the walk."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo, stencil
+    from dask_array_tpu_torch.ops._overlap import overlap, trim_internal
+    from dask_array_tpu_torch.parallel import use_mesh
+    from dask_array_tpu_torch.parallel.shardlane import ENGAGED
+
+    x = np.random.default_rng(7).standard_normal((512, 256)).astype(np.float32)
+
+    def tlap(b):
+        return torch.tanh(laplace(b))
+
+    with config.set({"device": "cuda", "overlap-method": "shard"}):
+        e = da.map_overlap(tlap, da.from_array(x, chunks=(128, 256)), depth=1, boundary="nearest")
+        assert type(e.expr).__name__ == "ShardStencil"
+        want = e.compute()
+        with use_mesh(_card_mesh((4,), ("r",))):
+            halo.LAUNCHES = 0
+            got = e.compute()
+            assert halo.LAUNCHES == 4  # the whole axis padded once a slot
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    heights = (60, 37, 70, 80, 45, 90, 50, 80)  # 2 blocks on each of the 4 slots
+    with config.set({"device": "cuda"}):
+        # overlap -> map_blocks -> trim written out: the lane's stencil plan
+        # with a func the band-stencil gate takes
+        a = overlap(da.from_array(x, chunks=(heights, 256)), 1, "reflect")
+        e = trim_internal(a.map_blocks(laplace), 1, "reflect")
+        want = e.compute()
+        before = ENGAGED["count"]
+        with use_mesh(_card_mesh()):
+            stencil.LAUNCHES = 0
+            got = e.compute()
+            assert ENGAGED["count"] == before + 1 and stencil.LAUNCHES == 4
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=8 * float(np.abs(x).max()) * 2.0**-21)
+    with config.set({"device": "cuda", "stencil-kernel": "off"}):
+        e = da.map_overlap(laplace, da.from_array(x, chunks=(heights, 256)), depth=1, boundary="reflect")
+        want = e.compute()
+        before = ENGAGED["count"]
+        with use_mesh(_card_mesh()):
+            stencil.LAUNCHES = 0
+            got = e.compute()
+            assert ENGAGED["count"] == before + 1 and stencil.LAUNCHES == 0  # "off" stays off
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lane_row_stencil_deeper_than_the_kernel_on_the_card(cuda):
+    """A depth-9 row stencil (past the band-stencil kernel's depth 8: the
+    graph keeps the per-block form) in the shard lane over 4 slots on the
+    card: the lane runs it, the kernel is never asked, and the values are
+    the walk's."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import stencil
+    from dask_array_tpu_torch.parallel import use_mesh
+    from dask_array_tpu_torch.parallel.shardlane import ENGAGED
+
+    def row9(b):
+        return torch.roll(b, 9, 0) - 2 * b + torch.roll(b, -9, 0)
+
+    x = np.random.default_rng(9).standard_normal((512, 256)).astype(np.float32)
+    heights = (60, 37, 70, 80, 45, 90, 50, 80)
+    with config.set({"device": "cuda"}):
+        e = da.map_overlap(row9, da.from_array(x, chunks=(heights, 256)), depth={0: 9, 1: 0}, boundary="reflect")
+        assert type(e.expr).__name__ != "BandStencil"
+        want = e.compute()
+        before = ENGAGED["count"]
+        with use_mesh(_card_mesh((4,), ("r",))):
+            stencil.LAUNCHES = 0
+            got = e.compute()
+            assert ENGAGED["count"] == before + 1 and stencil.LAUNCHES == 0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_shard_lane_programs_on_the_card(cuda):
+    """Shard-lane programs over 4 slots on the card: an irregular grid's
+    sum, Blelloch cumsum, matmul and argmax, each one lane program, equal
+    to the walk without a mesh; the reductions one psum, no all_gather."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.parallel import use_mesh
+    from dask_array_tpu_torch.parallel._sharded import COLLECTIVES
+    from dask_array_tpu_torch.parallel.shardlane import ENGAGED
+
+    rng = np.random.default_rng(8)
+    heights = (230, 70, 150, 310, 90, 120, 40, 110, 80, 100, 70)
+    src = rng.standard_normal((sum(heights), 32)).astype(np.float32)
+    w = rng.standard_normal((32, 32)).astype(np.float32)
+    with config.set({"device": "cuda"}):
+        x = da.from_array(src, chunks=(heights, 32))
+        # (a float32 var() of the whole array takes the multi-statistic
+        # route, which the lane does not plan; var(axis=0) is in-lane)
+        progs = [(x + 1).sum(axis=0), x.var(axis=0), da.cumsum(x, axis=0), x @ w, x.argmax(axis=0)]
+        want = [p.compute() for p in progs]
+        for p, wv in zip(progs, want):
+            before, coll = ENGAGED["count"], COLLECTIVES.snapshot()
+            with use_mesh(_card_mesh()):
+                dev = p.compute_device()
+                got = p.compute()
+            assert dev.is_cuda and ENGAGED["count"] == before + 2
+            assert "all_gather" not in COLLECTIVES.delta(coll) or p is progs[2]
+            if wv.dtype.kind == "i":
+                np.testing.assert_array_equal(got, wv)
+            else:
+                np.testing.assert_allclose(got, wv, rtol=1e-4, atol=1e-3)
