@@ -235,12 +235,29 @@ Phases (each prints one line of its own numbers; any failure raises):
      16384^2 float32 a and a 8192 x 16384 b with a rechunk boundary (one
      permute); (b) the Laplace stencil under "overlap-method": "shard" (K1
      once a slot, two permutes a sharded axis) and tanh(laplace) through
-     ShardStencil (the halo kernel once a slot); (c) cumsum, a rechunk
+     ShardStencil (the halo kernel once a slot); (c) cumsum (one
+     all_gather of the scan's totals where its axis is sharded), a rechunk
      that moves a mesh axis (a permute on the grid, an all_to_all on the
      ring), sum; (d) the shard lane on 1e6 x 128 float32 in 11 uneven row
      blocks: elemwise + sum, mean, var (one psum a reduction, no
      all_gather), the Blelloch cumsum (one all_gather), x @ w (no
      collective), argmax (the vote); (e) auto_mesh() over the cards.
+ 33. the partitioned walk (PARTITIONED_SIZES): the same 4 slots, a 2 x 2
+     grid and a ring, each workload under "execution-lane" "gspmd" and
+     "auto" against the port without a mesh in this process: the flagship
+     (n = 16384; no node gathers a), reduction_tree at 10000^2 (the
+     multi-statistic kernel once a slot, one psum), rechunk_relayout at
+     8192^2 (the transpose kernel once a slot), blocked_matmul at 8192^2
+     (chunks 1024 against 512), a column weighting of 1e6 x 128 (the scale
+     kernel once a slot), tall_skinny_svd at 1e6 x 128 (TSQR has no rule:
+     it reads its operand's dense form, here the persisted leaf itself, and
+     svd_flip's multiplies then run dense), a histogram of 2^26
+     float32 into 256 bins (the histogram kernel once a slot, one psum),
+     and cumsum -> rechunk -> * 2 -> sum at 8192^2 (inputs persisted on the
+     card without a mesh, so the times are the device work and the walk;
+     under a mesh the walk binds their slot parts as views); each with its values,
+     compute_device() ms both ways, the COLLECTIVES deltas with bytes, the
+     PARTITIONED record and the kernels' launches.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -2290,10 +2307,12 @@ def mesh_paths(da, torch, sizes, device="cuda"):
     check(type(tanh_laplace.expr).__name__ == "ShardStencil", "phase 32: tanh(laplace) is no ShardStencil")
     part("tanh-laplace", tanh_laplace, ring, 1e-5, expect=halo_per_slot)
 
-    # (c) the relayout: a scan, a rechunk that moves a mesh axis, a sum
+    # (c) the relayout: a scan, a rechunk that moves a mesh axis, a sum.  The
+    # partitioned walk holds a's rows and columns sharded: a scan along a
+    # sharded axis adds one all_gather of its totals, no more
     def relayout(kind):
         def expect(launched, moved, engaged):
-            check(moved.get(kind) and "all_gather" not in moved, f"phase 32 relayout: {moved}")
+            check(moved.get(kind) and moved.get("all_gather", 0) <= 1, f"phase 32 relayout: {moved}")
 
         return expect
 
@@ -2335,6 +2354,149 @@ def mesh_paths(da, torch, sizes, device="cuda"):
     del x, w
     if device == "cuda":
         torch.cuda.empty_cache()
+    return out, total
+
+
+# phase 33: the partitioned walk on the card.  "n" is the flagship's a (as
+# in phase 32), "tree" reduction_tree's side, "relayout" rechunk_relayout's
+# and "matmul" blocked_matmul's, "rows" x "cols" the tall-skinny array (the
+# column weighting and tall_skinny_svd), "hist" the histogram's values and
+# "scan" the cumsum -> rechunk pipeline's side
+PARTITIONED_SIZES = {"n": 16384, "tree": 10000, "relayout": 8192, "matmul": 8192, "rows": 1_000_000, "cols": 128,
+                     "hist": 1 << 26, "bins": 256, "scan": 8192}
+
+
+def partitioned_paths(da, torch, sizes, device="cuda"):
+    """Phase 33: the partitioned walk at full width over 4 slots (a 2 x 2
+    ``("x", "y")`` grid and a ring ``("r",)``) on ``cuda:0``, or on 4
+    distinct cards where there are 4.  Each workload runs under
+    ``"execution-lane"`` "gspmd" and "auto" and without a mesh in this
+    process; the values must agree (bit for bit where the walk keeps the
+    order of every addition, else to the stated tolerance).
+    ``device="cpu"`` runs the same parts on 4 CPU slots (a quick check at
+    small ``sizes``; the kernels' plain versions launch nothing).  Returns
+    ({part: numbers}, the kernels' launches under a mesh)."""
+    import contextlib
+
+    import numpy as np
+
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import histogram as hk
+    from dask_array_tpu_torch.kernels import mstat
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.models.pipelines import rechunk_relayout
+    from dask_array_tpu_torch.parallel import Mesh, use_mesh
+    from dask_array_tpu_torch.parallel._sharded import COLLECTIVES
+    from dask_array_tpu_torch.parallel.partition import PARTITIONED
+
+    on_card = device == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    slots = [f"cuda:{i}" for i in range(4)] if cards >= 4 else ["cuda:0" if on_card else device] * 4
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    meshes = {"grid": Mesh(np.array(slots, dtype=object).reshape(2, 2), ("x", "y")),
+              "ring": Mesh(np.array(slots, dtype=object), ("r",))}
+    kernels = {"transpose": tk, "scale": sk, "multi_stat": mstat, "histogram": hk}
+    total = {k: 0 for k in kernels}
+    out = {}
+    g = torch.Generator(device=device).manual_seed(33)
+
+    def leaf(shape, chunks):
+        # drawn on the card, entered from numpy and persisted there without
+        # a mesh: each run times the device work, and under a mesh the walk
+        # binds the persisted tensor's slot parts as views
+        return da.from_array(torch.randn(shape, generator=g, device=device).cpu().numpy(), chunks=chunks).persist()
+
+    def run(arrays, mesh, lane):
+        """compute_device() of ``arrays`` together (twice; the second timed)
+        under ``mesh`` and ``lane``, or none: (tensors, ms, launches,
+        collectives with bytes, PARTITIONED delta) of the timed run."""
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext(), config.set({"execution-lane": lane}):
+            from dask_array_tpu_torch._materialize import compute_exprs
+
+            compute_exprs([a.expr for a in arrays])
+            for m in kernels.values():
+                m.LAUNCHES = 0
+            coll, nb, parts = COLLECTIVES.snapshot(), dict(COLLECTIVES.nbytes), PARTITIONED.snapshot()
+            sync()
+            t0 = time.perf_counter()
+            got = compute_exprs([a.expr for a in arrays])
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: m.LAUNCHES for k, m in kernels.items()}
+        moved = {k: [n, COLLECTIVES.nbytes[k] - nb[k]] for k, n in COLLECTIVES.delta(coll).items()}
+        return got, ms, launched, moved, PARTITIONED.delta(parts)
+
+    def part(name, arrays, rtol, expect=None):
+        want, plain_ms, plain_launches, _, _ = run(arrays, None, "auto")
+        for mname, mesh in meshes.items():
+            for lane in ("gspmd", "auto"):
+                got, ms, launched, moved, parted = run(arrays, mesh, lane)
+                errs = []
+                for gv, wv in zip(got, want):
+                    check(gv.shape == wv.shape and gv.dtype == wv.dtype, f"phase 33 {name} {mname} {lane}: shape")
+                    scale = float(wv.double().abs().max()) if wv.numel() and wv.is_floating_point() else 1.0
+                    err = float((gv.double() - wv.double()).abs().max()) if wv.numel() else 0.0
+                    check(err <= rtol * max(scale, 1.0), f"phase 33 {name} {mname} {lane}: {err} from the no-mesh "
+                          f"answer (scale {scale})")
+                    errs.append(err)
+                if lane == "gspmd" and expect is not None:
+                    expect(mname, launched, moved, parted)
+                for k, v in launched.items():
+                    total[k] += v
+                out[f"{name}-{mname}-{lane}"] = {
+                    "mesh": dict(mesh.shape), "slots": [str(d) for d in mesh.slots], "max_abs_err": max(errs),
+                    "rtol": rtol, "no_mesh_ms": plain_ms, "mesh_ms": ms, "launches": launched,
+                    "no_mesh_launches": plain_launches, "collectives": moved, "partitioned": parted}
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def per_slot(kernel):
+        def expect(mname, launched, moved, parted):
+            check(launched[kernel] >= 4 or not on_card, f"phase 33 {kernel}: {launched[kernel]} launches on 4 slots")
+        return expect
+
+    # (a) the flagship: no node gathers a, only the output comes back
+    n = sizes["n"]
+    a = leaf((n, n), (n // 2, n // 2))
+    b = leaf((n // 2, n), (n // 2, n // 2))
+
+    def flagship_expect(mname, launched, moved, parted):
+        check("gathered" not in parted, f"phase 33 flagship {mname}: gathered {parted.get('gathered')}")
+        check(moved["gather"][0] == 1 and moved["gather"][1] <= n * 4, f"phase 33 flagship {mname}: {moved}")
+
+    part("flagship", [flagship(a, b)], 1e-4, flagship_expect)
+    del a, b
+
+    # (b) reduction_tree's three statistics (its formula, persisted input):
+    # the multi-statistic kernel once a slot, one psum
+    nt = sizes["tree"]
+    x = leaf((nt, nt), 1000)
+    part("reduction_tree", [x.sum(axis=0, split_every=4), x.mean(axis=1, split_every=4), x.std(split_every=4)], 1e-5,
+         per_slot("multi_stat"))
+    # (c) rechunk_relayout (persisted): the transpose kernel once a slot
+    part("rechunk_relayout", [rechunk_relayout(n=sizes["relayout"], persist=True)], 0.0, per_slot("transpose"))
+    # (d) blocked_matmul, chunks 1024 against 512
+    nm = sizes["matmul"]
+    part("blocked_matmul", [leaf((nm, nm), 1024) @ leaf((nm, nm), 512)], 1e-5)
+    # (e) a column weighting: the scale kernel once a slot
+    rows, cols = sizes["rows"], sizes["cols"]
+    xt = leaf((rows, cols), (rows // 10, cols))
+    w = leaf((cols,), cols)
+    part("column_weights", [(xt * w).sum(axis=0)], 1e-5, per_slot("scale"))
+    # (f) tall_skinny_svd's formula: TSQR has no rule and reads its operand
+    # dense (the persisted leaf: no copy); svd_flip's multiplies follow dense
+    part("tall_skinny_svd", list(da.linalg.svd(xt)), 1e-4)
+    del x, xt, w
+    # (g) the histogram kernel once a slot, one psum of the counts
+    hv = leaf((sizes["hist"],), sizes["hist"] // 8)
+    part("histogram", [da.histogram(hv, bins=np.linspace(-4, 4, sizes["bins"] + 1))[0]], 0.0, per_slot("histogram"))
+    del hv
+    # (h) the JAX package's test_mesh_battery.py multi-stage pipeline
+    ns = sizes["scan"]
+    d = leaf((ns, ns), (ns // 8, ns))
+    part("scan_rechunk", [(d.cumsum(axis=1).rechunk((ns, ns // 8)) * 2).sum(axis=0) + 1], 1e-4)
+    del d
     return out, total
 
 
@@ -3354,6 +3516,15 @@ def main() -> int:
           f"phase 32: a kernel of the mesh paths never launched: {mesh_launches}")
     print(smi, flush=True)
 
+    # -- phase 33: the partitioned walk (the GSPMD lane's counterpart)
+    t33 = time.perf_counter()
+    pp, part_launches = partitioned_paths(da, torch, PARTITIONED_SIZES)
+    for name, num in pp.items():
+        phase(33, name, card=smi, **num)
+    phase(33, "seconds", launches=part_launches, cards=torch.cuda.device_count(), seconds=time.perf_counter() - t33)
+    check(all(v > 0 for v in part_launches.values()), f"phase 33: a kernel never launched: {part_launches}")
+    print(smi, flush=True)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
@@ -3365,6 +3536,7 @@ def main() -> int:
             "launches_io": io_launches["band_stencil"],
             "launches_streamed": stream_launches["band_stencil"],
             "launches_mesh": mesh_launches["band_stencil"],
+            "launches_partitioned": mesh_launches["band_stencil"],
             "source": "dask_array_tpu_torch/csrc/band_stencil.cu",
             "replaces": "dask_array_tpu/kernels/stencil.py:83",
             "launches": stencil_launches,
@@ -3382,6 +3554,7 @@ def main() -> int:
             "route": "cuda",
             "launches_random_input": rp_launches["multi_stat"],
             "launches_io": io_launches["multi_stat"],
+            "launches_partitioned": part_launches["multi_stat"],
             "source": "dask_array_tpu_torch/csrc/mstat.cu",
             "replaces": "bench/probe_reduction.py:72",
             "launches": mstat_launches,
@@ -3401,6 +3574,7 @@ def main() -> int:
             "route": "cuda",
             "launches_random_input": rp_launches["transpose"],
             "launches_io": io_launches["transpose"],
+            "launches_partitioned": part_launches["transpose"],
             "source": "dask_array_tpu_torch/csrc/transpose.cu",
             "replaces": "bench/probe_pallas_min.py:42",
             "launches": transpose_launches,
@@ -3416,6 +3590,7 @@ def main() -> int:
             "route": "cuda",
             "launches_streamed": stream_launches["halo"],
             "launches_mesh": mesh_launches["halo"],
+            "launches_partitioned": mesh_launches["halo"],
             "source": "dask_array_tpu_torch/csrc/halo.cu",
             "replaces": "bench/probe_band_bisect.py:32-122, bench/probe_band_bisect2.py:68",
             "launches": halo_launches,
@@ -3431,6 +3606,7 @@ def main() -> int:
             "name": "scale",
             "route": "cuda",
             "launches_random_input": rp_launches["scale"],
+            "launches_partitioned": part_launches["scale"],
             "source": "dask_array_tpu_torch/csrc/scale.cu",
             "replaces": "bench/probe_pallas_min.py:26",
             "launches": scale_launches,
@@ -3445,6 +3621,7 @@ def main() -> int:
         {
             "name": "histogram",
             "route": "cuda",
+            "launches_partitioned": part_launches["histogram"],
             "source": "dask_array_tpu_torch/csrc/histogram.cu",
             "replaces": "dask_array_tpu/kernels/histogram.py:202",
             "launches": k2_launches,

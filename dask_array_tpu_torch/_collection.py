@@ -113,8 +113,13 @@ class Persisted(ArrayExpr):
 
     def __reduce__(self):
         # the tensor travels in host memory, so a leaf pickled beside a
-        # card loads where there is none
-        return (_load_persisted, (self.buffer.cpu(), self.chunks_, self.pinned_name, self.dtype_))
+        # card loads where there is none; a sharded one as its dense form
+        from dask_array_tpu_torch.parallel._sharded import ShardedTensor
+
+        buf = self.buffer
+        if isinstance(buf, ShardedTensor):
+            buf = buf.gather(record=False)
+        return (_load_persisted, (buf.cpu(), self.chunks_, self.pinned_name, self.dtype_))
 
 
 def _load_persisted(buffer, chunks, pinned_name, dtype=None):
@@ -347,12 +352,18 @@ class Array:
 
     def persist(self, **kwargs) -> "Array":
         """Compute and hold the result on the device as a ``Persisted``
-        leaf under this collection's name."""
-        from dask_array_tpu_torch._materialize import compute_expr
+        leaf under this collection's name.  Under a mesh a result the
+        partitioned walk holds sharded stays so: a later walk under the
+        same mesh binds its shards as they are."""
+        from dask_array_tpu_torch._materialize import compute_expr_held
+        from dask_array_tpu_torch.parallel._sharded import ShardedTensor
 
         from dask_array_tpu_torch import _host
 
-        buf = compute_expr(self._expr)
+        buf = compute_expr_held(self._expr)
+        if isinstance(buf, ShardedTensor):
+            dtype = self.dtype if self.dtype.kind in "Mm" else None
+            return new_collection(Persisted(buf, self.chunks, self.name, dtype))
         if _host.is_host_block(buf):
             # a masked, duck or record result stays on the host: a leaf of it
             from dask_array_tpu_torch.ops._from_array import from_array

@@ -83,9 +83,10 @@ def _assemble(blocks: dict, numblocks, axis: int = 0, prefix: tuple = ()):
 
 class BuildContext:
     """Carries the memo cache, leaf bindings, device and mesh through one
-    walk.  Under a mesh (``parallel.Mesh``) the walk runs on the mesh's
-    first slot and nodes with a sharded form (``Rechunk``, ``ShardStencil``)
-    run per slot."""
+    walk.  Under a mesh (``parallel.Mesh``) the walk is partitioned
+    (``parallel/partition.py``): leaves are bound sharded, nodes with a
+    partition rule run per slot and hand their ``ShardedTensor`` on, and
+    any other node runs dense on the mesh's first slot."""
 
     def __init__(self, leaf_values: dict, device: torch.device, mesh=None):
         self.cache: dict[str, BlockView] = {}
@@ -97,7 +98,12 @@ class BuildContext:
     def build(self, expr: ArrayExpr) -> BlockView:
         view = self.cache.get(expr._name)
         if view is None:
-            view = expr._build(self)
+            if self.mesh is not None:
+                from dask_array_tpu_torch.parallel.partition import build
+
+                view = build(expr, self)
+            else:
+                view = expr._build(self)
             if not isinstance(view, BlockView):
                 raise TypeError(f"{type(expr).__name__}._build returned {type(view).__name__}")
             self.cache[expr._name] = view
@@ -245,12 +251,14 @@ def execute_views(roots) -> list:
     """``execute_many``, returning each root's ``BlockView`` (its blocks,
     where the root built them per block).
 
-    Under a mesh (``parallel.use_mesh``) the walk runs on the mesh's first
-    slot, and config ``"execution-lane"`` ("auto" or "shard-map") first
-    offers each root to the shard lane (``parallel/shardlane.py``): a root
-    its planner matches runs as per-slot programs, every other root walks.
-    A decline is decided in planning; an error while the lane executes
-    propagates."""
+    Under a mesh (``parallel.use_mesh``) config ``"execution-lane"``
+    ("auto" or "shard-map") first offers each root to the shard lane
+    (``parallel/shardlane.py``): a root its planner matches runs as
+    per-slot programs.  Every other root, and every root under "gspmd",
+    takes the partitioned walk (``parallel/partition.py``); a root held
+    sharded comes back as its ``ShardedView`` (``dense()`` gathers it
+    once to the mesh's first slot).  A decline is decided in planning; an
+    error while the lane executes propagates."""
     from dask_array_tpu_torch.parallel.mesh import current_mesh
 
     mesh = current_mesh()
@@ -269,9 +277,20 @@ def execute_views(roots) -> list:
             continue
         for key, buf in collect_leaves(root):
             if key not in leaves:
-                leaves[key] = to_device(buf, device)
+                leaves[key] = _bind(buf, device, mesh)
     ctx = BuildContext(leaves, device, mesh)
     return [views[i] if i in views else ctx.build(root) for i, root in enumerate(roots)]
+
+
+def _bind(buf, device, mesh):
+    """A leaf buffer for the walk: ``to_device``'s, or a persisted
+    ``ShardedTensor`` as it is under its own mesh (gathered once to
+    ``device`` under none or another)."""
+    from dask_array_tpu_torch.parallel._sharded import ShardedTensor
+
+    if isinstance(buf, ShardedTensor):
+        return buf if mesh is not None and buf.mesh == mesh else buf.gather(device)
+    return to_device(buf, device)
 
 
 def structural_key(root: ArrayExpr) -> str:

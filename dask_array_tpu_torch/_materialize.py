@@ -15,7 +15,7 @@ import numpy as np
 
 from dask_array_tpu_torch import config
 from dask_array_tpu_torch._chunks import array_of
-from dask_array_tpu_torch._executor import check_masked_ops, execute, execute_many
+from dask_array_tpu_torch._executor import check_masked_ops, execute_many, execute_views
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import fetch
 
@@ -77,6 +77,24 @@ def compute_expr(expr: ArrayExpr, optimize: bool = True):
     or a host numpy array where the out-of-core lane answered
     (``_streaming.maybe_stream``: such a result may itself exceed the
     card's memory)."""
+    out = _root_view(expr, optimize)
+    return out if isinstance(out, np.ndarray) else out.dense()
+
+
+def compute_expr_held(expr: ArrayExpr):
+    """``compute_expr``, except that a result the partitioned walk holds
+    sharded under a mesh comes back as its ``ShardedTensor`` (``persist``
+    keeps it so)."""
+    from dask_array_tpu_torch.parallel._sharded import ShardedView
+
+    out = _root_view(expr, True)
+    if isinstance(out, np.ndarray):
+        return out
+    return out.sharded if isinstance(out, ShardedView) else out.dense()
+
+
+def _root_view(expr: ArrayExpr, optimize: bool):
+    """The root's view from the executor, or the streamed host result."""
     check_masked_ops(expr)  # on the logical tree: MapBlocks is still itself
     if optimize:
         from dask_array_tpu_torch._streaming import maybe_stream
@@ -85,7 +103,7 @@ def compute_expr(expr: ArrayExpr, optimize: bool = True):
         if streamed is not None:
             return streamed
     lowered = optimize_expr(expr) if optimize else expr
-    return execute(lowered)
+    return execute_views([lowered])[0]
 
 
 def compute_exprs(exprs) -> list:

@@ -3,10 +3,12 @@
 Port of ``dask_array_tpu/_rechunk.py``.  A rechunk is a layout boundary:
 on one device the dense tensor is unchanged and only its logical block
 structure moves (consumers that want blocks slice views out of it).  Under
-a mesh the boundary executes: the input is sharded by the old grid's
-layout and moves to the new grid's through the explicit collective
-schedule of ``parallel.collectives.mesh_collective_relayout`` (one
-``all_to_all`` a moving mesh axis).  The planner-level pushdowns (rechunk
+a mesh the boundary executes in the partitioned walk
+(``parallel/partition.py``): the shards move to the new grid's layout,
+through the explicit collective schedule of
+``parallel.collectives.mesh_collective_relayout`` (one ``all_to_all`` a
+moving mesh axis) where they are under the old grid's, and are handed on
+as they are.  The planner-level pushdowns (rechunk
 through IO/elemwise/transpose, no-op elision, rechunk∘rechunk collapse)
 happen at expression level.
 """
@@ -18,7 +20,7 @@ import math
 
 import numpy as np
 
-from dask_array_tpu_torch._chunks import common_blockdim, has_unknown_chunks, normalize_chunks
+from dask_array_tpu_torch._chunks import common_blockdim, normalize_chunks
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr, lowering_shared_names
 
@@ -61,23 +63,9 @@ class Rechunk(ArrayExpr):
         return self.array._accept_rechunk(self.target_chunks)
 
     def _build(self, ctx):
-        dense = ctx.build(self.array).dense()
-        if ctx.mesh is not None:
-            from dask_array_tpu_torch.parallel._sharded import ShardedView, shard
-            from dask_array_tpu_torch.parallel.collectives import mesh_collective_relayout
-            from dask_array_tpu_torch.parallel.layout import plan_layout
-
-            old, new = self.array.chunks, self.target_chunks
-            if not has_unknown_chunks(old):
-                src = shard(dense, ctx.mesh, plan_layout(tuple(dense.shape), old, ctx.mesh))
-                out = mesh_collective_relayout(src, old, new, ctx.mesh)
-                if out is not None:
-                    # the explicit schedule drove the relayout; the walk
-                    # stays dense, so it reads the tensor back from the
-                    # new layout (equal to ``dense``) until a consumer
-                    # takes the shards as they are
-                    return ShardedView(self.chunks, out)
-        return BlockView(self.chunks, dense=dense)
+        # the dense tensor is unchanged; under a mesh the partition rule
+        # (``parallel/partition.py``) moves the shards instead
+        return BlockView(self.chunks, dense=ctx.build(self.array).dense())
 
     def transfer_bytes(self):
         """Between-block movement estimate: (min, max) bytes.  min: only

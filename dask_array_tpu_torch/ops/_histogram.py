@@ -64,12 +64,23 @@ class Histogram(ArrayExpr):
 
     def _build(self, ctx):
         x = ctx.build(self.array).dense()
-        edges = _edges_tensor(self.bins, ctx)
-        w = None
-        if self.weights is not None:
-            w = ctx.build(self.weights).dense()
+        edges = self.edges(ctx)
+        w = None if self.weights is None else ctx.build(self.weights).dense()
+        return BlockView(self.chunks, dense=self.finish(self.counts(x, edges, w), edges))
+
+    def edges(self, ctx):
+        """The edges on the walk's device (built once a walk)."""
+        return _edges_tensor(self.bins, ctx)
+
+    def counts(self, x, edges, w=None):
+        """K2's counts of ``x`` (the whole array, or a slot's part of it),
+        weighted by ``w`` (held as the data) where given."""
+        if w is not None:
             w = to_compute(w, np.result_type(numpy_dtype(w.dtype), np.float64))
-        counts = histogram_counts(x, edges, w)
+        return histogram_counts(x, edges, w)
+
+    def finish(self, counts, edges):
+        """The histogram from the counts of the whole array."""
         if self.density:
             # numpy: n / diff(edges) / n.sum(), the widths taken in the
             # edges' dtype, then in float64
@@ -77,8 +88,7 @@ class Histogram(ArrayExpr):
             hist = counts.to(torch.float64) / widths / counts.sum().to(torch.float64)
         else:
             hist = counts
-        return BlockView(self.chunks, dense=cast(hist, self.dtype) if hist.dtype != compute_dtype(self.dtype)
-                         else hist)
+        return cast(hist, self.dtype) if hist.dtype != compute_dtype(self.dtype) else hist
 
 
 class LinspaceEdges(ArrayExpr):

@@ -137,7 +137,7 @@ class ChunksOverride(ArrayExpr):
         # the inner node's declared chunks are wrong; keep its blocks, adopt ours
         if view._blocks is not None:
             return BlockView(self.chunks_, blocks=view.blocks_dict())
-        return BlockView(self.chunks_, dense=view._dense)
+        return BlockView(self.chunks_, dense=view.dense())
 
     def _accept_slice(self, index):
         """Coarse block-cull through the declared grid: out block i is inner

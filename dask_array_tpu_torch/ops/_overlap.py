@@ -395,12 +395,11 @@ class BandStencil(ArrayExpr):
         return (0, total)
 
     def _build(self, ctx):
-        dense = ctx.build(self.array).dense().contiguous()
         dep = tuple(lo for lo, _hi in self.depth)
-        spec = None
+        src = None
         if ctx.mesh is not None and not any(mlo or mhi for mlo, mhi in self._margins):
-            spec = _stencil_spec(self.array, self.depth, ctx.mesh)
-        if spec is not None:
+            src = _mesh_input(self, ctx)
+        if src is not None:
             # under a mesh: the ShardStencil body, the band-stencil kernel
             # once a slot over its shard with halos from its neighbors (the
             # kernel pads the whole axes with the boundary itself)
@@ -410,8 +409,9 @@ class BandStencil(ArrayExpr):
                     slice(d, out.shape[ax] - d) if ax in sharded_axes else slice(None) for ax, d in enumerate(dep)
                 )]
 
-            out = _shard_body(dense, ctx.mesh, spec, self.depth, self.boundary, func, self._dtype, pad_whole=False)
+            out = _shard_body(src, ctx.mesh, self.depth, self.boundary, func, self._dtype, pad_whole=False)
             return ShardedView(self.chunks, out)
+        dense = ctx.build(self.array).dense().contiguous()
         out = band_stencil_call(dense, self.func, dep, tuple(self.boundary), self.taps)
         if any(mlo or mhi for mlo, mhi in self._margins):
             # rows computed from the pad, not from data: trimmed
@@ -523,17 +523,30 @@ class ShardStencil(ArrayExpr):
         return cast(out, self._dtype)
 
     def _build(self, ctx):
-        dense = ctx.build(self.array).dense()
-        spec = _stencil_spec(self.array, self.depth, ctx.mesh) if ctx.mesh is not None else None
-        if spec is None:
-            return BlockView(self.chunks, dense=self._apply_global(dense))
+        src = _mesh_input(self, ctx) if ctx.mesh is not None else None
+        if src is None:
+            return BlockView(self.chunks, dense=self._apply_global(ctx.build(self.array).dense()))
 
         def func(padded, sharded_axes):
             out = self._func(padded)
             return out[tuple(slice(lo, out.shape[ax] - hi) for ax, (lo, hi) in enumerate(self.depth))]
 
-        out = _shard_body(dense, ctx.mesh, spec, self.depth, self.boundary, func, self._dtype, pad_whole=True)
+        out = _shard_body(src, ctx.mesh, self.depth, self.boundary, func, self._dtype, pad_whole=True)
         return ShardedView(self.chunks, out)
+
+
+def _mesh_input(node, ctx):
+    """A stencil's input under a mesh, as the shard body takes it: a sharded
+    input as it is where its parts are deep enough (else resharded to the
+    stencil's layout, ``partition.stencil_input``), a dense one with the
+    layout it is sharded under; None where the stencil runs whole."""
+    from dask_array_tpu_torch.parallel.partition import stencil_input
+
+    spec = _stencil_spec(node.array, node.depth, ctx.mesh)
+    st = stencil_input(node, ctx, spec)
+    if st is not None or spec is None:
+        return st
+    return ctx.build(node.array).dense(), spec
 
 
 def _stencil_spec(array, depth, mesh):
@@ -560,17 +573,19 @@ def _edge_fill(shard, ax, width, bd, side):
     return padded.narrow(ax, start, width)
 
 
-def _shard_body(dense, mesh, spec, depth, boundary, func, dtype, pad_whole):
-    """The per-slot stencil: shard ``dense`` under ``spec``; along each
-    sharded axis with depth exchange one halo each way between ring
-    neighbors (the edge slots realize the boundary, a periodic ring
-    wraps); with ``pad_whole`` pad the whole axes with their boundary (one
-    ``halo_pad`` a slot); then ``func(padded, sharded_axes)`` returns the
-    slot's trimmed output.  Returns the ``ShardedTensor`` of outputs."""
+def _shard_body(src, mesh, depth, boundary, func, dtype, pad_whole):
+    """The per-slot stencil over ``src``: a ``ShardedTensor``, or a dense
+    tensor and the spec to shard it under.  Along each sharded axis with
+    depth exchange one halo each way between ring neighbors (the edge slots
+    realize the boundary, a periodic ring wraps); with ``pad_whole`` pad
+    the whole axes with their boundary (one ``halo_pad`` a slot); then
+    ``func(padded, sharded_axes)`` returns the slot's trimmed output.
+    Returns the ``ShardedTensor`` of outputs, in the input's layout."""
     from dask_array_tpu_torch.parallel._sharded import ShardedTensor, entry_names, shard
     from dask_array_tpu_torch.parallel.collectives import group_size, ppermute
 
-    st = shard(dense, mesh, spec)
+    st = src if isinstance(src, ShardedTensor) else shard(src[0], mesh, src[1])
+    spec = st.spec
     shards = list(st.shards)
     sharded_axes = set()
     for ax, (lo, hi) in enumerate(depth):
@@ -608,7 +623,7 @@ def _shard_body(dense, mesh, spec, depth, boundary, func, dtype, pad_whole):
             modes = [numpy_mode(bd) if w != (0, 0) else "edge" for w, bd in zip(widths, boundary)]
             t = halo_pad(t, widths, modes)
         outs.append(cast(func(t, sharded_axes), dtype))
-    return ShardedTensor(mesh, st.spec, outs, st.global_shape)
+    return ShardedTensor(mesh, st.spec, outs, st.global_shape, st.bounds)
 
 
 def _shard_stencil_eligible(arrays, depths, bounds, trim, kwargs):

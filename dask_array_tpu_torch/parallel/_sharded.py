@@ -103,15 +103,39 @@ def part_range(dim, p, n) -> tuple:
     return min(p * c, int(dim)), min((p + 1) * c, int(dim))
 
 
-def slot_region(mesh, spec, shape, slot) -> tuple:
-    """The slices of the global array a slot holds under ``spec``."""
+def slot_region(mesh, spec, shape, slot, bounds=None) -> tuple:
+    """The slices of the global array a slot holds under ``spec`` (and the
+    part offsets ``bounds`` where the layout is not regular)."""
     coords = slot_coords(mesh, slot)
     out = []
-    for dim, entry in zip(shape, spec):
+    for ax, (dim, entry) in enumerate(zip(shape, spec)):
         p, n = part_index(mesh, coords, entry)
-        a, b = part_range(dim, p, n)
-        out.append(slice(a, b))
+        b = bounds[ax] if bounds is not None else None
+        a, e = part_range(dim, p, n) if b is None else (b[p], b[p + 1])
+        out.append(slice(a, e))
     return tuple(out)
+
+
+def regular_bounds(dim, n) -> tuple:
+    """The part offsets of ``part_range``: ``n + 1`` of them."""
+    return tuple(part_range(dim, p, n)[0] for p in range(n)) + (int(dim),)
+
+
+def normalize_bounds(mesh, spec, shape, bounds):
+    """``bounds`` with each regular (or unsharded) axis as None, and None
+    where every axis is: the one form two equal layouts share."""
+    if bounds is None:
+        return None
+    out = []
+    for dim, entry, b in zip(shape, spec, bounds):
+        if b is None or entry is None:
+            out.append(None)
+            continue
+        b = tuple(int(v) for v in b)
+        if len(b) != spec_size(mesh, entry) + 1 or b[0] != 0 or b[-1] != int(dim):
+            raise ValueError(f"part offsets {b} do not split an axis of {dim} into {spec_size(mesh, entry)} parts")
+        out.append(None if b == regular_bounds(dim, spec_size(mesh, entry)) else b)
+    return None if all(b is None for b in out) else tuple(out)
 
 
 def groups(mesh, axes) -> list:
@@ -130,17 +154,38 @@ def groups(mesh, axes) -> list:
 
 class ShardedTensor:
     """One tensor per mesh slot under a partition ``spec`` (see the module
-    docstring).  ``global_shape`` is the shape ``gather()`` returns."""
+    docstring).  ``global_shape`` is the shape ``gather()`` returns.
+    ``bounds`` gives, per array axis, the offsets of its parts where they
+    are not ``part_range``'s (a slice narrows each part by what it keeps);
+    None where every axis is regular."""
 
-    __slots__ = ("mesh", "spec", "shards", "global_shape")
+    __slots__ = ("mesh", "spec", "shards", "global_shape", "bounds")
 
-    def __init__(self, mesh, spec, shards, global_shape):
+    def __init__(self, mesh, spec, shards, global_shape, bounds=None):
         if len(shards) != mesh.size:
             raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size} slots")
         self.mesh = mesh
         self.spec = normalize_spec(spec, len(global_shape))
         self.shards = list(shards)
         self.global_shape = tuple(int(s) for s in global_shape)
+        self.bounds = normalize_bounds(mesh, self.spec, self.global_shape, bounds)
+
+    def region(self, slot) -> tuple:
+        """The slices of the global array ``slot`` holds."""
+        return slot_region(self.mesh, self.spec, self.global_shape, slot, self.bounds)
+
+    def axis_bounds(self, ax) -> tuple:
+        """The part offsets of array axis ``ax`` (``(0, dim)`` when whole)."""
+        entry = self.spec[ax]
+        if entry is None:
+            return (0, self.global_shape[ax])
+        if self.bounds is not None and self.bounds[ax] is not None:
+            return self.bounds[ax]
+        return regular_bounds(self.global_shape[ax], spec_size(self.mesh, entry))
+
+    def same_layout(self, spec, bounds=None) -> bool:
+        spec = normalize_spec(spec, self.ndim)
+        return self.spec == spec and self.bounds == normalize_bounds(self.mesh, spec, self.global_shape, bounds)
 
     @property
     def ndim(self):
@@ -190,27 +235,30 @@ class ShardedTensor:
         return f"ShardedTensor(shape={self.global_shape}, spec={self.spec}, dtype={self.dtype}, mesh={self.mesh.shape})"
 
 
-def shard(t, mesh, spec) -> ShardedTensor:
+def shard(t, mesh, spec, bounds=None) -> ShardedTensor:
     """``device_put`` of a dense tensor: every slot takes its part under
     ``spec`` and moves it to its device (a view where it is there already)."""
     spec = normalize_spec(spec, t.ndim)
     shards = []
     for s, dev in enumerate(mesh.devices.flat):
-        shards.append(t[slot_region(mesh, spec, t.shape, s)].to(dev, non_blocking=True))
-    return ShardedTensor(mesh, spec, shards, tuple(t.shape))
+        shards.append(t[slot_region(mesh, spec, t.shape, s, bounds)].to(dev, non_blocking=True))
+    return ShardedTensor(mesh, spec, shards, tuple(t.shape), bounds)
 
 
-def as_sharded(x, mesh, spec) -> ShardedTensor:
-    """``x`` under ``spec``: a dense tensor is sharded; a sharded one
-    already under ``spec`` passes as it is, and one under another spec
-    moves to it (``reshard``, recorded as nothing: the JAX package's
-    ``shard_map`` reshards its input the same way, outside its body)."""
+def as_sharded(x, mesh, spec, bounds=None) -> ShardedTensor:
+    """``x`` under ``spec`` (and part offsets ``bounds``): a dense tensor is
+    sharded (``device_put``); a sharded one already so laid out passes as
+    it is, and one under another layout moves to it (``reshard``,
+    recorded with its bytes: an ``all_gather`` where every slot takes the
+    whole array, an ``all_to_all`` otherwise; the traffic the JAX
+    package's ``shard_map`` makes outside its body)."""
     spec = normalize_spec(spec, x.ndim)
-    if isinstance(x, ShardedTensor):
-        if x.spec == spec:
-            return x
-        return reshard(x, spec, kind=None)
-    return shard(x, mesh, spec)
+    if not isinstance(x, ShardedTensor):
+        return shard(x, mesh, spec, bounds)
+    if x.same_layout(spec, bounds):
+        return x
+    kind = "all_gather" if all(e is None for e in spec) else "all_to_all"
+    return reshard(x, spec, kind=kind, bounds=bounds)
 
 
 def _source_slot(mesh, candidates, dst):
@@ -232,21 +280,23 @@ def _source_slot(mesh, candidates, dst):
     return min(candidates, key=dist)
 
 
-def reshard(x: ShardedTensor, spec, kind="all_to_all") -> ShardedTensor:
-    """``x`` under another partition ``spec``: each slot assembles its new
-    part from the pieces of the old parts that overlap it.  The global
-    array is unchanged; only its distribution moves.  Records one ``kind``
-    (None records nothing) with the bytes that crossed slots."""
+def reshard(x: ShardedTensor, spec, kind="all_to_all", bounds=None) -> ShardedTensor:
+    """``x`` under another partition ``spec`` (and part offsets ``bounds``):
+    each slot assembles its new part from the pieces of the old parts that
+    overlap it.  The global array is unchanged; only its distribution
+    moves.  Records one ``kind`` (None records nothing) with the bytes
+    that crossed slots."""
     mesh = x.mesh
     spec = normalize_spec(spec, x.ndim)
     shape = x.global_shape
+    bounds = normalize_bounds(mesh, spec, shape, bounds)
     holders: dict = {}
     for s in range(mesh.size):
-        holders.setdefault(slot_region(mesh, x.spec, shape, s), []).append(s)
+        holders.setdefault(x.region(s), []).append(s)
     moved = 0
     shards = []
     for dst, dev in enumerate(mesh.devices.flat):
-        region = slot_region(mesh, spec, shape, dst)
+        region = slot_region(mesh, spec, shape, dst, bounds)
         if region in holders and dst in holders[region]:
             shards.append(x.shards[dst])
             continue
@@ -264,7 +314,7 @@ def reshard(x: ShardedTensor, spec, kind="all_to_all") -> ShardedTensor:
         shards.append(out)
     if kind is not None:
         COLLECTIVES.add(kind, moved)
-    return ShardedTensor(mesh, spec, shards, shape)
+    return ShardedTensor(mesh, spec, shards, shape, bounds)
 
 
 def spec_size(mesh, entry) -> int:
@@ -272,24 +322,32 @@ def spec_size(mesh, entry) -> int:
 
 
 class ShardedView(BlockView):
-    """A node's value held as a ``ShardedTensor``: the walk between nodes is
-    dense, so the first ``dense()`` (or block) gathers it to the mesh's
-    first slot, recorded as one ``gather``."""
+    """A node's value held as a ``ShardedTensor``.  A consumer with a
+    partition rule (``parallel/partition.py``) reads ``sharded`` as it is;
+    any other reads ``dense()`` (or a block), and the first such read
+    gathers it to the mesh's first slot, recorded as one ``gather`` and
+    kept, so a node read both ways gathers once.  ``dense`` may be given
+    where the dense tensor is already on the first slot (a leaf bound
+    sharded): reading it then moves nothing."""
 
-    __slots__ = ("sharded",)
+    __slots__ = ("sharded", "gathered")
 
-    def __init__(self, chunks, sharded):
+    def __init__(self, chunks, sharded, dense=None):
         self.chunks = chunks
         self._blocks = None
-        self._dense = None
+        self._dense = dense
         self.sharded = sharded
+        self.gathered = False  # whether a dense read gathered it
 
     def dense(self):
         if self._dense is None:
             self._dense = self.sharded.gather()
+            self.gathered = True
         return self._dense
 
     def block(self, index):
+        if any(isinstance(c, float) and math.isnan(c) for dim in self.chunks for c in dim):
+            return self.dense()  # unknown chunks: one block
         return self.dense()[_block_slices(self.chunks, index)]
 
 

@@ -1187,6 +1187,12 @@ def _execute_1d(plan, mesh, sources, out_dtype):
     lane = _lane_1d(mesh, leaves[0].chunks, d)
     reds, consts, scans = aux[0], aux[1], aux[2] if len(aux) > 2 else ()
     _prologue(lane, leaves, sources, reds, consts, scans)
+    if tuple(int(s) for s in elem_root.shape) != lane.shape and kind != "elemwise":
+        # the terminal reads only inner reductions' results: every piece
+        # holds its whole operand (replicated), so the terminal runs on it
+        # as it is, with no combine across slots (the JAX package's lane
+        # combines it once a slot here, or fails on a 0-d result)
+        return _replicated([p.ev(terminal) for p in lane.pieces], mesh, out_dtype)
     if kind in ("reduce_local", "cumulative_local", "argreduce_local"):
         # block-local work along unsharded axes: the terminal node itself on
         # each piece, no collective

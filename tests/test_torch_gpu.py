@@ -2088,3 +2088,89 @@ def test_shard_lane_programs_on_the_card(cuda):
                 np.testing.assert_array_equal(got, wv)
             else:
                 np.testing.assert_allclose(got, wv, rtol=1e-4, atol=1e-3)
+
+
+# -- the partitioned walk on the card: P3t, P3c, P4 and K2 on a slot's part -----------
+
+# (shard kind, base shape, the spec the walk binds it under on a 4-slot
+# ring): the last of 6 rows' parts is empty; a column part is a strided
+# view; 5-row parts of 3 float32 columns start 60 bytes apart, off any
+# 16-byte boundary
+SHARD_KINDS = {"empty": ((6, 5), ("r", None)), "strided": ((48, 64), (None, "r")),
+               "unaligned": ((20, 3), ("r", None))}
+
+
+def _slot_parts(kind, cuda):
+    from dask_array_tpu_torch.parallel._sharded import shard
+
+    shape, spec = SHARD_KINDS[kind]
+    base = torch.from_numpy(np.random.default_rng(18).standard_normal(shape).astype(np.float32)).to(cuda)
+    st = shard(base, _card_mesh((4,), ("r",)), spec)
+    nonempty = sum(s.numel() > 0 for s in st.shards)
+    if kind == "empty":
+        assert st.shards[3].numel() == 0
+    if kind == "strided":
+        assert not st.shards[1].is_contiguous()
+    if kind == "unaligned":
+        assert any(s.data_ptr() % 16 for s in st.shards)
+    return base, st, nonempty
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(SHARD_KINDS))
+@pytest.mark.parametrize("kernel", ["transpose", "scale", "multi_stat", "histogram"])
+def test_kernels_on_slot_parts(cuda, kernel, kind):
+    """Each kernel of the partitioned walk's path on each slot's part (an
+    empty part, a strided one, one off a 16-byte boundary), equal to its
+    plain version on that part; then the walk under "gspmd" on the same 4
+    slots of the card launches it once a non-empty slot, with the values
+    of the walk without a mesh."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import histogram as hk
+    from dask_array_tpu_torch.kernels import mstat
+    from dask_array_tpu_torch.kernels import scale as sk
+    from dask_array_tpu_torch.kernels import transpose as tk
+    from dask_array_tpu_torch.parallel import use_mesh
+
+    base, st, nonempty = _slot_parts(kind, cuda)
+    edges = torch.linspace(-3, 3, 17, device=cuda)
+    for s in st.shards:
+        if kernel == "transpose":
+            assert torch.equal(tk.transpose_last2(s), tk.transpose_last2_plain(s))
+        elif kernel == "scale":
+            row = torch.linspace(-2, 2, s.shape[1], device=cuda, dtype=s.dtype).reshape(1, -1)
+            got, want = sk.scale(s, row), sk.scale_plain(s, row)
+            assert torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32))
+        elif kernel == "multi_stat" and s.numel():  # the walk skips an empty part
+            c = s.contiguous()
+            torch.testing.assert_close(mstat.multi_stat_packed(c), mstat.multi_stat_packed_plain(c), rtol=1e-4,
+                                       atol=1e-4)
+        elif kernel == "histogram" and s.numel():
+            assert torch.equal(hk.histogram_counts(s, edges), hk.histogram_counts_plain(s, edges))
+    module = {"transpose": tk, "scale": sk, "multi_stat": mstat, "histogram": hk}[kernel]
+    x = base.cpu().numpy()
+    with config.set({"device": "cuda"}):
+        a = da.from_array(x, chunks=x.shape)
+        if kernel == "transpose":
+            arrays = [a.T]
+        elif kernel == "scale":
+            arrays = [a * da.from_array(np.linspace(-2, 2, x.shape[1], dtype=np.float32), chunks=x.shape[1])]
+        elif kernel == "multi_stat":
+            arrays = [a.sum(axis=0), a.mean(axis=1), a.std()]
+        else:
+            arrays = [da.histogram(a, bins=np.linspace(-3, 3, 17))[0]]
+        want = da.compute(*arrays)
+        with use_mesh(st.mesh), config.set({"execution-lane": "gspmd"}):
+            from dask_array_tpu_torch.parallel.partition import leaf_spec
+
+            assert leaf_spec(x.shape, st.mesh) == st.spec
+            module.LAUNCHES = 0
+            got = da.compute(*arrays)
+            launched = module.LAUNCHES
+    assert launched == nonempty, (kernel, kind, launched)
+    for g, w in zip(got, want):
+        if kernel == "multi_stat":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(g, w)

@@ -475,7 +475,9 @@ def test_dryrun_stage_matches(jax_stage, name):
         # one halo exchange along the nested ("dcn", x) rows: two ppermutes
         assert moved == {"ppermute": 2, "gather": 1}
     if name in ("relayout", "pipeline"):
-        assert "all_gather" not in moved
+        # no all_gather beyond the scan's own totals (the relayout's
+        # cumsum runs along the axis the leaf's layout shards)
+        assert moved.get("all_gather", 0) == (1 if name == "relayout" else 0)
 
 
 def test_structural_key_keys_on_the_mesh():

@@ -428,3 +428,37 @@ def test_stencil_lane_takes_the_band_kernel_gate(monkeypatch, name, build, cfg, 
     slots = len(tlane._lane_1d(mesh, e.expr.optimize().chunks, 0).pieces)
     assert len(seen) == (slots if calls == "a slot" else calls)
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+# (a terminal over inner reductions' results only, replicated on every
+# slot; the JAX package's lane combines it once a slot, or fails)
+REPLICATED_TERMINALS = [
+    ("std_then_sum", lambda p, a: a.std(axis=0).T.sum(axis=0), lambda x: x.std(0).sum()),
+    ("sum_then_argmax", lambda p, a: a[:3].sum(axis=-1).argmax(-1), lambda x: x[:3].sum(-1).argmax()),
+    ("mean_then_cumsum", lambda p, a: p.da.cumsum(a.mean(axis=0), axis=0), lambda x: np.cumsum(x.mean(0))),
+]
+
+
+@pytest.mark.parametrize("lane", ["shard-map", "auto"])
+@pytest.mark.parametrize("case", REPLICATED_TERMINALS, ids=[c[0] for c in REPLICATED_TERMINALS])
+def test_lane_terminal_over_replicated_operand(case, lane):
+    """A lane program whose terminal reads only inner reductions' results
+    (the lane's chunked axis reduced away inside) runs the terminal once on
+    the replicated value: numpy's answer, with no combine across slots."""
+    _, build, want = case
+    src = SRC[:, :5]
+    mesh = PORT.mesh("d8")
+    with t_use_mesh(mesh), tconfig.set({"execution-lane": lane}):
+        got = np.asarray(build(PORT, PORT.arr(src, (H, 5))).compute())
+    np.testing.assert_allclose(got, want(src), rtol=1e-12)
+
+
+def test_lane_terminal_over_replicated_operand_is_a_reference_fault():
+    """The JAX package's lane combines such a terminal once a slot (a sum
+    counted once a device): the port's repair is real."""
+    import dask_array_tpu as jda
+
+    src = SRC[:, :5]
+    jax_pkg = Pkg("jax")
+    with jax_pkg.use_mesh(jax_pkg.mesh("d8")), jda.config.set({"tpu.execution-lane": "shard-map"}):
+        got = float(jax_pkg.arr(src, (H, 5)).std(axis=0).T.sum(axis=0).compute())
+    assert not np.isclose(got, src.std(0).sum(), rtol=1e-6)
