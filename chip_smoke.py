@@ -128,7 +128,7 @@ Phases (each prints one line of its own numbers; any failure raises):
      //, % (zero divisors), >>, << (past the width), astype to float64,
      float32, int64, uint8, and sum/prod/nansum/cumsum/max/min/nanmax/
      argmax/argmin/any/all, each equal to numpy; mean/std/var to 1e-12.
- 26. the NumPy surface: every new ufunc at 4096^2 in eight dtypes against
+ 26. the NumPy surface: every new ufunc at 2048^2 in eight dtypes against
      numpy (units in the last place), then at 16384^2 float32 (persisted)
      the indexing, assignment and routine paths against numpy, timed beside
      plain torch, with their host syncs;
@@ -209,7 +209,14 @@ Phases (each prints one line of its own numbers; any failure raises):
      GB each way, streamed and in-core ms and GB/s; then the "auto"
      budget (the same, within 1 GiB, before and after the in-core runs),
      "auto" off for a 1 GiB program, and that an xla_profile trace of
-     case (a) names K1's kernel;
+     case (a) names K1's kernel; then datetime, bfloat16 and float8
+     data (``streaming_dtype_paths``): (e) stencil2d's roll form on a host
+     32768^2 bfloat16 (2 GiB) under 1 GiB (K1's 2-byte build once a panel,
+     equal bytes), (f) sum(axis=0) of 2^20 x 2048 float8_e4m3fn (2 GiB)
+     under 512 MiB (at most one step of the type from in-core and from the
+     float64 sum rounded once), (g) min and max along axis 0 of 2^20 x 512
+     datetime64[ns] (4 GiB, 64 NaT) under 2 GiB (equal to in-core and to
+     numpy);
  31. S9 (S9_SIZES): (a) K1 in bfloat16 and float16 at 4096^2 and 16384^2
      (depth 1, reflect; the 256-column tile) against its plain version (at
      most 1 step of the type apart: ``close16``), with conv2d in the same
@@ -258,6 +265,19 @@ Phases (each prints one line of its own numbers; any failure raises):
      under a mesh the walk binds their slot parts as views); each with its values,
      compute_device() ms both ways, the COLLECTIVES deltas with bytes, the
      PARTITIONED record and the kernels' launches.
+ 34. ml_dtypes' narrow types (NARROW_SIZES, ``narrow_paths``): each of
+     int2, uint2, int4, uint4, float4_e2m1fn, float8_e3m4, float8_e4m3,
+     float8_e4m3b11fnuz and float8_e8m0fnu at 16384^2 (a 256 MiB uint8
+     carrier, chunks 4096, persisted) through astype(float32), x * 2 + 1,
+     sums, max, cumsum(axis=0) and where against the port's own CPU run of
+     the same programs (bit for bit on 512 columns, sum() and max()
+     whole; a float sum at most one step of the type apart), 8192^2
+     float8_e4m3 and int4 products (float32 and int8, chunks 2048) against
+     the CPU's rows, and histograms of 2^26 float8_e4m3fn, float8_e5m2 and
+     int4 values into 256 bins through da.histogram: K2's byte route, one
+     launch each, equal to its plain version, then timed per call and on
+     the device beside its plain version and torch.histc of the float32
+     values, with its bound (2^26 bytes over 3.35 TB/s).
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -509,6 +529,10 @@ NEW_BINARY = ["float_power", "nextafter", "heaviside", "gcd", "lcm", "ldexp"]
 # units in the last place of numpy's result (0: equal, the sign of a zero too);
 # divmod: the card's float16 floor division rounds its quotient once more;
 # i0: numpy's own series, but the card's exp is not the host's (3 units seen)
+# phase 26's side for every new ufunc in 8 dtypes: its time is numpy's
+# references on the host (277 s at 4096^2 on the H100's host)
+UFUNC_SWEEP = 2048
+
 SURFACE_ULPS = {"cbrt": 2, "i0": 4, "sinc": 2, "degrees": 2, "radians": 1, "angle": 4, "float_power": 4,
                 "divmod": 1}
 
@@ -575,7 +599,7 @@ def ufunc_surface(da, n):
     for dt in ["float16", "float32", "float64", "int8", "int32", "int64", "uint8", "uint64"]:
         a, b = surface_data(dt, n, 26), surface_data(dt, n, 27)
         e = (np.arange(n * n, dtype=np.int64).reshape(n, n) % 61 - 30).astype(np.int32)
-        x, y, xe = (da.from_array(v, chunks=1024) for v in (a, b, e))
+        x, y, xe = (da.from_array(v, chunks=n // 4) for v in (a, b, e))
         lazy, want, ulps = [], [], []
         with warnings.catch_warnings(), np.errstate(all="ignore"):
             warnings.simplefilter("ignore")
@@ -1569,7 +1593,8 @@ def io_paths(da, torch, sizes, sync, device, root):
 # 4 GiB); "panel" the chunk height; budgets per case.  Sizes halve when the
 # host's MemAvailable is short (each cut printed).
 STREAM_SIZES = {"square": 32768, "square_chunk": 4096, "rows": 1 << 20, "cols": 2048, "mm_cols": 1024,
-                "panel": 1 << 16, "budget_ab": "3 GiB", "budget_cd": "2 GiB", "host_gib_needed": 28}
+                "panel": 1 << 16, "budget_ab": "3 GiB", "budget_cd": "2 GiB", "budget_e": "1 GiB",
+                "budget_f": "512 MiB", "budget_g": "2 GiB", "host_gib_needed": 28}
 
 
 # how far the "auto" budget may move across phase 30's in-core runs: they
@@ -1764,12 +1789,96 @@ def streaming_paths(da, torch, sizes):
     num.update(max_abs_err_vs_f64_rows=err, equal_bytes_to_in_core=bool(same_bits(streamed, in_core)),
                tolerance="rtol 1e-5, atol 1e-5 vs in-core; atol 1e-3 vs float64 numpy on 512 rows")
     out["d"] = num
+    del a, w, prod, streamed, in_core
+    out.update(streaming_dtype_paths(da, torch, sizes, run, fill))
     out["ring_pinned_MiB"] = _hostcopy.ring_bytes() / 2**20
     out["auto_budget_GiB_last"] = auto_budget_gib()
     check(abs(out["auto_budget_GiB_last"] - out["auto_budget_GiB_first"]) <= AUTO_BUDGET_DRIFT_GIB,
           f"phase 30: the auto budget moved from {out['auto_budget_GiB_first']} to {out['auto_budget_GiB_last']} GiB "
           "across the in-core runs")
     return out, launches
+
+
+def steps_apart(got, want, dtype):
+    """How many representable values of the 1-byte float ``dtype`` lie
+    between ``got`` and ``want`` (numpy arrays of it), at most: the
+    distance of their ranks among the type's finite values."""
+    import numpy as np
+
+    vals = np.unique(np.arange(256, dtype=np.uint8).view(dtype).astype(np.float64))
+    vals = vals[np.isfinite(vals)]
+    g, w = got.astype(np.float64).ravel(), want.astype(np.float64).ravel()
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    if same.all():
+        return 0
+    return int(np.abs(np.searchsorted(vals, g[~same]) - np.searchsorted(vals, w[~same])).max())
+
+
+def streaming_dtype_paths(da, torch, sizes, run, fill):
+    """Phase 30's cases of datetime, bfloat16 and float8 data, each
+    streamed and held against its in-core compute() by ``run``: (e) a
+    bfloat16 host array of square^2 (2 GiB at full size) under 1 GiB,
+    stencil2d's roll form (K1's 2-byte build once a panel, equal bytes);
+    (f) float8_e4m3fn of rows x cols (2 GiB) summed along axis 0 under 512
+    MiB (float32 partials, one rounding: equal to in-core, or at most one
+    step of the type apart, counted; and against the float64 sum rounded
+    once); (g) datetime64[ns] of rows x cols / 4 (4 GiB, 64 NaT) min and
+    max along axis 0 under 2 GiB (equal to in-core and to numpy)."""
+    import ml_dtypes
+    import numpy as np
+
+    from dask_array_tpu_torch._chunks import array_of
+    from dask_array_tpu_torch.models.pipelines import laplace_roll
+
+    out = {}
+    n, c = sizes["square"], sizes["square_chunk"]
+    xb = array_of(torch.from_numpy(fill(n, n)).to(torch.bfloat16))
+    sb = da.map_overlap(laplace_roll, da.from_array(xb, chunks=c), depth=1, boundary="reflect", dtype=xb.dtype)
+    streamed, in_core, num = run(sb, sizes["budget_e"])
+    check(num["band_stencil_launches"] == num["panels"], f"phase 30 (e): K1 launches {num}")
+    check(streamed.dtype == in_core.dtype == np.dtype(ml_dtypes.bfloat16)
+          and np.array_equal(streamed.view(np.uint16), in_core.view(np.uint16)),
+          "phase 30 (e): streamed bfloat16 stencil differs from in-core")
+    num.update(equal_bytes=True, dtype="bfloat16", shape=[n, n])
+    out["e"] = num
+    del xb, sb, streamed, in_core
+
+    rows, cols, panel = sizes["rows"], sizes["cols"], sizes["panel"]
+    g = torch.Generator(device="cuda").manual_seed(301)
+    f8 = (torch.randn((rows, cols), generator=g, device="cuda") * 0.01).to(torch.float8_e4m3fn)
+    exact = f8.float().sum(0, dtype=torch.float64).float().to(torch.float8_e4m3fn).cpu()
+    host = array_of(f8.cpu())
+    del f8
+    torch.cuda.empty_cache()
+    streamed, in_core, num = run(da.from_array(host, chunks=(panel, cols)).sum(axis=0), sizes["budget_f"])
+    dt8 = np.dtype(ml_dtypes.float8_e4m3fn)
+    check(streamed.dtype == in_core.dtype == dt8, f"phase 30 (f): dtypes {streamed.dtype} {in_core.dtype}")
+    num.update(dtype="float8_e4m3fn", shape=[rows, cols],
+               unequal_to_in_core=int((streamed.view(np.uint8) != in_core.view(np.uint8)).sum()),
+               steps_from_in_core=steps_apart(streamed, in_core, dt8),
+               steps_from_float64=steps_apart(streamed, array_of(exact), dt8),
+               tolerance="equal to in-core or one step of float8_e4m3fn (float32 partials summed in another "
+                         "order); at most one step from the float64 sum rounded once")
+    check(num["steps_from_in_core"] <= 1 and num["steps_from_float64"] <= 1, f"phase 30 (f): {num}")
+    out["f"] = num
+    del host, streamed, in_core
+
+    dcols = cols // 4
+    ticks = torch.randint(0, 10**15, (rows, dcols), generator=g, device="cuda") + 1_577_836_800 * 10**9
+    ticks[torch.randint(0, rows, (64,), generator=g, device="cuda"), torch.arange(64, device="cuda") * 7] = -(2**63)
+    host = ticks.cpu().numpy().view("M8[ns]")
+    del ticks
+    torch.cuda.empty_cache()
+    for name in ("min", "max"):
+        arr = getattr(da.from_array(host, chunks=(panel, dcols)), name)(axis=0)
+        streamed, in_core, num = run(arr, sizes["budget_g"])
+        want = getattr(np, name)(host, axis=0)
+        check(streamed.dtype == want.dtype and np.array_equal(streamed, in_core, equal_nan=True)
+              and np.array_equal(streamed, want, equal_nan=True), f"phase 30 (g) {name}: differs")
+        num.update(dtype="datetime64[ns]", shape=[rows, dcols], nat=64, equal_to_in_core_and_numpy=True)
+        out[f"g_{name}"] = num
+    del host
+    return out
 
 
 def k2_cases(torch, hk, flat, seed=27):
@@ -2184,6 +2293,189 @@ def s9_paths(da, torch, sizes, smi):
                                      f"plain_ms_{tag}": k2["plain_ms"], f"bound_ms_{tag}": k2["bound_ms"],
                                      f"library_ms_{tag}": k2["library_ms"]})
     return out, entries
+
+
+# phase 34: ml_dtypes' narrow types at full width.  "n" is each type's side
+# (16384^2, a 256 MiB uint8 carrier) in chunks of "chunk"; "check" the
+# columns the port's CPU run of the same programs covers; "mm" the
+# contractions' side (8192^2, chunks "mm_chunk"), "mm_check" the rows the
+# CPU checks; "flat" the histograms' values (2^26) into "bins" bins
+NARROW_SIZES = {"n": 16384, "chunk": 4096, "check": 512, "mm": 8192, "mm_chunk": 2048, "mm_check": 128,
+                "flat": 1 << 26, "bins": 256}
+NARROW_TYPES = ("int2", "uint2", "int4", "uint4", "float4_e2m1fn", "float8_e3m4", "float8_e4m3", "float8_e4m3b11fnuz",
+                "float8_e8m0fnu")
+
+
+def narrow_data(torch, name, shape, seed):
+    """A host array of the narrow type ``name`` made on the card from
+    ``seed``: normals times 2 (integer types rounded, their low bits kept;
+    e8m0 powers of two from 2^-6 to 2^6) encoded by the port's codec."""
+    import ml_dtypes
+
+    from dask_array_tpu_torch import _narrow
+
+    fmt = _narrow.FORMATS[name]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(shape, generator=g, device="cuda") * 2
+    if name == "float8_e8m0fnu":
+        v = torch.exp2(torch.round(v * 2).clamp(-6, 6))
+    elif not fmt.is_float:
+        v = v.round()
+    return _narrow.encode(v, fmt).cpu().numpy().view(getattr(ml_dtypes, name))
+
+
+def narrow_paths(da, torch, sizes, smi):
+    """The nine narrow types on the card (phase 34).  (a) each type's
+    n^2 array, persisted on the card, through astype(float32), x * 2 + 1,
+    sum(axis=0), sum(), max(axis=0), max(), cumsum(axis=0) and where:
+    each result held against the port's own CPU run of the same program
+    (the CPU tests hold that to the JAX package and numpy), bit for bit on
+    ``check`` columns (sum() and max() whole), except that a float sum may
+    lie one step of the type apart (float32 partials summed in another
+    order on the two devices; counted); compute() times.  (b) matmul of
+    8192^2 float8_e4m3 (a float32 product) and int4 (int8, exact) operands
+    in chunks of 2048, against the CPU's rows.  (c) histograms of 2^26
+    float8_e4m3fn, float8_e5m2 and int4 values into 256 bins through
+    da.histogram (the byte route, one launch each; float8 raised on the
+    parent), equal to the plain version, then the kernel per call and on
+    the device beside its plain version and torch.histc of the float32
+    values, with the bound.  Returns (numbers, byte-route launches of the
+    API run, the kernel's timing entry)."""
+    import ml_dtypes
+    import numpy as np
+
+    from dask_array_tpu_torch import _narrow, config
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    n, c, cols = sizes["n"], sizes["chunk"], sizes["check"]
+    out = {}
+    progs = {
+        "astype_float32": lambda x: x.astype(np.float32),
+        "mul_add": lambda x: x * 2 + 1,
+        "sum_axis0": lambda x: x.sum(axis=0),
+        "max_axis0": lambda x: x.max(axis=0),
+        "cumsum_axis0": lambda x: x.cumsum(axis=0),
+        "where": lambda x: da.where(x.astype(np.float32) > 0, x, x[::-1]),
+    }
+    for seed, name in enumerate(NARROW_TYPES, 340):
+        dt = np.dtype(getattr(ml_dtypes, name))
+        fmt = _narrow.FORMATS[name]
+        a = narrow_data(torch, name, (n, n), seed)
+        x = da.from_array(a, chunks=c).persist()
+        num = {"ms": {}, "steps": {}}
+        whole = {}
+        for pname, prog in progs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = prog(x).compute()
+            num["ms"][pname] = (time.perf_counter() - t0) * 1e3
+            got = got[..., :cols]
+            with config.set({"device": "cpu"}):
+                want = prog(da.from_array(a[:, :cols], chunks=c)).compute()
+            check(got.dtype == want.dtype and got.shape == want.shape, f"phase 34 {name} {pname}: dtype/shape")
+            if pname == "sum_axis0" and fmt.is_float:
+                num["steps"][pname] = steps_apart(got, want, dt)
+                check(num["steps"][pname] <= 1, f"phase 34 {name} {pname}: {num['steps'][pname]} steps from the CPU")
+            else:
+                check(np.array_equal(got.view(np.uint8), want.view(np.uint8)), f"phase 34 {name} {pname}: differs "
+                                                                                 "from the port's CPU run")
+        for pname in ("sum", "max"):
+            got = getattr(x, pname)().compute()
+            with config.set({"device": "cpu"}):
+                want = getattr(da.from_array(a, chunks=c), pname)().compute()
+            check(got.dtype == want.dtype, f"phase 34 {name} {pname}: dtype")
+            if pname == "sum" and fmt.is_float:
+                num["steps"][pname] = steps_apart(got, want, dt)
+                check(num["steps"][pname] <= 1, f"phase 34 {name} sum: {num['steps'][pname]} steps from the CPU")
+            else:
+                check(np.array_equal(np.asarray(got).view(np.uint8), np.asarray(want).view(np.uint8)),
+                      f"phase 34 {name} {pname}: differs from the port's CPU run")
+            whole[pname] = float(np.asarray(got).astype(np.float64))
+        num.update(whole)
+        out[name] = num
+        del a, x
+        torch.cuda.empty_cache()
+
+    # (b) contractions: numpy's matmul dtypes (float32, int8)
+    m, mc, rows = sizes["mm"], sizes["mm_chunk"], sizes["mm_check"]
+    for seed, name in enumerate(("float8_e4m3", "int4"), 360):
+        a = narrow_data(torch, name, (m, m), seed)
+        b = narrow_data(torch, name, (m, m), seed + 10)
+        prod = da.from_array(a, chunks=mc) @ da.from_array(b, chunks=mc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = prod.compute_device()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = got[:rows].cpu().numpy()
+        with config.set({"device": "cpu"}):
+            want = (da.from_array(a[:rows], chunks=mc) @ da.from_array(b, chunks=mc)).compute()
+        check(got.dtype == want.dtype, f"phase 34 matmul {name}: {got.dtype} vs {want.dtype}")
+        if name == "int4":
+            check(np.array_equal(got, want), "phase 34 matmul int4: differs from the CPU's exact product")
+            err = 0.0
+        else:
+            mag = np.abs(a[:rows].astype(np.float32)) @ np.abs(b.astype(np.float32))
+            err = float(np.max(np.abs(got - want) / np.maximum(mag, 1e-30)))
+            check(err <= 1e-5, f"phase 34 matmul {name}: {err} of sum |a||b| from the CPU")
+        out[f"matmul_{name}"] = {"shape": [m, m], "chunks": mc, "dtype": str(got.dtype), "compute_device_ms": ms,
+                                 "TFLOPs": 2 * m**3 / ms / 1e9, "err_of_abs_product": err, "rows_checked": rows}
+        del a, b, prod
+        torch.cuda.empty_cache()
+
+    # (c) histograms: the byte route through the API, then its timing
+    flat, nb = sizes["flat"], sizes["bins"]
+    edges = np.linspace(-4, 4, nb + 1)
+    e = torch.from_numpy(edges).cuda()
+    g = torch.Generator(device="cuda").manual_seed(370)
+    normal = torch.randn(flat, generator=g, device="cuda") * 2
+    data = {"float8_e4m3fn": (normal.to(torch.float8_e4m3fn), None),
+            "float8_e5m2": (normal.to(torch.float8_e5m2), None),
+            "int4": (_narrow.encode(normal.round(), _narrow.FORMATS["int4"]), np.dtype(ml_dtypes.int4))}
+    del normal
+    hk.LAUNCHES = 0
+    for name, (t, ndt) in data.items():
+        host = t.cpu().numpy().view(ndt) if ndt is not None else t.view(torch.uint8).cpu().numpy().view(
+            getattr(ml_dtypes, name))
+        h, _ = da.histogram(da.from_array(host, chunks=1 << 24), bins=edges)
+        got = h.compute()
+        ref = hk.histogram_counts_plain(t, e, None, ndt).cpu().numpy()
+        check(np.array_equal(got, ref) and int(got.sum()) > 0, f"phase 34 histogram {name}: differs from the plain "
+                                                              "version")
+    api_launches = hk.LAUNCHES
+    check(api_launches == len(data), f"phase 34: the byte route launched {api_launches} times for {len(data)} "
+                                     "histograms")
+    timing = {}
+    for name, (t, ndt) in data.items():
+        kind = ndt if ndt is not None else t.dtype
+        values = hk.byte_values(kind).to(t.device)[t.view(torch.uint8).to(torch.int64)]
+
+        def kernel(t=t, ndt=ndt):
+            return hk.histogram_counts_cuda(t, e, dtype=ndt)
+
+        def plain(t=t, ndt=ndt):
+            return hk.histogram_counts_plain(t, e, None, ndt)
+
+        def library(t=t, values=values):
+            # torch.histc refuses float8 and has no int4: the float32 cast
+            # of a float8 tensor inside the call, the int4 values before it
+            return torch.histc((t if t.dtype != torch.uint8 else values).float(), nb, -4, 4)
+
+        got, ref, pat = kernel(), plain(), hk.histogram_bytes_plain(t, e, kind)
+        check(torch.equal(got, ref) and torch.equal(got, pat), f"phase 34 K2 bytes {name}: counts differ")
+        k_ms, p_ms, k_runs, p_runs = paired_ms(plain, kernel, reps=20)
+        b_ms, b_by = bound(flat + nb * 8, flat)
+        dev = device_ms(kernel)
+        timing[name] = {"kernel_ms": k_ms, "kernel_device_ms": dev, "kernel_runs_ms": k_runs, "plain_ms": p_ms,
+                        "plain_runs_ms": p_runs, "library": "torch.histc of the float32 values",
+                        "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+                        "bytes": flat + nb * 8, "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev,
+                        "max_abs_err_vs_plain": float((got - ref).abs().max())}
+        del values
+    out["histograms"] = {"values": flat, "bins": nb, "api_launches": api_launches, "timing": timing}
+    del data
+    torch.cuda.empty_cache()
+    return out, api_launches, timing
 
 
 # phase 32: the mesh on the card.  "n" is the flagship's a (n x n float32,
@@ -3414,8 +3706,9 @@ def main() -> int:
 
     # -- phase 26: the NumPy surface on the card -----------------------------------
     t26 = time.perf_counter()
-    checked26, refused26, ulps26 = ufunc_surface(da, 4096)
-    phase(26, "ufuncs-4096", shape=[4096, 4096], chunks=1024, cases=checked26, numpy_refuses=refused26,
+    checked26, refused26, ulps26 = ufunc_surface(da, UFUNC_SWEEP)
+    phase(26, f"ufuncs-{UFUNC_SWEEP}", shape=[UFUNC_SWEEP] * 2, chunks=UFUNC_SWEEP // 4, cases=checked26,
+          numpy_refuses=refused26,
           max_ulps=ulps26, numpy=np.__version__,
           dtypes=["float16", "float32", "float64", "int8", "int32", "int64", "uint8", "uint64"],
           tolerance={"default": "equal to numpy, dtype and the sign of a zero included",
@@ -3488,6 +3781,10 @@ def main() -> int:
               chunk_rows=sizes30["panel"], **num)
     phase(30, "stream-matmul", card=smi, a=[sizes30["rows"], sizes30["mm_cols"]], w=[sizes30["mm_cols"]] * 2,
           chunk_rows=sizes30["panel"], **sp["d"])
+    phase(30, "stream-stencil2d-roll-bf16", card=smi, chunks=sizes30["square_chunk"], **sp["e"])
+    phase(30, "stream-reduce-float8-sum0", card=smi, chunk_rows=sizes30["panel"], **sp["f"])
+    for name in ("min", "max"):
+        phase(30, f"stream-reduce-datetime-{name}0", card=smi, chunk_rows=sizes30["panel"], **sp[f"g_{name}"])
     phase(30, "stream-engagement", card=smi, auto_budget_GiB=sp["auto_budget_GiB"],
           auto_budget_GiB_first=sp["auto_budget_GiB_first"], auto_budget_GiB_last=sp["auto_budget_GiB_last"],
           auto_stays_off=sp["auto_stays_off"], auto_off_for_GiB=sp["auto_off_for_GiB"],
@@ -3523,6 +3820,14 @@ def main() -> int:
         phase(33, name, card=smi, **num)
     phase(33, "seconds", launches=part_launches, cards=torch.cuda.device_count(), seconds=time.perf_counter() - t33)
     check(all(v > 0 for v in part_launches.values()), f"phase 33: a kernel never launched: {part_launches}")
+    print(smi, flush=True)
+
+    # -- phase 34: ml_dtypes' narrow types at full width, K2's byte route
+    t34 = time.perf_counter()
+    npaths, byte_launches, byte_timing = narrow_paths(da, torch, NARROW_SIZES, smi)
+    for name, num in npaths.items():
+        phase(34, name, card=smi, **num)
+    phase(34, "seconds", seconds=time.perf_counter() - t34)
     print(smi, flush=True)
 
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
@@ -3636,6 +3941,23 @@ def main() -> int:
                                                   "bound_ms", "of_bound")}
                       for k, v in k2.items() if isinstance(v, dict)},
             **s9_entries["histogram"],
+        },
+        {
+            "name": "histogram_bytes",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/histogram.cu",
+            "replaces": "dask_array_tpu/kernels/histogram.py:202",
+            "launches": byte_launches,
+            "max_abs_err": byte_timing["float8_e4m3fn"]["max_abs_err_vs_plain"],
+            "ms": byte_timing["float8_e4m3fn"]["kernel_ms"],
+            "plain_ms": byte_timing["float8_e4m3fn"]["plain_ms"],
+            "bound_ms": byte_timing["float8_e4m3fn"]["bound_ms"],
+            "bound_by": byte_timing["float8_e4m3fn"]["bound_by"],
+            "library_ms": byte_timing["float8_e4m3fn"]["library_ms"],
+            "device_ms": byte_timing["float8_e4m3fn"]["kernel_device_ms"],
+            "cases": {k: {key: v[key] for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "of_bound")}
+                      for k, v in byte_timing.items()},
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

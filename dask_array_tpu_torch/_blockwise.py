@@ -23,15 +23,19 @@ from dask_array_tpu_torch._chunks import (
     cast,
     cat,
     compute_dtype,
+    convert,
+    format_of,
     has_unknown_chunks,
     is_float_dtype,
     parse_bytes,
+    tensor_of,
     to_compute,
     torch_dtype,
     unify_blockdims,
+    value_of,
 )
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
-from dask_array_tpu_torch._expr import ArrayExpr, compute_meta, loop_dtypes
+from dask_array_tpu_torch._expr import ArrayExpr, _numpy_equivalent, compute_meta, loop_dtypes
 
 
 def _is_bcast(chunks_axis) -> bool:
@@ -157,6 +161,55 @@ def _operand(t, dtype):
 def _store(t, dtype):
     """A result computed for numpy ``dtype`` as the block that dtype holds."""
     return cast(t, dtype) if isinstance(t, torch.Tensor) else t
+
+
+def _narrow_scalar(a, dt, device):
+    """A number or numpy scalar as a 0-d held block of numpy's ``dt``
+    (rounded there first, as numpy casts it)."""
+    with np.errstate(all="ignore"):
+        return tensor_of(np.asarray(a).astype(dt).reshape(())).to(device)
+
+
+def _narrow_call(node, func, args, device):
+    """An ``Elemwise`` with a narrow operand or result (``_narrow``): each
+    operand converted to numpy's loop dtype (a narrow one then decoded to
+    float32 or int32), ``func`` on the values, and the result stored in the
+    node's dtype (encoded where it is narrow), so each op rounds as the
+    JAX package's and ml_dtypes' loops round.  A cast converts once; a
+    function that only moves elements (``narrow_patterns``) and the
+    selection of ``where`` move the patterns as they are."""
+    from dask_array_tpu_torch import _host
+
+    srcs = [a.dtype if isinstance(a, ArrayExpr) else None for a in node.args]
+    out_dt = node.dtype
+    kwargs = node._kwargs_dict
+    if getattr(func, "narrow_convert", False):
+        return convert(args[0], srcs[0], out_dt)
+    if getattr(func, "narrow_patterns", False) and all(s in (None, out_dt) for s in srcs):
+        return _host.call(node, "func", func, args, kwargs, device)
+    if getattr(func, "narrow_select", False) and format_of(out_dt) is not None:
+        cond, picks = args[0], []
+        cond = value_of(cond, srcs[0]).to(torch.bool) if isinstance(cond, torch.Tensor) else bool(cond)
+        for a, s in zip(args[1:], srcs[1:]):
+            picks.append(convert(a, s, out_dt) if isinstance(a, torch.Tensor) else _narrow_scalar(a, out_dt, device))
+        return torch.where(torch.as_tensor(cond, device=device), *picks)
+    np_fn = _numpy_equivalent(func)
+    dts = None
+    if np_fn is not None and np_fn.nin == len(args):
+        spec = [s if s is not None else (a.dtype if isinstance(a, np.generic) else type(a))
+                for a, s in zip(args, srcs)]
+        try:
+            dts = np_fn.resolve_dtypes(tuple(spec) + (None,) * np_fn.nout)[: np_fn.nin]
+        except (TypeError, OverflowError):
+            dts = None
+    if dts is not None:
+        vals = [to_compute(convert(a, s, dt) if s is not None else _narrow_scalar(a, dt, device), dt)
+                for a, s, dt in zip(args, srcs, dts)]
+    else:
+        # no ufunc loop: each narrow operand as its value
+        vals = [value_of(a, s) for a, s in zip(args, srcs)]
+    out = torch.as_tensor(_host.call(node, "func", func, vals, kwargs, device), device=device)
+    return cast(out, out_dt) if format_of(out_dt) is not None else _store(out, out_dt)
 
 
 def _gather(arr_view, coords, contracted, concatenate, pos, prefix):
@@ -437,6 +490,8 @@ class Blockwise(ArrayExpr):
 class Elemwise(Blockwise):
     """Broadcasting element-wise application (dense fast path)."""
 
+    takes_narrow = True
+
     _parameters = ("func", "kwargs")
     _defaults = {"kwargs": ()}
 
@@ -553,6 +608,8 @@ class Elemwise(Blockwise):
                 # datetime operands: int64 ticks in numpy's loop units
                 out = datetime_call(func, self.args, args, self.dtype, self._kwargs_dict)
                 return BlockView(self.chunks, dense=_store(out, self.dtype))
+        if any(format_of(a.dtype) is not None for a in (self, *self.args) if isinstance(a, ArrayExpr)):
+            return BlockView(self.chunks, dense=_narrow_call(self, func, args, ctx.device))
         dts = loop_dtypes(func, args)
         if dts is not None:
             from dask_array_tpu_torch.ops.ufuncs import compare_outside_range
@@ -626,6 +683,8 @@ class FusedBlockwise(ArrayExpr):
     The grouped subtree runs in one executor walk already; the wrapper
     marks the fusion boundary for ``pprint``.
     """
+
+    takes_narrow = True
 
     _parameters = ("root", "n_fused")
     _defaults = {"n_fused": 1}

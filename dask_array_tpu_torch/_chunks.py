@@ -20,6 +20,9 @@ from numbers import Integral, Number
 import numpy as np
 import torch
 
+from dask_array_tpu_torch import _narrow
+from dask_array_tpu_torch._narrow import format_of
+
 
 class PerformanceWarning(Warning):
     """A warning given when bad chunking may cause poor performance."""
@@ -70,9 +73,10 @@ _TORCH_DTYPES = {
 }
 
 # ml_dtypes' extension floats that torch holds.  numpy knows them only when
-# ml_dtypes is importable (nothing installs it for the port); every other
-# ml_dtypes type (int2/int4, float4/6, float8_e3m4 ...) has no torch dtype
-# and is refused by name (``torch_dtype``).
+# ml_dtypes is importable (nothing installs it for the port).  The narrow
+# types torch has no dtype for (int2/int4, float4, float8_e3m4 ...) are held
+# as uint8 bit patterns (``_narrow``); the two float6 types are refused by
+# name (``torch_dtype``), as the JAX package cannot compute them either.
 try:
     import ml_dtypes
 except ImportError:  # pragma: no cover - the port runs without it
@@ -117,9 +121,11 @@ def torch_dtype(dt) -> torch.dtype:
     dt = device_dtype(dt)
     got = _TORCH_DTYPES.get(dt)
     if got is None:
+        if format_of(dt) is not None:
+            return torch.uint8  # the carrier of its bit patterns
         if is_ml_dtype(dt):
             raise TypeError(f"ml_dtypes.{dt.name} has no torch dtype: dask_array_tpu_torch holds "
-                            f"{', '.join(ML_FLOATS)} of ml_dtypes' types")
+                            f"{', '.join(ML_FLOATS + _narrow.NAMES)} of ml_dtypes' types")
         raise TypeError(f"dtype {dt} has no torch counterpart in dask_array_tpu_torch")
     return got
 
@@ -128,6 +134,8 @@ def tensor_of(arr: np.ndarray) -> torch.Tensor:
     """``torch.from_numpy`` for every held dtype: ml_dtypes floats cross as
     the unsigned integer of their width, datetimes as int64 ticks."""
     held = torch_dtype(arr.dtype)
+    if format_of(arr.dtype) is not None:
+        return torch.from_numpy(arr.view(np.uint8))
     cross = _CROSSING.get(held)
     if cross is not None:
         return torch.from_numpy(arr.view(_NUMPY_DTYPES[cross])).view(held)
@@ -136,8 +144,11 @@ def tensor_of(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def array_of(t: torch.Tensor) -> np.ndarray:
-    """``Tensor.numpy()`` of a CPU tensor for every held dtype."""
+def array_of(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """``Tensor.numpy()`` of a CPU tensor for every held dtype; a uint8
+    carrier as the narrow ``dtype`` its patterns are elements of."""
+    if dtype is not None and format_of(dtype) is not None:
+        return t.numpy().view(dtype)
     cross = _CROSSING.get(t.dtype)
     if cross is not None:
         return t.view(cross).numpy().view(_NUMPY_DTYPES[t.dtype])
@@ -162,15 +173,36 @@ def numpy_dtype(dt: torch.dtype) -> np.dtype:
 # no torch kernel of an unsigned dtype is needed, on the CPU or the card.
 _UINT64 = np.dtype(np.uint64)
 _COMPUTE = {np.dtype(np.uint16): torch.int32, np.dtype(np.uint32): torch.int64, _UINT64: torch.int64}
+# torch holds the float8 types but computes in none of them ("add_stub not
+# implemented for 'Float8_e4m3fn'"): a value is computed in float32 and
+# rounded back by its format's encode (``_narrow.HELD``), as ml_dtypes
+# rounds it (torch's own conversion saturates float8_e4m3fn's overflow)
+_FLOAT8 = {t for t in _NUMPY_DTYPES if t.itemsize == 1 and t.is_floating_point}
+_COMPUTE.update({_NUMPY_DTYPES[t]: torch.float32 for t in _FLOAT8})
 _SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
 _WRAP = {np.dtype(np.uint16): 0xFFFF, np.dtype(np.uint32): 0xFFFFFFFF}
 INT64_MIN = -(1 << 63)
 
 
+def is_narrow(dt) -> bool:
+    """Whether numpy dtype ``dt`` is one byte an element that a node
+    computes wider and rounds once: ml_dtypes' narrow types (held as uint8
+    patterns, ``_narrow``) and torch's float8 types (computed in float32).
+    A combine of per-shard parts would order the patterns as numbers or
+    round once a part, so the mesh lanes leave such nodes to the dense
+    build."""
+    dt = np.dtype(dt)
+    return format_of(dt) is not None or _TORCH_DTYPES.get(dt) in _FLOAT8
+
+
 def compute_dtype(dt) -> torch.dtype:
     """The torch dtype a value of numpy dtype ``dt`` is computed in: int32
-    for uint16, int64 for uint32 and uint64, else ``torch_dtype(dt)``."""
+    for uint16, int64 for uint32 and uint64, float32 (int32) for a narrow
+    float (integer) type, else ``torch_dtype(dt)``."""
     dt = np.dtype(dt)
+    fmt = format_of(dt)
+    if fmt is not None:
+        return _narrow.compute_dtype(fmt)
     return _COMPUTE.get(dt) or torch_dtype(dt)
 
 
@@ -195,9 +227,18 @@ def _float_to_u64(t: torch.Tensor) -> torch.Tensor:
 
 def to_compute(t: torch.Tensor, dt) -> torch.Tensor:
     """A held block ``t`` (its torch dtype names its numpy dtype) in
-    ``compute_dtype(dt)``, converted as numpy's ``astype(dt)`` converts."""
+    ``compute_dtype(dt)``, converted as numpy's ``astype(dt)`` converts.
+    For a narrow ``dt`` a uint8 ``t`` is a carrier of ``dt`` (a uint8
+    block becomes a narrow one through ``convert``)."""
     dt = np.dtype(dt)
     want = compute_dtype(dt)
+    fmt = format_of(dt)
+    if fmt is not None:
+        if t.dtype == torch.uint8:
+            return _narrow.decode(t, fmt)  # a carrier of ``dt``
+        if t.is_complex():
+            t = t.real
+        return t.to(torch.float32) if fmt.is_float else _narrow.decode(_narrow.encode(t, fmt), fmt)
     if t.dtype == want and dt not in _WRAP:
         return t
     if t.dtype == torch.uint64:
@@ -226,7 +267,12 @@ def as_stored(t: torch.Tensor, dt) -> torch.Tensor:
     numpy dtype ``dt`` holds: the low bits of the signed type of the width,
     viewed as the unsigned one (int64 bits as uint64)."""
     dt = np.dtype(dt)
+    fmt = format_of(dt)
+    if fmt is not None:
+        return t if t.dtype == torch.uint8 else _narrow.encode(t, fmt)
     held = _TORCH_DTYPES.get(dt)
+    if held in _FLOAT8:
+        return t if t.dtype == held else _narrow.encode(t, _narrow.HELD[dt.name]).view(held)
     twin = _SIGNED_TWIN.get(held)
     if twin is None:
         return t
@@ -244,10 +290,35 @@ def cast(t: torch.Tensor, dt) -> torch.Tensor:
     return as_stored(t if t.dtype == compute_dtype(dt) else to_compute(t, dt), dt)
 
 
+def convert(t: torch.Tensor, src, dst) -> torch.Tensor:
+    """numpy's ``astype(dst)`` of a held block ``t`` of numpy dtype
+    ``src``, where either may be a narrow type: a narrow source decodes to
+    its value first, a narrow target encodes the value (``_narrow``)."""
+    fs, fd = format_of(src), format_of(dst)
+    if fs is not None:
+        return _narrow.recast(t, fs, fd) if fd is not None else cast(_narrow.decode(t, fs), dst)
+    if fd is None:
+        return cast(t, dst)
+    if t.dtype == torch.uint64:
+        t = u64_to_float(t.view(torch.int64), torch.float64) if fd.is_float else t.view(torch.int64)
+    t = computable(t)
+    return _narrow.encode(t.real if t.is_complex() else t, fd)
+
+
+def value_of(t, dt):
+    """A held block of numpy dtype ``dt`` with a narrow type's carrier
+    decoded to its values (float32 or int32); any other block as it is."""
+    fmt = format_of(dt)
+    if fmt is not None and isinstance(t, torch.Tensor):
+        return _narrow.decode(t, fmt)
+    return t
+
+
 def computable(t):
-    """A held block as torch computes on it: uint16/32/64 in
-    ``compute_dtype`` (uint64 as its int64 bits); anything else as it is."""
-    if isinstance(t, torch.Tensor) and t.dtype in _SIGNED_TWIN:
+    """A held block as torch computes on it: uint16/32/64 and the float8
+    types in ``compute_dtype`` (uint64 as its int64 bits); anything else as
+    it is."""
+    if isinstance(t, torch.Tensor) and (t.dtype in _SIGNED_TWIN or t.dtype in _FLOAT8):
         return to_compute(t, numpy_dtype(t.dtype))
     return t
 

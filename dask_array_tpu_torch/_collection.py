@@ -17,7 +17,7 @@ from numbers import Number
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import has_unknown_chunks, numpy_dtype
+from dask_array_tpu_torch._chunks import format_of, has_unknown_chunks, numpy_dtype, tensor_of
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.ops.ufuncs import (
     absolute_,
@@ -68,6 +68,8 @@ class Persisted(ArrayExpr):
 
     The name is the token too, so tokenizing a plan that holds this leaf
     never hashes the tensor's contents."""
+
+    takes_narrow = True
 
     _parameters = ("buffer", "chunks_", "pinned_name", "dtype_")
     _defaults = {"dtype_": None}
@@ -362,8 +364,7 @@ class Array:
 
         buf = compute_expr_held(self._expr)
         if isinstance(buf, ShardedTensor):
-            dtype = self.dtype if self.dtype.kind in "Mm" else None
-            return new_collection(Persisted(buf, self.chunks, self.name, dtype))
+            return new_collection(Persisted(buf, self.chunks, self.name, self._held_dtype()))
         if _host.is_host_block(buf):
             # a masked, duck or record result stays on the host: a leaf of it
             from dask_array_tpu_torch.ops._from_array import from_array
@@ -372,7 +373,7 @@ class Array:
         if isinstance(buf, np.ndarray):
             # streamed out of core: the result stays in host memory, and
             # each later compute uploads what it reads of it
-            buf = torch.from_numpy(buf)
+            buf = tensor_of(buf)
         if buf.device.type == "cpu" or not buf.is_contiguous():
             # a compact snapshot: a CPU result may share memory with the
             # numpy source, a view would keep its whole base alive
@@ -383,8 +384,12 @@ class Array:
             chunks = tuple(
                 c if not any(np.isnan(x) for x in c) else (s,) for c, s in zip(chunks, buf.shape)
             )
-        dtype = self.dtype if self.dtype.kind in "Mm" else None
-        return new_collection(Persisted(buf, chunks, self.name, dtype))
+        return new_collection(Persisted(buf, chunks, self.name, self._held_dtype()))
+
+    def _held_dtype(self):
+        """The dtype a persisted leaf records where its tensor's dtype does
+        not name it: datetime ticks, a narrow type's uint8 carrier."""
+        return self.dtype if self.dtype.kind in "Mm" or format_of(self.dtype) is not None else None
 
     def visualize(self, *args, **kwargs):
         """The expression tree as a table (``diagnostics.expr_table``)."""

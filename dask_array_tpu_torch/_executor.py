@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import cached_cumsum, cat, tensor_of
+from dask_array_tpu_torch._chunks import cached_cumsum, cat, format_of, tensor_of
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import upload
 
@@ -98,6 +98,7 @@ class BuildContext:
     def build(self, expr: ArrayExpr) -> BlockView:
         view = self.cache.get(expr._name)
         if view is None:
+            check_narrow(expr)
             if self.mesh is not None:
                 from dask_array_tpu_torch.parallel.partition import build
 
@@ -118,6 +119,18 @@ class BuildContext:
         if key not in self.shared_values:
             self.shared_values[key] = make()
         return self.shared_values[key]
+
+
+def check_narrow(expr: ArrayExpr):
+    """Raise where ``expr`` is a node whose build does not take narrow data
+    (``ArrayExpr.takes_narrow``) with a narrow operand or result."""
+    if expr.takes_narrow:
+        return
+    for node in (expr, *expr.dependencies()):
+        if format_of(node.dtype) is not None:
+            raise NotImplementedError(
+                f"{type(expr).__name__} does not compute ml_dtypes.{node.dtype.name} data in dask_array_tpu_torch: "
+                "astype a wider dtype first")
 
 
 def collect_leaves(root: ArrayExpr):

@@ -64,6 +64,12 @@ class ArrayExpr:
     # operands that are block functions a user may write in numpy: their
     # lane (``_host.py``) shows in ``pprint``
     _lane_operands: tuple = ()
+    # whether the node's build takes ml_dtypes' narrow types (``_narrow``):
+    # it moves a uint8 carrier's patterns as they are, or decodes and
+    # encodes by its dtypes.  Any other node with a narrow operand or result
+    # raises in the walk (``_executor.check_narrow``) rather than read the
+    # patterns as uint8 numbers.
+    takes_narrow: bool = False
 
     _instances: "weakref.WeakValueDictionary[str, ArrayExpr]" = weakref.WeakValueDictionary()
     _instances_lock = threading.Lock()

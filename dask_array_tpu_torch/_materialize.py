@@ -14,7 +14,7 @@ import functools
 import numpy as np
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import array_of
+from dask_array_tpu_torch._chunks import array_of, format_of
 from dask_array_tpu_torch._executor import check_masked_ops, execute_many, execute_views
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import fetch
@@ -124,7 +124,8 @@ def to_numpy(out, expr: ArrayExpr) -> np.ndarray:
     array (an object payload of ``store(load_stored=False)``, a streamed
     result, a masked array) passes as it is, and so does a block of a
     registered duck type.  A datetime64/timedelta64 result comes back from
-    its int64 ticks in the unit the metadata records."""
+    its int64 ticks in the unit the metadata records, a narrow type's
+    (``_narrow``) from its uint8 patterns."""
     from dask_array_tpu_torch._dispatch import is_duck_chunk
 
     if is_duck_chunk(out):
@@ -137,6 +138,8 @@ def to_numpy(out, expr: ArrayExpr) -> np.ndarray:
         arr = array_of(out.detach())
     if expr.dtype.kind in "Mm" and arr.dtype == np.int64:
         arr = arr.view(expr.dtype)
+    elif arr.dtype == np.uint8 and format_of(expr.dtype) is not None:
+        arr = arr.view(expr.dtype)  # a narrow type's carrier
     if arr.dtype != expr.dtype:
         raise TypeError(f"computed {arr.dtype} where the metadata says {expr.dtype}")
     return arr
@@ -150,6 +153,8 @@ class Barrier(ArrayExpr):
     """A program split point: the subtree below computes in its own walk
     (optimized on its own) and feeds the parent as a leaf tensor on the
     device.  No slice or rechunk is pushed through it."""
+
+    takes_narrow = True
 
     _parameters = ("array",)
 

@@ -26,6 +26,8 @@ from dask_array_tpu_torch._expr import ArrayExpr, lowering_shared_names
 
 
 class Rechunk(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "target_chunks")
     _pushdown_gate = "_rechunk_pushdown"
 

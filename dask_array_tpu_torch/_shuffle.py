@@ -22,6 +22,8 @@ from dask_array_tpu_torch._expr import ArrayExpr
 
 
 class Shuffle(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "indexer", "axis")
 
     @functools.cached_property

@@ -196,6 +196,8 @@ class Slice(ArrayExpr):
     operands: [array, index] with index a normalized full-length tuple.
     """
 
+    takes_narrow = True
+
     _parameters = ("array", "index")
     _pushdown_gate = "_slice_pushdown"
 

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import parse_bytes
+from dask_array_tpu_torch._chunks import array_of, format_of, is_float_dtype, parse_bytes
 from dask_array_tpu_torch._host import is_host_block
 
 # engagement spy: how often the lane answered, how many panels it ran, how
@@ -126,12 +126,11 @@ def _regular_rows(heights):
 
 def _host_only(dt) -> bool:
     """Dtypes the lane does not stream: the host lane's (records, strings,
-    objects), and datetime ticks and ml_dtypes' types, which compute in
-    core."""
-    from dask_array_tpu_torch._chunks import host_only_dtype, is_ml_dtype
+    objects), as the JAX package's ``_scan`` declines them.  Datetime
+    ticks, bfloat16, the float8 types and the narrow types stream."""
+    from dask_array_tpu_torch._chunks import host_only_dtype
 
-    dt = np.dtype(dt)
-    return host_only_dtype(dt) or dt.kind in "Mm" or is_ml_dtype(dt)
+    return host_only_dtype(dt)
 
 
 def _scan(expr):
@@ -334,12 +333,18 @@ def _ready(t):
     return ev
 
 
-def _to_host(t, ready=None) -> np.ndarray:
+def _to_host(t, ready=None, dtype=None) -> np.ndarray:
+    """A panel's value as host numpy; with ``dtype``, datetime ticks and a
+    narrow type's carrier (``_narrow``) viewed as that dtype."""
     if t.device.type == "cuda":
         from dask_array_tpu_torch._hostcopy import fetch
 
-        return fetch(t, ready)
-    return t.numpy()
+        arr = fetch(t, ready)
+    else:
+        arr = array_of(t)
+    if dtype is not None and arr.dtype != dtype and (dtype.kind in "Mm" or format_of(dtype) is not None):
+        arr = arr.view(dtype)
+    return arr
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +388,7 @@ def _map_stream(expr, budget, mode):
             if t.device.type == "cuda":
                 fetch_into(t, dst, ready)
             else:
-                np.copyto(dst, t.numpy())
+                np.copyto(dst, array_of(t))
             STREAMED["d2h_bytes"] += dst.nbytes
 
         for (a, b), opt in zip(ranges, opts):
@@ -434,13 +439,22 @@ def _reduce_stream_axis(expr, d, budget, mode, mean_kind):
     axes = tuple(expr.axes)
     keepdims = expr.keepdims
     out_dtype = np.dtype(expr.dtype)
+    # a sum or product of a float narrower than float32 (float16, bfloat16,
+    # float8, the narrow floats) accumulates in float32 across panels, as
+    # the in-core reduction does, and rounds once at the end
+    part_dtype = out_dtype
+    if kind in ("sum", "nansum", "prod", "nanprod", "mean", "nanmean") and is_float_dtype(out_dtype) \
+            and out_dtype.itemsize < 4:
+        part_dtype = np.dtype(np.float32)
 
     # the per-panel partial: the same reduction over the sliced input; for
     # the mean kinds the matching sum, divided once after the combine
     def reducer(panel):
         if mean_kind:
             pkind = "nansum" if kind == "nanmean" else "sum"
-            return Reduction(panel, pkind, axes, keepdims, out_dtype, None)
+            return Reduction(panel, pkind, axes, keepdims, part_dtype, None)
+        if part_dtype != out_dtype:
+            return Reduction(panel, kind, axes, keepdims, part_dtype, None)
         return type(expr)(panel, *expr.operands[1:])
 
     plan = _probe_axis(expr, d, budget, mode, reducer=reducer)
@@ -472,8 +486,10 @@ def _reduce_stream_axis(expr, d, budget, mode, mean_kind):
     inflight = []
 
     def land(vals, ready):
+        # partials combined by numpy in their dtype (a datetime min or max
+        # keeps numpy's NaT, a narrow integer sum wraps as in core)
         nonlocal acc, cnt_acc
-        part = _to_host(vals[0], ready)
+        part = _to_host(vals[0], ready, part_dtype)
         STREAMED["d2h_bytes"] += part.nbytes
         acc = part if acc is None else comb(acc, part)
         if len(vals) > 1:

@@ -96,8 +96,21 @@
 //   while counting this one gained 1 %, PERF.md); the one shared atomic a
 //   value is the likely limit.
 
-// Launches on the caller's stream; histogram_launch returns
-// cudaGetLastError().
+//   Bytes (counts of 1-byte data: torch's float8 types, and ml_dtypes'
+//   narrow types held as uint8 bit patterns).  A byte has 256 patterns, so
+//   this route neither decodes nor compares a value: each warp keeps 256
+//   32-bit counters in shared memory (8 KB a block of 8 warps, eight
+//   blocks an SM), reads its block's run of the data in 16-byte loads and
+//   adds one to the counter of each byte.  The warps' counters are summed
+//   into the block's partial; the finish (a thread a pattern) adds the
+//   blocks' partials in order and puts the pattern's count into its bin,
+//   found once a pattern: the caller's 256-entry table gives each
+//   pattern's value in the comparison type (NaN and values outside [e0,
+//   eN] dropped, eN in the last bin, numpy's searchsorted otherwise), so
+//   one kernel serves every 1-byte format.
+
+// Launches on the caller's stream; histogram_launch and
+// histogram_bytes_launch return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -730,6 +743,84 @@ cudaError_t patterns_by_data(int tcode, const void* x, long long n, const void* 
   return cudaErrorInvalidValue;
 }
 
+// -- the byte route: counts of 1-byte data by pattern -------------------------------
+
+constexpr int kByteThreads = 256;  // 8 warps, each with 256 counters
+constexpr int kByteUnroll = 2;     // 16-byte units a thread loads before counting
+
+// Block b counts the bytes of units [b*U/G, (b+1)*U/G) (16 bytes each) into
+// its warps' counters, then writes their sums to partial[b * 256 ...].
+__global__ void __launch_bounds__(kByteThreads)
+hist_bytes(const unsigned char* __restrict__ x, long long n, long long U, int aligned,
+           unsigned* __restrict__ partial) {
+  constexpr int kW = kByteThreads / 32;
+  __shared__ unsigned cnt[kW * 256];
+  for (int i = threadIdx.x; i < kW * 256; i += kByteThreads) cnt[i] = 0u;
+  __syncthreads();
+  unsigned* mine = cnt + (threadIdx.x >> 5) * 256;
+  const long long u0 = run_start(blockIdx.x, U, gridDim.x), u1 = run_start(blockIdx.x + 1, U, gridDim.x);
+  const long long whole = n / 16;  // units whose 16 bytes all lie in the data
+  constexpr long long kRound = static_cast<long long>(kByteThreads) * kByteUnroll;
+  long long base = u0;
+  for (; aligned && base + kRound <= u1 && base + kRound <= whole; base += kRound) {
+    uint4 v[kByteUnroll];
+#pragma unroll
+    for (int k = 0; k < kByteUnroll; ++k) {
+      v[k] = __ldg(reinterpret_cast<const uint4*>(x) + base + k * kByteThreads + threadIdx.x);
+    }
+#pragma unroll
+    for (int k = 0; k < kByteUnroll; ++k) {
+      const unsigned w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        atomicAdd(mine + (w[j] & 0xFFu), 1u);
+        atomicAdd(mine + ((w[j] >> 8) & 0xFFu), 1u);
+        atomicAdd(mine + ((w[j] >> 16) & 0xFFu), 1u);
+        atomicAdd(mine + (w[j] >> 24), 1u);
+      }
+    }
+  }
+  const long long end = u1 * 16 < n ? u1 * 16 : n;
+  for (long long e = base * 16 + threadIdx.x; e < end; e += kByteThreads) atomicAdd(mine + x[e], 1u);
+  __syncthreads();
+  for (int p = threadIdx.x; p < 256; p += kByteThreads) {
+    unsigned s = 0;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) s += cnt[w * 256 + p];
+    partial[static_cast<size_t>(blockIdx.x) * 256 + p] = s;
+  }
+}
+
+// The finish: thread p adds pattern p's counts over the blocks in order and
+// puts them into the bin of table[p], its value in the comparison type C.
+template <typename C>
+__global__ void __launch_bounds__(256)
+bytes_finish(const unsigned* __restrict__ partial, int blocks, const C* __restrict__ table,
+             const C* __restrict__ edges, int nb, unsigned long long* __restrict__ out) {
+  using O = Ops<C>;
+  const int p = threadIdx.x;
+  unsigned long long s = 0;
+  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * 256 + p];
+  if (s == 0) return;
+  const C v = table[p], e0 = edges[0], eN = edges[nb];
+  if (O::nan(v) || O::lt(v, e0) || O::lt(eN, v)) return;
+  const int bin = O::eq(v, eN) ? nb - 1 : search_bin<C>(v, edges, nb, false, 0, 0);
+  atomicAdd(out + bin, s);
+}
+
+template <typename C>
+cudaError_t launch_bytes(const void* x, long long n, const void* table, const void* edges, int nb, void* out,
+                         void* partial, long long U, int blocks, int aligned, cudaStream_t st) {
+  if (U != (n + 15) / 16) return cudaErrorInvalidValue;
+  unsigned* p = static_cast<unsigned*>(partial);
+  hist_bytes<<<blocks, kByteThreads, 0, st>>>(static_cast<const unsigned char*>(x), n, U, aligned, p);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return launched;
+  bytes_finish<C><<<1, 256, 0, st>>>(p, blocks, static_cast<const C*>(table), static_cast<const C*>(edges), nb,
+                                     static_cast<unsigned long long*>(out));
+  return cudaGetLastError();
+}
+
 template <typename T, typename C, bool kDirect>
 cudaError_t launch(const void* x, long long n, const void* edges, int nb, const double* w, int wk, void* out,
                    void* partial, long long U, int threads, int blocks, int mode, int copies, int edges_shared,
@@ -873,6 +964,37 @@ int histogram_launch(const void* x, long long n, int tcode, int ccode, const voi
 }
 
 const char* histogram_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The byte route: the counts of n bytes x (1-byte bit patterns) over edges
+// (nb + 1 sorted values of comparison code ccode: 0 float, 1 double, 2 int64,
+// 3 uint64), each pattern's value given by table (256 values of the same
+// type; NaN for a NaN pattern).  out: nb int64 counts, zeroed by the caller;
+// partial: blocks * 256 32-bit words of scratch.  The plan (units, blocks)
+// comes from kernels/histogram.py::launch_plan (mode BYTES); aligned: x is
+// 16-byte aligned.  Returns a cudaError_t.
+int histogram_bytes_launch(const void* x, long long n, int ccode, const void* table, const void* edges,
+                           long long nb, void* out, void* partial, long long units, long long blocks, int aligned,
+                           void* stream) {
+  if (n < 0 || nb <= 0 || nb > 2147483646LL || blocks <= 0 || blocks > 2147483647LL || table == nullptr ||
+      edges == nullptr || partial == nullptr || ((n + 15) / 16 + blocks - 1) / blocks >= (1LL << 28)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nbi = static_cast<int>(nb), bi = static_cast<int>(blocks);
+  switch (ccode) {
+    case 0: return static_cast<int>(launch_bytes<float>(x, n, table, edges, nbi, out, partial, units, bi, aligned, st));
+    case 1: return static_cast<int>(launch_bytes<double>(x, n, table, edges, nbi, out, partial, units, bi, aligned, st));
+    case 2: return static_cast<int>(launch_bytes<long long>(x, n, table, edges, nbi, out, partial, units, bi, aligned,
+                                                            st));
+    case 3: return static_cast<int>(launch_bytes<unsigned long long>(x, n, table, edges, nbi, out, partial, units, bi,
+                                                                     aligned, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* histogram_bytes_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -27,6 +27,8 @@ LOADS = 0
 class FromMap(ArrayExpr):
     """One host function call per block."""
 
+    takes_narrow = True
+
     _parameters = ("func", "args_per_block", "chunks_", "_dtype", "kwargs", "name_", "opaque_")
     _defaults = {"kwargs": (), "name_": None, "opaque_": False}
 

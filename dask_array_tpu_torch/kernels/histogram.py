@@ -19,6 +19,12 @@ float64 (complex128) sums of weights.
   edges (``key_window``), in 32-bit or 16-bit shared counters
   (``counter_bits``), and each key's count goes to its bin once, found by
   numpy's comparison (``fold_keys``).  No value is looked up.
+- Counts of 1-byte data (torch's float8 types, and the narrow types'
+  uint8 carriers, ``_narrow``) take the byte route
+  (``histogram_bytes_cuda``): each of the 256 patterns is counted, with
+  no decode and no comparison, then each pattern's count goes to the bin
+  of its value (``byte_values``); ``histogram_bytes_plain`` is its plain
+  version.
 - ``bincount_counts(x, length, weights=None)``: numpy's bincount of int64
   values known to lie in ``[0, length)``; the kernel's direct mode (the
   value is the bin).
@@ -47,7 +53,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cast, is_float_dtype, numpy_dtype, order_key, search_numpy, to_compute
+from dask_array_tpu_torch._chunks import (
+    cast,
+    format_of,
+    is_float_dtype,
+    numpy_dtype,
+    order_key,
+    search_numpy,
+    to_compute,
+    value_of,
+)
+from dask_array_tpu_torch._narrow import decode_table
 from dask_array_tpu_torch.kernels._build import Launcher
 
 # kernel launches since the last reset; only the *_cuda functions add to it
@@ -88,15 +104,43 @@ def _weighted_bincount(idx, weights, length):
     return torch.bincount(idx, weights=weights.to(torch.float64), minlength=length)
 
 
-def histogram_counts_plain(x, edges, weights=None):
+def histogram_counts_plain(x, edges, weights=None, dtype=None):
     """numpy's histogram counts of the held block ``x`` (any shape) over
     ``edges`` (a tensor) in torch ops: int64, or the float64 (complex128)
-    sums of ``weights``."""
+    sums of ``weights``.  ``dtype``: x's numpy dtype where x is a narrow
+    type's carrier (``_narrow``), whose values are counted.  (The values of
+    a 1-byte type are exact in float32 or int32, so any comparison type
+    that holds them orders them as numpy's does.)"""
+    if dtype is not None:
+        comparison_dtype(dtype, edges.dtype)  # numpy's refusal (float8_e4m3 against int64 edges) raises
+    x = value_of(x, dtype)
     nbins = edges.shape[0] - 1
     idx = bin_indices(x.reshape(-1), edges)
     if weights is None:
         return torch.bincount(idx, minlength=nbins + 1)[:nbins]
     return _weighted_bincount(idx, weights.reshape(-1), nbins + 1)[:nbins]
+
+
+def byte_values(dtype) -> torch.Tensor:
+    """The value of each of the 256 patterns of a 1-byte type: a narrow
+    numpy dtype's decode table (float32 or int32), a torch float8 type's
+    values in float32."""
+    fmt = format_of(dtype) if not isinstance(dtype, torch.dtype) else None
+    if fmt is not None:
+        return torch.from_numpy(decode_table(fmt.name))
+    return torch.arange(256, dtype=torch.uint8).view(dtype).to(torch.float32)
+
+
+def histogram_bytes_plain(x, edges, dtype):
+    """The byte route's plain version: the bincount of the 256 bit
+    patterns of the 1-byte data ``x`` (a narrow carrier of numpy ``dtype``,
+    or a torch float8 tensor), then each pattern's count added into the bin
+    of its value (``byte_values``), as the kernel's finish does."""
+    comparison_dtype(dtype, edges.dtype)  # numpy's refusal raises
+    nbins = edges.shape[0] - 1
+    per_pattern = torch.bincount(x.reshape(-1).view(torch.uint8).to(torch.int64), minlength=256)
+    bins = bin_indices(byte_values(dtype).to(x.device), edges)
+    return torch.zeros(nbins + 1, dtype=torch.int64, device=x.device).index_add_(0, bins, per_pattern)[:nbins]
 
 
 def bincount_plain(x, length, weights=None):
@@ -107,12 +151,13 @@ def bincount_plain(x, length, weights=None):
 # -- dispatch -------------------------------------------------------------------------
 
 
-def histogram_counts(x, edges, weights=None):
+def histogram_counts(x, edges, weights=None, dtype=None):
     """The histogram counts: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor."""
+    kernel for a CUDA tensor.  ``dtype`` is x's numpy dtype (it names a
+    narrow type's uint8 carrier)."""
     if x.device.type == "cpu":
-        return histogram_counts_plain(x, edges, weights)
-    return histogram_counts_cuda(x, edges, weights)
+        return histogram_counts_plain(x, edges, weights, dtype)
+    return histogram_counts_cuda(x, edges, weights, dtype)
 
 
 def bincount_counts(x, length, weights=None):
@@ -129,7 +174,8 @@ def bincount_counts(x, length, weights=None):
 DATA_CODES = {
     torch.bool: 0, torch.uint8: 1, torch.int8: 2, torch.int16: 3, torch.uint16: 4, torch.int32: 5,
     torch.uint32: 6, torch.int64: 7, torch.uint64: 8, torch.float16: 9, torch.float32: 10, torch.float64: 11,
-    torch.complex64: 12, torch.complex128: 13, torch.bfloat16: 14,
+    torch.complex64: 12, torch.complex128: 13, torch.bfloat16: 14, torch.float8_e4m3fn: 15, torch.float8_e5m2: 16,
+    torch.float8_e4m3fnuz: 17, torch.float8_e5m2fnuz: 18,
 }
 COMPARE_CODES = {"float32": 0, "float64": 1, "int64": 2, "uint64": 3, "complex64": 4, "complex128": 5}
 # the data codes each comparison type takes (csrc/histogram.cu's by_data
@@ -225,12 +271,16 @@ BLOCK_SHARED = 232448  # the most one block may take (227 KB), static shared mem
 STATIC_SHARED = 16  # the kernel's static shared memory (the edges' distance from even spacing)
 EDGE_BUDGET = 32 * 1024  # edges staged in shared memory up to this many bytes
 _COUNT_BYTES = {0: 4, 1: 8, 2: 16}  # a bin's bytes in one copy: counts, float64, complex128 sums
-# the counting modes of csrc/histogram.cu
-COPIES, HALF, GLOBAL, PATTERN = 0, 1, 2, 3
-# the data codes the pattern route counts (float16, bfloat16), against
-# float32 or float64 edges
-PATTERN_DATA = {9, 14}
+# the counting modes of csrc/histogram.cu (BYTES: its histogram_bytes_launch)
+COPIES, HALF, GLOBAL, PATTERN, BYTES = 0, 1, 2, 3, 4
+# the data codes the pattern routes count: float16 and bfloat16 (PATTERN,
+# against float32 or float64 edges) and torch's float8 types (BYTES, as are
+# the narrow types' uint8 carriers, against any real comparison type)
+PATTERN_DATA = {9, 14, 15, 16, 17, 18}
+BYTE_DATA = {15, 16, 17, 18}
 PATTERN_CODES = {0, 1}  # float32, float64 comparisons
+BYTE_CODES = {0, 1, 2, 3}  # float32, float64, int64, uint64 comparisons
+BYTE_BLOCKS_PER_SM = 8  # 256 threads and 8 KB of counters a block
 
 
 def _align16(v: int) -> int:
@@ -284,9 +334,18 @@ def launch_plan(n: int, nbins: int, sms: int = 132, itemsize: int = 4, weights: 
     block an SM, up to 116216 bins; past those, and weighted sums past a
     copy a warp, to global atomics with four blocks an SM.  ``patterns``:
     the counts of 2-byte float data (``PATTERN``): one wide block an SM
-    whose whole share holds the key counters."""
+    whose whole share holds the key counters; of 1-byte data (``BYTES``):
+    blocks of 256 threads, eight an SM, 256 counters a warp."""
     vec = 16 // itemsize
     units = -(-n // vec)
+    if patterns and itemsize == 1:
+        # the byte route: 256 counters a warp, blocks of 256 threads
+        if weights or not edge_itemsize:
+            raise ValueError("the byte route counts 1-byte data against edges, unweighted")
+        blocks = max(1, min(sms * BYTE_BLOCKS_PER_SM, -(-units // THREADS)))
+        if -(-units // blocks) >= 2**28:
+            raise ValueError(f"the byte route's 32-bit counters cannot take {n} values in {blocks} blocks")
+        return Plan(vec, units, THREADS, blocks, BYTE_BLOCKS_PER_SM, BYTES, 0, False, 0, blocks * 256 * 4)
     if patterns:
         if weights or itemsize != 2 or not edge_itemsize:
             raise ValueError("the pattern route counts 2-byte float data against edges, unweighted")
@@ -324,9 +383,9 @@ def counter(b: int):
 
 def pattern_route(dtype, ccode: int, weights: int) -> bool:
     """Whether the kernel counts values of ``dtype`` compared in
-    comparison code ``ccode`` by bit pattern: unweighted float16 or
+    comparison code ``ccode`` by 2-byte bit pattern: unweighted float16 or
     bfloat16 data against float32 or float64 edges."""
-    return weights == 0 and DATA_CODES.get(dtype) in PATTERN_DATA and ccode in PATTERN_CODES
+    return (weights == 0 and DATA_CODES.get(dtype) in PATTERN_DATA - BYTE_DATA and ccode in PATTERN_CODES)
 
 
 def counter_bits(plan: Plan, span: int) -> int:
@@ -432,24 +491,57 @@ def _run(x, ccode, edges_c, nbins, direct, weights):
     return out
 
 
-def histogram_counts_cuda(x, edges, weights=None):
+def histogram_counts_cuda(x, edges, weights=None, dtype=None):
     """Launch the kernel: numpy's histogram counts of the CUDA tensor ``x``
-    (any shape, any held dtype) over ``edges`` (at least two, sorted, on
+    (any shape, any held dtype; ``dtype`` its numpy dtype where it is a
+    narrow type's uint8 carrier) over ``edges`` (at least two, sorted, on
     the same device), with optional float64/complex128 weights of x's
-    size.  Raises on anything the kernel does not take."""
+    size.  Unweighted counts of 1-byte float data go by the byte route; weighted ones decode
+    the values to float32 (int32) first, one pass in torch ops, and take
+    the route of those.  Raises on anything the kernel does not take."""
     if x.device.type != "cuda" or edges.device != x.device:
         raise ValueError(f"histogram_counts_cuda needs CUDA tensors on one device, got {x.device}, {edges.device}")
-    if x.dtype not in DATA_CODES:
+    fmt = format_of(dtype) if dtype is not None else None
+    if fmt is None and x.dtype not in DATA_CODES:
         raise TypeError(f"the histogram kernel does not take {x.dtype}")
     nbins = edges.numel() - 1
     if nbins < 1:
         raise ValueError("the histogram kernel needs at least two edges")
+    if fmt is not None or DATA_CODES[x.dtype] in BYTE_DATA:
+        if weights is not None:
+            return histogram_counts_cuda(value_of(x, dtype) if fmt is not None else x.to(torch.float32), edges,
+                                         weights)
+        return histogram_bytes_cuda(x, edges, dtype if fmt is not None else x.dtype)
     rt = comparison_dtype(x.dtype, edges.dtype)
     ct = kernel_compare(rt)
     x = kernel_data(x, rt)
     if DATA_CODES[x.dtype] not in KERNEL_PAIRS[ct]:
         raise TypeError(f"the histogram kernel does not compare {x.dtype} in {ct}")
     return _run(x.reshape(-1).contiguous(), COMPARE_CODES[ct], kernel_edges(edges, rt), nbins, False, weights)
+
+
+def histogram_bytes_cuda(x, edges, dtype):
+    """Launch the byte route: the counts of 1-byte data ``x`` (a narrow
+    carrier of numpy ``dtype``, or a torch float8 tensor, ``dtype`` its
+    torch dtype) over ``edges``, each of the 256 patterns counted, then
+    binned by its value in numpy's comparison type."""
+    global LAUNCHES
+    rt = comparison_dtype(dtype, edges.dtype)
+    ct = kernel_compare(rt)
+    if COMPARE_CODES[ct] not in BYTE_CODES:
+        raise TypeError(f"the histogram kernel's byte route does not compare in {ct}")
+    edges_c = kernel_edges(edges, rt)
+    table = byte_values(dtype).to(x.device)
+    table = table.to(torch.int64) if ct in ("int64", "uint64") else table.to(_COMPARE_TORCH[ct])
+    x = x.reshape(-1).contiguous().view(torch.uint8)
+    index, n, nbins = x.get_device(), x.numel(), edges_c.numel() - 1
+    plan = launch_plan(n, nbins, _sm_count(index), 1, 0, edges_c.element_size(), True)
+    out = torch.zeros(nbins, dtype=torch.int64, device=x.device)
+    partial = torch.empty(plan.partial, dtype=torch.uint8, device=x.device)
+    _bytes_launcher()(index, x.data_ptr(), n, COMPARE_CODES[ct], table.contiguous().data_ptr(), edges_c.data_ptr(),
+                      nbins, out.data_ptr(), partial.data_ptr(), plan.units, plan.blocks, int(x.data_ptr() % 16 == 0))
+    LAUNCHES += 1
+    return out
 
 
 def bincount_cuda(x, length, weights=None):
@@ -471,6 +563,12 @@ def bincount_cuda(x, length, weights=None):
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _bytes_launcher():
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    return Launcher("histogram", "histogram_bytes_launch", [p, ll, i, p, p, ll, p, p, ll, ll, i], "histogram")
 
 
 @functools.lru_cache(maxsize=None)

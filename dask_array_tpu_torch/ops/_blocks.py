@@ -28,6 +28,8 @@ class FromBlocks(ArrayExpr):
     Named by ``pinned_name`` (a token of its own), so tokenizing a plan
     that holds it never hashes, or copies, the tensors."""
 
+    takes_narrow = True
+
     _parameters = ("blocks", "chunks_", "pinned_name")
 
     _fusable_leaf = True

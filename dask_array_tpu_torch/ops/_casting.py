@@ -46,6 +46,8 @@ def _astype(x, dtype=None, src_dtype=None):
 
 _astype.numpy_function = _np_astype
 _astype.ticks_aware = True
+_astype.narrow_convert = True  # a narrow side converts by ``_chunks.convert``
+_astype.numpy_strict = True  # a cast numpy refuses (uint2 to int4) raises
 
 
 # fixed-length units in seconds, as (numerator, denominator); the calendar

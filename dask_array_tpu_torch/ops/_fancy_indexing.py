@@ -57,6 +57,8 @@ def checked_indices(idx: torch.Tensor, dim: int, axis) -> torch.Tensor:
 class Take(ArrayExpr):
     """Integer-array indexing along one axis (one ``index_select``)."""
 
+    takes_narrow = True
+
     _parameters = ("array", "indices", "axis", "out_chunks_axis")
 
     @functools.cached_property
@@ -198,6 +200,8 @@ def _take_lazy(a, indices, axis):
 class TakeLazy(ArrayExpr):
     """Take with device indices: bounds-checked by ``checked_indices``."""
 
+    takes_narrow = True
+
     _parameters = ("array", "indices", "axis")
 
     @functools.cached_property
@@ -226,6 +230,8 @@ class BooleanIndex(ArrayExpr):
     numpy mask is a leaf on the device, a lazy one is rechunked to the
     array's blocks.
     """
+
+    takes_narrow = True
 
     _parameters = ("array", "mask", "axis")
 
@@ -283,6 +289,8 @@ class VIndex(ArrayExpr):
     were not checked on the host.  The broadcast index dims lead the output
     (the vindex contract).
     """
+
+    takes_narrow = True
 
     _parameters = ("array", "pattern", "bshape", "lazy")
 

@@ -58,6 +58,8 @@ def is_store(x) -> bool:
 
 
 class FromArray(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("source", "chunks_", "region", "name_", "source_token")
     _defaults = {"region": None, "name_": None, "source_token": None}
 

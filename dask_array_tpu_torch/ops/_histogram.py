@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import cast, compute_dtype, numpy_dtype, tensor_of, to_compute
+from dask_array_tpu_torch._chunks import array_of, cast, compute_dtype, numpy_dtype, tensor_of, to_compute, value_of
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.kernels.histogram import histogram_counts, positions
@@ -42,6 +42,8 @@ def _edges_tensor(edges, ctx):
 
 class Histogram(ArrayExpr):
     """numpy's histogram of an array over host or lazy edges."""
+
+    takes_narrow = True
 
     _parameters = ("array", "bins", "weights", "density", "nbins")
 
@@ -69,15 +71,18 @@ class Histogram(ArrayExpr):
         return BlockView(self.chunks, dense=self.finish(self.counts(x, edges, w), edges))
 
     def edges(self, ctx):
-        """The edges on the walk's device (built once a walk)."""
-        return _edges_tensor(self.bins, ctx)
+        """The edges on the walk's device (built once a walk); narrow-typed
+        edges (numpy's own for a narrow float's autodetected range) as
+        their values."""
+        edges = _edges_tensor(self.bins, ctx)
+        return value_of(edges, self.bins.dtype if isinstance(self.bins, ArrayExpr) else np.asarray(self.bins).dtype)
 
     def counts(self, x, edges, w=None):
         """K2's counts of ``x`` (the whole array, or a slot's part of it),
         weighted by ``w`` (held as the data) where given."""
         if w is not None:
             w = to_compute(w, np.result_type(numpy_dtype(w.dtype), np.float64))
-        return histogram_counts(x, edges, w)
+        return histogram_counts(x, edges, w, dtype=self.array.dtype)
 
     def finish(self, counts, edges):
         """The histogram from the counts of the whole array."""
@@ -96,6 +101,8 @@ class LinspaceEdges(ArrayExpr):
     min and max, or a lazy range), numpy's linspace of them: the endpoints
     come to the host in one sync, where numpy checks them (a NaN or
     infinite range raises its ValueError) and spaces the edges."""
+
+    takes_narrow = True
 
     _parameters = ("lo", "hi", "npoints", "data_dtype", "autodetected")
 
@@ -124,9 +131,9 @@ class LinspaceEdges(ArrayExpr):
         from dask_array_tpu_torch._chunks import cat
         from dask_array_tpu_torch.ops._fancy_indexing import count_sync
 
-        lo, hi = cat([ctx.build(e).dense().reshape(1) for e in (self.lo, self.hi)]).cpu().numpy()
+        lo, hi = array_of(cat([ctx.build(e).dense().reshape(1) for e in (self.lo, self.hi)]).cpu(), self.lo.dtype)
         count_sync()
-        return BlockView(self.chunks, dense=torch.as_tensor(self._edges(lo, hi), device=ctx.device))
+        return BlockView(self.chunks, dense=tensor_of(self._edges(lo, hi)).to(ctx.device))
 
 
 def _scalar_expr(v):

@@ -91,6 +91,8 @@ class ChunksFreeze(ArrayExpr):
     the optimizer does to the subtree below (``block_id``/``block_info``
     payloads are computed against them)."""
 
+    takes_narrow = True
+
     _parameters = ("array", "chunks_")
     _defaults = {"chunks_": None}
 
@@ -121,6 +123,8 @@ def freeze(expr: ArrayExpr) -> ArrayExpr:
 class ChunksOverride(ArrayExpr):
     """Declare the true output chunks of a map_blocks (the function changed
     block shapes)."""
+
+    takes_narrow = True
 
     _parameters = ("array", "chunks_")
 

@@ -131,6 +131,8 @@ class Reshape(ArrayExpr):
     the JAX package.
     """
 
+    takes_narrow = True
+
     _parameters = ("array", "shape_")
 
     @functools.cached_property
@@ -218,6 +220,8 @@ class Reshape(ArrayExpr):
 
 
 class ReshapeLowered(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "shape_", "chunks_")
 
     @property
@@ -281,6 +285,8 @@ class ReshapeBlockwise(ArrayExpr):
     Valid when the reshape factors along block boundaries: every block's
     shape reshapes to the same relative split/merge.
     """
+
+    takes_narrow = True
 
     _parameters = ("array", "shape_", "chunks_")
 

@@ -21,6 +21,8 @@ from dask_array_tpu_torch._expr import ArrayExpr
 
 
 class View(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "_dtype", "order")
 
     @functools.cached_property

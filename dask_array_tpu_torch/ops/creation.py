@@ -30,6 +30,7 @@ from dask_array_tpu_torch._chunks import (
     cast,
     computable,
     compute_dtype,
+    format_of,
     host_only_dtype,
     normalize_chunks,
     sort_numpy,
@@ -38,6 +39,7 @@ from dask_array_tpu_torch._chunks import (
     torch_dtype,
     uint64_bits,
     validate_axis,
+    value_of,
 )
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
@@ -47,6 +49,8 @@ from dask_array_tpu_torch.kernels.halo import halo_pad
 
 class BroadcastTrick(ArrayExpr):
     """A constant-fill leaf: absorbs slices and rechunks outright."""
+
+    takes_narrow = True
 
     _parameters = ("chunks_", "_dtype", "fill_value", "name_")
     _defaults = {"fill_value": None, "name_": None}
@@ -76,6 +80,11 @@ class BroadcastTrick(ArrayExpr):
             fill = int(np.asarray(fill).astype(dt).view(np.int64))  # the fill's ticks
         if dt == np.uint64:
             fill = uint64_bits(int(fill))
+        if format_of(dt) is not None:
+            # a narrow type's pattern, as numpy casts the fill (zeros and
+            # empty are zero bytes, as numpy's: e8m0 has no zero)
+            pattern = 0 if isinstance(self, (Zeros, Empty)) else _pattern(fill, dt)
+            return BlockView(self.chunks_, dense=torch.full(self.shape, pattern, dtype=torch.uint8, device=ctx.device))
         dense = as_stored(torch.full(self.shape, fill, dtype=compute_dtype(self._dtype), device=ctx.device),
                           self._dtype)
         return BlockView(self.chunks_, dense=dense)
@@ -110,6 +119,12 @@ class Empty(BroadcastTrick):
 
 class Full(BroadcastTrick):
     pass
+
+
+def _pattern(v, dt):
+    """The byte of numpy's cast of ``v`` to the narrow dtype ``dt``."""
+    with np.errstate(all="ignore"):
+        return int(np.asarray(v).astype(dt).view(np.uint8))
 
 
 def _wrap_shape(shape):
@@ -151,6 +166,8 @@ def full(shape, fill_value, dtype=None, chunks="auto", name=None):
 
 class Arange(ArrayExpr):
     """Lazy arange, generated on the device."""
+
+    takes_narrow = True
 
     _parameters = ("start", "stop", "step", "chunks_", "_dtype")
 
@@ -361,6 +378,8 @@ class Diag1D(ArrayExpr):
 
 
 class Diagonal(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "offset", "axis1", "axis2")
 
     @functools.cached_property
@@ -684,6 +703,8 @@ _INDEX_MODES = ("edge", "wrap", "reflect", "symmetric")
 
 
 class Pad(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "pad_width", "mode", "kwargs")
     _defaults = {"kwargs": ()}
 
@@ -728,14 +749,17 @@ class Pad(ArrayExpr):
             kw["constant_values"] = _ticks(kw["constant_values"], self.dtype)
         if callable(mode):
             # a function mode is arbitrary host code
-            out = tensor_of(np.pad(array_of(dense.cpu()), widths, mode, **kw)).to(dense.device)
+            out = tensor_of(np.pad(array_of(dense.cpu(), self.dtype), widths, mode, **kw)).to(dense.device)
         elif mode == "constant":
             fills = [tuple(p) for p in _as_pairs(kw.get("constant_values", 0), dense.ndim)]
+            if format_of(self.dtype) is not None:
+                # a narrow type's fill as its pattern, as numpy casts it
+                fills = [tuple(_pattern(v, self.dtype) for v in p) for p in fills]
             out = halo_pad(dense, widths, fills)
         elif mode in _INDEX_MODES and kw.get("reflect_type", "even") == "even":
             out = halo_pad(dense, widths, [mode] * dense.ndim)
         else:
-            out = _pad_by_steps(computable(dense), widths, mode, kw, self.dtype)
+            out = _pad_by_steps(computable(value_of(dense, self.dtype)), widths, mode, kw, self.dtype)
         return BlockView(self.chunks, dense=cast(out, self.dtype))
 
 
@@ -814,6 +838,8 @@ def tile(A, reps):
 
 
 class Repeat(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "repeats", "axis")
 
     @functools.cached_property

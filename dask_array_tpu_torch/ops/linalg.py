@@ -26,7 +26,16 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch import config
-from dask_array_tpu_torch._chunks import cast, common_blockdim, dtype_key, to_compute
+from dask_array_tpu_torch._chunks import (
+    cast,
+    common_blockdim,
+    dtype_key,
+    format_of,
+    is_narrow,
+    to_compute,
+    torch_dtype,
+    value_of,
+)
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
 
@@ -142,6 +151,8 @@ class Einsum(ArrayExpr):
     """General contraction, one dense ``torch.einsum`` (or the exact
     integer route) over the whole operands."""
 
+    takes_narrow = True
+
     _parameters = ("subscripts", "out_labels", "input_labels", "kwargs")
     _defaults = {"kwargs": ()}
 
@@ -227,6 +238,8 @@ class Einsum(ArrayExpr):
         """The contraction of these operand tensors (the whole operands, or
         a shard lane slot's parts of them) in this node's dtype."""
         kwargs = dict(self.kwargs or ())
+        if any(is_narrow(a.dtype) for a in self.arrays):
+            return self._contract_narrow(denses, kwargs)
         if self.exact:
             # int64 products wrap as numpy's narrower and unsigned ones do
             dense = exact_einsum(self.input_labels, self.out_labels, denses)
@@ -236,6 +249,27 @@ class Einsum(ArrayExpr):
             with matmul_precision(precision):
                 dense = torch.einsum(spec, *[cast(d, self.dtype) for d in denses])
         return cast(dense, self.dtype)
+
+    def _contract_narrow(self, denses, kwargs):
+        """Narrow operands (``_chunks.is_narrow``) decoded to their values:
+        narrow integers contract in float64 (exact: their products and sums
+        stay far under 2**53), floats in float32 (or the result's wider
+        float) at full precision, as the JAX package leaves a plain product
+        to XLA; then the result is rounded once to this node's dtype."""
+        values = [value_of(d, a.dtype) for d, a in zip(denses, self.arrays)]
+        spec = ",".join(self.input_labels) + "->" + self.out_labels
+        fmt = format_of(self.dtype)
+        integral = self.exact or (fmt is not None and not fmt.is_float)
+        if integral and not all(v.dtype == torch.int32 for v in values):
+            return cast(exact_einsum(self.input_labels, self.out_labels, values), self.dtype)
+        if integral:
+            work = torch.float64
+        else:
+            work = torch.float32 if is_narrow(self.dtype) else torch_dtype(self.dtype)
+        precision = kwargs.get("precision") or config.get("matmul-precision", "highest")
+        with matmul_precision(precision):
+            dense = torch.einsum(spec, *[v.to(work) for v in values])
+        return cast(dense.to(torch.int64) if integral else dense, self.dtype)
 
 
 def einsum(subscripts, *operands, dtype=None, optimize=False, split_every=None,
@@ -342,15 +376,19 @@ def matmul(a, b):
     a, b = asarray(a), asarray(b)
     if a.ndim == 0 or b.ndim == 0:
         raise ValueError("matmul does not support scalars")
+    kw = {}
+    if is_narrow(a.dtype) or is_narrow(b.dtype):
+        # numpy's matmul loop for a narrow type: int8 or float32
+        kw["dtype"] = np.matmul.resolve_dtypes((a.dtype, b.dtype, None))[2]
     a_is_vec = a.ndim == 1
     b_is_vec = b.ndim == 1
     if a_is_vec and b_is_vec:
-        return einsum("i,i->", a, b)
+        return einsum("i,i->", a, b, **kw)
     if a_is_vec:
-        return einsum("i,...ij->...j", a, b)
+        return einsum("i,...ij->...j", a, b, **kw)
     if b_is_vec:
-        return einsum("...ij,j->...i", a, b)
-    return einsum("...ij,...jk->...ik", a, b)
+        return einsum("...ij,j->...i", a, b, **kw)
+    return einsum("...ij,...jk->...ik", a, b, **kw)
 
 
 __all__ = ["dot", "einsum", "matmul", "outer", "parse_einsum", "tensordot", "vdot"]

@@ -42,6 +42,8 @@ def _transpose_fn(block, axes=None):
 class Transpose(Blockwise):
     """Axis permutation as a blockwise op with permuted block coordinates."""
 
+    takes_narrow = True
+
     _pushdown_gate = "_transpose_pushdown"
 
     @property
@@ -172,6 +174,8 @@ def rollaxis(a, axis, start=0):
 
 
 class Squeeze(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "axes")  # axes: tuple of dropped axes (all size 1)
 
     @functools.cached_property
@@ -234,6 +238,8 @@ def squeeze(a, axis=None):
 
 
 class ExpandDims(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "axes")  # axes: positions of the new size-1 dims in the OUTPUT
 
     @functools.cached_property
@@ -345,6 +351,8 @@ def _slice_len(ind: slice, dim: int) -> int:
 
 
 class BroadcastTo(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "shape_", "chunks_")
 
     @property

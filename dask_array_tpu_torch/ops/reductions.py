@@ -41,6 +41,8 @@ from dask_array_tpu_torch._chunks import (
     cat,
     computable,
     compute_dtype,
+    format_of,
+    is_narrow,
     moved,
     numpy_dtype,
     sort_numpy,
@@ -48,6 +50,7 @@ from dask_array_tpu_torch._chunks import (
     to_compute,
     torch_dtype,
     validate_axis,
+    value_of,
 )
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
@@ -242,8 +245,14 @@ def reduce_dense(kind, x, axes, keepdims, dtype):
         # as its bits with the sign bit flipped: the signed order is then
         # the unsigned one
         x = computable(x) ^ INT64_MIN if flip else computable(x)
+    fmt = format_of(dtype)
     if np.dtype(dtype).kind in "Mm":
         dense = _nat_reduce(kind, x, dims, keepdim, acc)
+    elif fmt is not None and not fmt.is_float and kind == "mean":
+        # numpy sums a narrow integer type in that type (wrapping), then
+        # divides and casts back
+        total = to_compute(torch.sum(x, dim=dims, keepdim=keepdim, dtype=torch.int64), dtype)
+        dense = (total.double() / math.prod(x.shape[d] for d in dims)).to(acc)
     else:
         dense = _dense_reduce(kind, x, dims, keepdim, acc)
     if flip:
@@ -255,6 +264,8 @@ def reduce_dense(kind, x, axes, keepdims, dtype):
 
 class Reduction(ArrayExpr):
     """A typed whole-axis reduction, executed as one dense torch reduce."""
+
+    takes_narrow = True
 
     _parameters = ("array", "kind", "axes", "keepdims", "_dtype", "split_every")
     _defaults = {"split_every": None}
@@ -294,6 +305,7 @@ class Reduction(ArrayExpr):
         if _host.is_host_block(x):
             return BlockView(self.chunks, dense=reduce_on_host(self.kind, x, self.axes, self.keepdims, self.dtype,
                                                                 ctx.device))
+        x = value_of(x, self.array.dtype)  # a narrow type's values
         return BlockView(self.chunks, dense=reduce_dense(self.kind, x, self.axes, self.keepdims, self.dtype))
 
     def _accept_slice(self, index):
@@ -737,6 +749,8 @@ def _arg_dense(kind, x, axis, nat=False):
 
 
 class ArgReduction(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("array", "kind", "axis", "keepdims")
 
     def _name_prefix(self):
@@ -765,6 +779,7 @@ class ArgReduction(ArrayExpr):
         if _host.is_host_block(x):
             out = _arg_on_host(self.kind, x, self.axis, self.keepdims, ctx.device)
             return BlockView(self.chunks, dense=out)
+        x = value_of(x, self.array.dtype)  # a narrow type's values
         dense = _arg_dense(self.kind, x, self.axis, nat=self.array.dtype.kind in "Mm")
         if self.keepdims:
             if self.axis is None:
@@ -885,6 +900,45 @@ def arg_reduction(x, chunk, combine, agg, axis=None, keepdims=False, split_every
 _CUM_IDENTITY = {"nancumsum": 0, "nancumprod": 1}
 
 
+@functools.lru_cache(maxsize=None)
+def _step_table(dtype, kind, device) -> torch.Tensor:
+    """The 256 x 256 table of a 1-byte float type's rounded sums (products)
+    of two patterns, flat, each as its pattern times 256 (int32).  It is
+    made on the CPU from the type's own conversions and then moved, so a
+    NaN's sign (which a CPU and a card propagate differently) is the same
+    on every device."""
+    held = torch_dtype(dtype)
+    vals = to_compute(torch.arange(256, dtype=torch.int32).to(torch.uint8).view(held), dtype)
+    step = torch.add if kind.endswith("cumsum") else torch.mul
+    pats = as_stored(step(vals[:, None], vals[None, :]), dtype).view(torch.uint8)
+    return (pats.reshape(-1).to(torch.int32) << 8).to(device)
+
+
+def byte_scan(held, kind, axis, dtype):
+    """numpy's cumulative sum (product) of a held block of a 1-byte float
+    type ``dtype`` along ``axis``, rounded to the type after every step.
+
+    The running value and each term are one byte, so a step is a lookup in
+    the type's table of rounded results (``_step_table``).  The scan runs
+    on the block's device, one step a row of ``axis`` with every other
+    element at once: an add of the terms to the running row (which holds
+    each pattern times 256: its row of the table), then one
+    ``index_select`` into the next output row.  The rows are shifted back
+    to patterns once at the end."""
+    table = _step_table(np.dtype(dtype), kind, held.device)
+    codes = held.view(torch.uint8).movedim(axis, 0)
+    runs = torch.empty(codes.shape, dtype=torch.int32, device=held.device)
+    if runs.numel():
+        flat = runs.reshape(codes.shape[0], -1)
+        terms = codes.reshape(codes.shape[0], -1)
+        flat[0] = terms[0].to(torch.int32) << 8
+        index = torch.empty_like(flat[0])
+        for i in range(1, codes.shape[0]):
+            torch.add(flat[i - 1], terms[i], out=index)
+            torch.index_select(table, 0, index, out=flat[i])
+    return (runs >> 8).to(torch.uint8).movedim(0, axis).contiguous().view(held.dtype)
+
+
 class CumReduction(ArrayExpr):
     """Cumulative scan along one axis (dense: one torch scan).
 
@@ -892,6 +946,8 @@ class CumReduction(ArrayExpr):
     work-efficient scan) give the same values as one dense scan, so
     ``method`` only survives as an API knob.
     """
+
+    takes_narrow = True
 
     _parameters = ("array", "kind", "axis", "_dtype", "method")
     _defaults = {"method": "sequential"}
@@ -920,15 +976,21 @@ class CumReduction(ArrayExpr):
             with np.errstate(all="ignore"):
                 out = getattr(np, self.kind)(x, axis=self.axis, dtype=self.dtype)
             return BlockView(self.chunks, dense=out)
-        if self.kind in _CUM_IDENTITY and (x.is_floating_point() or x.is_complex()):
+        if self.kind in _CUM_IDENTITY and (x.is_floating_point() or x.is_complex()) and not is_narrow(self.array.dtype):
+            # (numpy's nan-scans replace no NaN of a 1-byte ml_dtypes float)
             x = torch.where(torch.isnan(x), _CUM_IDENTITY[self.kind], x)
-        x = to_compute(x, self.dtype)  # numpy scans in the result dtype
+        x = to_compute(value_of(x, self.array.dtype), self.dtype)  # numpy scans in the result dtype
+        fmt = format_of(self.dtype)
+        if is_narrow(self.dtype) and (fmt is None or fmt.is_float):
+            # numpy rounds a 1-byte float's scan to its type after every
+            # step, which no torch scan does (they carry float32)
+            out = byte_scan(as_stored(x, self.dtype), self.kind, self.axis, self.dtype)
+            return BlockView(self.chunks, dense=out)
         if x.dtype in (torch.float16, torch.bfloat16):
-            # numpy rounds a float16 (or bfloat16) scan to its dtype after
-            # every step, which no torch scan does (they carry float32):
-            # numpy's own scan, on the host for a CUDA tensor
+            # so does a float16 (bfloat16) scan: numpy's own scan, on the
+            # host for a CUDA tensor
             scan = np.cumsum if self.kind.endswith("cumsum") else np.cumprod
-            out = tensor_of(scan(array_of(x.cpu()), axis=self.axis)).to(x.device)
+            out = tensor_of(scan(array_of(as_stored(x, self.dtype).cpu()), axis=self.axis)).to(x.device)
             return BlockView(self.chunks, dense=out)
         scan = torch.cumsum if self.kind.endswith("cumsum") else torch.cumprod
         return BlockView(self.chunks, dense=as_stored(scan(x, dim=self.axis), self.dtype))

@@ -94,6 +94,9 @@ def where_(cond, x, y):
     return torch.where(cond, x, y)
 
 
+where_.narrow_select = True  # a selection: narrow patterns move as they are
+
+
 def where(condition, x=None, y=None):
     if x is None and y is None:
         return nonzero(condition)
@@ -333,6 +336,11 @@ def tril_(x, k=0):
 @_numpy_function(np.triu, name="triu_")
 def triu_(x, k=0):
     return moved(torch.triu, x, k)
+
+
+# they move elements and write zero bytes (numpy's zeros): a narrow type's
+# patterns go through as they are
+tril_.narrow_patterns = triu_.narrow_patterns = True
 
 
 def tril(m, k=0):

@@ -26,6 +26,8 @@ from dask_array_tpu_torch._slicing import Slice, is_basic_index, normalize_slice
 
 
 class Concatenate(ArrayExpr):
+    takes_narrow = True
+
     _parameters = ("axis",)
     # operands[1:] are the input expressions
 

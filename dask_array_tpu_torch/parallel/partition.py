@@ -19,7 +19,10 @@ once for each node under a mesh:
   (recorded in ``_sharded.COLLECTIVES``), and the value stays a
   ``ShardedTensor``;
 * any other node runs its dense ``_build``: an operand held sharded is
-  gathered once to the mesh's first slot (``ShardedView.dense``).
+  gathered once to the mesh's first slot (``ShardedView.dense``).  So
+  does a node with a narrow operand or result (``_chunks.is_narrow``)
+  whose rule is not marked ``_takes_narrow``: a typed combine of its parts
+  would order bit patterns as numbers or round once a part.
 
 The rules, by node family:
 
@@ -70,7 +73,7 @@ import math
 import numpy as np
 import torch
 
-from dask_array_tpu_torch._chunks import torch_dtype
+from dask_array_tpu_torch._chunks import is_narrow, torch_dtype
 from dask_array_tpu_torch._executor import BlockView, BuildContext
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch.parallel._sharded import (
@@ -131,7 +134,7 @@ def build(expr: ArrayExpr, ctx) -> BlockView:
             return bound
         return view
     rule = RULES.get(name)
-    if rule is not None:
+    if rule is not None and (getattr(rule, "takes_narrow", False) or not _narrow(expr)):
         view = rule(expr, ctx)
         if view is not None:
             # (a stencil deeper than its shards ran whole; a shuffle gathers)
@@ -144,6 +147,20 @@ def build(expr: ArrayExpr, ctx) -> BlockView:
     elif any(isinstance(v, ShardedView) and v.gathered for v in (ctx.cache.get(d._name) for d in expr.dependencies())):
         PARTITIONED.add("gathered", name)
     return view
+
+
+def _narrow(expr) -> bool:
+    """Whether ``expr`` has a narrow operand or result (``_chunks.is_narrow``)."""
+    return any(is_narrow(node.dtype) for node in (expr, *expr.dependencies()))
+
+
+def _takes_narrow(rule):
+    """Mark a rule that takes narrow data: it moves a carrier's patterns,
+    or runs the node's own build once a slot and combines exact counts.
+    Any other rule leaves a narrow node to its dense build (which decodes
+    it, gathering a sharded operand once)."""
+    rule.takes_narrow = True
+    return rule
 
 
 def _is_leaf(expr) -> bool:
@@ -361,6 +378,7 @@ def _blockwise(expr, ctx):
 # -- layout ---------------------------------------------------------------------------
 
 
+@_takes_narrow
 def _transpose(expr, ctx):
     st = sharded_of(ctx.build(expr.array))
     if st is None:
@@ -372,6 +390,7 @@ def _transpose(expr, ctx):
     return _view(expr, ShardedTensor(ctx.mesh, spec, outs, tuple(st.global_shape[a] for a in axes), bounds))
 
 
+@_takes_narrow
 def _slice(expr, ctx):
     """A basic slice per slot.  On a sharded axis a slice keeps each part's
     selected elements (ascending steps only; a part may end up empty) and
@@ -432,11 +451,13 @@ def _slice(expr, ctx):
     return _view(expr, ShardedTensor(mesh, tuple(out_spec), vals, out_shape, tuple(out_bounds)))
 
 
+@_takes_narrow
 def _freeze(expr, ctx):
     st = sharded_of(ctx.build(expr.array))
     return None if st is None else _view(expr, st)
 
 
+@_takes_narrow
 def _rechunk(expr, ctx):
     """The JAX package's sharding boundary: the value goes under
     ``plan_layout(shape, chunks, mesh, allow_uneven=True)``.  Where the
@@ -470,6 +491,7 @@ def _rechunk(expr, ctx):
     return _view(expr, as_sharded(st, mesh, target))
 
 
+@_takes_narrow
 def _shuffle(expr, ctx):
     """Gather, permute and put back under the new grid's layout (the JAX
     package's boundary): recorded as ``gathered``."""
@@ -761,6 +783,7 @@ def _multistat_part(expr, ctx):
 # -- the histogram kernel (K2) -------------------------------------------------------
 
 
+@_takes_narrow
 def _histogram(expr, ctx):
     """The counts once a slot (the kernel on the slot's part), ONE ``psum``
     over the mesh axes that shard the data, then numpy's density on the

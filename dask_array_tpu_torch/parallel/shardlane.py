@@ -39,7 +39,9 @@ partitioner, so regular grids engage too, and the JAX package's
 ``_auto_worthwhile`` has no counterpart), and an error while a lane
 program executes propagates.
 The lane declines leaves whose blocks have no device form (masked,
-object, record, duck and datetime blocks stay on their lanes).
+object, record, duck and datetime blocks stay on their lanes), and any
+program with narrow data (``_chunks.is_narrow``), whose per-slot parts
+its typed combines would order as bit patterns or round once a part.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ import math
 
 import numpy as np
 import torch
+
+from dask_array_tpu_torch._chunks import is_narrow
 
 #: engagement counter for tests (incremented on every lane execution)
 ENGAGED = {"count": 0}
@@ -1140,6 +1144,8 @@ def try_execute_shard(root, mesh):
 
     Returns the dense result on the mesh's first slot.
     """
+    if any(is_narrow(node.dtype) for node in root.walk()):
+        return None  # narrow data: the walk's dense builds decode it
     plan = _plan(root)
     if plan is None:
         return None

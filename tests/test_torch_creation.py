@@ -400,14 +400,24 @@ def test_pad_steps_every_dtype(name, dtype):
     _pad_same(ref, want, dtype, rtol=1e-3 if dtype in ("float16", "complex64") else 1e-6)
 
 
+# the JAX package's float16 ramp with end values is stepped in float16 by
+# XLA's CPU backend, whose rounding of half-precision steps depends on the
+# host's vector units: on one host it stays within 1e-3 of numpy's (one ulp
+# in three entries), on another it strays further.  What holds on every
+# host is that it is not numpy's bit for bit, so that is what its fault
+# asserts; the port itself is held to numpy bit for bit above
+FAULT_RTOL = {("linear_ramp_ends", "float16"): 0.0}
+
+
 @pytest.mark.parametrize("name, dtype", sorted(PAD_REFERENCE_FAULTS))
 def test_pad_reference_faults_are_real(name, dtype):
     mode, kw = PAD_MODES[name]
     a = pad_data(dtype)
     want = np.pad(a, PAD_WIDTH, mode, **kw)
+    rtol = FAULT_RTOL.get((name, dtype), 1e-3 if dtype in ("float16", "complex64") else 1e-6)
     with pytest.raises((AssertionError, TypeError, ValueError)):
         ref = np.asarray(jda.pad(jda.from_array(a, chunks=3), PAD_WIDTH, mode, **kw).compute())
-        _pad_same(ref, want, dtype, rtol=1e-3 if dtype in ("float16", "complex64") else 1e-6)
+        _pad_same(ref, want, dtype, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", ["bool", "uint16", "uint64", "float32", "complex128"])

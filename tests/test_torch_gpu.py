@@ -2174,3 +2174,209 @@ def test_kernels_on_slot_parts(cuda, kernel, kind):
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
         else:
             np.testing.assert_array_equal(g, w)
+
+
+# -- 1-byte data: K2's byte route, the narrow types, the streamed dtypes ---------------
+
+BYTE_TYPES = ["int2", "uint2", "int4", "uint4", "float4_e2m1fn", "float8_e3m4", "float8_e4m3", "float8_e4m3b11fnuz",
+              "float8_e8m0fnu", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz"]
+TORCH_FLOAT8 = {"float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz"}
+
+
+def _every_byte(name, copies=3, seed=0):
+    """Every byte ``copies`` times, shuffled, on the card, as the port holds
+    a 1-byte type (a torch float8 tensor, or a narrow type's uint8 carrier
+    with its numpy dtype)."""
+    import ml_dtypes
+
+    raw = np.random.default_rng(seed).permutation(np.tile(np.arange(256, dtype=np.uint8), copies))
+    t = torch.from_numpy(raw).cuda()
+    if name in TORCH_FLOAT8:
+        return t.view(getattr(torch, name)), None
+    return t, np.dtype(getattr(ml_dtypes, name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", BYTE_TYPES)
+@pytest.mark.parametrize("edges_dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("nbins", [1, 16, 256])
+def test_histogram_kernel_byte_route_every_pattern(cuda, name, edges_dtype, nbins):
+    """Every byte as data, through the byte route, aligned and one element
+    in: the counts equal the plain pattern count, the plain version of the
+    values and numpy's histogram of the float64 values (NaN dropped), one
+    launch a call."""
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    x, dt = _every_byte(name, seed=nbins)
+    kind = dt if dt is not None else x.dtype
+    e = torch.from_numpy(np.linspace(-4.0, 4.0, nbins + 1)).to(edges_dtype).cuda()
+    hk.LAUNCHES = 0
+    for v in (x, x[1:]):
+        got = hk.histogram_counts_cuda(v, e, dtype=dt)
+        torch.testing.assert_close(got, hk.histogram_bytes_plain(v, e, kind), rtol=0, atol=0)
+        torch.testing.assert_close(got.cpu(), hk.histogram_counts_plain(v.cpu(), e.cpu(), None, dt), rtol=0, atol=0)
+        vals = hk.byte_values(kind)[v.view(torch.uint8).cpu().to(torch.int64)].double().numpy()
+        want = np.histogram(vals[~np.isnan(vals)], bins=e.double().cpu().numpy())[0]
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert hk.LAUNCHES == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "int4", "float8_e4m3"])
+def test_histogram_of_one_byte_data_through_the_api(cuda, name):
+    """``da.histogram`` of float8 data raised on the card before the byte
+    route (``DATA_CODES`` held no float8 type); now it computes, one K2
+    launch, equal to numpy's histogram of the values; weighted, it decodes
+    to float32 and takes the float32 route."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    dt = np.dtype(getattr(ml_dtypes, name))
+    a = (np.random.default_rng(1).standard_normal(300_001) * 2).astype(np.float32).astype(dt)
+    e = np.linspace(-4, 4, 257)
+    w = np.random.default_rng(2).standard_normal(a.shape)
+    hk.LAUNCHES = 0
+    h, _ = da.histogram(da.from_array(a, chunks=65536), bins=e)
+    np.testing.assert_array_equal(h.compute(), np.histogram(a.astype(np.float64), bins=e)[0])
+    assert hk.LAUNCHES == 1
+    hw, _ = da.histogram(da.from_array(a, chunks=65536), bins=e, weights=da.from_array(w, chunks=65536))
+    np.testing.assert_allclose(hw.compute(), np.histogram(a.astype(np.float64), bins=e, weights=w)[0], rtol=1e-12,
+                               atol=1e-12)
+    assert hk.LAUNCHES == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["int2", "uint2", "int4", "uint4", "float4_e2m1fn", "float8_e3m4", "float8_e4m3",
+                                  "float8_e4m3b11fnuz", "float8_e8m0fnu"])
+def test_narrow_types_on_the_card_equal_the_cpu(cuda, name):
+    """Each narrow type's ops on the card give the CPU's bytes: the codec
+    is torch ops with one table, the same on both devices."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    dt = np.dtype(getattr(ml_dtypes, name))
+    rng = np.random.default_rng(3)
+    if name.startswith(("int", "uint")):
+        info = ml_dtypes.iinfo(dt)
+        a = rng.integers(info.min, info.max + 1, (64, 48)).astype(dt)
+    elif name == "float8_e8m0fnu":  # no sign, no zero: powers of two
+        a = (2.0 ** rng.integers(-6, 7, (64, 48))).astype(np.float32).astype(dt)
+    else:
+        a = (rng.standard_normal((64, 48)) * 2).astype(np.float32).astype(dt)
+    progs = [lambda x: x * 2 + 1, lambda x: x.astype(np.float32), lambda x: x.sum(axis=0), lambda x: x.max(),
+             lambda x: x.cumsum(axis=0), lambda x: da.where(x.astype(np.float32) > 0, x, x[::-1]),
+             lambda x: x @ x.T, lambda x: x.T[::2]]
+    for k, prog in enumerate(progs):
+        got = np.asarray(prog(da.from_array(a, chunks=(16, 24))).compute())
+        with config.set({"device": "cpu"}):
+            want = np.asarray(prog(da.from_array(a, chunks=(16, 24))).compute())
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if k == 6 and got.dtype == np.float32:
+            # a float32 product sums in another order on each device
+            mag = np.abs(a.astype(np.float32)) @ np.abs(a.astype(np.float32)).T
+            assert np.all((np.abs(got - want) <= 1e-5 * mag) | (np.isnan(got) & np.isnan(want)))
+        else:
+            assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cumsum", "cumprod", "nancumsum"])
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float4_e2m1fn", "float8_e4m3",
+                                  "float8_e8m0fnu"])
+def test_byte_float_scans_on_the_card_equal_the_cpu(cuda, name, kind):
+    """A 1-byte float scan runs on the card (``reductions.byte_scan``: its
+    table is made on the CPU, so a NaN's sign is the same on both devices)
+    and gives the CPU's bytes, along either axis, NaN and overflow
+    included."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+
+    a = (np.random.default_rng(5).standard_normal((300, 70)) * 64).astype(getattr(ml_dtypes, name))
+    a[3, 2] = np.nan
+    for axis in (0, 1):
+        held = getattr(da, kind)(da.from_array(a, chunks=(100, 35)), axis=axis).compute_device()
+        assert held.device.type == "cuda"
+        with config.set({"device": "cpu"}):
+            want = np.asarray(getattr(da, kind)(da.from_array(a, chunks=(100, 35)), axis=axis).compute())
+        assert np.array_equal(held.cpu().view(torch.uint8).numpy(), want.view(np.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["int4", "float8_e4m3", "float8_e4m3fn"])
+def test_narrow_types_under_a_card_mesh_equal_the_walk(cuda, name):
+    """Narrow data under 4 slots on the card, in both lanes: the shard lane
+    declines it and the partitioned walk's reductions, scans and
+    contractions take their dense builds, so each result is the walk's
+    without a mesh, byte for byte."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.parallel import use_mesh
+
+    a = (np.random.default_rng(6).standard_normal((64, 12)) * 3).astype(getattr(ml_dtypes, name))
+    progs = [lambda x: x.max(axis=0), lambda x: x.sum(axis=0), lambda x: x.argmax(axis=0),
+             lambda x: x.cumsum(axis=0), lambda x: da.tensordot(x, x, axes=([0], [0]))]
+    for prog in progs:
+        want = np.asarray(prog(da.from_array(a, chunks=(8, 12))).compute())
+        for lane in ("gspmd", "auto"):
+            with use_mesh(_card_mesh((4,), ("r",))), config.set({"execution-lane": lane}):
+                got = np.asarray(prog(da.from_array(a, chunks=(8, 12))).compute())
+            assert got.dtype == want.dtype and np.array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int4", "float8_e4m3", "float8_e4m3fn", "bfloat16", "datetime64[ns]"])
+def test_pinned_rings_move_one_two_and_eight_byte_words(cuda, dtype):
+    """Uploads and fetches of a narrow carrier, float8, bfloat16 and
+    datetime ticks through the pinned rings: the same bytes both ways."""
+    import ml_dtypes
+
+    from dask_array_tpu_torch import _hostcopy
+    from dask_array_tpu_torch._chunks import tensor_of
+
+    dt = np.dtype(getattr(ml_dtypes, dtype, None) or dtype)
+    raw = np.random.default_rng(4).integers(0, 256, (300, 77) + (dt.itemsize,), dtype=np.uint8)
+    arr = raw.view(dt).reshape(300, 77)[:, 3:70]
+    up = _hostcopy.upload(arr, cuda)
+    assert up.dtype == tensor_of(arr).dtype
+    back = _hostcopy.fetch(up)
+    assert np.array_equal(back.view(np.uint8), np.ascontiguousarray(arr).view(np.uint8))
+
+
+@pytest.mark.gpu
+def test_streamed_dtypes_on_the_card(cuda):
+    """The out-of-core lane on the card: a bfloat16 stencil with K1 once a
+    panel, a float8 sum and a datetime min and max, each equal to in-core."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import _streaming, config
+    from dask_array_tpu_torch.kernels import stencil
+    from dask_array_tpu_torch.models.pipelines import stencil2d
+
+    rng = np.random.default_rng(5)
+    bf = rng.standard_normal((2048, 256)).astype(ml_dtypes.bfloat16)
+    f8 = rng.standard_normal((4096, 128)).astype(np.float32).astype(ml_dtypes.float8_e4m3fn)
+    ticks = np.datetime64("2020-01-01", "ns") + rng.integers(0, 10**15, (4096, 64)).astype("m8[ns]")
+    ticks[7, 5] = np.datetime64("NaT")
+    in_core = [stencil2d(bf, chunk=256).compute(), da.from_array(f8, chunks=(512, 128)).sum(axis=0).compute(),
+               da.from_array(ticks, chunks=(512, 64)).min(axis=0).compute(),
+               da.from_array(ticks, chunks=(512, 64)).max(axis=0).compute()]
+    stencil.LAUNCHES = 0
+    before = _streaming.STREAMED["panels"]
+    with config.set({"out-of-core": "force", "memory-budget": 400_000}):
+        out = stencil2d(bf, chunk=256).compute()
+        panels = _streaming.STREAMED["panels"] - before
+        streamed = [out, da.from_array(f8, chunks=(512, 128)).sum(axis=0).compute(),
+                    da.from_array(ticks, chunks=(512, 64)).min(axis=0).compute(),
+                    da.from_array(ticks, chunks=(512, 64)).max(axis=0).compute()]
+    assert panels >= 2 and stencil.LAUNCHES == panels
+    for a, b in zip(streamed, in_core):
+        assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))

@@ -481,3 +481,88 @@ def test_pattern_keys_follow_the_values():
         w = hk.key_values(np.arange(lo1 - 1, lo1 + span1 + 1), dtype, "float64")
         assert w[0] < 0.1 <= w[1] and w[-2] <= 0.3 < w[-1]
         assert hk.key_window(np.nan, 1.0, dtype, "float64")[1] <= 0
+
+
+# -- the byte route: 1-byte data counted by pattern -----------------------------------
+
+BYTE_TYPES = ["int2", "uint2", "int4", "uint4", "float4_e2m1fn", "float8_e3m4", "float8_e4m3", "float8_e4m3b11fnuz",
+              "float8_e8m0fnu", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz"]
+TORCH_FLOAT8 = {"float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz"}
+
+
+def _byte_data(name, n=20000, seed=0):
+    """``n`` bytes drawn over all 256 patterns (NaN and, for the sub-byte
+    types, bytes past their bits among them) as the tensor the port holds:
+    a torch float8 tensor, or a narrow type's uint8 carrier with its numpy
+    dtype."""
+    import ml_dtypes
+
+    raw = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8))
+    if name in TORCH_FLOAT8:
+        return raw.view(getattr(torch, name)), getattr(torch, name)
+    return raw, np.dtype(getattr(ml_dtypes, name))
+
+
+@pytest.mark.parametrize("nbins, edge_itemsize", [(1, 4), (256, 4), (256, 8), (65536, 8)])
+def test_byte_plan_reads_every_value_once(nbins, edge_itemsize):
+    """The byte route's plan: 16 values a unit, blocks of 256 threads,
+    eight an SM at most, equal runs, each value read once, a block's count
+    of one pattern within its 32-bit counter; one partial of 256 words a
+    block."""
+    for n in SIZES:
+        for sms in (1, 132):
+            plan = hk.launch_plan(n, nbins, sms, 1, 0, edge_itemsize, True)
+            assert plan.mode == hk.BYTES and plan.vec == 16 and plan.units == -(-n // 16)
+            assert plan.threads == hk.THREADS and 1 <= plan.blocks <= sms * hk.BYTE_BLOCKS_PER_SM
+            assert plan.partial == plan.blocks * 256 * 4
+            shares = hk.shares(plan, n)
+            assert shares[0][0] == 0 and shares[-1][1] == n
+            assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+            assert max(b - a for a, b in shares) < 2**32
+    with pytest.raises(ValueError, match="unweighted"):
+        hk.launch_plan(100, 4, 132, 1, 1, 8, True)
+
+
+def test_byte_plan_at_the_main_path_shapes():
+    """2**26 float8 values on 132 SMs: 1056 blocks of 256 threads, 3972
+    units (63552 values) a block at most."""
+    plan = hk.launch_plan(2**26, 256, 132, 1, 0, 8, True)
+    assert (plan.blocks, plan.units) == (1056, 2**22)
+    assert max(b - a for a, b in hk.shares(plan, 2**26)) == 3972 * 16
+
+
+@pytest.mark.parametrize("name", BYTE_TYPES)
+def test_byte_values_are_the_patterns_values(name):
+    """``byte_values``: each of the 256 patterns' value, as ml_dtypes reads
+    it (NaN where it is NaN)."""
+    import ml_dtypes
+
+    _, dt = _byte_data(name, 1)
+    got = hk.byte_values(dt).numpy()
+    want = np.arange(256, dtype=np.uint8).view(getattr(ml_dtypes, name)).astype(got.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("edges", ["f4", "f8", "i8", "wide"])
+@pytest.mark.parametrize("name", BYTE_TYPES)
+def test_byte_pattern_count_equals_the_plain_version(name, edges):
+    """The byte route's plain version (a bincount of the 256 patterns, then
+    each pattern's count into its value's bin) equals the plain version on
+    the decoded values and numpy's histogram of the float64 values, for
+    float32, float64 and int64 edges and edges past every value."""
+    x, dt = _byte_data(name)
+    e = {"f4": np.linspace(-4, 4, 17, dtype=np.float32), "f8": np.linspace(-3.3, 5.1, 257),
+         "i8": np.arange(-8, 9, 2, dtype=np.int64), "wide": np.array([-1e300, -1.0, 0.0, 1.0, 1e300])}[edges]
+    et = torch.from_numpy(e)
+    try:
+        hk.comparison_dtype(dt, et.dtype)
+    except TypeError:  # numpy has no common type (float8_e4m3fn and int64): both refuse
+        with pytest.raises(TypeError):
+            hk.histogram_counts_plain(x, et, None, None if name in TORCH_FLOAT8 else dt)
+        return
+    got = hk.histogram_bytes_plain(x, et, dt)
+    plain = hk.histogram_counts_plain(x, et, None, None if name in TORCH_FLOAT8 else dt)
+    vals = hk.byte_values(dt)[x.view(torch.uint8).to(torch.int64)].double().numpy()
+    want = np.histogram(vals[~np.isnan(vals)], bins=e.astype(np.float64))[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(plain.numpy(), want)
