@@ -9,8 +9,10 @@ version.  Run from the root of a checkout, with no arguments:
 Phases (each prints one line of its own numbers; any failure raises):
   1. setup: config "device" = "cuda"; build the band-stencil, the
      multi-statistic, the transpose, the halo, the scale and the histogram
-     kernels from dask_array_tpu_torch/csrc (one nvcc each, started
-     together); print the card's name and power limit;
+     kernels from dask_array_tpu_torch/csrc and the band-stencil programs
+     of phases 18, 30, 32 and 35 (generated by kernels/stencil.py; one
+     nvcc each, all started together, each timed, its registers read from
+     ptxas); print the card's name and power limit;
   2. the band-stencil kernel against its plain version on the card: every
      boundary and every mixed pair, depths (1,1) (2,1) (1,0) (8,8),
      float16/32/64, a ragged shape; then the redesign's paths: 16-byte rows
@@ -84,9 +86,10 @@ Phases (each prints one line of its own numbers; any failure raises):
      at 16384x16384 (chunks 4096) and 4096x4096 (chunks 1024) float32
      against numpy, each compute() launching the halo kernel once and the
      band stencil never;
- 18. a func the band kernel cannot read, tanh of the roll Laplace, through
-     map_overlap at 4096x4096 (chunks 1024, trim=True) against numpy, one
-     halo launch and no band-stencil launch;
+ 18. a non-linear func, tanh of the roll Laplace, through map_overlap at
+     4096x4096 (chunks 1024, trim=True) against float64 numpy: one
+     BandStencil, one band-stencil launch (the program kernel generated
+     from its captured program) and no halo launch;
  19. da.pad at 4096x4096 float32 against np.pad in constant, edge, reflect,
      symmetric and wrap (equal) and in linear_ramp and mean;
  20. on (1 << 24,) float32 with NaNs: sliding_window_view(x, 64).sum(-1)
@@ -201,7 +204,8 @@ Phases (each prints one line of its own numbers; any failure raises):
      against its in-core compute() ("out-of-core": "off") in this process:
      (a) stencil2d's roll form on 32768^2 float32 in chunks of 4096 under
      3 GiB (K1 once a panel, equal bytes), (b) tanh(laplace) through
-     map_overlap (the halo kernel once a panel, equal bytes), (c)
+     map_overlap (K1's program once a panel) and a 3x3 median (the halo
+     kernel once a panel), each in equal bytes, (c)
      sum(axis=0), mean() and nanmax() of 2^20 x 2048 float32 in row chunks
      of 2^16 under 2 GiB (rtol 1e-4 against plain torch in float64), (d) A @ W of
      2^20 x 1024 by a numpy 1024^2 under 2 GiB (W pinned once; rtol 1e-5
@@ -241,8 +245,9 @@ Phases (each prints one line of its own numbers; any failure raises):
      the flagship step (feature-normalise, contract, row-reduce) on a
      16384^2 float32 a and a 8192 x 16384 b with a rechunk boundary (one
      permute); (b) the Laplace stencil under "overlap-method": "shard" (K1
-     once a slot, two permutes a sharded axis) and tanh(laplace) through
-     ShardStencil (the halo kernel once a slot); (c) cumsum (one
+     once a slot, two permutes a sharded axis), tanh(laplace) on the ring
+     (K1's program once a slot) and a 3x3 median, which K1 declines,
+     through ShardStencil (the halo kernel once a slot); (c) cumsum (one
      all_gather of the scan's totals where its axis is sharded), a rechunk
      that moves a mesh axis (a permute on the grid, an all_to_all on the
      ring), sum; (d) the shard lane on 1e6 x 128 float32 in 11 uneven row
@@ -278,6 +283,21 @@ Phases (each prints one line of its own numbers; any failure raises):
      launch each, equal to its plain version, then timed per call and on
      the device beside its plain version and torch.histc of the float32
      values, with its bound (2^26 bytes over 3.35 TB/s).
+ 35. K1's program kernels (PROGRAM_SIZES, ``program_paths``): tanh(laplace),
+     the Sobel magnitude, the 3x3 max filter, a where-limited diffusion
+     step (scalar keywords) and tanh of a depth-2 Laplace at 4096^2 and
+     16384^2 float32 and 16384^2 bfloat16 and float16, under reflect and a
+     constant: the kernel against its plain version (equal bytes for the
+     exact programs, within 2 ulps where tanh appears), its time (CUDA
+     events, median of 30; also on the device alone) beside its bound,
+     the plain version's and the nearest library call's (conv2d + tanh, two
+     conv2d + sqrt, max_pool2d(3, stride=1), conv2d + clamp), nvcc's
+     seconds (phase 1), ptxas's registers and the load from the build
+     cache; map_overlap of a persisted input by both routes, the program
+     (one launch) and the Overlap route it replaced ("stencil-kernel":
+     "off"), by compute_device(); tanh(laplace) at 4096^2 from numpy by
+     compute() and compute_device() both ways; one float64 program's
+     first use (nvcc alone).
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -396,6 +416,14 @@ def stencil_for(d0, d1):
         return out
 
     return f
+
+
+def median3(b):
+    """The 3x3 median filter: a stack and a median, a func K1's capture
+    declines, so it keeps the Overlap (or ShardStencil) route."""
+    import torch
+
+    return torch.stack([torch.roll(b, (dy, dx), (0, 1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]).median(0).values
 
 
 def numpy_laplace(x):
@@ -1627,7 +1655,8 @@ def streaming_paths(da, torch, sizes):
     an explicit "memory-budget" (config "out-of-core": "auto") and is held
     against the in-core compute() of the same program ("out-of-core":
     "off") in this process: (a) stencil2d's roll form on a host 32768^2
-    float32 (K1 once a panel), (b) tanh(laplace) through map_overlap
+    float32 (K1 once a panel), (b) tanh(laplace) through map_overlap (K1's
+    program once a panel) and a 3x3 median, which the capture declines
     (Overlap -> halo kernel -> map_blocks -> trim, the halo kernel once a
     panel), (c) sum(axis=0), mean() and nanmax() of 2^20 x 2048 float32
     (reduce-stream), (d) A @ W of 2^20 x 1024 by a numpy 1024^2 (W pinned
@@ -1644,7 +1673,7 @@ def streaming_paths(da, torch, sizes):
 
     from dask_array_tpu_torch import _hostcopy, _streaming, config
     from dask_array_tpu_torch.kernels import halo, stencil
-    from dask_array_tpu_torch.models.pipelines import laplace_roll
+    from dask_array_tpu_torch.models.pipelines import laplace_roll, tanh_laplace
 
     st = _streaming.STREAMED
     n, c = sizes["square"], sizes["square_chunk"]
@@ -1661,7 +1690,7 @@ def streaming_paths(da, torch, sizes):
     # the auto budget before any in-core run: the runs leave their blocks
     # in the caching allocator, which the budget must count as free
     out = {"auto_budget_GiB_first": auto_budget_gib()}
-    launches = {"band_stencil": 0, "halo": 0}
+    launches = {"band_stencil": 0, "program": 0, "halo": 0}
 
     def fill(rows, cols):
         # cheap: one broadcast pass (rows differ, columns random)
@@ -1679,7 +1708,8 @@ def streaming_paths(da, torch, sizes):
             in_core_ms = (time.perf_counter() - t0) * 1e3
         before = dict(st)
         cbefore = dict(_hostcopy.COPIES)
-        halo.LAUNCHES = stencil.LAUNCHES = 0
+        halo.LAUNCHES = 0
+        stencil.reset_launches()
         with config.set({"out-of-core": "auto", "memory-budget": budget}):
             t0 = time.perf_counter()
             streamed = arr.compute()
@@ -1687,12 +1717,13 @@ def streaming_paths(da, torch, sizes):
         d = {k: st[k] - before[k] for k in st}
         up, down = d["h2d_bytes"], d["d2h_bytes"]
         num = {"budget": budget, "panels": d["panels"], "pinned": d["pinned"], "count": d["count"],
-               "band_stencil_launches": stencil.LAUNCHES, "halo_launches": halo.LAUNCHES,
-               "h2d_GB": up / 1e9, "d2h_GB": down / 1e9,
+               "band_stencil_launches": stencil.LAUNCHES, "program_launches": stencil.VARIANT_LAUNCHES["program"],
+               "halo_launches": halo.LAUNCHES, "h2d_GB": up / 1e9, "d2h_GB": down / 1e9,
                "ring_h2d_GB": (_hostcopy.COPIES["h2d_bytes"] - cbefore["h2d_bytes"]) / 1e9,
                "ring_d2h_GB": (_hostcopy.COPIES["d2h_bytes"] - cbefore["d2h_bytes"]) / 1e9,
                "streamed_ms": ms, "in_core_ms": in_core_ms, "GBps": (up + down) / ms / 1e6}
         launches["band_stencil"] += stencil.LAUNCHES
+        launches["program"] += stencil.VARIANT_LAUNCHES["program"]
         launches["halo"] += halo.LAUNCHES
         check(d["count"] == 1 and d["panels"] >= 2, f"phase 30: streamed {d}")
         return streamed, in_core, num
@@ -1711,14 +1742,25 @@ def streaming_paths(da, torch, sizes):
     out["a"] = num
     del streamed, in_core
 
-    # (b) tanh(laplace): the Overlap route, the halo kernel once per panel
-    sb = da.map_overlap(lambda b: torch.tanh(laplace_roll(b)), xa, depth=1, boundary="reflect", dtype="float32")
+    # (b) tanh(laplace): K1's program once per panel
+    sb = da.map_overlap(tanh_laplace, xa, depth=1, boundary="reflect", dtype="float32")
     streamed, in_core, num = run(sb, sizes["budget_ab"])
-    check(num["halo_launches"] == num["panels"] and num["band_stencil_launches"] == 0,
+    check(num["band_stencil_launches"] == num["program_launches"] == num["panels"] and num["halo_launches"] == 0,
           f"phase 30 (b): launches {num}")
     check(same_bits(streamed, in_core), "phase 30 (b): streamed tanh(laplace) differs from in-core")
     num["equal_bytes"] = True
     out["b"] = num
+    del streamed, in_core
+
+    # (b) a func the capture declines (a 3x3 median): the Overlap route,
+    # the halo kernel once per panel
+    sm = da.map_overlap(median3, xa, depth=1, boundary="reflect", dtype="float32")
+    streamed, in_core, num = run(sm, sizes["budget_ab"])
+    check(num["halo_launches"] == num["panels"] and num["band_stencil_launches"] == 0,
+          f"phase 30 (b) median: launches {num}")
+    check(same_bits(streamed, in_core), "phase 30 (b): streamed median differs from in-core")
+    num["equal_bytes"] = True
+    out["b_median"] = num
     del streamed, in_core
 
     # the auto budget, and auto off for a 1 GiB program
@@ -2508,7 +2550,7 @@ def mesh_paths(da, torch, sizes, device="cuda"):
     from dask_array_tpu_torch.kernels import halo, mstat, stencil
     from dask_array_tpu_torch.kernels import scale as sk
     from dask_array_tpu_torch.kernels import transpose as tk
-    from dask_array_tpu_torch.models.pipelines import laplace_roll
+    from dask_array_tpu_torch.models.pipelines import laplace_roll, tanh_laplace
     from dask_array_tpu_torch.parallel import Mesh, auto_mesh, use_mesh
     from dask_array_tpu_torch.parallel._sharded import COLLECTIVES
     from dask_array_tpu_torch.parallel.shardlane import ENGAGED
@@ -2586,18 +2628,31 @@ def mesh_paths(da, torch, sizes, device="cuda"):
     check(type(st.expr).__name__ == "BandStencil", "phase 32: the stencil is no BandStencil")
     part("stencil", st, grid, 1e-5, expect=k1_per_slot)
 
-    # (b) a func K1 does not take, through ShardStencil on the ring: rows
-    # exchanged, the whole column axis padded by the halo kernel once a slot
-    def halo_per_slot(launched, moved, engaged):
-        check(launched.get("halo") == 4 or not on_card, f"phase 32 tanh: halo launches {launched}")
-        check(not launched.get("band_stencil"), f"phase 32 tanh: {launched}")
+    # (b) tanh(laplace), a program K1 takes, on the ring: rows exchanged,
+    # K1's program once a slot
+    def program_per_slot(launched, moved, engaged):
+        check(launched.get("band_stencil") == 4 or not on_card, f"phase 32 tanh: K1 launches {launched}")
+        check(not launched.get("halo"), f"phase 32 tanh: {launched}")
         check(moved == {"ppermute": 2, "gather": 1}, f"phase 32 tanh: {moved}")
 
     with config.set({"overlap-method": "shard"}):  # routed when the graph is built
-        tanh_laplace = da.map_overlap(lambda blk: torch.tanh(laplace_roll(blk)), a, depth=1, boundary="nearest",
-                                      dtype="float32")
-    check(type(tanh_laplace.expr).__name__ == "ShardStencil", "phase 32: tanh(laplace) is no ShardStencil")
-    part("tanh-laplace", tanh_laplace, ring, 1e-5, expect=halo_per_slot)
+        tl = da.map_overlap(tanh_laplace, a, depth=1, boundary="nearest", dtype="float32")
+    check(type(tl.expr).__name__ == "BandStencil" and stencil.is_program(tl.expr.taps),
+          "phase 32: tanh(laplace) is no BandStencil of a program")
+    part("tanh-laplace", tl, ring, 1e-5, expect=program_per_slot)
+
+    # (b) a func K1 does not take (a 3x3 median), through ShardStencil on the
+    # ring: rows exchanged, the whole column axis padded by the halo kernel
+    # once a slot
+    def halo_per_slot(launched, moved, engaged):
+        check(launched.get("halo") == 4 or not on_card, f"phase 32 median: halo launches {launched}")
+        check(not launched.get("band_stencil"), f"phase 32 median: {launched}")
+        check(moved == {"ppermute": 2, "gather": 1}, f"phase 32 median: {moved}")
+
+    with config.set({"overlap-method": "shard"}):
+        med = da.map_overlap(median3, a, depth=1, boundary="nearest", dtype="float32")
+    check(type(med.expr).__name__ == "ShardStencil", "phase 32: the median is no ShardStencil")
+    part("median3", med, ring, 0.0, expect=halo_per_slot)
 
     # (c) the relayout: a scan, a rechunk that moves a mesh axis, a sum.  The
     # partitioned walk holds a's rows and columns sharded: a scan along a
@@ -2792,6 +2847,264 @@ def partitioned_paths(da, torch, sizes, device="cuda"):
     return out, total
 
 
+def build_timed(_build, names, program_items):
+    """Build the kernels ``names`` and the band-stencil programs'
+    ``(name, source)`` items at once (``_build.build_all``).  Returns
+    ({name: (library path, ptxas output)}, {program key: its library, its
+    build's seconds (beside the other builds), and the registers and
+    spilled bytes ptxas reports for its kernel})."""
+    import re
+
+    done = _build.build_all([*names, *program_items.values()])
+    built = {name: done[name][:2] for name in names}
+    programs = {}
+    for key, item in program_items.items():
+        path, out, seconds = done[item]
+        regs = re.findall(r"Used (\d+) registers", out)
+        spills = re.findall(r"(\d+) bytes spill stores", out)
+        programs[key] = {"library": path.name, "build_s": seconds, "registers": int(regs[0]) if regs else None,
+                         "spill_store_bytes": int(spills[0]) if spills else None}
+    return built, programs
+
+
+# phase 35: K1's program kernels at the BASELINE stencil2d sizes.  Each
+# group is (side, chunk, dtype); every func of ``program_funcs`` runs under
+# each boundary; the Overlap route it replaces is timed under the first
+PROGRAM_SIZES = {"groups": ((4096, 1024, "float32"), (16384, 4096, "float32"), (16384, 4096, "bfloat16"),
+                            (16384, 4096, "float16")),
+                 "boundaries": ("reflect", 0.5), "route_reps": 5, "plain_reps": 10}
+
+
+def program_funcs():
+    """Phase 35's funcs: name -> (func, map_overlap keywords, depth, exact).
+    ``exact`` says the program holds only ops whose results the kernel and
+    torch's CUDA kernels round alike (equal bytes); the others carry a
+    transcendental function (within 2 ulps of the result's type)."""
+    import torch
+
+    from dask_array_tpu_torch.models.pipelines import limited_diffusion, max_filter3, sobel_magnitude, tanh_laplace
+
+    def tanh_laplace2(b):
+        """tanh of the depth-2 Laplace (rolls by 2)."""
+        return torch.tanh(torch.roll(b, 2, 0) + torch.roll(b, -2, 0) + torch.roll(b, 2, 1) + torch.roll(b, -2, 1)
+                          - 4 * b)
+
+    return {
+        "tanh_laplace": (tanh_laplace, {}, (1, 1), False),
+        "sobel_magnitude": (sobel_magnitude, {}, (1, 1), True),
+        "max_filter3": (max_filter3, {}, (1, 1), True),
+        "limited_diffusion": (limited_diffusion, {"rate": 0.2, "limit": 0.05}, (1, 1), True),
+        "tanh_laplace_depth2": (tanh_laplace2, {}, (2, 2), False),
+    }
+
+
+def program_keys(stencil):
+    """The (program, depth, dtype) of every phase-35 case (and so of phases
+    18, 30 and 32, whose tanh(laplace) is phase 35's float32 one)."""
+    import torch
+
+    keys = []
+    for dt in dict.fromkeys(g[2] for g in PROGRAM_SIZES["groups"]):
+        for func, kw, depth, _ in program_funcs().values():
+            program = stencil.capture_program(stencil.bind_kwargs(func, kw), depth)
+            keys.append((program, depth, getattr(torch, dt)))
+    return keys
+
+
+def ulps_apart(torch, got, want):
+    """The most units in the last place between two tensors of one float
+    dtype (the sign-magnitude bits made monotone); NaN against NaN is 0."""
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+    nbits = 8 * got.element_size()
+
+    def ordered(t):
+        v = t.contiguous().view(bits).long()
+        return torch.where(v < 0, -(v & ((1 << (nbits - 1)) - 1)), v)
+
+    diff = (ordered(got) - ordered(want)).abs()
+    return int(torch.where(got.isnan() & want.isnan(), torch.zeros_like(diff), diff).max())
+
+
+def program_paths(da, torch, sizes, smi, builds):
+    """Phase 35: K1's program kernels.  For each group of ``sizes`` and each
+    func of ``program_funcs`` under each boundary: the kernel against its
+    plain version on the card (equal bytes, or within 2 ulps where a
+    transcendental function appears), the kernel's time by CUDA events
+    (median of 30; also on the device alone), the plain version's, the
+    nearest library call's (conv2d + tanh; two conv2d + sqrt;
+    max_pool2d(3, stride=1); conv2d + clamp + add; a 5x5 conv2d + tanh, the
+    padding outside the timed window), and the bound (2 M N itemsize over
+    3.35 TB/s, or a program node an element over the float32 peak, the
+    larger).  Under the first boundary, map_overlap of a persisted input
+    through both routes: the program (one launch) and the Overlap route it
+    replaces (config "stencil-kernel": "off"; the halo kernel once), each
+    by compute_device(), the first equal to the kernel's bytes and the
+    second to the func applied op by op in the array's type; at 4096^2 float32, tanh(laplace) by compute() and
+    compute_device() both ways from a numpy input.  nvcc's seconds come
+    from phase 1's builds (``builds``), the load's from the build cache
+    here; one program no phase built (tanh(laplace) in float64) times its
+    first use.  Returns ({case: numbers}, launches of the program route)."""
+    import ml_dtypes
+    import numpy as np
+    import torch.nn.functional as F
+
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo, stencil
+    from dask_array_tpu_torch.ops._overlap import BandStencil
+
+    out = {}
+    route_launches = 0
+    funcs = program_funcs()
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    stencil._program_kernel.cache_clear()  # each program's first call below loads it from the build cache
+    for n, chunk, dt_name in sizes["groups"]:
+        dt = getattr(torch, dt_name)
+        x = torch.randn((n, n), generator=gen, device="cuda").to(dt)
+        x_np = (x.view(torch.int16).cpu().numpy().view(ml_dtypes.bfloat16) if dt == torch.bfloat16
+                else x.cpu().numpy())
+        held = da.from_array(x_np, chunks=chunk).persist()
+        itemsize = x.element_size()
+        for name, (func, kw, depth, exact) in funcs.items():
+            bound_func = stencil.bind_kwargs(func, kw)
+            program = stencil.capture_program(bound_func, depth)
+            check(program is not None, f"phase 35 {name}: no program")
+            t0 = time.perf_counter()
+            stencil._program_kernel(program, depth, dt)
+            load_s = time.perf_counter() - t0
+            build = builds[program, depth, dt]
+            d0, d1 = depth
+            for bnd_mode in sizes["boundaries"]:
+                bnd = (bnd_mode, bnd_mode)
+                tag = f"{name}-{dt_name}-{n}-{bnd_mode}"
+
+                def kernel():
+                    return stencil.band_program_cuda(x, program, depth, bnd)
+
+                def plain():
+                    return stencil.band_stencil_plain(x, bound_func, depth, bnd)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                ulps = ulps_apart(torch, got, want)
+                check(got.dtype == want.dtype == dt and got.shape == want.shape, f"phase 35 {tag}: dtype/shape")
+                check(ulps == 0 if exact else ulps <= 2, f"phase 35 {tag}: {ulps} ulps from the plain version")
+                err = float((got.double() - want.double()).abs().max())
+                del want
+                padded = stencil.pad_axis(stencil.pad_axis(x, 0, d0, d0, bnd_mode), 1, d1, d1, bnd_mode)[None, None]
+                library, library_name = _program_library(torch, F, name, padded, x, kw, dt)
+                kernel_ms = cuda_ms(kernel)
+                kernel_dev = device_ms(kernel)
+                plain_ms = cuda_ms(plain, reps=sizes["plain_reps"])
+                library_ms = cuda_ms(library)
+                lib_err = float((library().double().reshape(n, n) - kernel().double()).abs().max())
+                del padded
+                bound_ms, bound_by = bound(2 * n * n * itemsize, len(program) * n * n)
+                out[tag] = dict(shape=[n, n], dtype=dt_name, depth=list(depth), boundary=bnd_mode,
+                                nodes=len(program), exact=exact, ulps_from_plain=ulps, max_abs_err=err,
+                                kernel_ms=kernel_ms, kernel_device_ms=kernel_dev, plain_ms=plain_ms,
+                                library=library_name, library_ms=library_ms, library_vs_kernel_max_abs=lib_err,
+                                bound_ms=bound_ms, bound_by=bound_by, kernel_of_bound=bound_ms / kernel_ms,
+                                kernel_of_bound_device=bound_ms / kernel_dev,
+                                nvcc_s=build["build_s"], registers=build["registers"],
+                                spill_store_bytes=build["spill_store_bytes"], load_s=load_s)
+                if bnd_mode != sizes["boundaries"][0]:
+                    del got
+                    phase(35, tag, card=smi, **out[tag])
+                    continue
+                # the two routes through map_overlap on the persisted input
+                arr = da.map_overlap(func, held, depth=depth, boundary=bnd_mode, **kw)
+                with config.set({"stencil-kernel": "off"}):
+                    ov = da.map_overlap(func, held, depth=depth, boundary=bnd_mode, **kw)
+                check(isinstance(arr.expr, BandStencil) and stencil.is_program(arr.expr.taps)
+                      and not isinstance(ov.expr, BandStencil), f"phase 35 {tag}: routes")
+                halo.LAUNCHES = 0
+                stencil.reset_launches()
+                a_dev = arr.compute_device()
+                launched = {"program": stencil.VARIANT_LAUNCHES["program"], "band_stencil": stencil.LAUNCHES,
+                            "halo": halo.LAUNCHES}
+                check(launched == {"program": 1, "band_stencil": 1, "halo": 0}, f"phase 35 {tag}: {launched}")
+                route_launches += stencil.VARIANT_LAUNCHES["program"]
+                halo.LAUNCHES = 0
+                stencil.reset_launches()
+                o_dev = ov.compute_device()
+                ov_launched = {"band_stencil": stencil.LAUNCHES, "halo": halo.LAUNCHES}
+                check(ov_launched == {"band_stencil": 0, "halo": 1}, f"phase 35 {tag}: Overlap {ov_launched}")
+                # the program route is the kernel's bytes; the Overlap route
+                # is the func on the padded array op by op in the type itself
+                # (2-byte types round every op there, once in the kernel)
+                padded = stencil.pad_axis(stencil.pad_axis(x, 0, d0, d0, bnd_mode), 1, d1, d1, bnd_mode)
+                per_op = bound_func(padded)[d0:d0 + n, d1:d1 + n]
+                check(ulps_apart(torch, a_dev, got) == 0, f"phase 35 {tag}: the program route differs from the kernel")
+                check(ulps_apart(torch, o_dev, per_op) == 0,
+                      f"phase 35 {tag}: the Overlap route differs from the func op by op")
+                route_err = float((a_dev.double() - o_dev.double()).abs().max())
+                del a_dev, o_dev, padded, per_op
+                out[tag].update(
+                    launches=launched, overlap_launches=ov_launched, routes_max_abs=route_err,
+                    program_compute_device_ms=host_ms(lambda: (arr.compute_device(), torch.cuda.synchronize()),
+                                                      sizes["route_reps"]),
+                    overlap_compute_device_ms=host_ms(lambda: (ov.compute_device(), torch.cuda.synchronize()),
+                                                      sizes["route_reps"]))
+                if name == "tanh_laplace" and n == 4096 and dt == torch.float32:
+                    # compute() and compute_device() from a numpy input, both routes
+                    src = da.from_array(x_np, chunks=chunk)
+                    for route, cfg in (("program", {}), ("overlap", {"stencil-kernel": "off"})):
+                        with config.set(cfg):
+                            e = da.map_overlap(func, src, depth=depth, boundary=bnd_mode)
+                        out[tag][f"{route}_numpy_compute_ms"] = host_ms(e.compute, sizes["route_reps"])
+                        out[tag][f"{route}_numpy_compute_device_ms"] = host_ms(
+                            lambda: (e.compute_device(), torch.cuda.synchronize()), sizes["route_reps"])
+                del got
+                phase(35, tag, card=smi, **out[tag])
+        del x, x_np, held
+        torch.cuda.empty_cache()
+    # a program no phase built: its first use builds it (nvcc alone), then
+    # a second process-local load binds it from the build cache
+    func = funcs["tanh_laplace"][0]
+    x = torch.randn((4096, 4096), generator=gen, device="cuda", dtype=torch.float64)
+    program = stencil.capture_program(func, (1, 1))
+    t0 = time.perf_counter()
+    got = stencil.band_program_cuda(x, program, (1, 1), ("reflect", "reflect"))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    stencil._program_kernel.cache_clear()
+    t0 = time.perf_counter()
+    stencil._program_kernel(program, (1, 1), torch.float64)
+    cached_s = time.perf_counter() - t0
+    ulps = ulps_apart(torch, got, stencil.band_stencil_plain(x, func, (1, 1), ("reflect", "reflect")))
+    check(ulps <= 2, f"phase 35 float64 first use: {ulps} ulps")
+    out["first-use-float64"] = {"first_use_s": first_s, "bind_from_cache_s": cached_s, "ulps_from_plain": ulps}
+    phase(35, "first-use-tanh_laplace-float64-4096", card=smi, **out["first-use-float64"])
+    return out, route_launches
+
+
+def _program_library(torch, F, name, padded, x, kw, dt):
+    """(the nearest library call for phase 35's func ``name``, its name):
+    torch's own ops on the padded array, padding outside."""
+    lap = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], device="cuda", dtype=dt)[None, None]
+    if name == "tanh_laplace":
+        return (lambda: torch.tanh(F.conv2d(padded, lap))), "conv2d + tanh"
+    if name == "tanh_laplace_depth2":
+        lap2 = torch.zeros((5, 5), device="cuda", dtype=dt)
+        lap2[0, 2] = lap2[4, 2] = lap2[2, 0] = lap2[2, 4] = 1.0
+        lap2[2, 2] = -4.0
+        return (lambda: torch.tanh(F.conv2d(padded, lap2[None, None]))), "conv2d (5x5) + tanh"
+    if name == "sobel_magnitude":
+        kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], device="cuda", dtype=dt)[None, None]
+        ky = kx.transpose(-1, -2).contiguous()
+
+        def sobel():
+            gx, gy = F.conv2d(padded, kx), F.conv2d(padded, ky)
+            return torch.sqrt(gx * gx + gy * gy)
+
+        return sobel, "two conv2d + sqrt"
+    if name == "max_filter3":
+        return (lambda: F.max_pool2d(padded, 3, stride=1)), "max_pool2d(3, stride=1)"
+    rate_lap = lap * kw["rate"]
+    return (lambda: x + torch.clamp(F.conv2d(padded, rate_lap)[0, 0], -kw["limit"], kw["limit"])), \
+        "x + clamp(conv2d)"
+
+
 def main() -> int:
     import torch
 
@@ -2816,6 +3129,7 @@ def main() -> int:
         reduction_tree,
         stencil2d,
         tall_skinny_svd,
+        tanh_laplace,
     )
     from dask_array_tpu_torch.ops import linalg_decomp
     from dask_array_tpu_torch.ops._overlap import BandStencil
@@ -2826,7 +3140,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    built = _build.build_all(["band_stencil", "mstat", "transpose", "halo", "scale", "histogram"])
+    # the six kernels and the band-stencil programs of phases 18, 30, 32
+    # and 35, one nvcc each, all started together; each build timed
+    program_items = {key: stencil.program_build_item(*key) for key in program_keys(stencil)}
+    built, program_builds = build_timed(_build, ["band_stencil", "mstat", "transpose", "halo", "scale", "histogram"],
+                                        program_items)
     build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2836,6 +3154,8 @@ def main() -> int:
     for _, ptxas in built.values():
         print(ptxas.strip(), flush=True)
     phase(1, "setup", build_s=build_s, libraries=[p.name for p, _ in built.values()],
+          programs=len(program_builds), program_build_s=[b["build_s"] for b in program_builds.values()],
+          program_registers=[b["registers"] for b in program_builds.values()],
           torch=torch.__version__, cuda=torch.version.cuda, device=kind)
     print(smi, flush=True)
 
@@ -3369,15 +3689,18 @@ def main() -> int:
         del res, ref
         phase(17, f"stencil2d-slices-{n}", chunks=chunk, **gen_paths[f"slices_{n}"][2])
 
-    # -- phase 18: a func the band kernel cannot read ------------------------------
+    # -- phase 18: a non-linear func: one band-stencil launch of its program --------
     x4_np = gen_paths["slices_4096"][1]
-    nonlin = da.map_overlap(lambda b: torch.tanh(laplace_roll(b)), da.from_array(x4_np, chunks=1024),
-                            depth=1, boundary="reflect")
-    check(not isinstance(nonlin.expr, BandStencil), "tanh(laplace) routed to BandStencil")
-    halo.LAUNCHES = stencil.LAUNCHES = 0
+    nonlin = da.map_overlap(tanh_laplace, da.from_array(x4_np, chunks=1024), depth=1, boundary="reflect")
+    check(isinstance(nonlin.expr, BandStencil) and stencil.is_program(nonlin.expr.taps),
+          "tanh(laplace) is no BandStencil of a program")
+    halo.LAUNCHES = 0
+    stencil.reset_launches()
     res = nonlin.compute()
-    nl_launches = {"halo": halo.LAUNCHES, "band_stencil": stencil.LAUNCHES}
-    check(nl_launches == {"halo": 1, "band_stencil": 0}, f"tanh(laplace): launches {nl_launches}")
+    nl_launches = {"halo": halo.LAUNCHES, "band_stencil": stencil.LAUNCHES, **stencil.VARIANT_LAUNCHES}
+    check(nl_launches == {"halo": 0, "band_stencil": 1, "window": 0, "taps": 0, "program": 1},
+          f"tanh(laplace): launches {nl_launches}")
+    program_launches = stencil.VARIANT_LAUNCHES["program"]
     ref = np.tanh(numpy_laplace(x4_np))
     np.testing.assert_allclose(res, ref, rtol=1e-5, atol=1e-6)
     phase(18, "map_overlap-tanh-laplace-4096", chunks=1024, launches=nl_launches,
@@ -3776,6 +4099,8 @@ def main() -> int:
           **sp["a"])
     phase(30, "stream-tanh-laplace", card=smi, shape=[sizes30["square"]] * 2, chunks=sizes30["square_chunk"],
           **sp["b"])
+    phase(30, "stream-median3", card=smi, shape=[sizes30["square"]] * 2, chunks=sizes30["square_chunk"],
+          **sp["b_median"])
     for name, num in sp["c"].items():
         phase(30, f"stream-reduce-{name}", card=smi, shape=[sizes30["rows"], sizes30["cols"]],
               chunk_rows=sizes30["panel"], **num)
@@ -3830,9 +4155,17 @@ def main() -> int:
     phase(34, "seconds", seconds=time.perf_counter() - t34)
     print(smi, flush=True)
 
+    # -- phase 35: K1's program kernels at the stencil2d sizes -----------------
+    t35 = time.perf_counter()
+    prog, route_launches = program_paths(da, torch, PROGRAM_SIZES, smi, program_builds)
+    phase(35, "seconds", route_launches=route_launches, seconds=time.perf_counter() - t35)
+    check(route_launches > 0, "phase 35: the program route never launched")
+    print(smi, flush=True)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
+    p4 = prog["tanh_laplace-float32-4096-reflect"]
     print(json.dumps({"kernels": [
         {
             "name": "band_stencil",
@@ -3853,6 +4186,26 @@ def main() -> int:
             "library_ms": st["conv2d_ms"],
             "device_ms": st["kernel_device_ms"],
             **s9_entries["band_stencil"],
+        },
+        {
+            "name": "band_stencil_program",
+            "route": "cuda",
+            "launches_streamed": stream_launches["program"],
+            "launches_phase35": route_launches,
+            "source": "dask_array_tpu_torch/csrc/band_program.cuh (and the source "
+                      "kernels/stencil.py::program_source generates from the func)",
+            "replaces": "dask_array_tpu/kernels/stencil.py:83 (func at :139)",
+            "launches": program_launches,
+            "max_abs_err": p4["max_abs_err"],
+            "ms": p4["kernel_ms"],
+            "plain_ms": p4["plain_ms"],
+            "bound_ms": p4["bound_ms"],
+            "bound_by": p4["bound_by"],
+            "library_ms": p4["library_ms"],
+            "device_ms": p4["kernel_device_ms"],
+            "cases": {k: {key: v[key] for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "kernel_of_bound", "ulps_from_plain", "registers")}
+                      for k, v in prog.items() if "kernel_ms" in v},
         },
         {
             "name": "multi_stat",

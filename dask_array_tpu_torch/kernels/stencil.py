@@ -1,27 +1,38 @@
-"""Band-stencil kernel for 2-D ``map_overlap``: tap capture, the gate, the
-CUDA wrapper and its plain PyTorch version.
+"""Band-stencil kernel for 2-D ``map_overlap``: the func's capture, the
+gate, the CUDA wrappers and their plain PyTorch version.
 
 Counterpart of ``dask_array_tpu/kernels/stencil.py`` (the Pallas band
-kernel).  The Pallas kernel inlines any jnp ``func`` into its body; a
-compiled CUDA kernel cannot run an arbitrary torch function, so this one
-computes the class of funcs the main path uses: a linear stencil of
-shifted windows, ``sum_k w_k * roll(b, (dy_k, dx_k))``.  ``capture_taps``
-reads that table off ``func`` with ``torch.fx``; a func it cannot read
-keeps the ``Overlap -> map_blocks -> trim`` route.
+kernel), which inlines any shape-preserving jnp ``func`` into its body.  A
+compiled CUDA kernel cannot run an arbitrary torch function, so ``func`` is
+read with ``torch.fx`` into one of two specs:
+
+- taps (``capture_taps``): a linear stencil of shifted windows,
+  ``sum_k w_k * roll(b, (dy_k, dx_k))``, run by the hand kernels of
+  ``csrc/band_stencil.cu`` (a register window at depth (1, 1), a tap list
+  at every other depth), their weights passed by value;
+- a program (``capture_program``): a straight-line program of pointwise
+  ops (arithmetic, transcendental functions, ``maximum``/``minimum``,
+  ``clamp``, comparisons, ``where``) over shifted windows, which
+  ``emit_program`` writes as CUDA C++ and ``kernels/_build.py`` compiles
+  into a kernel of its own (``csrc/band_program.cuh`` holds its hand
+  skeleton).
+
+A func neither reads keeps the ``Overlap -> map_blocks -> trim`` route.
 
 ``band_stencil_call`` is what ``BandStencil._build`` calls: for a tensor
 on the CPU it runs ``band_stencil_plain`` (pad, func, trim in torch); for a
-CUDA tensor it launches the kernel (``csrc/band_stencil.cu``) or raises.
-The kernel is compiled with ``nvcc`` at the first CUDA call
-(``kernels/_build.py``).  Its tile is 24 rows by 32 lanes of 16 bytes of
-columns (256 for float16 and bfloat16, 128 for float32 and float64); the
-launcher counts the tiles, so nothing here depends on the width.
+CUDA tensor it launches the kernel of its spec or raises.  Kernels are
+compiled with ``nvcc`` at their first CUDA call.  Their tile is 24 rows by
+32 lanes of 16 bytes of columns (256 for float16 and bfloat16, 128 for
+float32 and float64); the launcher counts the tiles, so nothing here
+depends on the width.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import operator
 import struct
 from numbers import Integral, Number
@@ -39,8 +50,17 @@ _CONSTANT_CODE = 3
 _DTYPE_CODES = {torch.float16: 0, torch.float32: 1, torch.float64: 2, torch.bfloat16: 3}
 _KERNEL_DTYPES = ("float16", "bfloat16", "float32", "float64")
 
-# kernel launches since the last reset; only band_stencil_cuda adds to it
+# kernel launches since the last reset (band_stencil_cuda and
+# band_program_cuda add to it), and the same launches by kernel variant
 LAUNCHES = 0
+VARIANT_LAUNCHES = {"window": 0, "taps": 0, "program": 0}
+
+
+def reset_launches() -> None:
+    """Set ``LAUNCHES`` and every per-variant count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    VARIANT_LAUNCHES.update(dict.fromkeys(VARIANT_LAUNCHES, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +154,23 @@ def _combine(op, args):
     return None
 
 
+def _one_input(func):
+    """``func`` as a function of the block alone, for the trace: fx reads
+    the signature of what it traces, so a partial or a func with defaults
+    is traced through this wrapper and keeps its bound values."""
+
+    def one_input(b):
+        return func(b)
+
+    return one_input
+
+
 def capture_taps(func, depth):
     """The stencil ``func`` computes, as a tuple of ``(dy, dx, w)`` taps
     (``out[i, j] = sum w * b[i + dy, j + dx]``), or None.
 
-    ``func`` is traced with ``torch.fx.symbolic_trace``.  Accepted: one
-    input; ``torch.roll`` (or ``Tensor.roll``) with int shifts and dims,
+    ``func`` is traced with ``torch.fx.symbolic_trace`` as a function of
+    the block alone (``_one_input``).  Accepted: ``torch.roll`` (or ``Tensor.roll``) with int shifts and dims,
     each ``|shift|`` at most that axis's depth; ``+``, ``-`` and unary
     ``-`` of stencils; ``*`` and ``/`` by a Python scalar.  Every tap must
     land within ``depth``, so the kernel's boundary fill and the plain
@@ -148,19 +179,15 @@ def capture_taps(func, depth):
     import torch.fx
 
     try:
-        gm = torch.fx.symbolic_trace(func)
-    except (torch.fx.proxy.TraceError, TypeError, ValueError, AttributeError,
-            NotImplementedError, RuntimeError):
-        # any func torch.fx cannot trace is not a capturable stencil
+        gm = torch.fx.symbolic_trace(_one_input(func))
+    except Exception:  # noqa: BLE001 - any func torch.fx cannot trace is not a capturable stencil
         return None
     env = {}
     result = None
-    n_inputs = 0
     for node in gm.graph.nodes:
         args = torch.fx.node.map_arg(node.args, lambda n: env[n])
         kwargs = torch.fx.node.map_arg(node.kwargs, lambda n: env[n])
-        if node.op == "placeholder":
-            n_inputs += 1
+        if node.op == "placeholder":  # the one input of _one_input
             env[node] = {(0, 0): 1.0}
         elif node.op == "output":
             result = args[0]
@@ -177,7 +204,7 @@ def capture_taps(func, depth):
             return None
         if node.op != "output" and env[node] is None:
             return None
-    if n_inputs != 1 or not isinstance(result, dict):
+    if not isinstance(result, dict):
         return None
     taps = tuple((dy, dx, float(w)) for (dy, dx), w in result.items() if w != 0.0)
     if any(abs(dy) > depth[0] or abs(dx) > depth[1] for dy, dx, _ in taps):
@@ -186,26 +213,503 @@ def capture_taps(func, depth):
 
 
 # ---------------------------------------------------------------------------
+# program capture: any func of pointwise ops over shifted windows
+# ---------------------------------------------------------------------------
+
+# the most nodes a captured program may hold (taps and constants included),
+# and the most fx nodes a func's trace may have before the capture gives up
+MAX_NODES = 64
+_MAX_TRACE = 4 * MAX_NODES
+
+_UNARY = ("neg", "abs", "sqrt", "rsqrt", "exp", "expm1", "log", "log1p", "tanh", "sigmoid", "sin", "cos",
+          "floor", "ceil", "sign", "square", "reciprocal")
+_ARITH = ("add", "sub", "mul", "div")
+_COMPARE = ("gt", "ge", "lt", "le", "eq", "ne")
+
+# fx call_function targets by the program op they compute
+_FUNCTIONS = {
+    operator.add: "add", operator.sub: "sub", operator.mul: "mul", operator.truediv: "div",
+    operator.neg: "neg", operator.abs: "abs", operator.pow: "pow",
+    operator.gt: "gt", operator.ge: "ge", operator.lt: "lt", operator.le: "le", operator.eq: "eq",
+    operator.ne: "ne",
+    torch.add: "add", torch.sub: "sub", torch.subtract: "sub", torch.mul: "mul", torch.multiply: "mul",
+    torch.div: "div", torch.divide: "div", torch.true_divide: "div", torch.negative: "neg",
+    torch.absolute: "abs", torch.pow: "pow", torch.maximum: "maximum", torch.minimum: "minimum",
+    torch.clamp: "clamp", torch.clip: "clamp", torch.where: "where", torch.greater: "gt",
+    torch.greater_equal: "ge", torch.less: "lt", torch.less_equal: "le", torch.not_equal: "ne",
+    **{getattr(torch, name): name for name in _UNARY + _COMPARE},
+}
+# fx call_method names (``b.tanh()``) by program op
+_METHODS = {
+    **{name: name for name in _UNARY + _ARITH + _COMPARE + ("pow", "maximum", "minimum", "clamp")},
+    "subtract": "sub", "multiply": "mul", "divide": "div", "true_divide": "div", "negative": "neg",
+    "absolute": "abs", "clip": "clamp", "where": "where",
+}
+
+
+class _Decline(Exception):
+    """The func is not a program the kernel takes."""
+
+
+class _Sym:
+    """One fx value of the func: a float tensor (``"value"``) or a bool one
+    (``"bool"``, a comparison), as a function of the offset it is read at.
+    ``node(dy, dx)`` interns the program node computing it there: a roll
+    only moves the offset, so the program holds taps and pointwise ops."""
+
+    def __init__(self, kind, build):
+        self.kind = kind
+        self._build = build
+        self._at = {}
+
+    def node(self, dy, dx):
+        got = self._at.get((dy, dx))
+        if got is None:
+            got = self._at[dy, dx] = self._build(dy, dx)
+        return got
+
+
+class _Program:
+    """The nodes being captured, each once (equal nodes are shared)."""
+
+    def __init__(self, depth):
+        self.depth = depth
+        self.nodes = []
+        self._index = {}
+
+    def intern(self, node):
+        key = repr(node)  # repr keeps -0.0 apart from 0.0, and 2 from 2.0
+        got = self._index.get(key)
+        if got is None:
+            if len(self.nodes) >= MAX_NODES:
+                raise _Decline("too many nodes")
+            got = self._index[key] = len(self.nodes)
+            self.nodes.append(node)
+        return got
+
+    def tap(self, dy, dx):
+        if abs(dy) > self.depth[0] or abs(dx) > self.depth[1]:
+            raise _Decline("a tap outside the depth")
+        return self.intern(("tap", dy, dx))
+
+
+def _scalar_arg(v):
+    """A Python scalar operand: int (exactly a float) or float, not bool."""
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        raise _Decline(f"operand {v!r}")
+    if isinstance(v, int) and abs(v) > 2**53:
+        raise _Decline("an int scalar a float does not hold")
+    return v
+
+
+def _op_args(op, args, kwargs):
+    """A call's operands in the program op's order, or _Decline: the
+    arithmetic, unary, comparison and ``maximum``/``minimum`` ops take no
+    keywords; ``clamp`` takes ``min``/``max``; ``where`` its three."""
+    if op == "clamp":
+        full = dict(zip(("input", "min", "max"), args), **kwargs)
+        if set(full) - {"input", "min", "max"} or len(args) > 3:
+            raise _Decline("clamp arguments")
+        return (full.get("input"), full.get("min"), full.get("max"))
+    if kwargs:
+        raise _Decline(f"{op} with keywords")
+    want = 1 if op in _UNARY else 3 if op == "where" else 2
+    if len(args) != want:
+        raise _Decline(f"{op} with {len(args)} operands")
+    return tuple(args)
+
+
+def _apply(prog, op, args):
+    """The ``_Sym`` of ``op`` on ``args`` (``_Sym``s and Python scalars)."""
+    if op == "clamp":
+        x, lo, hi = args
+        if not isinstance(x, _Sym) or x.kind != "value" or (lo is None and hi is None):
+            raise _Decline("clamp of a non-value or with no bounds")
+        bounds = [None if b is None else _scalar_arg(b) for b in (lo, hi)]
+
+        def build_clamp(dy, dx):
+            return prog.intern(("clamp", x.node(dy, dx),
+                                *(None if b is None else prog.intern(("const", b)) for b in bounds)))
+
+        return _Sym("value", build_clamp)
+    if op == "where" and not (isinstance(args[0], _Sym) and any(isinstance(v, _Sym) for v in args[1:])):
+        raise _Decline("where needs a comparison and a tensor branch")
+    if op == "pow" and (not isinstance(args[0], _Sym) or isinstance(args[1], _Sym)):
+        raise _Decline("pow needs a tensor base and a scalar exponent")
+    if op in ("maximum", "minimum") and not all(isinstance(a, _Sym) for a in args):
+        raise _Decline(f"{op} of a scalar")
+    for i, a in enumerate(args):
+        if not isinstance(a, _Sym):
+            _scalar_arg(a)
+        elif a.kind != ("bool" if op == "where" and i == 0 else "value"):
+            raise _Decline(f"{op} of a {a.kind} operand")
+
+    def build(dy, dx):
+        return prog.intern((op, *(a.node(dy, dx) if isinstance(a, _Sym) else prog.intern(("const", a)) for a in args)))
+
+    return _Sym("bool" if op in _COMPARE else "value", build)
+
+
+def _roll_sym(sym, shifts, dims, depth):
+    """``torch.roll(sym, shifts, dims)``: its value at an offset is ``sym``'s
+    at the offset less the shift; each ``|shift|`` at most that axis's
+    depth, as ``capture_taps`` takes them."""
+    shifts, dims = _as_ints(shifts), _as_ints(dims)
+    if not isinstance(sym, _Sym) or shifts is None or dims is None or len(shifts) != len(dims):
+        raise _Decline("roll arguments")
+    sy = sx = 0
+    for s, d in zip(shifts, dims):
+        if d not in (0, 1, -1, -2):
+            raise _Decline("roll of an axis the block lacks")
+        axis = d % 2
+        if abs(s) > depth[axis]:
+            raise _Decline("a roll past the depth")
+        sy, sx = (sy + s, sx) if axis == 0 else (sy, sx + s)
+    return _Sym(sym.kind, lambda dy, dx: sym.node(dy - sy, dx - sx))
+
+
+def capture_program(func, depth):
+    """The straight-line program ``func`` computes, or None.
+
+    ``func`` is traced with ``torch.fx.symbolic_trace``; its rolls become
+    offsets, so the program is a tuple of nodes, each a tuple
+    ``(op, *operands)`` whose operands are indices of earlier nodes (the
+    last node is the result):
+
+    - ``("tap", dy, dx)``: the padded block at ``[i + dy, j + dx]``;
+    - ``("const", v)``: a Python scalar;
+    - ``add sub mul div``, ``pow`` (a scalar exponent), ``neg abs sqrt
+      rsqrt exp expm1 log log1p tanh sigmoid sin cos floor ceil sign
+      square reciprocal``, ``maximum minimum``, ``("clamp", x, lo, hi)``
+      (``lo``/``hi`` a const or None), the comparisons ``gt ge lt le eq
+      ne`` and ``("where", cond, a, b)``.
+
+    Each op is accepted in its function form (``torch.tanh(b)``, ``b +
+    c``) and its method form (``b.tanh()``).  Declined (None): anything
+    else (reductions, ``stack``, ``cat``, indexing, tensor constants,
+    casts, control flow on values), a roll past the depth or a tap the
+    rolls carry past it, a comparison used as a number, and a program of
+    more than ``MAX_NODES`` nodes.  Every tap lies within ``depth``, so
+    ``program_plain`` on the padded block equals ``func`` on it.
+    """
+    import torch.fx
+
+    try:
+        gm = torch.fx.symbolic_trace(_one_input(func))
+    except Exception:  # noqa: BLE001 - any func torch.fx cannot trace is no program
+        return None
+    if len(gm.graph.nodes) > _MAX_TRACE:
+        return None
+    prog = _Program(tuple(depth))
+    env = {}
+    try:
+        for node in gm.graph.nodes:
+            args = torch.fx.node.map_arg(node.args, lambda n: env[n])
+            kwargs = torch.fx.node.map_arg(node.kwargs, lambda n: env[n])
+            if node.op == "placeholder":
+                env[node] = _Sym("value", prog.tap)
+            elif node.op == "output":
+                (result,) = args
+                if not isinstance(result, _Sym) or result.kind != "value":
+                    return None
+                if result.node(0, 0) != len(prog.nodes) - 1:  # the result is built last
+                    return None
+            elif (node.op == "call_function" and node.target is torch.roll) or (
+                node.op == "call_method" and node.target == "roll"
+            ):
+                full = dict(zip(("input", "shifts", "dims"), args), **kwargs)
+                if set(full) - {"input", "shifts", "dims"}:
+                    return None
+                env[node] = _roll_sym(full.get("input"), full.get("shifts"), full.get("dims"), depth)
+            else:
+                table = _FUNCTIONS if node.op == "call_function" else _METHODS if node.op == "call_method" else {}
+                try:
+                    op = table.get(node.target)
+                except TypeError:  # an unhashable target
+                    op = None
+                if op is None:
+                    return None
+                if node.op == "call_method" and op == "where":
+                    # self.where(cond, other) is where(cond, self, other)
+                    if kwargs or len(args) != 3:
+                        return None
+                    args = (args[1], args[0], args[2])
+                env[node] = _apply(prog, op, _op_args(op, args, kwargs))
+    except _Decline:
+        return None
+    return tuple(prog.nodes)
+
+
+def is_program(spec) -> bool:
+    """Whether a stencil spec is a program (its nodes start with an op
+    name) rather than taps (which start with an int offset)."""
+    return bool(spec) and isinstance(spec[0][0], str)
+
+
+def stencil_spec(func, depth):
+    """What the band-stencil kernels take for ``func`` within ``depth``:
+    its taps where it is linear, else its program, else None."""
+    taps = capture_taps(func, depth)
+    return taps if taps is not None else capture_program(func, depth)
+
+
+def bind_kwargs(func, kwargs):
+    """``func`` with its extra keyword arguments bound, as the JAX
+    package's ``BandStencil._build`` binds them."""
+    return functools.partial(func, **kwargs) if kwargs else func
+
+
+# ---------------------------------------------------------------------------
+# the program's plain version and its CUDA source
+# ---------------------------------------------------------------------------
+
+_PLAIN_OPS = {
+    "add": operator.add, "sub": operator.sub, "mul": operator.mul, "div": operator.truediv,
+    "neg": operator.neg, "pow": operator.pow, "gt": operator.gt, "ge": operator.ge, "lt": operator.lt,
+    "le": operator.le, "eq": operator.eq, "ne": operator.ne, "maximum": torch.maximum,
+    "minimum": torch.minimum, "where": torch.where,
+    **{name: getattr(torch, name) for name in _UNARY if name != "neg"},
+}
+
+
+def program_plain(program, padded: torch.Tensor) -> torch.Tensor:
+    """``program`` evaluated in torch over a whole padded block: each tap a
+    roll of ``padded``, each op the torch call ``func`` made, with its
+    operands in ``func``'s order.  A roll commutes with every pointwise op,
+    so this is ``func(padded)`` bit for bit; the tests hold the capture to
+    that.  Nothing on the main path calls it."""
+    vals = []
+    for op, *args in program:
+        if op == "tap":
+            dy, dx = args
+            v = torch.roll(padded, (-dy, -dx), (0, 1)) if dy or dx else padded
+        elif op == "const":
+            (v,) = args
+        elif op == "clamp":
+            x, lo, hi = args
+            v = torch.clamp(vals[x], min=None if lo is None else vals[lo], max=None if hi is None else vals[hi])
+        else:
+            v = _PLAIN_OPS[op](*(vals[a] for a in args))
+        vals.append(v)
+    return vals[-1]
+
+
+_CUDA_TYPES = {torch.float16: "__half", torch.bfloat16: "__nv_bfloat16", torch.float32: "float",
+               torch.float64: "double"}
+# what a float and a double program calls: the _rn intrinsics for the
+# IEEE operations (never contracted into an FMA), the CUDA math library
+# (as torch's own CUDA kernels call it) for the rest
+_INTRINSICS = {
+    False: {"add": "__fadd_rn", "sub": "__fsub_rn", "mul": "__fmul_rn", "div": "__fdiv_rn", "sqrt": "__fsqrt_rn",
+            "abs": "fabsf", "rsqrt": "rsqrtf", "exp": "expf", "expm1": "expm1f", "log": "logf",
+            "log1p": "log1pf", "tanh": "tanhf", "sin": "sinf", "cos": "cosf", "floor": "floorf",
+            "ceil": "ceilf", "pow": "powf", "maximum": "fmaxf", "minimum": "fminf"},
+    True: {"add": "__dadd_rn", "sub": "__dsub_rn", "mul": "__dmul_rn", "div": "__ddiv_rn", "sqrt": "__dsqrt_rn",
+           "abs": "fabs", "rsqrt": "rsqrt", "exp": "exp", "expm1": "expm1", "log": "log", "log1p": "log1p",
+           "tanh": "tanh", "sin": "sin", "cos": "cos", "floor": "floor", "ceil": "ceil", "pow": "pow",
+           "maximum": "fmax", "minimum": "fmin"},
+}
+_COMPARE_SIGNS = {"gt": ">", "ge": ">=", "lt": "<", "le": "<=", "eq": "==", "ne": "!="}
+
+
+def _literal(v, double: bool) -> str:
+    """A scalar that is code (a ``pow`` exponent) as the compute type's
+    exact literal: rounded to float32 for a float program, bit patterns
+    for the non-finite values."""
+    if double:
+        v = float(v)
+        if math.isfinite(v):
+            return f"({v.hex()})"
+        return f"__longlong_as_double({struct.unpack('<q', struct.pack('<d', v))[0]}LL)"
+    with np.errstate(over="ignore"):
+        f = np.float32(v)
+    if np.isfinite(f):
+        return f"({float(f).hex()}f)"
+    return f"__int_as_float({struct.unpack('<i', f.tobytes())[0]})"
+
+
+def _inverse(v, double: bool) -> float:
+    """``1 / v`` as torch's CUDA division by a scalar takes it (it multiplies
+    by the inverse, computed in the compute type)."""
+    with np.errstate(divide="ignore", over="ignore"):
+        return float(np.float64(1.0) / np.float64(v)) if double else float(np.float32(1.0) / np.float32(v))
+
+
+def _emit_node(node, a, inv, consts, f, one, double):
+    """The C++ expression of one program node: ``a`` holds its operands'
+    names (None for a missing clamp bound), ``inv(i)`` names the parameter
+    slot of const node ``i``'s inverse."""
+    op, *args = node
+    if op in ("add", "sub", "mul"):
+        return f"{f[op]}({a[0]}, {a[1]})"
+    if op == "div":
+        num, den = args
+        if den in consts and num not in consts:  # x / c is x * (1 / c)
+            return f"{f['mul']}({a[0]}, {inv(den)})"
+        if num in consts and den not in consts:  # c / x is reciprocal(x) * c
+            return f"{f['mul']}({f['div']}({one}, {a[1]}), {a[0]})"
+        return f"{f['div']}({a[0]}, {a[1]})"
+    if op == "neg":
+        return f"(-{a[0]})"
+    if op == "sigmoid":
+        return f"{f['div']}({one}, {f['add']}({one}, {f['exp']}(-{a[0]})))"
+    if op == "sign":
+        return f"static_cast<A>(static_cast<int>(A(0) < {a[0]}) - static_cast<int>({a[0]} < A(0)))"
+    if op == "square":
+        return f"{f['mul']}({a[0]}, {a[0]})"
+    if op == "reciprocal":
+        return f"{f['div']}({one}, {a[0]})"
+    if op == "pow":
+        x, e = a[0], float(consts[args[1]])
+        special = {0.0: one, 1.0: x, 0.5: f"{f['sqrt']}({x})", -0.5: f"{f['rsqrt']}({x})",
+                   -1.0: f"{f['div']}({one}, {x})", 2.0: f"{f['mul']}({x}, {x})",
+                   3.0: f"{f['mul']}({f['mul']}({x}, {x}), {x})",
+                   -2.0: (f"__ddiv_rn(1.0, __dmul_rn({x}, {x}))" if double
+                          else f"static_cast<float>(1.0 / static_cast<double>(__fmul_rn({x}, {x})))")}
+        return special.get(e, f"{f['pow']}({x}, {_literal(e, double)})")
+    if op in ("maximum", "minimum"):
+        return f"({a[0]} != {a[0]}) ? {a[0]} : (({a[1]} != {a[1]}) ? {a[1]} : {f[op]}({a[0]}, {a[1]}))"
+    if op == "clamp":
+        x, lo, hi = a
+        inner = x if lo is None else f"{f['maximum']}({x}, {lo})"
+        inner = inner if hi is None else f"{f['minimum']}({inner}, {hi})"
+        return f"({x} != {x}) ? {x} : {inner}"
+    if op in _COMPARE_SIGNS:
+        return f"({a[0]} {_COMPARE_SIGNS[op]} {a[1]})"
+    if op == "where":
+        return f"{a[0]} ? {a[1]} : {a[2]}"
+    return f"{f[op]}({a[0]})"
+
+
+def _emit(program, dtype):
+    """(the C++ functor of ``program``, its scalar slots): each slot a
+    ``(const node, inverse)`` pair, in the order of the parameter block.
+    The text depends on the program's ops, its taps and ``pow``'s
+    exponents, never on another scalar's value."""
+    double = dtype == torch.float64
+    f = _INTRINSICS[double]
+    one = "1.0" if double else "1.0f"
+    consts = {i: node[1] for i, node in enumerate(program) if node[0] == "const"}
+    slots = {}
+
+    def slot(i, inverse=False):
+        k = slots.setdefault((i, inverse), len(slots))
+        return f"c[{k}]"
+
+    lines = []
+    for i, node in enumerate(program):
+        op = node[0]
+        if op == "const":
+            continue
+        if op == "tap":
+            dy, dx = node[1:]
+            expr = f"Acc<T>::load(p[{dy} * kStride<T> + {dx}])"
+        else:
+            read = node[1:]
+            if op == "pow" or (op == "div" and node[2] in consts and node[1] not in consts):
+                read = node[1:2]  # an exponent is code; a divisor is read as its inverse
+            a = [None if j is None else slot(j) if j in consts and j in read else f"v{j}" for j in node[1:]]
+            expr = _emit_node(node, a, lambda j: slot(j, True), consts, f, one, double)
+        kind = "bool" if op in _COMPARE_SIGNS else "A"
+        lines.append(f"    const {kind} v{i} = {expr};")
+    text = "\n".join([
+        "struct Program {",
+        f"  static constexpr int kSlots = {len(slots)};",
+        "  __device__ __forceinline__ static Acc<T>::type eval(const T* p, const Acc<T>::type* __restrict__ c) {",
+        "    using A = Acc<T>::type;",
+        *lines,
+        f"    return v{len(program) - 1};",
+        "  }",
+        "};",
+    ])
+    return text, tuple(slots)
+
+
+def emit_program(program, dtype) -> str:
+    """``program`` as the C++ functor ``Program``: ``eval(p, c)`` computes
+    one output in ``Acc<T>`` from the staged tile, ``p`` pointing at the
+    output's own element (a tap ``(dy, dx)`` reads ``p[dy * kStride<T> +
+    dx]``) and ``c`` at the scalars (``program_scalars``).  Every node but
+    a scalar is a named value.  The source of one program is always the
+    same text, whatever its scalars' values (``pow``'s exponents aside)."""
+    return _emit(program, dtype)[0]
+
+
+def program_scalars(program, slots, dtype) -> bytes:
+    """The parameter block's scalars of ``program``: each slot's const in
+    the compute type (float32, as torch's CUDA kernels convert a scalar
+    operand, for every type but float64), or its inverse where the
+    program divides by it."""
+    double = dtype == torch.float64
+    vals = [_inverse(program[i][1], double) if inverse else float(program[i][1]) for i, inverse in slots]
+    if double:
+        return struct.pack(f"<{len(vals)}d", *vals)
+    with np.errstate(over="ignore"):
+        return np.array(vals, dtype=np.float64).astype(np.float32).tobytes()
+
+
+def program_source(program, depth, dtype: torch.dtype) -> str:
+    """The whole generated CUDA source of ``program`` over ``dtype`` blocks
+    at ``depth`` (fixed at compile time): ``csrc/band_program.cuh``, the
+    functor of ``emit_program`` and the C entry point
+    ``band_program_launch``.  Programs that differ only in their scalars'
+    values (``pow``'s exponents aside) have one source."""
+    d0, d1 = depth
+    exponents = {node[2] for node in program if node[0] == "pow"}
+    listing = "\n".join(
+        f"//   {i}: {' '.join(map(repr, node)) if node[0] != 'const' or i in exponents else 'const (a parameter)'}"
+        for i, node in enumerate(program))
+    return f"""// Generated by dask_array_tpu_torch/kernels/stencil.py::program_source from
+// the program below (kernels/stencil.py::capture_program); not edited by hand.
+{listing}
+#include "band_program.cuh"
+
+namespace {{
+
+using T = {_CUDA_TYPES[dtype]};
+constexpr int D0 = {int(d0)}, D1 = {int(d1)};
+
+{emit_program(program, dtype)}
+
+}}  // namespace
+
+extern "C" {{
+
+int band_program_launch(const void* x, void* out, long long M, long long N, int d0, int d1, int bd0, int bd1,
+                        double fill0, double fill1, int vec, const void* scalars, int nscalars, void* stream) {{
+  return launch_program<T, D0, D1, Program>(x, out, M, N, d0, d1, bd0, bd1, fill0, fill1, vec, scalars, nscalars,
+                                            stream);
+}}
+
+const char* band_program_error_string(int code) {{ return cudaGetErrorString(static_cast<cudaError_t>(code)); }}
+
+}}  // extern "C"
+"""
+
+
+# ---------------------------------------------------------------------------
 # the gate
 # ---------------------------------------------------------------------------
 
 
 def stencil_taps(ndim, dtype, depth, boundary, func, kwargs):
-    """The taps the band-stencil kernel takes for ``func`` over blocks of
-    ``ndim`` axes and ``dtype``, or None.
+    """The stencil spec the band-stencil kernels take for ``func`` over
+    blocks of ``ndim`` axes and ``dtype``: its taps or its program
+    (``stencil_spec``), or None.
 
     ``depth`` holds one ``(lo, hi)`` pair and ``boundary`` one mode per
-    axis.  Eligible: config ``stencil-kernel`` not "off"; 2-D float; no
-    extra func kwargs; symmetric depth at most 8 per axis; each boundary
-    with depth one of reflect, nearest, periodic or a scalar constant; and
-    ``capture_taps`` reads a stencil off ``func``.  The one gate of every
-    route to the kernel (``map_overlap``'s and the shard lane's).
+    axis.  Eligible: config ``stencil-kernel`` not "off"; 2-D float;
+    symmetric depth at most 8 per axis; each boundary with depth one of
+    reflect, nearest, periodic or a scalar constant; and ``func``, with
+    ``kwargs`` bound (``bind_kwargs``), is a stencil or a program.  The one
+    gate of every route to the kernels (``map_overlap``'s and the shard
+    lane's); each route runs the bound func.
     """
     from dask_array_tpu_torch import config
 
     if config.get("stencil-kernel", "auto") in ("off", False, None):
         return None
-    if ndim != 2 or np.dtype(dtype).name not in _KERNEL_DTYPES or kwargs:
+    if ndim != 2 or np.dtype(dtype).name not in _KERNEL_DTYPES:
         return None
     dep = []
     for (lo, hi), b in zip(depth, boundary):
@@ -214,17 +718,21 @@ def stencil_taps(ndim, dtype, depth, boundary, func, kwargs):
         if lo and b not in _BOUNDARY_CODES and not _is_scalar(b):
             return None
         dep.append(lo)
-    return capture_taps(func, tuple(dep))
+    return stencil_spec(bind_kwargs(func, kwargs), tuple(dep))
+
+
+# map_blocks keywords of map_overlap, which the func never sees
+_BLOCK_KEYWORDS = ("chunks", "new_axis", "drop_axis", "meta")
 
 
 def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
-    """The taps of an eligible map_overlap, or None.
+    """The stencil spec of an eligible map_overlap, or None.
 
-    Eligible: one array of known, non-empty shape with ``trim=True``, that
-    ``stencil_taps`` takes.  Decided when the graph is built, whatever the
-    device.
+    Eligible: one array of known, non-empty shape with ``trim=True``, no
+    map_blocks keyword that reshapes the blocks, that ``stencil_taps``
+    takes.  Decided when the graph is built, whatever the device.
     """
-    if not trim or len(arrays) != 1:
+    if not trim or len(arrays) != 1 or any(k in kwargs for k in _BLOCK_KEYWORDS):
         return None
     a = arrays[0]
     if any(not isinstance(s, Integral) or s <= 0 for s in a.shape):
@@ -240,10 +748,11 @@ def use_band_stencil(arrays, depths, bounds, trim, func, kwargs):
 
 
 def band_stencil_plain(x: torch.Tensor, func, depth, boundary) -> torch.Tensor:
-    """``trim(func(pad(x)))`` in torch: the kernel's reference.  bfloat16
-    computes in float32 and rounds once, as the kernel does (a constant
-    fill rounded to bfloat16 first, as the kernel reads it)."""
-    if x.dtype == torch.bfloat16:
+    """``trim(func(pad(x)))`` in torch: the kernels' reference.  bfloat16
+    and float16 compute in float32 and round once, as the kernels do (a
+    constant fill rounded to the 2-byte type first, as the kernels read
+    it)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
         boundary = tuple(float(torch.tensor(b, dtype=x.dtype)) if _is_scalar(b) else b for b in boundary)
         return band_stencil_plain(x.float(), func, depth, boundary).to(x.dtype)
     d0, d1 = depth
@@ -253,12 +762,15 @@ def band_stencil_plain(x: torch.Tensor, func, depth, boundary) -> torch.Tensor:
     return out[d0 : d0 + x.shape[0], d1 : d1 + x.shape[1]]
 
 
-def band_stencil_call(x: torch.Tensor, func, depth, boundary, taps) -> torch.Tensor:
-    """The stencil of one 2-D tensor: the plain version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor."""
+def band_stencil_call(x: torch.Tensor, func, depth, boundary, spec) -> torch.Tensor:
+    """The stencil of one 2-D tensor: the plain version for a CPU tensor;
+    for a CUDA tensor the kernel of ``spec``, the program's
+    (``band_program_cuda``) or the taps' (``band_stencil_cuda``)."""
     if x.device.type == "cpu":
         return band_stencil_plain(x, func, depth, boundary)
-    return band_stencil_cuda(x, taps, depth, boundary)
+    if is_program(spec):
+        return band_program_cuda(x, spec, depth, boundary)
+    return band_stencil_cuda(x, spec, depth, boundary)
 
 
 # csrc/band_stencil.cu's kernels: the register window of depth (1, 1) (the
@@ -348,7 +860,53 @@ def band_stencil_cuda(x: torch.Tensor, taps, depth, boundary) -> torch.Tensor:
     out = torch.empty_like(x)
     _launcher()(x.get_device(), code, x.data_ptr(), out.data_ptr(), M, N, table, vector_ok(x, out))
     LAUNCHES += 1
+    VARIANT_LAUNCHES["window" if kernel_variant(depth) == WINDOW_11 else "taps"] += 1
     return out
+
+
+def band_program_cuda(x: torch.Tensor, program, depth, boundary) -> torch.Tensor:
+    """Launch the kernel generated from ``program`` on a 2-D CUDA tensor.
+
+    The source (``program_source``) is built with nvcc at its first use
+    and the library kept (``_program_kernel``, ``kernels/_build.py``); the
+    program's scalars go by value (``program_scalars``);
+    a failed build raises, as does anything the kernel does not take: a
+    non-CUDA or non-contiguous tensor, a dtype other than
+    float16/bfloat16/32/64, a depth above 8, a tap outside the depth, or
+    an unknown boundary.
+    """
+    global LAUNCHES
+    if not x.is_cuda:
+        raise ValueError(f"band_program_cuda needs a CUDA tensor, got one on {x.device}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("band_program_cuda needs a contiguous 2-D tensor")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"band_program_cuda does not take {x.dtype}")
+    d0, d1 = (int(d) for d in depth)
+    if not (0 <= d0 <= MAX_DEPTH and 0 <= d1 <= MAX_DEPTH):
+        raise ValueError(f"band_program_cuda takes depths 0..{MAX_DEPTH}, got {depth}")
+    if any(node[0] == "tap" and (abs(node[1]) > d0 or abs(node[2]) > d1) for node in program):
+        raise ValueError(f"band_program_cuda: the program's taps do not fit depth {depth}")
+    M, N = x.shape
+    if M == 0 or N == 0:
+        raise ValueError("band_program_cuda needs a non-empty tensor")
+    bd0, fill0 = _boundary_arg(boundary[0], d0, x.dtype)
+    bd1, fill1 = _boundary_arg(boundary[1], d1, x.dtype)
+    if not isinstance(program, tuple):
+        program = tuple(map(tuple, program))
+    launch, slots = _program_kernel(program, (d0, d1), x.dtype)
+    out = torch.empty_like(x)
+    launch(x.get_device(), x.data_ptr(), out.data_ptr(), M, N, d0, d1, bd0, bd1, fill0, fill1,
+           int(vector_ok(x, out)), program_scalars(program, slots, x.dtype), len(slots))
+    LAUNCHES += 1
+    VARIANT_LAUNCHES["program"] += 1
+    return out
+
+
+def program_build_item(program, depth, dtype):
+    """``(name, source)`` of a program's library, for ``_build.build_all``
+    (several programs built in parallel before their first launch)."""
+    return "band_program", program_source(program, tuple(depth), dtype)
 
 
 # (dtype code, tap table) by (taps, depth, boundary key, dtype)
@@ -399,3 +957,22 @@ def _tap_key(taps):
 def _launcher():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return Launcher("band_stencil", "band_stencil_launch", [i, p, p, ll, ll, ctypes.c_char_p, i], "band_stencil")
+
+
+@functools.lru_cache(maxsize=64)
+def _program_kernel(program, depth, dtype):
+    """(the bound entry point of ``program``'s library at ``depth`` over
+    ``dtype``, its scalar slots): the source generated, its library built
+    if missing (``kernels/_build.py``, keyed by the source, so programs
+    that differ only in their scalars share one) and loaded.  The 64 most
+    recently used stay bound.  Programs equal as tuples (a scalar 0.0 and
+    -0.0, or 2 and 2.0) share an entry: the slots name nodes, and each
+    launch reads the values from its own program."""
+    from dask_array_tpu_torch.kernels._build import build_library
+
+    _, slots = _emit(program, dtype)
+    path, _ = build_library("band_program", program_source(program, depth, dtype))
+    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    launch = Launcher(ctypes.CDLL(str(path)), "band_program_launch",
+                      [p, p, ll, ll, i, i, i, i, d, d, i, ctypes.c_char_p, i], "band-stencil program")
+    return launch, slots

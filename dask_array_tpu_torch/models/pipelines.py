@@ -4,9 +4,10 @@ Port of ``dask_array_tpu/models/pipelines.py``: the README example (slice
 pushdown + fusion), the flagship ``normalize_contract`` step, the
 ``split_every`` tree reductions (BASELINE config 2), the blocked matmul
 with misaligned chunks (BASELINE config 3), the 2-D ``map_overlap``
-Laplace stencil (BASELINE config 4), the tall-skinny SVD (BASELINE config
-5) and the rows-to-columns relayout of a transposed array (BASELINE
-metric 2).
+Laplace stencil (BASELINE config 4) and four non-linear funcs of that
+stencil's sizes (``tanh_laplace``, ``sobel_magnitude``, ``max_filter3``,
+``limited_diffusion``), the tall-skinny SVD (BASELINE config 5) and the
+rows-to-columns relayout of a transposed array (BASELINE metric 2).
 
 ``reduction_tree``, ``stencil2d``, ``tall_skinny_svd`` and
 ``rechunk_relayout`` take their input in two forms.  Given no numpy array,
@@ -83,6 +84,42 @@ def laplace_roll(b):
         + torch.roll(b, 1, 1) + torch.roll(b, -1, 1)
         - 4 * b
     )
+
+
+def tanh_laplace(b):
+    """tanh of the depth-1 Laplace: a program the band-stencil kernel
+    takes (``kernels.stencil.capture_program``)."""
+    return torch.tanh(laplace_roll(b))
+
+
+def sobel_magnitude(b):
+    """The 3x3 Sobel gradient magnitude, ``sqrt(gx*gx + gy*gy)``."""
+    up, down = torch.roll(b, 1, 0), torch.roll(b, -1, 0)
+    gx = (torch.roll(up, -1, 1) + 2 * torch.roll(b, -1, 1) + torch.roll(down, -1, 1)
+          - torch.roll(up, 1, 1) - 2 * torch.roll(b, 1, 1) - torch.roll(down, 1, 1))
+    gy = (torch.roll(down, 1, 1) + 2 * down + torch.roll(down, -1, 1)
+          - torch.roll(up, 1, 1) - 2 * up - torch.roll(up, -1, 1))
+    return torch.sqrt(gx * gx + gy * gy)
+
+
+def max_filter3(b):
+    """The 3x3 max filter (a morphological dilation): ``torch.maximum`` of
+    the nine shifted windows."""
+    out = b
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                out = torch.maximum(out, torch.roll(b, (dy, dx), (0, 1)))
+    return out
+
+
+def limited_diffusion(b, rate=0.2, limit=0.05):
+    """One explicit diffusion step whose change is cut to ``limit`` where
+    it is larger: ``where(|d| > limit, sign(d) * limit, d)`` with ``d =
+    rate * laplace(b)``.  ``rate`` and ``limit`` are the scalar keywords a
+    ``map_overlap`` call passes."""
+    d = rate * laplace_roll(b)
+    return b + torch.where(torch.abs(d) > limit, torch.sign(d) * limit, d)
 
 
 def laplace_slices(p):

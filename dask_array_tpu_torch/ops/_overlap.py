@@ -352,11 +352,14 @@ class TrimInternal(ArrayExpr):
 class BandStencil(ArrayExpr):
     """2-D ``map_overlap`` as one band-stencil call over the dense tensor.
 
-    ``taps`` is the stencil ``kernels.stencil.capture_taps`` read off
-    ``func``; the CUDA kernel computes it, and on a CPU tensor the plain
-    version runs ``func`` itself (``kernels.stencil.band_stencil_call``).
-    Same locality contract as the reference's node: ``func`` is local
-    within ``depth`` and size-preserving.
+    ``taps`` is the stencil spec ``kernels.stencil.stencil_spec`` read off
+    ``func`` (its extra keywords already bound): a linear stencil's taps or
+    a program of pointwise ops over shifted windows.  A CUDA kernel
+    computes it, and on a CPU tensor the plain version runs ``func``
+    itself (``kernels.stencil.band_stencil_call``); the result is cast to
+    the meta dtype, as the reference's node casts the kernel's.  Same
+    locality contract as the reference's node: ``func`` is local within
+    ``depth`` and size-preserving.
 
     ``margin`` (per-axis ``(mlo, mhi)``) marks rows at the input's ends
     that serve as halo only, as in ``Overlap``: a slice pushed below the
@@ -719,14 +722,15 @@ def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=
     """Apply ``func`` to blocks (of one or more arrays) with ghost cells.
 
     The pipeline is align -> overlap each array -> map_blocks -> trim.  An
-    eligible 2-D single-array stencil (``kernels.stencil.use_band_stencil``)
-    becomes one ``BandStencil`` node instead.  ``depth``/``boundary`` may be
-    lists with one entry per array; trimming uses the highest-rank array's
-    depth.
+    eligible 2-D single-array stencil (``kernels.stencil.use_band_stencil``:
+    a linear stencil or a program of pointwise ops over shifted windows,
+    its scalar keywords bound) becomes one ``BandStencil`` node instead.
+    ``depth``/``boundary`` may be lists with one entry per array; trimming
+    uses the highest-rank array's depth.
     """
     from dask_array_tpu_torch._collection import Array, new_collection
     from dask_array_tpu_torch._expr import compute_meta
-    from dask_array_tpu_torch.kernels.stencil import use_band_stencil
+    from dask_array_tpu_torch.kernels.stencil import bind_kwargs, use_band_stencil
     from dask_array_tpu_torch.ops._map_blocks import map_blocks
 
     if isinstance(func, Array) and args and callable(args[0]):
@@ -772,19 +776,20 @@ def map_overlap(func, *args, depth=None, boundary=None, trim=True, align_arrays=
 
     dtype = kwargs.pop("dtype", None)
     fkw = {k: v for k, v in kwargs.items() if k not in ("name", "token")}
-    taps = use_band_stencil(arrays, depths, bounds, trim, func, fkw)
-    if taps is not None:
+    spec = use_band_stencil(arrays, depths, bounds, trim, func, fkw)
+    if spec is not None:
         a = arrays[0]
+        bound = bind_kwargs(func, fkw)
         if dtype is None:
-            meta = compute_meta(func, a.ndim, a.expr)
+            meta = compute_meta(bound, a.ndim, a.expr)
             dtype = meta.dtype if meta is not None else a.dtype
         return new_collection(BandStencil(
             a.expr,
-            func,
+            bound,
             tuple(depths[0][ax] for ax in range(2)),
             tuple(bounds[0][ax] for ax in range(2)),
             np.dtype(dtype),
-            taps,
+            spec,
         ))
 
     from dask_array_tpu_torch import config

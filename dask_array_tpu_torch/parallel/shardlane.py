@@ -25,8 +25,8 @@ the body into phases at each collective:
   * halo stencils exchange each slot run's edge bands with ONE ``ppermute``
     each way (two more for a periodic wrap), then run the stencil once a
     slot: the band-stencil kernel where ``kernels.stencil.stencil_taps``
-    takes the func (the gate ``map_overlap``'s route takes too), the halo
-    kernel and the func otherwise.
+    takes the func, linear or a program (the gate ``map_overlap``'s route
+    takes too), the halo kernel and the func otherwise.
 
 No padding means no validity mask: the JAX package's ``_masked_combine``
 shrinks to the NaN and arg-extremum votes.  A piece's values are the
@@ -1312,13 +1312,13 @@ def _execute_stencil(plan, mesh, sources, out_dtype):
     ``ppermute`` each way over the slot ring; two more wrap a periodic
     axis), the first and last runs realize the boundary, and the stencil
     runs once a slot over the haloed run: the band-stencil kernel where
-    ``stencil_taps`` takes the func (so not under ``stencil-kernel: off``
-    nor past depth 8), the halo kernel (the other axes' boundary) and the
-    func otherwise.  Under the ``map_overlap``
+    ``stencil_taps`` takes the func, its taps or its program (so not under
+    ``stencil-kernel: off`` nor past depth 8), the halo kernel (the other
+    axes' boundary) and the func otherwise.  Under the ``map_overlap``
     locality contract this equals the func per block."""
     from dask_array_tpu_torch._chunks import cast, cat
     from dask_array_tpu_torch.kernels.halo import halo_pad, numpy_mode
-    from dask_array_tpu_torch.kernels.stencil import band_stencil_call, stencil_taps
+    from dask_array_tpu_torch.kernels.stencil import band_stencil_call, bind_kwargs, stencil_taps
     from dask_array_tpu_torch.ops._overlap import _edge_fill
     from dask_array_tpu_torch.parallel.collectives import ppermute
 
@@ -1371,7 +1371,7 @@ def _execute_stencil(plan, mesh, sources, out_dtype):
         if taps is not None:
             dep = tuple(lo for lo, _ in depth)
             # the kernel pads the unchunked axis with its boundary itself
-            out = band_stencil_call(vin.contiguous(), func, dep, tuple(boundary), taps)
+            out = band_stencil_call(vin.contiguous(), bind_kwargs(func, fkw), dep, tuple(boundary), taps)
             out = out.narrow(d, lo_d, v.shape[d])
         else:
             widths = [(0, 0) if ax == d else tuple(depth[ax]) for ax in range(nd)]

@@ -328,15 +328,36 @@ def test_ineligible_asymmetric_none(rng):
 
 
 def test_ineligible_nonlinear_func(rng):
+    """A non-linear func is no stencil of taps, but the band kernel takes it
+    as a program (tests/test_torch_band_program.py); it agrees with the JAX
+    package's Pallas kernel in interpret mode."""
     import jax.numpy as jnp
 
     x = rng.standard_normal((64, 64)).astype("f4")
     got = tda.map_overlap(lambda b: torch.sin(torch.roll(b, 1, 0)) * b, tda.from_array(x, chunks=16),
                           depth=1, boundary="nearest", dtype="float32")
+    assert isinstance(got.expr, BandStencil) and stencil.is_program(got.expr.taps)
+    with jconfig.set({"tpu.stencil-kernel": "interpret"}):
+        ref = jda.map_overlap(lambda b: jnp.sin(jnp.roll(b, 1, 0)) * b, jda.from_array(x, chunks=16),
+                              depth=1, boundary="nearest", dtype="float32")
+        assert isinstance(ref.expr, JaxBandStencil)
+        want = ref.compute()
+    np.testing.assert_allclose(got.compute(), want, atol=1e-5)
+
+
+def test_ineligible_median_filter_keeps_overlap(rng):
+    """A func the capture declines (a stack and a median) keeps the
+    ``Overlap`` route and agrees with the JAX package."""
+    import jax.numpy as jnp
+
+    offsets = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    x = rng.standard_normal((64, 64)).astype("f4")
+    got = tda.map_overlap(lambda b: torch.stack([torch.roll(b, o, (0, 1)) for o in offsets]).median(0).values,
+                          tda.from_array(x, chunks=16), depth=1, boundary="reflect", dtype="float32")
     assert not isinstance(got.expr, BandStencil)
-    ref = jda.map_overlap(lambda b: jnp.sin(jnp.roll(b, 1, 0)) * b, jda.from_array(x, chunks=16),
-                          depth=1, boundary="nearest", dtype="float32")
-    np.testing.assert_allclose(got.compute(), ref.compute(), atol=1e-5)
+    ref = jda.map_overlap(lambda b: jnp.median(jnp.stack([jnp.roll(b, o, (0, 1)) for o in offsets]), axis=0),
+                          jda.from_array(x, chunks=16), depth=1, boundary="reflect", dtype="float32")
+    np.testing.assert_array_equal(got.compute(), ref.compute())
 
 
 def test_stencil_kernel_off_keeps_overlap(rng):

@@ -64,6 +64,19 @@ def laplace(b):
     )
 
 
+def median3(b):
+    """The 3x3 median filter: a stack and a median, a func the band
+    kernel's capture declines (it keeps the halo path)."""
+    return torch.stack([torch.roll(b, (dy, dx), (0, 1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]).median(0).values
+
+
+def np_median3(x, mode):
+    p = np.pad(x, 1, mode=mode)
+    m, n = x.shape
+    return np.median(np.stack([p[1 + dy:m + 1 + dy, 1 + dx:n + 1 + dx] for dy in (-1, 0, 1) for dx in (-1, 0, 1)]),
+                     axis=0)
+
+
 def far(b):
     return torch.roll(b, 8, 0) - 0.5 * torch.roll(b, -8, 1) + torch.roll(torch.roll(b, -3, 0), 5, 1) / 4
 
@@ -491,15 +504,15 @@ def test_general_halo_path_on_the_card_launches_the_halo_kernel(cuda):
     import dask_array_tpu_torch as da
     from dask_array_tpu_torch import config
     from dask_array_tpu_torch.kernels import halo, stencil
-    from dask_array_tpu_torch.models.pipelines import laplace_roll, stencil2d
+    from dask_array_tpu_torch.models.pipelines import stencil2d
 
     x = np.random.default_rng(6).standard_normal((512, 384)).astype(np.float32)
     want = _np_laplace(x)
     with config.set({"device": "cuda"}):
         for arr, expect in (
             (stencil2d(x, chunk=128, form="slices"), want),
-            (da.map_overlap(lambda b: torch.tanh(laplace_roll(b)), da.from_array(x, chunks=128),
-                            depth=1, boundary="reflect"), np.tanh(want)),
+            (da.map_overlap(median3, da.from_array(x, chunks=128), depth=1, boundary="reflect"),
+             np_median3(x, "symmetric")),
         ):
             h0, s0 = halo.LAUNCHES, stencil.LAUNCHES
             got = arr.compute()
@@ -1978,7 +1991,7 @@ def test_band_stencil_under_a_mesh_launches_once_a_slot(cuda, boundary):
 
 @pytest.mark.gpu
 def test_shard_stencil_and_lane_stencil_on_the_card(cuda):
-    """``ShardStencil`` (a non-linear func: the halo kernel once a slot) and
+    """``ShardStencil`` (a func the band kernel declines: the halo kernel once a slot) and
     the shard lane's stencil plan (a linear func on an irregular grid: the
     band-stencil kernel once a slot; under ``stencil-kernel: off`` never)
     on the card, equal to the walk."""
@@ -1991,11 +2004,8 @@ def test_shard_stencil_and_lane_stencil_on_the_card(cuda):
 
     x = np.random.default_rng(7).standard_normal((512, 256)).astype(np.float32)
 
-    def tlap(b):
-        return torch.tanh(laplace(b))
-
     with config.set({"device": "cuda", "overlap-method": "shard"}):
-        e = da.map_overlap(tlap, da.from_array(x, chunks=(128, 256)), depth=1, boundary="nearest")
+        e = da.map_overlap(median3, da.from_array(x, chunks=(128, 256)), depth=1, boundary="nearest")
         assert type(e.expr).__name__ == "ShardStencil"
         want = e.compute()
         with use_mesh(_card_mesh((4,), ("r",))):
@@ -2380,3 +2390,266 @@ def test_streamed_dtypes_on_the_card(cuda):
     assert panels >= 2 and stencil.LAUNCHES == panels
     for a, b in zip(streamed, in_core):
         assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# K1's program kernels: a non-linear func's captured program, generated as
+# CUDA and built at its first use, against the plain version on the card.
+# Contract: equal bytes for programs of + - * /, neg, abs, sqrt, floor,
+# ceil, sign, square, reciprocal, maximum/minimum, clamp, comparisons and
+# where; within 2 ulp of the result's type where a transcendental function
+# or a general power appears (the kernel and torch's CUDA kernels call the
+# same CUDA math library; 2-byte types compute in float32 on both sides
+# and round once).
+# ---------------------------------------------------------------------------
+
+
+def _r(b, dy, dx):
+    return torch.roll(b, (dy, dx), (0, 1))
+
+
+# one program an op (float32, depth (1, 1)), each non-linear, so no tap
+# list takes it; the bool says "equal bytes"
+PROGRAM_OPS = {
+    "add": (lambda b: b * b + _r(b, 1, 0), True),
+    "sub": (lambda b: _r(b, -1, 1) - b * _r(b, 0, 1), True),
+    "mul": (lambda b: b * _r(b, 0, 1), True),
+    "div": (lambda b: b / (_r(b, 1, 1).abs() + 0.5), True),
+    "div_scalar": (lambda b: (b * _r(b, 1, 0)) / 3.0, True),
+    "rdiv_scalar": (lambda b: 3.0 / (b.abs() + _r(b, 0, -1).abs() + 0.25), True),
+    "neg": (lambda b: -(b * _r(b, 1, 0)), True),
+    "abs": (lambda b: torch.abs(b - _r(b, 0, 1)), True),
+    "sqrt": (lambda b: torch.sqrt(b.abs() + _r(b, 1, 0).abs()), True),
+    "floor": (lambda b: torch.floor(4 * b + _r(b, 0, 1)), True),
+    "ceil": (lambda b: (4 * b - _r(b, 1, 0)).ceil(), True),
+    "sign": (lambda b: torch.sign(b - _r(b, 1, 0)) * _r(b, 0, 1), True),
+    "square": (lambda b: torch.square(b - _r(b, 0, 1)), True),
+    "reciprocal": (lambda b: torch.reciprocal(b.abs() + _r(b, -1, 0).abs() + 0.5), True),
+    "pow2": (lambda b: (b + _r(b, 1, 0)) ** 2, True),
+    "pow3": (lambda b: (b - _r(b, 0, 1)).pow(3), True),
+    "maximum": (lambda b: torch.maximum(b, _r(b, 1, 1)), True),
+    "minimum": (lambda b: b.minimum(_r(b, -1, -1)) - _r(b, 1, 0), True),
+    "clamp": (lambda b: torch.clamp(b + _r(b, 0, 1), -0.5, 0.75), True),
+    "clamp_min": (lambda b: b.clamp(min=0) * _r(b, 1, 0), True),
+    "clip_max": (lambda b: torch.clip(b - _r(b, -1, 0), max=0.3), True),
+    "where_gt": (lambda b: torch.where(b > _r(b, 1, 0), b, _r(b, -1, 0)), True),
+    "where_ge": (lambda b: torch.where(b >= 0.25, 2 * b, _r(b, 0, 1)), True),
+    "where_lt": (lambda b: torch.where(_r(b, 0, -1) < b, 0.0, b), True),
+    "where_le": (lambda b: b.where(b <= _r(b, 1, 1), -b), True),
+    "where_eq": (lambda b: torch.where(torch.floor(2 * b) == torch.floor(2 * _r(b, 1, 0)), b, -b), True),
+    "where_ne": (lambda b: torch.where(torch.ceil(b) != torch.ceil(_r(b, 0, 1)), _r(b, 0, 1), 1.5), True),
+    "rsqrt": (lambda b: torch.rsqrt(b * b + _r(b, 1, 0).abs() + 0.5), False),
+    "exp": (lambda b: torch.exp(b - _r(b, 1, 0)), False),
+    "expm1": (lambda b: torch.expm1(b * _r(b, 0, 1)), False),
+    "log": (lambda b: torch.log(b.abs() + _r(b, 0, 1).abs() + 0.1), False),
+    "log1p": (lambda b: torch.log1p(b.abs() * _r(b, 1, 0).abs()), False),
+    "tanh": (lambda b: torch.tanh(laplace(b)), False),
+    "sigmoid": (lambda b: torch.sigmoid(b + _r(b, -1, 0)), False),
+    "sin": (lambda b: torch.sin(3 * b - _r(b, 0, 1)), False),
+    "cos": (lambda b: b.cos() * _r(b, 1, 1), False),
+    "pow_general": (lambda b: (b.abs() + _r(b, 1, 0).abs() + 0.1) ** 1.7, False),
+    "pow_m2": (lambda b: (b.abs() + 0.5) ** -2, False),
+    "pow_half": (lambda b: (b.abs() + _r(b, 0, 1).abs()) ** 0.5, False),
+}
+
+
+def exact_program(d0, d1):
+    """Every exact op in one program, its taps reaching the depth."""
+    def f(b):
+        a, c = _r(b, d0, 0), _r(b, 0, -d1)
+        w = torch.where(a > b, torch.maximum(b, c), torch.minimum(a, c)) * 0.5
+        return (w - torch.clamp(_r(b, -d0, d1), -0.5, 1.0) / 3.0 + torch.abs(b).floor()
+                - torch.ceil(a) * torch.sign(c) + (-b) / (torch.abs(c) + 1) + torch.square(a - c))
+    return f
+
+
+def transcendental_program(d0, d1):
+    """The transcendental ops in one program, summed as positive terms."""
+    def f(b):
+        a, c = _r(b, -d0, 0), _r(b, 0, d1)
+        return (torch.tanh(a - c).abs() + torch.exp(-b * b) + torch.log1p(c.abs()) + torch.sigmoid(a)
+                + torch.cos(b) + 1.5 + torch.sin(c).abs() + torch.log(a.abs() + 1) + (b.abs() + 0.5) ** 1.3)
+    return f
+
+
+PROGRAM_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
+PROGRAM_DEPTHS = [(1, 1), (2, 2), (8, 8), (3, 0), (0, 2)]
+
+
+def _program_items():
+    from dask_array_tpu_torch.kernels import stencil
+
+    items = [stencil.program_build_item(stencil.capture_program(f, (1, 1)), (1, 1), torch.float32)
+             for f, _ in PROGRAM_OPS.values()]
+    for maker in (exact_program, transcendental_program):
+        for dt in PROGRAM_DTYPES:
+            for depth in PROGRAM_DEPTHS:
+                items.append(stencil.program_build_item(stencil.capture_program(maker(*depth), depth), depth, dt))
+    return items
+
+
+@pytest.fixture(scope="module")
+def programs_built():
+    """Every program these tests launch, built in parallel (one nvcc each)
+    before the first launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from dask_array_tpu_torch.kernels import _build
+
+    return _build.build_all(_program_items())
+
+
+def ulps_apart(got, want):
+    """The most units in the last place between two tensors of one float
+    dtype; NaN against NaN is 0."""
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+    nbits = 8 * got.element_size()
+
+    def ordered(t):
+        v = t.contiguous().view(bits).long()
+        return torch.where(v < 0, -(v & ((1 << (nbits - 1)) - 1)), v)
+
+    both_nan = got.isnan() & want.isnan()
+    diff = (ordered(got) - ordered(want)).abs()
+    return int(torch.where(both_nan, torch.zeros_like(diff), diff).max())
+
+
+def _program_case(x, func, depth, bnd, exact):
+    from dask_array_tpu_torch.kernels import stencil
+
+    program = stencil.capture_program(func, depth)
+    assert program is not None and stencil.capture_taps(func, depth) is None
+    before = stencil.VARIANT_LAUNCHES["program"]
+    got = stencil.band_stencil_call(x, func, depth, bnd, program)
+    want = stencil.band_stencil_plain(x, func, depth, bnd)
+    torch.cuda.synchronize()
+    assert stencil.VARIANT_LAUNCHES["program"] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype == x.dtype
+    if exact:
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)) or ulps_apart(got, want) == 0
+    else:
+        assert ulps_apart(got, want) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", list(PROGRAM_OPS))
+@pytest.mark.parametrize("shape, bnd", [((1000, 1003), ("reflect", 2.5)), ((1024, 1024), ("periodic", "nearest"))])
+def test_program_kernel_each_op(cuda, programs_built, op, shape, bnd):
+    """One op a program, float32 at depth (1, 1): an odd width (scalar rows,
+    ``vector_ok`` false) and a 16-byte one (cp.async rows)."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    func, exact = PROGRAM_OPS[op]
+    x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(35), device="cuda")
+    assert stencil.vector_ok(x, torch.empty_like(x)) is (shape[1] % 4 == 0)
+    _program_case(x, func, (1, 1), bnd, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", PROGRAM_DTYPES, ids=str)
+@pytest.mark.parametrize("depth", PROGRAM_DEPTHS, ids=str)
+@pytest.mark.parametrize("kind", ["exact", "transcendental"])
+def test_program_kernel_dtypes_depths_boundaries(cuda, programs_built, dtype, depth, kind):
+    """Every dtype, depths to 8 and every boundary pair's corner, on an odd
+    shape, a 16-byte one and a tensor one element into its storage."""
+    maker = exact_program if kind == "exact" else transcendental_program
+    func = maker(*depth)
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    for shape in ((517, 301), (512, 1024)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for bnd in (("reflect", "periodic"), ("nearest", 2.5), (0.0, "reflect"), ("periodic", -1.5)):
+            _program_case(x, func, depth, bnd, kind == "exact")
+    x = torch.randn(300 * 257 + 1, generator=gen, device="cuda").to(dtype)[1:].view(300, 257)
+    _program_case(x, func, depth, ("reflect", "nearest"), kind == "exact")
+
+
+def _laplace32(x):
+    """The float32 depth-1 Laplace of ``x`` in ``laplace_roll``'s order,
+    dask's "reflect" being numpy's ``symmetric`` pad."""
+    p = np.pad(x, 1, mode="symmetric")
+    r = lambda dy, dx: np.roll(p, (dy, dx), (0, 1))  # noqa: E731
+    return (r(1, 0) + r(-1, 0) + r(0, 1) + r(0, -1) - np.float32(4) * p)[1:-1, 1:-1]
+
+
+@pytest.mark.gpu
+def test_program_kernel_through_map_overlap(cuda, programs_built):
+    """tanh(laplace) and a kwarg func through map_overlap on the card: one
+    BandStencil, one program launch, no halo launch, equal to numpy's
+    float32 steps (tanh in float64, rounded once) within float32 rounding.
+    numpy is the reference, not the port's CPU run: one run of this test
+    saw the CPU run, not the card, off numpy (scripts/check_stencil_sides.py
+    holds each side on its own)."""
+    import functools
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import halo, stencil
+    from dask_array_tpu_torch.models.pipelines import limited_diffusion, tanh_laplace
+    from dask_array_tpu_torch.ops._overlap import BandStencil
+
+    x = np.random.default_rng(35).standard_normal((512, 384)).astype(np.float32)
+    lap = _laplace32(x)
+    d = np.float32(0.25) * lap
+    diffused = x + np.where(np.abs(d) > np.float32(0.1), np.sign(d) * np.float32(0.1), d)
+    for func, kw, want in ((tanh_laplace, {}, np.tanh(lap.astype(np.float64)).astype(np.float32)),
+                           (limited_diffusion, {"rate": 0.25, "limit": 0.1}, diffused)):
+        with config.set({"device": "cuda"}):
+            arr = da.map_overlap(func, da.from_array(x, chunks=128), depth=1, boundary="reflect", **kw)
+            assert isinstance(arr.expr, BandStencil) and stencil.is_program(arr.expr.taps)
+            h0 = halo.LAUNCHES
+            stencil.reset_launches()
+            got = arr.compute()
+            assert stencil.VARIANT_LAUNCHES == {"window": 0, "taps": 0, "program": 1}
+            assert stencil.LAUNCHES == 1 and halo.LAUNCHES == h0
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    bound = functools.partial(limited_diffusion, rate=0.25, limit=0.1)
+    assert stencil.capture_program(bound, (1, 1)) == arr.expr.taps
+
+
+@pytest.mark.gpu
+def test_program_scalars_go_by_value_on_the_card(cuda):
+    """The diffusion step at several rates and limits (-0.0, inf and NaN
+    among them): one library for all, each launch equal in bytes to its
+    plain version with its own scalars."""
+    from dask_array_tpu_torch.kernels import stencil
+    from dask_array_tpu_torch.models.pipelines import limited_diffusion
+
+    x = torch.randn((300, 257), generator=torch.Generator(device="cuda").manual_seed(37), device="cuda")
+    sources = set()
+    for rate, limit in ((0.2, 0.05), (0.3, 0.1), (1.0 / 3.0, -0.0), (0.25, float("inf")), (0.5, float("nan"))):
+        func = stencil.bind_kwargs(limited_diffusion, {"rate": rate, "limit": limit})
+        sources.add(stencil.program_source(stencil.capture_program(func, (1, 1)), (1, 1), torch.float32))
+        _program_case(x, func, (1, 1), ("reflect", 0.5), True)
+    assert len(sources) == 1
+
+
+@pytest.mark.gpu
+def test_program_kernel_build_failure_raises(cuda, monkeypatch):
+    """A program whose build fails raises on a CUDA tensor: no fallback."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    real = stencil.program_source
+    monkeypatch.setattr(stencil, "program_source", lambda *a: "#error a source nvcc refuses\n" + real(*a))
+    func = lambda b: torch.tanh(b * 0.987654321 + _r(b, 1, 0))  # noqa: E731 - a program no other test builds
+    program = stencil.capture_program(func, (1, 1))
+    x = torch.randn(64, 64, device="cuda")
+    before = stencil.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        stencil.band_stencil_call(x, func, (1, 1), ("reflect", "reflect"), program)
+    assert stencil.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_program_kernel_refuses_what_it_does_not_take(cuda):
+    from dask_array_tpu_torch.kernels import stencil
+
+    program = stencil.capture_program(lambda b: torch.tanh(_r(b, 1, 0)), (1, 1))
+    x = torch.randn(64, 64, device="cuda")
+    with pytest.raises(ValueError, match="do not fit"):
+        stencil.band_program_cuda(x, program, (0, 1), ("reflect", "reflect"))
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil.band_program_cuda(x.t(), program, (1, 1), ("reflect", "reflect"))
+    with pytest.raises(TypeError, match="does not take"):
+        stencil.band_program_cuda(x.int(), program, (1, 1), ("reflect", "reflect"))
+    with pytest.raises(ValueError, match="boundary"):
+        stencil.band_program_cuda(x, program, (1, 1), ("wrap", "reflect"))

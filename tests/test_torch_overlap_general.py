@@ -1,5 +1,9 @@
 """The general halo path of the PyTorch port: ``overlap``, ``map_overlap``
-and ``trim_overlap`` for every func the band kernel does not take.
+and ``trim_overlap`` for every func the band kernel does not take.  The
+band kernel takes linear stencils and programs of pointwise ops over
+shifted windows (tests/test_torch_band_stencil.py,
+tests/test_torch_band_program.py), so the tests here ask for this path
+with config ``stencil-kernel`` "off", or use a func the capture declines.
 
 The same numpy inputs go through the JAX package (off the TPU its
 ``map_overlap`` always takes the ``Overlap -> map_blocks -> trim`` route)
@@ -48,9 +52,12 @@ def j_laplace_roll(b):
     return jnp.roll(b, 1, 0) + jnp.roll(b, -1, 0) + jnp.roll(b, 1, 1) + jnp.roll(b, -1, 1) - 4 * b
 
 
-def both(tfunc, jfunc, arrays, chunks, **kw):
-    """(port result, JAX package result) of map_overlap on the same inputs."""
-    got = tda.map_overlap(tfunc, *[tda.from_array(a, chunks=chunks) for a in arrays], **kw)
+def both(tfunc, jfunc, arrays, chunks, kernel="off", **kw):
+    """(port result, JAX package result) of map_overlap on the same inputs,
+    the port's through the halo path: under config ``stencil-kernel``
+    ``kernel`` ("off", or "auto" for a func the capture declines)."""
+    with tconfig.set({"stencil-kernel": kernel}):
+        got = tda.map_overlap(tfunc, *[tda.from_array(a, chunks=chunks) for a in arrays], **kw)
     assert not isinstance(got.expr, BandStencil)
     want = jda.map_overlap(jfunc, *[jda.from_array(a, chunks=chunks) for a in arrays], **kw)
     return got.compute(), np.asarray(want.compute())
@@ -74,9 +81,28 @@ def test_stencil2d_slices_form_matches_jax_and_numpy(shape, chunk):
     np.testing.assert_allclose(out, np_laplace(x), **F32)
 
 
+def t_median3(b):
+    """The 3x3 median filter: a stack and a median, which the band kernel's
+    capture declines."""
+    return torch.stack([torch.roll(b, (dy, dx), (0, 1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]).median(0).values
+
+
+def j_median3(b):
+    return jnp.median(jnp.stack([jnp.roll(b, (dy, dx), (0, 1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]), axis=0)
+
+
 @pytest.mark.parametrize("boundary", ["reflect", "nearest", "periodic", 0.0, -2.5])
 def test_nonlinear_func_takes_the_halo_path(rng, boundary):
     x = rng.standard_normal((48, 40)).astype(np.float32)
+    # a func the capture declines takes the halo path by itself
+    got, want = both(t_median3, j_median3, [x], 12, kernel="auto", depth=1, boundary=boundary)
+    np.testing.assert_array_equal(got, want)
+    npmode = {"reflect": "symmetric", "nearest": "edge", "periodic": "wrap"}
+    pad = (np.pad(x, 1, mode=npmode[boundary]) if isinstance(boundary, str)
+           else np.pad(x, 1, mode="constant", constant_values=boundary))
+    windows = np.stack([pad[1 + dy:49 + dy, 1 + dx:41 + dx] for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+    np.testing.assert_array_equal(got, np.median(windows, axis=0))
+    # tanh(laplace), a program the band kernel takes, with the kernel off
     got, want = both(lambda b: torch.tanh(laplace_roll(b)), lambda b: jnp.tanh(j_laplace_roll(b)),
                      [x], 12, depth=1, boundary=boundary)
     np.testing.assert_allclose(got, want, **F32)
@@ -95,7 +121,8 @@ def test_one_pad_per_compute(rng, monkeypatch):
         return real(t, widths, modes)
 
     monkeypatch.setattr(halo, "halo_pad_plain", counting)
-    arr = tda.map_overlap(lambda b: torch.tanh(b), tda.from_array(x, chunks=10), depth=2, boundary="reflect")
+    with tconfig.set({"stencil-kernel": "off"}):
+        arr = tda.map_overlap(lambda b: torch.tanh(b), tda.from_array(x, chunks=10), depth=2, boundary="reflect")
     arr.compute()
     assert calls == [(((2, 2), (2, 2)), ("symmetric", "symmetric"))]
 
@@ -225,8 +252,9 @@ def test_overlap_merges_chunks_smaller_than_the_depth(rng):
 @pytest.mark.parametrize("index", [np.s_[16:48, :], np.s_[:, 24:72], np.s_[16:32, 24:48], np.s_[:16, :24]])
 def test_slice_pushes_through_the_overlap(rng, index):
     x = rng.standard_normal((64, 96)).astype(np.float32)
-    arr = tda.map_overlap(lambda b: torch.tanh(laplace_roll(b)), tda.from_array(x, chunks=(16, 24)),
-                          depth=1, boundary="reflect")
+    with tconfig.set({"stencil-kernel": "off"}):
+        arr = tda.map_overlap(lambda b: torch.tanh(laplace_roll(b)), tda.from_array(x, chunks=(16, 24)),
+                              depth=1, boundary="reflect")
     sliced = arr[index]
     plan = sliced.expr.simplify()
     overlaps = plan.find(Overlap)

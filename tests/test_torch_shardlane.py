@@ -375,6 +375,12 @@ def _row9(b):
     return torch.roll(b, 9, 0) - 2 * b + torch.roll(b, -9, 0)
 
 
+def _median3(b):
+    """A 3x3 median filter (a stack and a median): a func the band-stencil
+    gate declines."""
+    return torch.stack([torch.roll(b, (dy, dx), (0, 1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]).median(0).values
+
+
 def _explicit_stencil(src, chunks, func, depth, boundary):
     """overlap -> map_blocks -> trim_internal written out: the lane's
     stencil plan with the func the band-stencil gate takes."""
@@ -389,7 +395,8 @@ LANE_STENCILS = [
     ("taps_read", lambda: _explicit_stencil(SRC, (H, 6), _stencil(PORT, "lap"), {0: 1, 1: 1}, "reflect"),
      {}, "a slot"),
     ("nonlinear", lambda: _explicit_stencil(SRC, (H, 6), _stencil(PORT, "tlap"), {0: 1, 1: 1}, "reflect"),
-     {}, 0),
+     {}, "a slot"),
+    ("declined", lambda: _explicit_stencil(SRC, (H, 6), _median3, {0: 1, 1: 1}, "reflect"), {}, 0),
     ("kernel_off", lambda: x(PORT).map_overlap(_stencil(PORT, "lap"), depth=1, boundary="reflect"),
      {"stencil-kernel": "off"}, 0),
     ("kernel_off_explicit", lambda: _explicit_stencil(SRC, (H, 6), _stencil(PORT, "lap"), {0: 1, 1: 1}, "reflect"),
@@ -403,9 +410,10 @@ LANE_STENCILS = [
 def test_stencil_lane_takes_the_band_kernel_gate(monkeypatch, name, build, cfg, calls):
     """The lane's stencil plan reaches the band-stencil route (its plain
     version here) only where ``stencil_taps`` takes the func, the gate
-    ``map_overlap`` takes: once a slot for a linear func, never for a
-    non-linear one, under ``stencil-kernel: off`` or past depth 8 (on the
-    card the kernel refuses depth 9).  Each program runs in-lane and
+    ``map_overlap`` takes: once a slot for a linear func or a program of
+    pointwise ops, never for one the capture declines (a median), under
+    ``stencil-kernel: off`` or past depth 8 (on the card the kernel refuses
+    depth 9).  Each program runs in-lane and
     equals the walk."""
     from dask_array_tpu_torch.kernels import stencil
 
