@@ -353,6 +353,11 @@ def device_ms(fn, reps=30, warmup=3):
     """Median device milliseconds of ``fn``: the card spins for about a
     millisecond before each start event, so the host's launch time (which
     ``cuda_ms`` counts when the card would otherwise wait) stays outside."""
+    return statistics.median(device_runs(fn, reps, warmup))
+
+
+def device_runs(fn, reps=30, warmup=3):
+    """The device milliseconds of ``reps`` runs of ``fn`` (as ``device_ms``)."""
     import torch
 
     for _ in range(warmup):
@@ -368,7 +373,13 @@ def device_ms(fn, reps=30, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def spread(times):
+    """[least, first quartile, median, third quartile, most] of ``times``."""
+    q = statistics.quantiles(times, n=4)
+    return [min(times), q[0], statistics.median(times), q[2], max(times)]
 
 
 def paired_ms(plain, kernel, reps=30):
@@ -1968,6 +1979,28 @@ def k2_cases(torch, hk, flat, seed=27):
     ]
 
 
+def k2_byte_cases(torch, flat, seed=370):
+    """K2's byte route's inputs, ``flat`` bytes made on the card from
+    ``seed``: float8_e4m3fn, float8_e5m2 and int4 (numpy dtype beside its
+    uint8 carrier) of twice a normal, then float8_e4m3fn with every byte
+    one pattern (the worst case of a shared atomic a byte) and with 16
+    neighbouring patterns.  name -> (tensor, numpy dtype or None).
+    ``scripts/time_histogram.py`` times the same inputs."""
+    import ml_dtypes
+    import numpy as np
+
+    from dask_array_tpu_torch import _narrow
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    normal = torch.randn(flat, generator=g, device="cuda") * 2
+    sixteen = (torch.randint(0, 16, (flat,), generator=g, device="cuda") + 0x30).to(torch.uint8)
+    return {"float8_e4m3fn": (normal.to(torch.float8_e4m3fn), None),
+            "float8_e5m2": (normal.to(torch.float8_e5m2), None),
+            "int4": (_narrow.encode(normal.round(), _narrow.FORMATS["int4"]), np.dtype(ml_dtypes.int4)),
+            "float8_e4m3fn_one_pattern": (torch.full((flat,), 0.3, device="cuda").to(torch.float8_e4m3fn), None),
+            "float8_e4m3fn_16_patterns": (sixteen.view(torch.float8_e4m3fn), None)}
+
+
 def k2_two_byte_cases(torch, hk, flat, seed=31):
     """K2's 2-byte timing cases on ``flat`` values made on the card from
     ``seed``: bfloat16 and float16 normals into 256 and 65536 uniform bins
@@ -2380,9 +2413,11 @@ def narrow_paths(da, torch, sizes, smi):
     float8_e4m3fn, float8_e5m2 and int4 values into 256 bins through
     da.histogram (the byte route, one launch each; float8 raised on the
     parent), equal to the plain version, then the kernel per call and on
-    the device beside its plain version and torch.histc of the float32
-    values, with the bound.  Returns (numbers, byte-route launches of the
-    API run, the kernel's timing entry)."""
+    the device (the spread of 30 runs beside their median) beside its plain
+    version and torch.histc of the float32 values, with the bound, on
+    those and on float8_e4m3fn bytes of one pattern and of 16
+    (``k2_byte_cases``).  Returns (numbers, byte-route launches of the API
+    run, the kernel's timing entry)."""
     import ml_dtypes
     import numpy as np
 
@@ -2469,12 +2504,8 @@ def narrow_paths(da, torch, sizes, smi):
     flat, nb = sizes["flat"], sizes["bins"]
     edges = np.linspace(-4, 4, nb + 1)
     e = torch.from_numpy(edges).cuda()
-    g = torch.Generator(device="cuda").manual_seed(370)
-    normal = torch.randn(flat, generator=g, device="cuda") * 2
-    data = {"float8_e4m3fn": (normal.to(torch.float8_e4m3fn), None),
-            "float8_e5m2": (normal.to(torch.float8_e5m2), None),
-            "int4": (_narrow.encode(normal.round(), _narrow.FORMATS["int4"]), np.dtype(ml_dtypes.int4))}
-    del normal
+    cases = k2_byte_cases(torch, flat)
+    data = {name: cases[name] for name in ("float8_e4m3fn", "float8_e5m2", "int4")}
     hk.LAUNCHES = 0
     for name, (t, ndt) in data.items():
         host = t.cpu().numpy().view(ndt) if ndt is not None else t.view(torch.uint8).cpu().numpy().view(
@@ -2488,7 +2519,7 @@ def narrow_paths(da, torch, sizes, smi):
     check(api_launches == len(data), f"phase 34: the byte route launched {api_launches} times for {len(data)} "
                                      "histograms")
     timing = {}
-    for name, (t, ndt) in data.items():
+    for name, (t, ndt) in cases.items():
         kind = ndt if ndt is not None else t.dtype
         values = hk.byte_values(kind).to(t.device)[t.view(torch.uint8).to(torch.int64)]
 
@@ -2507,15 +2538,17 @@ def narrow_paths(da, torch, sizes, smi):
         check(torch.equal(got, ref) and torch.equal(got, pat), f"phase 34 K2 bytes {name}: counts differ")
         k_ms, p_ms, k_runs, p_runs = paired_ms(plain, kernel, reps=20)
         b_ms, b_by = bound(flat + nb * 8, flat)
-        dev = device_ms(kernel)
-        timing[name] = {"kernel_ms": k_ms, "kernel_device_ms": dev, "kernel_runs_ms": k_runs, "plain_ms": p_ms,
+        dev_runs = device_runs(kernel)
+        dev = statistics.median(dev_runs)
+        timing[name] = {"kernel_ms": k_ms, "kernel_device_ms": dev, "kernel_device_spread_ms": spread(dev_runs),
+                        "kernel_runs_ms": k_runs, "plain_ms": p_ms,
                         "plain_runs_ms": p_runs, "library": "torch.histc of the float32 values",
                         "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
                         "bytes": flat + nb * 8, "bound_ms": b_ms, "bound_by": b_by, "of_bound": b_ms / dev,
                         "max_abs_err_vs_plain": float((got - ref).abs().max())}
         del values
     out["histograms"] = {"values": flat, "bins": nb, "api_launches": api_launches, "timing": timing}
-    del data
+    del data, cases
     torch.cuda.empty_cache()
     return out, api_launches, timing
 
@@ -2872,7 +2905,7 @@ def build_timed(_build, names, program_items):
 # each boundary; the Overlap route it replaces is timed under the first
 PROGRAM_SIZES = {"groups": ((4096, 1024, "float32"), (16384, 4096, "float32"), (16384, 4096, "bfloat16"),
                             (16384, 4096, "float16")),
-                 "boundaries": ("reflect", 0.5), "route_reps": 5, "plain_reps": 10}
+                 "boundaries": ("reflect", 0.5), "route_reps": 5, "plain_reps": 10, "special": 16384}
 
 
 def program_funcs():
@@ -2898,9 +2931,47 @@ def program_funcs():
     }
 
 
+def min_filter3(b):
+    """The 3x3 min filter: ``torch.minimum`` of the nine shifted windows,
+    a chain of eight minimum nodes."""
+    import torch
+
+    out = b
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                out = torch.minimum(out, torch.roll(b, (dy, dx), (0, 1)))
+    return out
+
+
+# NaN bit patterns phase 35 plants, by dtype name: quiet with a payload,
+# negative, signalling, all ones (as signed integers of the type's width)
+NAN_PATTERNS = {"float16": [0x7E01, -0x01FE, 0x7D03, 0x7FFF], "bfloat16": [0x7FC1, -0x003F, 0x7F83, 0x7FFF],
+                "float32": [0x7FC00001, -0x003FFFFE, 0x7FA00003, 0x7FFFFFFF]}
+
+
+def special_values(torch, n, dt_name, seed):
+    """An n x n normal on the card with NaN of the four ``NAN_PATTERNS``,
+    +0, -0, +inf and -inf, each in 3 % of the places."""
+    dt = getattr(torch, dt_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, n), generator=g, device="cuda").to(dt)
+    pick = torch.rand((n, n), generator=g, device="cuda")
+    for i, v in enumerate((float("nan"), 0.0, -0.0, float("inf"), float("-inf"))):
+        x.masked_fill_((pick >= 0.04 * i) & (pick < 0.04 * i + 0.03), v)
+    del pick
+    bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    flat = x.view(bits).view(-1)
+    at = torch.isnan(x).view(-1).nonzero().view(-1)
+    patterns = torch.tensor(NAN_PATTERNS[dt_name], dtype=bits, device="cuda")
+    flat[at] = patterns[torch.arange(at.numel(), device="cuda") % 4]
+    return x
+
+
 def program_keys(stencil):
     """The (program, depth, dtype) of every phase-35 case (and so of phases
-    18, 30 and 32, whose tanh(laplace) is phase 35's float32 one)."""
+    18, 30 and 32, whose tanh(laplace) is phase 35's float32 one), the min
+    filter of its special values among them."""
     import torch
 
     keys = []
@@ -2908,6 +2979,7 @@ def program_keys(stencil):
         for func, kw, depth, _ in program_funcs().values():
             program = stencil.capture_program(stencil.bind_kwargs(func, kw), depth)
             keys.append((program, depth, getattr(torch, dt)))
+        keys.append((stencil.capture_program(min_filter3, (1, 1)), (1, 1), getattr(torch, dt)))
     return keys
 
 
@@ -2943,7 +3015,11 @@ def program_paths(da, torch, sizes, smi, builds):
     compute_device() both ways from a numpy input.  nvcc's seconds come
     from phase 1's builds (``builds``), the load's from the build cache
     here; one program no phase built (tanh(laplace) in float64) times its
-    first use.  Returns ({case: numbers}, launches of the program route)."""
+    first use.  Then the max and min filters of ``special_values`` (NaN of
+    four bit patterns, ±0, ±inf) in each group's dtype at ``special``^2,
+    byte for byte against the plain version (not within NaN-equal ulps),
+    and what torch's CUDA maximum and minimum return for +0 against -0.
+    Returns ({case: numbers}, launches of the program route)."""
     import ml_dtypes
     import numpy as np
     import torch.nn.functional as F
@@ -3057,6 +3133,42 @@ def program_paths(da, torch, sizes, smi, builds):
                 del got
                 phase(35, tag, card=smi, **out[tag])
         del x, x_np, held
+        torch.cuda.empty_cache()
+    # maximum and minimum chains on NaN of four bit patterns, ±0 and ±inf:
+    # the kernel's fast pass and its NaN-or-zero path byte for byte
+    from dask_array_tpu_torch.models.pipelines import max_filter3
+
+    n = sizes["special"]
+    zero_probe = torch.tensor([0.0, -0.0], device="cuda")
+    out["maximum-signed-zeros"] = {
+        f"{op}({a},{b})": "-0" if bool(torch.signbit(getattr(torch, op)(zero_probe[i:i + 1], zero_probe[j:j + 1]))) else "+0"
+        for op in ("maximum", "minimum") for i, a in enumerate(("+0", "-0")) for j, b in enumerate(("+0", "-0"))
+        if a != b}
+    phase(35, "maximum-signed-zeros", card=smi, **out["maximum-signed-zeros"])
+    for dt_name in dict.fromkeys(g[2] for g in sizes["groups"]):
+        x = special_values(torch, n, dt_name, 350)
+        for name, func in (("max_filter3", max_filter3), ("min_filter3", min_filter3)):
+            program = stencil.capture_program(func, (1, 1))
+            bnd = ("reflect", 0.5)
+
+            def kernel():
+                return stencil.band_program_cuda(x, program, (1, 1), bnd)
+
+            got, want = kernel(), stencil.band_stencil_plain(x, func, (1, 1), bnd)
+            torch.cuda.synchronize()
+            equal = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            tag = f"{name}-special-{dt_name}-{n}"
+            check(equal, f"phase 35 {tag}: differs from the plain version in "
+                         f"{int((got.view(torch.uint8) != want.view(torch.uint8)).sum())} bytes")
+            nan_out = float(torch.isnan(want).float().mean())
+            zero_out = float((want == 0).float().mean())
+            dev = device_ms(kernel)
+            out[tag] = {"equal_bytes": equal, "nan_share_in": float(torch.isnan(x).float().mean()),
+                        "nan_share_out": nan_out, "zero_share_out": zero_out, "kernel_device_ms": dev,
+                        "bound_ms": bound(2 * n * n * x.element_size(), 0)[0]}
+            phase(35, tag, card=smi, **out[tag])
+            del got, want
+        del x
         torch.cuda.empty_cache()
     # a program no phase built: its first use builds it (nvcc alone), then
     # a second process-local load binds it from the build cache

@@ -98,13 +98,25 @@
 
 //   Bytes (counts of 1-byte data: torch's float8 types, and ml_dtypes'
 //   narrow types held as uint8 bit patterns).  A byte has 256 patterns, so
-//   this route neither decodes nor compares a value: each warp keeps 256
-//   32-bit counters in shared memory (8 KB a block of 8 warps, eight
-//   blocks an SM), reads its block's run of the data in 16-byte loads and
-//   adds one to the counter of each byte.  The warps' counters are summed
-//   into the block's partial; the finish (a thread a pattern) adds the
-//   blocks' partials in order and puts the pattern's count into its bin,
-//   found once a pattern: the caller's 256-entry table gives each
+//   this route neither decodes nor compares a value.  One block of 512
+//   threads an SM reads its block's run of the data in 16-byte loads and
+//   counts each byte in the thread's own 256 8-bit counters, four to a
+//   32-bit shared word, word k of thread t at [k][t] (128 KB a block): a
+//   thread only ever touches its own bank and no two threads meet on a
+//   word, however the data is skewed.  The design before, a shared atomic
+//   a byte into 256 counters a warp, serialized the lanes that met on one
+//   pattern, which float8 and int4 data do: 11-19 % of the bound, 0.10-0.29
+//   ms at 2^26 bytes on the H100, moving between calls.  Now every input
+//   takes 0.059-0.060 ms (34 % of the bound, 30 runs within 3 %), one
+//   shared add a byte being what is left (count_byte; PERF.md).  Every 240
+//   bytes a thread (before any counter can pass 255) the block flushes the
+//   counters into its 32-bit totals, a warp four words of every thread,
+//   summing bytes in 16-bit halves and the lanes with __reduce_add_sync.
+//   (One atomic a distinct pattern a warp, by __match_any_sync, would
+//   still serialize the lanes of a pattern and add the match to every
+//   byte.)  The blocks' totals go to partials; the finish (a thread a
+//   pattern) adds them in block order and puts the pattern's count into
+//   its bin, found once a pattern: the caller's 256-entry table gives each
 //   pattern's value in the comparison type (NaN and values outside [e0,
 //   eN] dropped, eN in the last bin, numpy's searchsorted otherwise), so
 //   one kernel serves every 1-byte format.
@@ -745,50 +757,110 @@ cudaError_t patterns_by_data(int tcode, const void* x, long long n, const void* 
 
 // -- the byte route: counts of 1-byte data by pattern -------------------------------
 
-constexpr int kByteThreads = 256;  // 8 warps, each with 256 counters
-constexpr int kByteUnroll = 2;     // 16-byte units a thread loads before counting
+constexpr int kByteThreads = 512;                       // one block an SM, 16 warps
+constexpr int kByteWords = 64;                          // a thread's 256 8-bit counters, four a word
+constexpr int kByteUnroll = 3;                          // 16-byte units a thread loads before counting
+constexpr int kByteFlushRounds = 5;                     // rounds a thread counts between flushes
+constexpr int kByteFlushBytes = 16 * kByteUnroll * kByteFlushRounds;  // bytes a thread counts between flushes
+static_assert(kByteFlushBytes <= 255, "an 8-bit counter could pass 255 between flushes");
+static_assert(kByteWords % (kByteThreads / 32) == 0, "a flush gives each warp whole words");
+constexpr size_t kByteShared = static_cast<size_t>(kByteWords) * kByteThreads * 4;  // 128 KB of counters
+
+// One byte into the calling thread's counters: pattern b is byte b >> 6 of
+// word b & 63, and word k of thread t lies at cnt[k * kByteThreads + t], so
+// a thread only ever touches its own bank and no two threads meet on a word.
+// The add is a shared atomic whose result is not read: it needs no
+// atomicity, but it leaves the thread free, where a plain read-modify-write
+// waits for its load before the next byte's (the addresses may alias):
+// 0.073 ms at 2^26 bytes that way, against 0.060 (PERF.md).
+__device__ __forceinline__ void count_byte(unsigned* mine, unsigned b) {
+  atomicAdd(mine + (b & 63u) * kByteThreads, 1u << ((b >> 3) & 24u));
+}
+
+// Every thread's 8-bit counters into the block's 32-bit totals, and back to
+// 0: warp w takes words [4w, 4w + 4) of all the threads, a lane 16 words of
+// each, summing its bytes two at a time in 16-bit halves (at most 16 * 255),
+// then the warp's 32 lanes with __reduce_add_sync.  Called by every thread
+// of the block, at block-uniform points.
+__device__ __forceinline__ void flush_bytes(unsigned* cnt, unsigned* tot) {
+  constexpr int kPerWarp = kByteWords / (kByteThreads / 32);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int k = warp * kPerWarp + i;
+    unsigned* row = cnt + k * kByteThreads;
+    unsigned even = 0, odd = 0;  // bytes 0 and 2, 1 and 3 of the word
+#pragma unroll
+    for (int j = lane; j < kByteThreads; j += 32) {
+      const unsigned w = row[j];
+      row[j] = 0u;
+      even += w & 0x00FF00FFu;
+      odd += (w >> 8) & 0x00FF00FFu;
+    }
+    const unsigned b0 = __reduce_add_sync(0xFFFFFFFFu, even & 0xFFFFu);
+    const unsigned b1 = __reduce_add_sync(0xFFFFFFFFu, odd & 0xFFFFu);
+    const unsigned b2 = __reduce_add_sync(0xFFFFFFFFu, even >> 16);
+    const unsigned b3 = __reduce_add_sync(0xFFFFFFFFu, odd >> 16);
+    if (lane == 0) {
+      tot[k] += b0;
+      tot[64 + k] += b1;
+      tot[128 + k] += b2;
+      tot[192 + k] += b3;
+    }
+  }
+  __syncthreads();
+}
 
 // Block b counts the bytes of units [b*U/G, (b+1)*U/G) (16 bytes each) into
-// its warps' counters, then writes their sums to partial[b * 256 ...].
+// its threads' private 8-bit counters, flushing them into its 32-bit totals
+// every kByteFlushBytes bytes a thread, then writes the totals to
+// partial[b * 256 ...].
 __global__ void __launch_bounds__(kByteThreads)
 hist_bytes(const unsigned char* __restrict__ x, long long n, long long U, int aligned,
            unsigned* __restrict__ partial) {
-  constexpr int kW = kByteThreads / 32;
-  __shared__ unsigned cnt[kW * 256];
-  for (int i = threadIdx.x; i < kW * 256; i += kByteThreads) cnt[i] = 0u;
-  __syncthreads();
-  unsigned* mine = cnt + (threadIdx.x >> 5) * 256;
+  extern __shared__ __align__(16) unsigned char byte_smem[];
+  unsigned* cnt = reinterpret_cast<unsigned*>(byte_smem);
+  __shared__ unsigned tot[256];
+  for (int i = threadIdx.x; i < kByteWords * kByteThreads; i += kByteThreads) cnt[i] = 0u;
+  if (threadIdx.x < 256) tot[threadIdx.x] = 0u;
+  unsigned* mine = cnt + threadIdx.x;
   const long long u0 = run_start(blockIdx.x, U, gridDim.x), u1 = run_start(blockIdx.x + 1, U, gridDim.x);
   const long long whole = n / 16;  // units whose 16 bytes all lie in the data
   constexpr long long kRound = static_cast<long long>(kByteThreads) * kByteUnroll;
   long long base = u0;
-  for (; aligned && base + kRound <= u1 && base + kRound <= whole; base += kRound) {
-    uint4 v[kByteUnroll];
+  while (aligned && base + kRound <= u1 && base + kRound <= whole) {
+    for (int r = 0; r < kByteFlushRounds && base + kRound <= u1 && base + kRound <= whole; ++r, base += kRound) {
+      uint4 v[kByteUnroll];
 #pragma unroll
-    for (int k = 0; k < kByteUnroll; ++k) {
-      v[k] = __ldg(reinterpret_cast<const uint4*>(x) + base + k * kByteThreads + threadIdx.x);
-    }
+      for (int k = 0; k < kByteUnroll; ++k) {
+        v[k] = __ldg(reinterpret_cast<const uint4*>(x) + base + k * kByteThreads + threadIdx.x);
+      }
 #pragma unroll
-    for (int k = 0; k < kByteUnroll; ++k) {
-      const unsigned w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      for (int k = 0; k < kByteUnroll; ++k) {
+        const unsigned w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        atomicAdd(mine + (w[j] & 0xFFu), 1u);
-        atomicAdd(mine + ((w[j] >> 8) & 0xFFu), 1u);
-        atomicAdd(mine + ((w[j] >> 16) & 0xFFu), 1u);
-        atomicAdd(mine + (w[j] >> 24), 1u);
+        for (int j = 0; j < 4; ++j) {
+          count_byte(mine, w[j] & 0xFFu);
+          count_byte(mine, (w[j] >> 8) & 0xFFu);
+          count_byte(mine, (w[j] >> 16) & 0xFFu);
+          count_byte(mine, w[j] >> 24);
+        }
       }
     }
+    flush_bytes(cnt, tot);
   }
+  // the rest of the run (all of it for unaligned data) a byte a thread, in
+  // steps of kByteFlushBytes bytes a thread
   const long long end = u1 * 16 < n ? u1 * 16 : n;
-  for (long long e = base * 16 + threadIdx.x; e < end; e += kByteThreads) atomicAdd(mine + x[e], 1u);
-  __syncthreads();
-  for (int p = threadIdx.x; p < 256; p += kByteThreads) {
-    unsigned s = 0;
-#pragma unroll
-    for (int w = 0; w < kW; ++w) s += cnt[w * 256 + p];
-    partial[static_cast<size_t>(blockIdx.x) * 256 + p] = s;
+  constexpr long long kStep = static_cast<long long>(kByteThreads) * kByteFlushBytes;
+  for (long long s = base * 16; s < end; s += kStep) {
+    const long long stop = s + kStep < end ? s + kStep : end;
+    for (long long e = s + threadIdx.x; e < stop; e += kByteThreads) count_byte(mine, x[e]);
+    flush_bytes(cnt, tot);
   }
+  __syncthreads();
+  if (threadIdx.x < 256) partial[static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x] = tot[threadIdx.x];
 }
 
 // The finish: thread p adds pattern p's counts over the blocks in order and
@@ -813,7 +885,10 @@ cudaError_t launch_bytes(const void* x, long long n, const void* table, const vo
                          void* partial, long long U, int blocks, int aligned, cudaStream_t st) {
   if (U != (n + 15) / 16) return cudaErrorInvalidValue;
   unsigned* p = static_cast<unsigned*>(partial);
-  hist_bytes<<<blocks, kByteThreads, 0, st>>>(static_cast<const unsigned char*>(x), n, U, aligned, p);
+  const cudaError_t err = cudaFuncSetAttribute(hist_bytes, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(kByteShared));
+  if (err != cudaSuccess) return err;
+  hist_bytes<<<blocks, kByteThreads, kByteShared, st>>>(static_cast<const unsigned char*>(x), n, U, aligned, p);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return launched;
   bytes_finish<C><<<1, 256, 0, st>>>(p, blocks, static_cast<const C*>(table), static_cast<const C*>(edges), nb,

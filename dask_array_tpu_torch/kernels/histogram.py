@@ -280,7 +280,12 @@ PATTERN_DATA = {9, 14, 15, 16, 17, 18}
 BYTE_DATA = {15, 16, 17, 18}
 PATTERN_CODES = {0, 1}  # float32, float64 comparisons
 BYTE_CODES = {0, 1, 2, 3}  # float32, float64, int64, uint64 comparisons
-BYTE_BLOCKS_PER_SM = 8  # 256 threads and 8 KB of counters a block
+# the byte route (csrc/histogram.cu mirrors these): one block an SM, each
+# thread with its own 256 8-bit counters, four a 32-bit word, flushed into
+# the block's 32-bit totals every BYTE_FLUSH bytes it counts
+BYTE_THREADS = 512
+BYTE_SHARED = 64 * 4 * BYTE_THREADS  # the counters: 128 KB a block
+BYTE_FLUSH = 240  # 5 rounds of 3 16-byte units: an 8-bit counter stays under 256
 
 
 def _align16(v: int) -> int:
@@ -301,7 +306,9 @@ class Plan(NamedTuple):
     2`` (``counter``).  GLOBAL: atomics into the output.  PATTERN:
     2-byte float data counted by order key in one wide block an SM,
     ``keys32`` keys at most in 32-bit counters, more (up to 65536) in
-    16-bit ones (``counter_bits``).  ``edges_shared``: the edges staged in
+    16-bit ones (``counter_bits``).  BYTES: 1-byte data counted by pattern
+    in each thread's 8-bit counters, flushed every ``flush`` bytes a
+    thread.  ``edges_shared``: the edges staged in
     shared memory.  ``smem``: dynamic shared bytes; ``partial``: scratch
     bytes of the blocks' partials (HALF: their words; PATTERN: ``smem`` a
     block, its counters)."""
@@ -317,6 +324,7 @@ class Plan(NamedTuple):
     smem: int
     partial: int
     keys32: int = 0
+    flush: int = 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -335,17 +343,18 @@ def launch_plan(n: int, nbins: int, sms: int = 132, itemsize: int = 4, weights: 
     copy a warp, to global atomics with four blocks an SM.  ``patterns``:
     the counts of 2-byte float data (``PATTERN``): one wide block an SM
     whose whole share holds the key counters; of 1-byte data (``BYTES``):
-    blocks of 256 threads, eight an SM, 256 counters a warp."""
+    one block of ``BYTE_THREADS`` an SM, 256 8-bit counters a thread."""
     vec = 16 // itemsize
     units = -(-n // vec)
     if patterns and itemsize == 1:
-        # the byte route: 256 counters a warp, blocks of 256 threads
+        # the byte route: private counters, one block an SM
         if weights or not edge_itemsize:
             raise ValueError("the byte route counts 1-byte data against edges, unweighted")
-        blocks = max(1, min(sms * BYTE_BLOCKS_PER_SM, -(-units // THREADS)))
+        blocks = max(1, min(sms, -(-units // BYTE_THREADS)))
         if -(-units // blocks) >= 2**28:
             raise ValueError(f"the byte route's 32-bit counters cannot take {n} values in {blocks} blocks")
-        return Plan(vec, units, THREADS, blocks, BYTE_BLOCKS_PER_SM, BYTES, 0, False, 0, blocks * 256 * 4)
+        return Plan(vec, units, BYTE_THREADS, blocks, 1, BYTES, 0, False, BYTE_SHARED, blocks * 256 * 4,
+                    flush=BYTE_FLUSH)
     if patterns:
         if weights or itemsize != 2 or not edge_itemsize:
             raise ValueError("the pattern route counts 2-byte float data against edges, unweighted")
@@ -531,17 +540,26 @@ def histogram_bytes_cuda(x, edges, dtype):
     if COMPARE_CODES[ct] not in BYTE_CODES:
         raise TypeError(f"the histogram kernel's byte route does not compare in {ct}")
     edges_c = kernel_edges(edges, rt)
-    table = byte_values(dtype).to(x.device)
-    table = table.to(torch.int64) if ct in ("int64", "uint64") else table.to(_COMPARE_TORCH[ct])
+    table = device_byte_values(dtype, ct, x.device)
     x = x.reshape(-1).contiguous().view(torch.uint8)
     index, n, nbins = x.get_device(), x.numel(), edges_c.numel() - 1
     plan = launch_plan(n, nbins, _sm_count(index), 1, 0, edges_c.element_size(), True)
     out = torch.zeros(nbins, dtype=torch.int64, device=x.device)
     partial = torch.empty(plan.partial, dtype=torch.uint8, device=x.device)
-    _bytes_launcher()(index, x.data_ptr(), n, COMPARE_CODES[ct], table.contiguous().data_ptr(), edges_c.data_ptr(),
+    _bytes_launcher()(index, x.data_ptr(), n, COMPARE_CODES[ct], table.data_ptr(), edges_c.data_ptr(),
                       nbins, out.data_ptr(), partial.data_ptr(), plan.units, plan.blocks, int(x.data_ptr() % 16 == 0))
     LAUNCHES += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def device_byte_values(dtype, compare: str, device: torch.device) -> torch.Tensor:
+    """``byte_values(dtype)`` in the kernel's comparison type ``compare``
+    (int64 for the integer comparisons), on ``device``: made and copied up
+    once, so no launch copies the table from pageable host memory."""
+    table = byte_values(dtype)
+    table = table.to(torch.int64) if compare in ("int64", "uint64") else table.to(_COMPARE_TORCH[compare])
+    return table.contiguous().to(device)
 
 
 def bincount_cuda(x, length, weights=None):

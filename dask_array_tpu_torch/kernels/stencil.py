@@ -567,8 +567,6 @@ def _emit_node(node, a, inv, consts, f, one, double):
                    -2.0: (f"__ddiv_rn(1.0, __dmul_rn({x}, {x}))" if double
                           else f"static_cast<float>(1.0 / static_cast<double>(__fmul_rn({x}, {x})))")}
         return special.get(e, f"{f['pow']}({x}, {_literal(e, double)})")
-    if op in ("maximum", "minimum"):
-        return f"({a[0]} != {a[0]}) ? {a[0]} : (({a[1]} != {a[1]}) ? {a[1]} : {f[op]}({a[0]}, {a[1]}))"
     if op == "clamp":
         x, lo, hi = a
         inner = x if lo is None else f"{f['maximum']}({x}, {lo})"
@@ -581,20 +579,56 @@ def _emit_node(node, a, inv, consts, f, one, double):
     return f"{f[op]}({a[0]})"
 
 
+_EXTREMA = {"maximum": "max", "minimum": "min"}
+
+
+def _chains(program):
+    """The ``maximum``/``minimum`` nodes that lie inside a chain of them:
+    used once, as an operand of another such node.  Every other such node
+    is a chain's root."""
+    uses = [0] * len(program)
+    user = {}
+    for i, (op, *args) in enumerate(program):
+        if op in ("tap", "const"):
+            continue
+        for j in args:
+            if j is not None:
+                uses[j] += 1
+                user[j] = op
+    return {i for i, node in enumerate(program)
+            if node[0] in _EXTREMA and uses[i] == 1 and user[i] in _EXTREMA}
+
+
 def _emit(program, dtype):
     """(the C++ functor of ``program``, its scalar slots): each slot a
     ``(const node, inverse)`` pair, in the order of the parameter block.
     The text depends on the program's ops, its taps and ``pow``'s
-    exponents, never on another scalar's value."""
+    exponents, never on another scalar's value.  A chain of ``maximum``
+    and ``minimum`` nodes is one fast pass (``max_any_nan``: the canonical
+    NaN if any operand is NaN), then, only where the chain's result is NaN
+    or a zero, the chain again in the plain order (``max_first_nan``, as
+    torch's CUDA kernels: the first NaN operand's own bits, and the sign of
+    a zero as that order gives it)."""
     double = dtype == torch.float64
     f = _INTRINSICS[double]
     one = "1.0" if double else "1.0f"
     consts = {i: node[1] for i, node in enumerate(program) if node[0] == "const"}
+    inside = _chains(program)
     slots = {}
 
     def slot(i, inverse=False):
         k = slots.setdefault((i, inverse), len(slots))
         return f"c[{k}]"
+
+    def chain(root):
+        """The chain's nodes below ``root`` and ``root``, in program order."""
+        nodes, todo = {root}, [root]
+        while todo:
+            for j in program[todo.pop()][1:]:
+                if j in inside and j not in nodes:
+                    nodes.add(j)
+                    todo.append(j)
+        return sorted(nodes)
 
     lines = []
     for i, node in enumerate(program):
@@ -603,19 +637,33 @@ def _emit(program, dtype):
             continue
         if op == "tap":
             dy, dx = node[1:]
-            expr = f"Acc<T>::load(p[{dy} * kStride<T> + {dx}])"
-        else:
-            read = node[1:]
-            if op == "pow" or (op == "div" and node[2] in consts and node[1] not in consts):
-                read = node[1:2]  # an exponent is code; a divisor is read as its inverse
-            a = [None if j is None else slot(j) if j in consts and j in read else f"v{j}" for j in node[1:]]
-            expr = _emit_node(node, a, lambda j: slot(j, True), consts, f, one, double)
+            lines.append(f"    const A v{i} = w.template at<{dy}, {dx}>();")
+            continue
+        if op in _EXTREMA:
+            fast = f"{_EXTREMA[op]}_any_nan(v{node[1]}, v{node[2]})"
+            if i in inside:
+                lines.append(f"    const A v{i} = {fast};")
+                continue
+            lines.append(f"    A v{i} = {fast};")
+            lines.append(f"    if (nan_or_zero(v{i})) {{")
+            for k in chain(i):
+                a = [f"s{j}" if j in inside else f"v{j}" for j in program[k][1:]]
+                lines.append(f"      const A s{k} = {_EXTREMA[program[k][0]]}_first_nan({a[0]}, {a[1]});")
+            lines.append(f"      v{i} = s{i};")
+            lines.append("    }")
+            continue
+        read = node[1:]
+        if op == "pow" or (op == "div" and node[2] in consts and node[1] not in consts):
+            read = node[1:2]  # an exponent is code; a divisor is read as its inverse
+        a = [None if j is None else slot(j) if j in consts and j in read else f"v{j}" for j in node[1:]]
+        expr = _emit_node(node, a, lambda j: slot(j, True), consts, f, one, double)
         kind = "bool" if op in _COMPARE_SIGNS else "A"
         lines.append(f"    const {kind} v{i} = {expr};")
     text = "\n".join([
         "struct Program {",
         f"  static constexpr int kSlots = {len(slots)};",
-        "  __device__ __forceinline__ static Acc<T>::type eval(const T* p, const Acc<T>::type* __restrict__ c) {",
+        "  template <typename W>",
+        "  __device__ __forceinline__ static Acc<T>::type eval(const W& w, const Acc<T>::type* __restrict__ c) {",
         "    using A = Acc<T>::type;",
         *lines,
         f"    return v{len(program) - 1};",
@@ -626,12 +674,13 @@ def _emit(program, dtype):
 
 
 def emit_program(program, dtype) -> str:
-    """``program`` as the C++ functor ``Program``: ``eval(p, c)`` computes
-    one output in ``Acc<T>`` from the staged tile, ``p`` pointing at the
-    output's own element (a tap ``(dy, dx)`` reads ``p[dy * kStride<T> +
-    dx]``) and ``c`` at the scalars (``program_scalars``).  Every node but
-    a scalar is a named value.  The source of one program is always the
-    same text, whatever its scalars' values (``pow``'s exponents aside)."""
+    """``program`` as the C++ functor ``Program``: ``eval(w, c)`` computes
+    one output in ``Acc<T>`` from its taps ``w`` (a tap ``(dy, dx)`` is
+    ``w.template at<dy, dx>()``: a register of the thread's window, or the
+    staged tile, csrc/band_program.cuh) and the scalars ``c``
+    (``program_scalars``).  Every node but a scalar is a named value.  The
+    source of one program is always the same text, whatever its scalars'
+    values (``pow``'s exponents aside)."""
     return _emit(program, dtype)[0]
 
 

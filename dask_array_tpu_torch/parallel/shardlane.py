@@ -78,6 +78,20 @@ _REDUCE_IDENT = {
 _LANE_KINDS = tuple(_REDUCE_IDENT) + ("nanprod",)
 
 
+def _two_byte_float(dtype) -> bool:
+    """float16 or bfloat16: the dense walk adds these in float32 and rounds
+    once, and scans them with numpy, rounding at every step."""
+    from dask_array_tpu_torch._chunks import is_float_dtype
+
+    return is_float_dtype(dtype) and np.dtype(dtype).itemsize == 2
+
+
+def _scan_declines(scan, dims) -> bool:
+    """A 2-byte float scan along a chunked axis: no per-piece carry can
+    round at every step as the dense walk does, so the lane declines it."""
+    return scan.axis in dims and _two_byte_float(scan.dtype)
+
+
 def _reduce_ident(kind, dtype):
     """The identity of ``kind`` IN ``dtype`` (padding fill value): ±inf
     maps to the integer extrema for int dtypes, True/False for bool."""
@@ -241,7 +255,7 @@ def _plan_grid2(kind, terminal, elem_root, leaves, reds=(), consts=(), scans=())
         # (padding is orthogonal, garbage stays padded), or the grouped
         # two-phase Blelloch along a CHUNKED axis (the same schedule the
         # g2_cumulative terminal runs, factored into the body)
-        if s.axis is None or tuple(s.array.shape) != leaf_shape:
+        if s.axis is None or tuple(s.array.shape) != leaf_shape or _scan_declines(s, dims):
             return None
     aux = (tuple(reds), tuple(consts), tuple(scans))
     if kind == "elemwise":
@@ -275,6 +289,8 @@ def _plan_grid2(kind, terminal, elem_root, leaves, reds=(), consts=(), scans=())
     if kind in ("cumulative", "cumulative_local"):
         if terminal.axis not in dims:
             return "g2_cumulative_local", terminal, elem_root, leaves, dims, aux
+        if _scan_declines(terminal, dims):
+            return None
         # scan ALONG a chunked axis: the two-phase Blelloch schedule over
         # block groups — local scans, one all-gather of per-block totals,
         # a within-group exclusive combine, local carry apply
@@ -659,7 +675,7 @@ def _plan(root):
         # an inner scan's subtree must be leaf-shaped so its result stays
         # block-aligned with the stacked leaves (a scan preserves shape);
         # axis=None (flattening) scans leave the lane
-        if s.axis is None or tuple(s.array.shape) != leaf_shape:
+        if s.axis is None or tuple(s.array.shape) != leaf_shape or _scan_declines(s, (d,)):
             return None
 
     if kind == "reduce":
@@ -674,6 +690,8 @@ def _plan(root):
                 return None
         else:
             return None
+    elif kind == "cumulative" and _scan_declines(terminal, (d,)):
+        return None
     elif kind == "cumulative" and terminal.axis != d:
         # an unsharded scan axis never crosses a block boundary: pure
         # block-local work, no collective at all
@@ -945,22 +963,24 @@ def _lane_reduce(lane, kind, dtype, values, axes):
     """A typed reduction of the per-piece values over array ``axes``: one
     partial a piece, a local combine a slot, ONE collective across slots
     (two for ``nanmean`` of floats: the non-NaN counts).  Returns the
-    per-slot results (None on a slot with no piece)."""
-    from dask_array_tpu_torch._chunks import to_compute
+    per-slot results (None on a slot with no piece).  A 2-byte float sum
+    or mean keeps float32 partials through the combines and the
+    collective and rounds once at the end, as the dense walk does."""
+    from dask_array_tpu_torch._chunks import cast, to_compute
     from dask_array_tpu_torch.ops.reductions import reduce_dense
     from dask_array_tpu_torch.parallel.collectives import all_reduce
 
-    dtype = np.dtype(dtype)
+    out_dtype = np.dtype(dtype)
     axes = tuple(axes)
     part_kind = {"mean": "sum", "nanmean": "nansum"}.get(kind, kind)
+    once = part_kind in ("sum", "nansum") and _two_byte_float(out_dtype)
+    dtype = np.dtype(np.float32) if once else out_dtype
     parts = [reduce_dense(part_kind, v, axes, False, dtype) for v in values]
     combine = _combiner(kind, dtype)
     slot_parts = _grouped(lane, parts, axes, combine,
                           lambda shape, dev: _identity(kind, shape, dtype, dev))
     coll = _COLLECTIVE[_COMBINE_KIND[kind]]
     tot = all_reduce(coll, slot_parts, lane.mesh, lane.axes(), combine=combine)
-    if kind not in ("mean", "nanmean"):
-        return tot
     floats = any(v.is_floating_point() or v.is_complex() for v in values)
     if kind == "nanmean" and floats:
         counts = [(~torch.isnan(v)).sum(dim=axes) if axes else (~torch.isnan(v)).to(torch.int64) for v in values]
@@ -968,10 +988,12 @@ def _lane_reduce(lane, kind, dtype, values, axes):
         slot_counts = _grouped(lane, counts, axes, add,
                                lambda shape, dev: torch.zeros(shape, dtype=torch.int64, device=dev))
         cnt = all_reduce("psum", slot_counts, lane.mesh, lane.axes(), combine=add)
-        return [None if t is None else (to_compute(t, dtype) / c.to(to_compute(t, dtype).dtype)).to(t.dtype)
-                for t, c in zip(tot, cnt)]
-    count = math.prod(lane.shape[ax] for ax in axes)
-    return [None if t is None else to_compute(t, dtype) / count for t in tot]
+        tot = [None if t is None else (to_compute(t, dtype) / c.to(to_compute(t, dtype).dtype)).to(t.dtype)
+               for t, c in zip(tot, cnt)]
+    elif kind in ("mean", "nanmean"):
+        count = math.prod(lane.shape[ax] for ax in axes)
+        tot = [None if t is None else to_compute(t, dtype) / count for t in tot]
+    return [None if t is None else cast(t, out_dtype) for t in tot] if once else tot
 
 
 def _first(values):
@@ -986,7 +1008,8 @@ def _lane_scan(lane, node, ds):
     unchunked axis the scan is piece-local.  Along a chunked axis: the
     two-phase Blelloch schedule, a local scan a piece, ONE ``all_gather``
     of the per-piece totals, and each piece adds (multiplies) the totals
-    of the pieces before it in its group as a carry."""
+    of the pieces before it in its group as a carry.  The planners keep a
+    2-byte float scan along a chunked axis out (`_scan_declines`)."""
     from dask_array_tpu_torch._chunks import as_stored, to_compute
     from dask_array_tpu_torch.parallel.collectives import all_gather
 

@@ -1,27 +1,35 @@
-"""Time the band-stencil kernel (K1) of one checkout on one CUDA card.
+"""Time the band-stencil kernels (K1) of one or two checkouts on one CUDA card.
 
-    python3 scripts/time_stencil.py [--root DIR] [--label NAME]
+    python3 scripts/time_stencil.py [--root DIR] [--old DIR] [--label NAME]
 
-Imports ``dask_array_tpu_torch.kernels.stencil`` from ``DIR`` (default:
-the checkout holding this script), builds its kernel, and runs K1 on
-float32, bfloat16 and float16 normals at 4096^2 and 16384^2 with the
-5-point Laplacian (depth (1, 1), reflect: the register window, the main
-path's stencil), and at 4096^2 with a stencil reaching (2, 3) (the tap
-list).  For each case it prints one JSON line: the kernel per call and on
-the device alone (medians of 30 CUDA-event runs), the bound (the bytes
-the function must move over 3.35 TB/s, or its float32 operations over 67
-TFLOP/s, the larger) and the device time's share of it, and whether the
-kernel agrees with its plain version on the card (float32: rtol 1e-5 and
-2^-21 * sum|w| * max|x|; the 2-byte types: ``chip_smoke.close16`` against
-the plain version in float32, rounded once).  Two checkouts are compared
-by running this script for each, one after another on one card, in the
-order old, new, new, old (unpack the old one with ``git archive`` into
-``build/``).  Exits 1 without a card.
+Imports ``dask_array_tpu_torch`` from ``--root`` (default: the checkout
+holding this script) as "new" and, with ``--old``, the package of a second
+checkout beside it in the same process as "old" (``scripts/_twin.py``;
+unpack a parent with ``git archive`` into ``build/``), builds their
+kernels, and times each case on each side in the order old, new, new, old.
+The cases: the linear K1 on float32, bfloat16 and float16 normals at
+4096^2 and 16384^2 with the 5-point Laplacian (depth (1, 1), reflect: the
+register window, the main path's stencil) and at 4096^2 with a stencil
+reaching (2, 3) (the tap list); then K1's programs, the five funcs of
+``chip_smoke.program_funcs`` (tanh(laplace), the Sobel magnitude, the max
+filter, the limited diffusion, a depth-2 tanh(laplace)) at 4096^2 float32
+and 16384^2 float32, bfloat16 and float16, reflect.  For each case it
+prints one JSON line: for each side the kernel per call and on the device
+alone (a median of 30 CUDA-event runs each time the side runs), whether
+the kernel agrees with its plain version on the card (linear, float32:
+rtol 1e-5 and 2^-21 * sum|w| * max|x|; the 2-byte types:
+``chip_smoke.close16`` against the plain version in float32, rounded
+once; programs: 0 ulps, or at most 2 where a transcendental function
+appears, as phase 35 holds them) and, for a program, the registers and
+spilled bytes ptxas reports; and the bound (the bytes the function must
+move over 3.35 TB/s, or its float32 operations over 67 TFLOP/s, the
+larger).  Exits 1 without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import pathlib
@@ -29,11 +37,13 @@ import subprocess
 import sys
 
 SIZES = (4096, 16384)
+PROGRAM_GROUPS = ((4096, "float32"), (16384, "float32"), (16384, "bfloat16"), (16384, "float16"))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
+    ap.add_argument("--old", default=None, help="a second checkout, timed beside --root in this process")
     ap.add_argument("--label", default="")
     args = ap.parse_args()
 
@@ -42,12 +52,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_stencil: torch finds no CUDA device", file=sys.stderr)
         return 1
+    here = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
-    from dask_array_tpu_torch.kernels import stencil
+    sides = {"new": importlib.import_module("dask_array_tpu_torch")}
+    if args.old is not None:
+        sys.path.insert(0, str(here))
+        import _twin
 
-    # the timers and stencils of this checkout's chip_smoke.py, whatever DIR holds
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_cases", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        sides = {"old": _twin.load(args.old, "dask_array_tpu_torch_old"), **sides}
+    kernels = {k: importlib.import_module(f"{m.__name__}.kernels.stencil") for k, m in sides.items()}
+    builds = {k: importlib.import_module(f"{m.__name__}.kernels._build") for k, m in sides.items()}
+
+    # the timers, stencils and funcs of this checkout's chip_smoke.py
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", here.parent / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -58,34 +75,70 @@ def main() -> int:
         return torch.roll(b, 1, 0) + torch.roll(b, -1, 0) + torch.roll(b, 1, 1) + torch.roll(b, -1, 1) - 4 * b
 
     bnd = ("reflect", "reflect")
-    cases = [(dt, n, laplace, (1, 1)) for dt in (torch.float32, torch.bfloat16, torch.float16) for n in SIZES]
-    cases += [(dt, SIZES[0], smoke.stencil_for(2, 3), (2, 3)) for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    cases = [("laplace", dt, n, laplace, {}, (1, 1), None) for dt in ("float32", "bfloat16", "float16")
+             for n in SIZES]
+    cases += [("stencil_2_3", dt, SIZES[0], smoke.stencil_for(2, 3), {}, (2, 3), None)
+              for dt in ("float32", "bfloat16", "float16")]
+    cases += [(name, dt, n, func, kw, depth, exact) for n, dt in PROGRAM_GROUPS
+              for name, (func, kw, depth, exact) in smoke.program_funcs().items()]
+
+    # every program of every side, built at once (one nvcc each)
+    programs = {}
+    for side, st in kernels.items():
+        items = {(name, dt): st.program_build_item(st.capture_program(st.bind_kwargs(func, kw), depth), depth,
+                                                   getattr(torch, dt))
+                 for name, dt, _, func, kw, depth, exact in cases if exact is not None}
+        _, programs[side] = smoke.build_timed(builds[side], ["band_stencil"], items)
+
     g = torch.Generator(device="cuda").manual_seed(16)
-    for dt, n, func, depth in cases:
-        taps = stencil.capture_taps(func, depth)
+    for name, dt_name, n, func, kw, depth, exact in cases:
+        dt = getattr(torch, dt_name)
         x = torch.randn((n, n), generator=g, device="cuda").to(dt)
-        got = stencil.band_stencil_cuda(x, taps, depth, bnd)
-        scale = sum(abs(w) for _, _, w in taps) * float(x.float().abs().max())
-        if dt == torch.float32:
-            ref = stencil.band_stencil_plain(x, func, depth, bnd)
-            agrees = bool(torch.allclose(got, ref, rtol=1e-5, atol=scale * 2.0**-21))
+        row = {"label": args.label, "case": name, "dtype": dt_name, "size": n, "depth": list(depth), "card": smi}
+        run = {}
+        for side, st in kernels.items():
+            bound_func = st.bind_kwargs(func, kw)
+            if exact is None:
+                taps = st.capture_taps(func, depth)
+                run[side] = (lambda st=st, taps=taps: st.band_stencil_cuda(x, taps, depth, bnd))
+            else:
+                program = st.capture_program(bound_func, depth)
+                run[side] = (lambda st=st, program=program: st.band_program_cuda(x, program, depth, bnd))
+        plain_func = kernels["new"].bind_kwargs(func, kw)
+        ref = kernels["new"].band_stencil_plain(x, plain_func, depth, bnd)
+        if exact is None:
+            taps = kernels["new"].capture_taps(func, depth)
+            scale = sum(abs(w) for _, _, w in taps) * float(x.float().abs().max())
+            ref = ref if dt == torch.float32 else kernels["new"].band_stencil_plain(x.float(), func, depth, bnd).to(dt)
+            flops = 2 * len(taps) * n * n
         else:
-            ref = stencil.band_stencil_plain(x.float(), func, depth, bnd).to(dt)
-            agrees = smoke.close16(got, ref, scale)
-        torch.cuda.synchronize()
-
-        def kernel():
-            return stencil.band_stencil_cuda(x, taps, depth, bnd)
-
-        row = {"label": args.label, "root": args.root, "dtype": str(dt).removeprefix("torch."), "size": n,
-               "depth": list(depth), "card": smi, "equals_plain": agrees,
-               "max_abs_err": float((got.float() - ref.float()).abs().max()),
-               "kernel_ms": smoke.cuda_ms(kernel), "kernel_device_ms": smoke.device_ms(kernel),
-               "bound_ms": smoke.bound(2 * n * n * x.element_size(), 2 * len(taps) * n * n)[0]}
-        row["kernel_of_bound_device"] = row["bound_ms"] / row["kernel_device_ms"]
+            flops = len(kernels["new"].capture_program(plain_func, depth)) * n * n
+        out = {side: {"kernel_ms": [], "kernel_device_ms": []} for side in kernels}
+        for side in kernels:
+            got = run[side]()
+            torch.cuda.synchronize()
+            if exact is None:
+                agrees = (bool(torch.allclose(got, ref, rtol=1e-5, atol=scale * 2.0**-21)) if dt == torch.float32
+                          else smoke.close16(got, ref, scale))
+                out[side]["equals_plain"] = agrees
+            else:
+                ulps = smoke.ulps_apart(torch, got, ref)
+                out[side].update(ulps_from_plain=ulps, equals_plain=ulps == 0 if exact else ulps <= 2,
+                                 **{k: programs[side][name, dt_name][k]
+                                    for k in ("registers", "spill_store_bytes")})
+            out[side]["max_abs_err"] = float((got.double() - ref.double()).abs().max())
+            del got
+        order = ["old", "new", "new", "old"] if "old" in kernels else ["new", "new"]
+        for side in order:
+            out[side]["kernel_ms"].append(smoke.cuda_ms(run[side]))
+            out[side]["kernel_device_ms"].append(smoke.device_ms(run[side]))
+        row["bound_ms"], row["bound_by"] = smoke.bound(2 * n * n * x.element_size(), flops)
+        for side, num in out.items():
+            num["kernel_of_bound_device"] = row["bound_ms"] / min(num["kernel_device_ms"])
+        row.update(out)
         print(json.dumps(row), flush=True)
-        del x, got, ref
-    torch.cuda.empty_cache()
+        del x, ref, run
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -226,6 +226,7 @@ def test_gate_binds_scalar_kwargs(kwargs, takes):
 class _Torch:
     roll = staticmethod(lambda b, s, a: torch.roll(b, s, a))
     tanh, sqrt, maximum, where, abs, sign = torch.tanh, torch.sqrt, torch.maximum, torch.where, torch.abs, torch.sign
+    minimum = torch.minimum
     clip = staticmethod(lambda v, lo, hi: torch.clip(v, lo, hi))
     relu = staticmethod(lambda v: torch.clamp(v, min=0.0))
 
@@ -233,6 +234,7 @@ class _Torch:
 class _Jax:
     roll = staticmethod(lambda b, s, a: jnp.roll(b, s, a))
     tanh, sqrt, maximum, where, abs, sign = jnp.tanh, jnp.sqrt, jnp.maximum, jnp.where, jnp.abs, jnp.sign
+    minimum = jnp.minimum
     clip = staticmethod(lambda v, lo, hi: jnp.clip(v, lo, hi))
     relu = staticmethod(lambda v: jnp.clip(v, 0.0, None))
 
@@ -457,7 +459,7 @@ def test_emitter_takes_torch_cuda_arithmetic():
     src, slots = stencil._emit(program, torch.float32)
     assert src == stencil.emit_program(program, torch.float32)
     assert "kSlots = 4;" in src and "__fmul_rn(v1, c[0])" in src
-    assert "(v0 != v0) ? v0" in src or "(v2 != v2) ? v2" in src
+    assert "A v4 = max_any_nan(v3, v0);" in src and "const A s4 = max_first_nan(v3, v0);" in src
     assert "__fmul_rn(__fdiv_rn(1.0f, v1), c[2])" in src and "v6 ? v8 : c[3]" in src
     scalars = np.frombuffer(stencil.program_scalars(program, slots, torch.float32), np.float32)
     assert scalars[0] == np.float32(1) / np.float32(3) and scalars[1] == np.float32(0.1) and scalars[2] == 2.0
@@ -494,6 +496,17 @@ _SHIM = r"""
 #define __restrict__
 template <typename T> struct Acc { using type = T; static T load(T v) { return v; } };
 template <typename T> constexpr int kStride = STRIDE;
+// the kernel's taps of one output, read from the padded block
+struct Taps {
+  const TYPE* p;
+  template <int DY, int DX> TYPE at() const { return p[DY * STRIDE + DX]; }
+};
+// max.NaN / min.NaN: the canonical NaN where an operand is NaN
+template <typename A> A max_any_nan(A a, A b) { return (a != a || b != b) ? A(NAN) : std::fmax(a, b); }
+template <typename A> A min_any_nan(A a, A b) { return (a != a || b != b) ? A(NAN) : std::fmin(a, b); }
+template <typename A> A max_first_nan(A a, A b) { return (a != a) ? a : ((b != b) ? b : std::fmax(a, b)); }
+template <typename A> A min_first_nan(A a, A b) { return (a != a) ? a : ((b != b) ? b : std::fmin(a, b)); }
+template <typename A> bool nan_or_zero(A v) { return !(std::fabs(v) > 0); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -514,7 +527,7 @@ using T = TYPE;
 _EVAL = r"""
 extern "C" void eval_tile(const T* padded, T* out, int rows, int cols, int d0, int d1, const T* c) {
   for (int i = 0; i < rows; ++i)
-    for (int j = 0; j < cols; ++j) out[i * cols + j] = Program::eval(padded + (i + d0) * STRIDE + (j + d1), c);
+    for (int j = 0; j < cols; ++j) out[i * cols + j] = Program::eval(Taps{padded + (i + d0) * STRIDE + (j + d1)}, c);
 }
 """
 
@@ -570,3 +583,163 @@ def test_emitted_program_evaluates_as_program_plain(tmp_path, which, dtype):
     else:
         bits = {torch.float32: torch.int32, torch.float64: torch.int64}[dtype]
         assert int((got.view(bits).long() - want.view(bits).long()).abs().max()) <= 4
+
+
+# ---------------------------------------------------------------------------
+# maximum/minimum chains: NaN, signed zeros and infinities
+# ---------------------------------------------------------------------------
+
+
+class _Np:
+    roll = staticmethod(lambda b, s, a: np.roll(b, s, a))
+    maximum, minimum = np.maximum, np.minimum
+
+
+def extremum_filter(xp, which):
+    """The 3x3 max (min) filter, a chain of eight ``maximum``
+    (``minimum``) calls in ``max_filter3``'s order."""
+    ext = xp.maximum if which == "max" else xp.minimum
+
+    def f(b):
+        out = b
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    out = ext(out, xp.roll(xp.roll(b, dy, 0), dx, 1))
+        return out
+
+    return f
+
+
+_NP_PAD = {"reflect": {"mode": "symmetric"}, "nearest": {"mode": "edge"}, "periodic": {"mode": "wrap"},
+           2.5: {"mode": "constant", "constant_values": 2.5}}
+
+
+def special_values(shape, seed):
+    """Normals with NaN, +0, -0, +inf and -inf each in a few percent of the
+    places, and a block of NaN and one of -0."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    pick = rng.random(shape)
+    for i, v in enumerate((np.nan, 0.0, -0.0, np.inf, -np.inf)):
+        x[(pick >= 0.04 * i) & (pick < 0.04 * i + 0.03)] = v
+    x[10:13, 20:23] = np.nan
+    x[30:33, 40:43] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("boundary", ["reflect", "nearest", "periodic", 2.5], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16", "bfloat16"])
+@pytest.mark.parametrize("which", ["max", "min"])
+def test_extremum_filters_with_nan_zeros_and_inf(which, dtype, boundary):
+    """The max and min filters of an input with NaN, ±0 and ±inf through
+    the port's ``map_overlap`` (a program: its plain version here) equal
+    the JAX package's ``map_overlap`` (the Pallas kernel in interpret mode;
+    bfloat16 keeps the JAX package's Overlap route) and numpy's chain of
+    ``maximum`` (``minimum``) on the padded array.  Tolerance 0: a maximum
+    returns one of its operands; NaN in the same places (numpy's
+    ``assert_array_equal`` takes -0 equal to +0)."""
+    x = special_values((48, 64), 61).astype(_NP[dtype])
+    got = tda.map_overlap(extremum_filter(_Torch, which), tda.from_array(x, chunks=(16, 32)), depth=1,
+                          boundary=boundary)
+    assert isinstance(got.expr, BandStencil) and stencil.is_program(got.expr.taps)
+    got = got.compute()
+    with jconfig.set({"tpu.stencil-kernel": "interpret"}):
+        ref = np.asarray(jda.map_overlap(extremum_filter(_Jax, which), jda.from_array(x, chunks=(16, 32)), depth=1,
+                                         boundary=boundary).compute())
+    with np.errstate(invalid="ignore"):
+        want = extremum_filter(_Np, which)(np.pad(x, 1, **_NP_PAD[boundary]))[1:-1, 1:-1]
+    assert got.dtype == ref.dtype == want.dtype == x.dtype
+    assert np.isnan(want.astype(np.float32)).any() and np.isinf(want.astype(np.float32)).any()
+    np.testing.assert_array_equal(got.astype(np.float64), want.astype(np.float64))
+    np.testing.assert_array_equal(ref.astype(np.float64), want.astype(np.float64))
+
+
+def test_an_extremum_chain_is_one_fast_pass_and_one_nan_path():
+    """A chain of ``maximum`` (``minimum``) nodes is emitted as one pass of
+    the one-instruction NaN-propagating form, one test of its result (NaN
+    or a zero), and the chain again in the plain order inside it; a value
+    used outside the chain ends it (its own test)."""
+    for which in ("max", "min"):
+        program = stencil.capture_program(extremum_filter(_Torch, which), (1, 1))
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            src = stencil.emit_program(program, dtype)
+            assert src.count(f"{which}_any_nan(") == 8 and src.count(f"{which}_first_nan(") == 8
+            assert src.count("if (") == 1 and "    A v16 = " in src and "if (nan_or_zero(v16)) {" in src
+    shared = stencil.capture_program(lambda b: torch.maximum(b, r(b, 1, 0)) * torch.minimum(
+        torch.maximum(b, r(b, 1, 0)), r(b, 0, 1)), (1, 1))
+    src = stencil.emit_program(shared, torch.float32)
+    assert src.count("if (") == 2 and src.count("_any_nan(") == 2 and src.count("_first_nan(") == 2
+
+
+# the functor lines of programs with no maximum or minimum, as the emitter
+# wrote them before chains had a fast pass: the ops are unchanged, only the
+# taps read from the thread's window
+_NON_EXTREMUM_LINES = {
+    "tanh_laplace": ["const A v2 = __fadd_rn(v0, v1);", "const A v4 = __fadd_rn(v2, v3);",
+                     "const A v6 = __fadd_rn(v4, v5);", "const A v9 = __fmul_rn(c[0], v8);",
+                     "const A v10 = __fsub_rn(v6, v9);", "const A v11 = tanhf(v10);"],
+    "limited_diffusion": ["const A v4 = __fadd_rn(v2, v3);", "const A v6 = __fadd_rn(v4, v5);",
+                          "const A v8 = __fadd_rn(v6, v7);", "const A v10 = __fmul_rn(c[0], v0);",
+                          "const A v11 = __fsub_rn(v8, v10);", "const A v12 = __fmul_rn(c[1], v11);",
+                          "const A v13 = fabsf(v12);", "const bool v15 = (v13 > c[2]);",
+                          "const A v16 = static_cast<A>(static_cast<int>(A(0) < v12) - static_cast<int>(v12 < A(0)));",
+                          "const A v17 = __fmul_rn(v16, c[2]);", "const A v18 = v15 ? v17 : v12;",
+                          "const A v19 = __fadd_rn(v0, v18);"],
+}
+
+
+@pytest.mark.parametrize("name", list(_NON_EXTREMUM_LINES))
+def test_a_program_without_extrema_keeps_its_ops(name):
+    func = stencil.bind_kwargs(getattr(pipelines, name), {"rate": 0.2, "limit": 0.05} if "diffusion" in name else {})
+    program = stencil.capture_program(func, (1, 1))
+    lines = [ln.strip() for ln in stencil.emit_program(program, torch.float32).splitlines()]
+    values = [ln for ln in lines if ln.startswith("const ") and "w.template at<" not in ln]
+    taps = [ln for ln in lines if "w.template at<" in ln]
+    assert values == _NON_EXTREMUM_LINES[name]
+    assert len(taps) == sum(node[0] == "tap" for node in program)
+    assert "_any_nan" not in "".join(lines) and "if (" not in "".join(lines)
+
+
+def _first_nan_reference(which, padded):
+    """The 3x3 filter of ``padded`` as torch's CUDA kernels compute a
+    maximum (minimum): a NaN operand returned as it is, the first where
+    both are NaN, by ``torch.where`` (which copies bits)."""
+    ext = torch.maximum if which == "max" else torch.minimum
+
+    def op(a, b):
+        return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, ext(a, b)))
+
+    out = padded
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                out = op(out, r(padded, dy, dx))
+    return out[1:-1, 1:-1]
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++ to build the host shim")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("which", ["max", "min"])
+def test_emitted_chain_returns_the_first_nan_bits(tmp_path, which, dtype):
+    """The emitted chain, compiled as host code (its fast pass giving the
+    canonical NaN, as max.NaN does): where an operand is NaN the plain
+    order runs and returns the first NaN operand's own bits, whatever its
+    payload and sign; every other value, ±inf among them, is the chain's.
+    (The sign of a zero is held to torch's CUDA kernels on the card,
+    tests/test_torch_gpu.py: the host's fmax need not order ±0 as they
+    do.)"""
+    bits = {torch.float32: (torch.int32, np.int32, [0x7FC00001, -0x003FFFFE, 0x7FA00003, 0x7F800F00]),
+            torch.float64: (torch.int64, np.int64, [0x7FF8000000000001, -0x0007FFFFFFFFFFFE, 0x7FF4000000000003,
+                                                    0x7FF00000000F0000])}[dtype]
+    padded = torch.from_numpy(special_values((26, 31), 62)).to(dtype)
+    flat = padded.view(bits[0]).reshape(-1)
+    nan_at = torch.nonzero(torch.isnan(padded).reshape(-1)).reshape(-1)
+    flat[nan_at] = torch.from_numpy(np.array(bits[2], dtype=bits[1]))[torch.arange(len(nan_at)) % 4]
+    program = stencil.capture_program(extremum_filter(_Torch, which), (1, 1))
+    got = _host_eval(program, padded, (1, 1), tmp_path)
+    want = _first_nan_reference(which, padded)
+    nan = torch.isnan(want)
+    assert nan.sum() > 9 and torch.isinf(want).any()
+    assert torch.equal(torch.isnan(got), nan) and torch.equal(got.view(bits[0])[nan], want.view(bits[0])[nan])
+    assert torch.equal(got[~nan], want[~nan])

@@ -2232,6 +2232,39 @@ def test_histogram_kernel_byte_route_every_pattern(cuda, name, edges_dtype, nbin
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("skew", ["one", "sixteen", "all"])
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "int4"])
+def test_histogram_kernel_byte_route_skewed_data(cuda, name, skew):
+    """The byte route's private 8-bit counters on 2**25 + 3 bytes (about
+    500 a thread, so every counter is flushed before it passes 255): every
+    byte one pattern (the worst case of a shared atomic a byte), 16
+    patterns and all 256, aligned and one element in (a byte a thread),
+    equal to the plain pattern count and the plain version of the values,
+    exactly."""
+    import ml_dtypes
+
+    from dask_array_tpu_torch.kernels import histogram as hk
+
+    n = 2**25 + 3
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    if skew == "one":
+        raw = torch.full((n,), 0x35 if name != "int4" else 0x03, dtype=torch.uint8, device="cuda")
+    elif skew == "sixteen":
+        raw = (torch.randint(0, 16, (n,), generator=gen, device="cuda") + (0 if name == "int4" else 0x30)).to(
+            torch.uint8)
+    else:
+        raw = torch.randint(0, 256, (n,), generator=gen, device="cuda").to(torch.uint8)
+    x, dt = (raw, np.dtype(ml_dtypes.int4)) if name == "int4" else (raw.view(getattr(torch, name)), None)
+    kind = dt if dt is not None else x.dtype
+    e = torch.linspace(-8.0, 8.0, 257, dtype=torch.float64, device="cuda")
+    for v in (x, x[1:]):
+        got = hk.histogram_counts_cuda(v, e, dtype=dt)
+        torch.testing.assert_close(got, hk.histogram_bytes_plain(v, e, kind), rtol=0, atol=0)
+        torch.testing.assert_close(got, hk.histogram_counts_plain(v, e, None, dt), rtol=0, atol=0)
+        assert int(got.sum()) > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "int4", "float8_e4m3"])
 def test_histogram_of_one_byte_data_through_the_api(cuda, name):
     """``da.histogram`` of float8 data raised on the card before the byte
@@ -2485,6 +2518,9 @@ def _program_items():
         for dt in PROGRAM_DTYPES:
             for depth in PROGRAM_DEPTHS:
                 items.append(stencil.program_build_item(stencil.capture_program(maker(*depth), depth), depth, dt))
+    for func, depth in EXTREMUM_PROGRAMS.values():
+        for dt in PROGRAM_DTYPES:
+            items.append(stencil.program_build_item(stencil.capture_program(func, depth), depth, dt))
     return items
 
 
@@ -2653,3 +2689,75 @@ def test_program_kernel_refuses_what_it_does_not_take(cuda):
         stencil.band_program_cuda(x.int(), program, (1, 1), ("reflect", "reflect"))
     with pytest.raises(ValueError, match="boundary"):
         stencil.band_program_cuda(x, program, (1, 1), ("wrap", "reflect"))
+
+
+# NaN bit patterns a test plants, by dtype: quiet with a payload, negative,
+# signalling, all ones
+NAN_PATTERNS = {torch.float16: [0x7E01, -0x01FE, 0x7D03, 0x7FFF], torch.bfloat16: [0x7FC1, -0x003F, 0x7F83, 0x7FFF],
+                torch.float32: [0x7FC00001, -0x003FFFFE, 0x7FA00003, 0x7FFFFFFF],
+                torch.float64: [0x7FF8000000000001, -0x0007FFFFFFFFFFFE, 0x7FF4000000000003, 0x7FFFFFFFFFFFFFFF]}
+
+
+def special_tensor(shape, dtype, seed):
+    """Normals on the card with NaN of the four ``NAN_PATTERNS``, +0, -0,
+    +inf and -inf each in a few percent of the places, a block of NaN and
+    one of -0."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    pick = rng.random(shape)
+    for i, v in enumerate((np.nan, 0.0, -0.0, np.inf, -np.inf)):
+        x[(pick >= 0.04 * i) & (pick < 0.04 * i + 0.03)] = v
+    x[10:13, 20:23] = np.nan
+    x[30:33, 40:43] = -0.0
+    t = torch.from_numpy(x).to(dtype).cuda()
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    flat = t.view(bits).reshape(-1)
+    at = torch.nonzero(torch.isnan(t).reshape(-1)).reshape(-1)
+    flat[at] = torch.tensor(NAN_PATTERNS[dtype], dtype=bits, device="cuda")[torch.arange(len(at), device="cuda") % 4]
+    return t
+
+
+def _chain(which):
+    ext = torch.maximum if which == "max" else torch.minimum
+
+    def f(b):
+        out = b
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    out = ext(out, _r(b, dy, dx))
+        return out
+
+    return f
+
+
+EXTREMUM_PROGRAMS = {
+    "max_filter": (_chain("max"), (1, 1)),
+    "min_filter": (_chain("min"), (1, 1)),
+    "mixed": (lambda b: torch.minimum(torch.maximum(b, _r(b, 1, 0)), _r(b, 0, -1)) + b, (1, 1)),
+    "deep": (lambda b: torch.maximum(_r(b, 3, 0), torch.minimum(b, _r(b, 0, -3))), (3, 3)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", PROGRAM_DTYPES, ids=str)
+@pytest.mark.parametrize("name", list(EXTREMUM_PROGRAMS))
+def test_program_extremum_chains_byte_for_byte(cuda, programs_built, name, dtype):
+    """maximum/minimum chains (the max and min filters, a mixed chain, a
+    deep one that reads its taps from the tile) on NaN of four bit
+    patterns, ±0 and ±inf: the kernel's fast pass and its NaN path equal
+    the plain version byte for byte, the NaN's own bits and the zero's
+    sign included; an odd shape, a 16-byte one and a reflect/constant
+    corner."""
+    from dask_array_tpu_torch.kernels import stencil
+
+    func, depth = EXTREMUM_PROGRAMS[name]
+    program = stencil.capture_program(func, depth)
+    assert program is not None
+    for shape, bnd in (((517, 301), ("reflect", 2.5)), ((512, 1024), ("nearest", "periodic"))):
+        x = special_tensor(shape, dtype, 70)
+        got = stencil.band_program_cuda(x, program, depth, bnd)
+        want = stencil.band_stencil_plain(x, func, depth, bnd)
+        torch.cuda.synchronize()
+        assert torch.isnan(want).any() and (name == "mixed" or (want == 0).any())
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))

@@ -505,15 +505,15 @@ def _byte_data(name, n=20000, seed=0):
 
 @pytest.mark.parametrize("nbins, edge_itemsize", [(1, 4), (256, 4), (256, 8), (65536, 8)])
 def test_byte_plan_reads_every_value_once(nbins, edge_itemsize):
-    """The byte route's plan: 16 values a unit, blocks of 256 threads,
-    eight an SM at most, equal runs, each value read once, a block's count
-    of one pattern within its 32-bit counter; one partial of 256 words a
+    """The byte route's plan: 16 values a unit, blocks of 512 threads,
+    one an SM at most, equal runs, each value read once, a block's count
+    of one pattern within its 32-bit total; one partial of 256 words a
     block."""
     for n in SIZES:
         for sms in (1, 132):
             plan = hk.launch_plan(n, nbins, sms, 1, 0, edge_itemsize, True)
             assert plan.mode == hk.BYTES and plan.vec == 16 and plan.units == -(-n // 16)
-            assert plan.threads == hk.THREADS and 1 <= plan.blocks <= sms * hk.BYTE_BLOCKS_PER_SM
+            assert plan.threads == hk.BYTE_THREADS and 1 <= plan.blocks <= sms and plan.per_sm == 1
             assert plan.partial == plan.blocks * 256 * 4
             shares = hk.shares(plan, n)
             assert shares[0][0] == 0 and shares[-1][1] == n
@@ -524,11 +524,135 @@ def test_byte_plan_reads_every_value_once(nbins, edge_itemsize):
 
 
 def test_byte_plan_at_the_main_path_shapes():
-    """2**26 float8 values on 132 SMs: 1056 blocks of 256 threads, 3972
-    units (63552 values) a block at most."""
+    """2**26 float8 values on 132 SMs: 132 blocks of 512 threads, 31776
+    units (508416 values, 993 a thread) a block at most."""
     plan = hk.launch_plan(2**26, 256, 132, 1, 0, 8, True)
-    assert (plan.blocks, plan.units) == (1056, 2**22)
-    assert max(b - a for a, b in hk.shares(plan, 2**26)) == 3972 * 16
+    assert (plan.blocks, plan.units, plan.threads) == (132, 2**22, 512)
+    assert max(b - a for a, b in hk.shares(plan, 2**26)) == 31776 * 16
+
+
+@pytest.mark.parametrize("nbins, edge_itemsize", [(1, 4), (256, 8), (65536, 8)])
+def test_byte_plan_flushes_before_a_counter_passes_255(nbins, edge_itemsize):
+    """Each thread's 256 8-bit counters, four a 32-bit word, laid out
+    ``[word][thread]``: their shared bytes a block, with the block's 256
+    32-bit totals and the 1 KB the card reserves a block, fit an SM
+    (``SM_SHARED``) and one block's limit; a thread flushes them at most
+    every 255 bytes it counts (a whole number of rounds of 16-byte units),
+    so no counter wraps, even when every byte is one pattern."""
+    for n in (1, 4095, 2**20 + 3, 2**26, 2**26 + 17):
+        for sms in (1, 132):
+            plan = hk.launch_plan(n, nbins, sms, 1, 0, edge_itemsize, True)
+            assert plan.smem == 256 * plan.threads == hk.BYTE_SHARED
+            assert plan.per_sm * (plan.smem + 256 * 4 + 1024) <= hk.SM_SHARED
+            assert plan.smem + 256 * 4 <= hk.BLOCK_SHARED
+            assert 0 < plan.flush <= 255 and plan.flush % 16 == 0
+
+
+def _emulated_byte_counts(x, plan):
+    """A numpy emulation of the byte route's counting: each block's run of
+    bytes dealt to its threads as the kernel deals them (whole rounds of 3
+    16-byte units a thread, then the rest a byte a thread), the thread's
+    8-bit counters wrapping as uint8 and flushed into 32-bit totals every
+    ``plan.flush`` bytes it counts."""
+    x = x.reshape(-1).view(torch.uint8).numpy()
+    n, t, unroll = x.size, plan.threads, 3
+    rounds = plan.flush // (16 * unroll)
+    total = np.zeros(256, np.int64)
+    for a, b in hk.shares(plan, n):
+        cnt = np.zeros((t, 256), np.uint8)
+        base = a // 16
+        whole, stop = n // 16, b // 16 if b < n else -(-n // 16)
+
+        def flush():
+            nonlocal cnt
+            total[:] += cnt.sum(axis=0, dtype=np.int64)
+            cnt = np.zeros((t, 256), np.uint8)
+
+        while base + t * unroll <= stop and base + t * unroll <= whole:
+            for _ in range(rounds):
+                if not (base + t * unroll <= stop and base + t * unroll <= whole):
+                    break
+                units = x[base * 16:(base + t * unroll) * 16].reshape(unroll, t, 16)
+                for k in range(unroll):
+                    np.add.at(cnt, (np.repeat(np.arange(t), 16), units[k].reshape(-1)), 1)
+                base += t * unroll
+            flush()
+        end = min(b, n)
+        for s in range(base * 16, end, t * plan.flush):
+            rest = x[s:min(s + t * plan.flush, end)]
+            np.add.at(cnt, (np.arange(rest.size) % t, rest), 1)
+            flush()
+    return total
+
+
+@pytest.mark.parametrize("skew", ["one", "sixteen", "all"])
+def test_byte_counters_never_wrap_on_skewed_data(skew):
+    """The emulated private counters (one pattern everywhere, the worst
+    case; 16 patterns; all 256) count every byte: their totals equal a
+    bincount, on two SMs so that each thread counts past 255 bytes."""
+    n = 2 * 512 * 1000 + 37
+    rng = np.random.default_rng(3)
+    raw = {"one": np.full(n, 0x38, np.uint8), "sixteen": rng.integers(0, 16, n).astype(np.uint8) * 16 + 7,
+           "all": rng.integers(0, 256, n).astype(np.uint8)}[skew]
+    x = torch.from_numpy(raw)
+    plan = hk.launch_plan(n, 256, 2, 1, 0, 4, True)
+    assert max(b - a for a, b in hk.shares(plan, n)) // plan.threads > 255
+    np.testing.assert_array_equal(_emulated_byte_counts(x, plan), np.bincount(raw, minlength=256))
+
+
+@pytest.mark.parametrize("edges", ["f4", "f8", "i8"])
+@pytest.mark.parametrize("skew", ["one", "sixteen"])
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "int4"])
+def test_byte_route_on_skewed_data_equals_the_jax_package(name, skew, edges):
+    """The byte route's plain version, and the plain version of the
+    values, on skewed data (every byte one pattern; 16 patterns) equal the
+    JAX package's histogram of the decoded values (float64, so every
+    1-byte value is exact)."""
+    n = 5000
+    rng = np.random.default_rng(7)
+    if skew == "one":
+        raw = np.full(n, 0x35 if name != "int4" else 0x03, np.uint8)
+    elif name == "int4":
+        raw = rng.integers(0, 16, n).astype(np.uint8)  # every int4 pattern
+    else:
+        raw = (rng.integers(0, 16, n) + 0x30).astype(np.uint8)  # 16 neighbouring values
+    x, dt = _byte_data(name, 1)
+    x = torch.from_numpy(raw).view(x.dtype)
+    e = {"f4": np.linspace(-4, 4, 17, dtype=np.float32), "f8": np.linspace(-3.3, 5.1, 257),
+         "i8": np.arange(-8, 9, 2, dtype=np.int64)}[edges]
+    et = torch.from_numpy(e)
+    try:
+        hk.comparison_dtype(dt, et.dtype)
+    except TypeError:  # numpy has no common type (float8_e4m3fn and int64)
+        return
+    got = hk.histogram_bytes_plain(x, et, dt)
+    plain = hk.histogram_counts_plain(x, et, None, None if name in TORCH_FLOAT8 else dt)
+    vals = hk.byte_values(dt)[x.view(torch.uint8).to(torch.int64)].double().numpy()
+    ref, _ = jda.histogram(jda.from_array(vals, chunks=1000), bins=e.astype(np.float64))
+    ref = np.asarray(ref.compute()).astype(np.int64)
+    assert ref.sum() > 0 or skew == "one"
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(plain.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", BYTE_TYPES)
+def test_device_byte_table_is_the_patterns_values(name):
+    """The byte route's table, made once a (type, comparison type, device)
+    and kept: ``byte_values`` in the kernel's comparison type, for every
+    1-byte type the route takes and every comparison type it takes; the
+    second call hands back the same tensor."""
+    _, dt = _byte_data(name, 1)
+    for compare, want in (("float32", torch.float32), ("float64", torch.float64), ("int64", torch.int64),
+                          ("uint64", torch.int64)):
+        got = hk.device_byte_values(dt, compare, torch.device("cpu"))
+        assert got.dtype == want and got.is_contiguous() and got.shape == (256,)
+        vals = hk.byte_values(dt)
+        if want == torch.int64:
+            finite = torch.isfinite(vals.double())
+            assert torch.equal(got[finite], vals.to(torch.int64)[finite])
+        else:
+            assert torch.equal(got.view(torch.uint8), vals.to(want).view(torch.uint8))
+        assert hk.device_byte_values(dt, compare, torch.device("cpu")) is got
 
 
 @pytest.mark.parametrize("name", BYTE_TYPES)

@@ -470,3 +470,75 @@ def test_lane_terminal_over_replicated_operand_is_a_reference_fault():
     with jax_pkg.use_mesh(jax_pkg.mesh("d8")), jda.config.set({"tpu.execution-lane": "shard-map"}):
         got = float(jax_pkg.arr(src, (H, 5)).std(axis=0).T.sum(axis=0).compute())
     assert not np.isclose(got, src.std(0).sum(), rtol=1e-6)
+
+
+# 2-byte floats: seeded normals through ``from_array`` on the irregular
+# row grid; NaNs in a fifth of the nan-kind input, factors near 1 for
+# ``cumprod``
+_HALF_SRC = np.random.default_rng(21).standard_normal((sum(H), 6)) * 3
+_HALF_NANS = _HALF_SRC.copy()
+_HALF_NANS[np.random.default_rng(22).random(_HALF_NANS.shape) < 0.2] = np.nan
+_HALF_FACTORS = 1 + _HALF_SRC * 0.01
+
+# (name, build over (da, arrays of _HALF_SRC, _HALF_NANS, _HALF_FACTORS),
+# engages on the row grid, engages on the row and column grid)
+HALF_CASES = [
+    ("sum_axis0", lambda da, a, n, f: a.sum(axis=0), True, True),
+    ("sum_all", lambda da, a, n, f: a.sum(), True, True),
+    ("mean_axis0", lambda da, a, n, f: a.mean(axis=0), True, True),
+    ("mean_all", lambda da, a, n, f: a.mean(), True, True),
+    ("nansum_axis0", lambda da, a, n, f: da.nansum(n, axis=0), True, True),
+    ("nanmean_axis0", lambda da, a, n, f: da.nanmean(n, axis=0), True, True),
+    ("normalize", lambda da, a, n, f: a - a.mean(), True, True),
+    ("cumsum_axis0", lambda da, a, n, f: da.cumsum(a, axis=0), False, False),
+    ("cumprod_axis0", lambda da, a, n, f: da.cumprod(f, axis=0), False, False),
+    ("inner_scan_reduce", lambda da, a, n, f: (a - da.cumsum(a, axis=0)).sum(), False, False),
+    ("cumsum_axis1", lambda da, a, n, f: da.cumsum(a, axis=1), True, False),
+]
+
+
+def _half_ulps(a, b):
+    """The largest distance of two 2-byte float arrays in units in the last
+    place (their bits as a signed-magnitude order; NaN to NaN is 0)."""
+    ia, ib = (np.asarray(v).view(np.int16).astype(np.int64) for v in (a, b))
+    ia, ib = (np.where(i < 0, -(i & 0x7FFF), i) for i in (ia, ib))
+    both_nan = np.isnan(np.asarray(a, np.float32)) & np.isnan(np.asarray(b, np.float32))
+    return int(np.where(both_nan, 0, np.abs(ia - ib)).max(initial=0))
+
+
+@pytest.mark.parametrize("grid", ["rows", "rows_cols"])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("case", HALF_CASES, ids=[c[0] for c in HALF_CASES])
+def test_lane_two_byte_float_rounds_once(case, dtype, grid):
+    """Under ``"auto"`` on 8 slots a float16/bfloat16 sum or mean over the
+    sharded axis equals the no-mesh walk: float32 partials through the
+    slot combine and the ``all_reduce``, one rounding at the end.  A scan
+    along the sharded axis declines the lane (the dense walk rounds at
+    every step, which no per-piece carry reproduces) and so equals it too;
+    on the row and column grid so does a scan along the chunked axis 1.
+
+    Tolerance: one 2-byte ulp.  The lane adds its float32 partials in
+    another order than the dense walk's one float32 sum, so the two
+    float32 totals may differ in their last bits; that can move the one
+    rounding to 2 bytes across a rounding boundary, by one ulp, never
+    more.  The parent, which rounded each part to 2 bytes, was off by up
+    to 54 ulps on these inputs."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as tda
+
+    _, build, *engages = case
+    dt = np.dtype(np.float16) if dtype == "float16" else np.dtype(ml_dtypes.bfloat16)
+    chunks = (H, 6) if grid == "rows" else (H, K)
+
+    def run():
+        arrays = (tda.from_array(v.astype(dt), chunks=chunks) for v in (_HALF_SRC, _HALF_NANS, _HALF_FACTORS))
+        return np.asarray(build(tda, *arrays).compute())
+
+    want = run()
+    before = tlane.ENGAGED["count"]
+    with t_use_mesh(PORT.mesh("d8")):
+        got = run()
+    assert got.dtype == want.dtype == dt and got.shape == want.shape
+    assert _half_ulps(got, want) <= 1
+    assert tlane.ENGAGED["count"] - before == int(engages[grid == "rows_cols"])
