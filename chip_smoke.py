@@ -8,8 +8,8 @@ version.  Run from the root of a checkout, with no arguments:
 
 Phases (each prints one line of its own numbers; any failure raises):
   1. setup: config "device" = "cuda"; build the band-stencil, the
-     multi-statistic, the transpose, the halo, the scale and the histogram
-     kernels from dask_array_tpu_torch/csrc and the band-stencil programs
+     multi-statistic, the transpose, the halo, the scale, the histogram and
+     the scan kernels from dask_array_tpu_torch/csrc and the band-stencil programs
      of phases 18, 30, 32 and 35 (generated by kernels/stencil.py; one
      nvcc each, all started together, each timed, its registers read from
      ptxas); print the card's name and power limit;
@@ -298,6 +298,24 @@ Phases (each prints one line of its own numbers; any failure raises):
      "off"), by compute_device(); tanh(laplace) at 4096^2 from numpy by
      compute() and compute_device() both ways; one float64 program's
      first use (nvcc alone).
+ 36. K3, the step-rounded scan (SCAN_SIZES, ``scan_paths``): float16 and
+     bfloat16 at 16384^2 (chunks 4096; NaN, ±inf, ±0 and subnormals in a
+     128^2 corner) through cumsum, cumprod (values near 1) and nancumsum
+     along axis 0 and axis 1, 1e6 x 128 bfloat16 along axis 0 (128 chains
+     of 1e6 steps), 2^24 float16 raveled (one chain) and phase 34's
+     cumsum(axis=0) of the five narrow float types at 16384^2: each
+     through compute_device() (one K3 launch), the kernel equal to it and
+     to its plain version byte for byte (on the first 16384 steps of the
+     long chains), a slice equal to numpy (any NaN only after a step whose
+     operands were both NaN; a 1-byte NaN's sign not compared); the kernel
+     per call and on the device (median of 30, 5 on the long chains, with
+     the spread) beside its bound (one read and one write), the chains and
+     steps, the plain version (one run), the route it replaced (the 2-byte
+     host round trip in two 16384^2 cases and on the long chains, one run
+     written out here; for 1-byte types the per-row loop, their plain
+     version)
+     and torch.cumsum of the float32 cast (not the same function; float32
+     torch.cumsum at 1e6 x 128 too).
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after; a kernel of a path launched no time fails the run.
@@ -1188,7 +1206,7 @@ def random_paths(da, torch, sizes, timer, sync, device):
     pipes = {}
     nt, ct = sizes["tree"], sizes["tree_chunk"]
     x_np = host(0, (nt, nt), ct)
-    forms = {"random": P.reduction_tree(chunk=ct, n=nt), "numpy": P.reduction_tree(x_np, chunk=ct)}
+    forms = {"random": P.reduction_tree(chunk=ct, n=nt), "numpy": P.reduction_tree(chunk=ct, x_np=x_np)}
     res = {}
     for form, arrays in forms.items():
         res[form], lc = launches(lambda: da.compute(*arrays))
@@ -1204,7 +1222,7 @@ def random_paths(da, torch, sizes, timer, sync, device):
 
     ns, cs = sizes["stencil"], sizes["stencil_chunk"]
     x_np = host(0, (ns, ns), cs)
-    forms = {"random": P.stencil2d(chunk=cs, form="roll", n=ns), "numpy": P.stencil2d(x_np, chunk=cs, form="roll")}
+    forms = {"random": P.stencil2d(chunk=cs, form="roll", n=ns), "numpy": P.stencil2d(chunk=cs, form="roll", x_np=x_np)}
     for form, arr in forms.items():
         res[form], lc = launches(arr.compute)
         pipes[f"stencil2d_roll_{form}"] = {"compute_ms": host_ms(arr.compute, 3), "compute_device_ms": dev_ms([arr]),
@@ -1222,7 +1240,7 @@ def random_paths(da, torch, sizes, timer, sync, device):
     nr, nc, cr = sizes["svd_rows"], sizes["svd_cols"], sizes["svd_chunk"]
     x_np = host(0, (nr, nc), (cr, nc))
     forms = {"random": P.tall_skinny_svd(chunk_rows=cr, rows=nr, cols=nc),
-             "numpy": P.tall_skinny_svd(x_np, chunk_rows=cr)}
+             "numpy": P.tall_skinny_svd(chunk_rows=cr, x_np=x_np)}
     for form, arrays in forms.items():
         res[form], lc = launches(lambda: da.compute(*arrays))
         pipes[f"tall_skinny_svd_{form}"] = {"compute_ms": host_ms(lambda: da.compute(*arrays), 3),
@@ -1238,7 +1256,7 @@ def random_paths(da, torch, sizes, timer, sync, device):
 
     nl, cl = sizes["relayout"], sizes["relayout_chunk"]
     x_np = host(0, (nl, nl), (cl, nl))
-    forms = {"random": P.rechunk_relayout(chunk=cl, n=nl), "numpy": P.rechunk_relayout(x_np, chunk=cl)}
+    forms = {"random": P.rechunk_relayout(chunk=cl, n=nl), "numpy": P.rechunk_relayout(chunk=cl, x_np=x_np)}
     for form, arr in forms.items():
         res[form], lc = launches(arr.compute)
         pipes[f"rechunk_relayout_{form}"] = {"compute_ms": host_ms(arr.compute, 3), "compute_device_ms": dev_ms([arr]),
@@ -1392,7 +1410,7 @@ def io_paths(da, torch, sizes, sync, device, root):
         # -- (a) write: stencil2d's roll form to zarr, beside np.save of the same array
         n, c = sizes["stencil"], sizes["stencil_chunk"]
         x_np = np.random.default_rng(29).random((n, n), dtype=np.float32)
-        arr = P.stencil2d(x_np, chunk=c, form="roll")
+        arr = P.stencil2d(chunk=c, form="roll", x_np=x_np)
         url = f"{tmp}/stencil.zarr"
         stencil.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1470,7 +1488,7 @@ def io_paths(da, torch, sizes, sync, device, root):
         # -- (d) npy stacks: rechunk_relayout to a stack and back
         nl, cl = sizes["relayout"], sizes["relayout_chunk"]
         x8 = np.random.default_rng(30).random((nl, nl), dtype=np.float32)
-        y = P.rechunk_relayout(x8, chunk=cl)
+        y = P.rechunk_relayout(chunk=cl, x_np=x8)
         tk.LAUNCHES = 0
         t0 = time.perf_counter()
         da.to_npy_stack(f"{tmp}/stack", y)
@@ -2238,7 +2256,7 @@ def s9_paths(da, torch, sizes, smi):
         n, c = sizes["matmul"], sizes["matmul_chunk"]
         a_np = rng.standard_normal((n, n), dtype=np.float32).astype(bf16)
         b_np = rng.standard_normal((n, n), dtype=np.float32).astype(bf16)
-        mm = blocked_matmul(a_np, b_np, chunk=c)
+        mm = blocked_matmul(chunk=c, a_np=a_np, b_np=b_np)
         check(np.dtype(mm.dtype) == np.dtype(bf16), f"phase 31: blocked_matmul bf16 gives {mm.dtype}")
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # float32 accumulation
         got = mm.compute_device()
@@ -2260,7 +2278,7 @@ def s9_paths(da, torch, sizes, smi):
         torch.cuda.empty_cache()
         n, c = sizes["stencil"], sizes["stencil_chunk"]
         x_np = rng.standard_normal((n, n), dtype=np.float32).astype(bf16)
-        st = stencil2d(x_np, chunk=c, form="roll")
+        st = stencil2d(chunk=c, form="roll", x_np=x_np)
         h, _ = da.histogram(da.from_array(x_np, chunks=c), bins=256, range=(-4, 4))
         stencil.LAUNCHES = hk.LAUNCHES = 0
         got_st, got_h = st.compute(), h.compute()
@@ -3217,6 +3235,250 @@ def _program_library(torch, F, name, padded, x, kw, dt):
         "x + clamp(conv2d)"
 
 
+# phase 36: K3, the step-rounded scan.  "n" is the side of the float16 and
+# bfloat16 blocks (16384^2, 512 MiB each) in chunks of "chunk"; "check" the
+# columns (axis 0) or rows (axis 1) held against numpy; "corner" the side of
+# the corner where NaN, ±inf, ±0 and subnormals are planted (one element in
+# 16 there), so the other chains keep finite values; "tall" the bfloat16 of
+# 128 chains of 1e6 steps; "flat" the 1-D float16 (one chain); "prefix" the
+# steps the plain version runs on those long chains (a scan's first steps
+# are the scan of its first terms); "reps" and "long_reps" the timed runs of
+# the kernel on short and long chains; "host_route" the n^2 cases whose
+# replaced host round trip is timed (numpy's float16 scan along axis 0 of
+# 16384^2 alone takes about 16-23 s)
+SCAN_SIZES = {"n": 16384, "chunk": 4096, "check": 64, "corner": 128, "tall": (1_000_000, 128), "tall_check": 16,
+              "flat": 1 << 24, "prefix": 16384, "reps": 30, "long_reps": 5,
+              "host_route": ("float16-cumsum-axis0", "bfloat16-cumsum-axis1")}
+SCAN_NARROW = tuple(name for name in NARROW_TYPES if name.startswith("float"))
+
+
+def scan_data(np, dt, shape, kind, corner, seed):
+    """A host float16 or bfloat16 array of ``shape`` from ``seed``: normals
+    (times 300 for sums, 1 + x/64 for products), with NaNs of both signs and
+    two payloads, ±inf, ±0 and the smallest subnormals planted in the
+    leading ``corner`` of every axis."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(shape, dtype=np.float32)
+    v = 1 + v / 64 if kind.endswith("cumprod") else v * 300
+    x = v.astype(dt)
+    del v
+    half = dt == np.float16
+    specials = np.array([0x7E01 if half else 0x7FC1, 0xFD55 if half else 0xFFD5, 0x7C00 if half else 0x7F80,
+                         0xFC00 if half else 0xFF80, 0x0000, 0x8000, 0x0001, 0x8001], dtype=np.uint16)
+    block = x[tuple(slice(0, corner) for _ in shape)].view(np.uint16)
+    hit = rng.random(block.shape) < 1 / 16
+    block[hit] = specials[rng.integers(0, len(specials), int(hit.sum()))]
+    return x
+
+
+def scan_agrees(np, got, want, terms, axis, signless=False):
+    """``got`` equals numpy's ``want`` byte for byte, except that a NaN may
+    be any NaN from the first step of its chain whose operands were both NaN
+    (``signless``: any NaN anywhere, for a 1-byte table made on the host)."""
+    nan = lambda a: np.isnan(a.astype(np.float32))  # noqa: E731
+    width = np.uint16 if want.itemsize == 2 else np.uint8
+    exact = got.view(width) == want.view(width)
+    if signless:
+        return bool(np.all(exact | (nan(got) & nan(want))))
+    prev = np.take(want, np.arange(want.shape[axis] - 1), axis=axis)
+    later = np.take(terms, np.arange(1, want.shape[axis]), axis=axis)
+    pad = [(0, 0)] * want.ndim
+    pad[axis] = (1, 0)
+    free = np.logical_or.accumulate(np.pad(nan(prev) & nan(later), pad), axis=axis)
+    return bool(np.all(exact | (free & nan(got) & nan(want))))
+
+
+def host_scan_route(np, torch, held, kind, axis):
+    """The route K3 replaced for a 2-byte scan, written out here only to
+    time it: the block to the host, numpy's scan, the result back."""
+    from dask_array_tpu_torch._chunks import array_of, tensor_of
+
+    scan = np.cumsum if kind.endswith("cumsum") else np.cumprod
+    out = tensor_of(scan(array_of(held.cpu()), axis=axis)).to(held.device)
+    torch.cuda.synchronize()
+    return out
+
+
+def timed_once(torch, fn):
+    """(result, milliseconds) of one run of ``fn`` on the card, host clock
+    around a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def scan_times(torch, kernel, reps, nbytes, chains, steps):
+    """The kernel per call (CUDA events) and on the device alone, with the
+    spread of ``reps`` runs, beside its bound from bytes (one read and one
+    write), the chains and the steps of each."""
+    runs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        kernel()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    dev = device_runs(kernel, reps, warmup=1)
+    b_ms, b_by = bound(nbytes, chains * steps)
+    return {"kernel_ms": statistics.median(runs), "kernel_spread_ms": spread(runs),
+            "kernel_device_ms": statistics.median(dev), "kernel_device_spread_ms": spread(dev), "reps": reps,
+            "bytes": nbytes, "chains": chains, "steps": steps, "bound_ms": b_ms, "bound_by": b_by,
+            "of_bound": b_ms / statistics.median(dev)}
+
+
+def scan_paths(da, torch, sizes, smi):
+    """K3 on the card (phase 36).  (a) float16 and bfloat16 at n^2 (chunks
+    ``chunk``), cumsum, cumprod (values near 1) and nancumsum along axis 0
+    and axis 1: the API's compute_device() (one K3 launch each, from
+    from_array of host data), the kernel on the same card tensor, equal to
+    it and to the plain version byte for byte, ``check`` columns (rows)
+    against numpy; the kernel per call and on the device beside its bound,
+    the plain version (one run), the host route it replaced (one run, in
+    the cases ``host_route`` names) and torch.cumsum of the float32 cast
+    (not the same function: it rounds once).  (b) 1e6 x 128 bfloat16 along axis 0 (128 chains of 1e6 steps)
+    and (c) 2^24 float16 raveled (one chain): the same, the plain version
+    on the first ``prefix`` steps, and float32 torch.cumsum at 1e6 x 128.
+    (d) phase 34's cumsum(axis=0) of the narrow float types at n^2: the
+    kernel beside the plain version, which is the per-row route it replaced.
+    Returns (numbers, the main path's launches, all API launches)."""
+    import ml_dtypes
+    import numpy as np
+
+    from dask_array_tpu_torch._chunks import array_of, tensor_of, value_of
+    from dask_array_tpu_torch.kernels import scan
+
+    n, c, cols, corner = sizes["n"], sizes["chunk"], sizes["check"], sizes["corner"]
+    out = {}
+    api_launches = 0
+    main_launches = None
+    for seed, (name, dt) in enumerate((("float16", np.dtype(np.float16)),
+                                       ("bfloat16", np.dtype(ml_dtypes.bfloat16))), 360):
+        for data_kind in ("cumsum", "cumprod"):
+            x = scan_data(np, dt, (n, n), data_kind, corner, seed)
+            t = tensor_of(x).cuda()
+            kinds = (data_kind, "nancumsum") if data_kind == "cumsum" else (data_kind,)
+            for kind in kinds:
+                terms = torch.where(torch.isnan(t), 0, t) if kind.startswith("nan") else t
+                host_terms = array_of(terms.cpu()) if terms is not t else x
+                for axis in (0, 1):
+                    tag = f"{name}-{kind}-axis{axis}"
+                    scan.LAUNCHES = 0
+                    held, api_ms = timed_once(torch, lambda: getattr(da, kind)(da.from_array(x, chunks=c),
+                                                                               axis=axis).compute_device())
+                    launched = scan.LAUNCHES
+                    check(launched == 1, f"phase 36 {tag}: {launched} K3 launches in one compute()")
+                    if main_launches is None:
+                        main_launches = launched
+                    api_launches += launched
+                    got = scan.rounded_scan_cuda(terms, kind, axis, dt)
+                    plain, plain_ms = timed_once(torch, lambda: scan.rounded_scan_plain(terms, kind, axis, dt))
+                    check(torch.equal(got.view(torch.int16), held.view(torch.int16)),
+                          f"phase 36 {tag}: the API's result differs from the kernel's")
+                    check(torch.equal(got.view(torch.int16), plain.view(torch.int16)),
+                          f"phase 36 {tag}: the kernel differs from its plain version")
+                    part = (slice(None), slice(0, cols)) if axis == 0 else (slice(0, cols), slice(None))
+                    with np.errstate(all="ignore"):
+                        want = getattr(np, data_kind)(np.ascontiguousarray(host_terms[part]), axis=axis)
+                    mine = array_of(got[part].cpu())
+                    check(scan_agrees(np, mine, want, host_terms[part], axis), f"phase 36 {tag}: differs from numpy")
+                    host_ms = None
+                    if tag in sizes["host_route"]:
+                        _, host_ms = timed_once(torch, lambda: host_scan_route(np, torch, terms, kind, axis))
+                    num = scan_times(torch, lambda: scan.rounded_scan_cuda(terms, kind, axis, dt), sizes["reps"],
+                                     2 * t.numel() * 2, n, n)
+                    num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms,
+                                "plain_runs": 1, "host_route_ms": host_ms, "host_route_runs": int(host_ms is not None),
+                                "library": "torch.cumsum of the float32 cast (not the same function)",
+                                "library_ms": cuda_ms(lambda: torch.cumsum(terms.float(), dim=axis)),
+                                "max_abs_err_vs_plain": float((got.double() - plain.double()).nan_to_num(0).abs().max()),
+                                "nan_outputs": int(torch.isnan(got).sum()), "numpy_checked": list(mine.shape)})
+                    out[tag] = num
+                    del held, got, plain
+                del terms
+            del x, t
+            torch.cuda.empty_cache()
+
+    # (b) 128 chains of 1e6 steps, (c) one chain of 2^24 steps
+    rows, width = sizes["tall"]
+    prefix = sizes["prefix"]
+    for tag, shape, dt, chunks, ncheck, seed in (
+            ("bfloat16-cumsum-1e6x128-axis0", (rows, width), np.dtype(ml_dtypes.bfloat16), (rows // 10, width),
+             sizes["tall_check"], 370),
+            ("float16-cumsum-2^24-flat", (sizes["flat"],), np.dtype(np.float16), sizes["flat"] // 4, None, 371)):
+        flat = len(shape) == 1
+        x = scan_data(np, dt, shape, "cumsum", 0, seed)
+        if flat:
+            x = (x.astype(np.float32) / 300).astype(dt)  # a walk of N(0, 1) steps stays inside float16
+            x.view(np.uint16)[-1000::37] = 0x7E01  # NaNs at the end only, so most of the chain is finite
+        t = tensor_of(x).cuda()
+        scan.LAUNCHES = 0
+        held, api_ms = timed_once(torch, lambda: da.cumsum(da.from_array(x, chunks=chunks), axis=0).compute_device())
+        launched = scan.LAUNCHES
+        check(launched == 1, f"phase 36 {tag}: {launched} K3 launches in one compute()")
+        api_launches += launched
+        got = scan.rounded_scan_cuda(t, "cumsum", 0, dt)
+        check(torch.equal(got.view(torch.int16), held.view(torch.int16)), f"phase 36 {tag}: API differs from kernel")
+        plain, plain_ms = timed_once(torch, lambda: scan.rounded_scan_plain(t[:prefix], "cumsum", 0, dt))
+        check(torch.equal(got[:prefix].view(torch.int16), plain.view(torch.int16)),
+              f"phase 36 {tag}: the kernel's first {prefix} steps differ from the plain version")
+        part = (slice(None), slice(0, ncheck)) if not flat else (slice(None),)
+        with np.errstate(all="ignore"):
+            want = np.cumsum(np.ascontiguousarray(x[part]), axis=0)
+        mine = array_of(got[part].cpu())
+        check(scan_agrees(np, mine, want, x[part], 0), f"phase 36 {tag}: differs from numpy")
+        _, host_ms = timed_once(torch, lambda: host_scan_route(np, torch, t, "cumsum", 0))
+        num = scan_times(torch, lambda: scan.rounded_scan_cuda(t, "cumsum", 0, dt), sizes["long_reps"],
+                         2 * t.numel() * 2, t.numel() // shape[0], shape[0])
+        t32 = t.float()
+        num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms,
+                    "plain_steps": prefix, "host_route_ms": host_ms, "host_route_runs": 1,
+                    "library": "torch.cumsum of the float32 cast (not the same function)",
+                    "library_ms": cuda_ms(lambda: torch.cumsum(t.float(), dim=0), reps=sizes["long_reps"], warmup=1),
+                    "float32_cumsum_ms": cuda_ms(lambda: torch.cumsum(t32, dim=0), reps=sizes["long_reps"], warmup=1),
+                    "max_abs_err_vs_plain": 0.0, "numpy_checked": list(mine.shape)})
+        out[tag] = num
+        del x, t, t32, held, got, plain
+        torch.cuda.empty_cache()
+
+    # (d) phase 34's narrow float scans, now K3's
+    for seed, name in enumerate(SCAN_NARROW, 380):
+        dt = np.dtype(getattr(ml_dtypes, name))
+        a = narrow_data(torch, name, (n, n), seed)
+        held_t = tensor_of(a).cuda()
+        tag = f"{name}-cumsum-axis0"
+        scan.LAUNCHES = 0
+        held, api_ms = timed_once(torch, lambda: da.from_array(a, chunks=c).cumsum(axis=0).compute_device())
+        launched = scan.LAUNCHES
+        check(launched == 1, f"phase 36 {tag}: {launched} K3 launches in one compute()")
+        api_launches += launched
+        got = scan.rounded_scan_cuda(held_t, "cumsum", 0, dt)
+        plain, plain_ms = timed_once(torch, lambda: scan.rounded_scan_plain(held_t, "cumsum", 0, dt))
+        for what, other in (("the API", held), ("the plain version", plain)):
+            check(torch.equal(got.view(torch.uint8), other.view(torch.uint8)), f"phase 36 {tag}: differs from {what}")
+        with np.errstate(all="ignore"):
+            want = np.cumsum(np.ascontiguousarray(a[:, :cols]), axis=0)
+        mine = array_of(got[:, :cols].cpu(), dt)
+        check(scan_agrees(np, mine, want, a[:, :cols], 0, signless=True), f"phase 36 {tag}: differs from numpy")
+        num = scan_times(torch, lambda: scan.rounded_scan_cuda(held_t, "cumsum", 0, dt), sizes["reps"],
+                         2 * held_t.numel(), n, n)
+        values = value_of(held_t, dt)
+        num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms, "plain_runs": 1,
+                    "replaced_route": "the per-row add and index_select (the plain version)",
+                    "replaced_route_ms": plain_ms,
+                    "library": "torch.cumsum of the float32 values (not the same function)",
+                    "library_ms": cuda_ms(lambda: torch.cumsum(values, dim=0), reps=10),
+                    "max_abs_err_vs_plain": 0.0, "numpy_checked": list(mine.shape)})
+        out[tag] = num
+        del a, held_t, held, got, plain, values
+        torch.cuda.empty_cache()
+    for num in out.values():
+        num["card"] = smi
+    return out, main_launches, api_launches
+
+
 def main() -> int:
     import torch
 
@@ -3252,11 +3514,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    # the six kernels and the band-stencil programs of phases 18, 30, 32
+    # the seven kernels and the band-stencil programs of phases 18, 30, 32
     # and 35, one nvcc each, all started together; each build timed
     program_items = {key: stencil.program_build_item(*key) for key in program_keys(stencil)}
-    built, program_builds = build_timed(_build, ["band_stencil", "mstat", "transpose", "halo", "scale", "histogram"],
-                                        program_items)
+    built, program_builds = build_timed(_build, ["band_stencil", "mstat", "transpose", "halo", "scale", "histogram",
+                                                 "scan"], program_items)
     build_s = time.perf_counter() - t_start
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3369,14 +3631,14 @@ def main() -> int:
     x4 = rng.standard_normal((4096, 4096), dtype=np.float32)
     ref4 = numpy_laplace(x4)
     atol4 = 8 * float(np.abs(x4).max()) * 2.0**-21
-    roll4 = stencil2d(x4, chunk=1024, form="roll")
+    roll4 = stencil2d(chunk=1024, form="roll", x_np=x4)
     check(isinstance(roll4.expr, BandStencil), f"roll form is {type(roll4.expr).__name__}")
     before = stencil.LAUNCHES
     out4 = roll4.compute_device()
     check(out4.is_cuda, f"stencil2d result on {out4.device}")
     check(stencil.LAUNCHES > before, "stencil2d roll form did not launch the kernel")
     r4 = out4.cpu().numpy()
-    slices4 = stencil2d(x4, chunk=1024, form="slices")
+    slices4 = stencil2d(chunk=1024, form="slices", x_np=x4)
     check(not isinstance(slices4.expr, BandStencil), "slices form routed to BandStencil")
     s4 = slices4.compute()
     for name, res in (("roll", r4), ("slices", s4)):
@@ -3387,7 +3649,7 @@ def main() -> int:
           slices_err=float(np.abs(s4 - ref4).max()), atol=atol4)
 
     x16 = rng.standard_normal((16384, 16384), dtype=np.float32)
-    roll16 = stencil2d(x16, chunk=4096, form="roll")
+    roll16 = stencil2d(chunk=4096, form="roll", x_np=x16)
     check(isinstance(roll16.expr, BandStencil), "16384 roll form is not BandStencil")
     res16 = roll16.compute()
     check(res16.shape == (16384, 16384) and res16.dtype == np.float32, "16384: shape/dtype")
@@ -3492,7 +3754,7 @@ def main() -> int:
 
     # -- phase 8: reduction_tree, the reductions path --------------------------
     x_np = np.random.default_rng(8).standard_normal((10000, 10000), dtype=np.float32)
-    tree = reduction_tree(x_np, chunk=1000, split_every=4)
+    tree = reduction_tree(chunk=1000, split_every=4, x_np=x_np)
     mstat.LAUNCHES = 0
     s_out, m_out, sd_out = da.compute(*tree)
     mstat_launches = mstat.LAUNCHES
@@ -3535,7 +3797,7 @@ def main() -> int:
     rng10 = np.random.default_rng(10)
     ma = rng10.standard_normal((8192, 8192), dtype=np.float32)
     mb = rng10.standard_normal((8192, 8192), dtype=np.float32)
-    bm = blocked_matmul(ma, mb, chunk=1024)
+    bm = blocked_matmul(chunk=1024, a_np=ma, b_np=mb)
     check(bm.chunks == ((1024,) * 8, (512,) * 16), f"blocked_matmul chunks {bm.chunks}")
     bm_dev = bm.compute_device()
     check(bm_dev.dtype == torch.float32 and tuple(bm_dev.shape) == (8192, 8192), "blocked_matmul: shape/dtype")
@@ -3616,7 +3878,7 @@ def main() -> int:
     # -- phase 13: rechunk_relayout, the transpose main path -------------------
     x_np = np.random.default_rng(13).standard_normal((8192, 8192), dtype=np.float32)
     want_bits = x_np.view(np.uint32).T
-    rel = rechunk_relayout(x_np, chunk=1024)
+    rel = rechunk_relayout(chunk=1024, x_np=x_np)
     check(rel.chunks == ((1024,) * 8, (8192,)), f"rechunk_relayout chunks {rel.chunks}")
     tk.LAUNCHES = 0
     rel_out = rel.compute()
@@ -3624,7 +3886,7 @@ def main() -> int:
     check(transpose_launches >= 1, "rechunk_relayout launched the transpose kernel no time")
     check(rel_out.shape == (8192, 8192) and rel_out.dtype == np.float32, "relayout: shape/dtype")
     check(bool(np.array_equal(rel_out.view(np.uint32), want_bits)), "relayout: bytes differ from x.T")
-    relp = rechunk_relayout(x_np, chunk=1024, persist=True)
+    relp = rechunk_relayout(chunk=1024, persist=True, x_np=x_np)
     tk.LAUNCHES = 0
     relp_dev = relp.compute_device()
     persist_launches = tk.LAUNCHES
@@ -3783,7 +4045,7 @@ def main() -> int:
     halo_launches = None
     for n, chunk, seed in ((16384, 4096, 17), (4096, 1024, 18)):
         x_np = np.random.default_rng(seed).standard_normal((n, n), dtype=np.float32)
-        arr = stencil2d(x_np, chunk=chunk, form="slices")
+        arr = stencil2d(chunk=chunk, form="slices", x_np=x_np)
         check(not isinstance(arr.expr, BandStencil), "slices form routed to BandStencil")
         halo.LAUNCHES = stencil.LAUNCHES = 0
         res = arr.compute()
@@ -3989,7 +4251,7 @@ def main() -> int:
     # -- phase 23: tall_skinny_svd and the other decompositions ------------------------
     m23, n23 = 1_000_000, 128
     x23 = np.random.default_rng(23).standard_normal((m23, n23), dtype=np.float32)
-    ts = tall_skinny_svd(x23, chunk_rows=100_000)
+    ts = tall_skinny_svd(chunk_rows=100_000, x_np=x23)
     sk.LAUNCHES = 0
     factorizations = linalg_decomp.FACTORIZATIONS
     u23, s23, vh23 = da.compute(*ts)
@@ -4114,7 +4376,7 @@ def main() -> int:
         del xn
     phase(24, "timing-scale-beside-torch-mul", card=smi, **beside_mul)
     svd_ms = {}
-    arrays = tall_skinny_svd(x23, chunk_rows=100_000)
+    arrays = tall_skinny_svd(chunk_rows=100_000, x_np=x23)
     exprs = [a.expr for a in arrays]
     compute_exprs(exprs)  # warm
     svd_ms["compute_device_ms"] = host_ms(lambda: (compute_exprs(exprs), torch.cuda.synchronize()), 3)
@@ -4274,10 +4536,20 @@ def main() -> int:
     check(route_launches > 0, "phase 35: the program route never launched")
     print(smi, flush=True)
 
+    # -- phase 36: K3, the step-rounded scan of 2-byte and 1-byte floats -------
+    t36 = time.perf_counter()
+    scans, scan_launches, scan_api_launches = scan_paths(da, torch, SCAN_SIZES, smi)
+    for name, num in scans.items():
+        phase(36, name, **num)
+    phase(36, "seconds", launches=scan_launches, api_launches=scan_api_launches, seconds=time.perf_counter() - t36)
+    check(scan_launches == 1, f"phase 36: the main path launched K3 {scan_launches} times")
+    print(smi, flush=True)
+
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi, flush=True)
     st = st_timings[4096]
     p4 = prog["tanh_laplace-float32-4096-reflect"]
+    k3 = scans["float16-cumsum-axis0"]
     print(json.dumps({"kernels": [
         {
             "name": "band_stencil",
@@ -4423,6 +4695,28 @@ def main() -> int:
             "cases": {k: {key: v[key] for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
                                                   "bound_ms", "of_bound")}
                       for k, v in byte_timing.items()},
+        },
+        {
+            "name": "rounded_scan",
+            "route": "cuda",
+            "source": "dask_array_tpu_torch/csrc/scan.cu",
+            "replaces": "dask_array_tpu/ops/reductions.py:831 (jnp.cumsum/jnp.cumprod in XLA, not Pallas)",
+            "launches": scan_launches,
+            "launches_phase36": scan_api_launches,
+            "max_abs_err": k3["max_abs_err_vs_plain"],
+            "ms": k3["kernel_ms"],
+            "device_ms": k3["kernel_device_ms"],
+            "plain_ms": k3["plain_ms"],
+            "bound_ms": k3["bound_ms"],
+            "bound_by": k3["bound_by"],
+            "library_ms": k3["library_ms"],
+            "library": k3["library"],
+            "library_same_function": False,
+            "replaced_route_ms": k3["host_route_ms"],
+            "cases": {k: {key: v.get(key) for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+                                                      "host_route_ms", "replaced_route_ms", "float32_cumsum_ms",
+                                                      "bound_ms", "of_bound", "chains", "steps")}
+                      for k, v in scans.items()},
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

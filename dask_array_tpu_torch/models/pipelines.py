@@ -9,13 +9,16 @@ stencil's sizes (``tanh_laplace``, ``sobel_magnitude``, ``max_filter3``,
 ``limited_diffusion``), the tall-skinny SVD (BASELINE config 5) and the
 rows-to-columns relayout of a transposed array (BASELINE metric 2).
 
-``reduction_tree``, ``stencil2d``, ``tall_skinny_svd`` and
-``rechunk_relayout`` take their input in two forms.  Given no numpy array,
-they build it as the JAX package does, on the device with
-``da.random.default_rng(seed).standard_normal(...)`` and the same sizes,
-chunks and seeds (the values are torch's stream, not JAX's).  Given a
-numpy array ``x_np``, they read it through ``from_array``, so a test can
-feed both packages the same values.
+Each function takes the JAX package's positional parameters, with their
+names and defaults, in its order.  ``reduction_tree``, ``stencil2d``,
+``tall_skinny_svd`` and ``rechunk_relayout`` take their input in two
+forms.  Given no numpy array, they build it as the JAX package does, on the
+device with ``da.random.default_rng(seed).standard_normal(...)`` and the
+same sizes, chunks and seeds (the values are torch's stream, not JAX's).
+Given a numpy array in the keyword-only ``x_np``, they read it through
+``from_array``, so a test can feed both packages the same values.
+``blocked_matmul`` draws its operands with numpy from ``seed`` exactly as
+the JAX package does, or takes them as ``a_np`` and ``b_np``.
 """
 
 from __future__ import annotations
@@ -50,12 +53,12 @@ def _input(x_np, shape, dtype, chunks, seed):
     return da.from_array(np.asarray(x_np), chunks=chunks)
 
 
-def reduction_tree(x_np=None, chunk=1000, split_every=4, n=10000):
+def reduction_tree(n=10000, chunk=1000, split_every=4, *, x_np=None):
     """sum/mean/std cascade with explicit split_every (BASELINE config 2):
     ``x.sum(axis=0)``, ``x.mean(axis=1)`` and ``x.std()`` of ``x_np``, or
     of an (n, n) float32 standard normal drawn with seed 0.
 
-    Computed together (``dask_array_tpu_torch.compute(*reduction_tree(x))``)
+    Computed together (``dask_array_tpu_torch.compute(*reduction_tree())``)
     the three go through the multi-statistic kernel in one read."""
     x = _input(x_np, (n, n), "float32", chunk, 0)
     s = x.sum(axis=0, split_every=split_every)
@@ -64,13 +67,29 @@ def reduction_tree(x_np=None, chunk=1000, split_every=4, n=10000):
     return s, m, sd
 
 
-def blocked_matmul(a_np, b_np, chunk=1024):
+def blocked_matmul(n=8192, chunk=1024, dtype="bfloat16", seed=0, *, a_np=None, b_np=None):
     """``a @ b`` with misaligned operand chunks (BASELINE config 3): ``b``
     is chunked at ``chunk // 2``, which exercises chunk unification.
-    BASELINE's operands are bfloat16 (ml_dtypes' type): the product stays
-    bfloat16, each block product accumulated in float32 by cuBLAS."""
+
+    The (n, n) operands are drawn as the JAX package draws them, standard
+    normals from ``np.random.default_rng(seed)`` cast to ``dtype`` (bfloat16
+    is ml_dtypes' type), or given as ``a_np`` and ``b_np``.  A bfloat16
+    product stays bfloat16, each block product accumulated in float32 by
+    cuBLAS."""
     import dask_array_tpu_torch as da
 
+    if (a_np is None) != (b_np is None):
+        raise ValueError("blocked_matmul takes both a_np and b_np, or neither")
+    if a_np is None:
+        if dtype == "bfloat16":
+            import ml_dtypes
+
+            dt = ml_dtypes.bfloat16
+        else:
+            dt = np.dtype(dtype)
+        rng = np.random.default_rng(seed)
+        a_np = rng.standard_normal((n, n)).astype(dt)
+        b_np = rng.standard_normal((n, n)).astype(dt)
     a = da.from_array(np.asarray(a_np), chunks=chunk)
     b = da.from_array(np.asarray(b_np), chunks=chunk // 2)
     return a @ b
@@ -131,14 +150,15 @@ def laplace_slices(p):
     )
 
 
-def stencil2d(x_np=None, chunk=1024, form="auto", n=4096, dtype="float32", seed=0):
+def stencil2d(n=4096, chunk=1024, dtype="float32", seed=0, form="auto", persist=False, *, x_np=None):
     """depth-1 map_overlap Laplace stencil (BASELINE config 4) of ``x_np``,
     or of an (n, n) standard normal drawn with ``seed``.
 
     ``form="auto"`` picks the ROLL form when the band-stencil kernel will
     engage (config ``stencil-kernel`` is not "off"), otherwise the
     shifted-slices form (``trim=False``).  ``form="slices"`` /
-    ``form="roll"`` force a formulation.
+    ``form="roll"`` force a formulation.  ``persist=True`` holds the input
+    on the device first.
     """
     import dask_array_tpu_torch as da
     from dask_array_tpu_torch import config
@@ -146,6 +166,8 @@ def stencil2d(x_np=None, chunk=1024, form="auto", n=4096, dtype="float32", seed=
     if form == "auto":
         form = "slices" if config.get("stencil-kernel", "auto") in ("off", False, None) else "roll"
     x = _input(x_np, (n, n), dtype, chunk, seed)
+    if persist:
+        x = x.persist()
     dtype = x.dtype
     if form == "roll":
         return da.map_overlap(laplace_roll, x, depth=1, boundary="reflect", dtype=dtype)
@@ -157,7 +179,7 @@ def stencil2d(x_np=None, chunk=1024, form="auto", n=4096, dtype="float32", seed=
     )
 
 
-def rechunk_relayout(x_np=None, chunk=1024, persist=False, n=8192, dtype="float32", seed=0):
+def rechunk_relayout(n=8192, chunk=1024, dtype="float32", seed=0, persist=False, *, x_np=None):
     """Rows->cols block relayout of a transposed array (BASELINE metric 2).
 
     ``x_np`` (n0, n1), or an (n, n) standard normal drawn with ``seed``,
@@ -177,7 +199,7 @@ def rechunk_relayout(x_np=None, chunk=1024, persist=False, n=8192, dtype="float3
     return x.T.freeze_chunks().rechunk((chunk, n0))
 
 
-def tall_skinny_svd(x_np=None, chunk_rows=100_000, rows=1_000_000, cols=128, dtype="float32", seed=0):
+def tall_skinny_svd(rows=1_000_000, cols=128, chunk_rows=100_000, dtype="float32", seed=0, *, x_np=None):
     """TSQR-based SVD of a tall-skinny matrix (BASELINE config 5: 1e6 x 128
     float32 in row chunks of 100 000): ``(u, s, vh)`` of ``x_np``, or of a
     (rows, cols) standard normal drawn with ``seed``.

@@ -34,7 +34,6 @@ from dask_array_tpu_torch import _host
 from dask_array_tpu_torch._blockwise import elemwise
 from dask_array_tpu_torch._chunks import (
     INT64_MIN,
-    array_of,
     as_stored,
     cached_cumsum,
     cast,
@@ -46,7 +45,6 @@ from dask_array_tpu_torch._chunks import (
     moved,
     numpy_dtype,
     sort_numpy,
-    tensor_of,
     to_compute,
     torch_dtype,
     validate_axis,
@@ -55,6 +53,7 @@ from dask_array_tpu_torch._chunks import (
 from dask_array_tpu_torch._executor import BlockView, iter_block_indices
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._slicing import is_basic_index
+from dask_array_tpu_torch.kernels import scan as scan_kernel
 
 
 def handle_out(out, result):
@@ -900,45 +899,6 @@ def arg_reduction(x, chunk, combine, agg, axis=None, keepdims=False, split_every
 _CUM_IDENTITY = {"nancumsum": 0, "nancumprod": 1}
 
 
-@functools.lru_cache(maxsize=None)
-def _step_table(dtype, kind, device) -> torch.Tensor:
-    """The 256 x 256 table of a 1-byte float type's rounded sums (products)
-    of two patterns, flat, each as its pattern times 256 (int32).  It is
-    made on the CPU from the type's own conversions and then moved, so a
-    NaN's sign (which a CPU and a card propagate differently) is the same
-    on every device."""
-    held = torch_dtype(dtype)
-    vals = to_compute(torch.arange(256, dtype=torch.int32).to(torch.uint8).view(held), dtype)
-    step = torch.add if kind.endswith("cumsum") else torch.mul
-    pats = as_stored(step(vals[:, None], vals[None, :]), dtype).view(torch.uint8)
-    return (pats.reshape(-1).to(torch.int32) << 8).to(device)
-
-
-def byte_scan(held, kind, axis, dtype):
-    """numpy's cumulative sum (product) of a held block of a 1-byte float
-    type ``dtype`` along ``axis``, rounded to the type after every step.
-
-    The running value and each term are one byte, so a step is a lookup in
-    the type's table of rounded results (``_step_table``).  The scan runs
-    on the block's device, one step a row of ``axis`` with every other
-    element at once: an add of the terms to the running row (which holds
-    each pattern times 256: its row of the table), then one
-    ``index_select`` into the next output row.  The rows are shifted back
-    to patterns once at the end."""
-    table = _step_table(np.dtype(dtype), kind, held.device)
-    codes = held.view(torch.uint8).movedim(axis, 0)
-    runs = torch.empty(codes.shape, dtype=torch.int32, device=held.device)
-    if runs.numel():
-        flat = runs.reshape(codes.shape[0], -1)
-        terms = codes.reshape(codes.shape[0], -1)
-        flat[0] = terms[0].to(torch.int32) << 8
-        index = torch.empty_like(flat[0])
-        for i in range(1, codes.shape[0]):
-            torch.add(flat[i - 1], terms[i], out=index)
-            torch.index_select(table, 0, index, out=flat[i])
-    return (runs >> 8).to(torch.uint8).movedim(0, axis).contiguous().view(held.dtype)
-
-
 class CumReduction(ArrayExpr):
     """Cumulative scan along one axis (dense: one torch scan).
 
@@ -977,20 +937,14 @@ class CumReduction(ArrayExpr):
                 out = getattr(np, self.kind)(x, axis=self.axis, dtype=self.dtype)
             return BlockView(self.chunks, dense=out)
         if self.kind in _CUM_IDENTITY and (x.is_floating_point() or x.is_complex()) and not is_narrow(self.array.dtype):
+            # as jnp.nancumsum does for every float type, bfloat16 included
             # (numpy's nan-scans replace no NaN of a 1-byte ml_dtypes float)
             x = torch.where(torch.isnan(x), _CUM_IDENTITY[self.kind], x)
         x = to_compute(value_of(x, self.array.dtype), self.dtype)  # numpy scans in the result dtype
-        fmt = format_of(self.dtype)
-        if is_narrow(self.dtype) and (fmt is None or fmt.is_float):
-            # numpy rounds a 1-byte float's scan to its type after every
-            # step, which no torch scan does (they carry float32)
-            out = byte_scan(as_stored(x, self.dtype), self.kind, self.axis, self.dtype)
-            return BlockView(self.chunks, dense=out)
-        if x.dtype in (torch.float16, torch.bfloat16):
-            # so does a float16 (bfloat16) scan: numpy's own scan, on the
-            # host for a CUDA tensor
-            scan = np.cumsum if self.kind.endswith("cumsum") else np.cumprod
-            out = tensor_of(scan(array_of(as_stored(x, self.dtype).cpu()), axis=self.axis)).to(x.device)
+        if scan_kernel.scan_type(self.dtype) is not None:
+            # numpy rounds a 2-byte or 1-byte float's scan to its type after
+            # every step, which no torch scan does (they carry float32): K3
+            out = scan_kernel.rounded_scan(as_stored(x, self.dtype), self.kind, self.axis, self.dtype)
             return BlockView(self.chunks, dense=out)
         scan = torch.cumsum if self.kind.endswith("cumsum") else torch.cumprod
         return BlockView(self.chunks, dense=as_stored(scan(x, dim=self.axis), self.dtype))

@@ -614,7 +614,7 @@ def _cumreduction(expr, ctx):
         outs = run_slots(expr, {expr.array._name: st.shards}, mesh)
         return _view(expr, ShardedTensor(mesh, st.spec, outs, st.global_shape, st.bounds))
     if np.dtype(expr.dtype).itemsize <= 2 and np.dtype(expr.dtype).kind == "f":
-        return None  # numpy's 2-byte scan runs on the host
+        return None  # a step-rounded scan (K3): gathered, then K3 runs once on the dense block
     lane = walk_lane(st)
     if not lane.pieces:
         return None

@@ -80,7 +80,8 @@ _LANE_KINDS = tuple(_REDUCE_IDENT) + ("nanprod",)
 
 def _two_byte_float(dtype) -> bool:
     """float16 or bfloat16: the dense walk adds these in float32 and rounds
-    once, and scans them with numpy, rounding at every step."""
+    once, and scans them with K3 (``kernels/scan.py``), rounding at every
+    step."""
     from dask_array_tpu_torch._chunks import is_float_dtype
 
     return is_float_dtype(dtype) and np.dtype(dtype).itemsize == 2

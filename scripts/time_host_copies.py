@@ -92,15 +92,15 @@ def main() -> int:
              compute_runs=c_runs, compute_device_runs=d_runs, random_compute_device_runs=r_runs)
 
     x = rng.standard_normal((10000, 10000), dtype=np.float32)
-    pipeline("reduction_tree-10000", P.reduction_tree(x, chunk=1000), P.reduction_tree(chunk=1000, n=10000))
+    pipeline("reduction_tree-10000", P.reduction_tree(chunk=1000, x_np=x), P.reduction_tree(chunk=1000, n=10000))
     x = rng.standard_normal((4096, 4096), dtype=np.float32)
-    pipeline("stencil2d-roll-4096", [P.stencil2d(x, chunk=1024, form="roll")],
+    pipeline("stencil2d-roll-4096", [P.stencil2d(chunk=1024, form="roll", x_np=x)],
              [P.stencil2d(chunk=1024, form="roll", n=4096)])
     x = rng.standard_normal((1_000_000, 128), dtype=np.float32)
-    pipeline("tall_skinny_svd-1e6x128", P.tall_skinny_svd(x, chunk_rows=100_000),
+    pipeline("tall_skinny_svd-1e6x128", P.tall_skinny_svd(chunk_rows=100_000, x_np=x),
              P.tall_skinny_svd(chunk_rows=100_000, rows=1_000_000, cols=128))
     x = rng.standard_normal((8192, 8192), dtype=np.float32)
-    pipeline("rechunk_relayout-8192", [P.rechunk_relayout(x, chunk=1024)], [P.rechunk_relayout(chunk=1024, n=8192)])
+    pipeline("rechunk_relayout-8192", [P.rechunk_relayout(chunk=1024, x_np=x)], [P.rechunk_relayout(chunk=1024, n=8192)])
     del x
 
     device = torch.device("cuda")

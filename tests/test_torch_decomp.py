@@ -231,7 +231,7 @@ def test_svd_unknown_row_chunks():
 
 def test_one_compute_factors_once():
     x = sample((2000, 16), "float32", seed=9)
-    u, s, vh = tpipes.tall_skinny_svd(x, chunk_rows=250)
+    u, s, vh = tpipes.tall_skinny_svd(chunk_rows=250, x_np=x)
     before = tld.FACTORIZATIONS
     tda.compute(u, s, vh)
     assert tld.FACTORIZATIONS - before == 1
@@ -257,7 +257,7 @@ def test_one_compute_factors_once():
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_tall_skinny_svd_pipeline(dtype):
     x = sample((2000, 16), dtype, seed=11)
-    t = tda.compute(*tpipes.tall_skinny_svd(x, chunk_rows=250))
+    t = tda.compute(*tpipes.tall_skinny_svd(chunk_rows=250, x_np=x))
     j = jda.compute(*jda.linalg.svd(jda.from_array(x, chunks=(250, 16))))
     check_svd(*t, x)
     close_s(t[1], j[1], dtype)

@@ -193,14 +193,14 @@ def test_stencil2d_through_compute_launches_the_kernel(cuda):
     p = np.pad(x.astype(np.float64), 1, mode="symmetric")
     want = p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4 * p[1:-1, 1:-1]
     with config.set({"device": "cuda"}):
-        roll = stencil2d(x, chunk=128, form="roll")
+        roll = stencil2d(chunk=128, form="roll", x_np=x)
         assert isinstance(roll.expr, BandStencil)
         before = stencil.LAUNCHES
         out = roll.compute_device()
         assert out.device.type == "cuda"
         assert stencil.LAUNCHES == before + 1
         np.testing.assert_allclose(out.cpu().numpy(), want, rtol=1e-5, atol=1e-4)
-        slices = stencil2d(x, chunk=128, form="slices").compute()
+        slices = stencil2d(chunk=128, form="slices", x_np=x).compute()
         np.testing.assert_allclose(slices, want, rtol=1e-5, atol=1e-4)
 
 
@@ -271,7 +271,7 @@ def test_reduction_tree_on_the_card_goes_through_the_kernel(cuda):
     x = (np.random.default_rng(2).standard_normal((900, 700)) + 5).astype(np.float32)
     with config.set({"device": "cuda"}):
         before = mstat.LAUNCHES
-        s, m, sd = da.compute(*reduction_tree(x, chunk=100, split_every=4))
+        s, m, sd = da.compute(*reduction_tree(chunk=100, split_every=4, x_np=x))
         assert mstat.LAUNCHES == before + 1
     x64 = x.astype(np.float64)
     np.testing.assert_allclose(s, x64.sum(0), rtol=1e-5, atol=1e-3)
@@ -386,7 +386,7 @@ def test_rechunk_relayout_on_the_card_launches_the_kernel(cuda, persist):
 
     x = np.random.default_rng(5).standard_normal((1024, 768)).astype(np.float32)
     with config.set({"device": "cuda"}):
-        y = rechunk_relayout(x, chunk=128, persist=persist)
+        y = rechunk_relayout(chunk=128, persist=persist, x_np=x)
         assert y.chunks == ((128,) * 6, (1024,))
         before = tk.LAUNCHES
         dev = y.compute_device()
@@ -510,7 +510,7 @@ def test_general_halo_path_on_the_card_launches_the_halo_kernel(cuda):
     want = _np_laplace(x)
     with config.set({"device": "cuda"}):
         for arr, expect in (
-            (stencil2d(x, chunk=128, form="slices"), want),
+            (stencil2d(chunk=128, form="slices", x_np=x), want),
             (da.map_overlap(median3, da.from_array(x, chunks=128), depth=1, boundary="reflect"),
              np_median3(x, "symmetric")),
         ):
@@ -639,7 +639,7 @@ def test_tall_skinny_svd_on_the_card(cuda):
 
     x = np.random.default_rng(6).standard_normal((20000, 32)).astype(np.float32)
     with config.set({"device": "cuda"}):
-        arrays = tall_skinny_svd(x, chunk_rows=2500)
+        arrays = tall_skinny_svd(chunk_rows=2500, x_np=x)
         sk.LAUNCHES = 0
         before = ld.FACTORIZATIONS
         u, s, vh = compute(*arrays)
@@ -1851,7 +1851,7 @@ def test_bf16_public_paths_launch_k1_and_k2(cuda):
     from dask_array_tpu_torch.models.pipelines import stencil2d
 
     x = np.random.default_rng(0).standard_normal((512, 512), dtype=np.float32).astype(ml_dtypes.bfloat16)
-    st = stencil2d(x, chunk=128, form="roll")
+    st = stencil2d(chunk=128, form="roll", x_np=x)
     h, _ = da.histogram(da.from_array(x, chunks=128), bins=64, range=(-4, 4))
     stencil.LAUNCHES = hk.LAUNCHES = 0
     got, counts = st.compute(), h.compute()
@@ -2331,7 +2331,7 @@ def test_narrow_types_on_the_card_equal_the_cpu(cuda, name):
 @pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float4_e2m1fn", "float8_e4m3",
                                   "float8_e8m0fnu"])
 def test_byte_float_scans_on_the_card_equal_the_cpu(cuda, name, kind):
-    """A 1-byte float scan runs on the card (``reductions.byte_scan``: its
+    """A 1-byte float scan runs on the card (K3, ``kernels/scan.py``: its
     table is made on the CPU, so a NaN's sign is the same on both devices)
     and gives the CPU's bytes, along either axis, NaN and overflow
     included."""
@@ -2409,13 +2409,13 @@ def test_streamed_dtypes_on_the_card(cuda):
     f8 = rng.standard_normal((4096, 128)).astype(np.float32).astype(ml_dtypes.float8_e4m3fn)
     ticks = np.datetime64("2020-01-01", "ns") + rng.integers(0, 10**15, (4096, 64)).astype("m8[ns]")
     ticks[7, 5] = np.datetime64("NaT")
-    in_core = [stencil2d(bf, chunk=256).compute(), da.from_array(f8, chunks=(512, 128)).sum(axis=0).compute(),
+    in_core = [stencil2d(chunk=256, x_np=bf).compute(), da.from_array(f8, chunks=(512, 128)).sum(axis=0).compute(),
                da.from_array(ticks, chunks=(512, 64)).min(axis=0).compute(),
                da.from_array(ticks, chunks=(512, 64)).max(axis=0).compute()]
     stencil.LAUNCHES = 0
     before = _streaming.STREAMED["panels"]
     with config.set({"out-of-core": "force", "memory-budget": 400_000}):
-        out = stencil2d(bf, chunk=256).compute()
+        out = stencil2d(chunk=256, x_np=bf).compute()
         panels = _streaming.STREAMED["panels"] - before
         streamed = [out, da.from_array(f8, chunks=(512, 128)).sum(axis=0).compute(),
                     da.from_array(ticks, chunks=(512, 64)).min(axis=0).compute(),
@@ -2761,3 +2761,155 @@ def test_program_extremum_chains_byte_for_byte(cuda, programs_built, name, dtype
         torch.cuda.synchronize()
         assert torch.isnan(want).any() and (name == "mixed" or (want == 0).any())
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+# -- K3: the step-rounded scan of 2-byte and 1-byte floats ------------------------
+
+SCAN_TYPES = ("float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")
+# (shape, axis): Q > 1 (the column kernel), Q == 1 (the row kernel) with
+# ragged warps and tiles, a 3-D block and a 1-D one (one chain)
+SCAN_SHAPES = [((300, 70), 0), ((300, 70), 1), ((45, 130), 1), ((5, 300, 7), 1), ((21000,), 0)]
+
+
+def _scan_dtype(name):
+    import ml_dtypes
+
+    return np.dtype(np.float16) if name == "float16" else np.dtype(getattr(ml_dtypes, name))
+
+
+def scan_grid(name, kind, shape, seed):
+    """Values of ``name`` in ``shape``: normals (near 1 for products; large
+    enough for sums to overflow float16), with NaNs of both signs and two
+    payloads, ±inf, ±0 and the smallest subnormals planted."""
+    dt = _scan_dtype(name)
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(shape)
+    v = 1 + v / 64 if kind.endswith("cumprod") else v * 300
+    x = v.astype(dt)
+    flat = x.reshape(-1)
+    n = flat.size
+    if dt.itemsize == 2:
+        bits = flat.view(np.uint16)
+        half = dt == np.float16
+        specials = [0x7E01 if half else 0x7FC1, 0xFD55 if half else 0xFFD5, 0x7C00 if half else 0x7F80,
+                    0xFC00 if half else 0xFF80, 0x0000, 0x8000, 0x0001, 0x8001]
+    else:
+        bits = flat.view(np.uint8)
+        specials = [int(v) for v in np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], dt).view(np.uint8)]
+    for k, b in enumerate(specials):
+        bits[rng.integers(0, n, max(1, n // 4000))] = b
+        bits[(k * 7919) % n] = b
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", SCAN_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", ["cumsum", "cumprod"])
+@pytest.mark.parametrize("name", SCAN_TYPES)
+def test_scan_kernel_equals_its_plain_version(cuda, name, kind, shape, axis):
+    """K3 against its plain version on the same card tensor, byte for byte
+    (both make NaNs by the same rule, and 1-byte types share the table)."""
+    from dask_array_tpu_torch._chunks import tensor_of
+    from dask_array_tpu_torch.kernels import scan
+
+    dt = _scan_dtype(name)
+    t = tensor_of(scan_grid(name, kind, shape, seed=len(shape) + axis)).cuda()
+    before = scan.LAUNCHES
+    got = scan.rounded_scan_cuda(t, kind, axis, dt)
+    want = scan.rounded_scan_plain(t, kind, axis, dt)
+    torch.cuda.synchronize()
+    assert scan.LAUNCHES == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    width = torch.int16 if t.element_size() == 2 else torch.uint8
+    assert torch.equal(got.view(width), want.view(width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 1, None])
+@pytest.mark.parametrize("kind", ["cumsum", "cumprod", "nancumsum", "nancumprod"])
+@pytest.mark.parametrize("name", ["float16", "bfloat16"])
+def test_two_byte_scans_on_the_card_equal_numpy(cuda, name, kind, axis):
+    """The walk on the card launches K3 once for the dense block and gives
+    numpy's bytes (ml_dtypes' for bfloat16), NaN, ±inf, ±0 and subnormals
+    included; a nan-scan replaces NaN with the identity first, bfloat16's
+    too (as the JAX package's ``jnp.nancumsum`` does).  A NaN may be any
+    NaN only from a step whose operands were both NaN (which survives is
+    the host's choice)."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.kernels import scan
+
+    dt = _scan_dtype(name)
+    x = scan_grid(name, kind, (300, 70), seed=9)
+    with np.errstate(all="ignore"):
+        terms = np.where(np.isnan(x.astype(np.float32)), 0 if kind.endswith("sum") else 1, x).astype(dt) \
+            if kind.startswith("nan") else x
+        want = getattr(np, "cumsum" if kind.endswith("cumsum") else "cumprod")(terms, axis=axis)
+    scan.LAUNCHES = 0
+    held = getattr(da, kind)(da.from_array(x, chunks=(64, 35)), axis=axis).compute_device()
+    assert held.device.type == "cuda" and scan.LAUNCHES == 1
+    got = held.cpu().view(torch.int16).numpy().view(dt)
+    if axis is None:
+        got, want, terms, axis = got.ravel(), want.ravel(), terms.ravel(), 0
+    nan = lambda a: np.isnan(a.astype(np.float32))  # noqa: E731
+    both = np.zeros(want.shape, dtype=bool)
+    prev = np.take(want, np.arange(want.shape[axis] - 1), axis=axis)
+    later = np.take(terms, np.arange(1, want.shape[axis]), axis=axis)
+    pad = [(0, 0)] * want.ndim
+    pad[axis] = (1, 0)
+    both = np.logical_or.accumulate(np.pad(nan(prev) & nan(later), pad), axis=axis)
+    exact = got.view(np.uint16) == want.view(np.uint16)
+    assert np.all(exact | (both & nan(got) & nan(want)))
+
+
+@pytest.mark.gpu
+def test_scan_kernel_build_and_launch_failures_raise(cuda, monkeypatch):
+    """A failed build or launch of K3 is an error on a CUDA tensor, never a
+    scan on the host."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.kernels import _build, scan
+
+    x = np.arange(64, dtype=np.float16).reshape(8, 8)
+    scan._launcher.cache_clear()
+    _build.load_library.cache_clear()
+
+    def refuse(name, source=None):
+        raise RuntimeError(f"nvcc failed for {name}.cu (1):\nrefused")
+
+    monkeypatch.setattr(_build, "build_library", refuse)
+    before = scan.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        da.cumsum(da.from_array(x, chunks=4), axis=0).compute()
+    assert scan.LAUNCHES == before
+    monkeypatch.undo()
+    scan._launcher.cache_clear()
+    _build.load_library.cache_clear()
+    t = torch.zeros(4, dtype=torch.float16, device="cuda")
+    with pytest.raises(RuntimeError, match="scan kernel launch failed"):
+        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 0, 4, 1, 0, 0)
+    with pytest.raises(RuntimeError, match="scan kernel launch failed"):
+        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 1, 4, 1, 2, 0)  # a byte scan, no table
+    with pytest.raises(TypeError, match="rounded_scan takes"):
+        scan.rounded_scan_cuda(t.float(), "cumsum", 0, np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lane", ["gspmd", "auto"])
+def test_bfloat16_scan_along_a_sharded_axis_on_the_card(cuda, lane):
+    """A bfloat16 cumsum along the axis a 4-slot mesh on cuda:0 shards is
+    gathered and scanned by one K3 launch; it equals the walk without a
+    mesh byte for byte."""
+    import ml_dtypes
+
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch import config
+    from dask_array_tpu_torch.kernels import scan
+    from dask_array_tpu_torch.parallel import use_mesh
+
+    a = (np.random.default_rng(12).standard_normal((64, 12)) * 30).astype(ml_dtypes.bfloat16)
+    want = np.asarray(da.cumsum(da.from_array(a, chunks=(8, 12)), axis=0).compute())
+    assert want.tobytes() == np.cumsum(a, axis=0).tobytes()
+    scan.LAUNCHES = 0
+    with use_mesh(_card_mesh((4,), ("r",))), config.set({"execution-lane": lane}):
+        got = np.asarray(da.cumsum(da.from_array(a, chunks=(8, 12)), axis=0).compute())
+    assert scan.LAUNCHES == 1
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()

@@ -220,7 +220,7 @@ def test_normalize_contract(dtype, rng):
 def test_blocked_matmul(rng):
     a = rng.standard_normal((64, 64)).astype("f4")
     b = rng.standard_normal((64, 64)).astype("f4")
-    got = tpipes.blocked_matmul(a, b, chunk=16)
+    got = tpipes.blocked_matmul(chunk=16, a_np=a, b_np=b)
     ref = jda.from_array(a, chunks=16) @ jda.from_array(b, chunks=8)
     assert got.chunks == ref.chunks == ((16,) * 4, (8,) * 8)
     want = a.astype("f8") @ b.astype("f8")
@@ -233,7 +233,7 @@ def test_reduction_tree_through_one_kernel_call(rng):
     from dask_array_tpu_torch.kernels import mstat
 
     x = (rng.standard_normal((120, 90)) + 50).astype("f4")
-    s, m, sd = tpipes.reduction_tree(x, chunk=25, split_every=4)
+    s, m, sd = tpipes.reduction_tree(chunk=25, split_every=4, x_np=x)
     jx = jda.from_array(x, chunks=25)
     refs = jda.compute(jx.sum(axis=0, split_every=4), jx.mean(axis=1, split_every=4), jx.std(split_every=4))
     x64 = x.astype("f8")

@@ -363,7 +363,7 @@ def test_rechunk_relayout_matches_jax(persist, monkeypatch):
     real = tk.transpose_last2_plain
     monkeypatch.setattr(tk, "transpose_last2_plain", lambda t: calls.append(1) or real(t))
     x = sample((256, 256), "float32", seed=19)
-    got = rechunk_relayout(x, chunk=32, persist=persist)
+    got = rechunk_relayout(chunk=32, persist=persist, x_np=x)
     jx = jda.from_array(x, chunks=(32, 256))
     if persist:
         jx = jx.persist()
@@ -381,6 +381,6 @@ def test_rechunk_relayout_matches_jax(persist, monkeypatch):
 
 def test_rechunk_relayout_of_a_rectangle():
     x = sample((96, 40), "float32", seed=20)
-    got = rechunk_relayout(x, chunk=16)
+    got = rechunk_relayout(chunk=16, x_np=x)
     assert got.chunks == ((16, 16, 8), (96,))
     np.testing.assert_array_equal(got.compute(), x.T)

@@ -227,7 +227,7 @@ def test_bf16_products_are_bf16_with_float32_sums():
     rng = np.random.default_rng(3)
     a = rng.standard_normal((64, 64)).astype(BF16)
     b = rng.standard_normal((64, 64)).astype(BF16)
-    m = blocked_matmul(a, b, chunk=16)
+    m = blocked_matmul(chunk=16, a_np=a, b_np=b)
     assert np.dtype(m.dtype) == BF16 and m.chunks == ((16,) * 4, (8,) * 8)
     want = a.astype(np.float32) @ b.astype(np.float32)
     np.testing.assert_allclose(_f32(m.compute()), want, rtol=2.0**-7, atol=2.0**-16 * np.abs(want).max())

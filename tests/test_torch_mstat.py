@@ -113,7 +113,7 @@ def test_wrappers_follow_the_tensors_device():
 @pytest.mark.parametrize("split_every", [None, 4])
 def test_reduction_tree_joint_matches_jax(split_every):
     x = sample((300, 250), shift=20.0)
-    arrays = reduction_tree(x, chunk=64, split_every=split_every)
+    arrays = reduction_tree(chunk=64, split_every=split_every, x_np=x)
     fused = fuse_multi_stat([a.expr for a in arrays])
     assert len({n._name for e in fused for n in e.walk() if isinstance(n, MultiStat)}) == 1
     got = tda.compute(*arrays)

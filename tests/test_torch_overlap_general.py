@@ -71,7 +71,7 @@ def both(tfunc, jfunc, arrays, chunks, kernel="off", **kw):
 @pytest.mark.parametrize("shape, chunk", [((64, 96), 16), ((100, 70), (30, 25))])
 def test_stencil2d_slices_form_matches_jax_and_numpy(shape, chunk):
     x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
-    got = stencil2d(x, chunk=chunk, form="slices")
+    got = stencil2d(chunk=chunk, form="slices", x_np=x)
     assert not isinstance(got.expr, BandStencil)
     xj = jda.from_array(x, chunks=chunk)
     want = jda.map_overlap(laplace_slices, xj, depth=1, boundary="reflect", trim=False,

@@ -520,7 +520,7 @@ def _input(n0, n1, chunks, seed=0):
 
 def test_reduction_tree_random_input_equals_the_numpy_form():
     got = tda.compute(*tpipes.reduction_tree(chunk=10, n=100))
-    want = tda.compute(*tpipes.reduction_tree(_input(100, 100, 10), chunk=10))
+    want = tda.compute(*tpipes.reduction_tree(chunk=10, x_np=_input(100, 100, 10)))
     for g, w in zip(got, want):
         assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
 
@@ -528,20 +528,20 @@ def test_reduction_tree_random_input_equals_the_numpy_form():
 @pytest.mark.parametrize("form", ["roll", "slices"])
 def test_stencil2d_random_input_equals_the_numpy_form(form):
     got = tpipes.stencil2d(chunk=16, form=form, n=64, seed=3).compute()
-    want = tpipes.stencil2d(_input(64, 64, 16, seed=3), chunk=16, form=form).compute()
+    want = tpipes.stencil2d(chunk=16, form=form, x_np=_input(64, 64, 16, seed=3)).compute()
     assert got.dtype == np.float32 and got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("persist", [False, True])
 def test_rechunk_relayout_random_input_equals_the_numpy_form(persist):
     got = tpipes.rechunk_relayout(chunk=16, persist=persist, n=64, seed=1)
-    want = tpipes.rechunk_relayout(_input(64, 64, (16, 64), seed=1), chunk=16)
+    want = tpipes.rechunk_relayout(chunk=16, x_np=_input(64, 64, (16, 64), seed=1))
     assert got.chunks == want.chunks and got.compute().tobytes() == want.compute().tobytes()
 
 
 def test_tall_skinny_svd_random_input_equals_the_numpy_form():
     got = tda.compute(*tpipes.tall_skinny_svd(chunk_rows=250, rows=2000, cols=16, seed=2))
-    want = tda.compute(*tpipes.tall_skinny_svd(_input(2000, 16, (250, 16), seed=2), chunk_rows=250))
+    want = tda.compute(*tpipes.tall_skinny_svd(chunk_rows=250, x_np=_input(2000, 16, (250, 16), seed=2)))
     for g, w in zip(got, want):
         assert g.dtype == np.float32 and g.tobytes() == w.tobytes()
 

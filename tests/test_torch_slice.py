@@ -61,7 +61,7 @@ def jax_stencil2d(x, chunk, form):
 @pytest.mark.parametrize("form", ["roll", "slices"])
 def test_stencil2d_matches_jax_and_numpy(form, dtype, atol):
     x = np.random.default_rng(0).standard_normal((256, 256)).astype(dtype)
-    got = stencil2d(x, chunk=64, form=form)
+    got = stencil2d(chunk=64, form=form, x_np=x)
     assert isinstance(got.expr, BandStencil) == (form == "roll")
     out = got.compute()
     assert out.shape == (256, 256) and out.dtype == np.dtype(dtype)
@@ -74,9 +74,9 @@ def test_stencil2d_auto_form_follows_the_gate():
     from dask_array_tpu_torch import config
 
     x = np.random.default_rng(1).standard_normal((64, 64)).astype("f4")
-    assert isinstance(stencil2d(x, chunk=32).expr, BandStencil)
+    assert isinstance(stencil2d(chunk=32, x_np=x).expr, BandStencil)
     with config.set({"stencil-kernel": "off"}):
-        slices = stencil2d(x, chunk=32)
+        slices = stencil2d(chunk=32, x_np=x)
     assert not isinstance(slices.expr, BandStencil)
     np.testing.assert_allclose(slices.compute(), numpy_laplace(x), atol=1e-5)
 
@@ -84,7 +84,7 @@ def test_stencil2d_auto_form_follows_the_gate():
 def test_stencil2d_ragged_chunks():
     x = np.random.default_rng(2).standard_normal((100, 70)).astype("f8")
     for form in ("roll", "slices"):
-        np.testing.assert_allclose(stencil2d(x, chunk=(30, 25), form=form).compute(), numpy_laplace(x), atol=1e-12)
+        np.testing.assert_allclose(stencil2d(chunk=(30, 25), form=form, x_np=x).compute(), numpy_laplace(x), atol=1e-12)
 
 
 def test_readme_example_matches_jax():
@@ -162,5 +162,5 @@ def test_slice_of_stencil_matches_numpy():
     x = np.random.default_rng(4).standard_normal((128, 96)).astype("f8")
     want = numpy_laplace(x)
     for form in ("roll", "slices"):
-        got = stencil2d(x, chunk=32, form=form)[32:96, 10:50].compute()
+        got = stencil2d(chunk=32, form=form, x_np=x)[32:96, 10:50].compute()
         np.testing.assert_allclose(got, want[32:96, 10:50], atol=1e-12)

@@ -151,11 +151,11 @@ def test_streamed_two_byte_stencil_runs_the_band_stencil_once_a_panel(dtype, mon
     monkeypatch.setattr(_overlap, "band_stencil_call", spy)
     dt = BF16 if dtype == "bfloat16" else np.dtype(np.float16)
     src = np.random.default_rng(1).standard_normal((256, 64)).astype(dt)
-    in_core = stencil2d(src, chunk=32).compute()
+    in_core = stencil2d(chunk=32, x_np=src).compute()
     assert len(calls) == 1
     before = {k: _streaming.STREAMED[k] for k in KEYS}
     with tconfig.set(tconfig.from_reference({"tpu.out-of-core": "force", "tpu.memory-budget": "60 kB"})):
-        out = stencil2d(src, chunk=32).compute()
+        out = stencil2d(chunk=32, x_np=src).compute()
     panels = _streaming.STREAMED["panels"] - before["panels"]
     assert _streaming.STREAMED["count"] - before["count"] == 1 and panels >= 2
     assert len(calls) == 1 + panels and set(calls) == {getattr(torch, dtype)}
