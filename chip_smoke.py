@@ -298,7 +298,10 @@ Phases (each prints one line of its own numbers; any failure raises):
      "off"), by compute_device(); tanh(laplace) at 4096^2 from numpy by
      compute() and compute_device() both ways; one float64 program's
      first use (nvcc alone).
- 36. K3, the step-rounded scan (SCAN_SIZES, ``scan_paths``): float16 and
+ 36. K3, the step-rounded scan (SCAN_SIZES, ``scan_paths``): first the
+     latency of a step, one thread's dependent chain of 2^20 steps of each
+     2-byte type and op and of each narrow type's lookup, in ns a step;
+     then float16 and
      bfloat16 at 16384^2 (chunks 4096; NaN, ±inf, ±0 and subnormals in a
      128^2 corner) through cumsum, cumprod (values near 1) and nancumsum
      along axis 0 and axis 1, 1e6 x 128 bfloat16 along axis 0 (128 chains
@@ -309,8 +312,10 @@ Phases (each prints one line of its own numbers; any failure raises):
      long chains), a slice equal to numpy (any NaN only after a step whose
      operands were both NaN; a 1-byte NaN's sign not compared); the kernel
      per call and on the device (median of 30, 5 on the long chains, with
-     the spread) beside its bound (one read and one write), the chains and
-     steps, the plain version (one run), the route it replaced (the 2-byte
+     the spread) beside its bound (the larger of one read and one write
+     over the memory rate and the steps times a step's latency, both
+     reported), its launch plan, the chains and steps, the plain version
+     (one run), the route it replaced (the 2-byte
      host round trip in two 16384^2 cases and on the long chains, one run
      written out here; for 1-byte types the per-row loop, their plain
      version)
@@ -3309,10 +3314,29 @@ def timed_once(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def scan_times(torch, kernel, reps, nbytes, chains, steps):
+FLOOR_STEPS = 1 << 20  # steps of the one-thread chain that measures a step's latency
+
+
+def step_floor_ns(torch, scan, dt, kind, reps=5):
+    """Nanoseconds a step of K3 adds to a chain: one thread's dependent
+    chain of ``FLOOR_STEPS`` steps (``scan.step_chain_cuda``) over nine
+    values of ``dt``, CUDA events, the median of ``reps`` runs."""
+    import numpy as np
+
+    from dask_array_tpu_torch._chunks import tensor_of
+
+    v = 1 + np.arange(9) / 256 if kind.endswith("cumprod") else (np.arange(9) - 4) / 8
+    terms = tensor_of(v.astype(dt)).cuda()
+    ms = cuda_ms(lambda: scan.step_chain_cuda(terms, kind, dt, FLOOR_STEPS), reps=reps, warmup=1)
+    return ms * 1e6 / FLOOR_STEPS
+
+
+def scan_times(torch, kernel, reps, nbytes, chains, steps, step_ns):
     """The kernel per call (CUDA events) and on the device alone, with the
-    spread of ``reps`` runs, beside its bound from bytes (one read and one
-    write), the chains and the steps of each."""
+    spread of ``reps`` runs, beside its bound: the larger of its bytes (one
+    read and one write) over the memory rate, its float32 operations over
+    their peak and its ``steps`` times the latency of one step
+    (``step_ns``, the one-thread chain), with the chains and the steps."""
     runs = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3323,10 +3347,20 @@ def scan_times(torch, kernel, reps, nbytes, chains, steps):
         runs.append(start.elapsed_time(end))
     dev = device_runs(kernel, reps, warmup=1)
     b_ms, b_by = bound(nbytes, chains * steps)
+    floor_ms = steps * step_ns * 1e-6
     return {"kernel_ms": statistics.median(runs), "kernel_spread_ms": spread(runs),
             "kernel_device_ms": statistics.median(dev), "kernel_device_spread_ms": spread(dev), "reps": reps,
-            "bytes": nbytes, "chains": chains, "steps": steps, "bound_ms": b_ms, "bound_by": b_by,
-            "of_bound": b_ms / statistics.median(dev)}
+            "bytes": nbytes, "chains": chains, "steps": steps, "bytes_bound_ms": b_ms, "step_ns": step_ns,
+            "latency_floor_ms": floor_ms, "bound_ms": max(b_ms, floor_ms),
+            "bound_by": b_by if b_ms >= floor_ms else "latency", "of_bound": max(b_ms, floor_ms) / statistics.median(dev)}
+
+
+def scan_plan_of(scan, t, axis):
+    """The launch plan K3 takes for ``t`` scanned along ``axis``."""
+    p, n, q = scan.scan_plan(t.shape, axis)
+    plan = scan.launch_plan(p, n, q, t.element_size(), scan._sm_count(t.get_device()), t.data_ptr(), 0)
+    return {"mode": plan.mode, "batches": plan.batches, "width": plan.width, "depth": plan.depth,
+            "stages": plan.stages, "grid": plan.grid, "smem": plan.smem}
 
 
 def scan_paths(da, torch, sizes, smi):
@@ -3343,6 +3377,9 @@ def scan_paths(da, torch, sizes, smi):
     on the first ``prefix`` steps, and float32 torch.cumsum at 1e6 x 128.
     (d) phase 34's cumsum(axis=0) of the narrow float types at n^2: the
     kernel beside the plain version, which is the per-row route it replaced.
+    (e) 2^24 float8_e4m3fn raveled (one chain, the row-batch route): the
+    API, the kernel, the plain version on the first and the last ``prefix``
+    steps and numpy on the first.
     Returns (numbers, the main path's launches, all API launches)."""
     import ml_dtypes
     import numpy as np
@@ -3354,6 +3391,17 @@ def scan_paths(da, torch, sizes, smi):
     out = {}
     api_launches = 0
     main_launches = None
+    # the latency of a step: one thread's chain, each type and op
+    floors = {}
+    for name, dt in (("float16", np.dtype(np.float16)), ("bfloat16", np.dtype(ml_dtypes.bfloat16))):
+        for kind in ("cumsum", "cumprod"):
+            floors[f"{name}-{kind}"] = step_floor_ns(torch, scan, dt, kind)
+    for name in SCAN_NARROW:
+        floors[f"{name}-cumsum"] = step_floor_ns(torch, scan, np.dtype(getattr(ml_dtypes, name)), "cumsum")
+    out["step_floor_ns"] = {"steps": FLOOR_STEPS, "card": smi, **floors}
+
+    def floor_of(name, kind):  # the latency of the step K3 takes for a 2-byte scan
+        return floors[f"{name}-{'cumsum' if kind.endswith('cumsum') else 'cumprod'}"]
     for seed, (name, dt) in enumerate((("float16", np.dtype(np.float16)),
                                        ("bfloat16", np.dtype(ml_dtypes.bfloat16))), 360):
         for data_kind in ("cumsum", "cumprod"):
@@ -3388,8 +3436,9 @@ def scan_paths(da, torch, sizes, smi):
                     if tag in sizes["host_route"]:
                         _, host_ms = timed_once(torch, lambda: host_scan_route(np, torch, terms, kind, axis))
                     num = scan_times(torch, lambda: scan.rounded_scan_cuda(terms, kind, axis, dt), sizes["reps"],
-                                     2 * t.numel() * 2, n, n)
+                                     2 * t.numel() * 2, n, n, floor_of(name, kind))
                     num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms,
+                                "plan": scan_plan_of(scan, terms, axis),
                                 "plain_runs": 1, "host_route_ms": host_ms, "host_route_runs": int(host_ms is not None),
                                 "library": "torch.cumsum of the float32 cast (not the same function)",
                                 "library_ms": cuda_ms(lambda: torch.cumsum(terms.float(), dim=axis)),
@@ -3431,9 +3480,10 @@ def scan_paths(da, torch, sizes, smi):
         check(scan_agrees(np, mine, want, x[part], 0), f"phase 36 {tag}: differs from numpy")
         _, host_ms = timed_once(torch, lambda: host_scan_route(np, torch, t, "cumsum", 0))
         num = scan_times(torch, lambda: scan.rounded_scan_cuda(t, "cumsum", 0, dt), sizes["long_reps"],
-                         2 * t.numel() * 2, t.numel() // shape[0], shape[0])
+                         2 * t.numel() * 2, t.numel() // shape[0], shape[0], floor_of(dt.name, "cumsum"))
         t32 = t.float()
         num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms,
+                    "plan": scan_plan_of(scan, t, 0),
                     "plain_steps": prefix, "host_route_ms": host_ms, "host_route_runs": 1,
                     "library": "torch.cumsum of the float32 cast (not the same function)",
                     "library_ms": cuda_ms(lambda: torch.cumsum(t.float(), dim=0), reps=sizes["long_reps"], warmup=1),
@@ -3463,9 +3513,10 @@ def scan_paths(da, torch, sizes, smi):
         mine = array_of(got[:, :cols].cpu(), dt)
         check(scan_agrees(np, mine, want, a[:, :cols], 0, signless=True), f"phase 36 {tag}: differs from numpy")
         num = scan_times(torch, lambda: scan.rounded_scan_cuda(held_t, "cumsum", 0, dt), sizes["reps"],
-                         2 * held_t.numel(), n, n)
+                         2 * held_t.numel(), n, n, floors[f"{name}-cumsum"])
         values = value_of(held_t, dt)
         num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms, "plain_runs": 1,
+                    "plan": scan_plan_of(scan, held_t, 0),
                     "replaced_route": "the per-row add and index_select (the plain version)",
                     "replaced_route_ms": plain_ms,
                     "library": "torch.cumsum of the float32 values (not the same function)",
@@ -3474,6 +3525,41 @@ def scan_paths(da, torch, sizes, smi):
         out[tag] = num
         del a, held_t, held, got, plain, values
         torch.cuda.empty_cache()
+
+    # (e) a lone float8_e4m3fn row: the row-batch route
+    dt, tag = np.dtype(ml_dtypes.float8_e4m3fn), "float8_e4m3fn-cumsum-2^24-flat"
+    floors["float8_e4m3fn-cumsum"] = step_floor_ns(torch, scan, dt, "cumsum")
+    g = torch.Generator(device="cuda").manual_seed(390)  # normals times 2, made on the card
+    t = (torch.randn((sizes["flat"],), generator=g, device="cuda") * 2).to(torch.float8_e4m3fn)
+    a = array_of(t.cpu())
+    scan.LAUNCHES = 0
+    held, api_ms = timed_once(torch, lambda: da.from_array(a, chunks=sizes["flat"] // 4).cumsum(axis=0).compute_device())
+    launched = scan.LAUNCHES
+    check(launched == 1, f"phase 36 {tag}: {launched} K3 launches in one compute()")
+    api_launches += launched
+    plan = scan_plan_of(scan, t, 0)
+    check(plan["batches"], f"phase 36 {tag}: the plan {plan} is not the row-batch route")
+    got = scan.rounded_scan_cuda(t, "cumsum", 0, dt)
+    check(torch.equal(got.view(torch.uint8), held.view(torch.uint8)), f"phase 36 {tag}: API differs from kernel")
+    head, plain_ms = timed_once(torch, lambda: scan.rounded_scan_plain(t[:prefix], "cumsum", 0, dt))
+    tail = scan.rounded_scan_plain(torch.cat([got[-prefix - 1:-prefix], t[-prefix:]]), "cumsum", 0, dt)
+    check(torch.equal(got[:prefix].view(torch.uint8), head.view(torch.uint8))
+          and torch.equal(got[-prefix - 1:].view(torch.uint8), tail.view(torch.uint8)),
+          f"phase 36 {tag}: the kernel's first or last {prefix} steps differ from the plain version")
+    with np.errstate(all="ignore"):
+        want = np.cumsum(a[:prefix])
+    mine = array_of(got[:prefix].cpu())
+    check(scan_agrees(np, mine, want, a[:prefix], 0, signless=True), f"phase 36 {tag}: differs from numpy")
+    num = scan_times(torch, lambda: scan.rounded_scan_cuda(t, "cumsum", 0, dt), sizes["long_reps"], 2 * t.numel(),
+                     1, t.numel(), floors["float8_e4m3fn-cumsum"])
+    values = t.float()
+    num.update({"api_compute_device_ms": api_ms, "launches": launched, "plain_ms": plain_ms, "plan": plan,
+                "plain_steps": 2 * prefix, "library": "torch.cumsum of the float32 values (not the same function)",
+                "library_ms": cuda_ms(lambda: torch.cumsum(values, dim=0), reps=sizes["long_reps"], warmup=1),
+                "max_abs_err_vs_plain": 0.0, "numpy_checked": list(mine.shape)})
+    out[tag] = num
+    del t, a, held, got, head, tail, values
+    torch.cuda.empty_cache()
     for num in out.values():
         num["card"] = smi
     return out, main_launches, api_launches
@@ -4709,14 +4795,18 @@ def main() -> int:
             "plain_ms": k3["plain_ms"],
             "bound_ms": k3["bound_ms"],
             "bound_by": k3["bound_by"],
+            "bytes_bound_ms": k3["bytes_bound_ms"],
+            "latency_floor_ms": k3["latency_floor_ms"],
             "library_ms": k3["library_ms"],
             "library": k3["library"],
             "library_same_function": False,
             "replaced_route_ms": k3["host_route_ms"],
+            "step_floor_ns": scans["step_floor_ns"],
             "cases": {k: {key: v.get(key) for key in ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
                                                       "host_route_ms", "replaced_route_ms", "float32_cumsum_ms",
-                                                      "bound_ms", "of_bound", "chains", "steps")}
-                      for k, v in scans.items()},
+                                                      "bound_ms", "bound_by", "bytes_bound_ms", "latency_floor_ms",
+                                                      "of_bound", "chains", "steps", "plan")}
+                      for k, v in scans.items() if k != "step_floor_ns"},
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

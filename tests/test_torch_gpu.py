@@ -2766,9 +2766,27 @@ def test_program_extremum_chains_byte_for_byte(cuda, programs_built, name, dtype
 # -- K3: the step-rounded scan of 2-byte and 1-byte floats ------------------------
 
 SCAN_TYPES = ("float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")
-# (shape, axis): Q > 1 (the column kernel), Q == 1 (the row kernel) with
-# ragged warps and tiles, a 3-D block and a 1-D one (one chain)
-SCAN_SHAPES = [((300, 70), 0), ((300, 70), 1), ((45, 130), 1), ((5, 300, 7), 1), ((21000,), 0)]
+
+
+def _stage_steps(shape, axis, itemsize):
+    """Steps a tile of K3 holds for chains of this shape (``launch_plan``)."""
+    from dask_array_tpu_torch.kernels import scan
+
+    p, _, q = scan.scan_plan(shape, axis)
+    return scan.launch_plan(p, 10**7, q, itemsize).depth
+
+
+# (shape, axis): column chains (Q > 1) and row chains (Q == 1) with ragged
+# warps and tiles, rows not 16-byte aligned, a 3-D block and a 1-D one (one
+# chain); then a 3-D block with P > 1, Q no multiple of the strip, L of 1
+# and 2, L one more than a stage (for 2-byte and 1-byte tiles), 128 chains
+# of 1e6 steps, one chain of 2^22 steps and 16384^2 along both axes
+SCAN_SHAPES = [((300, 70), 0), ((300, 70), 1), ((45, 130), 1), ((5, 300, 7), 1), ((21000,), 0),
+               ((6, 700, 40), 1), ((300, 200), 0), ((1, 300), 0), ((2, 300), 0), ((64, 333), 1),
+               ((_stage_steps((1, 64), 0, 2) + 1, 64), 0), ((_stage_steps((1, 64), 0, 1) + 1, 64), 0),
+               ((200, _stage_steps((200, 1), 1, 2) + 1), 1), ((200, _stage_steps((200, 1), 1, 1) + 1), 1),
+               ((1_000_000, 128), 0), ((1 << 22,), 0), ((16384, 16384), 0), ((16384, 16384), 1)]
+LONG_CHAIN = 65536  # past this many steps the plain version checks the first and the last 4096
 
 
 def _scan_dtype(name):
@@ -2777,14 +2795,16 @@ def _scan_dtype(name):
     return np.dtype(np.float16) if name == "float16" else np.dtype(getattr(ml_dtypes, name))
 
 
-def scan_grid(name, kind, shape, seed):
-    """Values of ``name`` in ``shape``: normals (near 1 for products; large
-    enough for sums to overflow float16), with NaNs of both signs and two
-    payloads, ±inf, ±0 and the smallest subnormals planted."""
+def scan_grid(name, kind, shape, seed, scale=300, spread=True):
+    """Values of ``name`` in ``shape``: normals (near 1 for products; times
+    ``scale`` for sums, by default large enough to overflow float16), with
+    NaNs of both signs and two payloads, ±inf, ±0 and the smallest
+    subnormals planted (one element in 4000 each, or with ``spread`` false
+    once each)."""
     dt = _scan_dtype(name)
     rng = np.random.default_rng(seed)
     v = rng.standard_normal(shape)
-    v = 1 + v / 64 if kind.endswith("cumprod") else v * 300
+    v = 1 + v / 64 if kind.endswith("cumprod") else v * scale
     x = v.astype(dt)
     flat = x.reshape(-1)
     n = flat.size
@@ -2797,7 +2817,8 @@ def scan_grid(name, kind, shape, seed):
         bits = flat.view(np.uint8)
         specials = [int(v) for v in np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], dt).view(np.uint8)]
     for k, b in enumerate(specials):
-        bits[rng.integers(0, n, max(1, n // 4000))] = b
+        if spread:
+            bits[rng.integers(0, n, max(1, n // 4000))] = b
         bits[(k * 7919) % n] = b
     return x
 
@@ -2808,20 +2829,149 @@ def scan_grid(name, kind, shape, seed):
 @pytest.mark.parametrize("name", SCAN_TYPES)
 def test_scan_kernel_equals_its_plain_version(cuda, name, kind, shape, axis):
     """K3 against its plain version on the same card tensor, byte for byte
-    (both make NaNs by the same rule, and 1-byte types share the table)."""
+    (both make NaNs by the same rule, and 1-byte types share the table).
+    Chains of more than ``LONG_CHAIN`` steps (values a walk of unit steps,
+    each special value planted once, so most chains stay finite) are held
+    to it on their first 4096 steps and on
+    their last 4096 scanned from the kernel's output before them: the
+    carry and the NaN bits of a chain both are its last output."""
     from dask_array_tpu_torch._chunks import tensor_of
     from dask_array_tpu_torch.kernels import scan
 
     dt = _scan_dtype(name)
-    t = tensor_of(scan_grid(name, kind, shape, seed=len(shape) + axis)).cuda()
+    long = shape[axis] > LONG_CHAIN
+    t = tensor_of(scan_grid(name, kind, shape, seed=len(shape) + axis, scale=1 if long else 300,
+                            spread=not long)).cuda()
     before = scan.LAUNCHES
     got = scan.rounded_scan_cuda(t, kind, axis, dt)
-    want = scan.rounded_scan_plain(t, kind, axis, dt)
     torch.cuda.synchronize()
     assert scan.LAUNCHES == before + 1
-    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    assert got.dtype == t.dtype and got.shape == t.shape and got.is_contiguous()
     width = torch.int16 if t.element_size() == 2 else torch.uint8
+    if not long:
+        want = scan.rounded_scan_plain(t, kind, axis, dt)
+        assert torch.equal(got.view(width), want.view(width))
+        return
+    n, m = shape[axis], shape[axis] - 4096
+    head = scan.rounded_scan_plain(t.narrow(axis, 0, 4096), kind, axis, dt)
+    assert torch.equal(got.narrow(axis, 0, 4096).view(width), head.view(width))
+    tail_terms = torch.cat([got.narrow(axis, m - 1, 1), t.narrow(axis, m, n - m)], dim=axis)
+    tail = scan.rounded_scan_plain(tail_terms, kind, axis, dt)
+    assert torch.equal(got.narrow(axis, m - 1, n - m + 1).view(width), tail.view(width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cumsum", "cumprod"])
+@pytest.mark.parametrize("name", ["float16", "bfloat16"])
+def test_scan_kernel_on_every_pair(cuda, name, kind):
+    """Every pair (a, b) of 2-byte patterns, all 2^32 of them, as a
+    two-step chain (``out[1] = step(a, b)``), in 16 slices of a (2, 2^28)
+    block: K3 equals its plain version on the card byte for byte, NaN bits
+    included (the rule fixes them).  This settles that the kernel's native
+    op rounds as the float32 op rounded to the type does."""
+    from dask_array_tpu_torch.kernels import scan
+
+    dt = _scan_dtype(name)
+    held = torch.float16 if name == "float16" else torch.bfloat16
+    j = torch.arange(1 << 28, dtype=torch.int32, device="cuda")
+
+    def bits(v):  # 0..65535 as int16 patterns
+        return (v - ((v >> 15) << 16)).to(torch.int16)
+
+    b = bits(j & 0xFFFF)
+    wrong, first = 0, None
+    for s in range(16):
+        a = bits((j >> 16) + (s << 12))
+        x = torch.stack([a, b]).view(held)
+        got = scan.rounded_scan_cuda(x, kind, 0, dt).view(torch.int16)
+        want = scan.rounded_scan_plain(x, kind, 0, dt).view(torch.int16)
+        assert torch.equal(got[0], a)
+        off = got[1] != want[1]
+        n = int(off.sum())
+        if n and first is None:
+            first = [[hex(int(v) & 0xFFFF) for v in w[off][:8]] for w in (a, b, got[1], want[1])]
+        wrong += n
+        del x, got, want, off, a
+    assert wrong == 0, (wrong, first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", [(2, 0), (0, 6), (4, 4)], ids=str)
+@pytest.mark.parametrize("shape,axis", [((256, 64), 0), ((64, 256), 1), ((4096,), 0)], ids=str)
+@pytest.mark.parametrize("name", SCAN_TYPES)
+def test_scan_kernel_on_unaligned_pointers(cuda, name, shape, axis, offsets):
+    """Input and output views that start off a 16-byte boundary, with rows
+    that would be aligned: K3 copies the envelope of each run and stores
+    its outputs itself, and equals its plain version."""
+    from dask_array_tpu_torch._chunks import tensor_of
+    from dask_array_tpu_torch.kernels import scan
+
+    dt = _scan_dtype(name)
+    t = tensor_of(scan_grid(name, "cumsum", shape, seed=13)).cuda()
+    n, es = t.numel(), t.element_size()
+    xs = torch.zeros(n + 16, dtype=t.dtype, device="cuda")[offsets[0] // es:][:n].view(shape)
+    xs.copy_(t)
+    out_pad = torch.zeros(n + 16, dtype=t.dtype, device="cuda")
+    assert xs.data_ptr() % 16 == offsets[0] % 16
+    got = scan.rounded_scan_cuda(xs, "cumsum", axis, dt)
+    want = scan.rounded_scan_plain(t, "cumsum", axis, dt)
+    width = torch.int16 if es == 2 else torch.uint8
     assert torch.equal(got.view(width), want.view(width))
+    # the output of a launch into a view off a boundary, through the entry point itself
+    p, L, q = scan.scan_plan(shape, axis)
+    out = out_pad[offsets[1] // es:][:n]
+    plan = scan.launch_plan(p, L, q, es, scan._sm_count(0), xs.data_ptr(), out.data_ptr())
+    assert not plan.aligned
+    code = scan.scan_type(dt)
+    table = scan.device_table(dt, "cumsum", xs.device) if code == 2 else None
+    scan._launcher()(0, xs.data_ptr(), out.data_ptr(), None if table is None else table.data_ptr(), p, L, q, code, 0,
+                     plan.fields())
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(shape).view(width), want.view(width))
+    assert not out_pad[:offsets[1] // es].view(width).any() and not out_pad[offsets[1] // es + n:].view(width).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cumsum", "cumprod"])
+@pytest.mark.parametrize("name", SCAN_TYPES)
+def test_step_chain_is_the_kernels_step(cuda, name, kind):
+    """``step_chain_cuda`` (the latency floor's chain) steps as the plain
+    version does: n steps over eight terms in turn from the ninth."""
+    from dask_array_tpu_torch._chunks import tensor_of
+    from dask_array_tpu_torch.kernels import scan
+
+    dt = _scan_dtype(name)
+    rng = np.random.default_rng(17)
+    v = 1 + rng.standard_normal(9) / 64 if kind == "cumprod" else rng.standard_normal(9) * 3
+    x = v.astype(dt)
+    n = 64
+    seq = np.concatenate([x[8:9], np.tile(x[:8], n // 8)])
+    want = scan.rounded_scan_plain(tensor_of(seq).cuda(), kind, 0, dt)[-1:]
+    width = torch.int16 if dt.itemsize == 2 else torch.uint8
+    got = scan.step_chain_cuda(tensor_of(x).cuda(), kind, dt, n)
+    assert torch.equal(got.view(width), want.view(width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SCAN_TYPES)
+def test_scan_on_the_card_never_runs_the_plain_version(cuda, name, monkeypatch):
+    """A scan of a CUDA block launches K3 and never reaches the plain
+    version: with it made to raise, the walk still computes, one launch a
+    scan."""
+    import dask_array_tpu_torch as da
+    from dask_array_tpu_torch.kernels import scan
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for attr in ("rounded_scan_plain", "_float_scan_plain", "_byte_scan_plain"):
+        monkeypatch.setattr(scan, attr, refuse)
+    x = scan_grid(name, "cumsum", (300, 70), seed=5)
+    scan.LAUNCHES = 0
+    for axis in (0, 1):
+        held = da.cumsum(da.from_array(x, chunks=(64, 35)), axis=axis).compute_device()
+        assert held.device.type == "cuda"
+    assert scan.LAUNCHES == 2
 
 
 @pytest.mark.gpu
@@ -2884,10 +3034,14 @@ def test_scan_kernel_build_and_launch_failures_raise(cuda, monkeypatch):
     scan._launcher.cache_clear()
     _build.load_library.cache_clear()
     t = torch.zeros(4, dtype=torch.float16, device="cuda")
-    with pytest.raises(RuntimeError, match="scan kernel launch failed"):
-        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 0, 4, 1, 0, 0)
-    with pytest.raises(RuntimeError, match="scan kernel launch failed"):
-        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 1, 4, 1, 2, 0)  # a byte scan, no table
+    plan = scan.launch_plan(1, 4, 1, 2, scan._sm_count(0), t.data_ptr(), t.data_ptr())
+    with pytest.raises(RuntimeError, match="scan kernel launch failed"):  # a block of no rows
+        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 0, 4, 1, 0, 0, plan.fields())
+    with pytest.raises(RuntimeError, match="scan kernel launch failed"):  # a byte scan, no table
+        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 1, 4, 1, 2, 0, plan.fields())
+    with pytest.raises(RuntimeError, match="scan kernel launch failed"):  # a grid past the units
+        scan._launcher()(t.get_device(), t.data_ptr(), t.data_ptr(), None, 1, 4, 1, 0, 0,
+                         plan._replace(grid=2).fields())
     with pytest.raises(TypeError, match="rounded_scan takes"):
         scan.rounded_scan_cuda(t.float(), "cumsum", 0, np.float32)
 

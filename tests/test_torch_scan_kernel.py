@@ -1,5 +1,7 @@
 """K3, the step-rounded scan (``kernels/scan.py``), on the CPU: its plain
-version and the route ``CumReduction`` takes to it, against numpy.
+version and the route ``CumReduction`` takes to it, against numpy; the
+rounding fact the kernel's one native op a step rests on; and the
+kernel's launch plan, picked on the host.
 
 numpy rounds a float16, bfloat16 (ml_dtypes) or 1-byte float scan to the
 type after every step: a 2-byte step is one float32 add or multiply rounded
@@ -301,3 +303,186 @@ def test_wrappers_refuse_what_they_do_not_take():
     assert scan.scan_type(F16) == 0 and scan.scan_type(BF16) == 1
     assert scan.scan_type(np.dtype(ml_dtypes.float4_e2m1fn)) == 2
     assert scan.scan_type(np.dtype(ml_dtypes.float8_e4m3fn)) == 2
+
+
+# -- the step's rounding: the float32 route equals one rounding ------------------
+#
+# K3 steps a 2-byte carry with one native add or multiply, rounded once;
+# numpy and the plain version round the float32 op to the type.  float32
+# keeps at least 2p + 2 bits of the type's p (24 for float16's 11, 18 for
+# bfloat16's 8), so the two roundings agree: pinned here on 2**24 seeded
+# pattern pairs a case (half with equal exponent fields, where sums tie
+# often), the pairs one ulp either side of every tie found, and every
+# pattern against ±0, subnormals, ±1, the largest finite, ±inf and NaNs
+# (overflow included).  Then the plain version stands for the native op.
+
+FORMATS = {  # precision bits, least normal exponent, largest finite, exponent field
+    "float16": (11, -14, 65504.0, 0x7C00),
+    "bfloat16": (8, -126, float(ml_dtypes.finfo(ml_dtypes.bfloat16).max), 0x7F80),
+}
+
+
+def round_once(v, name):
+    """float64 ``v`` rounded once to ``name``: nearest, ties to even, past
+    the largest finite to ±inf."""
+    p, emin, top, _ = FORMATS[name]
+    finite = np.isfinite(v)
+    w = np.where(finite, v, 0.0)
+    _, e = np.frexp(w)
+    u = np.maximum(e - p, emin - p + 1)  # the exponent of w's ulp in the type
+    r = np.ldexp(np.rint(np.ldexp(w, -u)), u)
+    r = np.where(np.abs(r) > top, np.copysign(np.inf, w), r)
+    return np.where(finite, r, v).astype(TWO_BYTE[name])
+
+
+def ties_of(v, name):
+    """Where float64 ``v`` lies halfway between two values of ``name``."""
+    p, emin, _, _ = FORMATS[name]
+    w = np.where(np.isfinite(v), v, 0.0)
+    _, e = np.frexp(w)
+    t = np.ldexp(w, -np.maximum(e - p, emin - p + 1))
+    return (t - np.floor(t)) == 0.5
+
+
+def assert_rounds_once(a, b, name, op):
+    dt = TWO_BYTE[name]
+    fa, fb = a.view(dt), b.view(dt)
+    with np.errstate(all="ignore"):
+        wide = op(fa.astype(np.float32), fb.astype(np.float32)).astype(dt)
+        once = round_once(op(fa.astype(np.float64), fb.astype(np.float64)), name)
+    same = (wide.view(np.uint16) == once.view(np.uint16)) | (_isnan(wide) & _isnan(once))
+    assert same.all(), (a[~same][:5], b[~same][:5])
+
+
+@pytest.mark.parametrize("op", [np.add, np.multiply], ids=["add", "multiply"])
+@pytest.mark.parametrize("name", sorted(TWO_BYTE))
+def test_float32_route_rounds_once(name, op):
+    rng = np.random.default_rng(23)
+    expo = FORMATS[name][3]
+    ties = 0
+    for _ in range(4):  # 4 x 2**22 pairs
+        a = rng.integers(0, 1 << 16, 1 << 22, dtype=np.uint16)
+        b = rng.integers(0, 1 << 16, 1 << 22, dtype=np.uint16)
+        half = len(b) // 2
+        b[:half] = (b[:half] & ~np.uint16(expo)) | (a[:half] & np.uint16(expo))
+        assert_rounds_once(a, b, name, op)
+        with np.errstate(all="ignore"):
+            tie = ties_of(op(a.view(TWO_BYTE[name]).astype(np.float64), b.view(TWO_BYTE[name]).astype(np.float64)),
+                          name)
+        ta, tb = a[tie], b[tie]
+        ties += len(ta)
+        for step in (1, 0xFFFF):  # one ulp either side (the pattern's neighbours)
+            assert_rounds_once(ta, (tb + np.uint16(step)).astype(np.uint16), name, op)
+    assert ties > 10_000
+    every = np.arange(1 << 16, dtype=np.uint16)
+    for r in RUNNING[name]:
+        fixed = np.full(every.shape, r, dtype=np.uint16)
+        assert_rounds_once(fixed, every, name, op)
+        assert_rounds_once(every, fixed, name, op)
+
+
+def test_round_once_is_numpys_rounding_where_that_is_exact():
+    """The reference rounding agrees with numpy's float32 -> float16 and
+    ml_dtypes' float32 -> bfloat16 conversions on float32 values."""
+    v = np.random.default_rng(4).standard_normal(1 << 16).astype(np.float32) * np.float32(3e4)
+    v[:4] = [65519.0, 65520.0, 2.0 ** -25, -(2.0 ** -25) * 3]
+    with np.errstate(over="ignore"):  # past float16's largest finite: inf both ways
+        assert round_once(v.astype(np.float64), "float16").tobytes() == v.astype(np.float16).tobytes()
+    w = v * np.float32(1e33)
+    assert round_once(w.astype(np.float64), "bfloat16").tobytes() == w.astype(BF16).tobytes()
+
+
+# -- K3's launch plan -------------------------------------------------------------
+
+
+def _stage_depth(P, Q, es):
+    """Steps a tile of a block with chains this long holds."""
+    return scan.launch_plan(P, 10**7, Q, es).depth
+
+
+# ((P, L, Q), itemsize, x pointer offset): P > 1; Q no multiple of the
+# strip; L of 1, 2 and one more than a stage; rows or pointers not 16-byte
+# aligned; 128 chains of 1e6 steps; one chain; 16384^2 along both axes
+PLAN_CASES = [
+    ((6, 700, 40), 2, 0), ((6, 700, 40), 1, 0), ((4, 300, 5), 2, 0),
+    ((1, 300, 200), 2, 0), ((1, 300, 70), 1, 0), ((3, 50, 600), 1, 0),
+    ((1, 1, 300), 2, 0), ((1, 2, 300), 1, 0), ((5, 1, 1), 2, 0), ((70, 2, 1), 1, 0),
+    ((1, _stage_depth(1, 64, 2) + 1, 64), 2, 0), ((1, _stage_depth(1, 64, 1) + 1, 64), 1, 0),
+    ((200, _stage_depth(200, 1, 2) + 1, 1), 2, 0), ((200, _stage_depth(200, 1, 1) + 1, 1), 1, 0),
+    ((64, 333, 1), 2, 0), ((300, 70, 1), 1, 0), ((1, 300, 70), 2, 0), ((1, 4096, 512), 2, 2),
+    ((512, 4096, 1), 2, 6), ((512, 4096, 1), 1, 3),
+    ((1, 10**6, 128), 2, 0), ((1, 10**6, 128), 1, 0),
+    ((1, 1 << 24, 1), 2, 0), ((1, 1 << 24, 1), 1, 0),
+    ((1, 16384, 16384), 2, 0), ((1, 16384, 16384), 1, 0), ((16384, 16384, 1), 2, 0), ((16384, 16384, 1), 1, 0),
+]
+
+
+@pytest.mark.parametrize("shape,es,offset", PLAN_CASES, ids=str)
+def test_launch_plan(shape, es, offset):
+    P, L, Q = shape
+    x_ptr, out_ptr = (1 << 20) + offset, 1 << 24
+    plan = scan.launch_plan(P, L, Q, es, 132, x_ptr, out_ptr)
+    assert plan.cols == (Q > 1) and plan.itemsize == es
+    assert plan.aligned == (offset == 0 and ((Q if Q > 1 else L) * es) % 16 == 0)
+    assert plan.batches == (P == 1 and Q == 1 and es == 1 and plan.aligned)
+    if plan.batches:  # the row-batch route: a lone row, one thread, the table beside it
+        assert plan.mode == 2 and plan.grid == 1 and plan.smem == scan.TABLE_BYTES and L % 16 == 0
+        return
+    assert plan.mode == int(plan.cols)
+    # it fits: threads, shared memory beside a 1-byte table, the grid
+    assert plan.threads <= scan.MAX_THREADS and 1 <= plan.stages <= scan.STAGES
+    assert plan.smem == (scan.TABLE_BYTES if es == 1 else 0) + plan.stages * plan.slots * plan.pitch + 16 * plan.stages
+    assert plan.smem <= scan.SMEM_LIMIT
+    assert 1 <= plan.grid <= plan.units and plan.pitch % 16 == 0
+    assert plan.depth * plan.tiles >= L > plan.depth * (plan.tiles - 1)
+    run_bytes = (plan.width if plan.cols else plan.depth) * es
+    assert run_bytes % (16 if plan.cols else 128) == 0 and plan.pitch == run_bytes + 16
+    # every chain is scanned by exactly one thread
+    seen = np.zeros(P * Q, dtype=np.int64)
+    for b in range(plan.grid):
+        for u in range(b, plan.units, plan.grid):
+            p, q0, chains = scan.unit_chains(plan, u)
+            assert 0 < chains <= plan.width <= plan.consumers
+            t = np.arange(chains)
+            seen[p * Q + q0 + t if plan.cols else (p + t) * Q] += 1
+    assert (seen == 1).all()
+    # each bulk copy is 16-byte aligned, fits its slot and covers its run,
+    # which lies within one row; with aligned rows the copy is the run
+    total = P * L * Q * es
+    for u in sorted({0, plan.units // 2, plan.units - 1}):
+        for k in sorted({0, 1, plan.tiles - 1} & set(range(plan.tiles))):
+            runs = scan.slot_runs(plan, u, k)
+            assert len(runs) == (min(plan.depth, L - k * plan.depth) if plan.cols else scan.unit_chains(plan, u)[2])
+            for slot, first, n in runs:
+                start, nbytes, lead = scan.envelope(x_ptr, first, n, es)
+                assert start % 16 == 0 and nbytes % 16 == 0 and (slot * plan.pitch) % 16 == 0
+                assert lead + n * es <= nbytes <= plan.pitch and lead < 16 and nbytes - lead - n * es < 16
+                row = Q if plan.cols else L
+                assert first // row == (first + n - 1) // row
+                assert x_ptr & ~15 <= start and start + nbytes <= (x_ptr + total + 15) & ~15
+                if plan.aligned:
+                    assert lead == 0 and nbytes == n * es
+                    assert (out_ptr + first * es) % 16 == 0
+    if not plan.cols:  # a quarter-warp's 16-byte reads of eight rows: eight bank groups
+        assert len({(t * plan.pitch // 16) % 8 for t in range(8)}) == 8
+
+
+def test_launch_plan_spreads_few_chains_and_fills_the_card():
+    """128 chains of 1e6 steps spread over several blocks (one 32-byte
+    sector a step each); at 16384^2 8 MB or more is in flight."""
+    for es, width in ((2, 16), (1, 32)):
+        plan = scan.launch_plan(1, 10**6, 128, es)
+        assert plan.width == width and plan.grid == 128 // width
+    for shape in ((1, 16384, 16384), (16384, 16384, 1)):
+        for es in (2, 1):
+            plan = scan.launch_plan(*shape, es)
+            assert plan.width == 128 and plan.grid == 128
+            assert (plan.stages - 1) * plan.slots * plan.pitch * plan.grid >= 8e6
+    one = scan.launch_plan(1, 1 << 24, 1, 2)
+    assert one.width == 1 and one.grid == 1 and one.consumers == 32 and not one.batches
+    assert scan.launch_plan(1, 1 << 24, 1, 1).batches  # a lone 1-byte row: the row-batch route
+    assert not scan.launch_plan(1, (1 << 24) + 3, 1, 1).batches  # unaligned rows stay in the ring
+    assert not scan.launch_plan(16384, 16384, 1, 1).batches
+    for rows in (2, 8, 64):  # more 1-byte rows, each alone in a unit, take the ring: a block each
+        plan = scan.launch_plan(rows, 1 << 20, 1, 1)
+        assert not plan.batches and plan.width == 1 and plan.grid == rows
