@@ -179,15 +179,24 @@ def compute(*collections, **kwargs):
     through it in one read.  Other arguments pass through unchanged;
     keyword arguments are accepted for dask compatibility and ignored.
     """
-    from dask_array_tpu_torch._materialize import compute_exprs, to_numpy
+    from dask_array_tpu_torch._spans import compute as in_compute
 
     arrays = [(i, c) for i, c in enumerate(collections) if isinstance(c, Array)]
     out = list(collections)
-    denses = compute_exprs([c.expr for _, c in arrays]) if arrays else []
+    if arrays:
+        in_compute(_compute_arrays, arrays, out)
+    return tuple(out)
+
+
+def _compute_arrays(arrays, out):
+    """``compute``'s walk of ``arrays`` ((position, Array) pairs), each
+    answer put into ``out`` at its position."""
+    from dask_array_tpu_torch._materialize import compute_exprs, to_numpy
+
+    denses = compute_exprs([c.expr for _, c in arrays])
     for (i, c), dense in zip(arrays, denses):
         arr = to_numpy(dense, c.expr)
         out[i] = arr[()] if arr.ndim == 0 and type(arr) is _np.ndarray else arr
-    return tuple(out)
 
 
 def optimize(x, keys=None, **kwargs):

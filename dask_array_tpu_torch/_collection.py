@@ -339,8 +339,9 @@ class Array:
     def compute(self):
         """Optimize, execute on ``config["device"]`` and return numpy."""
         from dask_array_tpu_torch._materialize import compute_to_numpy
+        from dask_array_tpu_torch._spans import compute
 
-        out = compute_to_numpy(self._expr)
+        out = compute(compute_to_numpy, self._expr)
         if out.ndim == 0:
             return out[()]
         return out
@@ -349,8 +350,9 @@ class Array:
         """Compute and keep the result on the device (a dense tensor); a
         result the out-of-core lane streamed comes back as host numpy."""
         from dask_array_tpu_torch._materialize import compute_expr
+        from dask_array_tpu_torch._spans import compute
 
-        return compute_expr(self._expr)
+        return compute(compute_expr, self._expr)
 
     def persist(self, **kwargs) -> "Array":
         """Compute and hold the result on the device as a ``Persisted``
@@ -361,8 +363,9 @@ class Array:
         from dask_array_tpu_torch.parallel._sharded import ShardedTensor
 
         from dask_array_tpu_torch import _host
+        from dask_array_tpu_torch._spans import compute
 
-        buf = compute_expr_held(self._expr)
+        buf = compute(compute_expr_held, self._expr)
         if isinstance(buf, ShardedTensor):
             return new_collection(Persisted(buf, self.chunks, self.name, self._held_dtype()))
         if _host.is_host_block(buf):

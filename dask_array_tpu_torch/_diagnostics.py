@@ -249,7 +249,21 @@ def xla_profile(logdir=None):
     """Profile the computes inside the block with ``torch.profiler`` (host
     and, where there is a card, CUDA activity) and write a Chrome trace into
     ``logdir`` (by default a folder under the temporary directory).  Yields
-    ``logdir``.  The name is the JAX package's; the trace is torch's."""
+    ``logdir``.  The name is the JAX package's; the trace is torch's.
+
+    Beside torch's own events the trace holds the port's spans, named
+    ``dask_array_tpu_torch.<stage>`` on the device's clock: each request's
+    root ``compute:<id>``, and under it ``stream_check`` (with
+    ``mem_get_info``), ``fuse_multistat``, ``optimize``, ``execute`` (with
+    ``bind`` and a ``node:<Type>`` a node built), ``launch:<kernel>``,
+    ``fetch`` (with ``fetch.wait`` and ``fetch.piece``) and ``upload``;
+    ``capture`` where ``map_overlap`` traces its func, ``meta`` where a
+    node's dtype is inferred, ``kernel_build`` and ``library_load``
+    (``_spans`` lists them all).  So each gap in the
+    card's work lies under the host stage that held it.  The counters need
+    no profile: ``_spans.COUNTS`` (computes, optimizer walks and memo
+    hits, free-memory queries, ``torch.fx`` captures, kernel builds and
+    loads) is read as it stands."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

@@ -20,6 +20,7 @@ from dask_array_tpu_torch import config
 from dask_array_tpu_torch._chunks import cached_cumsum, cat, format_of, tensor_of
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import upload
+from dask_array_tpu_torch._spans import call
 
 
 def block_slices(chunks, index):
@@ -99,12 +100,13 @@ class BuildContext:
         view = self.cache.get(expr._name)
         if view is None:
             check_narrow(expr)
+            name = "node:" + type(expr).__name__
             if self.mesh is not None:
                 from dask_array_tpu_torch.parallel.partition import build
 
-                view = build(expr, self)
+                view = call(name, build, expr, self)
             else:
-                view = expr._build(self)
+                view = call(name, expr._build, self)
             if not isinstance(view, BlockView):
                 raise TypeError(f"{type(expr).__name__}._build returned {type(view).__name__}")
             self.cache[expr._name] = view
@@ -272,6 +274,10 @@ def execute_views(roots) -> list:
     sharded comes back as its ``ShardedView`` (``dense()`` gathers it
     once to the mesh's first slot).  A decline is decided in planning; an
     error while the lane executes propagates."""
+    return call("execute", _execute_views, roots)
+
+
+def _execute_views(roots) -> list:
     from dask_array_tpu_torch.parallel.mesh import current_mesh
 
     mesh = current_mesh()
@@ -284,15 +290,19 @@ def execute_views(roots) -> list:
             res = try_execute_shard(root, mesh)
             if res is not None:
                 views[i] = BlockView(root.chunks, dense=res)
+    leaves = call("bind", _bind_leaves, [r for i, r in enumerate(roots) if i not in views], device, mesh)
+    ctx = BuildContext(leaves, device, mesh)
+    return [views[i] if i in views else ctx.build(root) for i, root in enumerate(roots)]
+
+
+def _bind_leaves(roots, device, mesh) -> dict:
+    """Every leaf buffer of ``roots``, once, bound for the walk (``_bind``)."""
     leaves = {}
-    for i, root in enumerate(roots):
-        if i in views:
-            continue
+    for root in roots:
         for key, buf in collect_leaves(root):
             if key not in leaves:
                 leaves[key] = _bind(buf, device, mesh)
-    ctx = BuildContext(leaves, device, mesh)
-    return [views[i] if i in views else ctx.build(root) for i, root in enumerate(roots)]
+    return leaves
 
 
 def _bind(buf, device, mesh):

@@ -29,6 +29,7 @@ from dask_array_tpu_torch._chunks import (
     numpy_dtype,
     torch_dtype,
 )
+from dask_array_tpu_torch._spans import span
 from dask_array_tpu_torch.utils._tokenize import tokenize
 
 # rewrite tracing hook (``_diagnostics.trace_rewrites`` and ``explain``)
@@ -717,6 +718,11 @@ def compute_meta(func, out_ndim, *args, **kwargs):
     to torch's default float32.  Returns None when nothing can evaluate
     ``func``.
     """
+    with span("meta"):
+        return _compute_meta(func, out_ndim, *args, **kwargs)
+
+
+def _compute_meta(func, out_ndim, *args, **kwargs):
     metas = []
     for a in args:
         if hasattr(a, "dtype") and hasattr(a, "ndim"):

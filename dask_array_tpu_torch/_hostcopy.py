@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from dask_array_tpu_torch._chunks import array_of, tensor_of
+from dask_array_tpu_torch._spans import call
 
 SLOT_BYTES = 32 << 20
 SLOTS = 4
@@ -151,6 +152,10 @@ def upload(buf, device: torch.device) -> torch.Tensor:
     """A host numpy array (or a CPU tensor) on the CUDA ``device``, through
     the pinned ring: non-blocking copies on the copy stream, which the
     current stream waits for before any later work."""
+    return call("upload", _upload, buf, device)
+
+
+def _upload(buf, device: torch.device) -> torch.Tensor:
     ring = _ring(device, "h2d")
     size = ring.slot_bytes
     if isinstance(buf, torch.Tensor):
@@ -194,6 +199,10 @@ def fetch_into(t: torch.Tensor, out: np.ndarray, ready=None) -> np.ndarray:
     and dtype; any strides) through the pinned ring.  ``ready`` is the event
     after which ``t`` holds its value; without one, the copy waits for all
     work queued on the current stream.  Returns ``out`` once it is filled."""
+    return call("fetch", _fetch_into, t, out, ready)
+
+
+def _fetch_into(t: torch.Tensor, out: np.ndarray, ready) -> np.ndarray:
     if tuple(t.shape) != tuple(out.shape) or _numpy_dtype_of(t.dtype) != out.dtype:
         raise ValueError(f"cannot fetch a {tuple(t.shape)} {t.dtype} tensor into a {out.shape} {out.dtype} array")
     if out.size == 0:
@@ -225,11 +234,11 @@ def fetch_into(t: torch.Tensor, out: np.ndarray, ready=None) -> np.ndarray:
             piece = next(todo, None)
             if piece is None:
                 break
-            issue(ring.take(), piece)
+            issue(call("fetch.wait", ring.take), piece)
         while issued:
             i, (_off, nb, sub) = issued.popleft()
-            ring.events[i].synchronize()
-            _copy(sub, _staged(ring.views[i], nb, sub))
+            call("fetch.wait", ring.events[i].synchronize)
+            call("fetch.piece", _copy, sub, _staged(ring.views[i], nb, sub))
             piece = next(todo, None)
             if piece is not None:
                 issue(i, piece)

@@ -18,16 +18,23 @@ from dask_array_tpu_torch._chunks import array_of, format_of
 from dask_array_tpu_torch._executor import check_masked_ops, execute_many, execute_views
 from dask_array_tpu_torch._expr import ArrayExpr
 from dask_array_tpu_torch._hostcopy import fetch
+from dask_array_tpu_torch._spans import COUNTS, call, compute
 
 
 def optimize_expr(expr: ArrayExpr, fuse: bool = True) -> ArrayExpr:
     """Optimize with a per-expression memo keyed on the config epoch, so
     repeated computes of one collection skip the optimizer walk."""
+    return call("optimize", _optimize_expr, expr, fuse)
+
+
+def _optimize_expr(expr: ArrayExpr, fuse: bool) -> ArrayExpr:
     opt_flag = config.get("array.optimize-graph", True)
     key = (fuse, bool(opt_flag), config.epoch())
     cached = getattr(expr, "_opt_memo", None)
     if cached is not None and cached[0] == key:
+        COUNTS["optimize_memo_hits"] += 1
         return _from_memo(expr, cached[1])
+    COUNTS["optimize_runs"] += 1
     if not opt_flag:
         out = expr.lower_completely()
     else:
@@ -177,7 +184,7 @@ class Barrier(ArrayExpr):
     def _leaf_buffers(self):
         buf = getattr(self, "_cached_buffer", None)
         if buf is None:
-            buf = self._cached_buffer = compute_expr(self.array)
+            buf = self._cached_buffer = compute(compute_expr, self.array)
         yield (self._leaf_key, buf)
 
     def _structural_operands(self):

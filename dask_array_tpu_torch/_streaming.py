@@ -48,6 +48,7 @@ import torch
 from dask_array_tpu_torch import config
 from dask_array_tpu_torch._chunks import array_of, format_of, is_float_dtype, parse_bytes
 from dask_array_tpu_torch._host import is_host_block
+from dask_array_tpu_torch._spans import COUNTS, call, span
 
 # engagement spy: how often the lane answered, how many panels it ran, how
 # many unshrinkable leaves it made resident, and the host bytes its panels
@@ -85,7 +86,8 @@ def _budget() -> int:
     if device.type != "cuda":
         # the host's memory: "auto" never engages
         return 1 << 62
-    free, _total = torch.cuda.mem_get_info(device)
+    COUNTS["mem_get_info"] += 1
+    free, _total = call("mem_get_info", torch.cuda.mem_get_info, device)
     # what the caching allocator holds but does not use is free to this
     # program too: without it the budget would shrink by whatever earlier
     # computes left in the cache.  Three quarters of the sum: the eager
@@ -164,6 +166,10 @@ def maybe_stream(expr):
     """Execute ``expr`` out of core, or None to decline (the in-core walk
     answers).  Returns a host numpy array: an out-of-core result may itself
     exceed the card's memory."""
+    return call("stream_check", _maybe_stream, expr)
+
+
+def _maybe_stream(expr):
     mode = config.get("out-of-core", "auto")
     if mode == "off":
         return None
@@ -177,10 +183,11 @@ def maybe_stream(expr):
     budget = _budget()
     if mode != "force" and est <= budget:
         return None
-    res = _map_stream(expr, budget, mode)
-    if res is not None:
-        return res
-    return _reduce_stream(expr, budget, mode)
+    with span("stream_run"):
+        res = _map_stream(expr, budget, mode)
+        if res is not None:
+            return res
+        return _reduce_stream(expr, budget, mode)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from dask_array_tpu_torch._spans import COUNTS, call, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -77,7 +79,9 @@ def build_library(name: str, source: str | None = None) -> tuple[Path, str]:
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", str(CSRC), "-o", tmp, str(src_path),
     ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    COUNTS["library_builds"] += 1
+    with span("kernel_build:" + name):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {src_path.name} ({proc.returncode}):\n{proc.stderr}")
@@ -103,13 +107,19 @@ def build_all(items) -> dict:
         return dict(zip(items, pool.map(one, items)))
 
 
+def load(path: Path):
+    """The kernel library at ``path``, loaded with ``ctypes``."""
+    import ctypes
+
+    COUNTS["library_loads"] += 1
+    return call("library_load:" + path.name, ctypes.CDLL, str(path))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str):
     """The loaded ``csrc/<name>.cu`` library (built first if missing)."""
-    import ctypes
-
     path, _ = build_library(name)
-    return ctypes.CDLL(str(path))
+    return load(path)
 
 
 class Launcher:
@@ -138,17 +148,20 @@ class Launcher:
         self._errstr.argtypes = [ctypes.c_int]
         self._errstr.restype = ctypes.c_char_p
         self._what = what
+        self._span = "launch:" + what
         self._current_device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
         self._stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
             lambda index: torch.cuda.current_stream(index).cuda_stream)
 
     def __call__(self, index: int, *args):
-        if index == self._current_device():
-            err = self._fn(*args, self._stream(index))
-        else:
-            import torch
-
-            with torch.cuda.device(index):
-                err = self._fn(*args, self._stream(index))
+        err = call(self._span, self._launch, index, args)
         if err != 0:
             raise RuntimeError(f"{self._what} kernel launch failed: {self._errstr(err).decode()}")
+
+    def _launch(self, index: int, args) -> int:
+        if index == self._current_device():
+            return self._fn(*args, self._stream(index))
+        import torch
+
+        with torch.cuda.device(index):
+            return self._fn(*args, self._stream(index))

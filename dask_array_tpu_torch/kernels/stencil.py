@@ -40,6 +40,7 @@ from numbers import Integral, Number
 import numpy as np
 import torch
 
+from dask_array_tpu_torch._spans import COUNTS, call
 from dask_array_tpu_torch.kernels._build import Launcher
 from dask_array_tpu_torch.kernels.halo import numpy_mode, pad_axis_plain, value_key
 
@@ -449,6 +450,11 @@ def is_program(spec) -> bool:
 def stencil_spec(func, depth):
     """What the band-stencil kernels take for ``func`` within ``depth``:
     its taps where it is linear, else its program, else None."""
+    COUNTS["captures"] += 1
+    return call("capture", _capture, func, depth)
+
+
+def _capture(func, depth):
     taps = capture_taps(func, depth)
     return taps if taps is not None else capture_program(func, depth)
 
@@ -1017,11 +1023,11 @@ def _program_kernel(program, depth, dtype):
     recently used stay bound.  Programs equal as tuples (a scalar 0.0 and
     -0.0, or 2 and 2.0) share an entry: the slots name nodes, and each
     launch reads the values from its own program."""
-    from dask_array_tpu_torch.kernels._build import build_library
+    from dask_array_tpu_torch.kernels._build import build_library, load
 
     _, slots = _emit(program, dtype)
     path, _ = build_library("band_program", program_source(program, depth, dtype))
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    launch = Launcher(ctypes.CDLL(str(path)), "band_program_launch",
+    launch = Launcher(load(path), "band_program_launch",
                       [p, p, ll, ll, i, i, i, i, d, d, i, ctypes.c_char_p, i], "band-stencil program")
     return launch, slots

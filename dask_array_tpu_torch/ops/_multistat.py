@@ -31,6 +31,7 @@ import torch
 
 from dask_array_tpu_torch._executor import BlockView
 from dask_array_tpu_torch._expr import ArrayExpr
+from dask_array_tpu_torch._spans import call
 
 
 class MultiStat(ArrayExpr):
@@ -145,6 +146,10 @@ def _statistic(node):
 def fuse_multi_stat(roots):
     """Route the kernel's statistics of each operand through one
     ``MultiStat`` node, across all ``roots`` (computed together)."""
+    return call("fuse_multistat", _fuse_multi_stat, roots)
+
+
+def _fuse_multi_stat(roots):
     found = defaultdict(list)  # X name -> [(node, shift, part)]
     operands = {}
     seen = set()
